@@ -1,0 +1,23 @@
+"""PyTorch + CUDA port of mygenerativerecommenders_tpu for one NVIDIA H100.
+
+The JAX package beside it is the reference; this package mirrors its module
+paths and imports nothing of it. Entry points run on `cuda` unless the caller
+passes `device="cpu"`; on the CPU every kernel wrapper computes its plain
+PyTorch version instead.
+"""
+
+import torch
+
+# Full float32 matmuls and convolutions on the card: TF32 keeps ~3 decimal
+# digits, which would break the float32 parity with the JAX reference that
+# the tests and chip_smoke.py hold the port to.
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+
+def not_ported(what: str, item: str) -> NotImplementedError:
+    """The error for a knob the port does not implement yet; `item` names
+    the entry of ROADMAP.md's queue 1 that brings it."""
+    return NotImplementedError(
+        f"{what} is not ported to PyTorch yet: ROADMAP.md queue 1, item {item!r}"
+    )

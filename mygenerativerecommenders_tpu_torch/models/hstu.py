@@ -1,0 +1,212 @@
+"""HSTU sequential encoder, rel_bias path.
+
+Port of mygenerativerecommenders_tpu/models/hstu.py:58-216 (HSTUBlock) and
+:287-414 (HSTU). Everything stays dense [B, N, D] with the invalid rows kept
+at zero: the stack re-masks between blocks, so the residual and the output
+bias never drift into padded rows, and the attention sees zero keys there.
+With the time bias the attention goes through the fused wrapper
+(ops/kernels/hstu_attention.py: the CUDA kernel on the card, its plain
+version on the CPU) with `lengths` = last valid position + 1. Only where
+the kernel cannot build the bias (no `ts_w` table or no timestamps) does it
+take the dense reference with a materialised [B, N, N] bias.
+
+Parameter names follow the reference checkpoint
+(mygenerativerecommenders_tpu/cli/convert_ckpt.py:9-15): `_uvqk`, `_o`,
+`_rel_attn_bias._pos_w` / `._ts_w`. Init matches the JAX package: uvqk and
+the bias tables ~ N(0, 0.02), the output projection Xavier-uniform with a
+zero bias. The forward is the inference forward (dropout off).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from mygenerativerecommenders_tpu_torch import not_ported
+from mygenerativerecommenders_tpu_torch.ops.hstu_attention import (
+    hstu_attention_reference,
+    relative_position_bias,
+    relative_time_bias,
+)
+from mygenerativerecommenders_tpu_torch.ops.kernels.hstu_attention import (
+    hstu_attention_fused,
+)
+
+TIMESTAMPS_KEY = "timestamps"
+SEGMENT_IDS_KEY = "seg_ids"
+
+
+def _normal(shape, std: float, generator: Optional[torch.Generator]) -> nn.Parameter:
+    return nn.Parameter(torch.randn(shape, generator=generator) * std)
+
+
+class RelativeBucketedTimeAndPositionBasedBias(nn.Module):
+    """The per-block bias tables: pos_w [2L-1] and, for time_position, ts_w [nb+1]."""
+
+    def __init__(self, max_len: int, num_buckets: int, with_time: bool, generator=None):
+        super().__init__()
+        self._pos_w = _normal((2 * max_len - 1,), 0.02, generator)
+        self._ts_w = _normal((num_buckets + 1,), 0.02, generator) if with_time else None
+
+
+class HSTUBlock(nn.Module):
+    """LN -> uvqk -> silu -> split(u, v, q, k) -> pointwise attention with the
+    relative bias -> u * LN(attn) -> output linear -> + residual."""
+
+    def __init__(
+        self,
+        embedding_dim: int,
+        linear_dim: int,
+        attention_dim: int,
+        num_heads: int,
+        max_attn_len: int,  # static N: the 1/N normalizer and the bias-table center
+        normalization: str = "rel_bias",
+        linear_activation: str = "silu",
+        enable_relative_attention_bias: bool = True,
+        relative_bias_type: str = "time_position",
+        num_time_buckets: int = 128,
+        concat_ua: bool = False,
+        eps: float = 1e-6,
+        generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__()
+        if normalization not in ("rel_bias", "hstu_rel_bias"):
+            if normalization == "softmax_rel_bias":
+                raise not_ported("encoder.normalization=softmax_rel_bias", "Other model families")
+            raise ValueError(f"Unknown normalization {normalization}")
+        if linear_activation not in ("silu", "none"):
+            raise ValueError(f"Unknown linear_activation {linear_activation}")
+        self.num_heads, self.linear_dim, self.attention_dim = num_heads, linear_dim, attention_dim
+        self.max_attn_len = max_attn_len
+        self.linear_activation = linear_activation
+        self.num_time_buckets = num_time_buckets
+        self.concat_ua = concat_ua
+        self.eps = eps
+        h, dv, dqk = num_heads, linear_dim, attention_dim
+        self._uvqk = _normal((embedding_dim, 2 * dv * h + 2 * dqk * h), 0.02, generator)
+        self._rel_attn_bias = None
+        if enable_relative_attention_bias:
+            self._rel_attn_bias = RelativeBucketedTimeAndPositionBasedBias(
+                max_attn_len, num_time_buckets,
+                relative_bias_type == "time_position", generator,
+            )
+        self._o = nn.Linear(dv * h * (3 if concat_ua else 1), embedding_dim)
+        with torch.no_grad():
+            nn.init.xavier_uniform_(self._o.weight, generator=generator)
+            self._o.bias.zero_()
+
+    def forward(
+        self,
+        x: torch.Tensor,  # [B, N, D], zero at invalid rows
+        timestamps: Optional[torch.Tensor],  # [B, N]
+        lengths: Optional[torch.Tensor] = None,  # [B] valid row counts
+    ) -> torch.Tensor:
+        h, dv, dqk = self.num_heads, self.linear_dim, self.attention_dim
+        b, n, d = x.shape
+        proj = F.layer_norm(x, (d,), eps=self.eps) @ self._uvqk
+        if self.linear_activation == "silu":
+            proj = F.silu(proj)
+        u, v, q, k = torch.split(proj, [dv * h, dv * h, dqk * h, dqk * h], dim=-1)
+        # [B, N, H, d] views of the column slices: no copy
+        qh, kh, vh = q.unflatten(-1, (h, dqk)), k.unflatten(-1, (h, dqk)), v.unflatten(-1, (h, dv))
+
+        pos_w = ts_w = None
+        if self._rel_attn_bias is not None:
+            pos_w = self._rel_attn_bias._pos_w
+            if timestamps is not None:
+                ts_w = self._rel_attn_bias._ts_w
+        if ts_w is not None:
+            attn = hstu_attention_fused(
+                qh, kh, vh, timestamps, pos_w, ts_w,
+                max_len=self.max_attn_len, num_buckets=self.num_time_buckets,
+                lengths=lengths,
+            )
+        else:
+            bias = None
+            if pos_w is not None:
+                bias = relative_position_bias(pos_w, n, self.max_attn_len)[None]
+                if ts_w is not None:
+                    bias = bias + relative_time_bias(ts_w, timestamps, self.num_time_buckets)
+            attn = hstu_attention_reference(
+                qh, kh, vh, bias, max_len=self.max_attn_len, causal=True
+            )
+        attn_out = attn.reshape(b, n, h * dv)
+        a = F.layer_norm(attn_out, (h * dv,), eps=self.eps)
+        o_input = torch.cat([u, a, u * a], dim=-1) if self.concat_ua else u * a
+        return self._o(o_input) + x
+
+
+class HSTU(nn.Module):
+    """Stack of HSTU blocks over a dense masked batch; output zero at invalid rows."""
+
+    def __init__(
+        self,
+        max_sequence_len: int,
+        max_output_len: int,
+        embedding_dim: int,
+        num_blocks: int,
+        num_heads: int,
+        linear_dim: int,
+        attention_dim: int,
+        normalization: str = "rel_bias",
+        linear_activation: str = "silu",
+        enable_relative_attention_bias: bool = True,
+        relative_bias_type: str = "time_position",
+        num_time_buckets: int = 128,
+        concat_ua: bool = False,
+        sp_shards: int = 1,
+        tp_shards: int = 1,
+        remat: bool = False,
+        generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__()
+        if sp_shards > 1:
+            raise not_ported("encoder.sp_shards > 1 (ring attention)", "Distributed")
+        if tp_shards > 1:
+            raise not_ported("encoder.tp_shards > 1", "Distributed")
+        if remat:
+            raise not_ported("encoder.remat", "Long-N and larger catalogs")
+        n_total = max_sequence_len + max_output_len
+        self._attention_layers = nn.ModuleList(
+            HSTUBlock(
+                embedding_dim=embedding_dim,
+                linear_dim=linear_dim,
+                attention_dim=attention_dim,
+                num_heads=num_heads,
+                max_attn_len=n_total,
+                normalization=normalization,
+                linear_activation=linear_activation,
+                enable_relative_attention_bias=enable_relative_attention_bias,
+                relative_bias_type=relative_bias_type,
+                num_time_buckets=num_time_buckets,
+                concat_ua=concat_ua,
+                generator=generator,
+            )
+            for _ in range(num_blocks)
+        )
+
+    def forward(
+        self,
+        past_lengths: torch.Tensor,
+        user_embeddings: torch.Tensor,  # [B, N, D]
+        valid_mask: torch.Tensor,  # [B, N, 1]
+        past_payloads: Dict[str, torch.Tensor],
+    ) -> torch.Tensor:
+        del past_lengths
+        if past_payloads.get(SEGMENT_IDS_KEY) is not None:
+            raise not_ported("packed rows (seg_ids payload)", "Packing")
+        x = user_embeddings
+        timestamps = past_payloads.get(TIMESTAMPS_KEY)
+        mask = valid_mask.to(x.dtype)
+        # the kernel's per-row length: last valid position + 1, robust to any
+        # mask pattern (preprocessors may change the row count)
+        n = x.shape[1]
+        pos1 = torch.arange(1, n + 1, dtype=torch.int32, device=x.device)
+        kernel_lengths = (valid_mask[:, :, 0].to(torch.int32) * pos1).amax(dim=1)
+        for block in self._attention_layers:
+            x = x * mask  # padded rows stay exactly zero
+            x = block(x, timestamps, kernel_lengths)
+        return x * mask
