@@ -313,6 +313,9 @@ class DataConfig:
 
 @dataclass
 class TrainerConfig:
+    # the port's own field: where the trainer runs. "cuda" (the default: a
+    # machine without a card raises) or "cpu" (the kernels' plain versions)
+    device: str = "cuda"
     seed: int = 42
     max_epochs: int = 500
     min_epochs: int = 10

@@ -38,12 +38,14 @@
 // strides, so the column slices of the fused uvqk projection need no copy.
 // wgmma and TMA are left for a later change.
 //
-// Numerics: logf and IEEE division, never __logf or --use_fast_math, which
-// would move deltas near a bucket boundary into the next bucket; the delta
-// is taken in wrapping int32 as XLA does.
+// Numerics: the bucket comes from hstu_common.cuh (logf and IEEE division,
+// never __logf or --use_fast_math); the delta is taken in wrapping int32 as
+// XLA does.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hstu_common.cuh"
 
 namespace {
 
@@ -52,41 +54,6 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kBQ = 16;              // query rows per block
 constexpr int kBK = 32;              // key rows per tile: one per lane
 constexpr int kRows = kBQ / kWarps;  // query rows per warp
-
-__device__ __forceinline__ int bucketize(int delta, int num_buckets) {
-  // |delta| in int32 as jnp.abs gives it (INT_MIN stays negative, clamps to 1)
-  const unsigned int mag = delta < 0 ? 0u - (unsigned int)delta : (unsigned int)delta;
-  const float x = logf(fmaxf((float)(int)mag, 1.0f)) / 0.301f;
-  return min(max((int)x, 0), num_buckets);
-}
-
-constexpr int kLoadBatch = 16;       // global loads a thread issues before it stores
-
-// Copies `rows` rows of `width` floats (source row stride `stride`) into
-// dst[r * dst_stride + c], zero-filling rows at or past `valid`. Each thread
-// issues kLoadBatch independent loads before its first store, so their
-// device-memory latencies overlap instead of adding up.
-__device__ __forceinline__ void copy_rows(float* dst, int dst_stride,
-                                          const float* __restrict__ src,
-                                          int64_t stride, int rows, int width,
-                                          int valid) {
-  const int total = rows * width;
-  for (int base = threadIdx.x; base < total; base += kThreads * kLoadBatch) {
-    float buf[kLoadBatch];
-#pragma unroll
-    for (int u = 0; u < kLoadBatch; ++u) {
-      const int e = base + u * kThreads;
-      const int r = e / width;
-      buf[u] = e < total && r < valid ? src[r * stride + (e - r * width)] : 0.f;
-    }
-#pragma unroll
-    for (int u = 0; u < kLoadBatch; ++u) {
-      const int e = base + u * kThreads;
-      const int r = e / width;
-      if (e < total) dst[r * dst_stride + (e - r * width)] = buf[u];
-    }
-  }
-}
 
 __global__ void __launch_bounds__(kThreads) hstu_attention_fwd_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
@@ -125,15 +92,15 @@ __global__ void __launch_bounds__(kThreads) hstu_attention_fwd_kernel(
 
   if (q0 < seq_len) {
     for (int e = tid; e <= num_buckets; e += kThreads) tsw_s[e] = ts_w[e];
-    copy_rows(q_s, hq, qb + q0 * q_sn, q_sn, kBQ, hq, q_rows);
+    hstu::copy_rows<kThreads>(q_s, hq, qb + q0 * q_sn, q_sn, kBQ, hq, q_rows);
     if (tid < kBQ) tsq_s[tid] = tsb[min(q0 + tid + 1, n - 1)];
 
     const int n_tiles = (min(q0 + kBQ, seq_len) - 1) / kBK + 1;
     for (int t = 0; t < n_tiles; ++t) {
       const int k0 = t * kBK;
       __syncthreads();  // the last tile's readers are done with k_s/v_s/p_s
-      copy_rows(k_s, ks, kb + k0 * k_sn, k_sn, kBK, hq, seq_len - k0);
-      copy_rows(v_s, hv, vb + k0 * v_sn, v_sn, kBK, hv, seq_len - k0);
+      hstu::copy_rows<kThreads>(k_s, ks, kb + k0 * k_sn, k_sn, kBK, hq, seq_len - k0);
+      hstu::copy_rows<kThreads>(v_s, hv, vb + k0 * v_sn, v_sn, kBK, hv, seq_len - k0);
       if (tid < kBK) tsk_s[tid] = tsb[min(k0 + tid, n - 1)];
       __syncthreads();
 
@@ -147,7 +114,7 @@ __global__ void __launch_bounds__(kThreads) hstu_attention_fwd_kernel(
         live[p] = col <= row && col < seq_len && row < seq_len;
         const int delta = (int)((unsigned int)tsq_s[r0 + p] - (unsigned int)tsk_s[lane]);
         bias[p] = live[p] ? pos_w[col - row + max_len - 1] +
-                                tsw_s[bucketize(delta, num_buckets)]
+                                tsw_s[hstu::bucketize(delta, num_buckets)]
                           : 0.f;
       }
       for (int hh = 0; hh < h; ++hh) {

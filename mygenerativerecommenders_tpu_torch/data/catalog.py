@@ -26,7 +26,7 @@ from mygenerativerecommenders_tpu_torch.configs import DataConfig
 _MOVIELENS_MAX_ITEM_ID = {"ml-1m": 3952, "ml-20m": 131262}
 _MOVIELENS_NUM_ITEMS = {"ml-1m": 3706, "ml-20m": 26744}
 # SyntheticDataProcessor.seed: the JAX package never overrides it
-_SYNTHETIC_SEED = 0
+SYNTHETIC_SEED = 0
 
 
 def _expected_max_item_id(cfg: DataConfig) -> int:
@@ -49,8 +49,11 @@ def item_csv_path(cfg: DataConfig) -> str:
     return os.path.join(cfg.data_dir, "processed", cfg.dataset_name, "movies.csv")
 
 
-def synthetic_catalog(num_items: int, max_item_id: int) -> np.ndarray:
-    rng = np.random.default_rng(_SYNTHETIC_SEED)
+def synthetic_catalog(num_items: int, max_item_id: int, rng=None) -> np.ndarray:
+    """The synthetic catalog's ids, the first draw of the seed's stream; pass
+    `rng` to go on drawing the interactions from the same stream."""
+    if rng is None:
+        rng = np.random.default_rng(SYNTHETIC_SEED)
     all_ids = np.arange(1, max_item_id + 1)
     return np.sort(rng.choice(all_ids, size=num_items, replace=False))
 

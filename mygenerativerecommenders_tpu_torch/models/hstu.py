@@ -14,7 +14,10 @@ Parameter names follow the reference checkpoint
 (mygenerativerecommenders_tpu/cli/convert_ckpt.py:9-15): `_uvqk`, `_o`,
 `_rel_attn_bias._pos_w` / `._ts_w`. Init matches the JAX package: uvqk and
 the bias tables ~ N(0, 0.02), the output projection Xavier-uniform with a
-zero bias. The forward is the inference forward (dropout off).
+zero bias. Under `model.train()` the block drops out the output
+projection's input at `linear_dropout_rate` (`nn.Dropout`, drawn from the
+device's generator); attention dropout is 0.0 in every preset and a
+non-zero rate raises.
 """
 
 from __future__ import annotations
@@ -71,8 +74,12 @@ class HSTUBlock(nn.Module):
         concat_ua: bool = False,
         eps: float = 1e-6,
         generator: Optional[torch.Generator] = None,
+        dropout_rate: float = 0.0,
+        attn_dropout_rate: float = 0.0,
     ):
         super().__init__()
+        if attn_dropout_rate != 0.0:
+            raise not_ported(f"encoder.attn_dropout_rate={attn_dropout_rate}", "Training variants")
         if normalization not in ("rel_bias", "hstu_rel_bias"):
             if normalization == "softmax_rel_bias":
                 raise not_ported("encoder.normalization=softmax_rel_bias", "Other model families")
@@ -85,6 +92,7 @@ class HSTUBlock(nn.Module):
         self.num_time_buckets = num_time_buckets
         self.concat_ua = concat_ua
         self.eps = eps
+        self._dropout = nn.Dropout(dropout_rate)
         h, dv, dqk = num_heads, linear_dim, attention_dim
         self._uvqk = _normal((embedding_dim, 2 * dv * h + 2 * dqk * h), 0.02, generator)
         self._rel_attn_bias = None
@@ -136,7 +144,7 @@ class HSTUBlock(nn.Module):
         attn_out = attn.reshape(b, n, h * dv)
         a = F.layer_norm(attn_out, (h * dv,), eps=self.eps)
         o_input = torch.cat([u, a, u * a], dim=-1) if self.concat_ua else u * a
-        return self._o(o_input) + x
+        return self._o(self._dropout(o_input)) + x
 
 
 class HSTU(nn.Module):
@@ -161,6 +169,8 @@ class HSTU(nn.Module):
         tp_shards: int = 1,
         remat: bool = False,
         generator: Optional[torch.Generator] = None,
+        linear_dropout_rate: float = 0.0,
+        attn_dropout_rate: float = 0.0,
     ):
         super().__init__()
         if sp_shards > 1:
@@ -184,6 +194,8 @@ class HSTU(nn.Module):
                 num_time_buckets=num_time_buckets,
                 concat_ua=concat_ua,
                 generator=generator,
+                dropout_rate=linear_dropout_rate,
+                attn_dropout_rate=attn_dropout_rate,
             )
             for _ in range(num_blocks)
         )

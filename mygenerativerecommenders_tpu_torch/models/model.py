@@ -1,8 +1,9 @@
 """The composed generative-recommender model.
 
 Port of mygenerativerecommenders_tpu/models/model.py:252-291 for the
-components the serving slice runs: local embedding -> learnable positional
-preprocessor -> HSTU -> L2 postprocessor, dot-product similarity. Other
+components retrieval serving and training run: local embedding -> learnable
+positional preprocessor (with dropout) -> HSTU -> L2 postprocessor,
+dot-product similarity. Other
 kinds raise, naming the ROADMAP.md item that ports them. Submodule names
 follow the reference checkpoint's keys, so `state_dict()` reads
 `embeddings._item_emb.weight`, `preprocessor._pos_emb.weight`,
@@ -58,7 +59,7 @@ class GenerativeRecommender(nn.Module):
         if m.preprocessor.kind != "learnable_positional":
             raise not_ported(f"preprocessor.kind={m.preprocessor.kind}", "Other model families")
         self.preprocessor = LearnablePositionalEmbeddingPreprocessor(
-            total_seq_len, m.item_embedding_dim, generator
+            total_seq_len, m.item_embedding_dim, generator, m.preprocessor.dropout_rate
         )
         enc = m.encoder
         if enc.kind != "hstu":
@@ -90,6 +91,8 @@ class GenerativeRecommender(nn.Module):
             tp_shards=enc.tp_shards,
             remat=enc.remat,
             generator=generator,
+            linear_dropout_rate=enc.linear_dropout_rate,
+            attn_dropout_rate=enc.attn_dropout_rate,
         )})
         if m.postprocessor.kind != "l2_norm":
             raise not_ported(f"postprocessor.kind={m.postprocessor.kind}", "Other model families")

@@ -2,9 +2,9 @@
 
 Port of `LearnablePositionalEmbeddingPreprocessor`
 (mygenerativerecommenders_tpu/models/preprocessors.py:62-101):
-emb * sqrt(D) + pos_emb, zeroed at invalid positions. Serving runs with
-dropout off, and this forward has none; the other variants raise in
-models/model.py.
+emb * sqrt(D) + pos_emb, dropout (`nn.Dropout`: active under
+`model.train()`, drawn from the device's generator), zeroed at invalid
+positions. The other variants raise in models/model.py.
 """
 
 from __future__ import annotations
@@ -29,9 +29,11 @@ class LearnablePositionalEmbeddingPreprocessor(nn.Module):
         max_sequence_len: int,
         embedding_dim: int,
         generator: Optional[torch.Generator] = None,
+        dropout_rate: float = 0.0,
     ):
         super().__init__()
         self.embedding_dim = embedding_dim
+        self._dropout = nn.Dropout(dropout_rate)
         self._pos_emb = nn.Embedding(max_sequence_len, embedding_dim)
         trunc_normal_(self._pos_emb.weight, math.sqrt(1.0 / embedding_dim), generator)
 
@@ -46,7 +48,7 @@ class LearnablePositionalEmbeddingPreprocessor(nn.Module):
         if past_payloads.get("positions") is not None:
             raise not_ported("packed rows (positions payload)", "Packing")
         n = past_ids.shape[1]
-        user_embeddings = (
+        user_embeddings = self._dropout(
             past_embeddings * (self.embedding_dim**0.5) + self._pos_emb.weight[None, :n]
         )
         valid_mask = (past_ids != 0)[:, :, None].to(user_embeddings.dtype)

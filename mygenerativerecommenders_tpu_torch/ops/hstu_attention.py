@@ -25,7 +25,12 @@ import torch.nn.functional as F
 
 def bucketize_timedelta(delta: torch.Tensor, num_buckets: int) -> torch.Tensor:
     """floor(ln(max(|d|, 1)) / 0.301) in float32, clipped to [0, num_buckets]."""
-    x = torch.log(torch.clamp(delta.abs().to(torch.float32), min=1.0)) / 0.301
+    # the divisor is a tensor on delta's device: on CUDA torch divides by a
+    # Python scalar as a multiplication by its reciprocal, which rounds some
+    # deltas at a bucket boundary into the neighbouring bucket; tensor by
+    # tensor it is the IEEE division that the CPU, XLA and the kernels do
+    divisor = torch.full((), 0.301, dtype=torch.float32, device=delta.device)
+    x = torch.log(torch.clamp(delta.abs().to(torch.float32), min=1.0)) / divisor
     return torch.clamp(x.to(torch.int32), 0, num_buckets)
 
 

@@ -2,9 +2,10 @@
 
 Each kernel is one `csrc/<name>.cu` with a plain C interface, compiled for
 Hopper (`sm_90a`) into `_build/<name>-<hash>.so` inside the package at first
-use; the hash covers the source and the flags, so an edited source rebuilds
-and an unchanged one is reused. Nothing here runs at import: the CPU tests
-import every module on a machine without nvcc.
+use; the hash covers the source, the shared `csrc/*.cuh` headers and the
+flags, so an edited source rebuilds and an unchanged one is reused. Nothing
+here runs at import: the CPU tests import every module on a machine without
+nvcc.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ from typing import Dict, List
 _PKG = Path(__file__).resolve().parents[2]
 CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
+MAX_SMEM_BYTES = 232448  # shared memory a block may use on an H100
 # no --use_fast_math: __logf would move time deltas near a bucket boundary
 # into the next bucket (see csrc/hstu_attention_fwd.cu)
 NVCC_FLAGS = (
@@ -53,8 +55,9 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in [CSRC_DIR / f"{name}.cu", *sorted(CSRC_DIR.glob("*.cuh"))]:
+        digest.update(src.read_bytes())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 

@@ -1,4 +1,5 @@
-"""Fused HSTU attention forward: the Hopper kernel's wrapper and its plain version.
+"""Fused HSTU attention, forward and backward: the Hopper kernels' wrapper and
+its plain version.
 
 `hstu_attention_fused` has the interface of the JAX package's
 `ops/pallas/hstu_attention.py:hstu_attention_fused` (:225): q, k [B, N, H, Dqk],
@@ -7,9 +8,13 @@ ts_w [num_buckets+1], the static L = max_len and per-row `lengths`. Rows at or
 past `lengths` come out zero (the fused contract; the dense reference is not
 zero there).
 
-On a CUDA tensor it launches csrc/hstu_attention_fwd.cu (built by nvcc at
-first use) or raises; on a CPU tensor it computes
-`hstu_attention_fused_plain`, the same function in plain PyTorch.
+On a CUDA tensor it is a `torch.autograd.Function`: the forward launches
+csrc/hstu_attention_fwd.cu and saves only its inputs (nothing [N, N]-shaped,
+as `_fused_fwd` of the JAX package, :818); the backward launches
+csrc/hstu_attention_bwd.cu, which recomputes the scores and returns dq, dk,
+dv, d_pos_w and d_ts_w. Both are built by nvcc at first use; a failed build
+or launch raises. On a CPU tensor it computes `hstu_attention_fused_plain`,
+the same function in plain PyTorch, and autograd differentiates that.
 """
 
 from __future__ import annotations
@@ -30,12 +35,17 @@ from mygenerativerecommenders_tpu_torch.ops.kernels import _build
 KERNEL = "hstu_attention_fwd"
 SOURCE = "mygenerativerecommenders_tpu_torch/csrc/hstu_attention_fwd.cu"
 REPLACES = "mygenerativerecommenders_tpu/ops/pallas/hstu_attention.py:118"
-# kernel launches so far; callers that count (chip_smoke.py) reset it to 0.
-# The serving engine makes its calls under one lock, so `+= 1` stays exact.
+KERNEL_BWD = "hstu_attention_bwd"
+SOURCE_BWD = "mygenerativerecommenders_tpu_torch/csrc/hstu_attention_bwd.cu"
+REPLACES_BWD = "mygenerativerecommenders_tpu/ops/pallas/hstu_attention.py:425"
+# kernel launches so far, forward and backward; callers that count
+# (chip_smoke.py) reset them to 0. The serving engine makes its calls under
+# one lock and the trainer runs one step at a time, so `+= 1` stays exact.
 launches = 0
+bwd_launches = 0
 
-_MAX_SMEM = 232448  # bytes a block may use on an H100
 _lib: Optional[ctypes.CDLL] = None
+_lib_bwd: Optional[ctypes.CDLL] = None
 
 
 def hstu_attention_fused_plain(
@@ -94,8 +104,24 @@ def _kernel_lib() -> ctypes.CDLL:
     return _lib
 
 
-def _launch(q, k, v, timestamps, pos_w, ts_w, max_len, num_buckets, lengths):
-    global launches
+def _kernel_lib_bwd() -> ctypes.CDLL:
+    global _lib_bwd
+    if _lib_bwd is None:
+        lib = _build.load(KERNEL_BWD)
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.hstu_attention_bwd.argtypes = [p] * 13 + [i] * 5 + [ll] * 7 + [i, i, p]
+        lib.hstu_attention_bwd.restype = i
+        lib.hstu_attention_bwd_smem_bytes.argtypes = [i] * 5
+        lib.hstu_attention_bwd_smem_bytes.restype = ll
+        lib.hstu_bwd_cuda_error_string.argtypes = [i]
+        lib.hstu_bwd_cuda_error_string.restype = ctypes.c_char_p
+        _lib_bwd = lib
+    return _lib_bwd
+
+
+def _prepare(q, k, v, timestamps, pos_w, ts_w, max_len, num_buckets, lengths):
+    """Checks what the kernels do not take and brings the small operands to
+    the types they read: int32 timestamps and lengths, float32 tables."""
     b, n, h, dqk, dv = _check(
         q, k, v, timestamps, pos_w, ts_w, max_len, num_buckets, lengths
     )
@@ -107,15 +133,23 @@ def _launch(q, k, v, timestamps, pos_w, ts_w, max_len, num_buckets, lengths):
         if t.stride(3) != 1 or t.stride(2) != d:
             raise ValueError(f"{name} needs contiguous [H, d] rows, strides {t.stride()}")
     if b > 65535:
-        raise ValueError(f"batch {b} exceeds the kernel's grid.y limit 65535")
-    lib = _kernel_lib()
-    smem = lib.hstu_attention_fwd_smem_bytes(h, dqk, dv, num_buckets)
-    if smem > _MAX_SMEM:
-        raise ValueError(f"H*d too wide: a block would need {smem} bytes of shared memory")
+        raise ValueError(f"batch {b} exceeds the kernels' grid.y limit 65535")
     ts = timestamps.to(torch.int32).contiguous()
     lens = lengths.to(torch.int32).contiguous()
-    pos_w = pos_w.to(torch.float32).contiguous()
-    ts_w = ts_w.to(torch.float32).contiguous()
+    pos_w = pos_w.detach().to(torch.float32).contiguous()
+    ts_w = ts_w.detach().to(torch.float32).contiguous()
+    return ts, lens, pos_w, ts_w
+
+
+def _launch(q, k, v, ts, lens, pos_w, ts_w, max_len, num_buckets):
+    """The forward kernel on prepared operands -> out [B, N, H, Dv]."""
+    global launches
+    b, n, h, dqk = q.shape
+    dv = v.shape[-1]
+    lib = _kernel_lib()
+    smem = lib.hstu_attention_fwd_smem_bytes(h, dqk, dv, num_buckets)
+    if smem > _build.MAX_SMEM_BYTES:
+        raise ValueError(f"H*d too wide: a block would need {smem} bytes of shared memory")
     out = torch.empty((b, n, h, dv), dtype=torch.float32, device=q.device)
     err = lib.hstu_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), ts.data_ptr(), lens.data_ptr(),
@@ -132,6 +166,64 @@ def _launch(q, k, v, timestamps, pos_w, ts_w, max_len, num_buckets, lengths):
     return out
 
 
+def _launch_bwd(q, k, v, g, ts, lens, pos_w, ts_w, max_len, num_buckets):
+    """The backward kernel on prepared operands -> dq, dk, dv, d_pos_w, d_ts_w."""
+    global bwd_launches
+    b, n, h, dqk = q.shape
+    dv = v.shape[-1]
+    lib = _kernel_lib_bwd()
+    smem = lib.hstu_attention_bwd_smem_bytes(h, dqk, dv, max_len, num_buckets)
+    if smem > _build.MAX_SMEM_BYTES:
+        raise ValueError(
+            f"H*d or max_len too wide: a block would need {smem} bytes of shared memory"
+        )
+    g = g.to(torch.float32).contiguous()
+    dev = q.device
+    dq = torch.empty((b, n, h, dqk), dtype=torch.float32, device=dev)
+    # the kernel adds into these with atomics
+    dk = torch.zeros((b, n, h, dqk), dtype=torch.float32, device=dev)
+    dv_out = torch.zeros((b, n, h, dv), dtype=torch.float32, device=dev)
+    dpw = torch.zeros_like(pos_w)
+    dtw = torch.zeros_like(ts_w)
+    err = lib.hstu_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), ts.data_ptr(),
+        lens.data_ptr(), pos_w.data_ptr(), ts_w.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv_out.data_ptr(), dpw.data_ptr(), dtw.data_ptr(),
+        b, n, h, dqk, dv,
+        q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
+        ts.stride(0), max_len, num_buckets,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if err != 0:
+        msg = lib.hstu_bwd_cuda_error_string(err).decode()
+        raise RuntimeError(f"{KERNEL_BWD} launch failed: CUDA error {err} ({msg})")
+    bwd_launches += 1
+    return dq, dk, dv_out, dpw, dtw
+
+
+class _FusedAttention(torch.autograd.Function):
+    """Forward kernel, inputs saved, backward kernel."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, pos_w, ts_w, timestamps, lengths, max_len, num_buckets):
+        ts, lens, pw, tw = _prepare(
+            q, k, v, timestamps, pos_w, ts_w, max_len, num_buckets, lengths
+        )
+        ctx.save_for_backward(q, k, v, ts, lens, pw, tw)
+        ctx.max_len, ctx.num_buckets = max_len, num_buckets
+        ctx.table_dtypes = (pos_w.dtype, ts_w.dtype)
+        return _launch(q, k, v, ts, lens, pw, tw, max_len, num_buckets)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, ts, lens, pw, tw = ctx.saved_tensors
+        dq, dk, dv, dpw, dtw = _launch_bwd(
+            q, k, v, g, ts, lens, pw, tw, ctx.max_len, ctx.num_buckets
+        )
+        dpw, dtw = dpw.to(ctx.table_dtypes[0]), dtw.to(ctx.table_dtypes[1])
+        return dq, dk, dv, dpw, dtw, None, None, None, None
+
+
 def hstu_attention_fused(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -146,7 +238,8 @@ def hstu_attention_fused(
 ) -> torch.Tensor:
     """Fused HSTU attention with the relative time+position bias built inside.
 
-    Returns [B, N, H, Dv] float32, zero at rows >= lengths.
+    Returns [B, N, H, Dv] float32, zero at rows >= lengths; differentiable in
+    q, k, v, pos_w and ts_w.
     """
     if seg_positions is not None:
         raise not_ported("packed seg_positions", "Packing")
@@ -159,4 +252,6 @@ def hstu_attention_fused(
         )
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
-    return _launch(q, k, v, timestamps, pos_w, ts_w, max_len, num_buckets, lengths)
+    return _FusedAttention.apply(
+        q, k, v, pos_w, ts_w, timestamps, lengths, max_len, num_buckets
+    )
