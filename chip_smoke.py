@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving and training paths on one NVIDIA card and
-check its kernels.
+"""Drive the PyTorch port's serving and training paths (padded and packed)
+on one NVIDIA card and check its kernels.
 
 Run from the root of a checkout, with no arguments:
 
@@ -21,11 +21,21 @@ Phases, each of which stops the run with a non-zero exit when it fails:
      dq, dk, dv at rtol 2e-4 / atol 2e-5, d_pos_w and d_ts_w at rtol 5e-4
      (they sum ~N^2 terms per row, here with float atomics whose order changes
      from run to run), rows past the length exactly zero;
+   - both attention kernels with `seg_positions` (packed rows) at a row of
+     ml-1m-hstu-packed (B=56, N=256, L=211, H=1, d=50) and at the widest row
+     of ml-20m-hstu-long (B=4, N=1152, L=1035, H=2, d=64: wider than the bias
+     table reaches), segments of mixed lengths including 1 and L, one row with
+     trailing padding, the same tolerances; a gradient sent into one segment
+     must leave dq, dk, dv of every other segment and row exactly zero, and a
+     null `seg_positions` must give the bits of one segment per row;
    - the negative count at [26880, 128] into X=3,706 and X=26,744, with
      accidental hits and sentinels, exactly;
    - the dense-negative lse forward and backward at [26880, 50] x [3706, 50]
      with those counts, tau 0.05, one all-hit row: lse, dq, dcat at rtol 2e-4
-     / atol 2e-5.
+     / atol 2e-5; the same over the ml-20m catalog, at [26880, 50] x
+     [26744, 50] (the step of ml-20m-hstu) and at [24552, 64] x [26744, 64]
+     (the 1024-token class of a packed ml-20m-hstu-long step), where the plain
+     version runs 2,048 rows at a time.
 3. The serving path at the full width of `synthetic-hstu`: `cli.serve.build_engine`
    on a .pt checkpoint written from a seeded init, the HTTP server on an
    ephemeral port, /healthz, a 32-row /v1/retrieve, a burst of concurrent
@@ -55,6 +65,19 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    batch and negative offsets, dropout off, through the port on `cuda`
    (kernels) and on `cpu` (plain versions): the loss at rtol 1e-5, every
    parameter's gradient at rtol 5e-4 / atol 1e-6.
+6. The packed, long-sequence, wide-catalog training path at the full width of
+   `ml-20m-hstu-long` on synthetic data (D=64, 8 blocks, H=2, L=1035, batches
+   of 32 examples packed into rows of 256 / 512 / 1024 / 1152 tokens, 26,744
+   catalog rows among ids up to 131,262, 128 negatives, dropout 0.2, AdamW):
+   `cli.train.main` on the card for two epochs with the packed eval after
+   each and the test pass on the best checkpoint. The launch counts are set
+   to 0 just before and read just after: per optimizer step 8 attention
+   forwards, 8 backwards, 1 count, 1 lse forward, 1 lse backward, and 8
+   forwards per eval batch. Losses finite and falling, metrics in [0, 1].
+   Then a second trainer is stepped by hand, class of capacity by class: step
+   time, examples/s, tokens a step and a torch.profiler step.
+7. Phase 5 once more on one packed batch of capacity 256 of that
+   configuration.
 
 It ends with one JSON line of the kernels' numbers and, last, the line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -124,11 +147,37 @@ def build_kernels(_build, names):
 # ---------------------------------------------------------------- phase 2
 
 
-def attention_inputs(seed, b, n, h, d, lengths, proj_grad: bool = False):
+def packed_layout(seed, b, n, max_seg):
+    """Within-segment positions [b, n] and packed lengths [b] of rows that hold
+    segments of mixed lengths end to end. Row 0 keeps a fifth of the row as
+    trailing padding (positions 0 there, as the loader leaves them); row 1
+    starts with a segment of 1 and one of max_seg (or what the row has left)."""
+    rng = np.random.default_rng(seed)
+    pos = np.zeros((b, n), dtype=np.int32)
+    lengths, bounds = [], []
+    for r in range(b):
+        room = n - (n // 5 if r == 0 else 0)
+        segs = [1, min(max_seg, room - 1)] if r == 1 else []
+        while sum(segs) < room:
+            segs.append(int(min(rng.integers(1, max_seg + 1), room - sum(segs))))
+        at, row_bounds = 0, []
+        for seg in segs:
+            pos[r, at : at + seg] = np.arange(seg)
+            row_bounds.append((at, at + seg))
+            at += seg
+        lengths.append(at)
+        bounds.append(row_bounds)
+    return pos, lengths, bounds
+
+
+def attention_inputs(seed, b, n, h, d, lengths, proj_grad: bool = False, max_len=None,
+                     seg=None):
     """q, k, v as column slices of one uvqk projection `proj`, as the block
     gives them; with proj_grad, proj is a leaf that takes their gradients and
-    is returned beside the inputs."""
+    is returned beside the inputs. `max_len` (default n) sizes pos_w; `seg`
+    [b, n] are the within-segment positions of packed rows."""
     rng = np.random.default_rng(seed)
+    max_len = max_len or n
     proj = torch.tensor(rng.normal(size=(b, n, 4 * h * d)), dtype=torch.float32).cuda()
     proj.requires_grad_(proj_grad)
     _, v, q, k = torch.split(proj, [h * d] * 4, dim=-1)
@@ -136,11 +185,13 @@ def attention_inputs(seed, b, n, h, d, lengths, proj_grad: bool = False):
     inputs = dict(
         q=q.unflatten(-1, (h, d)), k=k.unflatten(-1, (h, d)), v=v.unflatten(-1, (h, d)),
         timestamps=torch.tensor(ts, dtype=torch.int32).cuda(),
-        pos_w=torch.tensor(rng.normal(size=(2 * n - 1,)) * 0.02, dtype=torch.float32).cuda(),
+        pos_w=torch.tensor(rng.normal(size=(2 * max_len - 1,)) * 0.02, dtype=torch.float32).cuda(),
         ts_w=torch.tensor(rng.normal(size=(129,)) * 0.02, dtype=torch.float32).cuda(),
-        max_len=n, num_buckets=128,
+        max_len=max_len, num_buckets=128,
         lengths=torch.tensor(lengths, dtype=torch.int32).cuda(),
     )
+    if seg is not None:
+        inputs["seg_positions"] = torch.tensor(seg, dtype=torch.int32).cuda()
     return (inputs, proj) if proj_grad else inputs
 
 
@@ -172,26 +223,40 @@ def within(got, want, rtol: float, atol: float) -> tuple[bool, float]:
     return bool((diff <= atol + rtol * want.detach().abs()).all()), float(diff.max())
 
 
-def attention_bound(a) -> tuple[float, str]:
-    """Least time for this call: the bytes it must move at peak bandwidth vs
-    the multiply-adds of q.k and p.v over the live causal pairs at peak fp32,
-    both for this call's lengths. Reads: q, k, v and the timestamps of the
-    valid rows only (row m < len, and the next-item stamp of the last one),
-    the lengths, the pos_w entries the live offsets reach and all of ts_w;
-    writes: the whole output, zeros past the length included."""
-    b, n, h, dqk = a["q"].shape
-    dv = a["v"].shape[-1]
+def attention_work(a) -> tuple[int, int, int, int]:
+    """(valid rows, timestamps read, table entries read, live pairs) of this
+    call's lengths and segments. A valid row sees the keys from its segment's
+    start on: position + 1 of them, the position being the row index in an
+    unpacked row. In a packed row the positions are read too."""
+    b, n = a["q"].shape[:2]
     seq = torch.clamp(a["lengths"].cpu().long(), max=n)
     rows = int(seq.sum())
     stamps = int(torch.clamp(seq + 1, max=n).sum())
-    reads = rows * h * (2 * dqk + dv) + stamps + b + int(seq.max()) + a["ts_w"].numel()
-    nbytes = 4 * (reads + b * n * h * dv)
-    pairs = int((seq * (seq + 1) // 2).sum())
-    return bound(nbytes, pairs * h * 2 * (dqk + dv))
+    idx = torch.arange(n)
+    valid = idx[None, :] < seq[:, None]
+    seg = a.get("seg_positions")
+    pos = idx[None, :].expand(b, n) if seg is None else seg.cpu().long()
+    pairs = int((pos + 1)[valid].sum())
+    small = b + int(pos[valid].max()) + 1 + a["ts_w"].numel() + (0 if seg is None else rows)
+    return rows, stamps, small, pairs
 
 
-def check_attention(kern, name, seed, b, n, h, d, lengths) -> dict:
-    a = attention_inputs(seed, b, n, h, d, lengths)
+def attention_bound(a) -> tuple[float, str]:
+    """Least time for this call: the bytes it must move at peak bandwidth vs
+    the multiply-adds of q.k and p.v over the live pairs at peak fp32, both
+    for this call's lengths and segments. Reads: q, k, v and the timestamps of
+    the valid rows only (row m < len, and the next-item stamp of the last
+    one), the lengths, the pos_w entries the live offsets reach and all of
+    ts_w; writes: the whole output, zeros past the length included."""
+    b, n, h, dqk = a["q"].shape
+    dv = a["v"].shape[-1]
+    rows, stamps, small, pairs = attention_work(a)
+    reads = rows * h * (2 * dqk + dv) + stamps + small
+    return bound(4 * (reads + b * n * h * dv), pairs * h * 2 * (dqk + dv))
+
+
+def check_attention(kern, name, seed, b, n, h, d, lengths, max_len=None, seg=None) -> dict:
+    a = attention_inputs(seed, b, n, h, d, lengths, max_len=max_len, seg=seg)
     got = kern.hstu_attention_fused(**a)
     want = kern.hstu_attention_fused_plain(**a)
     torch.cuda.synchronize()
@@ -201,10 +266,18 @@ def check_attention(kern, name, seed, b, n, h, d, lengths) -> dict:
     max_rel = float((diff[big] / want.abs()[big]).max()) if bool(big.any()) else 0.0
     ok = bool((diff <= ATOL + RTOL * want.abs()).all())
     dead = all(not bool(got[i, length:].any()) for i, length in enumerate(lengths))
-    log(f"{name} B={b} N=L={n} H={h} d={d}: max_abs_err={max_abs:.3e} "
+    shape = f"B={b} N={n} L={a['max_len']} H={h} d={d}" + (" packed" if seg is not None else "")
+    log(f"{name} {shape}: max_abs_err={max_abs:.3e} "
         f"max_rel_err={max_rel:.3e} (|want|>1e-3), within rtol {RTOL} atol {ATOL}: {ok}, "
         f"rows past length zero: {dead}")
-    check(ok and dead, f"{name} disagrees with its plain version at B={b} N={n} H={h} d={d}")
+    check(ok and dead, f"{name} disagrees with its plain version at {shape}")
+    if seg is None:
+        # one segment per row is an unpacked row: the null pointer and the
+        # positions 0..n-1 must give the same bits
+        whole = torch.arange(n, dtype=torch.int32, device="cuda").expand(b, n).contiguous()
+        same = torch.equal(got, kern.hstu_attention_fused(**a, seg_positions=whole))
+        log(f"  null seg_positions equals one segment per row bit for bit: {same}")
+        check(same, f"{name}: the unpacked call differs from one segment per row")
     ms = device_ms(lambda: kern.hstu_attention_fused(**a), 200)
     plain_ms = device_ms(lambda: kern.hstu_attention_fused_plain(**a), 30)
     bound_ms, bound_by = attention_bound(a)
@@ -219,17 +292,18 @@ def attention_bwd_bound(a) -> tuple[float, str]:
     pair and head it does q.k, g.v, dz k, dz q and p g."""
     b, n, h, dqk = a["q"].shape
     dv = a["v"].shape[-1]
-    seq = torch.clamp(a["lengths"].cpu().long(), max=n)
-    rows = int(seq.sum())
-    stamps = int(torch.clamp(seq + 1, max=n).sum())
-    reads = rows * h * (2 * dqk + 2 * dv) + stamps + b + int(seq.max()) + a["ts_w"].numel()
+    rows, stamps, small, pairs = attention_work(a)
+    reads = rows * h * (2 * dqk + 2 * dv) + stamps + small
     writes = b * n * h * (2 * dqk + dv) + a["pos_w"].numel() + a["ts_w"].numel()
-    pairs = int((seq * (seq + 1) // 2).sum())
     return bound(4 * (reads + writes), pairs * h * 2 * (3 * dqk + 2 * dv))
 
 
-def check_attention_bwd(kern, seed, b, n, h, d, lengths) -> dict:
-    a, proj = attention_inputs(seed, b, n, h, d, lengths, proj_grad=True)
+def check_attention_bwd(kern, seed, b, n, h, d, lengths, max_len=None, seg=None,
+                        bounds=None) -> dict:
+    """`bounds[r]` lists the (start, end) of row r's segments, for the check
+    that no gradient crosses a segment's edge."""
+    a, proj = attention_inputs(seed, b, n, h, d, lengths, proj_grad=True, max_len=max_len,
+                               seg=seg)
     a["pos_w"].requires_grad_(), a["ts_w"].requires_grad_()
     leaves = [proj, a["pos_w"], a["ts_w"]]
     rng = np.random.default_rng(seed + 100)
@@ -255,11 +329,25 @@ def check_attention_bwd(kern, seed, b, n, h, d, lengths) -> dict:
     dead = all(
         not bool(t[i, length:].any()) for t in got[:3] for i, length in enumerate(lengths)
     )
-    log(f"{kern.KERNEL_BWD} B={b} N=L={n} H={h} d={d}: max_abs_err " + ", ".join(errs)
+    shape = f"B={b} N={n} L={a['max_len']} H={h} d={d}" + (" packed" if seg is not None else "")
+    log(f"{kern.KERNEL_BWD} {shape}: max_abs_err " + ", ".join(errs)
         + f"; within rtol {RTOL} (tables {BIAS_RTOL}) atol {ATOL}: {ok}, "
         f"rows past length zero: {dead}")
     check(ok and dead, f"{kern.KERNEL_BWD} disagrees with autograd of its plain version "
-          f"at B={b} N={n} H={h} d={d}")
+          f"at {shape}")
+    if bounds is not None:
+        # an upstream gradient on one segment alone (row 1's second) must leave
+        # dq, dk and dv of every other row and segment exactly zero
+        lo, hi = bounds[1][1]
+        inside = torch.zeros((b, n, 1, 1), dtype=torch.bool, device="cuda")
+        inside[1, lo:hi] = True
+        one = split(torch.autograd.grad(out, leaves, torch.where(inside, g, 0.0),
+                                        retain_graph=True))
+        crossed = any(bool(torch.where(inside.flatten(2), 0.0, t).any()) for t in one[:3])
+        reached = all(bool(t[1, lo:hi].any()) for t in one[:3])
+        log(f"  gradient sent into row 1 [{lo}, {hi}) alone: reaches it: {reached}, "
+            f"dq, dk, dv exactly zero everywhere else: {not crossed}")
+        check(reached and not crossed, f"{kern.KERNEL_BWD}: a gradient crossed a segment's edge")
     ms = device_ms(lambda: torch.autograd.grad(out, leaves, g, retain_graph=True), 50)
     plain_ms = device_ms(
         lambda: torch.autograd.grad(out_plain, leaves, g, retain_graph=True), 5
@@ -313,7 +401,26 @@ def check_count(kern, bt, r, x) -> dict:
                 bound_by=bound_by, library_ms=library_ms, count=got)
 
 
-def check_dense_neg_lse(kern, count, bt, d, x, tau) -> tuple[dict, dict]:
+def plain_lse_in_chunks(kern, q, cat, count, tau, gl, chunk, with_grads=True):
+    """`dense_neg_lse_plain` and its gradients on `chunk` rows at a time: at a
+    wide catalog its [BT, X] float32 logits (2.9 GB at 26,880 x 26,744, several
+    times that under autograd) do not have to exist at once."""
+    lse, dq = [], []
+    dcat = torch.zeros_like(cat)
+    for lo in range(0, q.shape[0], chunk):
+        qc = q[lo : lo + chunk].detach().requires_grad_(with_grads)
+        part = kern.dense_neg_lse_plain(qc, cat, count[lo : lo + chunk], tau)
+        lse.append(part.detach())
+        if with_grads:
+            g_q, g_cat = torch.autograd.grad(part, [qc, cat], gl[lo : lo + chunk])
+            dq.append(g_q)
+            dcat += g_cat
+    return torch.cat(lse), (torch.cat(dq) if with_grads else None), dcat
+
+
+def check_dense_neg_lse(kern, count, bt, d, x, tau, chunk=None) -> tuple[dict, dict]:
+    """`chunk`: rows of the plain version at a time (None: all at once)."""
+    chunk = chunk or bt
     rng = np.random.default_rng(17)
     q = torch.tensor(rng.normal(size=(bt, d)), dtype=torch.float32)
     cat = torch.tensor(rng.normal(size=(x, d)), dtype=torch.float32)
@@ -326,8 +433,7 @@ def check_dense_neg_lse(kern, count, bt, d, x, tau) -> tuple[dict, dict]:
     finite = torch.isfinite(lse)
     gl = torch.where(finite, gl, 0.0)
     got = torch.autograd.grad(lse, [q, cat], gl, retain_graph=True)
-    lse_plain = kern.dense_neg_lse_plain(q, cat, count, tau)
-    want = torch.autograd.grad(lse_plain, [q, cat], gl, retain_graph=True)
+    lse_plain, *want = plain_lse_in_chunks(kern, q, cat, count, tau, gl, chunk)
     torch.cuda.synchronize()
     same_inf = bool(torch.equal(finite, torch.isfinite(lse_plain)))
     ok_lse, err_lse = within(lse[finite], lse_plain[finite], RTOL, ATOL)
@@ -344,10 +450,12 @@ def check_dense_neg_lse(kern, count, bt, d, x, tau) -> tuple[dict, dict]:
     nnz = int(count.count_nonzero())
     with torch.no_grad():
         fwd_ms = device_ms(lambda: kern.dense_neg_lse(q, cat, count, tau), 50)
-        fwd_plain = device_ms(lambda: kern.dense_neg_lse_plain(q, cat, count, tau), 10)
+        fwd_plain = device_ms(
+            lambda: plain_lse_in_chunks(kern, q, cat, count, tau, gl, chunk, with_grads=False), 5)
     bwd_ms = device_ms(lambda: torch.autograd.grad(lse, [q, cat], gl, retain_graph=True), 30)
-    bwd_plain = device_ms(
-        lambda: torch.autograd.grad(lse_plain, [q, cat], gl, retain_graph=True), 5)
+    # the plain backward alone: forward and backward together, less the forward
+    both_plain = device_ms(lambda: plain_lse_in_chunks(kern, q, cat, count, tau, gl, chunk), 3)
+    bwd_plain = both_plain - fwd_plain
     # only the logits whose count is positive are needed: the operations
     # counted are those of this run's nnz live logits, not of all BT*X
     fwd_bound = bound(4 * (bt * d + x * d + 3 * bt) + bt * x, nnz * 2 * d)
@@ -567,6 +675,38 @@ def reset_counts(attn, count_kern, lse_kern) -> None:
     lse_kern.launches = lse_kern.bwd_launches = 0
 
 
+def read_training_run(metrics: Path, epochs: int, monitored: float):
+    """The losses, val rows and test row a `cli.train` run logged, checked:
+    finite and falling losses, a val row per epoch and one test row, every
+    metric and the monitored one in [0, 1]."""
+    rows = [json.loads(line) for line in metrics.read_text().splitlines()]
+    losses = np.asarray([r["train/loss"] for r in rows if "train/loss" in r])
+    val = [r for r in rows if "val/ndcg@100" in r]
+    test = [r for r in rows if "test/ndcg@100" in r]
+    log(f"  loss: first {losses[0]:.4f} (log 129 = {np.log(129):.4f}), first five mean "
+        f"{losses[:5].mean():.4f}, last five mean {losses[-5:].mean():.4f}")
+    check(bool(np.isfinite(losses).all()), "a non-finite training loss")
+    check(losses[-5:].mean() < losses[:5].mean(), "the loss did not fall")
+    check(len(val) == epochs and len(test) == 1, "val/ or test/ metric rows are missing")
+    for r in val + test:
+        for key, value in r.items():
+            if "/" in key and not key.startswith("train/"):
+                check(0.0 <= value <= 1.0, f"{key}={value} outside [0, 1]")
+    check(0.0 <= monitored <= 1.0, f"the monitored metric {monitored} is outside [0, 1]")
+    return losses, val, test[0]
+
+
+def check_step_launches(attn, count_kern, lse_kern, blocks: int, steps: int, eval_batches: int,
+                        counts: dict) -> None:
+    """Per optimizer step one attention forward and backward per block, one
+    count, one lse forward and backward; per eval batch a forward per block."""
+    want = {
+        attn.KERNEL: blocks * (steps + eval_batches), attn.KERNEL_BWD: blocks * steps,
+        count_kern.KERNEL: steps, lse_kern.KERNEL: steps, lse_kern.KERNEL_BWD: steps,
+    }
+    check(counts == want, f"launches {counts} != expected {want}")
+
+
 def run_training_path(attn, count_kern, lse_kern, card: str) -> dict:
     """`cli.train.main` on the card at the full width of synthetic-hstu, then a
     second trainer stepped by hand for times. -> launch counts of the first."""
@@ -590,44 +730,26 @@ def run_training_path(attn, count_kern, lse_kern, card: str) -> dict:
     wall = time.perf_counter() - t0
     counts = launch_counts(attn, count_kern, lse_kern)
 
-    rows = [json.loads(line) for line in metrics.read_text().splitlines()]
-    losses = np.asarray([r["train/loss"] for r in rows if "train/loss" in r])
-    val = [r for r in rows if "val/ndcg@100" in r]
-    test = [r for r in rows if "test/ndcg@100" in r]
-    steps = len(losses)
     blocks = cfg.model.encoder.num_blocks
-    users = cfg.data.synthetic_num_users
-    per_epoch = -(-users // cfg.data.batch_size)
+    per_epoch = -(-cfg.data.synthetic_num_users // cfg.data.batch_size)
     eval_batches = (epochs + 1) * per_epoch  # validation each epoch, then the test pass
     log(f"training path: cli.train on {card}, synthetic-hstu D={cfg.model.item_embedding_dim} "
         f"blocks={blocks} N={cfg.data.max_sequence_length + cfg.model.gr_output_length + 1} "
         f"batch={cfg.data.batch_size} R={cfg.model.loss.num_to_sample} "
-        f"dropout={cfg.model.encoder.linear_dropout_rate}: {steps} optimizer steps, "
+        f"dropout={cfg.model.encoder.linear_dropout_rate}: {epochs * per_epoch} optimizer steps, "
         f"{eval_batches} eval batches in {wall:.2f} s; launches {counts}")
-    log(f"  loss: first {losses[0]:.4f} (log 129 = {np.log(129):.4f}), first five mean "
-        f"{losses[:5].mean():.4f}, last five mean {losses[-5:].mean():.4f}")
+    losses, val, test = read_training_run(metrics, epochs, monitored)
+    steps = len(losses)
     check(steps == epochs * per_epoch, f"{steps} optimizer steps, expected {epochs * per_epoch}")
-    check(bool(np.isfinite(losses).all()), "a non-finite training loss")
-    check(losses[-5:].mean() < losses[:5].mean(), "the loss did not fall")
-    check(len(val) == epochs and len(test) == 1, "val/ or test/ metric rows are missing")
-    for r in val + test:
-        for key, value in r.items():
-            if "/" in key and not key.startswith("train/"):
-                check(0.0 <= value <= 1.0, f"{key}={value} outside [0, 1]")
-    check(0.0 <= monitored <= 1.0, f"the monitored metric {monitored} is outside [0, 1]")
     best = max(val, key=lambda r: r["val/ndcg@100"])
     log(f"  val/ndcg@100 first epoch {val[0]['val/ndcg@100']:.5f}, best {best['val/ndcg@100']:.5f} "
         f"(epoch {best['epoch']}), last {val[-1]['val/ndcg@100']:.5f}; test on the best "
-        f"checkpoint: ndcg@10 {test[0]['test/ndcg@10']:.5f}, ndcg@100 "
-        f"{test[0]['test/ndcg@100']:.5f}, hr@200 {test[0]['test/hr@200']:.5f} (the JAX "
+        f"checkpoint: ndcg@10 {test['test/ndcg@10']:.5f}, ndcg@100 "
+        f"{test['test/ndcg@100']:.5f}, hr@200 {test['test/hr@200']:.5f} (the JAX "
         f"package's 30-epoch band on this data: ndcg@10 0.037-0.039, PARITY.md)")
-    check(test[0]["test/ndcg@10"] >= MIN_TEST_NDCG10,
-          f"test ndcg@10 {test[0]['test/ndcg@10']} below {MIN_TEST_NDCG10} after {epochs} epochs")
-    want = {
-        attn.KERNEL: blocks * (steps + eval_batches), attn.KERNEL_BWD: blocks * steps,
-        count_kern.KERNEL: steps, lse_kern.KERNEL: steps, lse_kern.KERNEL_BWD: steps,
-    }
-    check(counts == want, f"launches {counts} != expected {want}")
+    check(test["test/ndcg@10"] >= MIN_TEST_NDCG10,
+          f"test ndcg@10 {test['test/ndcg@10']} below {MIN_TEST_NDCG10} after {epochs} epochs")
+    check_step_launches(attn, count_kern, lse_kern, blocks, steps, eval_batches, counts)
     for name in ("best.pt", "last.pt"):
         check((out_dir / "synthetic-hstu" / "checkpoints" / name).exists(), f"no {name}")
 
@@ -668,32 +790,151 @@ def run_training_path(attn, count_kern, lse_kern, card: str) -> dict:
     return counts
 
 
-# ---------------------------------------------------------------- phase 5
+# ---------------------------------------------------------------- phase 6
+
+LONG_ARGS = [
+    "experiment=ml-20m-hstu-long", "data.dataset_name=synthetic",
+    "data.synthetic_max_seq_len=1024",
+]
 
 
-def card_against_cpu_step() -> None:
+def run_long_path(attn, count_kern, lse_kern, card: str) -> dict:
+    """`cli.train.main` on the card at the full width of ml-20m-hstu-long on
+    synthetic data: packed train batches, packed eval after each epoch, the
+    test pass. Then a second trainer stepped by hand, class of capacity by
+    class. -> launch counts of the first."""
+    from mygenerativerecommenders_tpu_torch.cli import train as cli_train
+    from mygenerativerecommenders_tpu_torch.train.driver import Trainer
+
+    epochs = 2
+    out_dir = OUT_DIR / "long"
+    args = LONG_ARGS + [
+        f"trainer.output_dir={out_dir}", f"trainer.max_epochs={epochs}",
+        "trainer.log_every_n_steps=1",
+    ]
+    name = "ml-20m-hstu-long"
+    metrics = out_dir / name / "metrics.jsonl"
+    metrics.unlink(missing_ok=True)
+    cfg = cli_train.parse_args(args)
+    check(cfg.trainer.device == "cuda" and cfg.data.pack_sequences, "not the packed card path")
+    reset_counts(attn, count_kern, lse_kern)
+    t0 = time.perf_counter()
+    monitored = cli_train.main(args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts(attn, count_kern, lse_kern)
+
+    # the batches that run must have held, from loaders of the same plan
+    planner = Trainer(cli_train.parse_args(LONG_ARGS + [f"trainer.output_dir={OUT_DIR / 'long2'}"]))
+    check(planner._packed and planner._eval_packed, "packing or packed eval is off")
+    train_loader = planner._loader("train", packed=True)
+    want_steps = sum(len(train_loader._plan(e)) for e in range(epochs))
+    eval_batches = (epochs + 1) * len(planner._loader("val", packed=True))
+    blocks = cfg.model.encoder.num_blocks
+    log(f"long path: cli.train on {card}, {name} on synthetic data, packed: "
+        f"D={cfg.model.item_embedding_dim} blocks={blocks} H={cfg.model.encoder.num_heads} "
+        f"L={cfg.data.max_sequence_length + cfg.model.gr_output_length + 1} "
+        f"batch={cfg.data.batch_size} examples, capacities {list(cfg.data.pack_capacities)}, "
+        f"catalog={len(planner.all_item_ids)} (max id {planner.data.max_item_id}), "
+        f"R={cfg.model.loss.num_to_sample}, dropout={cfg.model.encoder.linear_dropout_rate}: "
+        f"{want_steps} optimizer steps, {eval_batches} packed eval batches in {wall:.2f} s; "
+        f"launches {counts}")
+    losses, val, test = read_training_run(metrics, epochs, monitored)
+    steps = len(losses)
+    check(steps == want_steps, f"{steps} optimizer steps, expected {want_steps}")
+    log(f"  val/ndcg@100 by epoch {[round(r['val/ndcg@100'], 5) for r in val]}, test on the best "
+        f"checkpoint: ndcg@10 {test['test/ndcg@10']:.5f}, ndcg@100 "
+        f"{test['test/ndcg@100']:.5f}, hr@200 {test['test/hr@200']:.5f} (chance hr@200: "
+        f"{200 / len(planner.all_item_ids):.5f})")
+    check_step_launches(attn, count_kern, lse_kern, blocks, steps, eval_batches, counts)
+    for ckpt in ("best.pt", "last.pt"):
+        check((out_dir / name / "checkpoints" / ckpt).exists(), f"no {ckpt}")
+    del planner
+
+    # a second trainer, stepped by hand, class by class. Histories of up to
+    # 1,200 items (cut to the newest 1,024) give the widest class, 1,152, its
+    # segments of 1,025; the command line above leaves that class empty
+    trainer = Trainer(cli_train.parse_args(
+        LONG_ARGS[:2] + ["data.synthetic_max_seq_len=1200",
+                         f"trainer.output_dir={OUT_DIR / 'long3'}"]))
+    trainer.model.train()
+    by_cap = {}
+    for batch in trainer._loader("train", packed=True):
+        by_cap.setdefault(batch["ids"].shape[1], []).append(batch)
+    check(sorted(by_cap) == sorted(cfg.data.pack_capacities), f"classes {sorted(by_cap)}")
+    epoch_s, epoch_examples = 0.0, 0
+    for cap in sorted(by_cap):
+        host = by_cap[cap]
+        batches = [trainer._put(b) for b in host[:4]]
+        for batch in batches[:2]:
+            trainer.train_step(batch, trainer.lr1)
+        torch.cuda.synchronize()
+        times = []
+        for i in range(8):
+            before = launch_counts(attn, count_kern, lse_kern)
+            t0 = time.perf_counter()
+            trainer.train_step(batches[i % len(batches)], trainer.lr1)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            after = launch_counts(attn, count_kern, lse_kern)
+            delta = [after[k] - before[k] for k in after]
+            check(delta == [blocks, blocks, 1, 1, 1], f"launches of one step: {delta}")
+        p50 = 1e3 * float(np.percentile(times, 50))
+        examples = float(np.mean([b["num_segments"].sum() for b in host[:4]]))
+        tokens = float(np.mean([b["lengths"].sum() for b in host[:4]]))
+        rows_cap = host[0]["ids"].shape[0]
+        log(f"train step, class {cap}: {rows_cap} rows x {cap} ({rows_cap * (cap - 1)} supervision "
+            f"rows), {examples:.1f} examples and {tokens:.0f} tokens a step, synced each step: "
+            f"p50 {p50:.3f} ms, {1e3 * examples / p50:.1f} examples/s, "
+            f"{1e3 * tokens / p50:.0f} tokens/s on {card}; {len(host)} such steps an epoch")
+        profile_device(
+            lambda i: trainer.train_step(batches[i % len(batches)], trainer.lr1),
+            reps=4, what=f"train step, class {cap}", wall_ms=p50, top=6,
+        )
+        epoch_s += 1e-3 * p50 * len(host)
+        epoch_examples += sum(int(b["num_segments"].sum()) for b in host)
+    log(f"an epoch of these steps ({epoch_examples} examples, from the class p50s): "
+        f"{epoch_s:.2f} s, {epoch_examples / epoch_s:.1f} examples/s on {card}")
+    return counts
+
+
+# ---------------------------------------------------------------- phases 5 and 7
+
+
+def card_against_cpu_step(args, packed_capacity=None) -> None:
     """One loss and its gradients through the port on the card (kernels) and
-    on the CPU (plain versions): same weights, batch and negatives, dropout off."""
+    on the CPU (plain versions): same weights, batch and negatives, dropout
+    off. With `packed_capacity` the batch is the first packed train batch of
+    that class of capacity."""
     from mygenerativerecommenders_tpu_torch.cli.train import parse_args
     from mygenerativerecommenders_tpu_torch.configs import resolve
     from mygenerativerecommenders_tpu_torch.data.dataset import RecoData
+    from mygenerativerecommenders_tpu_torch.data.packing import PackedBatchLoader
     from mygenerativerecommenders_tpu_torch.models.model import build_model
     from mygenerativerecommenders_tpu_torch.train.task_retrieval import make_loss_fn
 
-    cfg = parse_args(["experiment=synthetic-hstu"])
+    cfg = parse_args(args)
     data = RecoData(cfg.data, seed=cfg.trainer.seed)
     resolve(cfg, data.max_item_id)
-    batch = next(iter(data.loader("train")))
-    n = cfg.data.max_sequence_length + cfg.model.gr_output_length + 1
+    if packed_capacity:
+        loader = PackedBatchLoader(
+            data.dataset("train"), rows_per_batch=1, row_capacity=max(cfg.data.pack_capacities),
+            capacities=cfg.data.pack_capacities, segments_per_batch=cfg.data.batch_size,
+        )
+        batch = next(b for b in loader if b["ids"].shape[1] == packed_capacity)
+    else:
+        batch = next(iter(data.loader("train")))
+    rows = batch["ids"].shape[0]
+    n = batch["ids"].shape[1] + (0 if packed_capacity else cfg.model.gr_output_length + 1)
     gen = torch.Generator().manual_seed(3)
     offsets = torch.randint(
-        0, len(data.all_item_ids), (cfg.data.batch_size, n - 1, cfg.model.loss.num_to_sample),
+        0, len(data.all_item_ids), (rows, n - 1, cfg.model.loss.num_to_sample),
         generator=gen, dtype=torch.int32,
     )
     results = {}
     for device in ("cuda", "cpu"):
         model = build_model(cfg, device=device, seed=99)  # eval mode: dropout off
-        loss_fn = make_loss_fn(model, cfg, data.all_item_ids)
+        loss_fn = make_loss_fn(model, cfg, data.all_item_ids, packed=bool(packed_capacity))
         dev_batch = {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
         loss = loss_fn(dev_batch, neg_offsets=offsets.to(device))
         loss.backward()
@@ -702,7 +943,10 @@ def card_against_cpu_step() -> None:
         )
     (loss_card, grads_card), (loss_cpu, grads_cpu) = results["cuda"], results["cpu"]
     rel = abs(loss_card - loss_cpu) / abs(loss_cpu)
-    log(f"one step, card (kernels) vs CPU (plain versions): loss {loss_card:.6f} vs "
+    what = f"{cfg.experiment}, " + (
+        f"a packed batch of {rows} rows x {packed_capacity}" if packed_capacity
+        else f"a batch of {rows} rows")
+    log(f"one step of {what}, card (kernels) vs CPU (plain versions): loss {loss_card:.6f} vs "
         f"{loss_cpu:.6f}, relative difference {rel:.3e} (rtol {STEP_LOSS_RTOL})")
     check(rel <= STEP_LOSS_RTOL, "the card's loss disagrees with the CPU's")
     worst = True
@@ -740,31 +984,59 @@ def main() -> int:
     check_attention(kern, kern.KERNEL, 3, 4, 1035, 2, 64, [1, 1035, 517, 900])
     attn_bwd = check_attention_bwd(kern, 5, 128, 211, 1, 50, [1, 211] + ragged)
     check_attention_bwd(kern, 7, 4, 1035, 2, 64, [1, 1035, 517, 900])
+    # packed rows: a row of ml-1m-hstu-packed, and the widest row of
+    # ml-20m-hstu-long, which is wider than the bias table reaches (1152 > 1035)
+    for seed, (b, n, max_len, h, d) in enumerate([(56, 256, 211, 1, 50), (4, 1152, 1035, 2, 64)]):
+        pos, lens, seg_bounds = packed_layout(20 + seed, b, n, max_len)
+        check_attention(kern, kern.KERNEL, 30 + seed, b, n, h, d, lens, max_len, pos)
+        check_attention_bwd(kern, 40 + seed, b, n, h, d, lens, max_len, pos, seg_bounds)
     counted = check_count(count_kern, TRAIN_BT, TRAIN_R, 3706)
-    check_count(count_kern, TRAIN_BT, TRAIN_R, 26744)
+    counted_wide = check_count(count_kern, TRAIN_BT, TRAIN_R, 26744)
     lse_fwd, lse_bwd = check_dense_neg_lse(
         lse_kern, counted.pop("count"), TRAIN_BT, 50, 3706, 0.05
+    )
+    # the ml-20m catalog: the step of ml-20m-hstu (batch 128, D=50), then the
+    # 1024-token class of a packed ml-20m-hstu-long step (24 rows, D=64)
+    _, lse_bwd_wide = check_dense_neg_lse(
+        lse_kern, counted_wide.pop("count"), TRAIN_BT, 50, 26744, 0.05, chunk=2048
+    )
+    del counted_wide
+    long_bt = 24 * 1023
+    check_dense_neg_lse(
+        lse_kern, check_count(count_kern, long_bt, TRAIN_R, 26744)["count"], long_bt, 64,
+        26744, 0.05, chunk=2048,
     )
     torch.cuda.empty_cache()
 
     serving_launches = run_main_path(kern, num_blocks_expected=2, card=kind)
     train_counts = run_training_path(kern, count_kern, lse_kern, card=kind)
-    card_against_cpu_step()
+    card_against_cpu_step(["experiment=synthetic-hstu"])
+    long_counts = run_long_path(kern, count_kern, lse_kern, card=kind)
+    card_against_cpu_step(LONG_ARGS, packed_capacity=256)
 
     # no PyTorch call computes HSTU's silu attention with this bias, its
     # backward, or a count-weighted log-sum-exp over a matrix product that is
     # never materialised: library_ms is null for those
     rows = [
         dict(name=kern.KERNEL, source=kern.SOURCE, replaces=kern.REPLACES,
-             launches=serving_launches + train_counts[kern.KERNEL], library_ms=None, **serving),
+             launches=serving_launches + train_counts[kern.KERNEL] + long_counts[kern.KERNEL],
+             library_ms=None, **serving),
         dict(name=kern.KERNEL_BWD, source=kern.SOURCE_BWD, replaces=kern.REPLACES_BWD,
-             launches=train_counts[kern.KERNEL_BWD], library_ms=None, **attn_bwd),
+             launches=train_counts[kern.KERNEL_BWD] + long_counts[kern.KERNEL_BWD],
+             library_ms=None, **attn_bwd),
         dict(name=count_kern.KERNEL, source=count_kern.SOURCE, replaces=count_kern.REPLACES,
-             launches=train_counts[count_kern.KERNEL], **counted),
+             launches=train_counts[count_kern.KERNEL] + long_counts[count_kern.KERNEL], **counted),
         dict(name=lse_kern.KERNEL, source=lse_kern.SOURCE, replaces=lse_kern.REPLACES,
-             launches=train_counts[lse_kern.KERNEL], library_ms=None, **lse_fwd),
+             launches=train_counts[lse_kern.KERNEL] + long_counts[lse_kern.KERNEL],
+             library_ms=None, **lse_fwd),
         dict(name=lse_kern.KERNEL_BWD, source=lse_kern.SOURCE, replaces=lse_kern.REPLACES_BWD,
              launches=train_counts[lse_kern.KERNEL_BWD], library_ms=None, **lse_bwd),
+        # the same entry point over the ml-20m catalog, wider than one x-block
+        # of the TPU kernels: its launches are the long path's, its numbers
+        # those of the [26880, 50] x [26744, 50] check
+        dict(name=lse_kern.KERNEL_BWD + " (wide catalog)", source=lse_kern.SOURCE,
+             replaces=lse_kern.REPLACES_WIDE, launches=long_counts[lse_kern.KERNEL_BWD],
+             library_ms=None, **lse_bwd_wide),
     ]
     for row in rows:
         row["route"] = "cuda"

@@ -14,6 +14,14 @@
 // d_pos_w[n-m+L-1] += sum_h dz,  d_ts_w[bucket] += sum_h dz.  Rows at or past
 // len_b come out exactly zero in dq, dk and dv.
 //
+// Packed rows. With `seg_pos` [B, N] (null = one sequence per row) a pair is
+// live only inside one segment, n >= m - seg_pos[b,m], as in the forward (the
+// TPU kernel's has_seg branch, :445-473, :513-514): p and dz are masked alike,
+// so dk, dv, the diagonal array and the histogram see in-segment pairs only,
+// and the key walk starts at the tile of the earliest segment start among the
+// block's query rows. Only pairs less than L apart are live, so a row wider
+// than L neither reads pos_w nor writes the [L] diagonal array out of range.
+//
 // What bounds it. At the training shape (B=128, N=L=211, H=1, d=50) the live
 // causal half is ~2.9 M pairs x 500 flop = ~1.4 GFLOP of fp32 FMA (~21 us at
 // 67 TFLOP/s) against ~43 MB of q, k, v, g, dq, dk, dv (~13 us at 3.35 TB/s):
@@ -45,6 +53,7 @@
 // uvqk projection); g, dq, dk and dv are contiguous [B, N, H*d].
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 #include "hstu_common.cuh"
@@ -61,12 +70,12 @@ __global__ void __launch_bounds__(kThreads) hstu_attention_bwd_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, const float* __restrict__ g,
     const int* __restrict__ ts, const int* __restrict__ lengths,
-    const float* __restrict__ pos_w, const float* __restrict__ ts_w,
-    float* __restrict__ dq, float* __restrict__ dk, float* __restrict__ dv,
-    float* __restrict__ dpw, float* __restrict__ dtw, int n, int h, int dqk,
-    int dvh, int64_t q_sb, int64_t q_sn, int64_t k_sb, int64_t k_sn,
-    int64_t v_sb, int64_t v_sn, int64_t ts_sb, int max_len, int num_buckets,
-    float inv_n) {
+    const int* __restrict__ seg_pos, const float* __restrict__ pos_w,
+    const float* __restrict__ ts_w, float* __restrict__ dq,
+    float* __restrict__ dk, float* __restrict__ dv, float* __restrict__ dpw,
+    float* __restrict__ dtw, int n, int h, int dqk, int dvh, int64_t q_sb,
+    int64_t q_sn, int64_t k_sb, int64_t k_sn, int64_t v_sb, int64_t v_sn,
+    int64_t ts_sb, int64_t seg_sb, int max_len, int num_buckets, float inv_n) {
   extern __shared__ float smem[];
   const int hq = h * dqk;  // q/k row width
   const int hv = h * dvh;  // v/g row width
@@ -85,6 +94,7 @@ __global__ void __launch_bounds__(kThreads) hstu_attention_bwd_kernel(
   float* acc_s = p_s + h * kBQ * kBK;     // [kBQ, hq] dq of this tile
   int* tsq_s = (int*)(acc_s + kBQ * hq);  // [kBQ] next-item timestamps
   int* tsk_s = tsq_s + kBQ;               // [kBK]
+  int* start_s = tsk_s + kBK;             // [kBQ] segment start of each query row
 
   const int b = blockIdx.y;
   const int q0 = blockIdx.x * kBQ;
@@ -110,10 +120,16 @@ __global__ void __launch_bounds__(kThreads) hstu_attention_bwd_kernel(
     // rows at or past the length are staged as zeros, whatever they hold
     hstu::copy_rows<kThreads>(q_s, hq, qb + q0 * q_sn, q_sn, kBQ, hq, seq_len - q0);
     hstu::copy_rows<kThreads>(g_s, hv, gb + (int64_t)q0 * hv, hv, kBQ, hv, seq_len - q0);
-    if (tid < kBQ) tsq_s[tid] = tsb[min(q0 + tid + 1, n - 1)];
+    if (tid < kBQ) {
+      const int row = q0 + tid;
+      tsq_s[tid] = tsb[min(row + 1, n - 1)];
+      start_s[tid] = hstu::segment_start(seg_pos, b * seg_sb, row, seq_len);
+    }
+    __syncthreads();
 
     const int n_tiles = (min(q0 + kBQ, seq_len) - 1) / kBK + 1;
-    for (int t = 0; t < n_tiles; ++t) {
+    const int t_lo = seg_pos ? hstu::first_key_row(start_s, kBQ) / kBK : 0;
+    for (int t = t_lo; t < n_tiles; ++t) {
       const int k0 = t * kBK;
       const int k_valid = min(kBK, seq_len - k0);
       __syncthreads();  // the last tile's readers are done with k_s/v_s/dz_s/p_s
@@ -130,7 +146,8 @@ __global__ void __launch_bounds__(kThreads) hstu_attention_bwd_kernel(
 #pragma unroll
       for (int i = 0; i < kRows; ++i) {
         const int row = q0 + r0 + i;
-        live[i] = col <= row && col < seq_len && row < seq_len;
+        live[i] = col <= row && col < seq_len && row < seq_len &&
+                  col >= start_s[r0 + i] && row - col < max_len;
         const int delta = (int)((unsigned int)tsq_s[r0 + i] - (unsigned int)tsk_s[lane]);
         bucket[i] = hstu::bucketize(delta, num_buckets);
         bias[i] = live[i] ? pos_w[col - row + max_len - 1] + tsw_s[bucket[i]] : 0.f;
@@ -239,19 +256,21 @@ long long hstu_attention_bwd_smem_bytes(int h, int dqk, int dv, int max_len,
   const long long floats = 2LL * (num_buckets + 1) + max_len + 2 * kBQ * hq +
                            kBQ * hv + kBK * (hq | 1) + kBK * (hv | 1) +
                            2LL * h * kBQ * kBK;
-  return 4 * (floats + kBQ + kBK);
+  return 4 * (floats + 2 * kBQ + kBK);
 }
 
-// dk, dv, dpw and dtw must arrive zeroed; dq is written whole. Launches on
+// dk, dv, dpw and dtw must arrive zeroed; dq is written whole. `seg_pos` is
+// [b, n] int32 with row stride seg_sb, or null for unpacked rows. Launches on
 // `stream` without synchronising; returns cudaGetLastError().
 int hstu_attention_bwd(const float* q, const float* k, const float* v,
                        const float* g, const int* ts, const int* lengths,
-                       const float* pos_w, const float* ts_w, float* dq,
-                       float* dk, float* dv, float* dpw, float* dtw, int b,
-                       int n, int h, int dqk, int dvh, long long q_sb,
-                       long long q_sn, long long k_sb, long long k_sn,
-                       long long v_sb, long long v_sn, long long ts_sb,
-                       int max_len, int num_buckets, void* stream) {
+                       const int* seg_pos, const float* pos_w,
+                       const float* ts_w, float* dq, float* dk, float* dv,
+                       float* dpw, float* dtw, int b, int n, int h, int dqk,
+                       int dvh, long long q_sb, long long q_sn, long long k_sb,
+                       long long k_sn, long long v_sb, long long v_sn,
+                       long long ts_sb, long long seg_sb, int max_len,
+                       int num_buckets, void* stream) {
   const long long smem =
       hstu_attention_bwd_smem_bytes(h, dqk, dvh, max_len, num_buckets);
   if (smem > 48 * 1024) {
@@ -263,9 +282,9 @@ int hstu_attention_bwd(const float* q, const float* k, const float* v,
   const dim3 grid((n + kBQ - 1) / kBQ, b);
   const float inv_n = (float)(1.0 / (double)max_len);
   hstu_attention_bwd_kernel<<<grid, kThreads, (size_t)smem, (cudaStream_t)stream>>>(
-      q, k, v, g, ts, lengths, pos_w, ts_w, dq, dk, dv, dpw, dtw, n, h, dqk,
-      dvh, q_sb, q_sn, k_sb, k_sn, v_sb, v_sn, ts_sb, max_len, num_buckets,
-      inv_n);
+      q, k, v, g, ts, lengths, seg_pos, pos_w, ts_w, dq, dk, dv, dpw, dtw, n, h,
+      dqk, dvh, q_sb, q_sn, k_sb, k_sn, v_sb, v_sn, ts_sb, seg_sb, max_len,
+      num_buckets, inv_n);
   return (int)cudaGetLastError();
 }
 

@@ -11,6 +11,15 @@
 // bucket(d) = clip(int(logf(max(|d|,1)) / 0.301f), 0, num_buckets). Rows at
 // or past len_b are written as zeros: the output comes from torch.empty.
 //
+// Packed rows. With `seg_pos` [B, N] (each token's position inside its
+// segment; null = one sequence per row) several sequences lie end to end in a
+// row and a pair is live only inside one segment: key m >= n - seg_pos[b,n],
+// the query's segment start (the TPU kernel's has_seg branch, :145-155,
+// :179-181). ts_next stays the plain shift along the row, across segment
+// boundaries too, as there. A packed row may be wider than L: only pairs less
+// than L apart are live (in-segment pairs always are, segments being at most L
+// long), so pos_w is never read outside its 2L-1 entries.
+//
 // What bounds it. At serving shapes (B=32, N=L=211, H=1, d=50) the kernel
 // moves ~5.4 MB (q, k, v, out) and does ~0.14 GFLOP of causal fp32 work:
 // ~1.6 us at 3.35 TB/s and ~2 us at 67 TFLOP/s. Both are below a launch's
@@ -33,8 +42,10 @@
 //   p.v: lane c takes output columns c, c+32, ...; per column it sums the
 //     tile's 32 keys for its 4 rows in registers and adds them into the
 //     block's fp32 accumulator in shared memory.
-// Key tiles past min(len_b, last query row) are never loaded; query tiles
-// past len_b only write zeros. q, k and v are read through their row
+// Key tiles past min(len_b, last query row) are never loaded, nor, in a
+// packed row, key tiles before the earliest segment start among the tile's
+// query rows (:209-214), so a packed row costs sum(segment^2), not row^2;
+// query tiles past len_b only write zeros. q, k and v are read through their row
 // strides, so the column slices of the fused uvqk projection need no copy.
 // wgmma and TMA are left for a later change.
 //
@@ -43,6 +54,7 @@
 // XLA does.
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 #include "hstu_common.cuh"
@@ -58,11 +70,11 @@ constexpr int kRows = kBQ / kWarps;  // query rows per warp
 __global__ void __launch_bounds__(kThreads) hstu_attention_fwd_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, const int* __restrict__ ts,
-    const int* __restrict__ lengths, const float* __restrict__ pos_w,
-    const float* __restrict__ ts_w, float* __restrict__ out, int n, int h,
-    int dqk, int dv, int64_t q_sb, int64_t q_sn, int64_t k_sb, int64_t k_sn,
-    int64_t v_sb, int64_t v_sn, int64_t ts_sb, int max_len, int num_buckets,
-    float inv_n) {
+    const int* __restrict__ lengths, const int* __restrict__ seg_pos,
+    const float* __restrict__ pos_w, const float* __restrict__ ts_w,
+    float* __restrict__ out, int n, int h, int dqk, int dv, int64_t q_sb,
+    int64_t q_sn, int64_t k_sb, int64_t k_sn, int64_t v_sb, int64_t v_sn,
+    int64_t ts_sb, int64_t seg_sb, int max_len, int num_buckets, float inv_n) {
   extern __shared__ float smem[];
   const int hq = h * dqk;  // q/k row width
   const int hv = h * dv;   // v/out row width
@@ -75,6 +87,7 @@ __global__ void __launch_bounds__(kThreads) hstu_attention_fwd_kernel(
   float* acc_s = p_s + h * kBQ * kBK;         // [kBQ, hv]
   int* tsq_s = (int*)(acc_s + kBQ * hv);      // [kBQ] next-item timestamps
   int* tsk_s = tsq_s + kBQ;                   // [kBK]
+  int* start_s = tsk_s + kBK;                 // [kBQ] segment start of each query row
 
   const int b = blockIdx.y;
   const int q0 = blockIdx.x * kBQ;
@@ -93,10 +106,16 @@ __global__ void __launch_bounds__(kThreads) hstu_attention_fwd_kernel(
   if (q0 < seq_len) {
     for (int e = tid; e <= num_buckets; e += kThreads) tsw_s[e] = ts_w[e];
     hstu::copy_rows<kThreads>(q_s, hq, qb + q0 * q_sn, q_sn, kBQ, hq, q_rows);
-    if (tid < kBQ) tsq_s[tid] = tsb[min(q0 + tid + 1, n - 1)];
+    if (tid < kBQ) {
+      const int row = q0 + tid;
+      tsq_s[tid] = tsb[min(row + 1, n - 1)];
+      start_s[tid] = hstu::segment_start(seg_pos, b * seg_sb, row, seq_len);
+    }
+    __syncthreads();
 
     const int n_tiles = (min(q0 + kBQ, seq_len) - 1) / kBK + 1;
-    for (int t = 0; t < n_tiles; ++t) {
+    const int t_lo = seg_pos ? hstu::first_key_row(start_s, kBQ) / kBK : 0;
+    for (int t = t_lo; t < n_tiles; ++t) {
       const int k0 = t * kBK;
       __syncthreads();  // the last tile's readers are done with k_s/v_s/p_s
       hstu::copy_rows<kThreads>(k_s, ks, kb + k0 * k_sn, k_sn, kBK, hq, seq_len - k0);
@@ -111,7 +130,8 @@ __global__ void __launch_bounds__(kThreads) hstu_attention_fwd_kernel(
 #pragma unroll
       for (int p = 0; p < kRows; ++p) {
         const int row = q0 + r0 + p;
-        live[p] = col <= row && col < seq_len && row < seq_len;
+        live[p] = col <= row && col < seq_len && row < seq_len &&
+                  col >= start_s[r0 + p] && row - col < max_len;
         const int delta = (int)((unsigned int)tsq_s[r0 + p] - (unsigned int)tsk_s[lane]);
         bias[p] = live[p] ? pos_w[col - row + max_len - 1] +
                                 tsw_s[hstu::bucketize(delta, num_buckets)]
@@ -165,17 +185,19 @@ long long hstu_attention_fwd_smem_bytes(int h, int dqk, int dv, int num_buckets)
   const long long hq = (long long)h * dqk, hv = (long long)h * dv;
   const long long floats = (num_buckets + 1) + kBQ * hq + kBK * (hq | 1) +
                            kBK * hv + (long long)h * kBQ * kBK + kBQ * hv;
-  return 4 * (floats + kBQ + kBK);
+  return 4 * (floats + 2 * kBQ + kBK);
 }
 
+// `seg_pos` is [b, n] int32 with row stride seg_sb, or null for unpacked rows.
 // Launches on `stream` without synchronising; returns cudaGetLastError().
 int hstu_attention_fwd(const float* q, const float* k, const float* v,
-                       const int* ts, const int* lengths, const float* pos_w,
-                       const float* ts_w, float* out, int b, int n, int h,
-                       int dqk, int dv, long long q_sb, long long q_sn,
-                       long long k_sb, long long k_sn, long long v_sb,
-                       long long v_sn, long long ts_sb, int max_len,
-                       int num_buckets, void* stream) {
+                       const int* ts, const int* lengths, const int* seg_pos,
+                       const float* pos_w, const float* ts_w, float* out, int b,
+                       int n, int h, int dqk, int dv, long long q_sb,
+                       long long q_sn, long long k_sb, long long k_sn,
+                       long long v_sb, long long v_sn, long long ts_sb,
+                       long long seg_sb, int max_len, int num_buckets,
+                       void* stream) {
   const long long smem = hstu_attention_fwd_smem_bytes(h, dqk, dv, num_buckets);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -186,8 +208,8 @@ int hstu_attention_fwd(const float* q, const float* k, const float* v,
   const dim3 grid((n + kBQ - 1) / kBQ, b);
   const float inv_n = (float)(1.0 / (double)max_len);
   hstu_attention_fwd_kernel<<<grid, kThreads, (size_t)smem, (cudaStream_t)stream>>>(
-      q, k, v, ts, lengths, pos_w, ts_w, out, n, h, dqk, dv, q_sb, q_sn, k_sb,
-      k_sn, v_sb, v_sn, ts_sb, max_len, num_buckets, inv_n);
+      q, k, v, ts, lengths, seg_pos, pos_w, ts_w, out, n, h, dqk, dv, q_sb, q_sn,
+      k_sb, k_sn, v_sb, v_sn, ts_sb, seg_sb, max_len, num_buckets, inv_n);
   return (int)cudaGetLastError();
 }
 

@@ -8,7 +8,11 @@ With the time bias the attention goes through the fused wrapper
 (ops/kernels/hstu_attention.py: the CUDA kernel on the card, its plain
 version on the CPU) with `lengths` = last valid position + 1. Only where
 the kernel cannot build the bias (no `ts_w` table or no timestamps) does it
-take the dense reference with a materialised [B, N, N] bias.
+take the dense reference with a materialised [B, N, N] bias. A packed batch
+(a `seg_ids` payload) hands every block its `positions` payload as the
+wrapper's `seg_positions`: the attention is block-diagonal over the segments.
+The JAX stack's pad of the residual stream to 128 rows serves its TPU
+kernels' tiles and has no counterpart here.
 
 Parameter names follow the reference checkpoint
 (mygenerativerecommenders_tpu/cli/convert_ckpt.py:9-15): `_uvqk`, `_o`,
@@ -32,7 +36,6 @@ from mygenerativerecommenders_tpu_torch import not_ported
 from mygenerativerecommenders_tpu_torch.ops.hstu_attention import (
     hstu_attention_reference,
     relative_position_bias,
-    relative_time_bias,
 )
 from mygenerativerecommenders_tpu_torch.ops.kernels.hstu_attention import (
     hstu_attention_fused,
@@ -111,6 +114,7 @@ class HSTUBlock(nn.Module):
         x: torch.Tensor,  # [B, N, D], zero at invalid rows
         timestamps: Optional[torch.Tensor],  # [B, N]
         lengths: Optional[torch.Tensor] = None,  # [B] valid row counts
+        seg_pos: Optional[torch.Tensor] = None,  # [B, N] within-segment positions (packed)
     ) -> torch.Tensor:
         h, dv, dqk = self.num_heads, self.linear_dim, self.attention_dim
         b, n, d = x.shape
@@ -130,16 +134,19 @@ class HSTUBlock(nn.Module):
             attn = hstu_attention_fused(
                 qh, kh, vh, timestamps, pos_w, ts_w,
                 max_len=self.max_attn_len, num_buckets=self.num_time_buckets,
-                lengths=lengths,
+                lengths=lengths, seg_positions=seg_pos,
             )
         else:
             bias = None
             if pos_w is not None:
                 bias = relative_position_bias(pos_w, n, self.max_attn_len)[None]
-                if ts_w is not None:
-                    bias = bias + relative_time_bias(ts_w, timestamps, self.num_time_buckets)
+            # segments are contiguous, so a segment's start (row - position)
+            # is an id of its own
+            seg_equiv = None
+            if seg_pos is not None:
+                seg_equiv = torch.arange(n, device=x.device)[None, :] - seg_pos
             attn = hstu_attention_reference(
-                qh, kh, vh, bias, max_len=self.max_attn_len, causal=True
+                qh, kh, vh, bias, max_len=self.max_attn_len, causal=True, seg_ids=seg_equiv
             )
         attn_out = attn.reshape(b, n, h * dv)
         a = F.layer_norm(attn_out, (h * dv,), eps=self.eps)
@@ -178,7 +185,7 @@ class HSTU(nn.Module):
         if tp_shards > 1:
             raise not_ported("encoder.tp_shards > 1", "Distributed")
         if remat:
-            raise not_ported("encoder.remat", "Long-N and larger catalogs")
+            raise not_ported("encoder.remat", "Training variants")
         n_total = max_sequence_len + max_output_len
         self._attention_layers = nn.ModuleList(
             HSTUBlock(
@@ -208,10 +215,14 @@ class HSTU(nn.Module):
         past_payloads: Dict[str, torch.Tensor],
     ) -> torch.Tensor:
         del past_lengths
-        if past_payloads.get(SEGMENT_IDS_KEY) is not None:
-            raise not_ported("packed rows (seg_ids payload)", "Packing")
         x = user_embeddings
         timestamps = past_payloads.get(TIMESTAMPS_KEY)
+        # a seg_ids payload marks packed rows: the positions then drive the
+        # block-diagonal mask and the kernels' key-tile skip
+        seg_pos = (
+            past_payloads.get("positions")
+            if past_payloads.get(SEGMENT_IDS_KEY) is not None else None
+        )
         mask = valid_mask.to(x.dtype)
         # the kernel's per-row length: last valid position + 1, robust to any
         # mask pattern (preprocessors may change the row count)
@@ -220,5 +231,5 @@ class HSTU(nn.Module):
         kernel_lengths = (valid_mask[:, :, 0].to(torch.int32) * pos1).amax(dim=1)
         for block in self._attention_layers:
             x = x * mask  # padded rows stay exactly zero
-            x = block(x, timestamps, kernel_lengths)
+            x = block(x, timestamps, kernel_lengths, seg_pos)
         return x * mask

@@ -4,7 +4,9 @@ Port of `LearnablePositionalEmbeddingPreprocessor`
 (mygenerativerecommenders_tpu/models/preprocessors.py:62-101):
 emb * sqrt(D) + pos_emb, dropout (`nn.Dropout`: active under
 `model.train()`, drawn from the device's generator), zeroed at invalid
-positions. The other variants raise in models/model.py.
+positions. In a packed row the positional table is gathered at the
+`positions` payload (each token's offset inside its segment) instead of
+sliced along the row. The other variants raise in models/model.py.
 """
 
 from __future__ import annotations
@@ -15,7 +17,6 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch import nn
 
-from mygenerativerecommenders_tpu_torch import not_ported
 from mygenerativerecommenders_tpu_torch.models.embeddings import trunc_normal_
 
 PreprocessorOutput = Tuple[
@@ -33,6 +34,7 @@ class LearnablePositionalEmbeddingPreprocessor(nn.Module):
     ):
         super().__init__()
         self.embedding_dim = embedding_dim
+        self.max_sequence_len = max_sequence_len
         self._dropout = nn.Dropout(dropout_rate)
         self._pos_emb = nn.Embedding(max_sequence_len, embedding_dim)
         trunc_normal_(self._pos_emb.weight, math.sqrt(1.0 / embedding_dim), generator)
@@ -45,11 +47,12 @@ class LearnablePositionalEmbeddingPreprocessor(nn.Module):
         past_payloads: Dict[str, torch.Tensor],
     ) -> PreprocessorOutput:
         """-> (lengths, user_embeddings [B,N,D], valid_mask [B,N,1], aux_mask None, payloads)."""
-        if past_payloads.get("positions") is not None:
-            raise not_ported("packed rows (positions payload)", "Packing")
-        n = past_ids.shape[1]
-        user_embeddings = self._dropout(
-            past_embeddings * (self.embedding_dim**0.5) + self._pos_emb.weight[None, :n]
-        )
+        positions = past_payloads.get("positions")
+        if positions is not None:
+            # packed rows: the same table, gathered at the within-segment positions
+            pos = self._pos_emb(positions.long().clamp(0, self.max_sequence_len - 1))
+        else:
+            pos = self._pos_emb.weight[None, : past_ids.shape[1]]
+        user_embeddings = self._dropout(past_embeddings * (self.embedding_dim**0.5) + pos)
         valid_mask = (past_ids != 0)[:, :, None].to(user_embeddings.dtype)
         return past_lengths, user_embeddings * valid_mask, valid_mask, None, past_payloads

@@ -37,11 +37,17 @@ def bucketize_timedelta(delta: torch.Tensor, num_buckets: int) -> torch.Tensor:
 def relative_position_bias(
     pos_w: torch.Tensor, n: int, max_len: Optional[int] = None
 ) -> torch.Tensor:
-    """[2*max_len-1] table -> [N, N] bias, bias[i, j] = pos_w[j - i + max_len - 1]."""
+    """[2*max_len-1] table -> [N, N] bias, bias[i, j] = pos_w[j - i + max_len - 1].
+
+    A packed row may be wider than the table reaches (n > max_len). Pairs
+    further apart than max_len - 1 are always in different segments and the
+    caller masks them, so they read the table's nearest end: the index is
+    clamped, because torch raises above the table and wraps silently below 0."""
     if max_len is None:
         max_len = n
     idx = torch.arange(n, device=pos_w.device)
-    return pos_w[(idx[None, :] - idx[:, None]) + (max_len - 1)]
+    offset = (idx[None, :] - idx[:, None]) + (max_len - 1)
+    return pos_w[offset.clamp(0, 2 * max_len - 2)]
 
 
 def next_timestamps(timestamps: torch.Tensor) -> torch.Tensor:

@@ -37,6 +37,12 @@ KERNEL_BWD = "dense_neg_lse_bwd"
 SOURCE = "mygenerativerecommenders_tpu_torch/csrc/dense_neg_lse.cu"
 REPLACES = "mygenerativerecommenders_tpu/ops/pallas/dense_softmax.py:425"
 REPLACES_BWD = "mygenerativerecommenders_tpu/ops/pallas/dense_softmax.py:464"
+# the same backward entry point on a catalog wider than one x-block of the TPU
+# kernels (X > 4096: `_bwd_dq_kernel3` :491 and `_bwd_dcat_kernel3` :509). The
+# TPU splits dq and dcat there because a Pallas output block must be revisited
+# on consecutive grid steps; the CUDA kernel walks any X in one launch and adds
+# its dcat partials with atomics
+REPLACES_WIDE = "mygenerativerecommenders_tpu/ops/pallas/dense_softmax.py:491"
 # kernel launches so far, forward and backward; callers that count
 # (chip_smoke.py) reset them to 0
 launches = 0

@@ -3,19 +3,22 @@
 Builds timing-only variants of csrc/dense_neg_lse.cu, each with one part of
 `dense_neg_lse_bwd` switched off by a text substitution (the variants compute
 wrong gradients and are never loaded by the port), and times every variant's
-backward and forward with CUDA events at the training shape of
+backward and forward with CUDA events, by default at the training shape of
 synthetic-hstu: q [26880, 50], cat [3706, 50], 128 draws a row, tau 0.05.
 The sources are written to a temporary directory and built with the port's
 nvcc flags. Needs an NVIDIA card and nvcc:
 
-    python -m mygenerativerecommenders_tpu_torch.tools.lse_bwd_breakdown
+    python -m mygenerativerecommenders_tpu_torch.tools.lse_bwd_breakdown [--bt N --d N --x N]
 
-Prints one line per variant and round: the difference from `as_is` is what
-the part switched off costs.
+`--x 26744` is the ml-20m catalog (the step of ml-20m-hstu); `--bt 24552 --d 64
+--x 26744` the 1024-token class of a packed ml-20m-hstu-long step. Prints one
+line per variant and round: the difference from `as_is` is what the part
+switched off costs.
 """
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import subprocess
 import sys
@@ -67,6 +70,11 @@ def device_ms(fn, reps: int = 30) -> float:
 
 
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--bt", type=int, default=26880, help="rows of q")
+    parser.add_argument("--d", type=int, default=50, help="embedding width")
+    parser.add_argument("--x", type=int, default=3706, help="catalog rows")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         print("lse_bwd_breakdown: needs an NVIDIA card", file=sys.stderr)
         return 2
@@ -87,7 +95,7 @@ def main() -> int:
             raise RuntimeError(f"variant {name} did not build:\n{log}")
         libs[name] = ctypes.CDLL(str(tmp / f"{name}.so"))
 
-    bt, d, x, r, inv_tau = 26880, 50, 3706, 128, 20.0
+    bt, d, x, r, inv_tau = args.bt, args.d, args.x, 128, 20.0
     rng = np.random.default_rng(0)
     offsets = torch.tensor(rng.integers(0, x, size=(bt, r)), dtype=torch.int32).cuda()
     positive = torch.tensor(rng.integers(-1, x, size=(bt,)), dtype=torch.int32).cuda()
@@ -106,7 +114,8 @@ def main() -> int:
     bwd_args = (q.data_ptr(), cat.data_ptr(), count.data_ptr(), m_safe.data_ptr(),
                 s.data_ptr(), gl.data_ptr(), dq.data_ptr(), dcat.data_ptr(),
                 bt, d, x, inv_tau, stream)
-    print(torch.cuda.get_device_name(0), flush=True)
+    print(f"{torch.cuda.get_device_name(0)}: q [{bt}, {d}] x cat [{x}, {d}], {r} draws a row",
+          flush=True)
     for rnd in range(2):
         for name, lib in libs.items():
             lib.dense_neg_lse_fwd.argtypes = [p] * 6 + [i, i, i, f, p]

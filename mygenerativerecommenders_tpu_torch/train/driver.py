@@ -1,27 +1,29 @@
 """The trainer: one device, one optimizer step per call.
 
 Port of `Trainer` (mygenerativerecommenders_tpu/train/driver.py:117,
-588-656, 717-830, 832-886, 932-961): model and optimizer set-up, the epoch
-loop over the host loader, validation (candidate refresh -> filtered top-k ->
-metrics), plateau LR and early stopping keyed on the monitored metric,
-best/last checkpoints with resume, CSV/JSONL metric logging, and seeded
-randomness: the weights come from `trainer.seed`, dropout draws from the
+232-297, 492-539, 588-656, 717-830, 832-886, 932-961): model and optimizer
+set-up, the epoch loop over the host loader, validation (candidate refresh ->
+filtered top-k -> metrics), plateau LR and early stopping keyed on the
+monitored metric, best/last checkpoints with resume, CSV/JSONL metric logging,
+and seeded randomness: the weights come from `trainer.seed`, dropout draws from the
 device's default generator (seeded with `trainer.seed`) and the negatives
 from a generator of their own on the device.
 
 It runs on `trainer.device` (default cuda; a machine without a card raises,
 it does not carry on on the CPU). The step runs eagerly, so
 `trainer.steps_per_call`, a dispatch-amortising knob of the JAX package that
-leaves the training stream unchanged, has no effect here. The mesh, the
-multi-process loader, packed batches, the ranking task and the profiler
-hooks raise.
+leaves the training stream unchanged, has no effect here. With
+`data.pack_sequences` the train batches come packed from data/packing.py, and
+`data.pack_eval` (auto: histories of 512 and longer) packs the eval splits
+too, one query per segment; both eval paths are exact. The mesh, the
+multi-process loader, the ranking task and the profiler hooks raise.
 """
 
 from __future__ import annotations
 
 import os
 import time
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Union
 
 import numpy as np
 import torch
@@ -30,6 +32,7 @@ from mygenerativerecommenders_tpu_torch import not_ported
 from mygenerativerecommenders_tpu_torch.checkpoint import CheckpointManager
 from mygenerativerecommenders_tpu_torch.configs import Config, resolve
 from mygenerativerecommenders_tpu_torch.data.dataset import BatchLoader, RecoData
+from mygenerativerecommenders_tpu_torch.data.packing import PackedBatchLoader
 from mygenerativerecommenders_tpu_torch.models.metrics import retrieval_metrics
 from mygenerativerecommenders_tpu_torch.models.model import build_model
 from mygenerativerecommenders_tpu_torch.train import task_retrieval
@@ -41,6 +44,8 @@ from mygenerativerecommenders_tpu_torch.train.loggers import MetricsWriter, get_
 from mygenerativerecommenders_tpu_torch.train.optimizers import build_optimizer
 
 log = get_logger(__name__)
+
+Loader = Union[BatchLoader, PackedBatchLoader]
 
 
 def resolve_device(name: str) -> torch.device:
@@ -78,13 +83,29 @@ class Trainer:
         self.optimizer = build_optimizer(
             cfg.optimizer1, cfg.optimizer2, self.model.parameters(), cfg.optimizer1.lr
         )
+        self._packed = bool(cfg.data.pack_sequences)
         self.train_step = task_retrieval.make_train_step(
             self.model, cfg, self.all_item_ids, self.optimizer,
-            packed=bool(cfg.data.pack_sequences), generator=self.neg_generator,
+            packed=self._packed, generator=self.neg_generator,
         )
         self.eval_step = task_retrieval.make_eval_step(
             self.model, cfg, self.all_item_ids, self.data.max_item_id
         )
+        # packed eval: history-only segments, one query each. Both eval paths
+        # are exact, so the choice is throughput alone; auto packs long histories
+        pack_eval = str(cfg.data.pack_eval).lower()
+        if pack_eval in ("true", "1", "yes", "on"):
+            eval_pack_ok = True
+        elif pack_eval in ("false", "0", "no", "off"):
+            eval_pack_ok = False
+        elif pack_eval == "auto":
+            eval_pack_ok = cfg.data.max_sequence_length >= 512
+        else:
+            raise ValueError(f"Unknown data.pack_eval {cfg.data.pack_eval!r}")
+        self._eval_packed = self._packed and eval_pack_ok
+        self.packed_eval_step = task_retrieval.make_packed_eval_step(
+            self.model, cfg, self.all_item_ids, self.data.max_item_id
+        ) if self._eval_packed else None
         self.candidate_fn = task_retrieval.make_candidate_fn(self.model, cfg, self.all_item_ids)
 
         self.lr1_ctrl = PlateauLRController(
@@ -128,7 +149,37 @@ class Trainer:
     def _put(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         return {k: torch.as_tensor(v).to(self.device, non_blocking=True) for k, v in batch.items()}
 
-    def _batches(self, loader: BatchLoader, limit: int):
+    def _loader(self, split: str, packed: bool = False) -> Loader:
+        """The split's loader. packed=True gives the PackedBatchLoader: train
+        batches carry their targets inline, eval splits pack history-only
+        segments with per-segment query, target and filter fields."""
+        if not packed:
+            return self.data.loader(split)
+        d = self.cfg.data
+        # one capacity: the longest segment rounded up to 128 tokens
+        cap = d.pack_row_capacity or (d.max_sequence_length + 1 + 127) // 128 * 128
+        ds = self.data.dataset(split)
+        caps = list(d.pack_capacities) or None
+        if caps:
+            cap = max(caps)
+        rows = d.pack_rows
+        if not rows:
+            mean_seg = float(np.mean(ds.lengths) + 1.0) if len(ds) else 1.0
+            rows = max(1, int(round(d.batch_size * mean_seg / cap)))
+        return PackedBatchLoader(
+            ds,
+            rows_per_batch=rows,
+            row_capacity=cap,
+            shuffle=(split == "train"),
+            seed=self.cfg.trainer.seed,
+            capacities=caps,
+            # every class emits batches of about batch_size examples, as the
+            # padded recipe's steps hold
+            segments_per_batch=(0 if d.pack_rows else d.batch_size),
+            include_target=(split == "train"),
+        )
+
+    def _batches(self, loader: Loader, limit: int):
         """Yield (host_batch, device_batch) for the first `limit` batches."""
         for i, batch in enumerate(loader):
             if i >= limit:
@@ -136,7 +187,7 @@ class Trainer:
             yield batch, self._put(batch)
 
     # ------------------------------------------------------------------
-    def train_epoch(self, loader: BatchLoader) -> float:
+    def train_epoch(self, loader: Loader) -> float:
         t_cfg = self.cfg.trainer
         limit = len(loader)
         if t_cfg.fast_dev_run:
@@ -153,7 +204,10 @@ class Trainer:
         for batch, dev_batch in self._batches(loader, limit):
             loss = self.train_step(dev_batch, self.lr1)
             self.global_step += 1
-            examples += int(batch["sample_weight"].sum())
+            examples += int(
+                batch["num_segments"].sum() if "num_segments" in batch
+                else batch["sample_weight"].sum()
+            )
             if self.global_step % t_cfg.log_every_n_steps == 0:
                 # reading the loss waits for the device: only at the log cadence
                 self.writer.log(
@@ -171,7 +225,7 @@ class Trainer:
 
     # ------------------------------------------------------------------
     @torch.no_grad()
-    def eval_epoch(self, loader: BatchLoader, prefix: str = "val") -> Dict[str, float]:
+    def eval_epoch(self, loader: Loader, prefix: str = "val") -> Dict[str, float]:
         t_cfg = self.cfg.trainer
         limit = len(loader)
         if t_cfg.fast_dev_run:
@@ -182,11 +236,18 @@ class Trainer:
         self.model.eval()
         candidates = self.candidate_fn()
         all_topk, all_targets = [], []
+        # a packed loader of history-only segments: one query per segment,
+        # the padding slots (seg_weight 0) dropped
+        packed = self._eval_packed and getattr(loader, "include_target", True) is False
+        step = self.packed_eval_step if packed else self.eval_step
+        weight_key, target_key = (
+            ("seg_weight", "seg_target") if packed else ("sample_weight", "target_id")
+        )
         for batch, dev_batch in self._batches(loader, limit):
-            top_ids, _ = self.eval_step(dev_batch, candidates)
-            valid = batch["sample_weight"] > 0
+            top_ids = step(dev_batch, candidates)[0]
+            valid = batch[weight_key] > 0
             all_topk.append(top_ids.cpu().numpy()[valid])
-            all_targets.append(batch["target_id"][valid])
+            all_targets.append(batch[target_key][valid])
         results = retrieval_metrics(
             np.concatenate(all_topk, axis=0),
             np.concatenate(all_targets, axis=0)[:, None],
@@ -201,8 +262,8 @@ class Trainer:
     def fit(self) -> Dict[str, float]:
         t = self.cfg.trainer
         monitor_key = t.monitor.split("/", 1)[1] if "/" in t.monitor else t.monitor
-        train_loader = self.data.loader("train")
-        val_loader = self.data.loader("val")
+        train_loader = self._loader("train", packed=self._packed)
+        val_loader = self._loader("val", packed=self._eval_packed)
         if t.ckpt_path:
             self.restore(t.ckpt_path)
         last_results: Dict[str, float] = {}
@@ -240,7 +301,7 @@ class Trainer:
             state = CheckpointManager.load(str(path), self.device)
             self.model.load_state_dict(state["model"] if "model" in state else state)
             log.info(f"loaded checkpoint {path}")
-        return self.eval_epoch(self.data.loader("test"), "test")
+        return self.eval_epoch(self._loader("test", packed=self._eval_packed), "test")
 
     # ------------------------------------------------------------------
     def _controller_state(self) -> Dict[str, Any]:

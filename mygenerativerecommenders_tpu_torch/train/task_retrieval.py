@@ -2,19 +2,21 @@
 candidate matrix.
 
 Port of mygenerativerecommenders_tpu/train/task_retrieval.py: `make_loss_fn`
-with `ids_to_offsets`, `encode_for_loss` and the dense-catalog
-`loss_fn_dense` (:65-282), `make_train_step` (:315-394) for one optimizer
-step per call, `make_candidate_fn` (:423-501, replicated exact path) and
-`make_eval_step` (:580-612). Serving and the trainer's eval share the eval
-step.
+with `ids_to_offsets`, `encode_for_loss` (padded and packed) and the
+dense-catalog `loss_fn_dense` (:65-282), `make_train_step` (:315-394) for one
+optimizer step per call, `make_candidate_fn` (:423-501, replicated exact
+path), `make_eval_step` (:580-612) and `make_packed_eval_step` (:627-716,
+exact top-k). Serving and the trainer's eval share the eval step.
 
 The training step is: scatter the target into the history at position
 `length`, embed, forward (dropout on under `model.train()`), supervise
 position p with the id at p+1, draw R negative catalog offsets per position,
 and take the sampled-softmax loss through the dense-catalog path
-(ops/dense_negatives.py). The per-sample gather loss, the shared-negatives
-loss, the in-batch sampler, BCE, packed batches and several steps per call
-raise, naming their ROADMAP.md item.
+(ops/dense_negatives.py). A packed batch (data/packing.py) has its targets
+inline as each segment's last token: nothing is scattered, and position p
+supervises the id at p+1 only where both lie in one segment. The per-sample
+gather loss, the shared-negatives loss, the in-batch sampler, BCE and several
+steps per call raise, naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -37,7 +39,26 @@ from mygenerativerecommenders_tpu_torch.ops.sequence import (
     scatter_at_lengths,
 )
 from mygenerativerecommenders_tpu_torch.ops.topk import mips_top_k
-from mygenerativerecommenders_tpu_torch.utils.features import seq_features_from_batch
+from mygenerativerecommenders_tpu_torch.utils.features import (
+    packed_seq_features,
+    seq_features_from_batch,
+)
+
+
+def _check_packable(cfg: Config) -> None:
+    """The preconditions of packed batches (the JAX package's, :80-96)."""
+    m = cfg.model
+    problems = []
+    if m.task != "retrieval":
+        problems.append("model.task=retrieval")
+    if m.preprocessor.kind != "learnable_positional":
+        problems.append("preprocessor.kind=learnable_positional")
+    if m.encoder.kind != "hstu" or m.encoder.normalization not in ("rel_bias", "hstu_rel_bias"):
+        problems.append("encoder.kind=hstu with rel_bias normalization")
+    if m.encoder.sp_shards > 1:
+        problems.append("encoder.sp_shards=1 (packing replaces the ring)")
+    if problems:
+        raise ValueError("data.pack_sequences requires: " + ", ".join(problems))
 
 
 def make_sampler(cfg: Config) -> LocalNegativesSampler:
@@ -78,9 +99,11 @@ def make_loss_fn(
 
     The negatives are drawn from `generator` (on the model's device; None:
     the device's default), unless the caller hands in `neg_offsets`
-    [B, N-1, R] itself, as the parity tests do with the JAX package's draw."""
+    [B, N-1, R] itself, as the parity tests do with the JAX package's draw.
+    packed=True takes PackedBatchLoader batches; the supervised (position,
+    target) pairs are those of the padded layout for the same examples."""
     if packed:
-        raise not_ported("data.pack_sequences (packed batches)", "Packing")
+        _check_packable(cfg)
     sampler = make_sampler(cfg)
     loss_cfg = cfg.model.loss
     if loss_cfg.kind == "bce":
@@ -120,9 +143,13 @@ def make_loss_fn(
     def encode_for_loss(batch: Dict[str, torch.Tensor]):
         """Target scatter, embed, forward, the shift-by-one supervision layout
         (outputs[:, :-1] against ids[:, 1:]) and the presence weights."""
-        seq, target_ids, _ = seq_features_from_batch(batch, max_out)
-        # the target goes at position `length`
-        past_ids = scatter_at_lengths(seq.past_ids, seq.past_lengths, target_ids)
+        if packed:
+            seq = packed_seq_features(batch)
+            past_ids = seq.past_ids  # the targets are inline
+        else:
+            seq, target_ids, _ = seq_features_from_batch(batch, max_out)
+            # the target goes at position `length`
+            past_ids = scatter_at_lengths(seq.past_ids, seq.past_lengths, target_ids)
         input_embeddings = model.item_embeddings(past_ids)
         seq = seq._replace(past_ids=past_ids, past_embeddings=input_embeddings)
         encoded, _ = model(seq)  # [B, N, D]
@@ -130,7 +157,11 @@ def make_loss_fn(
         sup_ids = past_ids[:, 1:]
         sup_emb = input_embeddings[:, 1:, :]
         weights = (sup_ids != 0).to(torch.float32)
-        if "sample_weight" in batch:
+        if packed:
+            seg = batch["seg_ids"]
+            same_seg = (seg[:, 1:] == seg[:, :-1]) & (seg[:, :-1] >= 0)
+            weights = weights * same_seg.to(torch.float32)
+        elif "sample_weight" in batch:
             weights = weights * batch["sample_weight"][:, None]
         return outputs, sup_ids, sup_emb, weights
 
@@ -234,5 +265,40 @@ def make_eval_step(
             invalid_ids=seq.past_ids if filter_past else None,
             max_item_id=max_item_id, approx_recall=approx_recall,
         )
+
+    return eval_step
+
+
+def make_packed_eval_step(
+    model: GenerativeRecommender, cfg: Config, all_item_ids: np.ndarray, max_item_id: int
+) -> Callable[[Dict[str, torch.Tensor], torch.Tensor], Tuple[torch.Tensor, ...]]:
+    """eval_step(batch, candidates) -> (ids [S_cap, k], scores [S_cap, k],
+    seg_target [S_cap], seg_weight [S_cap]): the packed eval path.
+
+    Takes PackedBatchLoader(include_target=False) batches: several history
+    segments per attention row, each segment's last history token one
+    retrieval query (gathered at `seg_last_flat`), filtered by that segment's
+    own ids alone (`seg_invalid_ids`): a packed row must not filter by its
+    neighbours' histories. A padding slot (seg_weight 0) answers like any
+    query; the caller drops it."""
+    _check_index(cfg)
+    _check_packable(cfg)
+    device = next(model.parameters()).device
+    catalog = torch.as_tensor(np.asarray(all_item_ids, dtype=np.int64), device=device)
+    k = min(cfg.model.index.k, len(all_item_ids))
+    filter_past = cfg.model.index.filter_past_ids
+    approx_recall = float(cfg.model.index.approx_top_k_recall)
+
+    def eval_step(batch, candidates):
+        seq = packed_seq_features(batch)
+        seq = seq._replace(past_embeddings=model.item_embeddings(seq.past_ids))
+        encoded, _ = model(seq)  # [P, L, D]
+        queries = encoded.flatten(0, 1)[batch["seg_last_flat"].long()]  # [S_cap, D]
+        ids, scores = mips_top_k(
+            queries, candidates, catalog, k=k,
+            invalid_ids=batch["seg_invalid_ids"] if filter_past else None,
+            max_item_id=max_item_id, approx_recall=approx_recall,
+        )
+        return ids, scores, batch["seg_target"], batch["seg_weight"]
 
     return eval_step

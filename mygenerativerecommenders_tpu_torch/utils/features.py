@@ -1,9 +1,10 @@
 """Sequence feature schema: the loader batch -> model input.
 
-Port of mygenerativerecommenders_tpu/utils/features.py:23-79: the history
+Port of mygenerativerecommenders_tpu/utils/features.py:23-99: the history
 arrays are padded by `max_output_length` zeros and the target timestamp is
 written at position `lengths`, so the last attended query row sees the
-"next-item" timestamp.
+"next-item" timestamp. A packed batch (data/packing.py) needs neither: its
+targets and their timestamps are already tokens of the row.
 """
 
 from __future__ import annotations
@@ -57,4 +58,19 @@ def seq_features_from_batch(
         features,
         batch["target_id"].to(torch.int32),
         batch["target_rating"].to(torch.int32),
+    )
+
+
+def packed_seq_features(batch: Dict[str, torch.Tensor]) -> SequenceBatch:
+    """PackedBatchLoader batch -> SequenceBatch. The `positions` payload drives
+    the positional gather (models/preprocessors.py) and, because `seg_ids` is
+    present, the block-diagonal attention (models/hstu.py)."""
+    return SequenceBatch(
+        past_lengths=batch["lengths"].to(torch.int32),
+        past_ids=batch["ids"].to(torch.int32),
+        past_embeddings=None,
+        past_payloads={
+            key: batch[key].to(torch.int32)
+            for key in ("timestamps", "ratings", "positions", "seg_ids")
+        },
     )

@@ -132,3 +132,108 @@ def test_dense_neg_lse_kernels_match_plain_on_card(bt, d, x):
     for a, w in zip(got, want):
         np.testing.assert_allclose(a.cpu().numpy(), w.cpu().numpy(), rtol=2e-4, atol=2e-5)
     assert not got[0][0].any()
+
+
+def _packed_layout(rng, b, n, max_seg):
+    """Within-segment positions [b, n] and packed lengths [b]: segments of
+    mixed lengths (1 and max_seg among them) laid end to end; row 0 keeps a
+    padded tail (positions 0 there, as the loader leaves them)."""
+    pos = np.zeros((b, n), dtype=np.int32)
+    lengths = np.zeros(b, dtype=np.int32)
+    for r in range(b):
+        room = n - (n // 5 if r == 0 else 0)
+        segs = [1, min(max_seg, room - 1)] if r == 1 else []
+        while sum(segs) < room:
+            segs.append(int(min(rng.integers(1, max_seg + 1), room - sum(segs))))
+        at = 0
+        for s in segs:
+            pos[r, at : at + s] = np.arange(s)
+            at += s
+        lengths[r] = at
+    return pos, lengths
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "b,n,h,d,max_len", [(3, 48, 2, 16, 40), (56, 256, 1, 50, 211), (2, 1152, 2, 64, 1035)]
+)
+def test_packed_attention_kernels_match_plain_on_card(b, n, h, d, max_len):
+    """Forward and backward with seg_positions, rows wider than max_len
+    included; a null seg_positions gives what the kernels gave without it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA)")
+    rng = np.random.default_rng(4)
+    pos, lengths = _packed_layout(rng, b, n, min(max_len, n))
+    proj = torch.tensor(rng.normal(size=(b, n, 4 * h * d)), dtype=torch.float32).cuda()
+    proj.requires_grad_()
+    ts = np.sort(978_000_000 + rng.integers(0, 3 * 365 * 86400, size=(b, n)), axis=1)
+    ts = torch.tensor(ts, dtype=torch.int32).cuda()
+    pw = torch.tensor(rng.normal(size=(2 * max_len - 1,)) * 0.02, dtype=torch.float32).cuda()
+    tw = torch.tensor(rng.normal(size=(129,)) * 0.02, dtype=torch.float32).cuda()
+    pw.requires_grad_(), tw.requires_grad_()
+    seg, lens = torch.tensor(pos).cuda(), torch.tensor(lengths).cuda()
+    g = torch.tensor(rng.normal(size=(b, n, h, d)), dtype=torch.float32).cuda()
+
+    def run(fn, seg_positions):
+        _, v, q, k = torch.split(proj, [h * d] * 4, dim=-1)
+        out = fn(
+            q.unflatten(-1, (h, d)), k.unflatten(-1, (h, d)), v.unflatten(-1, (h, d)),
+            ts, pw, tw, max_len, 128, lens, seg_positions,
+        )
+        return out, torch.autograd.grad(out, [proj, pw, tw], g)
+
+    before = (kern.launches, kern.bwd_launches)
+    got, got_grads = run(kern.hstu_attention_fused, seg)
+    torch.cuda.synchronize()
+    assert (kern.launches, kern.bwd_launches) == (before[0] + 1, before[1] + 1)
+    want, want_grads = run(kern.hstu_attention_fused_plain, seg)
+    np.testing.assert_allclose(
+        got.detach().cpu().numpy(), want.detach().cpu().numpy(), rtol=2e-4, atol=2e-5
+    )
+    for i, (a, w) in enumerate(zip(got_grads, want_grads)):
+        rtol = 2e-4 if i == 0 else 5e-4
+        np.testing.assert_allclose(a.cpu().numpy(), w.cpu().numpy(), rtol=rtol, atol=2e-5)
+    for r, length in enumerate(lengths.tolist()):
+        assert not got[r, length:].any() and not got_grads[0][r, length:].any()
+    if n <= max_len:  # unpacked rows may not be wider than the table
+        null, _ = run(kern.hstu_attention_fused, None)
+        plain, _ = run(kern.hstu_attention_fused_plain, None)
+        np.testing.assert_allclose(
+            null.detach().cpu().numpy(), plain.detach().cpu().numpy(), rtol=2e-4, atol=2e-5
+        )
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bt,d,x", [(700, 64, 26744), (300, 50, 26744)])
+def test_dense_neg_lse_kernels_match_plain_on_a_wide_catalog_on_card(bt, d, x):
+    """The lse forward and backward over a catalog many tiles wide (the TPU
+    package's multi-x-block kernels' function)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA)")
+    rng = np.random.default_rng(5)
+    q = torch.tensor(rng.normal(size=(bt, d)), dtype=torch.float32)
+    cat = torch.tensor(rng.normal(size=(x, d)), dtype=torch.float32)
+    q = (q / q.norm(dim=-1, keepdim=True)).cuda().requires_grad_()
+    cat = (cat / cat.norm(dim=-1, keepdim=True)).cuda().requires_grad_()
+    offsets = torch.tensor(rng.integers(0, x, size=(bt, 128)), dtype=torch.int32)
+    positive = torch.tensor(rng.integers(-1, x, size=bt), dtype=torch.int32)
+    positive[0] = 7
+    offsets[0] = 7  # an all-hit row: lse -inf, no gradient
+    count = count_kern.count_offsets(offsets.cuda(), positive.cuda(), x)
+    gl = torch.tensor(rng.normal(size=(bt,)), dtype=torch.float32).cuda()
+
+    def run(fn):
+        lse = fn(q, cat, count, 0.05)
+        loss = (torch.where(torch.isfinite(lse), lse, 0.0) * gl).sum()
+        return lse, torch.autograd.grad(loss, [q, cat])
+
+    lse, got = run(lse_kern.dense_neg_lse)
+    want_lse, want = run(lse_kern.dense_neg_lse_plain)
+    torch.cuda.synchronize()
+    assert lse[0] == -torch.inf and want_lse[0] == -torch.inf
+    np.testing.assert_allclose(
+        lse.detach().cpu().numpy(), want_lse.detach().cpu().numpy(), rtol=2e-4, atol=2e-5
+    )
+    for a, w in zip(got, want):
+        np.testing.assert_allclose(a.cpu().numpy(), w.cpu().numpy(), rtol=2e-4, atol=2e-5)
+    assert not got[0][0].any()

@@ -167,7 +167,7 @@ def test_model_init_is_seeded_and_padding_row_zero():
         ("model.encoder.normalization=softmax_rel_bias", "Other model families"),
         ("model.encoder.sp_shards=2", "Distributed"),
         ("model.encoder.tp_shards=2", "Distributed"),
-        ("model.encoder.remat=true", "Long-N and larger catalogs"),
+        ("model.encoder.remat=true", "Training variants"),
         ("model.embedding.kind=sharded_a2a", "Distributed"),
         ("model.compute_dtype=bfloat16", "Mixed precision"),
         ("model.postprocessor.kind=layer_norm", "Other model families"),

@@ -114,9 +114,9 @@ def test_fused_attention_plain_path_launches_nothing_and_rejects_bad_input():
     before = pt_kernel.launches
     pt_kernel.hstu_attention_fused(q, k, v, ts, pos_w, ts_w, 8, 128)
     assert pt_kernel.launches == before  # CPU tensors take the plain version
-    with pytest.raises(NotImplementedError, match="Packing"):
+    with pytest.raises(ValueError, match="seg_positions"):  # packed rows: [B, N] positions
         pt_kernel.hstu_attention_fused(
-            q, k, v, ts, pos_w, ts_w, 8, 128, seg_positions=torch.zeros(2, 8)
+            q, k, v, ts, pos_w, ts_w, 8, 128, seg_positions=torch.zeros(2, 7)
         )
     with pytest.raises(ValueError, match="max_len"):
         pt_kernel.hstu_attention_fused(q, k, v, ts, pos_w[:9], ts_w, 5, 128)

@@ -204,7 +204,10 @@ def test_steps_per_call_and_packed_raise_in_make_train_step():
     opt = pt_build_optimizer(cfg.optimizer1, cfg.optimizer2, model.parameters(), 1e-3)
     with pytest.raises(NotImplementedError, match="Training variants"):
         pt_task.make_train_step(model, cfg, np.arange(1, 201), opt, steps=8)
-    with pytest.raises(NotImplementedError, match="Packing"):
+    # packed batches are ported: the step builds, for the model packing needs
+    assert callable(pt_task.make_train_step(model, cfg, np.arange(1, 201), opt, packed=True))
+    cfg.model.encoder.sp_shards = 2
+    with pytest.raises(ValueError, match="pack_sequences requires"):
         pt_task.make_train_step(model, cfg, np.arange(1, 201), opt, packed=True)
 
 
