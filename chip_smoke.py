@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving and training paths (padded and packed)
-on one NVIDIA card and check its kernels.
+"""Drive the PyTorch port's serving and training paths (padded, packed and
+through ring attention) on one NVIDIA card and check its kernels.
 
 Run from the root of a checkout, with no arguments:
 
@@ -35,7 +35,16 @@ Phases, each of which stops the run with a non-zero exit when it fails:
      / atol 2e-5; the same over the ml-20m catalog, at [26880, 50] x
      [26744, 50] (the step of ml-20m-hstu) and at [24552, 64] x [26744, 64]
      (the 1024-token class of a packed ml-20m-hstu-long step), where the plain
-     version runs 2,048 rows at a time.
+     version runs 2,048 rows at a time;
+   - the same lse kernels with `sup_off` (`fused_dense_neg_lse`, each row's
+     positive masked in the kernel) at [8192, 64] x [26744, 64], and an all -1
+     sup_off against the null pointer, lse and dq bit for bit;
+   - the ring's chunk attention forward and backward against autograd of the
+     plain version at ml-20m-hstu-long's widths (B=32, H=2, d=64, L=1035) on
+     the zigzag ring's 130 x 130 chunks and the contiguous ring's 259 x 259,
+     at the offsets the ring gives them (fully live, the diagonal, dead: all
+     zeros), a partial one and padded rows past the bias table; each kernel's
+     host time to queue a call.
 3. The serving path at the full width of `synthetic-hstu`: `cli.serve.build_engine`
    on a .pt checkpoint written from a seeded init, the HTTP server on an
    ephemeral port, /healthz, a 32-row /v1/retrieve, a burst of concurrent
@@ -78,6 +87,19 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    time, examples/s, tokens a step and a torch.profiler step.
 7. Phase 5 once more on one packed batch of capacity 256 of that
    configuration.
+8. Ring (sequence-parallel) attention at the full width of ml-20m-hstu-long
+   on synthetic data with padded rows: `cli.train.main` with
+   model.encoder.sp_shards=4 and the zigzag layout, the 4 shards of the ring
+   run in turn on the card, for two epochs over 1,024 users with validation
+   after each and the test pass. The launch counts are set to 0 just before
+   and read just after: per optimizer step 8 x 36 chunk forwards and as many
+   backwards, 1 count, 1 lse forward, 1 lse backward and no full attention
+   kernel; 8 x 36 chunk forwards per eval batch. Then hand-stepped trainers
+   in the zigzag and contiguous (8 x 10 chunk calls) layouts: step time,
+   examples/s, per-step launch counts, a torch.profiler step.
+9. The ring model, zigzag and contiguous, against the same weights at
+   sp_shards=1 on the card: one full-width batch, the same negatives, dropout
+   off, the loss at rtol 1e-5 and every gradient at rtol 5e-4 / atol 1e-6.
 
 It ends with one JSON line of the kernels' numbers and, last, the line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -473,6 +495,172 @@ def check_dense_neg_lse(kern, count, bt, d, x, tau, chunk=None) -> tuple[dict, d
     return fwd, bwd
 
 
+def check_fused_lse(kern, count, positive, bt, d, x, tau, chunk) -> tuple[dict, dict]:
+    """`fused_dense_neg_lse` (the lse kernels with a `sup_off` pointer)
+    against the plain version on the count with each row's positive zeroed;
+    then an all -1 sup_off against the null pointer of the training path,
+    lse and dq bit for bit (dcat sums with atomics in no fixed order)."""
+    rng = np.random.default_rng(19)
+    q = torch.tensor(rng.normal(size=(bt, d)), dtype=torch.float32)
+    cat = torch.tensor(rng.normal(size=(x, d)), dtype=torch.float32)
+    q = (q / q.norm(dim=-1, keepdim=True)).cuda().requires_grad_()
+    cat = (cat / cat.norm(dim=-1, keepdim=True)).cuda().requires_grad_()
+    gl = torch.tensor(rng.normal(size=(bt,)), dtype=torch.float32).cuda()
+    # the count kernel dropped the accidental hits already: put some back,
+    # for sup_off to take out
+    count = count.clone()
+    rows = torch.arange(0, bt, 3, device="cuda")
+    hit = positive[rows] >= 0
+    count[rows[hit], positive[rows[hit]].long()] += 2
+    before = kern.fused_launches
+    lse = kern.fused_dense_neg_lse(q, cat, count, positive, tau)
+    finite = torch.isfinite(lse)
+    gl = torch.where(finite, gl, 0.0)
+    got = torch.autograd.grad(lse, [q, cat], gl, retain_graph=True)
+    check(kern.fused_launches == before + 1, "fused_dense_neg_lse did not launch its kernel")
+    masked = count.clone()
+    live = positive >= 0
+    masked[torch.arange(bt, device="cuda")[live], positive[live].long()] = 0
+    lse_plain, *want = plain_lse_in_chunks(kern, q, cat, masked, tau, gl, chunk)
+    torch.cuda.synchronize()
+    ok_lse, err_lse = within(lse[finite], lse_plain[finite], RTOL, ATOL)
+    ok_dq, err_dq = within(got[0], want[0], RTOL, ATOL)
+    ok_dcat, err_dcat = within(got[1], want[1], RTOL, ATOL)
+    same_inf = bool(torch.equal(finite, torch.isfinite(lse_plain)))
+    log(f"{kern.FUSED} (sup_off) [{bt}, {d}] x [{x}, {d}]: max_abs_err lse {err_lse:.3e}, dq "
+        f"{err_dq:.3e}, dcat {err_dcat:.3e}; within rtol {RTOL} atol {ATOL}: "
+        f"{ok_lse and ok_dq and ok_dcat}, -inf rows agree: {same_inf}")
+    check(ok_lse and same_inf, f"{kern.FUSED} disagrees with its plain version")
+    check(ok_dq and ok_dcat, f"{kern.FUSED} backward disagrees with autograd of its plain version")
+    none = torch.full_like(positive, -1)
+    lse_none = kern.fused_dense_neg_lse(q, cat, count, none, tau)
+    lse_null = kern.dense_neg_lse(q, cat, count, tau)
+    dq_none = torch.autograd.grad(lse_none, [q], gl)[0]
+    dq_null = torch.autograd.grad(lse_null, [q], gl)[0]
+    same = bool(torch.equal(lse_none, lse_null)) and bool(torch.equal(dq_none, dq_null))
+    log(f"  all -1 sup_off equals the null pointer bit for bit (lse, dq): {same}")
+    check(same, "an all -1 sup_off differs from the null pointer")
+    nnz = int(masked.count_nonzero())
+    with torch.no_grad():
+        fwd_ms = device_ms(lambda: kern.fused_dense_neg_lse(q, cat, count, positive, tau), 30)
+        fwd_plain = device_ms(lambda: plain_lse_in_chunks(
+            kern, q, cat, masked, tau, gl, chunk, with_grads=False), 3)
+    bwd_ms = device_ms(lambda: torch.autograd.grad(lse, [q, cat], gl, retain_graph=True), 20)
+    both_plain = device_ms(lambda: plain_lse_in_chunks(kern, q, cat, masked, tau, gl, chunk), 2)
+    fwd_bound = bound(4 * (bt * d + x * d + 4 * bt) + bt * x, nnz * 2 * d)
+    bwd_bound = bound(4 * (2 * bt * d + 2 * x * d + 4 * bt) + bt * x, nnz * 6 * d)
+    log(f"  forward: kernel {fwd_ms:.5f} ms, plain {fwd_plain:.5f} ms, bound {fwd_bound[0]:.5f} "
+        f"ms ({fwd_bound[1]}); backward: kernel {bwd_ms:.5f} ms, plain "
+        f"{both_plain - fwd_plain:.5f} ms, bound {bwd_bound[0]:.5f} ms ({bwd_bound[1]})")
+    fwd = dict(max_abs_err=err_lse, ms=fwd_ms, plain_ms=fwd_plain, bound_ms=fwd_bound[0],
+               bound_by=fwd_bound[1])
+    bwd = dict(max_abs_err=max(err_dq, err_dcat), ms=bwd_ms, plain_ms=both_plain - fwd_plain,
+               bound_ms=bwd_bound[0], bound_by=bwd_bound[1])
+    return fwd, bwd
+
+
+def chunk_inputs(seed, b, nq, nc, h, d, max_len):
+    """q [b, nq], k, v [b, nc] as strided slices of one projection `proj` (a
+    leaf that takes their gradients), as the ring hands a chunk over; the
+    query rows' next-item timestamps and the chunk's, ml-20m-era."""
+    rng = np.random.default_rng(seed)
+    proj = torch.tensor(rng.normal(size=(b, nq + nc, 3 * h * d)), dtype=torch.float32).cuda()
+    proj.requires_grad_()
+    q, k, v = (t.unflatten(-1, (h, d)) for t in torch.split(proj, [h * d] * 3, dim=-1))
+    ts = np.sort(1_100_000_000 + rng.integers(0, 10 * 365 * 86400, size=(b, nq + nc)), axis=1)
+    ts = torch.tensor(ts, dtype=torch.int32).cuda()
+    a = dict(
+        q=q[:, :nq], k=k[:, nq:], v=v[:, nq:], tsq_next=ts[:, :nq], tsk=ts[:, nq:],
+        pos_w=torch.tensor(rng.normal(size=(2 * max_len - 1,)) * 0.02,
+                           dtype=torch.float32).cuda().requires_grad_(),
+        ts_w=torch.tensor(rng.normal(size=(129,)) * 0.02,
+                          dtype=torch.float32).cuda().requires_grad_(),
+    )
+    return a, proj
+
+
+def chunk_bounds(b, nq, nc, h, d, offd, max_len) -> tuple:
+    """(forward, backward) least times of one chunk call: the multiply-adds of
+    its live pairs (n - m >= offd) at peak fp32, or the bytes it must move,
+    each input read once (q and the query stamps; the k, v rows and stamps
+    that a live pair reaches; the table entries) and each output written
+    once, whichever is longer."""
+    rows = np.arange(nq)
+    pairs = int(np.clip(rows - offd + 1, 0, nc).sum())
+    keys = int(np.clip(nq - offd, 0, nc))  # chunk rows some live pair reads
+    entries = min(nq + keys, 2 * max_len - 1) + 129
+    fwd_reads = b * (nq * h * d + nq + keys * (2 * h * d + 1)) + entries
+    fwd = bound(4 * (fwd_reads + b * nq * h * d), b * pairs * h * 2 * 2 * d)
+    bwd_reads = fwd_reads + b * nq * h * d  # g
+    bwd_writes = b * (nq + 2 * nc) * h * d + 2 * max_len - 1 + 129
+    bwd = bound(4 * (bwd_reads + bwd_writes), b * pairs * h * 2 * 5 * d)
+    return fwd, bwd, pairs
+
+
+def check_chunk(kern, seed, b, nq, nc, h, d, offd, max_len, timed=False):
+    """The chunk kernels against their plain version, forward and (through
+    autograd) dq, dk, dv, d_pos_w, d_ts_w, at one offset; with `timed` both
+    kernels and the plain version are timed -> (forward, backward) dicts."""
+    a, proj = chunk_inputs(seed, b, nq, nc, h, d, max_len)
+    kw = dict(off_delta=offd, inv_n=1.0 / max_len, max_len=max_len, num_buckets=128)
+    leaves = [proj, a["pos_w"], a["ts_w"]]
+    g = torch.tensor(np.random.default_rng(seed + 1).normal(size=(b, nq, h, d)),
+                     dtype=torch.float32).cuda()
+
+    def split(grads):
+        dq, dk, dv = torch.split(grads[0], [h * d] * 3, dim=-1)
+        return dq[:, :nq], dk[:, nq:], dv[:, nq:], grads[1], grads[2]
+
+    out = kern.hstu_chunk_attention(**a, **kw)
+    got = split(torch.autograd.grad(out, leaves, g, retain_graph=True))
+    out_plain = kern.hstu_chunk_attention_plain(**a, **kw)
+    want = split(torch.autograd.grad(out_plain, leaves, g, retain_graph=True))
+    torch.cuda.synchronize()
+    ok_out, err_out = within(out, out_plain, RTOL, ATOL)
+    ok, errs = ok_out, [f"out {err_out:.3e}"]
+    for i, name in enumerate(("dq", "dk", "dv", "d_pos_w", "d_ts_w")):
+        good, err = within(got[i], want[i], BIAS_RTOL if i >= 3 else RTOL, ATOL)
+        ok = ok and good
+        errs.append(f"{name} {err:.3e}")
+    dead = offd >= nq
+    zeros = not (bool(out.any()) or any(bool(t.any()) for t in got)) if dead else True
+    shape = f"B={b} Nq={nq} Nc={nc} H={h} d={d} L={max_len} offd={offd}"
+    log(f"{kern.KERNEL} / {kern.KERNEL_BWD} {shape}: max_abs_err " + ", ".join(errs)
+        + f"; within rtol {RTOL} (tables {BIAS_RTOL}) atol {ATOL}: {ok}"
+        + (f"; dead chunk all zeros: {zeros}" if dead else ""))
+    check(ok and zeros, f"the chunk kernels disagree with their plain version at {shape}")
+    if not timed:
+        return None
+    # host time to queue a call: the wrapper's checks, ctypes and the launch
+    # (the backward through autograd, with its zeroed outputs)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(50):
+        kern.hstu_chunk_attention(**a, **kw)
+    fwd_host_us = 1e6 * (time.perf_counter() - t0) / 50
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(50):
+        torch.autograd.grad(out, leaves, g, retain_graph=True)
+    bwd_host_us = 1e6 * (time.perf_counter() - t0) / 50
+    torch.cuda.synchronize()
+    log(f"  host time to queue a call: forward {fwd_host_us:.1f} us, backward through autograd "
+        f"{bwd_host_us:.1f} us")
+    fwd_ms = device_ms(lambda: kern.hstu_chunk_attention(**a, **kw), 200)
+    fwd_plain = device_ms(lambda: kern.hstu_chunk_attention_plain(**a, **kw), 30)
+    bwd_ms = device_ms(lambda: torch.autograd.grad(out, leaves, g, retain_graph=True), 100)
+    bwd_plain = device_ms(lambda: torch.autograd.grad(out_plain, leaves, g, retain_graph=True), 20)
+    fwd_bound, bwd_bound, pairs = chunk_bounds(b, nq, nc, h, d, offd, max_len)
+    log(f"  {pairs} live pairs a row and head; forward: kernel {fwd_ms:.5f} ms, plain "
+        f"{fwd_plain:.5f} ms, bound {fwd_bound[0]:.5f} ms ({fwd_bound[1]}); backward: kernel "
+        f"{bwd_ms:.5f} ms, plain {bwd_plain:.5f} ms, bound {bwd_bound[0]:.5f} ms ({bwd_bound[1]})")
+    fwd = dict(max_abs_err=err_out, ms=fwd_ms, plain_ms=fwd_plain, bound_ms=fwd_bound[0],
+               bound_by=fwd_bound[1])
+    bwd = dict(max_abs_err=max(float((x - y).detach().abs().max()) for x, y in zip(got, want)),
+               ms=bwd_ms, plain_ms=bwd_plain, bound_ms=bwd_bound[0], bound_by=bwd_bound[1])
+    return fwd, bwd
+
+
 # ---------------------------------------------------------------- phase 3
 
 
@@ -631,10 +819,10 @@ def timed_rounds(port: int, engine, req: dict, rounds: int = 3, reps: int = 10):
     return np.asarray(over_http), np.asarray(direct)
 
 
-def profile_device(fn, reps: int, what: str, wall_ms: float, top: int) -> None:
+def profile_device(fn, reps: int, what: str, wall_ms: float, top: int, by_count: int = 0) -> None:
     """Where the time of `fn` goes: torch.profiler's device time of the kernels
     one call launches, against its host wall time `wall_ms` (measured without
-    the profiler)."""
+    the profiler); with `by_count`, also the kernels launched most often."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -656,23 +844,41 @@ def profile_device(fn, reps: int, what: str, wall_ms: float, top: int) -> None:
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
         log(f"  {e.self_device_time_total / 1e3 / reps:.4f} ms/call x{e.count / reps:.1f} "
             f"{e.key[:90]}")
+    if by_count:
+        log("  most launched: " + "; ".join(
+            f"x{e.count / reps:.0f} {e.self_device_time_total / 1e3 / reps:.3f} ms {e.key[:60]}"
+            for e in sorted(kernels, key=lambda e: -e.count)[:by_count]))
 
 
 # ---------------------------------------------------------------- phase 4
 
 
-def launch_counts(attn, count_kern, lse_kern) -> dict:
-    return {
-        attn.KERNEL: attn.launches, attn.KERNEL_BWD: attn.bwd_launches,
-        count_kern.KERNEL: count_kern.launches,
-        lse_kern.KERNEL: lse_kern.launches, lse_kern.KERNEL_BWD: lse_kern.bwd_launches,
-    }
+class Counts:
+    """The launch counters of every kernel wrapper on the training paths, in
+    the order attention forward and backward, count, lse forward and
+    backward, chunk forward and backward."""
 
+    def __init__(self, attn, count_kern, lse_kern, chunk):
+        self.attn, self.count, self.lse, self.chunk = attn, count_kern, lse_kern, chunk
 
-def reset_counts(attn, count_kern, lse_kern) -> None:
-    attn.launches = attn.bwd_launches = 0
-    count_kern.launches = 0
-    lse_kern.launches = lse_kern.bwd_launches = 0
+    def read(self) -> dict:
+        a, c, l, k = self.attn, self.count, self.lse, self.chunk
+        return {
+            a.KERNEL: a.launches, a.KERNEL_BWD: a.bwd_launches, c.KERNEL: c.launches,
+            l.KERNEL: l.launches, l.KERNEL_BWD: l.bwd_launches,
+            k.KERNEL: k.launches, k.KERNEL_BWD: k.bwd_launches,
+        }
+
+    def reset(self) -> None:
+        self.attn.launches = self.attn.bwd_launches = 0
+        self.count.launches = 0
+        self.lse.launches = self.lse.bwd_launches = 0
+        self.chunk.launches = self.chunk.bwd_launches = 0
+
+    def per_step(self, attn: int, chunk: int) -> list:
+        """One optimizer step's launches: `attn` attention and `chunk` chunk
+        forwards and as many backwards, one count, one lse pair."""
+        return [attn, attn, 1, 1, 1, chunk, chunk]
 
 
 def read_training_run(metrics: Path, epochs: int, monitored: float):
@@ -696,18 +902,21 @@ def read_training_run(metrics: Path, epochs: int, monitored: float):
     return losses, val, test[0]
 
 
-def check_step_launches(attn, count_kern, lse_kern, blocks: int, steps: int, eval_batches: int,
-                        counts: dict) -> None:
-    """Per optimizer step one attention forward and backward per block, one
-    count, one lse forward and backward; per eval batch a forward per block."""
-    want = {
-        attn.KERNEL: blocks * (steps + eval_batches), attn.KERNEL_BWD: blocks * steps,
-        count_kern.KERNEL: steps, lse_kern.KERNEL: steps, lse_kern.KERNEL_BWD: steps,
-    }
+def check_step_launches(kc: Counts, steps: int, eval_batches: int, counts: dict,
+                        attn: int = 0, chunk: int = 0) -> None:
+    """Per optimizer step `attn` attention forwards and backwards (one per
+    block) or `chunk` chunk forwards and backwards (the ring's, per block
+    times chunk calls), one count, one lse forward and backward; per eval
+    batch the forwards alone."""
+    per = kc.per_step(attn, chunk)
+    want = dict(zip(kc.read(), (
+        per[0] * (steps + eval_batches), per[1] * steps, steps, steps, steps,
+        per[5] * (steps + eval_batches), per[6] * steps,
+    )))
     check(counts == want, f"launches {counts} != expected {want}")
 
 
-def run_training_path(attn, count_kern, lse_kern, card: str) -> dict:
+def run_training_path(kc: Counts, card: str) -> dict:
     """`cli.train.main` on the card at the full width of synthetic-hstu, then a
     second trainer stepped by hand for times. -> launch counts of the first."""
     from mygenerativerecommenders_tpu_torch.cli import train as cli_train
@@ -723,12 +932,12 @@ def run_training_path(attn, count_kern, lse_kern, card: str) -> dict:
     metrics.unlink(missing_ok=True)
     cfg = cli_train.parse_args(args)
     check(cfg.trainer.device == "cuda", "cli.train does not default to the card")
-    reset_counts(attn, count_kern, lse_kern)
+    kc.reset()
     t0 = time.perf_counter()
     monitored = cli_train.main(args)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = launch_counts(attn, count_kern, lse_kern)
+    counts = kc.read()
 
     blocks = cfg.model.encoder.num_blocks
     per_epoch = -(-cfg.data.synthetic_num_users // cfg.data.batch_size)
@@ -749,7 +958,7 @@ def run_training_path(attn, count_kern, lse_kern, card: str) -> dict:
         f"package's 30-epoch band on this data: ndcg@10 0.037-0.039, PARITY.md)")
     check(test["test/ndcg@10"] >= MIN_TEST_NDCG10,
           f"test ndcg@10 {test['test/ndcg@10']} below {MIN_TEST_NDCG10} after {epochs} epochs")
-    check_step_launches(attn, count_kern, lse_kern, blocks, steps, eval_batches, counts)
+    check_step_launches(kc, steps, eval_batches, counts, attn=blocks)
     for name in ("best.pt", "last.pt"):
         check((out_dir / "synthetic-hstu" / "checkpoints" / name).exists(), f"no {name}")
 
@@ -762,14 +971,14 @@ def run_training_path(attn, count_kern, lse_kern, card: str) -> dict:
     torch.cuda.synchronize()
     times = []
     for i in range(40):
-        before = launch_counts(attn, count_kern, lse_kern)
+        before = kc.read()
         t0 = time.perf_counter()
         trainer.train_step(batches[i % len(batches)], trainer.lr1)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
-        after = launch_counts(attn, count_kern, lse_kern)
+        after = kc.read()
         delta = [after[k] - before[k] for k in after]
-        check(delta == [blocks, blocks, 1, 1, 1], f"launches of one step: {delta}")
+        check(delta == kc.per_step(blocks, 0), f"launches of one step: {delta}")
     step_ms = 1e3 * np.asarray(times)
     p50 = float(np.percentile(step_ms, 50))
     log(f"train step, batch {cfg.data.batch_size} ({TRAIN_BT} supervision rows), synced each "
@@ -798,7 +1007,7 @@ LONG_ARGS = [
 ]
 
 
-def run_long_path(attn, count_kern, lse_kern, card: str) -> dict:
+def run_long_path(kc: Counts, card: str) -> dict:
     """`cli.train.main` on the card at the full width of ml-20m-hstu-long on
     synthetic data: packed train batches, packed eval after each epoch, the
     test pass. Then a second trainer stepped by hand, class of capacity by
@@ -817,12 +1026,12 @@ def run_long_path(attn, count_kern, lse_kern, card: str) -> dict:
     metrics.unlink(missing_ok=True)
     cfg = cli_train.parse_args(args)
     check(cfg.trainer.device == "cuda" and cfg.data.pack_sequences, "not the packed card path")
-    reset_counts(attn, count_kern, lse_kern)
+    kc.reset()
     t0 = time.perf_counter()
     monitored = cli_train.main(args)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = launch_counts(attn, count_kern, lse_kern)
+    counts = kc.read()
 
     # the batches that run must have held, from loaders of the same plan
     planner = Trainer(cli_train.parse_args(LONG_ARGS + [f"trainer.output_dir={OUT_DIR / 'long2'}"]))
@@ -846,7 +1055,7 @@ def run_long_path(attn, count_kern, lse_kern, card: str) -> dict:
         f"checkpoint: ndcg@10 {test['test/ndcg@10']:.5f}, ndcg@100 "
         f"{test['test/ndcg@100']:.5f}, hr@200 {test['test/hr@200']:.5f} (chance hr@200: "
         f"{200 / len(planner.all_item_ids):.5f})")
-    check_step_launches(attn, count_kern, lse_kern, blocks, steps, eval_batches, counts)
+    check_step_launches(kc, steps, eval_batches, counts, attn=blocks)
     for ckpt in ("best.pt", "last.pt"):
         check((out_dir / name / "checkpoints" / ckpt).exists(), f"no {ckpt}")
     del planner
@@ -871,14 +1080,14 @@ def run_long_path(attn, count_kern, lse_kern, card: str) -> dict:
         torch.cuda.synchronize()
         times = []
         for i in range(8):
-            before = launch_counts(attn, count_kern, lse_kern)
+            before = kc.read()
             t0 = time.perf_counter()
             trainer.train_step(batches[i % len(batches)], trainer.lr1)
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
-            after = launch_counts(attn, count_kern, lse_kern)
+            after = kc.read()
             delta = [after[k] - before[k] for k in after]
-            check(delta == [blocks, blocks, 1, 1, 1], f"launches of one step: {delta}")
+            check(delta == kc.per_step(blocks, 0), f"launches of one step: {delta}")
         p50 = 1e3 * float(np.percentile(times, 50))
         examples = float(np.mean([b["num_segments"].sum() for b in host[:4]]))
         tokens = float(np.mean([b["lengths"].sum() for b in host[:4]]))
@@ -958,6 +1167,166 @@ def card_against_cpu_step(args, packed_capacity=None) -> None:
     check(worst, "a parameter's gradient on the card disagrees with the CPU's")
 
 
+# ---------------------------------------------------------------- phases 8 and 9
+
+RING_ARGS = LONG_ARGS + [
+    "data.pack_sequences=false", "model.encoder.sp_shards=4", "model.encoder.sp_zigzag=true",
+]
+RING_USERS = 1024  # the run's depth cut: users (ml-20m-hstu-long's default is 2,048)
+
+
+def ring_chunk_calls(shards: int, zigzag: bool) -> int:
+    """Chunk calls of one ring attention over P shards: zigzag 2 per step and
+    shard (back x front, and the one of front x front or back x back that is
+    live, both at the diagonal) = P*P + P*(P+1); contiguous the chunks at or
+    before the diagonal, P*(P+1)/2."""
+    return shards * shards + shards * (shards + 1) if zigzag else shards * (shards + 1) // 2
+
+
+def run_ring_path(kc: Counts, card: str) -> dict:
+    """`cli.train.main` on the card at the full width of ml-20m-hstu-long on
+    synthetic data with padded rows and the zigzag ring at sp_shards=4, then
+    hand-stepped trainers in both layouts for times. -> launch counts of the
+    first."""
+    from mygenerativerecommenders_tpu_torch.cli import train as cli_train
+    from mygenerativerecommenders_tpu_torch.train.driver import Trainer
+
+    epochs = 2
+    out_dir = OUT_DIR / "ring"
+    args = RING_ARGS + [
+        f"data.synthetic_num_users={RING_USERS}", f"trainer.output_dir={out_dir}",
+        f"trainer.max_epochs={epochs}", "trainer.log_every_n_steps=1",
+    ]
+    name = "ml-20m-hstu-long"
+    metrics = out_dir / name / "metrics.jsonl"
+    metrics.unlink(missing_ok=True)
+    cfg = cli_train.parse_args(args)
+    enc = cfg.model.encoder
+    check(cfg.trainer.device == "cuda" and not cfg.data.pack_sequences and enc.sp_shards == 4
+          and enc.sp_zigzag, "not the ring card path")
+    kc.reset()
+    t0 = time.perf_counter()
+    monitored = cli_train.main(args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kc.read()
+
+    per_epoch = -(-RING_USERS // cfg.data.batch_size)
+    eval_batches = (epochs + 1) * per_epoch  # validation each epoch, then the test pass
+    blocks = enc.num_blocks
+    calls = blocks * ring_chunk_calls(enc.sp_shards, True)
+    n = cfg.data.max_sequence_length + cfg.model.gr_output_length + 1
+    log(f"ring path: cli.train on {card}, {name} on synthetic data, padded rows, zigzag ring "
+        f"sp_shards={enc.sp_shards} on one device: D={cfg.model.item_embedding_dim} "
+        f"blocks={blocks} H={enc.num_heads} N=L={n} (padded to {-(-n // 8) * 8}, chunks of "
+        f"{-(-n // 8)} rows) batch={cfg.data.batch_size} ({cfg.data.batch_size * (n - 1)} "
+        f"supervision rows) R={cfg.model.loss.num_to_sample} dropout={enc.linear_dropout_rate}, "
+        f"{RING_USERS} users: {epochs * per_epoch} optimizer steps, {eval_batches} eval batches "
+        f"in {wall:.2f} s; launches {counts}")
+    losses, val, test = read_training_run(metrics, epochs, monitored)
+    check(len(losses) == epochs * per_epoch, f"{len(losses)} optimizer steps")
+    log(f"  val/ndcg@100 by epoch {[round(r['val/ndcg@100'], 5) for r in val]}, test on the best "
+        f"checkpoint: ndcg@10 {test['test/ndcg@10']:.5f}, ndcg@100 "
+        f"{test['test/ndcg@100']:.5f}, hr@200 {test['test/hr@200']:.5f}")
+    check_step_launches(kc, len(losses), eval_batches, counts, chunk=calls)
+    for ckpt in ("best.pt", "last.pt"):
+        check((out_dir / name / "checkpoints" / ckpt).exists(), f"no {ckpt}")
+
+    # hand-stepped trainers, zigzag then contiguous: step time, launches, profile
+    for zigzag in (True, False):
+        trainer = Trainer(cli_train.parse_args(RING_ARGS + [
+            f"data.synthetic_num_users={RING_USERS}", f"model.encoder.sp_zigzag={zigzag}",
+            f"trainer.output_dir={OUT_DIR / 'ring2'}"]))
+        trainer.model.train()
+        batches = [trainer._put(b) for _, b in zip(range(4), trainer.data.loader("train"))]
+        for batch in batches[:2]:
+            trainer.train_step(batch, trainer.lr1)
+        torch.cuda.synchronize()
+        times = []
+        step_calls = blocks * ring_chunk_calls(enc.sp_shards, zigzag)
+        for i in range(8):
+            before = kc.read()
+            t0 = time.perf_counter()
+            trainer.train_step(batches[i % len(batches)], trainer.lr1)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            after = kc.read()
+            delta = [after[k] - before[k] for k in after]
+            check(delta == kc.per_step(0, step_calls), f"launches of one ring step: {delta}")
+        step_ms = 1e3 * np.asarray(times)
+        p50 = float(np.percentile(step_ms, 50))
+        layout = "zigzag" if zigzag else "contiguous"
+        log(f"ring train step, {layout}, batch {cfg.data.batch_size}, synced each step: p50 "
+            f"{p50:.3f} ms (range {step_ms.min():.3f}-{step_ms.max():.3f}), "
+            f"{1e3 * cfg.data.batch_size / p50:.1f} examples/s on {card}; launches per step "
+            f"{step_calls} chunk fwd, {step_calls} chunk bwd, 1 count, 1 lse fwd, 1 lse bwd")
+        profile_device(
+            lambda i: trainer.train_step(batches[i % len(batches)], trainer.lr1),
+            reps=4, what=f"ring train step, {layout}", wall_ms=p50, top=8, by_count=8,
+        )
+        del trainer, batches
+        torch.cuda.empty_cache()
+    return counts
+
+
+def ring_against_unsharded() -> None:
+    """One loss and its gradients on the card through the ring model, zigzag
+    and contiguous, against the same weights at sp_shards=1 (the fused
+    attention kernels): the first full-width padded batch of
+    ml-20m-hstu-long, the same negatives, dropout off."""
+    from mygenerativerecommenders_tpu_torch.cli.train import parse_args
+    from mygenerativerecommenders_tpu_torch.configs import resolve
+    from mygenerativerecommenders_tpu_torch.data.dataset import RecoData
+    from mygenerativerecommenders_tpu_torch.models.model import build_model
+    from mygenerativerecommenders_tpu_torch.train.task_retrieval import make_loss_fn
+
+    base = LONG_ARGS + ["data.pack_sequences=false", f"data.synthetic_num_users={RING_USERS}"]
+    cfg = parse_args(base)
+    data = RecoData(cfg.data, seed=cfg.trainer.seed)
+    resolve(cfg, data.max_item_id)
+    batch = next(iter(data.loader("train")))
+    rows, n = batch["ids"].shape[0], batch["ids"].shape[1] + cfg.model.gr_output_length + 1
+    offsets = torch.randint(
+        0, len(data.all_item_ids), (rows, n - 1, cfg.model.loss.num_to_sample),
+        generator=torch.Generator().manual_seed(3), dtype=torch.int32,
+    ).cuda()
+    dev_batch = {k: torch.as_tensor(v).cuda() for k, v in batch.items()}
+    results = {}
+    for layout, extra in (("sp_shards=1", []),
+                          ("zigzag", ["model.encoder.sp_shards=4", "model.encoder.sp_zigzag=true"]),
+                          ("contiguous", ["model.encoder.sp_shards=4"])):
+        lcfg = parse_args(base + extra)
+        resolve(lcfg, data.max_item_id)
+        model = build_model(lcfg, device="cuda", seed=99)  # eval mode: dropout off
+        loss = make_loss_fn(model, lcfg, data.all_item_ids)(dev_batch, neg_offsets=offsets)
+        loss.backward()
+        results[layout] = (loss.item(), {k: p.grad.detach().clone()
+                                         for k, p in model.named_parameters()})
+        del model, loss
+        torch.cuda.empty_cache()
+    loss_ref, grads_ref = results.pop("sp_shards=1")
+    for layout, (loss, grads) in results.items():
+        rel = abs(loss - loss_ref) / abs(loss_ref)
+        log(f"ring ({layout}, sp_shards=4) vs sp_shards=1 on the card, {cfg.experiment} at full "
+            f"width, a padded batch of {rows} rows x {n}: loss {loss:.6f} vs {loss_ref:.6f}, "
+            f"relative difference {rel:.3e} (rtol {STEP_LOSS_RTOL})")
+        check(rel <= STEP_LOSS_RTOL, f"the {layout} ring's loss disagrees with sp_shards=1")
+        worst, worst_name, ok_all = 0.0, "", True
+        for name, want in grads_ref.items():
+            ok, err = within(grads[name], want, STEP_GRAD_RTOL, STEP_GRAD_ATOL)
+            ok_all = ok_all and ok
+            if err >= worst:
+                worst, worst_name = err, name
+            if not ok:
+                log(f"  grad {name}: max_abs_err {err:.3e}, max |grad| "
+                    f"{float(want.abs().max()):.3e}: outside rtol {STEP_GRAD_RTOL} atol "
+                    f"{STEP_GRAD_ATOL}")
+        log(f"  all {len(grads_ref)} gradients within rtol {STEP_GRAD_RTOL} atol {STEP_GRAD_ATOL}: "
+            f"{ok_all}; largest difference {worst:.3e} in {worst_name} (max |grad| "
+            f"{float(grads_ref[worst_name].abs().max()):.3e})")
+        check(ok_all, f"a gradient of the {layout} ring disagrees with sp_shards=1")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on an NVIDIA card",
@@ -969,6 +1338,7 @@ def main() -> int:
     from mygenerativerecommenders_tpu_torch.ops.kernels import count_offsets as count_kern
     from mygenerativerecommenders_tpu_torch.ops.kernels import dense_neg_lse as lse_kern
     from mygenerativerecommenders_tpu_torch.ops.kernels import hstu_attention as kern
+    from mygenerativerecommenders_tpu_torch.ops.kernels import hstu_chunk as chunk_kern
 
     check(Path(port.__file__).resolve().parent.parent == HERE,
           f"the port was imported from {port.__file__}, not from this checkout")
@@ -977,7 +1347,8 @@ def main() -> int:
     kind, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {count} x {kind}")
 
-    build_kernels(_build, [kern.KERNEL, kern.KERNEL_BWD, count_kern.KERNEL, lse_kern.LIBRARY])
+    build_kernels(_build, [kern.KERNEL, kern.KERNEL_BWD, count_kern.KERNEL, lse_kern.LIBRARY,
+                           chunk_kern.KERNEL, chunk_kern.KERNEL_BWD])
 
     ragged = np.random.default_rng(2).integers(2, 211, size=126).tolist()
     serving = check_attention(kern, kern.KERNEL, 1, 32, 211, 1, 50, [1, 211] + ragged[:30])
@@ -1006,13 +1377,38 @@ def main() -> int:
         lse_kern, check_count(count_kern, long_bt, TRAIN_R, 26744)["count"], long_bt, 64,
         26744, 0.05, chunk=2048,
     )
+    # rows 7-8: the lse with sup_off, over the ml-20m catalog at a quarter of
+    # the ring step's 33,088 supervision rows
+    fused_bt = 8192
+    offsets, positive = negative_draws(23, fused_bt, TRAIN_R, 26744)
+    fused_fwd, fused_bwd = check_fused_lse(
+        lse_kern, count_kern.count_offsets(offsets, positive, 26744), positive, fused_bt, 64,
+        26744, 0.05, chunk=2048,
+    )
+    del offsets, positive
+    # rows 9-10: the ring's chunks at ml-20m-hstu-long's widths (B=32, H=2,
+    # d=64, L=1035): zigzag 130 x 130 and contiguous 259 x 259, at the
+    # offsets the ring gives them (fully live, the diagonal, dead) and a
+    # partial one, then a chunk of padded rows past the bias table
+    chunk_fwd, chunk_bwd = check_chunk(chunk_kern, 50, 32, 130, 130, 2, 64, -130, 1035, timed=True)
+    check_chunk(chunk_kern, 51, 32, 130, 130, 2, 64, 0, 1035, timed=True)
+    check_chunk(chunk_kern, 52, 32, 259, 259, 2, 64, -518, 1035, timed=True)
+    check_chunk(chunk_kern, 53, 32, 259, 259, 2, 64, 0, 1035, timed=True)
+    check_chunk(chunk_kern, 54, 32, 259, 259, 2, 64, 259, 1035)
+    check_chunk(chunk_kern, 55, 32, 130, 130, 2, 64, 65, 1035)
+    check_chunk(chunk_kern, 56, 32, 130, 130, 2, 64, -910, 1035)
     torch.cuda.empty_cache()
 
+    kc = Counts(kern, count_kern, lse_kern, chunk_kern)
+    lse_kern.fused_launches = lse_kern.fused_bwd_launches = 0
     serving_launches = run_main_path(kern, num_blocks_expected=2, card=kind)
-    train_counts = run_training_path(kern, count_kern, lse_kern, card=kind)
+    train_counts = run_training_path(kc, card=kind)
     card_against_cpu_step(["experiment=synthetic-hstu"])
-    long_counts = run_long_path(kern, count_kern, lse_kern, card=kind)
+    long_counts = run_long_path(kc, card=kind)
     card_against_cpu_step(LONG_ARGS, packed_capacity=256)
+    ring_counts = run_ring_path(kc, card=kind)
+    ring_against_unsharded()
+    fused_on_paths = (lse_kern.fused_launches, lse_kern.fused_bwd_launches)
 
     # no PyTorch call computes HSTU's silu attention with this bias, its
     # backward, or a count-weighted log-sum-exp over a matrix product that is
@@ -1025,9 +1421,10 @@ def main() -> int:
              launches=train_counts[kern.KERNEL_BWD] + long_counts[kern.KERNEL_BWD],
              library_ms=None, **attn_bwd),
         dict(name=count_kern.KERNEL, source=count_kern.SOURCE, replaces=count_kern.REPLACES,
-             launches=train_counts[count_kern.KERNEL] + long_counts[count_kern.KERNEL], **counted),
+             launches=sum(c[count_kern.KERNEL] for c in (train_counts, long_counts, ring_counts)),
+             **counted),
         dict(name=lse_kern.KERNEL, source=lse_kern.SOURCE, replaces=lse_kern.REPLACES,
-             launches=train_counts[lse_kern.KERNEL] + long_counts[lse_kern.KERNEL],
+             launches=sum(c[lse_kern.KERNEL] for c in (train_counts, long_counts, ring_counts)),
              library_ms=None, **lse_fwd),
         dict(name=lse_kern.KERNEL_BWD, source=lse_kern.SOURCE, replaces=lse_kern.REPLACES_BWD,
              launches=train_counts[lse_kern.KERNEL_BWD], library_ms=None, **lse_bwd),
@@ -1035,8 +1432,24 @@ def main() -> int:
         # of the TPU kernels: its launches are the long path's, its numbers
         # those of the [26880, 50] x [26744, 50] check
         dict(name=lse_kern.KERNEL_BWD + " (wide catalog)", source=lse_kern.SOURCE,
-             replaces=lse_kern.REPLACES_WIDE, launches=long_counts[lse_kern.KERNEL_BWD],
+             replaces=lse_kern.REPLACES_WIDE,
+             launches=long_counts[lse_kern.KERNEL_BWD] + ring_counts[lse_kern.KERNEL_BWD],
              library_ms=None, **lse_bwd_wide),
+        # rows 7-8: the same entry points with a sup_off pointer; nothing on
+        # the paths calls fused_dense_neg_lse (nor does the JAX package)
+        dict(name=lse_kern.KERNEL + " (fused_dense_neg_lse, sup_off)", source=lse_kern.SOURCE,
+             replaces=lse_kern.REPLACES_FUSED, launches=fused_on_paths[0],
+             library_ms=None, **fused_fwd),
+        dict(name=lse_kern.KERNEL_BWD + " (fused_dense_neg_lse, sup_off)", source=lse_kern.SOURCE,
+             replaces=lse_kern.REPLACES_FUSED_BWD, launches=fused_on_paths[1],
+             library_ms=None, **fused_bwd),
+        # rows 9-10: numbers of the fully live 130 x 130 chunk, the zigzag
+        # ring's most common call (28 of 36 a block)
+        dict(name=chunk_kern.KERNEL, source=chunk_kern.SOURCE, replaces=chunk_kern.REPLACES,
+             launches=ring_counts[chunk_kern.KERNEL], library_ms=None, **chunk_fwd),
+        dict(name=chunk_kern.KERNEL_BWD, source=chunk_kern.SOURCE_BWD,
+             replaces=chunk_kern.REPLACES_BWD, launches=ring_counts[chunk_kern.KERNEL_BWD],
+             library_ms=None, **chunk_bwd),
     ]
     for row in rows:
         row["route"] = "cuda"

@@ -91,10 +91,11 @@ class EncoderConfig:
     # "auto" or true: the fused attention (the CUDA kernel on the card, its
     # plain version on the CPU); the port has no other path, so false raises
     use_pallas: str = "auto"
-    # >1: ring (sequence-parallel) attention — the sequence axis is
-    # sharded over an "sp" mesh axis of this many devices
-    # (parallel/ring_attention.py); hstu only; with use_pallas the
-    # per-chunk product runs through the fused chunk kernel
+    # >1: ring (sequence-parallel) attention (parallel/ring_attention.py);
+    # hstu only, padded rows only (packing raises). The JAX package shards
+    # the sequence axis over an "sp" mesh axis of this many devices; the
+    # port runs the P shards of the ring in turn on its one device, each
+    # chunk product through the chunk kernels (ops/kernels/hstu_chunk.py)
     sp_shards: int = 1
     # >1: tensor-parallel encoder matrices over the "model" mesh axis —
     # uvqk kernels column-sharded P(None, "model"), output-projection
@@ -105,8 +106,11 @@ class EncoderConfig:
     # match (both ride the same "model" axis). Incompatible with
     # sp_shards>1 (the ring's shard_map body consumes unsharded heads).
     tp_shards: int = 1
-    # zigzag (load-balanced) ring layout: device p holds the sequence
-    # chunk pair (p, 2P-1-p), halving per-step causal attention work
+    # zigzag (load-balanced) ring layout: shard p holds the sequence
+    # chunk pair (p, 2P-1-p), halving per-step causal attention work. On
+    # the port's one device the shards run in turn, so the balance buys no
+    # time; a block then makes 36 chunk launches at P=4 (10 contiguous,
+    # where the chunks with no live pair are skipped)
     sp_zigzag: bool = False
     # rematerialize each HSTU block under jax.checkpoint: the training
     # forward then keeps NO per-block [B*H, N, N] z residuals (2.7 GB at

@@ -20,6 +20,16 @@
 // The [BT, X] logits never reach device memory in either direction. No
 // gradient flows to count.
 //
+// The same two entry points replace the 2-D-count kernels of that file too:
+// `_fwd_kernel` (:75, launched through `fused_dense_neg_lse`, :168) and its
+// backward `_bwd_single_kernel`, `_bwd_dq_kernel`, `_bwd_dcat_kernel` (:116,
+// :138, :152). Those take an optional `sup_off` [BT] (the row's positive
+// catalog offset, -1 for none) and zero the count at x == sup_off[i] before
+// the select (:67-68), and a count whose rows may be padded past X
+// (`count_ld`). A null sup_off takes an instantiation without the mask and
+// the stride (kMasked false), the training path's code: its arithmetic is
+// that of the unmasked kernels, bit for bit.
+//
 // What bounds it. At BT=26,880, D=50, X=3,706 the dense products are 10.0
 // GFLOP forward and 19.9 GFLOP more backward in fp32 FMA, and both passes read
 // the 99.6 MB uint8 count. Only the live logits are needed for the result
@@ -102,24 +112,43 @@ __device__ __forceinline__ void logits_4x4(float (&acc)[4][4], const float* q_t,
   }
 }
 
-// The thread's 4x4 count bytes; 0 outside [bt, x).
+// kMasked: the kernels of `fused_dense_neg_lse`, which take sup_off and a
+// count row stride; without it the instantiation is the training path's,
+// whose count rows are x wide and which masks nothing.
+
+// The positive's catalog offset of the thread's 4 rows (-1 past bt).
+template <bool kMasked>
+__device__ __forceinline__ void load_sup(int (&sup)[4], const int* __restrict__ sup_off,
+                                         int row0, int bt) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) sup[i] = kMasked && row0 + i < bt ? sup_off[row0 + i] : -1;
+}
+
+// The thread's 4x4 count bytes; 0 outside [bt, x) and, with kMasked, at the
+// row's positive column (the TPU kernel's cmask, dense_softmax.py:67-68).
+template <bool kMasked>
 __device__ __forceinline__ void load_counts(uint8_t (&cnt)[4][4],
                                             const uint8_t* __restrict__ count,
+                                            int64_t count_ld, const int (&sup)[4],
                                             int row0, int col0, int bt, int x) {
+  const int64_t ld = kMasked ? count_ld : x;
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int row = row0 + i, col = col0 + j;
-      cnt[i][j] = row < bt && col < x ? count[(int64_t)row * x + col] : (uint8_t)0;
+      cnt[i][j] = row < bt && col < x && (!kMasked || col != sup[i])
+                      ? count[(int64_t)row * ld + col]
+                      : (uint8_t)0;
     }
 }
 
+template <bool kMasked>
 __global__ void __launch_bounds__(kThreads) dense_neg_lse_fwd_kernel(
     const float* __restrict__ q, const float* __restrict__ cat,
-    const uint8_t* __restrict__ count, float* __restrict__ lse,
-    float* __restrict__ m_out, float* __restrict__ s_out, int bt, int d, int x,
-    float inv_tau) {
+    const uint8_t* __restrict__ count, const int* __restrict__ sup_off,
+    float* __restrict__ lse, float* __restrict__ m_out, float* __restrict__ s_out,
+    int bt, int d, int x, int64_t count_ld, float inv_tau) {
   extern __shared__ __align__(16) float smem[];
   float* q_t = smem;            // [d][kLdT]
   float* c_t = q_t + d * kLdT;  // [d][kLdT]
@@ -127,6 +156,8 @@ __global__ void __launch_bounds__(kThreads) dense_neg_lse_fwd_kernel(
   const int row0 = blockIdx.x * kBM;
 
   stage_tile(q_t, nullptr, 0, q + (int64_t)row0 * d, d, bt - row0);
+  int sup[4];
+  load_sup<kMasked>(sup, sup_off, row0 + 4 * ty, bt);
   float m[4], s[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -137,7 +168,7 @@ __global__ void __launch_bounds__(kThreads) dense_neg_lse_fwd_kernel(
     __syncthreads();  // the last tile's readers are done with c_t
     stage_tile(c_t, nullptr, 0, cat + (int64_t)x0 * d, d, x - x0);
     uint8_t cnt[4][4];
-    load_counts(cnt, count, row0 + 4 * ty, x0 + 4 * tx, bt, x);
+    load_counts<kMasked>(cnt, count, count_ld, sup, row0 + 4 * ty, x0 + 4 * tx, bt, x);
     __syncthreads();
     float acc[4][4];
     logits_4x4(acc, q_t, c_t, d, ty, tx);
@@ -177,13 +208,13 @@ __global__ void __launch_bounds__(kThreads) dense_neg_lse_fwd_kernel(
 }
 
 // kDC: depth columns per thread, ceil(d / 16)
-template <int kDC>
+template <int kDC, bool kMasked>
 __global__ void __launch_bounds__(kThreads) dense_neg_lse_bwd_kernel(
     const float* __restrict__ q, const float* __restrict__ cat,
-    const uint8_t* __restrict__ count, const float* __restrict__ m_safe,
-    const float* __restrict__ s_in, const float* __restrict__ gl,
-    float* __restrict__ dq, float* __restrict__ dcat, int bt, int d, int x,
-    float inv_tau) {
+    const uint8_t* __restrict__ count, const int* __restrict__ sup_off,
+    const float* __restrict__ m_safe, const float* __restrict__ s_in,
+    const float* __restrict__ gl, float* __restrict__ dq, float* __restrict__ dcat,
+    int bt, int d, int x, int64_t count_ld, float inv_tau) {
   extern __shared__ __align__(16) float smem[];
   constexpr int kLd = 16 * kDC + 8;  // row-major tiles: 72r + c banks
   float* q_t = smem;                 // [d][kLdT]
@@ -195,6 +226,8 @@ __global__ void __launch_bounds__(kThreads) dense_neg_lse_bwd_kernel(
   const int row0 = blockIdx.x * kBM;
 
   stage_tile(q_t, q_r, kLd, q + (int64_t)row0 * d, d, bt - row0);
+  int sup[4];
+  load_sup<kMasked>(sup, sup_off, row0 + 4 * ty, bt);
   float mi[4], coef[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -213,7 +246,7 @@ __global__ void __launch_bounds__(kThreads) dense_neg_lse_bwd_kernel(
     __syncthreads();  // the last tile's readers are done with c_t/c_r/dal_s
     stage_tile(c_t, c_r, kLd, cat + (int64_t)x0 * d, d, x - x0);
     uint8_t cnt[4][4];
-    load_counts(cnt, count, row0 + 4 * ty, x0 + 4 * tx, bt, x);
+    load_counts<kMasked>(cnt, count, count_ld, sup, row0 + 4 * ty, x0 + 4 * tx, bt, x);
     __syncthreads();
     float acc[4][4];
     logits_4x4(acc, q_t, c_t, d, ty, tx);
@@ -287,23 +320,43 @@ __global__ void __launch_bounds__(kThreads) dense_neg_lse_bwd_kernel(
   }
 }
 
+long long fwd_smem_bytes(int d) { return 4LL * 2 * d * kLdT; }
+
 long long bwd_smem_bytes(int d, int dc) {
   return 4LL * (2LL * d * kLdT + 2LL * kBM * (16 * dc + 8) + kBM * kLdDal);
 }
 
-template <int kDC>
-int launch_bwd(const float* q, const float* cat, const uint8_t* count,
-               const float* m_safe, const float* s, const float* gl, float* dq,
-               float* dcat, int bt, int d, int x, float inv_tau, cudaStream_t stream) {
-  const long long smem = bwd_smem_bytes(d, kDC);
+template <bool kMasked>
+int launch_fwd(const float* q, const float* cat, const uint8_t* count,
+               const int* sup_off, float* lse, float* m_safe, float* s, int bt, int d,
+               int x, int64_t count_ld, float inv_tau, cudaStream_t stream) {
+  const long long smem = fwd_smem_bytes(d);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        dense_neg_lse_bwd_kernel<kDC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        dense_neg_lse_fwd_kernel<kMasked>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  dense_neg_lse_bwd_kernel<kDC><<<(bt + kBM - 1) / kBM, kThreads, (size_t)smem, stream>>>(
-      q, cat, count, m_safe, s, gl, dq, dcat, bt, d, x, inv_tau);
+  dense_neg_lse_fwd_kernel<kMasked><<<(bt + kBM - 1) / kBM, kThreads, (size_t)smem, stream>>>(
+      q, cat, count, sup_off, lse, m_safe, s, bt, d, x, count_ld, inv_tau);
+  return (int)cudaGetLastError();
+}
+
+template <int kDC, bool kMasked>
+int launch_bwd(const float* q, const float* cat, const uint8_t* count,
+               const int* sup_off, const float* m_safe, const float* s,
+               const float* gl, float* dq, float* dcat, int bt, int d, int x,
+               int64_t count_ld, float inv_tau, cudaStream_t stream) {
+  const long long smem = bwd_smem_bytes(d, kDC);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        dense_neg_lse_bwd_kernel<kDC, kMasked>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  dense_neg_lse_bwd_kernel<kDC, kMasked>
+      <<<(bt + kBM - 1) / kBM, kThreads, (size_t)smem, stream>>>(
+          q, cat, count, sup_off, m_safe, s, gl, dq, dcat, bt, d, x, count_ld, inv_tau);
   return (int)cudaGetLastError();
 }
 
@@ -315,37 +368,40 @@ extern "C" {
 int dense_neg_lse_max_depth() { return 128; }
 
 // Dynamic shared memory one block needs, in bytes.
-long long dense_neg_lse_fwd_smem_bytes(int d) { return 4LL * 2 * d * kLdT; }
+long long dense_neg_lse_fwd_smem_bytes(int d) { return fwd_smem_bytes(d); }
 long long dense_neg_lse_bwd_smem_bytes(int d) { return bwd_smem_bytes(d, d <= 64 ? 4 : 8); }
 
-// q [bt, d], cat [x, d] float32 contiguous, count [bt, x] uint8 -> lse,
-// m_safe, s [bt]. Launches on `stream` without synchronising; returns
+// q [bt, d], cat [x, d] float32 contiguous, count [bt, >= x] uint8 with row
+// stride count_ld, sup_off [bt] int32 or null -> lse, m_safe, s [bt]. A null
+// sup_off masks nothing. Launches on `stream` without synchronising; returns
 // cudaGetLastError().
 int dense_neg_lse_fwd(const float* q, const float* cat, const uint8_t* count,
-                      float* lse, float* m_safe, float* s, int bt, int d, int x,
-                      float inv_tau, void* stream) {
-  const long long smem = dense_neg_lse_fwd_smem_bytes(d);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        dense_neg_lse_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  dense_neg_lse_fwd_kernel<<<(bt + kBM - 1) / kBM, kThreads, (size_t)smem,
-                             (cudaStream_t)stream>>>(q, cat, count, lse, m_safe, s,
-                                                     bt, d, x, inv_tau);
-  return (int)cudaGetLastError();
+                      const int* sup_off, float* lse, float* m_safe, float* s,
+                      int bt, int d, int x, long long count_ld, float inv_tau,
+                      void* stream) {
+  if (sup_off)
+    return launch_fwd<true>(q, cat, count, sup_off, lse, m_safe, s, bt, d, x, count_ld,
+                            inv_tau, (cudaStream_t)stream);
+  return launch_fwd<false>(q, cat, count, sup_off, lse, m_safe, s, bt, d, x, count_ld,
+                           inv_tau, (cudaStream_t)stream);
 }
 
-// dcat [x, d] must arrive zeroed; dq [bt, d] is written whole.
+// dcat [x, d] must arrive zeroed; dq [bt, d] is written whole. count and
+// sup_off as in dense_neg_lse_fwd.
 int dense_neg_lse_bwd(const float* q, const float* cat, const uint8_t* count,
-                      const float* m_safe, const float* s, const float* gl,
-                      float* dq, float* dcat, int bt, int d, int x, float inv_tau,
-                      void* stream) {
-  if (d <= 64)
-    return launch_bwd<4>(q, cat, count, m_safe, s, gl, dq, dcat, bt, d, x, inv_tau,
-                         (cudaStream_t)stream);
-  return launch_bwd<8>(q, cat, count, m_safe, s, gl, dq, dcat, bt, d, x, inv_tau,
-                       (cudaStream_t)stream);
+                      const int* sup_off, const float* m_safe, const float* s,
+                      const float* gl, float* dq, float* dcat, int bt, int d, int x,
+                      long long count_ld, float inv_tau, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (sup_off)
+    return d <= 64 ? launch_bwd<4, true>(q, cat, count, sup_off, m_safe, s, gl, dq, dcat, bt,
+                                         d, x, count_ld, inv_tau, st)
+                   : launch_bwd<8, true>(q, cat, count, sup_off, m_safe, s, gl, dq, dcat, bt,
+                                         d, x, count_ld, inv_tau, st);
+  return d <= 64 ? launch_bwd<4, false>(q, cat, count, sup_off, m_safe, s, gl, dq, dcat, bt, d,
+                                        x, count_ld, inv_tau, st)
+                 : launch_bwd<8, false>(q, cat, count, sup_off, m_safe, s, gl, dq, dcat, bt, d,
+                                        x, count_ld, inv_tau, st);
 }
 
 const char* cuda_error_string(int code) {

@@ -14,6 +14,14 @@ wrapper's `seg_positions`: the attention is block-diagonal over the segments.
 The JAX stack's pad of the residual stream to 128 rows serves its TPU
 kernels' tiles and has no counterpart here.
 
+With `sp_shards` > 1 the attention is the ring of
+parallel/ring_attention.py (`_ring_attention`, the counterpart of the JAX
+block's :218-284): the sequence is padded to a multiple of the shard count
+(twice that in the zigzag layout) and its P shards run in turn on the one
+device, each through the chunk kernels of ops/kernels/hstu_chunk.py. The
+ring has no `lengths`: rows past a user's length are live there, and the
+block's output is the same only because u is silu(0) = 0 on those zero rows.
+
 Parameter names follow the reference checkpoint
 (mygenerativerecommenders_tpu/cli/convert_ckpt.py:9-15): `_uvqk`, `_o`,
 `_rel_attn_bias._pos_w` / `._ts_w`. Init matches the JAX package: uvqk and
@@ -40,6 +48,7 @@ from mygenerativerecommenders_tpu_torch.ops.hstu_attention import (
 from mygenerativerecommenders_tpu_torch.ops.kernels.hstu_attention import (
     hstu_attention_fused,
 )
+from mygenerativerecommenders_tpu_torch.parallel.ring_attention import ring_hstu_attention
 
 TIMESTAMPS_KEY = "timestamps"
 SEGMENT_IDS_KEY = "seg_ids"
@@ -79,6 +88,8 @@ class HSTUBlock(nn.Module):
         generator: Optional[torch.Generator] = None,
         dropout_rate: float = 0.0,
         attn_dropout_rate: float = 0.0,
+        sp_shards: int = 1,
+        sp_zigzag: bool = False,
     ):
         super().__init__()
         if attn_dropout_rate != 0.0:
@@ -91,6 +102,7 @@ class HSTUBlock(nn.Module):
             raise ValueError(f"Unknown linear_activation {linear_activation}")
         self.num_heads, self.linear_dim, self.attention_dim = num_heads, linear_dim, attention_dim
         self.max_attn_len = max_attn_len
+        self.sp_shards, self.sp_zigzag = sp_shards, sp_zigzag
         self.linear_activation = linear_activation
         self.num_time_buckets = num_time_buckets
         self.concat_ua = concat_ua
@@ -130,7 +142,19 @@ class HSTUBlock(nn.Module):
             pos_w = self._rel_attn_bias._pos_w
             if timestamps is not None:
                 ts_w = self._rel_attn_bias._ts_w
-        if ts_w is not None:
+        if self.sp_shards > 1:
+            if ts_w is None:
+                raise ValueError(
+                    "sp_shards > 1 requires relative_bias_type='time_position' (ring "
+                    "attention generates the time bias per chunk)"
+                )
+            if seg_pos is not None:
+                raise ValueError(
+                    "packed rows are not supported with ring attention (sp_shards > 1) "
+                    "— packing already removes the padding the ring would shard"
+                )
+            attn = self._ring_attention(qh, kh, vh, timestamps, pos_w, ts_w)
+        elif ts_w is not None:
             attn = hstu_attention_fused(
                 qh, kh, vh, timestamps, pos_w, ts_w,
                 max_len=self.max_attn_len, num_buckets=self.num_time_buckets,
@@ -152,6 +176,30 @@ class HSTUBlock(nn.Module):
         a = F.layer_norm(attn_out, (h * dv,), eps=self.eps)
         o_input = torch.cat([u, a, u * a], dim=-1) if self.concat_ua else u * a
         return self._o(self._dropout(o_input)) + x
+
+    def _ring_attention(self, qh, kh, vh, timestamps, pos_w, ts_w) -> torch.Tensor:
+        """Sequence-parallel attention on one device (exact: HSTU attention is
+        a plain sum over keys). N is padded up to a multiple of sp_shards (of
+        2 * sp_shards in the zigzag layout); padded keys contribute nothing
+        (their v rows are zero) and padded query rows are sliced off. The
+        timestamps pad by repeating the last column, so the last real row's
+        next-item timestamp is the dense path's."""
+        n = qh.shape[1]
+        chunks = 2 * self.sp_shards if self.sp_zigzag else self.sp_shards
+        pad = -n % chunks
+        if pad:
+            qh, kh, vh = (F.pad(x, (0, 0, 0, 0, 0, pad)) for x in (qh, kh, vh))
+            timestamps = torch.cat(
+                [timestamps, timestamps[:, -1:].expand(-1, pad)], dim=1
+            )
+        out = ring_hstu_attention(
+            qh, kh, vh, timestamps, pos_w, ts_w,
+            num_shards=self.sp_shards, zigzag=self.sp_zigzag,
+            # the 1/n normaliser and the table centre use the UNPADDED n
+            # (= max_attn_len in every real configuration)
+            max_len=self.max_attn_len, num_buckets=self.num_time_buckets,
+        )
+        return out[:, :n]
 
 
 class HSTU(nn.Module):
@@ -175,13 +223,12 @@ class HSTU(nn.Module):
         sp_shards: int = 1,
         tp_shards: int = 1,
         remat: bool = False,
+        sp_zigzag: bool = False,
         generator: Optional[torch.Generator] = None,
         linear_dropout_rate: float = 0.0,
         attn_dropout_rate: float = 0.0,
     ):
         super().__init__()
-        if sp_shards > 1:
-            raise not_ported("encoder.sp_shards > 1 (ring attention)", "Distributed")
         if tp_shards > 1:
             raise not_ported("encoder.tp_shards > 1", "Distributed")
         if remat:
@@ -203,6 +250,8 @@ class HSTU(nn.Module):
                 generator=generator,
                 dropout_rate=linear_dropout_rate,
                 attn_dropout_rate=attn_dropout_rate,
+                sp_shards=sp_shards,
+                sp_zigzag=sp_zigzag,
             )
             for _ in range(num_blocks)
         )

@@ -90,6 +90,7 @@ class GenerativeRecommender(nn.Module):
             sp_shards=enc.sp_shards,
             tp_shards=enc.tp_shards,
             remat=enc.remat,
+            sp_zigzag=enc.sp_zigzag,
             generator=generator,
             linear_dropout_rate=enc.linear_dropout_rate,
             attn_dropout_rate=enc.attn_dropout_rate,

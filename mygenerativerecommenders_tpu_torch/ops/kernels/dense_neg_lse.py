@@ -20,6 +20,17 @@ recomputes the logits and returns dq and dcat. The [BT, X] logits never reach
 device memory. Both are built by nvcc at first use; a failed build or launch
 raises. On CPU tensors it computes `dense_neg_lse_plain` and autograd
 differentiates that. No gradient flows to count.
+
+`fused_dense_neg_lse(q2, norm_catalog, count, sup_off, temperature)` is the
+JAX package's function of that name (dense_softmax.py:167-175, the kernels
+`_fwd_kernel` :75 and `_bwd_single_kernel` / `_bwd_dq_kernel` /
+`_bwd_dcat_kernel` :116-152): the same lse, with each row's positive masked
+inside the kernels (count zeroed at x == sup_off[i], -1 for none) and a count
+whose rows may be padded to the catalog rounded up to 128. It launches the
+same two entry points with a `sup_off` pointer, which the training path
+leaves null; its plain version is `fused_dense_neg_lse_plain`, and it counts
+its launches apart (`fused_launches`, `fused_bwd_launches`). Nothing in the
+JAX package calls it.
 """
 
 from __future__ import annotations
@@ -43,10 +54,15 @@ REPLACES_BWD = "mygenerativerecommenders_tpu/ops/pallas/dense_softmax.py:464"
 # on consecutive grid steps; the CUDA kernel walks any X in one launch and adds
 # its dcat partials with atomics
 REPLACES_WIDE = "mygenerativerecommenders_tpu/ops/pallas/dense_softmax.py:491"
-# kernel launches so far, forward and backward; callers that count
-# (chip_smoke.py) reset them to 0
+FUSED = "fused_dense_neg_lse"
+REPLACES_FUSED = "mygenerativerecommenders_tpu/ops/pallas/dense_softmax.py:75"
+REPLACES_FUSED_BWD = "mygenerativerecommenders_tpu/ops/pallas/dense_softmax.py:116"
+# kernel launches so far, forward and backward, of `dense_neg_lse` and of
+# `fused_dense_neg_lse`; callers that count (chip_smoke.py) reset them to 0
 launches = 0
 bwd_launches = 0
+fused_launches = 0
+fused_bwd_launches = 0
 
 _NO_LOGIT = -1e30
 _lib: Optional[ctypes.CDLL] = None
@@ -67,16 +83,39 @@ def dense_neg_lse_plain(
     return torch.where(s > 0, m_safe + torch.log(torch.clamp(s, min=1e-30)), -torch.inf)
 
 
-def _check(q, cat, count):
+def fused_dense_neg_lse_plain(
+    q2: torch.Tensor,
+    norm_catalog: torch.Tensor,
+    count: torch.Tensor,
+    sup_off: torch.Tensor,
+    temperature: float,
+) -> torch.Tensor:
+    """`fused_dense_neg_lse` in plain PyTorch, [BT] float32."""
+    x = norm_catalog.shape[0]
+    hit = torch.arange(x, device=count.device)[None, :] == sup_off.to(count.device)[:, None]
+    masked = torch.where(hit, 0, count[:, :x]).to(torch.uint8)
+    return dense_neg_lse_plain(q2, norm_catalog, masked, temperature)
+
+
+def _check(q, cat, count, sup_off=None):
     if q.ndim != 2 or cat.ndim != 2 or q.shape[1] != cat.shape[1]:
         raise ValueError(f"q {tuple(q.shape)} and cat {tuple(cat.shape)} must be [BT, D], [X, D]")
-    if tuple(count.shape) != (q.shape[0], cat.shape[0]) or count.dtype != torch.uint8:
-        raise ValueError(
-            f"count must be uint8 [{q.shape[0]}, {cat.shape[0]}], got "
-            f"{count.dtype} {tuple(count.shape)}"
-        )
-    if len({q.device, cat.device, count.device}) != 1:
-        raise ValueError("q, cat and count must be on one device")
+    bt, x = q.shape[0], cat.shape[0]
+    # without sup_off the count is [BT, X]; with it, rows may be padded to
+    # X rounded up to 128, as the JAX counts are born (dense_softmax.py:194)
+    widths = (x,) if sup_off is None else (x, -(-x // 128) * 128)
+    if count.ndim != 2 or count.shape[0] != bt or count.shape[1] not in widths:
+        raise ValueError(f"count must be [{bt}, {' or '.join(map(str, widths))}], got "
+                         f"{tuple(count.shape)}")
+    if count.dtype != torch.uint8:
+        raise ValueError(f"count must be uint8, got {count.dtype}")
+    operands = [q, cat, count]
+    if sup_off is not None:
+        if tuple(sup_off.shape) != (bt,):
+            raise ValueError(f"sup_off must be [{bt}], got {tuple(sup_off.shape)}")
+        operands.append(sup_off)
+    if len({t.device for t in operands}) != 1:
+        raise ValueError("q, cat, count and sup_off must be on one device")
 
 
 def _kernel_lib() -> ctypes.CDLL:
@@ -84,9 +123,9 @@ def _kernel_lib() -> ctypes.CDLL:
     if _lib is None:
         lib = _build.load(LIBRARY)
         p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
-        lib.dense_neg_lse_fwd.argtypes = [p] * 6 + [i, i, i, f, p]
+        lib.dense_neg_lse_fwd.argtypes = [p] * 7 + [i, i, i, ll, f, p]
         lib.dense_neg_lse_fwd.restype = i
-        lib.dense_neg_lse_bwd.argtypes = [p] * 8 + [i, i, i, f, p]
+        lib.dense_neg_lse_bwd.argtypes = [p] * 9 + [i, i, i, ll, f, p]
         lib.dense_neg_lse_bwd.restype = i
         lib.dense_neg_lse_fwd_smem_bytes.argtypes = [i]
         lib.dense_neg_lse_fwd_smem_bytes.restype = ll
@@ -100,6 +139,11 @@ def _kernel_lib() -> ctypes.CDLL:
     return _lib
 
 
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    """A tensor's device pointer, or the kernels' null pointer for None."""
+    return None if t is None else t.data_ptr()
+
+
 def _raise_on(lib, err: int, kernel: str) -> None:
     if err != 0:
         msg = lib.cuda_error_string(err).decode()
@@ -107,9 +151,12 @@ def _raise_on(lib, err: int, kernel: str) -> None:
 
 
 class _DenseNegLse(torch.autograd.Function):
+    """`sup_off` None is the training path's `dense_neg_lse` (the kernels'
+    null pointer); a tensor is `fused_dense_neg_lse`."""
+
     @staticmethod
-    def forward(ctx, q, cat, count, inv_tau):
-        global launches
+    def forward(ctx, q, cat, count, sup_off, inv_tau):
+        global launches, fused_launches
         lib = _kernel_lib()
         bt, d = q.shape
         x = cat.shape[0]
@@ -122,25 +169,30 @@ class _DenseNegLse(torch.autograd.Function):
             raise TypeError(f"q and cat must be float32, got {q.dtype} and {cat.dtype}")
         q, cat = q.detach().contiguous(), cat.detach().contiguous()
         count = count.contiguous()
+        sup = None if sup_off is None else sup_off.to(torch.int32).contiguous()
         lse, m_safe, s = (
             torch.empty((bt,), dtype=torch.float32, device=q.device) for _ in range(3)
         )
         if bt > 0:
             err = lib.dense_neg_lse_fwd(
-                q.data_ptr(), cat.data_ptr(), count.data_ptr(),
+                q.data_ptr(), cat.data_ptr(), count.data_ptr(), _ptr(sup),
                 lse.data_ptr(), m_safe.data_ptr(), s.data_ptr(),
-                bt, d, x, inv_tau, torch.cuda.current_stream(q.device).cuda_stream,
+                bt, d, x, count.stride(0), inv_tau,
+                torch.cuda.current_stream(q.device).cuda_stream,
             )
             _raise_on(lib, err, KERNEL)
-            launches += 1
-        ctx.save_for_backward(q, cat, count, m_safe, s)
+            if sup is None:
+                launches += 1
+            else:
+                fused_launches += 1
+        ctx.save_for_backward(q, cat, count, sup, m_safe, s)
         ctx.inv_tau = inv_tau
         return lse
 
     @staticmethod
     def backward(ctx, gl):
-        global bwd_launches
-        q, cat, count, m_safe, s = ctx.saved_tensors
+        global bwd_launches, fused_bwd_launches
+        q, cat, count, sup, m_safe, s = ctx.saved_tensors
         lib = _kernel_lib()
         bt, d = q.shape
         x = cat.shape[0]
@@ -149,13 +201,18 @@ class _DenseNegLse(torch.autograd.Function):
         dcat = torch.zeros_like(cat)  # the kernel adds into it with atomics
         if bt > 0:
             err = lib.dense_neg_lse_bwd(
-                q.data_ptr(), cat.data_ptr(), count.data_ptr(), m_safe.data_ptr(),
-                s.data_ptr(), gl.data_ptr(), dq.data_ptr(), dcat.data_ptr(),
-                bt, d, x, ctx.inv_tau, torch.cuda.current_stream(q.device).cuda_stream,
+                q.data_ptr(), cat.data_ptr(), count.data_ptr(), _ptr(sup),
+                m_safe.data_ptr(), s.data_ptr(), gl.data_ptr(), dq.data_ptr(),
+                dcat.data_ptr(), bt, d, x, count.stride(0), ctx.inv_tau,
+                torch.cuda.current_stream(q.device).cuda_stream,
             )
             _raise_on(lib, err, KERNEL_BWD)
-            bwd_launches += 1
-        return dq, dcat, None, None
+            if sup is None:
+                bwd_launches += 1
+            else:
+                fused_bwd_launches += 1
+        return dq, dcat, None, None, None
+
 
 
 def dense_neg_lse(
@@ -168,4 +225,27 @@ def dense_neg_lse(
         return dense_neg_lse_plain(q, cat, count, temperature)
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
-    return _DenseNegLse.apply(q, cat, count, float(1.0 / temperature))
+    return _DenseNegLse.apply(q, cat, count, None, float(1.0 / temperature))
+
+
+def fused_dense_neg_lse(
+    q2: torch.Tensor,
+    norm_catalog: torch.Tensor,
+    count: torch.Tensor,
+    sup_off: torch.Tensor,
+    temperature: float,
+) -> torch.Tensor:
+    """neg_lse [BT] for flattened queries q2 [BT, D] vs catalog [X, D].
+
+    count: [BT, X or X rounded up to 128] uint8 multiplicities, the dtype of
+    the JAX package's counts when R <= 255 (ops/dense_negatives.py:88-92); any
+    other dtype raises. sup_off: [BT] int catalog offset of each row's
+    positive (-1 = none), whose count is taken as 0. Differentiable in q2 and
+    norm_catalog.
+    """
+    _check(q2, norm_catalog, count, sup_off)
+    if q2.device.type == "cpu":
+        return fused_dense_neg_lse_plain(q2, norm_catalog, count, sup_off, temperature)
+    if q2.device.type != "cuda":
+        raise ValueError(f"no kernel for device {q2.device}")
+    return _DenseNegLse.apply(q2, norm_catalog, count, sup_off, float(1.0 / temperature))

@@ -15,8 +15,12 @@ it does not carry on on the CPU). The step runs eagerly, so
 leaves the training stream unchanged, has no effect here. With
 `data.pack_sequences` the train batches come packed from data/packing.py, and
 `data.pack_eval` (auto: histories of 512 and longer) packs the eval splits
-too, one query per segment; both eval paths are exact. The mesh, the
-multi-process loader, the ranking task and the profiler hooks raise.
+too, one query per segment; both eval paths are exact. With
+`model.encoder.sp_shards` > 1 the model's attention is the ring of
+parallel/ring_attention.py, whose shards run in turn on this one device: the
+JAX trainer's (data, sp) mesh has no counterpart, and packed batches raise
+with it, as there. The mesh (`trainer.num_devices` > 1), the multi-process
+loader, the ranking task and the profiler hooks raise.
 """
 
 from __future__ import annotations

@@ -16,6 +16,7 @@ import torch
 from mygenerativerecommenders_tpu_torch.ops.kernels import count_offsets as count_kern
 from mygenerativerecommenders_tpu_torch.ops.kernels import dense_neg_lse as lse_kern
 from mygenerativerecommenders_tpu_torch.ops.kernels import hstu_attention as kern
+from mygenerativerecommenders_tpu_torch.ops.kernels import hstu_chunk as chunk_kern
 
 
 @pytest.mark.gpu
@@ -237,3 +238,101 @@ def test_dense_neg_lse_kernels_match_plain_on_a_wide_catalog_on_card(bt, d, x):
     for a, w in zip(got, want):
         np.testing.assert_allclose(a.cpu().numpy(), w.cpu().numpy(), rtol=2e-4, atol=2e-5)
     assert not got[0][0].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "b,nq,nc,h,d,offd,max_len",
+    [
+        (3, 37, 50, 1, 9, -50, 100),  # fully live, Nq != Nc
+        (32, 130, 130, 2, 64, 0, 1035),  # the zigzag ring's diagonal chunk
+        (4, 259, 259, 2, 64, 100, 1035),  # partial
+        (2, 40, 70, 2, 16, 40, 100),  # dead: zeros
+        (2, 130, 130, 2, 64, -910, 1035),  # padded rows past the table: clipped slot
+    ],
+    ids=["negative", "zero", "partial", "dead", "off-table"],
+)
+def test_chunk_kernels_match_plain_on_card(b, nq, nc, h, d, offd, max_len):
+    """Chunk forward and backward against autograd of the plain version, q, k,
+    v read as strided slices of one projection (as the ring hands them over)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA)")
+    rng = np.random.default_rng(6)
+    n = nq + nc
+    proj = torch.tensor(rng.normal(size=(b, n, 3 * h * d)), dtype=torch.float32).cuda()
+    proj.requires_grad_()
+    ts = np.sort(978_000_000 + rng.integers(0, 3 * 365 * 86400, size=(b, n)), axis=1)
+    ts = torch.tensor(ts, dtype=torch.int32).cuda()
+    pw = torch.tensor(rng.normal(size=(2 * max_len - 1,)) * 0.02, dtype=torch.float32).cuda()
+    tw = torch.tensor(rng.normal(size=(129,)) * 0.02, dtype=torch.float32).cuda()
+    pw.requires_grad_(), tw.requires_grad_()
+    g = torch.tensor(rng.normal(size=(b, nq, h, d)), dtype=torch.float32).cuda()
+
+    def run(fn):
+        q, k, v = (x.unflatten(-1, (h, d)) for x in torch.split(proj, [h * d] * 3, dim=-1))
+        out = fn(q[:, :nq], k[:, nq:], v[:, nq:], ts[:, :nq], ts[:, nq:], offd, pw, tw,
+                 inv_n=1.0 / max_len, max_len=max_len, num_buckets=128)
+        return out, torch.autograd.grad(out, [proj, pw, tw], g)
+
+    before = (chunk_kern.launches, chunk_kern.bwd_launches)
+    got, got_grads = run(chunk_kern.hstu_chunk_attention)
+    torch.cuda.synchronize()
+    assert (chunk_kern.launches, chunk_kern.bwd_launches) == (before[0] + 1, before[1] + 1)
+    want, want_grads = run(chunk_kern.hstu_chunk_attention_plain)
+    np.testing.assert_allclose(
+        got.detach().cpu().numpy(), want.detach().cpu().numpy(), rtol=2e-4, atol=2e-5
+    )
+    for i, (a, w) in enumerate(zip(got_grads, want_grads)):
+        rtol = 2e-4 if i == 0 else 5e-4
+        np.testing.assert_allclose(a.cpu().numpy(), w.cpu().numpy(), rtol=rtol, atol=2e-5)
+    if offd >= nq:
+        assert not got.any() and not any(x.any() for x in got_grads)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bt,d,x,padded", [(70, 12, 150, True), (700, 64, 26744, False)])
+def test_fused_dense_neg_lse_with_and_without_sup_off_on_card(bt, d, x, padded):
+    """The lse kernels with sup_off against the plain version; an all -1
+    sup_off gives the bits of the training path's null pointer."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA)")
+    rng = np.random.default_rng(7)
+    q = torch.tensor(rng.normal(size=(bt, d)), dtype=torch.float32)
+    cat = torch.tensor(rng.normal(size=(x, d)), dtype=torch.float32)
+    q = (q / q.norm(dim=-1, keepdim=True)).cuda().requires_grad_()
+    cat = (cat / cat.norm(dim=-1, keepdim=True)).cuda().requires_grad_()
+    width = -(-x // 128) * 128 if padded else x
+    count = torch.zeros((bt, width), dtype=torch.uint8)
+    draws = torch.tensor(rng.integers(0, x, size=(bt, 32)), dtype=torch.long)
+    count.scatter_add_(1, draws, torch.ones_like(draws, dtype=torch.uint8))
+    sup = torch.tensor(np.where(rng.random(bt) < 0.2, -1, draws[:, 0].numpy()), dtype=torch.int32)
+    count[0] = 0
+    count[0, 7] = 2
+    sup[0] = 7  # an all-hit row: lse -inf, no gradient
+    count, sup = count.cuda(), sup.cuda()
+    gl = torch.tensor(rng.normal(size=(bt,)), dtype=torch.float32).cuda()
+
+    def run(fn, s):
+        lse = fn(q, cat, count, s, 0.05)
+        loss = (torch.where(torch.isfinite(lse), lse, 0.0) * gl).sum()
+        return lse, torch.autograd.grad(loss, [q, cat])
+
+    before = (lse_kern.fused_launches, lse_kern.fused_bwd_launches)
+    lse, got = run(lse_kern.fused_dense_neg_lse, sup)
+    torch.cuda.synchronize()
+    assert (lse_kern.fused_launches, lse_kern.fused_bwd_launches) == (before[0] + 1, before[1] + 1)
+    want_lse, want = run(lse_kern.fused_dense_neg_lse_plain, sup)
+    assert lse[0] == -torch.inf and want_lse[0] == -torch.inf
+    np.testing.assert_allclose(
+        lse.detach().cpu().numpy(), want_lse.detach().cpu().numpy(), rtol=2e-4, atol=2e-5
+    )
+    for a, w in zip(got, want):
+        np.testing.assert_allclose(a.cpu().numpy(), w.cpu().numpy(), rtol=2e-4, atol=2e-5)
+    assert not got[0][0].any()
+    # all -1 masks nothing: the null pointer's lse and dq to the bit
+    none = torch.full_like(sup, -1)
+    masked, masked_grads = run(lse_kern.fused_dense_neg_lse, none)
+    null = lse_kern.dense_neg_lse(q, cat, count[:, :x].contiguous(), 0.05)
+    null_dq = torch.autograd.grad(
+        (torch.where(torch.isfinite(null), null, 0.0) * gl).sum(), [q])[0]
+    assert torch.equal(masked, null) and torch.equal(masked_grads[0], null_dq)

@@ -165,7 +165,6 @@ def test_model_init_is_seeded_and_padding_row_zero():
     [
         ("model.encoder.kind=sasrec", "Other model families"),
         ("model.encoder.normalization=softmax_rel_bias", "Other model families"),
-        ("model.encoder.sp_shards=2", "Distributed"),
         ("model.encoder.tp_shards=2", "Distributed"),
         ("model.encoder.remat=true", "Training variants"),
         ("model.embedding.kind=sharded_a2a", "Distributed"),
