@@ -20,16 +20,20 @@ Phases, each of which stops the run with a non-zero exit when it fails:
      training shape (B=128, N=L=211, H=1, d=50, ragged) and at the wide shape:
      dq, dk, dv at rtol 2e-4 / atol 2e-5, d_pos_w and d_ts_w at rtol 5e-4
      (they sum ~N^2 terms per row, here with float atomics whose order changes
-     from run to run), rows past the length exactly zero;
+     from run to run), rows past the length exactly zero, and dq, dk, dv bit
+     for bit the same in a second call (no atomics touch them);
    - both attention kernels with `seg_positions` (packed rows) at a row of
      ml-1m-hstu-packed (B=56, N=256, L=211, H=1, d=50) and at the widest row
      of ml-20m-hstu-long (B=4, N=1152, L=1035, H=2, d=64: wider than the bias
      table reaches), segments of mixed lengths including 1 and L, one row with
      trailing padding, the same tolerances; a gradient sent into one segment
      must leave dq, dk, dv of every other segment and row exactly zero, and a
-     null `seg_positions` must give the bits of one segment per row;
+     null `seg_positions` must give the bits of one segment per row; the
+     backward also at B=4, N=1121 (not a multiple of its 32-row tile), L=1035,
+     H=2, d=64, packed, with rows of packed length 1 and 20;
    - the negative count at [26880, 128] into X=3,706 and X=26,744, with
-     accidental hits and sentinels, exactly;
+     accidental hits and sentinels, exactly; and at [26880, 256] into X=3,706
+     (int32 counts, one bin of 256), with the lse kernels on those counts;
    - the dense-negative lse forward and backward at [26880, 50] x [3706, 50]
      with those counts, tau 0.05, one all-hit row: lse, dq, dcat at rtol 2e-4
      / atol 2e-5; the same over the ml-20m catalog, at [26880, 50] x
@@ -340,6 +344,8 @@ def check_attention_bwd(kern, seed, b, n, h, d, lengths, max_len=None, seg=None,
 
     out = kern.hstu_attention_fused(**a)
     got = split(torch.autograd.grad(out, leaves, g, retain_graph=True))
+    again = split(torch.autograd.grad(out, leaves, g, retain_graph=True))
+    same = all(torch.equal(x, y) for x, y in zip(got[:3], again[:3]))
     out_plain = kern.hstu_attention_fused_plain(**a)
     want = split(torch.autograd.grad(out_plain, leaves, g, retain_graph=True))
     torch.cuda.synchronize()
@@ -354,9 +360,10 @@ def check_attention_bwd(kern, seed, b, n, h, d, lengths, max_len=None, seg=None,
     shape = f"B={b} N={n} L={a['max_len']} H={h} d={d}" + (" packed" if seg is not None else "")
     log(f"{kern.KERNEL_BWD} {shape}: max_abs_err " + ", ".join(errs)
         + f"; within rtol {RTOL} (tables {BIAS_RTOL}) atol {ATOL}: {ok}, "
-        f"rows past length zero: {dead}")
+        f"rows past length zero: {dead}, dq, dk, dv bit-identical in a second call: {same}")
     check(ok and dead, f"{kern.KERNEL_BWD} disagrees with autograd of its plain version "
           f"at {shape}")
+    check(same, f"{kern.KERNEL_BWD}: dq, dk, dv changed between two calls at {shape}")
     if bounds is not None:
         # an upstream gradient on one segment alone (row 1's second) must leave
         # dq, dk and dv of every other row and segment exactly zero
@@ -390,6 +397,9 @@ def negative_draws(seed, bt, r, x):
     positive[5] = 11
     offsets[5, :] = 11
     offsets[-100:, r // 2 :] = x + 5
+    if r > 255:  # a bin past a byte: every draw of row 6 on one item
+        positive[6] = -1
+        offsets[6, :] = 13
     return torch.tensor(offsets).cuda(), torch.tensor(positive).cuda()
 
 
@@ -400,11 +410,14 @@ def check_count(kern, bt, r, x) -> dict:
     torch.cuda.synchronize()
     equal = bool(torch.equal(got, want))
     hits = int((offsets == positive[:, None]).sum())
-    log(f"{kern.KERNEL} [{bt}, {r}] into X={x}: equal to plain: {equal} "
+    log(f"{kern.KERNEL} [{bt}, {r}] into X={x}: {got.dtype} counts equal to plain: {equal} "
         f"({int(got.sum())} draws counted, {hits} accidental hits and "
-        f"{int((offsets >= x).sum())} sentinels dropped)")
+        f"{int((offsets >= x).sum())} sentinels dropped, largest bin {int(got.max())})")
     check(equal, f"{kern.KERNEL} disagrees with its plain version at X={x}")
     check(not bool(got[5].any()), "the all-hit row has a count")
+    check(got.dtype == (torch.uint8 if r <= 255 else torch.int32),
+          f"{r} draws a row gave {got.dtype} counts")
+    check(r <= 255 or int(got[6, 13]) == r, "a bin past a byte was not counted whole")
     ms = device_ms(lambda: kern.count_offsets(offsets, positive, x), 50)
     plain_ms = device_ms(lambda: kern.count_offsets_plain(offsets, positive, x), 10)
     # one PyTorch call for the same counts: scatter_add_ into a zeroed int32
@@ -1361,6 +1374,12 @@ def main() -> int:
         pos, lens, seg_bounds = packed_layout(20 + seed, b, n, max_len)
         check_attention(kern, kern.KERNEL, 30 + seed, b, n, h, d, lens, max_len, pos)
         check_attention_bwd(kern, 40 + seed, b, n, h, d, lens, max_len, pos, seg_bounds)
+    # the backward's 32-row tiles at a ragged edge: N = 1121 = 35 x 32 + 1, and
+    # rows of packed length 1 and 20 (positions 0 past the length)
+    pos, lens, seg_bounds = packed_layout(22, 4, 1121, 1035)
+    pos[2], lens[2] = 0, 1
+    pos[3, 20:], lens[3] = 0, 20
+    check_attention_bwd(kern, 42, 4, 1121, 2, 64, lens, 1035, pos, seg_bounds)
     counted = check_count(count_kern, TRAIN_BT, TRAIN_R, 3706)
     counted_wide = check_count(count_kern, TRAIN_BT, TRAIN_R, 26744)
     lse_fwd, lse_bwd = check_dense_neg_lse(
@@ -1372,6 +1391,10 @@ def main() -> int:
         lse_kern, counted_wide.pop("count"), TRAIN_BT, 50, 26744, 0.05, chunk=2048
     )
     del counted_wide
+    # loss.num_to_sample=256 at the padded shape: int32 counts, and the lse
+    # kernels' int32 instantiation on them
+    check_dense_neg_lse(lse_kern, check_count(count_kern, TRAIN_BT, 256, 3706)["count"],
+                        TRAIN_BT, 50, 3706, 0.05)
     long_bt = 24 * 1023
     check_dense_neg_lse(
         lse_kern, check_count(count_kern, long_bt, TRAIN_R, 26744)["count"], long_bt, 64,

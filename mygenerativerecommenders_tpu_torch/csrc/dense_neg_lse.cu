@@ -30,6 +30,11 @@
 // the stride (kMasked false), the training path's code: its arithmetic is
 // that of the unmasked kernels, bit for bit.
 //
+// count is uint8 (R <= 255 draws a row) or, with `wide`, int32 (R > 255,
+// where a bin could pass 255; csrc/count_offsets.cu). The kernels are
+// templated on the count's type, so the uint8 instantiation is the code that
+// ran before int32 counts existed; sup_off takes uint8 counts only.
+//
 // What bounds it. At BT=26,880, D=50, X=3,706 the dense products are 10.0
 // GFLOP forward and 19.9 GFLOP more backward in fp32 FMA, and both passes read
 // the 99.6 MB uint8 count. Only the live logits are needed for the result
@@ -124,11 +129,10 @@ __device__ __forceinline__ void load_sup(int (&sup)[4], const int* __restrict__ 
   for (int i = 0; i < 4; ++i) sup[i] = kMasked && row0 + i < bt ? sup_off[row0 + i] : -1;
 }
 
-// The thread's 4x4 count bytes; 0 outside [bt, x) and, with kMasked, at the
+// The thread's 4x4 counts; 0 outside [bt, x) and, with kMasked, at the
 // row's positive column (the TPU kernel's cmask, dense_softmax.py:67-68).
-template <bool kMasked>
-__device__ __forceinline__ void load_counts(uint8_t (&cnt)[4][4],
-                                            const uint8_t* __restrict__ count,
+template <bool kMasked, typename C>
+__device__ __forceinline__ void load_counts(C (&cnt)[4][4], const C* __restrict__ count,
                                             int64_t count_ld, const int (&sup)[4],
                                             int row0, int col0, int bt, int x) {
   const int64_t ld = kMasked ? count_ld : x;
@@ -139,14 +143,14 @@ __device__ __forceinline__ void load_counts(uint8_t (&cnt)[4][4],
       const int row = row0 + i, col = col0 + j;
       cnt[i][j] = row < bt && col < x && (!kMasked || col != sup[i])
                       ? count[(int64_t)row * ld + col]
-                      : (uint8_t)0;
+                      : (C)0;
     }
 }
 
-template <bool kMasked>
+template <bool kMasked, typename C>
 __global__ void __launch_bounds__(kThreads) dense_neg_lse_fwd_kernel(
     const float* __restrict__ q, const float* __restrict__ cat,
-    const uint8_t* __restrict__ count, const int* __restrict__ sup_off,
+    const C* __restrict__ count, const int* __restrict__ sup_off,
     float* __restrict__ lse, float* __restrict__ m_out, float* __restrict__ s_out,
     int bt, int d, int x, int64_t count_ld, float inv_tau) {
   extern __shared__ __align__(16) float smem[];
@@ -167,7 +171,7 @@ __global__ void __launch_bounds__(kThreads) dense_neg_lse_fwd_kernel(
   for (int x0 = 0; x0 < x; x0 += kBN) {
     __syncthreads();  // the last tile's readers are done with c_t
     stage_tile(c_t, nullptr, 0, cat + (int64_t)x0 * d, d, x - x0);
-    uint8_t cnt[4][4];
+    C cnt[4][4];
     load_counts<kMasked>(cnt, count, count_ld, sup, row0 + 4 * ty, x0 + 4 * tx, bt, x);
     __syncthreads();
     float acc[4][4];
@@ -208,10 +212,10 @@ __global__ void __launch_bounds__(kThreads) dense_neg_lse_fwd_kernel(
 }
 
 // kDC: depth columns per thread, ceil(d / 16)
-template <int kDC, bool kMasked>
+template <int kDC, bool kMasked, typename C>
 __global__ void __launch_bounds__(kThreads) dense_neg_lse_bwd_kernel(
     const float* __restrict__ q, const float* __restrict__ cat,
-    const uint8_t* __restrict__ count, const int* __restrict__ sup_off,
+    const C* __restrict__ count, const int* __restrict__ sup_off,
     const float* __restrict__ m_safe, const float* __restrict__ s_in,
     const float* __restrict__ gl, float* __restrict__ dq, float* __restrict__ dcat,
     int bt, int d, int x, int64_t count_ld, float inv_tau) {
@@ -245,7 +249,7 @@ __global__ void __launch_bounds__(kThreads) dense_neg_lse_bwd_kernel(
   for (int x0 = 0; x0 < x; x0 += kBN) {
     __syncthreads();  // the last tile's readers are done with c_t/c_r/dal_s
     stage_tile(c_t, c_r, kLd, cat + (int64_t)x0 * d, d, x - x0);
-    uint8_t cnt[4][4];
+    C cnt[4][4];
     load_counts<kMasked>(cnt, count, count_ld, sup, row0 + 4 * ty, x0 + 4 * tx, bt, x);
     __syncthreads();
     float acc[4][4];
@@ -326,35 +330,35 @@ long long bwd_smem_bytes(int d, int dc) {
   return 4LL * (2LL * d * kLdT + 2LL * kBM * (16 * dc + 8) + kBM * kLdDal);
 }
 
-template <bool kMasked>
-int launch_fwd(const float* q, const float* cat, const uint8_t* count,
+template <bool kMasked, typename C>
+int launch_fwd(const float* q, const float* cat, const C* count,
                const int* sup_off, float* lse, float* m_safe, float* s, int bt, int d,
                int x, int64_t count_ld, float inv_tau, cudaStream_t stream) {
   const long long smem = fwd_smem_bytes(d);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        dense_neg_lse_fwd_kernel<kMasked>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        dense_neg_lse_fwd_kernel<kMasked, C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  dense_neg_lse_fwd_kernel<kMasked><<<(bt + kBM - 1) / kBM, kThreads, (size_t)smem, stream>>>(
+  dense_neg_lse_fwd_kernel<kMasked, C><<<(bt + kBM - 1) / kBM, kThreads, (size_t)smem, stream>>>(
       q, cat, count, sup_off, lse, m_safe, s, bt, d, x, count_ld, inv_tau);
   return (int)cudaGetLastError();
 }
 
-template <int kDC, bool kMasked>
-int launch_bwd(const float* q, const float* cat, const uint8_t* count,
+template <int kDC, bool kMasked, typename C>
+int launch_bwd(const float* q, const float* cat, const C* count,
                const int* sup_off, const float* m_safe, const float* s,
                const float* gl, float* dq, float* dcat, int bt, int d, int x,
                int64_t count_ld, float inv_tau, cudaStream_t stream) {
   const long long smem = bwd_smem_bytes(d, kDC);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        dense_neg_lse_bwd_kernel<kDC, kMasked>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        dense_neg_lse_bwd_kernel<kDC, kMasked, C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  dense_neg_lse_bwd_kernel<kDC, kMasked>
+  dense_neg_lse_bwd_kernel<kDC, kMasked, C>
       <<<(bt + kBM - 1) / kBM, kThreads, (size_t)smem, stream>>>(
           q, cat, count, sup_off, m_safe, s, gl, dq, dcat, bt, d, x, count_ld, inv_tau);
   return (int)cudaGetLastError();
@@ -371,36 +375,54 @@ int dense_neg_lse_max_depth() { return 128; }
 long long dense_neg_lse_fwd_smem_bytes(int d) { return fwd_smem_bytes(d); }
 long long dense_neg_lse_bwd_smem_bytes(int d) { return bwd_smem_bytes(d, d <= 64 ? 4 : 8); }
 
-// q [bt, d], cat [x, d] float32 contiguous, count [bt, >= x] uint8 with row
-// stride count_ld, sup_off [bt] int32 or null -> lse, m_safe, s [bt]. A null
-// sup_off masks nothing. Launches on `stream` without synchronising; returns
+// q [bt, d], cat [x, d] float32 contiguous, count [bt, >= x] uint8 (int32 if
+// `wide`) with row stride count_ld, sup_off [bt] int32 or null -> lse,
+// m_safe, s [bt]. A null sup_off masks nothing; sup_off takes uint8 counts
+// only. Launches on `stream` without synchronising; returns
 // cudaGetLastError().
-int dense_neg_lse_fwd(const float* q, const float* cat, const uint8_t* count,
+int dense_neg_lse_fwd(const float* q, const float* cat, const void* count,
                       const int* sup_off, float* lse, float* m_safe, float* s,
                       int bt, int d, int x, long long count_ld, float inv_tau,
-                      void* stream) {
-  if (sup_off)
-    return launch_fwd<true>(q, cat, count, sup_off, lse, m_safe, s, bt, d, x, count_ld,
-                            inv_tau, (cudaStream_t)stream);
-  return launch_fwd<false>(q, cat, count, sup_off, lse, m_safe, s, bt, d, x, count_ld,
-                           inv_tau, (cudaStream_t)stream);
+                      int wide, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  const uint8_t* c8 = static_cast<const uint8_t*>(count);
+  if (sup_off) {
+    if (wide) return (int)cudaErrorInvalidValue;
+    return launch_fwd<true>(q, cat, c8, sup_off, lse, m_safe, s, bt, d, x, count_ld,
+                            inv_tau, st);
+  }
+  if (wide)
+    return launch_fwd<false>(q, cat, static_cast<const int*>(count), sup_off, lse, m_safe, s,
+                             bt, d, x, count_ld, inv_tau, st);
+  return launch_fwd<false>(q, cat, c8, sup_off, lse, m_safe, s, bt, d, x, count_ld,
+                           inv_tau, st);
 }
 
-// dcat [x, d] must arrive zeroed; dq [bt, d] is written whole. count and
-// sup_off as in dense_neg_lse_fwd.
-int dense_neg_lse_bwd(const float* q, const float* cat, const uint8_t* count,
+// dcat [x, d] must arrive zeroed; dq [bt, d] is written whole. count, wide
+// and sup_off as in dense_neg_lse_fwd.
+int dense_neg_lse_bwd(const float* q, const float* cat, const void* count,
                       const int* sup_off, const float* m_safe, const float* s,
                       const float* gl, float* dq, float* dcat, int bt, int d, int x,
-                      long long count_ld, float inv_tau, void* stream) {
+                      long long count_ld, float inv_tau, int wide, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
-  if (sup_off)
-    return d <= 64 ? launch_bwd<4, true>(q, cat, count, sup_off, m_safe, s, gl, dq, dcat, bt,
+  const uint8_t* c8 = static_cast<const uint8_t*>(count);
+  if (sup_off) {
+    if (wide) return (int)cudaErrorInvalidValue;
+    return d <= 64 ? launch_bwd<4, true>(q, cat, c8, sup_off, m_safe, s, gl, dq, dcat, bt,
                                          d, x, count_ld, inv_tau, st)
-                   : launch_bwd<8, true>(q, cat, count, sup_off, m_safe, s, gl, dq, dcat, bt,
+                   : launch_bwd<8, true>(q, cat, c8, sup_off, m_safe, s, gl, dq, dcat, bt,
                                          d, x, count_ld, inv_tau, st);
-  return d <= 64 ? launch_bwd<4, false>(q, cat, count, sup_off, m_safe, s, gl, dq, dcat, bt, d,
+  }
+  if (wide) {
+    const int* c32 = static_cast<const int*>(count);
+    return d <= 64 ? launch_bwd<4, false>(q, cat, c32, sup_off, m_safe, s, gl, dq, dcat, bt,
+                                          d, x, count_ld, inv_tau, st)
+                   : launch_bwd<8, false>(q, cat, c32, sup_off, m_safe, s, gl, dq, dcat, bt,
+                                          d, x, count_ld, inv_tau, st);
+  }
+  return d <= 64 ? launch_bwd<4, false>(q, cat, c8, sup_off, m_safe, s, gl, dq, dcat, bt, d,
                                         x, count_ld, inv_tau, st)
-                 : launch_bwd<8, false>(q, cat, count, sup_off, m_safe, s, gl, dq, dcat, bt, d,
+                 : launch_bwd<8, false>(q, cat, c8, sup_off, m_safe, s, gl, dq, dcat, bt, d,
                                         x, count_ld, inv_tau, st);
 }
 

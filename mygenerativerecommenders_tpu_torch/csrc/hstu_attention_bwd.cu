@@ -1,56 +1,81 @@
-// Fused HSTU pointwise attention backward for Hopper (sm_90a), plain C ABI.
+// Fused HSTU pointwise attention backward for Hopper (sm_90a), plain C ABI:
+// two deterministic register-tiled fp32 passes in one launch.
 //
 // Replaces the TPU kernel mygenerativerecommenders_tpu/ops/pallas/hstu_attention.py:425
-// (`_bwd_fused_kernel`, launched from `_fused_bwd_impl`; `_dtw_from_dz`, :635,
-// finishes d_ts_w there for short sequences). Like that kernel it keeps nothing
-// [N, N]-shaped from the forward: it recomputes, for every live pair (query row
-// m < len_b, key n <= m),
+// (`_bwd_fused_kernel`, launched from `_fused_bwd_impl` through the
+// pallas_call at :763; `_dtw_from_dz`, :635, finishes d_ts_w there for short
+// sequences). Like that kernel it keeps nothing [N, N]-shaped from the
+// forward: it recomputes, for every live pair (query row m < len_b, key
+// n <= m, m - n < L),
 //
 //   z   = q[b,m,h].k[b,n,h] + pos_w[n-m+L-1] + ts_w[bucket(ts_next[b,m] - ts[b,n])]
 //   sig = sigmoid(z),  p = z sig / L,  dp = g[b,m,h].v[b,n,h]
 //   dz  = dp (sig + z sig (1 - sig)) / L
 //
-// and from these  dq[m] += dz k[n],  dk[n] += dz q[m],  dv[n] += p g[m],
-// d_pos_w[n-m+L-1] += sum_h dz,  d_ts_w[bucket] += sum_h dz.  Rows at or past
-// len_b come out exactly zero in dq, dk and dv.
+// and from these  dq[m] = sum_n dz k[n],  dk[n] = sum_m dz q[m],
+// dv[n] = sum_m p g[m],  d_pos_w[n-m+L-1] += dz,  d_ts_w[bucket] += dz.
+// Rows at or past len_b come out exactly zero in dq, dk and dv.
 //
 // Packed rows. With `seg_pos` [B, N] (null = one sequence per row) a pair is
 // live only inside one segment, n >= m - seg_pos[b,m], as in the forward (the
-// TPU kernel's has_seg branch, :445-473, :513-514): p and dz are masked alike,
-// so dk, dv, the diagonal array and the histogram see in-segment pairs only,
-// and the key walk starts at the tile of the earliest segment start among the
-// block's query rows. Only pairs less than L apart are live, so a row wider
-// than L neither reads pos_w nor writes the [L] diagonal array out of range.
+// TPU kernel's has_seg branch, :445-473, :513-514): p and dz are masked
+// alike, so every gradient sees in-segment pairs only. Only pairs less than L
+// apart are live, so a row wider than L (a packed row) neither reads pos_w
+// nor writes the [L] diagonal array out of range.
 //
-// What bounds it. At the training shape (B=128, N=L=211, H=1, d=50) the live
-// causal half is ~2.9 M pairs x 500 flop = ~1.4 GFLOP of fp32 FMA (~21 us at
-// 67 TFLOP/s) against ~43 MB of q, k, v, g, dq, dk, dv (~13 us at 3.35 TB/s):
-// operations bound it, and what this simple version pays on top is the serial
-// walk over key tiles (three barriers each) and the global atomics of dk/dv.
+// What bounds it. PERF.md section 6 row 2 counts 5 products of d-long dot
+// products per live pair and head (q.k, g.v, dz k, dz q, p g) in fp32 at the
+// 67 TFLOP/s non-tensor peak, against the bytes of q, k, v, g, dq, dk, dv at
+// 3.35 TB/s. At B=4, N=1152, L=1035, H=2, d=64, packed (1.3 M live pairs a
+// head), operations bound it: ~0.025 ms. At B=128, N=L=211, H=1, d=50 with
+// ragged lengths (~0.95 M pairs) the two are within 15% (~8 us of bytes,
+// ~7 us of operations). This design computes q.k and g.v in both passes,
+// 7 products a pair, so its own least time is 1.4 times the operation bound.
 //
-// Design. One block of 256 threads (8 warps) per (batch row, 32-row query
-// tile) walks the key tiles up to its last live key. The TPU kernel's 128-row
-// pad, Toeplitz position stripe, barrel-rotate skew and one-hot bucket
-// products exist for Mosaic and are not carried over. Per 32-key tile:
-//   scores: warp w owns query rows 4w..4w+3, lane j key j. The lane builds the
-//     bias of its 4 pairs once, then per head runs the 4 q.k and 4 g.v dot
-//     products, and writes p and dz of its pairs to shared memory. The
-//     head-summed dz goes into a [L] diagonal array and a [num_buckets+1]
-//     histogram in shared memory (shared atomics);
-//   dq: lane c takes columns c, c+32, ... of rows 4w..4w+3 and adds dz.k into
-//     the block's dq accumulator in shared memory (dq of a query tile belongs
-//     to this block alone: no atomics, written once at the end);
-//   dk, dv: each thread takes (key, column) outputs of the tile, sums over the
-//     tile's 32 query rows and adds the partial into the zeroed dk / dv with
-//     atomicAdd: other query tiles of the same batch row add to the same keys.
-// At the end the block adds the non-zero entries of its diagonal array and
-// histogram into d_pos_w and d_ts_w with global atomics: one histogram serves
-// short and long sequences. Float atomics sum in an order that changes from
-// run to run, so dk, dv and the table gradients differ in their last bits
-// between runs; dq is deterministic.
+// What held the single-pass version back, and what this one does about it:
+//  1. Float atomics into dk and dv for every key tile (and a zero fill
+//     before the launch), which also made dk and dv change in their last
+//     bits from run to run. Now two passes (the FlashAttention-2 split), each
+//     owning its outputs: pass K, one block per (32-key tile, head, batch
+//     row), keeps its k and v tile in shared memory and dk, dv in registers,
+//     walks the 32-query tiles that can see its keys, recomputes z, p and dz
+//     and writes dk and dv once; pass Q, one block per (32-query tile, head,
+//     batch row), walks the key tiles its queries can see, keeps dq in
+//     registers and writes it once, and sums the two table gradients in
+//     shared memory (a [L] diagonal array and a [num_buckets+1] histogram,
+//     one atomic per touched entry per block into d_pos_w and d_ts_w). dq, dk
+//     and dv take no atomics and no zero fill: every sum runs in a fixed
+//     order, so they are bit-identical from run to run. Only the table
+//     gradients keep float atomics (order free, last bits vary).
+//  2. Scalar shared-memory loads, ~5 for every 4 FMAs. Now register tiles:
+//     each warp owns 16 resident rows x 16 rows of the streamed tile; a lane
+//     owns 4 x 2 of those pairs and reads its operands as float4 along the
+//     depth (4 resident + 2 streamed loads for 32 FMAs a product). Rows are
+//     stored with a stride of 4 (mod 8) floats, so the 8 lanes of a
+//     quarter-warp read 8 consecutive rows from 8 distinct bank groups, and
+//     the resident loads are broadcasts. The second product of a pass (dz k,
+//     dz q, p g) reads dz or p of the warp's own 16 x 16 pairs back from a
+//     per-warp shared array (a __syncwarp, no block barrier) and keeps 4 rows
+//     x 8 columns of each output a lane (3 loads for 32 FMAs).
+//  3. No overlap of copy and compute, and three barriers a tile. Now
+//     cp.async (16-byte .cg copies where the source is aligned, 4-byte ones
+//     otherwise: q, k, v are column slices of the uvqk projection) brings
+//     tile t+1 into a second buffer while tile t is computed, with one block
+//     barrier a tile.
+//  4. Too few blocks (36 x 4 at the long shape, ~104 KB of shared memory
+//     each, one block an SM). Now heads are on the grid and the two passes
+//     share one launch: 36 tiles x 2 heads x 4 rows x 2 passes = 576 blocks
+//     at the long shape, ~69 KB each (three blocks an SM; nvcc -Xptxas -v:
+//     166 registers, no spills for heads up to 64 wide), 1,792 at the
+//     padded one. The walks of uneven length (the causal triangle) are
+//     launched longest first: pass Q's tiles in reverse, pass K's in order,
+//     interleaved.
+//  5. Exact fp32 as before: no TF32, no --use_fast_math, the time bucket
+//     through hstu::bucketize (logf and IEEE division, the forward's bits)
+//     and expf in the sigmoid.
 //
-// q, k and v are read through their row strides (column slices of the fused
-// uvqk projection); g, dq, dk and dv are contiguous [B, N, H*d].
+// q, k and v are read through their row strides; g, dq, dk and dv are
+// contiguous [B, N, H, d].
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -60,208 +85,461 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kBQ = 32;              // query rows per block
-constexpr int kBK = 32;              // key rows per tile: one per lane
-constexpr int kRows = kBQ / kWarps;  // query rows per warp
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kT = 32;          // rows of a tile, resident or streamed
+constexpr int kHalf = kT / 2;   // rows a warp owns on each side
+constexpr int kLdW = kHalf + 4; // per-warp dz / p rows: 16-byte aligned, 5 x 16 B
+constexpr int kMaxDepth = 128;  // widest head the 4 x 8-column output tiles reach
 
-__global__ void __launch_bounds__(kThreads) hstu_attention_bwd_kernel(
-    const float* __restrict__ q, const float* __restrict__ k,
-    const float* __restrict__ v, const float* __restrict__ g,
-    const int* __restrict__ ts, const int* __restrict__ lengths,
-    const int* __restrict__ seg_pos, const float* __restrict__ pos_w,
-    const float* __restrict__ ts_w, float* __restrict__ dq,
-    float* __restrict__ dk, float* __restrict__ dv, float* __restrict__ dpw,
-    float* __restrict__ dtw, int n, int h, int dqk, int dvh, int64_t q_sb,
-    int64_t q_sn, int64_t k_sb, int64_t k_sn, int64_t v_sb, int64_t v_sn,
-    int64_t ts_sb, int64_t seg_sb, int max_len, int num_buckets, float inv_n) {
-  extern __shared__ float smem[];
-  const int hq = h * dqk;  // q/k row width
-  const int hv = h * dvh;  // v/g row width
-  const int ks = hq | 1;   // odd row strides: the 32 lanes hit 32 banks
-  const int vs = hv | 1;
-  const int nb1 = num_buckets + 1;
-  float* tsw_s = smem;                    // [nb1]
-  float* hist_s = tsw_s + nb1;            // [nb1] d_ts_w of this block
-  float* diag_s = hist_s + nb1;           // [max_len] d_pos_w[0..L-1] of this block
-  float* q_s = diag_s + max_len;          // [kBQ, hq]
-  float* g_s = q_s + kBQ * hq;            // [kBQ, hv]
-  float* k_s = g_s + kBQ * hv;            // [kBK, ks]
-  float* v_s = k_s + kBK * ks;            // [kBK, vs]
-  float* dz_s = v_s + kBK * vs;           // [h, kBQ, kBK]
-  float* p_s = dz_s + h * kBQ * kBK;      // [h, kBQ, kBK]
-  float* acc_s = p_s + h * kBQ * kBK;     // [kBQ, hq] dq of this tile
-  int* tsq_s = (int*)(acc_s + kBQ * hq);  // [kBQ] next-item timestamps
-  int* tsk_s = tsq_s + kBQ;               // [kBK]
-  int* start_s = tsk_s + kBK;             // [kBQ] segment start of each query row
+struct Args {
+  const float* q;
+  const float* k;
+  const float* v;
+  const float* g;
+  const int* ts;
+  const int* lengths;
+  const int* seg_pos;
+  const float* pos_w;
+  const float* ts_w;
+  float* dq;
+  float* dk;
+  float* dv;
+  float* dpw;
+  float* dtw;
+  int b, n, h, dqk, dvh;
+  int64_t q_sb, q_sn, k_sb, k_sn, v_sb, v_sn, ts_sb, seg_sb;
+  int max_len, num_buckets;
+  float inv_n;
+  int ld1, ld2;  // shared row strides of dqk- and dv-wide rows
+  int n_tiles;
+};
 
-  const int b = blockIdx.y;
-  const int q0 = blockIdx.x * kBQ;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int r0 = (tid >> 5) * kRows;  // this warp's first query row in the tile
-  const int seq_len = min(lengths[b], n);
-  const int q_rows = min(kBQ, n - q0);
-  const float* qb = q + b * q_sb;
-  const float* kb = k + b * k_sb;
-  const float* vb = v + b * v_sb;
-  const float* gb = g + (int64_t)b * n * hv;
-  const int* tsb = ts + b * ts_sb;
+// Row stride in shared memory for rows of d floats: d rounded up to a
+// multiple of 4 whose number of 16-byte chunks is odd.
+int shared_ld(int d) {
+  const int ld = (d + 3) / 4 * 4;
+  return (ld / 4) % 2 ? ld : ld + 4;
+}
 
-  for (int e = tid; e < kBQ * hq; e += kThreads) acc_s[e] = 0.f;
+long long smem_floats(int ld1, int ld2, int max_len, int num_buckets, int n_tiles) {
+  const long long rows = 3LL * kT * (ld1 + ld2);       // resident + two streamed stages
+  const long long w = 2LL * kWarps * kHalf * kLdW;     // dz and p of each warp's pairs
+  const long long tables = 2LL * (num_buckets + 1) + max_len;
+  const long long ints = 6LL * kT + n_tiles + 1;
+  return rows + w + tables + ints;
+}
 
-  if (q0 < seq_len) {
-    for (int e = tid; e < nb1; e += kThreads) {
-      tsw_s[e] = ts_w[e];
-      hist_s[e] = 0.f;
-    }
-    for (int e = tid; e < max_len; e += kThreads) diag_s[e] = 0.f;
-    // rows at or past the length are staged as zeros, whatever they hold
-    hstu::copy_rows<kThreads>(q_s, hq, qb + q0 * q_sn, q_sn, kBQ, hq, seq_len - q0);
-    hstu::copy_rows<kThreads>(g_s, hv, gb + (int64_t)q0 * hv, hv, kBQ, hv, seq_len - q0);
-    if (tid < kBQ) {
-      const int row = q0 + tid;
-      tsq_s[tid] = tsb[min(row + 1, n - 1)];
-      start_s[tid] = hstu::segment_start(seg_pos, b * seg_sb, row, seq_len);
-    }
-    __syncthreads();
-
-    const int n_tiles = (min(q0 + kBQ, seq_len) - 1) / kBK + 1;
-    const int t_lo = seg_pos ? hstu::first_key_row(start_s, kBQ) / kBK : 0;
-    for (int t = t_lo; t < n_tiles; ++t) {
-      const int k0 = t * kBK;
-      const int k_valid = min(kBK, seq_len - k0);
-      __syncthreads();  // the last tile's readers are done with k_s/v_s/dz_s/p_s
-      hstu::copy_rows<kThreads>(k_s, ks, kb + k0 * k_sn, k_sn, kBK, hq, k_valid);
-      hstu::copy_rows<kThreads>(v_s, vs, vb + k0 * v_sn, v_sn, kBK, hv, k_valid);
-      if (tid < kBK) tsk_s[tid] = tsb[min(k0 + tid, n - 1)];
-      __syncthreads();
-
-      // p and dz of pairs (r0 + i, lane) for every head
-      const int col = k0 + lane;
-      float bias[kRows], dz_sum[kRows];
-      int bucket[kRows];
-      bool live[kRows];
+// acc[i][j] += sum_e a[i][e] b[j][e] over e < depth (a multiple of 4): a's
+// rows are `lda` apart, b's rows 8 * ldb apart.
+__device__ __forceinline__ void dot_tile(float (&acc)[4][2], const float* a, int lda,
+                                         const float* b, int ldb, int depth) {
+#pragma unroll 2
+  for (int e = 0; e < depth; e += 4) {
+    float4 av[4], bv[2];
 #pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        const int row = q0 + r0 + i;
-        live[i] = col <= row && col < seq_len && row < seq_len &&
-                  col >= start_s[r0 + i] && row - col < max_len;
-        const int delta = (int)((unsigned int)tsq_s[r0 + i] - (unsigned int)tsk_s[lane]);
-        bucket[i] = hstu::bucketize(delta, num_buckets);
-        bias[i] = live[i] ? pos_w[col - row + max_len - 1] + tsw_s[bucket[i]] : 0.f;
-        dz_sum[i] = 0.f;
+    for (int i = 0; i < 4; ++i) av[i] = *reinterpret_cast<const float4*>(a + i * lda + e);
+#pragma unroll
+    for (int j = 0; j < 2; ++j) bv[j] = *reinterpret_cast<const float4*>(b + 8 * j * ldb + e);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        acc[i][j] = fmaf(av[i].x, bv[j].x, acc[i][j]);
+        acc[i][j] = fmaf(av[i].y, bv[j].y, acc[i][j]);
+        acc[i][j] = fmaf(av[i].z, bv[j].z, acc[i][j]);
+        acc[i][j] = fmaf(av[i].w, bv[j].w, acc[i][j]);
       }
-      for (int hh = 0; hh < h; ++hh) {
-        const float* kr = k_s + lane * ks + hh * dqk;
-        const float* qr = q_s + r0 * hq + hh * dqk;
-        float s[kRows] = {};
+  }
+}
+
+// out[i][u] += sum_s w[s][i] b[s][cols of group u] over the warp's 16
+// streamed rows: w is the warp's [kHalf][kLdW] array at its lane's 4 rows,
+// b the warp's first streamed row, groups[u] the lane's 4-column groups.
+template <int kU>
+__device__ __forceinline__ void accumulate_rows(float4 (&out)[4][kU], const float* w,
+                                                const float* b, int ldb,
+                                                const int (&groups)[kU]) {
 #pragma unroll 4
-        for (int d = 0; d < dqk; ++d) {
-          const float kd = kr[d];
+  for (int s = 0; s < kHalf; ++s) {
+    const float4 wv = *reinterpret_cast<const float4*>(w + s * kLdW);
+    const float wi[4] = {wv.x, wv.y, wv.z, wv.w};
 #pragma unroll
-          for (int i = 0; i < kRows; ++i) s[i] = fmaf(qr[i * hq + d], kd, s[i]);
-        }
-        const float* vr = v_s + lane * vs + hh * dvh;
-        const float* gr = g_s + r0 * hv + hh * dvh;
-        float dp[kRows] = {};
-#pragma unroll 4
-        for (int d = 0; d < dvh; ++d) {
-          const float vd = vr[d];
+    for (int u = 0; u < kU; ++u) {
+      const float4 bv = *reinterpret_cast<const float4*>(b + s * ldb + 4 * groups[u]);
 #pragma unroll
-          for (int i = 0; i < kRows; ++i) dp[i] = fmaf(gr[i * hv + d], vd, dp[i]);
-        }
+      for (int i = 0; i < 4; ++i) {
+        out[i][u].x = fmaf(wi[i], bv.x, out[i][u].x);
+        out[i][u].y = fmaf(wi[i], bv.y, out[i][u].y);
+        out[i][u].z = fmaf(wi[i], bv.z, out[i][u].z);
+        out[i][u].w = fmaf(wi[i], bv.w, out[i][u].w);
+      }
+    }
+  }
+}
+
+// Writes the lane's 4 rows x kU column groups of one output, [B, N, H, d]
+// contiguous, from row `row0`; rows at or past n are not written.
+template <int kU>
+__device__ __forceinline__ void store_rows(float* out, const float4 (&acc)[4][kU], int64_t base,
+                                           int row0, int n, int h, int d,
+                                           const int (&groups)[kU], int n_groups) {
 #pragma unroll
-        for (int i = 0; i < kRows; ++i) {
-          const float z = s[i] + bias[i];
+  for (int i = 0; i < 4; ++i) {
+    const int row = row0 + i;
+    if (row >= n) continue;
+    float* o = out + base + (int64_t)row * h * d;
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      const int c = 4 * groups[u];
+      if (groups[u] >= n_groups) continue;
+      const float x[4] = {acc[i][u].x, acc[i][u].y, acc[i][u].z, acc[i][u].w};
+      if (c + 4 <= d && (d & 3) == 0) {
+        *reinterpret_cast<float4*>(o + c) = acc[i][u];
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (c + e < d) o[c + e] = x[e];
+      }
+    }
+  }
+}
+
+// One block of pass K (kPassK: resident keys, streamed queries; writes dk,
+// dv) or pass Q (resident queries, streamed keys; writes dq and adds into
+// d_pos_w and d_ts_w) for resident tile `tile` of batch row b, head hh.
+template <bool kPassK, int kU>
+__device__ __forceinline__ void run_pass(const Args& a, float* smem, int tile, int b,
+                                         int hh) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wr = warp >> 1, ws = warp & 1;  // resident and streamed half of the warp
+  const int lr = lane >> 3, ls = lane & 7;
+  const int n = a.n, L = a.max_len, nb1 = a.num_buckets + 1;
+  const int ld1 = a.ld1, ld2 = a.ld2;
+  const int seq_len = min(a.lengths[b], n);
+  const int r0 = tile * kT;  // first resident row
+  const int hv = a.h * a.dvh;
+
+  // side 1 is dqk wide (q or k), side 2 dv wide (g or v)
+  const float* qb = a.q + b * a.q_sb + hh * a.dqk;
+  const float* kb = a.k + b * a.k_sb + hh * a.dqk;
+  const float* vb = a.v + b * a.v_sb + hh * a.dvh;
+  const float* gb = a.g + (int64_t)b * n * hv + hh * a.dvh;
+  const float* res1_src = kPassK ? kb : qb;
+  const float* res2_src = kPassK ? vb : gb;
+  const int64_t res1_sn = kPassK ? a.k_sn : a.q_sn;
+  const int64_t res2_sn = kPassK ? a.v_sn : hv;
+  const float* str1_src = kPassK ? qb : kb;
+  const float* str2_src = kPassK ? gb : vb;
+  const int64_t str1_sn = kPassK ? a.q_sn : a.k_sn;
+  const int64_t str2_sn = kPassK ? hv : a.v_sn;
+  const int* tsb = a.ts + b * a.ts_sb;
+  const int* segb = a.seg_pos ? a.seg_pos + b * a.seg_sb : nullptr;
+
+  float* res1 = smem;                               // [kT][ld1]
+  float* res2 = res1 + kT * ld1;                    // [kT][ld2]
+  float* str1 = res2 + kT * ld2;                    // [2][kT][ld1]
+  float* str2 = str1 + 2 * kT * ld1;                // [2][kT][ld2]
+  float* w1 = str2 + 2 * kT * ld2;                  // [kWarps][kHalf][kLdW] dz
+  float* w2 = w1 + kWarps * kHalf * kLdW;           // [kWarps][kHalf][kLdW] p (pass K)
+  float* tsw_s = w2 + kWarps * kHalf * kLdW;        // [nb1]
+  float* hist_s = tsw_s + nb1;                      // [nb1] d_ts_w of this block
+  float* diag_s = hist_s + nb1;                     // [L] d_pos_w by m - n
+  int* res_ts = reinterpret_cast<int*>(diag_s + L);  // [kT]
+  int* res_start = res_ts + kT;                     // [kT] segment start of query rows
+  int* str_ts = res_start + kT;                     // [2][kT]
+  int* str_seg = str_ts + 2 * kT;                   // [2][kT] seg_pos of query rows
+  int* tiles_s = str_seg + 2 * kT;                  // [n_tiles + 1] the walk, then its length
+
+  const int ng1 = (a.dqk + 3) / 4, ng2 = (a.dvh + 3) / 4;  // 4-column groups
+  int g1[kU], g2[kU];  // this lane's groups, clamped for the loads
+#pragma unroll
+  for (int u = 0; u < kU; ++u) {
+    g1[u] = ls + 8 * u;
+    g2[u] = ls + 8 * u;
+  }
+  const int row_lane = 16 * wr + 4 * lr;  // the lane's first resident row in the tile
+  const int64_t out1_base = ((int64_t)b * n * a.h + hh) * a.dqk;
+  const int64_t out2_base = ((int64_t)b * n * a.h + hh) * a.dvh;
+
+  if (r0 >= seq_len) {
+    // every pair of the tile is dead: the rows are zero
+    float4 zero[4][kU];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int u = 0; u < kU; ++u) zero[i][u] = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (ws == 0) {
+      float* out1 = kPassK ? a.dk : a.dq;
+      store_rows<kU>(out1, zero, out1_base, r0 + row_lane, n, a.h, a.dqk, g1, ng1);
+      if (kPassK) store_rows<kU>(a.dv, zero, out2_base, r0 + row_lane, n, a.h, a.dvh, g2, ng2);
+    }
+    return;
+  }
+
+  // the resident tile and its timestamps (and, for queries, segment starts)
+  hstu::copy_rows_async<kThreads>(res1, ld1, res1_src + r0 * res1_sn, res1_sn, kT,
+                                  a.dqk, seq_len - r0);
+  hstu::copy_rows_async<kThreads>(res2, ld2, res2_src + r0 * res2_sn, res2_sn, kT,
+                                  a.dvh, seq_len - r0);
+  hstu::cp_async_commit();
+  if (tid < kT) {
+    const int row = r0 + tid;
+    res_ts[tid] = tsb[kPassK ? min(row, n - 1) : min(row + 1, n - 1)];
+    if (!kPassK) res_start[tid] = hstu::segment_start(a.seg_pos, b * a.seg_sb, row, seq_len);
+  }
+  for (int e = tid; e < nb1; e += kThreads) {
+    tsw_s[e] = a.ts_w[e];
+    hist_s[e] = 0.f;
+  }
+  const int diag_hi = min(L, r0 + kT);  // m - n < r0 + kT in this tile's pairs
+  if (!kPassK)
+    for (int e = tid; e < diag_hi; e += kThreads) diag_s[e] = 0.f;
+
+  // The walk: the streamed tiles that hold live pairs for this tile.
+  const int res_last = min(r0 + kT, seq_len) - 1;  // last valid resident row
+  int t_lo, t_hi;
+  if (kPassK) {
+    // queries from the first key on, less than L past the last key
+    t_lo = r0 / kT;
+    t_hi = min(seq_len - 1, res_last + L - 1) / kT;
+  } else {
+    __syncthreads();  // res_start
+    const int first = max(hstu::first_key_row(res_start, kT), max(r0 - L + 1, 0));
+    t_lo = first / kT;
+    t_hi = res_last / kT;
+  }
+  for (int t = t_lo + warp; t <= t_hi; t += kWarps) {
+    bool live = true;
+    if (kPassK && segb != nullptr) {
+      // a query tile is skipped when every valid row's segment starts past
+      // this tile's last key
+      const int m = t * kT + lane;
+      const int start = m < seq_len ? m - segb[m] : INT_MAX;
+      live = __reduce_min_sync(0xffffffffu, (unsigned int)max(start, 0)) <= (unsigned int)res_last;
+    }
+    if (lane == 0) tiles_s[t - t_lo] = live ? t : -1;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    int cnt = 0;
+    for (int t = 0; t <= t_hi - t_lo; ++t)
+      if (tiles_s[t] >= 0) tiles_s[cnt++] = tiles_s[t];
+    tiles_s[a.n_tiles] = cnt;
+  }
+  __syncthreads();
+  const int cnt = tiles_s[a.n_tiles];
+
+  auto load_stream = [&](int t, int stage) {
+    const int s0 = t * kT;
+    hstu::copy_rows_async<kThreads>(str1 + stage * kT * ld1, ld1, str1_src + s0 * str1_sn,
+                                    str1_sn, kT, a.dqk, seq_len - s0);
+    hstu::copy_rows_async<kThreads>(str2 + stage * kT * ld2, ld2, str2_src + s0 * str2_sn,
+                                    str2_sn, kT, a.dvh, seq_len - s0);
+    if (tid < kT) {
+      const int row = s0 + tid;
+      hstu::cp_async4(str_ts + stage * kT + tid,
+                      tsb + (kPassK ? min(row + 1, n - 1) : min(row, n - 1)));
+      if (kPassK && segb != nullptr)
+        hstu::cp_async4(str_seg + stage * kT + tid, segb + min(row, n - 1));
+    }
+    hstu::cp_async_commit();
+  };
+  if (cnt > 0) load_stream(tiles_s[0], 0);
+
+  float4 acc1[4][kU], acc2[4][kU];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      acc1[i][u] = make_float4(0.f, 0.f, 0.f, 0.f);
+      acc2[i][u] = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  int run_bucket = -1;  // pass Q: d_ts_w of the lane's pairs, summed while the bucket holds
+  float run_sum = 0.f;
+#pragma unroll
+  for (int u = 0; u < kU; ++u) {
+    g1[u] = min(g1[u], ng1 - 1);
+    g2[u] = min(g2[u], ng2 - 1);
+  }
+  const int depth1 = 4 * ng1, depth2 = 4 * ng2;
+  float* w1_warp = w1 + warp * kHalf * kLdW;
+  float* w2_warp = w2 + warp * kHalf * kLdW;
+
+  for (int it = 0; it < cnt; ++it) {
+    hstu::cp_async_wait_all();
+    // tile it has landed for every thread, and every thread is done with
+    // tile it - 1, whose buffer the next copy overwrites
+    __syncthreads();
+    if (it + 1 < cnt) load_stream(tiles_s[it + 1], (it + 1) & 1);
+    const int stage = it & 1;
+    const int s0 = tiles_s[it] * kT;
+    const float* s1 = str1 + stage * kT * ld1 + (kHalf * ws) * ld1;  // the warp's streamed rows
+    const float* s2 = str2 + stage * kT * ld2 + (kHalf * ws) * ld2;
+
+    // scores of the lane's pairs (resident row_lane + i, streamed 16 ws + ls + 8 j)
+    float x[4][2] = {}, y[4][2] = {};
+    dot_tile(x, res1 + row_lane * ld1, ld1, s1 + ls * ld1, ld1, depth1);
+    dot_tile(y, res2 + row_lane * ld2, ld2, s2 + ls * ld2, ld2, depth2);
+
+    float dz[4][2], pz[4][2];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int sl = kHalf * ws + ls + 8 * j;  // streamed row in the tile
+      const int srow = s0 + sl;
+      const int s_ts = str_ts[stage * kT + sl];
+      int s_start = 0;
+      if (kPassK && segb != nullptr) s_start = srow < seq_len ? srow - str_seg[stage * kT + sl] : INT_MAX;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int rrow = r0 + row_lane + i;
+        const int m = kPassK ? srow : rrow;      // query
+        const int key = kPassK ? rrow : srow;
+        const int start = kPassK ? s_start : res_start[row_lane + i];
+        const bool live = key <= m && m < seq_len && m - key < L && key >= start;
+        dz[i][j] = 0.f;
+        pz[i][j] = 0.f;
+        if (live) {
+          const int ts_m = kPassK ? s_ts : res_ts[row_lane + i];
+          const int ts_k = kPassK ? res_ts[row_lane + i] : s_ts;
+          const int bucket =
+              hstu::bucketize((int)((unsigned int)ts_m - (unsigned int)ts_k), a.num_buckets);
+          const float z = x[i][j] + (__ldg(a.pos_w + key - m + L - 1) + tsw_s[bucket]);
           const float sig = 1.f / (1.f + expf(-z));
-          const float pz = live[i] ? z * sig * inv_n : 0.f;
-          const float dz =
-              live[i] ? dp[i] * (sig + z * sig * (1.f - sig)) * inv_n : 0.f;
-          p_s[(hh * kBQ + r0 + i) * kBK + lane] = pz;
-          dz_s[(hh * kBQ + r0 + i) * kBK + lane] = dz;
-          dz_sum[i] += dz;
+          pz[i][j] = z * sig * a.inv_n;
+          dz[i][j] = y[i][j] * (sig + z * sig * (1.f - sig)) * a.inv_n;
+          if (!kPassK) {
+            atomicAdd(&diag_s[m - key], dz[i][j]);
+            if (bucket != run_bucket) {
+              if (run_bucket >= 0) atomicAdd(&hist_s[run_bucket], run_sum);
+              run_bucket = bucket;
+              run_sum = 0.f;
+            }
+            run_sum += dz[i][j];
+          }
         }
       }
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        if (live[i]) {
-          atomicAdd(&diag_s[col - (q0 + r0 + i) + max_len - 1], dz_sum[i]);
-          atomicAdd(&hist_s[bucket[i]], dz_sum[i]);
-        }
-      }
-      __syncthreads();
-
-      // dq of rows r0..r0+3, columns lane, lane+32, ...
-      for (int c = lane; c < hq; c += 32) {
-        const float* dzr = dz_s + ((c / dqk) * kBQ + r0) * kBK;
-        float a[kRows] = {};
-#pragma unroll 8
-        for (int j = 0; j < kBK; ++j) {
-          const float kj = k_s[j * ks + c];
-#pragma unroll
-          for (int i = 0; i < kRows; ++i) a[i] = fmaf(dzr[i * kBK + j], kj, a[i]);
-        }
-#pragma unroll
-        for (int i = 0; i < kRows; ++i) acc_s[(r0 + i) * hq + c] += a[i];
-      }
-
-      // dk and dv of this key tile: partial sums over the block's 32 query
-      // rows (only rows at or after the key are live), added into the outputs
-      const int first = max(k0 - q0, 0);  // first query row that sees key k0
-      float* dkb = dk + ((int64_t)b * n + k0) * hq;
-      for (int e = tid; e < k_valid * hq; e += kThreads) {
-        const int j = e / hq, c = e - j * hq;
-        const float* dzc = dz_s + (c / dqk) * kBQ * kBK + j;
-        float a = 0.f;
-#pragma unroll 8
-        for (int r = first; r < kBQ; ++r) a = fmaf(dzc[r * kBK], q_s[r * hq + c], a);
-        atomicAdd(&dkb[e], a);
-      }
-      float* dvb = dv + ((int64_t)b * n + k0) * hv;
-      for (int e = tid; e < k_valid * hv; e += kThreads) {
-        const int j = e / hv, c = e - j * hv;
-        const float* pc = p_s + (c / dvh) * kBQ * kBK + j;
-        float a = 0.f;
-#pragma unroll 8
-        for (int r = first; r < kBQ; ++r) a = fmaf(pc[r * kBK], g_s[r * hv + c], a);
-        atomicAdd(&dvb[e], a);
-      }
+      // dz (and p) of the lane's pairs, streamed-row major, for the second product
+      *reinterpret_cast<float4*>(w1_warp + (ls + 8 * j) * kLdW + 4 * lr) =
+          make_float4(dz[0][j], dz[1][j], dz[2][j], dz[3][j]);
+      if (kPassK)
+        *reinterpret_cast<float4*>(w2_warp + (ls + 8 * j) * kLdW + 4 * lr) =
+            make_float4(pz[0][j], pz[1][j], pz[2][j], pz[3][j]);
     }
-    __syncthreads();
-    // only offsets key - query in (-(q0 + kBQ), 0] were touched
-    for (int e = max(max_len - q0 - kBQ, 0) + tid; e < max_len; e += kThreads) {
+    __syncwarp();
+    // pass Q: dq += dz k; pass K: dk += dz^T q, dv += p^T g
+    accumulate_rows<kU>(acc1, w1_warp + 4 * lr, s1, ld1, g1);
+    if (kPassK) accumulate_rows<kU>(acc2, w2_warp + 4 * lr, s2, ld2, g2);
+    __syncwarp();  // the next tile's dz and p overwrite what the lanes read
+  }
+  if (!kPassK && run_bucket >= 0) atomicAdd(&hist_s[run_bucket], run_sum);
+
+  // The two streamed halves of each resident row meet in shared memory
+  // (the stream buffers, free now), half 1 first, so the sum has one order.
+  hstu::cp_async_wait_all();
+  __syncthreads();
+#pragma unroll
+  for (int u = 0; u < kU; ++u) {
+    g1[u] = ls + 8 * u;
+    g2[u] = ls + 8 * u;
+  }
+  float* red1 = str1;  // [kT][ld1]
+  float* red2 = str2;  // [kT][ld2]
+  if (ws == 1) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int u = 0; u < kU; ++u) {
+        if (g1[u] < ng1)
+          *reinterpret_cast<float4*>(red1 + (row_lane + i) * ld1 + 4 * g1[u]) = acc1[i][u];
+        if (kPassK && g2[u] < ng2)
+          *reinterpret_cast<float4*>(red2 + (row_lane + i) * ld2 + 4 * g2[u]) = acc2[i][u];
+      }
+  }
+  __syncthreads();
+  if (ws == 0) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int u = 0; u < kU; ++u) {
+        if (g1[u] < ng1) {
+          const float4 o = *reinterpret_cast<const float4*>(red1 + (row_lane + i) * ld1 + 4 * g1[u]);
+          acc1[i][u].x += o.x;
+          acc1[i][u].y += o.y;
+          acc1[i][u].z += o.z;
+          acc1[i][u].w += o.w;
+        }
+        if (kPassK && g2[u] < ng2) {
+          const float4 o = *reinterpret_cast<const float4*>(red2 + (row_lane + i) * ld2 + 4 * g2[u]);
+          acc2[i][u].x += o.x;
+          acc2[i][u].y += o.y;
+          acc2[i][u].z += o.z;
+          acc2[i][u].w += o.w;
+        }
+      }
+    store_rows<kU>(kPassK ? a.dk : a.dq, acc1, out1_base, r0 + row_lane, n, a.h, a.dqk, g1, ng1);
+    if (kPassK) store_rows<kU>(a.dv, acc2, out2_base, r0 + row_lane, n, a.h, a.dvh, g2, ng2);
+  }
+  if (!kPassK) {
+    // the block's table gradients: one atomic per touched entry
+    for (int e = tid; e < diag_hi; e += kThreads) {
       const float x = diag_s[e];
-      if (x != 0.f) atomicAdd(&dpw[e], x);
+      if (x != 0.f) atomicAdd(&a.dpw[L - 1 - e], x);
     }
     for (int e = tid; e < nb1; e += kThreads) {
       const float x = hist_s[e];
-      if (x != 0.f) atomicAdd(&dtw[e], x);
+      if (x != 0.f) atomicAdd(&a.dtw[e], x);
     }
   }
-  __syncthreads();
-  float* ob = dq + ((int64_t)b * n + q0) * hq;
-  for (int e = tid; e < q_rows * hq; e += kThreads) ob[e] = acc_s[e];
+}
+
+// Block i: rank i / (2 B H) of its pass, the longest walks first (pass Q's
+// last query tiles, pass K's first key tiles), then batch row, head and pass.
+template <int kU>
+__global__ void __launch_bounds__(kThreads, 3) hstu_attention_bwd_kernel(const __grid_constant__ Args a) {
+  extern __shared__ __align__(16) float smem[];
+  int idx = blockIdx.x;
+  const bool pass_k = idx & 1;
+  idx >>= 1;
+  const int hh = idx % a.h;
+  idx /= a.h;
+  const int b = idx % a.b;
+  const int rank = idx / a.b;
+  if (pass_k)
+    run_pass<true, kU>(a, smem, rank, b, hh);
+  else
+    run_pass<false, kU>(a, smem, a.n_tiles - 1 - rank, b, hh);
+}
+
+template <int kU>
+int launch(const Args& a, long long smem, cudaStream_t stream) {
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        hstu_attention_bwd_kernel<kU>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const long long blocks = 2LL * a.n_tiles * a.b * a.h;
+  hstu_attention_bwd_kernel<kU><<<(unsigned int)blocks, kThreads, (size_t)smem, stream>>>(a);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
+// Widest head (dqk and dv) the kernel takes.
+int hstu_attention_bwd_max_depth() { return kMaxDepth; }
+
 // Dynamic shared memory one block needs, in bytes.
-long long hstu_attention_bwd_smem_bytes(int h, int dqk, int dv, int max_len,
+long long hstu_attention_bwd_smem_bytes(int n, int dqk, int dv, int max_len,
                                         int num_buckets) {
-  const long long hq = (long long)h * dqk, hv = (long long)h * dv;
-  const long long floats = 2LL * (num_buckets + 1) + max_len + 2 * kBQ * hq +
-                           kBQ * hv + kBK * (hq | 1) + kBK * (hv | 1) +
-                           2LL * h * kBQ * kBK;
-  return 4 * (floats + 2 * kBQ + kBK);
+  return 4 * smem_floats(shared_ld(dqk), shared_ld(dv), max_len, num_buckets,
+                         (n + kT - 1) / kT);
 }
 
-// dk, dv, dpw and dtw must arrive zeroed; dq is written whole. `seg_pos` is
-// [b, n] int32 with row stride seg_sb, or null for unpacked rows. Launches on
-// `stream` without synchronising; returns cudaGetLastError().
+// dpw and dtw must arrive zeroed; dq, dk and dv are written whole. `seg_pos`
+// is [b, n] int32 with row stride seg_sb, or null for unpacked rows.
+// Launches on `stream` without synchronising; returns cudaGetLastError().
 int hstu_attention_bwd(const float* q, const float* k, const float* v,
                        const float* g, const int* ts, const int* lengths,
                        const int* seg_pos, const float* pos_w,
@@ -271,21 +549,46 @@ int hstu_attention_bwd(const float* q, const float* k, const float* v,
                        long long k_sn, long long v_sb, long long v_sn,
                        long long ts_sb, long long seg_sb, int max_len,
                        int num_buckets, void* stream) {
-  const long long smem =
-      hstu_attention_bwd_smem_bytes(h, dqk, dvh, max_len, num_buckets);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        hstu_attention_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  const dim3 grid((n + kBQ - 1) / kBQ, b);
-  const float inv_n = (float)(1.0 / (double)max_len);
-  hstu_attention_bwd_kernel<<<grid, kThreads, (size_t)smem, (cudaStream_t)stream>>>(
-      q, k, v, g, ts, lengths, seg_pos, pos_w, ts_w, dq, dk, dv, dpw, dtw, n, h,
-      dqk, dvh, q_sb, q_sn, k_sb, k_sn, v_sb, v_sn, ts_sb, seg_sb, max_len,
-      num_buckets, inv_n);
-  return (int)cudaGetLastError();
+  if (dqk > kMaxDepth || dvh > kMaxDepth) return (int)cudaErrorInvalidValue;
+  if ((long long)b * n * h == 0) return (int)cudaSuccess;
+  Args a;
+  a.q = q;
+  a.k = k;
+  a.v = v;
+  a.g = g;
+  a.ts = ts;
+  a.lengths = lengths;
+  a.seg_pos = seg_pos;
+  a.pos_w = pos_w;
+  a.ts_w = ts_w;
+  a.dq = dq;
+  a.dk = dk;
+  a.dv = dv;
+  a.dpw = dpw;
+  a.dtw = dtw;
+  a.b = b;
+  a.n = n;
+  a.h = h;
+  a.dqk = dqk;
+  a.dvh = dvh;
+  a.q_sb = q_sb;
+  a.q_sn = q_sn;
+  a.k_sb = k_sb;
+  a.k_sn = k_sn;
+  a.v_sb = v_sb;
+  a.v_sn = v_sn;
+  a.ts_sb = ts_sb;
+  a.seg_sb = seg_sb;
+  a.max_len = max_len;
+  a.num_buckets = num_buckets;
+  a.inv_n = (float)(1.0 / (double)max_len);
+  a.ld1 = shared_ld(dqk);
+  a.ld2 = shared_ld(dvh);
+  a.n_tiles = (n + kT - 1) / kT;
+  const long long smem = hstu_attention_bwd_smem_bytes(n, dqk, dvh, max_len, num_buckets);
+  const cudaStream_t st = (cudaStream_t)stream;
+  const int groups = ((dqk > dvh ? dqk : dvh) + 3) / 4;
+  return groups <= 16 ? launch<2>(a, smem, st) : launch<4>(a, smem, st);
 }
 
 const char* hstu_bwd_cuda_error_string(int code) {

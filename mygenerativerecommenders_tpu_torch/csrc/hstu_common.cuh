@@ -69,4 +69,57 @@ __device__ __forceinline__ void copy_rows(float* dst, int dst_stride,
   }
 }
 
+// Asynchronous copies (cp.async, sm_80 and later): the copy runs while the
+// thread goes on; cp_async_commit() closes a group of them and
+// cp_async_wait_all() waits for every group the thread has issued. Only a
+// barrier after the wait makes one thread's copies visible to the others.
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned int s = (unsigned int)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned int s = (unsigned int)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Starts the copy of `rows` rows of `width` floats (source row stride
+// `stride`) into dst[r * dst_stride + c]; dst must be 16-byte aligned and
+// dst_stride a multiple of 4. Columns from `width` up to the next multiple of
+// 4, and whole rows at or past `valid`, are zero-filled with plain stores
+// (rows past `valid` are never read). A 4-float chunk goes as one 16-byte
+// copy where its source is 16-byte aligned (q, k and v may be column slices
+// at any offset), else as four 4-byte copies.
+template <int kThreads>
+__device__ __forceinline__ void copy_rows_async(float* dst, int dst_stride,
+                                                const float* __restrict__ src,
+                                                int64_t stride, int rows, int width,
+                                                int valid) {
+  const int chunks = (width + 3) >> 2;
+  for (int e = threadIdx.x; e < rows * chunks; e += kThreads) {
+    const int r = e / chunks, c = (e - r * chunks) * 4;
+    float* d = dst + r * dst_stride + c;
+    const float* s = src + r * stride + c;
+    if (r >= valid) {
+      *reinterpret_cast<float4*>(d) = make_float4(0.f, 0.f, 0.f, 0.f);
+    } else if (c + 4 <= width && (reinterpret_cast<uintptr_t>(s) & 15) == 0) {
+      cp_async16(d, s);
+    } else {
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        if (c + u < width) cp_async4(d + u, s + u);
+        else d[u] = 0.f;
+      }
+    }
+  }
+}
+
 }  // namespace hstu

@@ -1,12 +1,14 @@
 """Dense-catalog negative log-sum-exp: the Hopper kernels' wrapper and its
 plain version.
 
-`dense_neg_lse(q [BT, D], cat [X, D], count [BT, X] uint8, temperature)`
-returns `lse [BT]` with
+`dense_neg_lse(q [BT, D], cat [X, D], count [BT, X], temperature)` returns
+`lse [BT]` with
 
     lse[i] = log sum_x count[i, x] * exp(q[i] . cat[x] / temperature)
 
-over the logits whose count is positive, and -inf for a row with none. It is
+over the logits whose count is positive, and -inf for a row with none. count
+is uint8, or int32 where R > 255 draws a row could pass a byte
+(ops/kernels/count_offsets.py). It is
 `fused_dense_neg_lse_t` of the JAX package (ops/pallas/dense_softmax.py:633)
 on a plain [BT, X] count, with that function's edge semantics (:421, :445-448,
 :178-182; the jnp form is ops/dense_negatives.py:229-255): the select comes
@@ -107,8 +109,11 @@ def _check(q, cat, count, sup_off=None):
     if count.ndim != 2 or count.shape[0] != bt or count.shape[1] not in widths:
         raise ValueError(f"count must be [{bt}, {' or '.join(map(str, widths))}], got "
                          f"{tuple(count.shape)}")
-    if count.dtype != torch.uint8:
-        raise ValueError(f"count must be uint8, got {count.dtype}")
+    # sup_off: the JAX kernels' uint8 counts (R <= 255) only
+    types = (torch.uint8,) if sup_off is not None else (torch.uint8, torch.int32)
+    if count.dtype not in types:
+        raise ValueError(f"count must be {' or '.join(str(t)[6:] for t in types)}, got "
+                         f"{count.dtype}")
     operands = [q, cat, count]
     if sup_off is not None:
         if tuple(sup_off.shape) != (bt,):
@@ -123,9 +128,9 @@ def _kernel_lib() -> ctypes.CDLL:
     if _lib is None:
         lib = _build.load(LIBRARY)
         p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
-        lib.dense_neg_lse_fwd.argtypes = [p] * 7 + [i, i, i, ll, f, p]
+        lib.dense_neg_lse_fwd.argtypes = [p] * 7 + [i, i, i, ll, f, i, p]
         lib.dense_neg_lse_fwd.restype = i
-        lib.dense_neg_lse_bwd.argtypes = [p] * 9 + [i, i, i, ll, f, p]
+        lib.dense_neg_lse_bwd.argtypes = [p] * 9 + [i, i, i, ll, f, i, p]
         lib.dense_neg_lse_bwd.restype = i
         lib.dense_neg_lse_fwd_smem_bytes.argtypes = [i]
         lib.dense_neg_lse_fwd_smem_bytes.restype = ll
@@ -142,6 +147,11 @@ def _kernel_lib() -> ctypes.CDLL:
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     """A tensor's device pointer, or the kernels' null pointer for None."""
     return None if t is None else t.data_ptr()
+
+
+def _wide(count: torch.Tensor) -> int:
+    """The kernels' `wide` flag: 1 for an int32 count, 0 for uint8."""
+    return int(count.dtype == torch.int32)
 
 
 def _raise_on(lib, err: int, kernel: str) -> None:
@@ -177,7 +187,7 @@ class _DenseNegLse(torch.autograd.Function):
             err = lib.dense_neg_lse_fwd(
                 q.data_ptr(), cat.data_ptr(), count.data_ptr(), _ptr(sup),
                 lse.data_ptr(), m_safe.data_ptr(), s.data_ptr(),
-                bt, d, x, count.stride(0), inv_tau,
+                bt, d, x, count.stride(0), inv_tau, _wide(count),
                 torch.cuda.current_stream(q.device).cuda_stream,
             )
             _raise_on(lib, err, KERNEL)
@@ -203,7 +213,7 @@ class _DenseNegLse(torch.autograd.Function):
             err = lib.dense_neg_lse_bwd(
                 q.data_ptr(), cat.data_ptr(), count.data_ptr(), _ptr(sup),
                 m_safe.data_ptr(), s.data_ptr(), gl.data_ptr(), dq.data_ptr(),
-                dcat.data_ptr(), bt, d, x, count.stride(0), ctx.inv_tau,
+                dcat.data_ptr(), bt, d, x, count.stride(0), ctx.inv_tau, _wide(count),
                 torch.cuda.current_stream(q.device).cuda_stream,
             )
             _raise_on(lib, err, KERNEL_BWD)
@@ -218,8 +228,8 @@ class _DenseNegLse(torch.autograd.Function):
 def dense_neg_lse(
     q: torch.Tensor, cat: torch.Tensor, count: torch.Tensor, temperature: float
 ) -> torch.Tensor:
-    """q [BT, D], cat [X, D], count [BT, X] uint8 -> lse [BT] float32,
-    differentiable in q and cat."""
+    """q [BT, D], cat [X, D], count [BT, X] uint8 or int32 -> lse [BT]
+    float32, differentiable in q and cat."""
     _check(q, cat, count)
     if q.device.type == "cpu":
         return dense_neg_lse_plain(q, cat, count, temperature)

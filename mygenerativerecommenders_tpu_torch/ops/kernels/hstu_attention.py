@@ -16,8 +16,9 @@ On a CUDA tensor it is a `torch.autograd.Function`: the forward launches
 csrc/hstu_attention_fwd.cu and saves only its inputs (nothing [N, N]-shaped,
 as `_fused_fwd` of the JAX package, :818); the backward launches
 csrc/hstu_attention_bwd.cu, which recomputes the scores and returns dq, dk,
-dv, d_pos_w and d_ts_w. Both are built by nvcc at first use; a failed build
-or launch raises. On a CPU tensor it computes `hstu_attention_fused_plain`,
+dv (bit-identical from run to run: no atomics touch them), d_pos_w and
+d_ts_w. Both are built by nvcc at first use; a failed build or launch
+raises. On a CPU tensor it computes `hstu_attention_fused_plain`,
 the same function in plain PyTorch, and autograd differentiates that.
 """
 
@@ -129,6 +130,8 @@ def _kernel_lib_bwd() -> ctypes.CDLL:
         lib.hstu_attention_bwd.restype = i
         lib.hstu_attention_bwd_smem_bytes.argtypes = [i] * 5
         lib.hstu_attention_bwd_smem_bytes.restype = ll
+        lib.hstu_attention_bwd_max_depth.argtypes = []
+        lib.hstu_attention_bwd_max_depth.restype = i
         lib.hstu_bwd_cuda_error_string.argtypes = [i]
         lib.hstu_bwd_cuda_error_string.restype = ctypes.c_char_p
         _lib_bwd = lib
@@ -200,18 +203,21 @@ def _launch_bwd(q, k, v, g, ts, lens, seg, pos_w, ts_w, max_len, num_buckets):
     b, n, h, dqk = q.shape
     dv = v.shape[-1]
     lib = _kernel_lib_bwd()
-    smem = lib.hstu_attention_bwd_smem_bytes(h, dqk, dv, max_len, num_buckets)
+    widest = lib.hstu_attention_bwd_max_depth()
+    if max(dqk, dv) > widest:
+        raise ValueError(f"dqk={dqk}, dv={dv}: the backward kernel takes heads up to {widest} wide")
+    smem = lib.hstu_attention_bwd_smem_bytes(n, dqk, dv, max_len, num_buckets)
     if smem > _build.MAX_SMEM_BYTES:
         raise ValueError(
-            f"H={h}, dqk={dqk}, dv={dv}, max_len={max_len}: a block would need {smem} "
+            f"N={n}, dqk={dqk}, dv={dv}, max_len={max_len}: a block would need {smem} "
             f"bytes of shared memory, the card gives {_build.MAX_SMEM_BYTES}"
         )
     g = g.to(torch.float32).contiguous()
     dev = q.device
+    # the kernel writes dq, dk and dv whole and adds into the tables
     dq = torch.empty((b, n, h, dqk), dtype=torch.float32, device=dev)
-    # the kernel adds into these with atomics
-    dk = torch.zeros((b, n, h, dqk), dtype=torch.float32, device=dev)
-    dv_out = torch.zeros((b, n, h, dv), dtype=torch.float32, device=dev)
+    dk = torch.empty((b, n, h, dqk), dtype=torch.float32, device=dev)
+    dv_out = torch.empty((b, n, h, dv), dtype=torch.float32, device=dev)
     dpw = torch.zeros_like(pos_w)
     dtw = torch.zeros_like(ts_w)
     seg_ptr, seg_sb = _seg_args(seg)

@@ -109,18 +109,19 @@ def main() -> int:
     dq, dcat = torch.empty_like(q), torch.zeros_like(cat)
     stream = torch.cuda.current_stream().cuda_stream
     p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-    # no sup_off (null): nothing masked, as on the training path
+    # no sup_off (null): nothing masked, as on the training path; uint8 counts
+    # (wide 0): 128 draws a row
     fwd_args = (q.data_ptr(), cat.data_ptr(), count.data_ptr(), None, lse.data_ptr(),
-                m_safe.data_ptr(), s.data_ptr(), bt, d, x, x, inv_tau, stream)
+                m_safe.data_ptr(), s.data_ptr(), bt, d, x, x, inv_tau, 0, stream)
     bwd_args = (q.data_ptr(), cat.data_ptr(), count.data_ptr(), None, m_safe.data_ptr(),
                 s.data_ptr(), gl.data_ptr(), dq.data_ptr(), dcat.data_ptr(),
-                bt, d, x, x, inv_tau, stream)
+                bt, d, x, x, inv_tau, 0, stream)
     print(f"{torch.cuda.get_device_name(0)}: q [{bt}, {d}] x cat [{x}, {d}], {r} draws a row",
           flush=True)
     for rnd in range(2):
         for name, lib in libs.items():
-            lib.dense_neg_lse_fwd.argtypes = [p] * 7 + [i, i, i, ll, f, p]
-            lib.dense_neg_lse_bwd.argtypes = [p] * 9 + [i, i, i, ll, f, p]
+            lib.dense_neg_lse_fwd.argtypes = [p] * 7 + [i, i, i, ll, f, i, p]
+            lib.dense_neg_lse_bwd.argtypes = [p] * 9 + [i, i, i, ll, f, i, p]
             lib.dense_neg_lse_fwd(*fwd_args)  # fills m_safe and s
             bwd_ms = device_ms(lambda: lib.dense_neg_lse_bwd(*bwd_args))
             fwd_ms = device_ms(lambda: lib.dense_neg_lse_fwd(*fwd_args))

@@ -81,10 +81,15 @@ def test_backward_kernel_matches_autograd_of_plain_on_card(b, n, h, d):
         np.testing.assert_allclose(a.cpu().numpy(), w.cpu().numpy(), rtol=rtol, atol=2e-5)
     for i, length in enumerate(lengths.tolist()):
         assert not got[0][i, length:].any()
+    # dq, dk and dv (proj's gradient) take no atomics: the same bits every call
+    assert torch.equal(grads(kern.hstu_attention_fused)[0], got[0])
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("bt,r,x", [(100, 16, 200), (2000, 128, 3706), (64, 255, 26744)])
+@pytest.mark.parametrize(
+    "bt,r,x", [(100, 16, 200), (2000, 128, 3706), (64, 255, 26744), (64, 256, 26744),
+               (300, 300, 3706)]
+)
 def test_count_kernel_equals_plain_on_card(bt, r, x):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card (CUDA)")
@@ -98,12 +103,17 @@ def test_count_kernel_equals_plain_on_card(bt, r, x):
     got = count_kern.count_offsets(o, p, x)
     torch.cuda.synchronize()
     assert count_kern.launches == before + 1
+    assert got.dtype == (torch.uint8 if r <= 255 else torch.int32)
     assert torch.equal(got, count_kern.count_offsets_plain(o, p, x))
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("bt,d,x", [(70, 12, 150), (1000, 50, 3706), (130, 128, 700)])
-def test_dense_neg_lse_kernels_match_plain_on_card(bt, d, x):
+@pytest.mark.parametrize(
+    "bt,d,x,r", [(70, 12, 150, 16), (1000, 50, 3706, 16), (130, 128, 700, 16),
+                 (1000, 50, 3706, 256), (130, 64, 700, 300)]
+)
+def test_dense_neg_lse_kernels_match_plain_on_card(bt, d, x, r):
+    """r > 255 draws a row: int32 counts, some of them above 255."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card (CUDA)")
     rng = np.random.default_rng(3)
@@ -111,11 +121,14 @@ def test_dense_neg_lse_kernels_match_plain_on_card(bt, d, x):
     cat = torch.tensor(rng.normal(size=(x, d)), dtype=torch.float32)
     q = (q / q.norm(dim=-1, keepdim=True)).cuda().requires_grad_()
     cat = (cat / cat.norm(dim=-1, keepdim=True)).cuda().requires_grad_()
-    offsets = torch.tensor(rng.integers(0, x, size=(bt, 16)), dtype=torch.int32)
+    offsets = torch.tensor(rng.integers(0, x, size=(bt, r)), dtype=torch.int32)
+    offsets[1] = 3  # every draw of row 1 on one item
     positive = torch.tensor(rng.integers(-1, x, size=bt), dtype=torch.int32)
     positive[0] = 7
     offsets[0] = 7  # an all-hit row: lse -inf, no gradient
+    positive[1] = -1
     count = count_kern.count_offsets(offsets.cuda(), positive.cuda(), x)
+    assert int(count[1, 3]) == r
     gl = torch.tensor(rng.normal(size=(bt,)), dtype=torch.float32).cuda()
 
     def run(fn):
@@ -156,15 +169,21 @@ def _packed_layout(rng, b, n, max_seg):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize(
-    "b,n,h,d,max_len", [(3, 48, 2, 16, 40), (56, 256, 1, 50, 211), (2, 1152, 2, 64, 1035)]
+    "b,n,h,d,max_len",
+    [(3, 48, 2, 16, 40), (56, 256, 1, 50, 211), (2, 1152, 2, 64, 1035), (4, 1121, 2, 64, 1035)],
 )
 def test_packed_attention_kernels_match_plain_on_card(b, n, h, d, max_len):
     """Forward and backward with seg_positions, rows wider than max_len
-    included; a null seg_positions gives what the kernels gave without it."""
+    included; a null seg_positions gives what the kernels gave without it.
+    The 4-row case has N off the backward's 32-row tile and packed lengths
+    of 1 and 20 (less than a tile) in rows 2 and 3."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card (CUDA)")
     rng = np.random.default_rng(4)
     pos, lengths = _packed_layout(rng, b, n, min(max_len, n))
+    if b == 4:
+        pos[2], pos[3] = 0, np.where(np.arange(n) < 20, np.arange(n), 0)
+        lengths[2], lengths[3] = 1, 20
     proj = torch.tensor(rng.normal(size=(b, n, 4 * h * d)), dtype=torch.float32).cuda()
     proj.requires_grad_()
     ts = np.sort(978_000_000 + rng.integers(0, 3 * 365 * 86400, size=(b, n)), axis=1)
@@ -196,6 +215,8 @@ def test_packed_attention_kernels_match_plain_on_card(b, n, h, d, max_len):
         np.testing.assert_allclose(a.cpu().numpy(), w.cpu().numpy(), rtol=rtol, atol=2e-5)
     for r, length in enumerate(lengths.tolist()):
         assert not got[r, length:].any() and not got_grads[0][r, length:].any()
+    # dq, dk and dv take no atomics: the same bits every call
+    assert torch.equal(run(kern.hstu_attention_fused, seg)[1][0], got_grads[0])
     if n <= max_len:  # unpacked rows may not be wider than the table
         null, _ = run(kern.hstu_attention_fused, None)
         plain, _ = run(kern.hstu_attention_fused_plain, None)
