@@ -47,8 +47,10 @@ Phases, each of which stops the run with a non-zero exit when it fails:
      plain version at ml-20m-hstu-long's widths (B=32, H=2, d=64, L=1035) on
      the zigzag ring's 130 x 130 chunks and the contiguous ring's 259 x 259,
      at the offsets the ring gives them (fully live, the diagonal, dead: all
-     zeros), a partial one and padded rows past the bias table; each kernel's
-     host time to queue a call.
+     zeros), a partial one and padded rows past the bias table; the backward
+     zero-fills nothing and takes no atomics on dq, dk, dv, so rows that no
+     live pair reaches must come out exactly zero and a second call must give
+     the same bits; each kernel's host time to queue a call.
 3. The serving path at the full width of `synthetic-hstu`: `cli.serve.build_engine`
    on a .pt checkpoint written from a seeded init, the HTTP server on an
    ephemeral port, /healthz, a 32-row /v1/retrieve, a burst of concurrent
@@ -100,7 +102,8 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    backwards, 1 count, 1 lse forward, 1 lse backward and no full attention
    kernel; 8 x 36 chunk forwards per eval batch. Then hand-stepped trainers
    in the zigzag and contiguous (8 x 10 chunk calls) layouts: step time,
-   examples/s, per-step launch counts, a torch.profiler step.
+   examples/s, per-step launch counts, a torch.profiler step with its device
+   launches logged beside the expected 4,922 (zigzag) and 1,354 (contiguous).
 9. The ring model, zigzag and contiguous, against the same weights at
    sp_shards=1 on the card: one full-width batch, the same negatives, dropout
    off, the loss at rtol 1e-5 and every gradient at rtol 5e-4 / atol 1e-6.
@@ -637,15 +640,28 @@ def check_chunk(kern, seed, b, nq, nc, h, d, offd, max_len, timed=False):
         errs.append(f"{name} {err:.3e}")
     dead = offd >= nq
     zeros = not (bool(out.any()) or any(bool(t.any()) for t in got)) if dead else True
+    # the backward writes dq, dk and dv whole (no zero fill): query rows
+    # before offd and key rows from nq - offd on meet no live pair and must
+    # come out exactly zero; no atomics touch them, so a second call gives
+    # the same bits
+    q_dead, k_reached = min(max(offd, 0), nq), min(max(nq - offd, 0), nc)
+    unreached = not (bool(got[0][:, :q_dead].any()) or bool(got[1][:, k_reached:].any())
+                     or bool(got[2][:, k_reached:].any()))
+    again = split(torch.autograd.grad(out, leaves, g, retain_graph=True))
+    same = all(torch.equal(x, y) for x, y in zip(got[:3], again[:3]))
     shape = f"B={b} Nq={nq} Nc={nc} H={h} d={d} L={max_len} offd={offd}"
     log(f"{kern.KERNEL} / {kern.KERNEL_BWD} {shape}: max_abs_err " + ", ".join(errs)
         + f"; within rtol {RTOL} (tables {BIAS_RTOL}) atol {ATOL}: {ok}"
-        + (f"; dead chunk all zeros: {zeros}" if dead else ""))
+        + (f"; dead chunk all zeros: {zeros}" if dead else "")
+        + f"; {q_dead} query and {nc - k_reached} key rows without a live pair exactly zero: "
+        f"{unreached}; dq, dk, dv bit-identical in a second call: {same}")
     check(ok and zeros, f"the chunk kernels disagree with their plain version at {shape}")
+    check(unreached, f"rows without a live pair are not zero in the chunk backward at {shape}")
+    check(same, f"the chunk backward's dq, dk, dv differ between two calls at {shape}")
     if not timed:
         return None
     # host time to queue a call: the wrapper's checks, ctypes and the launch
-    # (the backward through autograd, with its zeroed outputs)
+    # (the backward through autograd, with its outputs and zeroed tables)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(50):
@@ -832,10 +848,11 @@ def timed_rounds(port: int, engine, req: dict, rounds: int = 3, reps: int = 10):
     return np.asarray(over_http), np.asarray(direct)
 
 
-def profile_device(fn, reps: int, what: str, wall_ms: float, top: int, by_count: int = 0) -> None:
+def profile_device(fn, reps: int, what: str, wall_ms: float, top: int, by_count: int = 0) -> float:
     """Where the time of `fn` goes: torch.profiler's device time of the kernels
     one call launches, against its host wall time `wall_ms` (measured without
-    the profiler); with `by_count`, also the kernels launched most often."""
+    the profiler); with `by_count`, also the kernels launched most often.
+    -> the device launches of one call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -861,6 +878,7 @@ def profile_device(fn, reps: int, what: str, wall_ms: float, top: int, by_count:
         log("  most launched: " + "; ".join(
             f"x{e.count / reps:.0f} {e.self_device_time_total / 1e3 / reps:.3f} ms {e.key[:60]}"
             for e in sorted(kernels, key=lambda e: -e.count)[:by_count]))
+    return launches
 
 
 # ---------------------------------------------------------------- phase 4
@@ -1273,10 +1291,15 @@ def run_ring_path(kc: Counts, card: str) -> dict:
             f"{p50:.3f} ms (range {step_ms.min():.3f}-{step_ms.max():.3f}), "
             f"{1e3 * cfg.data.batch_size / p50:.1f} examples/s on {card}; launches per step "
             f"{step_calls} chunk fwd, {step_calls} chunk bwd, 1 count, 1 lse fwd, 1 lse bwd")
-        profile_device(
+        launches = profile_device(
             lambda i: trainer.train_step(batches[i % len(batches)], trainer.lr1),
             reps=4, what=f"ring train step, {layout}", wall_ms=p50, top=8, by_count=8,
         )
+        # the chunk backward zero-fills nothing: a step launches 2 x step_calls
+        # fewer kernels than with the atomic design's zeroed dk and dv
+        expected = 4922 if zigzag else 1354
+        log(f"  profiled launches a {layout} step: {launches:.0f}, expected {expected} (the "
+            f"zero-filling design's {expected + 2 * step_calls} less {2 * step_calls} fills)")
         del trainer, batches
         torch.cuda.empty_cache()
     return counts

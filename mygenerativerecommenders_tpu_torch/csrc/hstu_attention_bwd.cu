@@ -87,10 +87,15 @@ namespace {
 
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
-constexpr int kT = 32;          // rows of a tile, resident or streamed
-constexpr int kHalf = kT / 2;   // rows a warp owns on each side
-constexpr int kLdW = kHalf + 4; // per-warp dz / p rows: 16-byte aligned, 5 x 16 B
+using hstu::kHalf;
+using hstu::kLdW;
+constexpr int kT = 2 * kHalf;   // rows of a tile, resident or streamed
 constexpr int kMaxDepth = 128;  // widest head the 4 x 8-column output tiles reach
+
+using hstu::accumulate_rows;
+using hstu::dot_tile;
+using hstu::shared_ld;
+using hstu::store_rows;
 
 struct Args {
   const float* q;
@@ -115,94 +120,12 @@ struct Args {
   int n_tiles;
 };
 
-// Row stride in shared memory for rows of d floats: d rounded up to a
-// multiple of 4 whose number of 16-byte chunks is odd.
-int shared_ld(int d) {
-  const int ld = (d + 3) / 4 * 4;
-  return (ld / 4) % 2 ? ld : ld + 4;
-}
-
 long long smem_floats(int ld1, int ld2, int max_len, int num_buckets, int n_tiles) {
   const long long rows = 3LL * kT * (ld1 + ld2);       // resident + two streamed stages
   const long long w = 2LL * kWarps * kHalf * kLdW;     // dz and p of each warp's pairs
   const long long tables = 2LL * (num_buckets + 1) + max_len;
   const long long ints = 6LL * kT + n_tiles + 1;
   return rows + w + tables + ints;
-}
-
-// acc[i][j] += sum_e a[i][e] b[j][e] over e < depth (a multiple of 4): a's
-// rows are `lda` apart, b's rows 8 * ldb apart.
-__device__ __forceinline__ void dot_tile(float (&acc)[4][2], const float* a, int lda,
-                                         const float* b, int ldb, int depth) {
-#pragma unroll 2
-  for (int e = 0; e < depth; e += 4) {
-    float4 av[4], bv[2];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) av[i] = *reinterpret_cast<const float4*>(a + i * lda + e);
-#pragma unroll
-    for (int j = 0; j < 2; ++j) bv[j] = *reinterpret_cast<const float4*>(b + 8 * j * ldb + e);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        acc[i][j] = fmaf(av[i].x, bv[j].x, acc[i][j]);
-        acc[i][j] = fmaf(av[i].y, bv[j].y, acc[i][j]);
-        acc[i][j] = fmaf(av[i].z, bv[j].z, acc[i][j]);
-        acc[i][j] = fmaf(av[i].w, bv[j].w, acc[i][j]);
-      }
-  }
-}
-
-// out[i][u] += sum_s w[s][i] b[s][cols of group u] over the warp's 16
-// streamed rows: w is the warp's [kHalf][kLdW] array at its lane's 4 rows,
-// b the warp's first streamed row, groups[u] the lane's 4-column groups.
-template <int kU>
-__device__ __forceinline__ void accumulate_rows(float4 (&out)[4][kU], const float* w,
-                                                const float* b, int ldb,
-                                                const int (&groups)[kU]) {
-#pragma unroll 4
-  for (int s = 0; s < kHalf; ++s) {
-    const float4 wv = *reinterpret_cast<const float4*>(w + s * kLdW);
-    const float wi[4] = {wv.x, wv.y, wv.z, wv.w};
-#pragma unroll
-    for (int u = 0; u < kU; ++u) {
-      const float4 bv = *reinterpret_cast<const float4*>(b + s * ldb + 4 * groups[u]);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        out[i][u].x = fmaf(wi[i], bv.x, out[i][u].x);
-        out[i][u].y = fmaf(wi[i], bv.y, out[i][u].y);
-        out[i][u].z = fmaf(wi[i], bv.z, out[i][u].z);
-        out[i][u].w = fmaf(wi[i], bv.w, out[i][u].w);
-      }
-    }
-  }
-}
-
-// Writes the lane's 4 rows x kU column groups of one output, [B, N, H, d]
-// contiguous, from row `row0`; rows at or past n are not written.
-template <int kU>
-__device__ __forceinline__ void store_rows(float* out, const float4 (&acc)[4][kU], int64_t base,
-                                           int row0, int n, int h, int d,
-                                           const int (&groups)[kU], int n_groups) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = row0 + i;
-    if (row >= n) continue;
-    float* o = out + base + (int64_t)row * h * d;
-#pragma unroll
-    for (int u = 0; u < kU; ++u) {
-      const int c = 4 * groups[u];
-      if (groups[u] >= n_groups) continue;
-      const float x[4] = {acc[i][u].x, acc[i][u].y, acc[i][u].z, acc[i][u].w};
-      if (c + 4 <= d && (d & 3) == 0) {
-        *reinterpret_cast<float4*>(o + c) = acc[i][u];
-      } else {
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          if (c + e < d) o[c + e] = x[e];
-      }
-    }
-  }
 }
 
 // One block of pass K (kPassK: resident keys, streamed queries; writes dk,

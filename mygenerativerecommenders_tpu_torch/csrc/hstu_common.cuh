@@ -1,9 +1,11 @@
-// Device helpers shared by the HSTU attention forward and backward kernels.
+// Device helpers shared by the HSTU attention kernels (full-sequence and
+// ring chunk, forward and backward).
 //
-// Both kernels must put a (query, key) pair into the same time bucket to the
-// bit, both stage strided q/k/v rows into shared memory the same way, and both
-// bound a packed row's key walk by its segments' starts, so the pieces live
-// here once.
+// All of them must put a (query, key) pair into the same time bucket to the
+// bit and stage strided q/k/v rows into shared memory the same way; the
+// full-sequence kernels bound a packed row's key walk by its segments'
+// starts; the two backward kernels share their register tiles. So the pieces
+// live here once.
 
 #pragma once
 
@@ -117,6 +119,95 @@ __device__ __forceinline__ void copy_rows_async(float* dst, int dst_stride,
       for (int u = 0; u < 4; ++u) {
         if (c + u < width) cp_async4(d + u, s + u);
         else d[u] = 0.f;
+      }
+    }
+  }
+}
+
+// Register tiles of the two-pass backward kernels (hstu_attention_bwd.cu,
+// hstu_chunk_bwd.cu). A block's warps split a 32-row resident tile and a
+// 32-row streamed tile into halves; a lane owns 4 resident x 2 streamed
+// pairs of its warp's 16 x 16 and reads its operands as float4.
+constexpr int kHalf = 16;       // rows a warp owns on each side of a tile
+constexpr int kLdW = kHalf + 4; // per-warp dz / p rows: 16-byte aligned, 5 x 16 B
+
+// Row stride in shared memory for rows of d floats: d rounded up to a
+// multiple of 4 whose number of 16-byte chunks is odd.
+inline int shared_ld(int d) {
+  const int ld = (d + 3) / 4 * 4;
+  return (ld / 4) % 2 ? ld : ld + 4;
+}
+
+// acc[i][j] += sum_e a[i][e] b[j][e] over e < depth (a multiple of 4): a's
+// rows are `lda` apart, b's rows 8 * ldb apart.
+__device__ __forceinline__ void dot_tile(float (&acc)[4][2], const float* a, int lda,
+                                         const float* b, int ldb, int depth) {
+#pragma unroll 2
+  for (int e = 0; e < depth; e += 4) {
+    float4 av[4], bv[2];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) av[i] = *reinterpret_cast<const float4*>(a + i * lda + e);
+#pragma unroll
+    for (int j = 0; j < 2; ++j) bv[j] = *reinterpret_cast<const float4*>(b + 8 * j * ldb + e);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        acc[i][j] = fmaf(av[i].x, bv[j].x, acc[i][j]);
+        acc[i][j] = fmaf(av[i].y, bv[j].y, acc[i][j]);
+        acc[i][j] = fmaf(av[i].z, bv[j].z, acc[i][j]);
+        acc[i][j] = fmaf(av[i].w, bv[j].w, acc[i][j]);
+      }
+  }
+}
+
+// out[i][u] += sum_s w[s][i] b[s][cols of group u] over the warp's 16
+// streamed rows: w is the warp's [kHalf][kLdW] array at its lane's 4 rows,
+// b the warp's first streamed row, groups[u] the lane's 4-column groups.
+template <int kU>
+__device__ __forceinline__ void accumulate_rows(float4 (&out)[4][kU], const float* w,
+                                                const float* b, int ldb,
+                                                const int (&groups)[kU]) {
+#pragma unroll 4
+  for (int s = 0; s < kHalf; ++s) {
+    const float4 wv = *reinterpret_cast<const float4*>(w + s * kLdW);
+    const float wi[4] = {wv.x, wv.y, wv.z, wv.w};
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      const float4 bv = *reinterpret_cast<const float4*>(b + s * ldb + 4 * groups[u]);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        out[i][u].x = fmaf(wi[i], bv.x, out[i][u].x);
+        out[i][u].y = fmaf(wi[i], bv.y, out[i][u].y);
+        out[i][u].z = fmaf(wi[i], bv.z, out[i][u].z);
+        out[i][u].w = fmaf(wi[i], bv.w, out[i][u].w);
+      }
+    }
+  }
+}
+
+// Writes the lane's 4 rows x kU column groups of one output, [B, N, H, d]
+// contiguous, from row `row0`; rows at or past n are not written.
+template <int kU>
+__device__ __forceinline__ void store_rows(float* out, const float4 (&acc)[4][kU], int64_t base,
+                                           int row0, int n, int h, int d,
+                                           const int (&groups)[kU], int n_groups) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = row0 + i;
+    if (row >= n) continue;
+    float* o = out + base + (int64_t)row * h * d;
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      const int c = 4 * groups[u];
+      if (groups[u] >= n_groups) continue;
+      const float x[4] = {acc[i][u].x, acc[i][u].y, acc[i][u].z, acc[i][u].w};
+      if (c + 4 <= d && (d & 3) == 0) {
+        *reinterpret_cast<float4*>(o + c) = acc[i][u];
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (c + e < d) o[c + e] = x[e];
       }
     }
   }

@@ -18,9 +18,13 @@ only because the block's u is silu(0) = 0 on its zero rows.
 
 On a CUDA tensor it is a `torch.autograd.Function`: the forward launches
 csrc/hstu_chunk_fwd.cu and saves only its inputs; the backward launches
-csrc/hstu_chunk_bwd.cu, which recomputes the scores and returns dq, dk, dv,
-d_pos_w and d_ts_w (adding a clipped pair's gradient into the slot it read).
-A chunk with off_delta >= Nq has no live pair: both kernels then write zeros.
+csrc/hstu_chunk_bwd.cu, which recomputes the scores in two passes of one
+launch (one owns dk and dv, the other dq and the tables) and returns dq, dk,
+dv, d_pos_w and d_ts_w (adding a clipped pair's gradient into the slot it
+read). dq, dk and dv take no atomics and are bit-identical from call to call;
+only the two table gradients are summed with float atomics. A chunk with
+off_delta >= Nq has no live pair: both kernels then write zeros, as does the
+backward for key rows no live pair reaches.
 On a CPU tensor it computes `hstu_chunk_attention_plain`, the port's copy of
 the JAX ring's jnp chunk body (`parallel/ring_attention.py:_chunk_contribution`
 with use_pallas=False, :85-101), and autograd differentiates that.
@@ -118,8 +122,10 @@ def _kernel_lib_bwd() -> ctypes.CDLL:
         p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
         lib.hstu_chunk_bwd.argtypes = [p] * 13 + [i] * 6 + [ll] * 8 + [i, i, i, f, p]
         lib.hstu_chunk_bwd.restype = i
-        lib.hstu_chunk_bwd_smem_bytes.argtypes = [i] * 5
+        lib.hstu_chunk_bwd_smem_bytes.argtypes = [i] * 4
         lib.hstu_chunk_bwd_smem_bytes.restype = ll
+        lib.hstu_chunk_bwd_max_depth.argtypes = []
+        lib.hstu_chunk_bwd_max_depth.restype = i
         lib.hstu_chunk_bwd_cuda_error_string.argtypes = [i]
         lib.hstu_chunk_bwd_cuda_error_string.restype = ctypes.c_char_p
         _lib_bwd = lib
@@ -138,7 +144,7 @@ def _prepare(q, k, v, tsq_next, tsk, pos_w, ts_w):
         if t.stride(3) != 1 or t.stride(2) != t.shape[3]:
             raise ValueError(f"{name} needs contiguous [H, d] rows, strides {t.stride()}")
     if q.shape[0] > 65535:
-        raise ValueError(f"batch {q.shape[0]} exceeds the kernels' grid.y limit 65535")
+        raise ValueError(f"batch {q.shape[0]} exceeds the forward kernel's grid.y limit 65535")
 
     def stamps(ts):
         ts = ts.to(torch.int32)
@@ -187,18 +193,21 @@ def _launch_bwd(q, k, v, g, tsq, tsk, pos_w, ts_w, off_delta, inv_n, max_len, nu
     b, nq, h, dqk = q.shape
     nc, dv = k.shape[1], v.shape[-1]
     lib = _kernel_lib_bwd()
-    smem = lib.hstu_chunk_bwd_smem_bytes(h, dqk, dv, max_len, num_buckets)
+    widest = lib.hstu_chunk_bwd_max_depth()
+    if max(dqk, dv) > widest:
+        raise ValueError(f"dqk={dqk}, dv={dv}: the backward kernel takes heads up to {widest} wide")
+    smem = lib.hstu_chunk_bwd_smem_bytes(dqk, dv, max_len, num_buckets)
     if smem > _build.MAX_SMEM_BYTES:
         raise ValueError(
-            f"H={h}, dqk={dqk}, dv={dv}, max_len={max_len}: a block would need {smem} "
+            f"dqk={dqk}, dv={dv}, max_len={max_len}: a block would need {smem} "
             f"bytes of shared memory, the card gives {_build.MAX_SMEM_BYTES}"
         )
     g = g.to(torch.float32).contiguous()
     dev = q.device
+    # the kernel writes dq, dk and dv whole and adds into the tables
     dq = torch.empty((b, nq, h, dqk), dtype=torch.float32, device=dev)
-    # the kernel adds into these with atomics
-    dk = torch.zeros((b, nc, h, dqk), dtype=torch.float32, device=dev)
-    dv_out = torch.zeros((b, nc, h, dv), dtype=torch.float32, device=dev)
+    dk = torch.empty((b, nc, h, dqk), dtype=torch.float32, device=dev)
+    dv_out = torch.empty((b, nc, h, dv), dtype=torch.float32, device=dev)
     dpw = torch.zeros_like(pos_w)
     dtw = torch.zeros_like(ts_w)
     err = lib.hstu_chunk_bwd(

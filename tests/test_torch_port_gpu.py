@@ -270,12 +270,15 @@ def test_dense_neg_lse_kernels_match_plain_on_a_wide_catalog_on_card(bt, d, x):
         (4, 259, 259, 2, 64, 100, 1035),  # partial
         (2, 40, 70, 2, 16, 40, 100),  # dead: zeros
         (2, 130, 130, 2, 64, -910, 1035),  # padded rows past the table: clipped slot
+        (4, 259, 259, 2, 64, -259, 1035),  # the contiguous ring's fully live chunk
     ],
-    ids=["negative", "zero", "partial", "dead", "off-table"],
+    ids=["negative", "zero", "partial", "dead", "off-table", "full-259"],
 )
 def test_chunk_kernels_match_plain_on_card(b, nq, nc, h, d, offd, max_len):
     """Chunk forward and backward against autograd of the plain version, q, k,
-    v read as strided slices of one projection (as the ring hands them over)."""
+    v read as strided slices of one projection (as the ring hands them over).
+    The backward writes dq, dk and dv whole without atomics: bit-identical in
+    a second call, exactly zero in key rows no live pair reaches."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card (CUDA)")
     rng = np.random.default_rng(6)
@@ -308,6 +311,10 @@ def test_chunk_kernels_match_plain_on_card(b, nq, nc, h, d, offd, max_len):
         np.testing.assert_allclose(a.cpu().numpy(), w.cpu().numpy(), rtol=rtol, atol=2e-5)
     if offd >= nq:
         assert not got.any() and not any(x.any() for x in got_grads)
+    # key rows m >= nq - offd see no query row (proj rows nq + m hold only dk, dv)
+    assert not got_grads[0][:, nq + min(max(nq - offd, 0), nc):].any()
+    _, again = run(chunk_kern.hstu_chunk_attention)
+    assert torch.equal(again[0], got_grads[0])
 
 
 @pytest.mark.gpu

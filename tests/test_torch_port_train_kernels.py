@@ -267,14 +267,17 @@ def test_lse_backward_breakdown_tool_still_finds_its_patterns_in_the_source():
     assert len(made) == 6 and len(set(made.values())) == 6
 
 
-def test_attention_backward_source_adds_atomically_into_the_tables_only():
-    """dq, dk and dv of the attention backward are written once by the block
-    that owns them (bit-identical from call to call); only the bias tables'
-    gradients and their shared-memory partials take atomics."""
+@pytest.mark.parametrize("source", ["hstu_attention_bwd.cu", "hstu_chunk_bwd.cu"])
+def test_attention_backward_source_adds_atomically_into_the_tables_only(source):
+    """dq, dk and dv of the attention backward (full-sequence and ring chunk)
+    are written once by the block that owns them (bit-identical from call to
+    call); only the bias tables' gradients and their shared-memory partials
+    take atomics. Both stream their tiles with cp.async."""
     import re
 
     from mygenerativerecommenders_tpu_torch.ops.kernels import _build
 
-    src = (_build.CSRC_DIR / "hstu_attention_bwd.cu").read_text()
+    src = (_build.CSRC_DIR / source).read_text()
     targets = re.findall(r"atomicAdd\(\s*&\s*([\w.]+)", src)
     assert targets and set(targets) <= {"diag_s", "hist_s", "a.dpw", "a.dtw"}, targets
+    assert "copy_rows_async" in src
