@@ -36,13 +36,20 @@ Phases, each of which stops the run with a non-zero exit when it fails:
      (int32 counts, one bin of 256), with the lse kernels on those counts;
    - the dense-negative lse forward and backward at [26880, 50] x [3706, 50]
      with those counts, tau 0.05, one all-hit row: lse, dq, dcat at rtol 2e-4
-     / atol 2e-5; the same over the ml-20m catalog, at [26880, 50] x
-     [26744, 50] (the step of ml-20m-hstu) and at [24552, 64] x [26744, 64]
-     (the 1024-token class of a packed ml-20m-hstu-long step), where the plain
-     version runs 2,048 rows at a time;
+     / atol 2e-5, dq and dcat against autograd of the plain version and
+     against the sparse plain backward (`dense_neg_lse_bwd_plain`, given the
+     plain forward's m_safe and s), the all-hit row's dq exactly zero and dq
+     bit for bit the same in a second call (no atomics touch it); the same
+     over the ml-20m catalog, at [26880, 50] x [26744, 50] (the step of
+     ml-20m-hstu), at [24552, 64] x [26744, 64] (the 1024-token class of a
+     packed ml-20m-hstu-long step) and at [4297, 64] x [26744, 64] (its
+     256-token class), where the dense plain version runs 2,048 rows at a
+     time; and at [4096, 64] x [150, 64] with 255 draws a row, rows denser
+     than the backward's list of 128 live logits;
    - the same lse kernels with `sup_off` (`fused_dense_neg_lse`, each row's
-     positive masked in the kernel) at [8192, 64] x [26744, 64], and an all -1
-     sup_off against the null pointer, lse and dq bit for bit;
+     positive masked in the kernel) at [8192, 64] x [26744, 64], with the same
+     checks, and an all -1 sup_off against the null pointer, lse and dq bit
+     for bit;
    - the ring's chunk attention forward and backward against autograd of the
      plain version at ml-20m-hstu-long's widths (B=32, H=2, d=64, L=1035) on
      the zigzag ring's 130 x 130 chunks and the contiguous ring's 259 x 259,
@@ -456,6 +463,33 @@ def plain_lse_in_chunks(kern, q, cat, count, tau, gl, chunk, with_grads=True):
     return torch.cat(lse), (torch.cat(dq) if with_grads else None), dcat
 
 
+def plain_lse_stats(kern, q, cat, count, tau, chunk):
+    """The forward's per-row (m_safe, s) by `dense_neg_lse_stats_plain`,
+    `chunk` rows at a time."""
+    with torch.no_grad():
+        parts = [kern.dense_neg_lse_stats_plain(q[lo : lo + chunk], cat, count[lo : lo + chunk],
+                                                tau) for lo in range(0, q.shape[0], chunk)]
+    return torch.cat([m for m, _ in parts]), torch.cat([s for _, s in parts])
+
+
+def check_lse_bwd(name, got, want_dense, want_sparse, all_hit):
+    """The backward kernel's (dq, dcat) against autograd of the dense plain
+    version and against the sparse plain backward; dq of an all-hit row
+    exactly zero. Returns the largest error of the two comparisons."""
+    errs, oks = [], []
+    for want in (want_dense, want_sparse):
+        for g, w in zip(got, want):
+            ok, err = within(g, w, RTOL, ATOL)
+            oks.append(ok)
+            errs.append(err)
+    zero = not bool(got[0][all_hit].any())
+    log(f"  {name}: dq, dcat max_abs_err vs autograd of the plain version {errs[0]:.3e}, "
+        f"{errs[1]:.3e}, vs the sparse plain backward {errs[2]:.3e}, {errs[3]:.3e}; within "
+        f"rtol {RTOL} atol {ATOL}: {all(oks)}; the all-hit row's dq zero: {zero}")
+    check(all(oks) and zero, f"{name} disagrees with its plain versions")
+    return max(errs)
+
+
 def check_dense_neg_lse(kern, count, bt, d, x, tau, chunk=None) -> tuple[dict, dict]:
     """`chunk`: rows of the plain version at a time (None: all at once)."""
     chunk = chunk or bt
@@ -471,43 +505,46 @@ def check_dense_neg_lse(kern, count, bt, d, x, tau, chunk=None) -> tuple[dict, d
     finite = torch.isfinite(lse)
     gl = torch.where(finite, gl, 0.0)
     got = torch.autograd.grad(lse, [q, cat], gl, retain_graph=True)
+    again = torch.autograd.grad(lse, [q, cat], gl, retain_graph=True)
     lse_plain, *want = plain_lse_in_chunks(kern, q, cat, count, tau, gl, chunk)
+    m_safe, s = plain_lse_stats(kern, q, cat, count, tau, chunk)
+    sparse = kern.dense_neg_lse_bwd_plain(q.detach(), cat.detach(), count, m_safe, s, gl, tau)
     torch.cuda.synchronize()
     same_inf = bool(torch.equal(finite, torch.isfinite(lse_plain)))
     ok_lse, err_lse = within(lse[finite], lse_plain[finite], RTOL, ATOL)
-    ok_dq, err_dq = within(got[0], want[0], RTOL, ATOL)
-    ok_dcat, err_dcat = within(got[1], want[1], RTOL, ATOL)
-    log(f"{kern.KERNEL} / {kern.KERNEL_BWD} [{bt}, {d}] x [{x}, {d}], tau {tau}: max_abs_err "
-        f"lse {err_lse:.3e}, dq {err_dq:.3e}, dcat {err_dcat:.3e}; within rtol {RTOL} atol "
-        f"{ATOL}: {ok_lse and ok_dq and ok_dcat}; all-hit row 5: lse {float(lse[5].detach())}, "
-        f"-inf rows agree: {same_inf}, its dq zero: {not bool(got[0][5].any())}")
+    same_dq = bool(torch.equal(got[0], again[0]))
+    log(f"{kern.KERNEL} / {kern.KERNEL_BWD} [{bt}, {d}] x [{x}, {d}], tau {tau}, "
+        f"{count.dtype} counts: max_abs_err lse {err_lse:.3e} within rtol {RTOL} atol {ATOL}: "
+        f"{ok_lse}; all-hit row 5: lse {float(lse[5].detach())}, -inf rows agree: {same_inf}; "
+        f"dq the same bits in a second call: {same_dq}")
     check(same_inf and float(lse[5].detach()) == float("-inf"), "the all-hit row's lse is not -inf")
     check(ok_lse, f"{kern.KERNEL} disagrees with its plain version")
-    check(ok_dq and ok_dcat and not bool(got[0][5].any()),
-          f"{kern.KERNEL_BWD} disagrees with autograd of its plain version")
+    check(same_dq, f"{kern.KERNEL_BWD}: dq differs between two calls")
+    err_bwd = check_lse_bwd(kern.KERNEL_BWD, got, want, sparse, 5)
     nnz = int(count.count_nonzero())
     with torch.no_grad():
         fwd_ms = device_ms(lambda: kern.dense_neg_lse(q, cat, count, tau), 50)
         fwd_plain = device_ms(
             lambda: plain_lse_in_chunks(kern, q, cat, count, tau, gl, chunk, with_grads=False), 5)
     bwd_ms = device_ms(lambda: torch.autograd.grad(lse, [q, cat], gl, retain_graph=True), 30)
-    # the plain backward alone: forward and backward together, less the forward
-    both_plain = device_ms(lambda: plain_lse_in_chunks(kern, q, cat, count, tau, gl, chunk), 3)
-    bwd_plain = both_plain - fwd_plain
+    # the backward's own plain version: the sparse form, given (m_safe, s)
+    bwd_plain = device_ms(lambda: kern.dense_neg_lse_bwd_plain(
+        q.detach(), cat.detach(), count, m_safe, s, gl, tau), 5)
     # only the logits whose count is positive are needed: the operations
     # counted are those of this run's nnz live logits, not of all BT*X
-    fwd_bound = bound(4 * (bt * d + x * d + 3 * bt) + bt * x, nnz * 2 * d)
-    bwd_bound = bound(4 * (2 * bt * d + 2 * x * d + 3 * bt) + bt * x, nnz * 6 * d)
+    count_bytes = bt * x * count.element_size()
+    fwd_bound = bound(4 * (bt * d + x * d + 3 * bt) + count_bytes, nnz * 2 * d)
+    bwd_bound = bound(4 * (2 * bt * d + 2 * x * d + 3 * bt) + count_bytes, nnz * 6 * d)
     log(f"  forward: kernel {fwd_ms:.5f} ms, plain {fwd_plain:.5f} ms, bound "
         f"{fwd_bound[0]:.5f} ms ({fwd_bound[1]}); {nnz} live logits of {bt * x}; the "
         f"dense product is {2e-9 * bt * x * d:.2f} GFLOP, {2e-6 * bt * x * d / fwd_ms:.0f} "
         f"GFLOP/s as run")
-    log(f"  backward: kernel {bwd_ms:.5f} ms, plain {bwd_plain:.5f} ms, bound "
-        f"{bwd_bound[0]:.5f} ms ({bwd_bound[1]}); dense {6e-9 * bt * x * d:.2f} GFLOP")
+    log(f"  backward: kernel {bwd_ms:.5f} ms, sparse plain {bwd_plain:.5f} ms, bound "
+        f"{bwd_bound[0]:.5f} ms ({bwd_bound[1]})")
     fwd = dict(max_abs_err=err_lse, ms=fwd_ms, plain_ms=fwd_plain, bound_ms=fwd_bound[0],
                bound_by=fwd_bound[1])
-    bwd = dict(max_abs_err=max(err_dq, err_dcat), ms=bwd_ms, plain_ms=bwd_plain,
-               bound_ms=bwd_bound[0], bound_by=bwd_bound[1])
+    bwd = dict(max_abs_err=err_bwd, ms=bwd_ms, plain_ms=bwd_plain, bound_ms=bwd_bound[0],
+               bound_by=bwd_bound[1])
     return fwd, bwd
 
 
@@ -534,20 +571,25 @@ def check_fused_lse(kern, count, positive, bt, d, x, tau, chunk) -> tuple[dict, 
     gl = torch.where(finite, gl, 0.0)
     got = torch.autograd.grad(lse, [q, cat], gl, retain_graph=True)
     check(kern.fused_launches == before + 1, "fused_dense_neg_lse did not launch its kernel")
+    again = torch.autograd.grad(lse, [q, cat], gl, retain_graph=True)
     masked = count.clone()
     live = positive >= 0
     masked[torch.arange(bt, device="cuda")[live], positive[live].long()] = 0
     lse_plain, *want = plain_lse_in_chunks(kern, q, cat, masked, tau, gl, chunk)
+    m_safe, s = plain_lse_stats(kern, q, cat, masked, tau, chunk)
+    sparse = kern.dense_neg_lse_bwd_plain(q.detach(), cat.detach(), count, m_safe, s, gl, tau,
+                                          positive)
     torch.cuda.synchronize()
     ok_lse, err_lse = within(lse[finite], lse_plain[finite], RTOL, ATOL)
-    ok_dq, err_dq = within(got[0], want[0], RTOL, ATOL)
-    ok_dcat, err_dcat = within(got[1], want[1], RTOL, ATOL)
     same_inf = bool(torch.equal(finite, torch.isfinite(lse_plain)))
-    log(f"{kern.FUSED} (sup_off) [{bt}, {d}] x [{x}, {d}]: max_abs_err lse {err_lse:.3e}, dq "
-        f"{err_dq:.3e}, dcat {err_dcat:.3e}; within rtol {RTOL} atol {ATOL}: "
-        f"{ok_lse and ok_dq and ok_dcat}, -inf rows agree: {same_inf}")
+    same_dq = bool(torch.equal(got[0], again[0]))
+    log(f"{kern.FUSED} (sup_off) [{bt}, {d}] x [{x}, {d}]: max_abs_err lse {err_lse:.3e} within "
+        f"rtol {RTOL} atol {ATOL}: {ok_lse}, -inf rows agree: {same_inf}; dq the same bits in a "
+        f"second call: {same_dq}")
     check(ok_lse and same_inf, f"{kern.FUSED} disagrees with its plain version")
-    check(ok_dq and ok_dcat, f"{kern.FUSED} backward disagrees with autograd of its plain version")
+    check(same_dq, f"{kern.FUSED} backward: dq differs between two calls")
+    all_hit = torch.nonzero(~finite)[:1, 0]
+    err_bwd = check_lse_bwd(kern.FUSED + " backward", got, want, sparse, all_hit)
     none = torch.full_like(positive, -1)
     lse_none = kern.fused_dense_neg_lse(q, cat, count, none, tau)
     lse_null = kern.dense_neg_lse(q, cat, count, tau)
@@ -562,16 +604,17 @@ def check_fused_lse(kern, count, positive, bt, d, x, tau, chunk) -> tuple[dict, 
         fwd_plain = device_ms(lambda: plain_lse_in_chunks(
             kern, q, cat, masked, tau, gl, chunk, with_grads=False), 3)
     bwd_ms = device_ms(lambda: torch.autograd.grad(lse, [q, cat], gl, retain_graph=True), 20)
-    both_plain = device_ms(lambda: plain_lse_in_chunks(kern, q, cat, masked, tau, gl, chunk), 2)
+    bwd_plain = device_ms(lambda: kern.dense_neg_lse_bwd_plain(
+        q.detach(), cat.detach(), count, m_safe, s, gl, tau, positive), 5)
     fwd_bound = bound(4 * (bt * d + x * d + 4 * bt) + bt * x, nnz * 2 * d)
     bwd_bound = bound(4 * (2 * bt * d + 2 * x * d + 4 * bt) + bt * x, nnz * 6 * d)
     log(f"  forward: kernel {fwd_ms:.5f} ms, plain {fwd_plain:.5f} ms, bound {fwd_bound[0]:.5f} "
-        f"ms ({fwd_bound[1]}); backward: kernel {bwd_ms:.5f} ms, plain "
-        f"{both_plain - fwd_plain:.5f} ms, bound {bwd_bound[0]:.5f} ms ({bwd_bound[1]})")
+        f"ms ({fwd_bound[1]}); backward: kernel {bwd_ms:.5f} ms, sparse plain "
+        f"{bwd_plain:.5f} ms, bound {bwd_bound[0]:.5f} ms ({bwd_bound[1]})")
     fwd = dict(max_abs_err=err_lse, ms=fwd_ms, plain_ms=fwd_plain, bound_ms=fwd_bound[0],
                bound_by=fwd_bound[1])
-    bwd = dict(max_abs_err=max(err_dq, err_dcat), ms=bwd_ms, plain_ms=both_plain - fwd_plain,
-               bound_ms=bwd_bound[0], bound_by=bwd_bound[1])
+    bwd = dict(max_abs_err=err_bwd, ms=bwd_ms, plain_ms=bwd_plain, bound_ms=bwd_bound[0],
+               bound_by=bwd_bound[1])
     return fwd, bwd
 
 
@@ -1423,6 +1466,22 @@ def main() -> int:
         lse_kern, check_count(count_kern, long_bt, TRAIN_R, 26744)["count"], long_bt, 64,
         26744, 0.05, chunk=2048,
     )
+    # the 256-token class of that step (17 rows, 4,297 supervision rows): the
+    # launch with the fewest rows on the packed path
+    class256_bt = 4297
+    check_dense_neg_lse(
+        lse_kern, check_count(count_kern, class256_bt, TRAIN_R, 26744)["count"], class256_bt, 64,
+        26744, 0.05, chunk=2048,
+    )
+    # dense rows: 255 draws into 150 columns leave few of them dead, more live
+    # logits a row than the backward's list holds, which it takes in rounds.
+    # 4,096 rows: each dcat entry sums ~4,000 float atomic adds, as many as
+    # at [26880, 50] x [3706, 50] (~900); at 26,880 rows its error against
+    # autograd reaches ~2.5e-4, and so does index_add_'s in the sparse plain
+    # backward (PERF.md, PR 8)
+    dense_bt = 4096
+    check_dense_neg_lse(lse_kern, check_count(count_kern, dense_bt, 255, 150)["count"], dense_bt,
+                        64, 150, 0.05)
     # rows 7-8: the lse with sup_off, over the ml-20m catalog at a quarter of
     # the ring step's 33,088 supervision rows
     fused_bt = 8192

@@ -17,11 +17,14 @@ gradient reaching such a row is dropped.
 
 On CUDA tensors it is a `torch.autograd.Function`: the forward launches
 `dense_neg_lse_fwd` of csrc/dense_neg_lse.cu and keeps q, cat, count and the
-per-row (m_safe, s); the backward launches `dense_neg_lse_bwd`, which
-recomputes the logits and returns dq and dcat. The [BT, X] logits never reach
-device memory. Both are built by nvcc at first use; a failed build or launch
-raises. On CPU tensors it computes `dense_neg_lse_plain` and autograd
-differentiates that. No gradient flows to count.
+per-row (m_safe, s); the backward launches `dense_neg_lse_bwd`, which walks
+each row's live logits only (count > 0) and returns dq and dcat. The [BT, X]
+logits never reach device memory. Both are built by nvcc at first use; a
+failed build or launch raises. On CPU tensors it computes
+`dense_neg_lse_plain` and autograd differentiates that. No gradient flows to
+count. `dense_neg_lse_bwd_plain` is the backward alone in plain PyTorch, in
+the kernel's sparse form, given the forward's (m_safe, s)
+(`dense_neg_lse_stats_plain`).
 
 `fused_dense_neg_lse(q2, norm_catalog, count, sup_off, temperature)` is the
 JAX package's function of that name (dense_softmax.py:167-175, the kernels
@@ -70,10 +73,10 @@ _NO_LOGIT = -1e30
 _lib: Optional[ctypes.CDLL] = None
 
 
-def dense_neg_lse_plain(
+def dense_neg_lse_stats_plain(
     q: torch.Tensor, cat: torch.Tensor, count: torch.Tensor, temperature: float
-) -> torch.Tensor:
-    """The kernels' function in plain PyTorch, [BT] float32."""
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The forward kernel's per-row (m_safe, s) in plain PyTorch, [BT] each."""
     al = (q.float() @ cat.float().T) / temperature
     c = count.to(torch.float32)
     # select before exponentiating: a dead logit above the live maximum
@@ -81,8 +84,45 @@ def dense_neg_lse_plain(
     al_live = torch.where(c > 0, al, _NO_LOGIT)
     m = al_live.max(dim=-1).values
     m_safe = torch.where(m > 0.5 * _NO_LOGIT, m, 0.0)
-    s = (c * torch.exp(al_live - m_safe[:, None])).sum(dim=-1)
+    return m_safe, (c * torch.exp(al_live - m_safe[:, None])).sum(dim=-1)
+
+
+def dense_neg_lse_plain(
+    q: torch.Tensor, cat: torch.Tensor, count: torch.Tensor, temperature: float
+) -> torch.Tensor:
+    """The kernels' function in plain PyTorch, [BT] float32."""
+    m_safe, s = dense_neg_lse_stats_plain(q, cat, count, temperature)
     return torch.where(s > 0, m_safe + torch.log(torch.clamp(s, min=1e-30)), -torch.inf)
+
+
+def dense_neg_lse_bwd_plain(
+    q: torch.Tensor,
+    cat: torch.Tensor,
+    count: torch.Tensor,
+    m_safe: torch.Tensor,
+    s: torch.Tensor,
+    gl: torch.Tensor,
+    temperature: float,
+    sup_off: Optional[torch.Tensor] = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The backward kernel's (dq, dcat) in plain PyTorch, in its sparse form:
+    the live (i, x) pairs (count > 0, x != sup_off[i]), cat gathered at them,
+    dal = count exp(al - m_safe) gl / max(s, 1e-30) / tau (0 where s == 0),
+    dq = dal cat and dcat = dal^T q by `index_add_`. count may be wider than
+    the catalog where sup_off is given, as `fused_dense_neg_lse` takes it."""
+    q, cat = q.float(), cat.float()
+    rows, cols = (count[:, : cat.shape[0]] > 0).nonzero(as_tuple=True)
+    if sup_off is not None:
+        keep = cols != sup_off.to(cols.device).long()[rows]
+        rows, cols = rows[keep], cols[keep]
+    inv_tau = 1.0 / temperature
+    coef = torch.where(s > 0, gl.float() / torch.clamp(s, min=1e-30) * inv_tau, 0.0)
+    qr, cc = q[rows], cat[cols]
+    al = (qr * cc).sum(dim=-1) * inv_tau
+    dal = count[rows, cols].float() * torch.exp(al - m_safe[rows]) * coef[rows]
+    dq = torch.zeros_like(q).index_add_(0, rows, dal[:, None] * cc)
+    dcat = torch.zeros_like(cat).index_add_(0, cols, dal[:, None] * qr)
+    return dq, dcat
 
 
 def fused_dense_neg_lse_plain(
@@ -134,8 +174,6 @@ def _kernel_lib() -> ctypes.CDLL:
         lib.dense_neg_lse_bwd.restype = i
         lib.dense_neg_lse_fwd_smem_bytes.argtypes = [i]
         lib.dense_neg_lse_fwd_smem_bytes.restype = ll
-        lib.dense_neg_lse_bwd_smem_bytes.argtypes = [i]
-        lib.dense_neg_lse_bwd_smem_bytes.restype = ll
         lib.dense_neg_lse_max_depth.argtypes = []
         lib.dense_neg_lse_max_depth.restype = i
         lib.cuda_error_string.argtypes = [i]
@@ -172,9 +210,9 @@ class _DenseNegLse(torch.autograd.Function):
         x = cat.shape[0]
         if d > lib.dense_neg_lse_max_depth():
             raise ValueError(f"D={d} is wider than the kernels take")
-        for smem in (lib.dense_neg_lse_fwd_smem_bytes(d), lib.dense_neg_lse_bwd_smem_bytes(d)):
-            if smem > _build.MAX_SMEM_BYTES:
-                raise ValueError(f"D={d}: a block would need {smem} bytes of shared memory")
+        smem = lib.dense_neg_lse_fwd_smem_bytes(d)
+        if smem > _build.MAX_SMEM_BYTES:
+            raise ValueError(f"D={d}: a block would need {smem} bytes of shared memory")
         if q.dtype != torch.float32 or cat.dtype != torch.float32:
             raise TypeError(f"q and cat must be float32, got {q.dtype} and {cat.dtype}")
         q, cat = q.detach().contiguous(), cat.detach().contiguous()

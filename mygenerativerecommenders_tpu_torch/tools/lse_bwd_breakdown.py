@@ -13,7 +13,8 @@ nvcc flags. Needs an NVIDIA card and nvcc:
 `--x 26744` is the ml-20m catalog (the step of ml-20m-hstu); `--bt 24552 --d 64
 --x 26744` the 1024-token class of a packed ml-20m-hstu-long step. Prints one
 line per variant and round: the difference from `as_is` is what the part
-switched off costs.
+switched off costs (`scan_only`: all but reading the counts and listing the
+live pairs).
 """
 
 from __future__ import annotations
@@ -31,29 +32,36 @@ import torch
 from mygenerativerecommenders_tpu_torch.ops.kernels import _build
 from mygenerativerecommenders_tpu_torch.ops.kernels.count_offsets import count_offsets
 
-_DQ_LOOP = "for (int xx = 0; xx < kBN; ++xx) {"
-_DCAT_LOOP = "for (int r = 0; r < kBM; ++r) {"
-_ATOMIC = "atomicAdd(&dcat[(int64_t)col * d + e], dc[i][c]);"
-_SKIP = "if (!__any_sync(0xffffffffu, any)) continue;"
+_PAIRS = "for (int jb = 0; jb < n; jb += kGroups * kPairUnroll) {"
+_GATHER = "load_vec(cv[u][r], cat + (int64_t)p.x * d + column(r));"
+_DOT_SUM = "for (int off = kLanes / 2; off > 0; off >>= 1) dot += __shfl_xor_sync(kAll, dot, off);"
+_EXP = "expf(dot * inv_tau - mi)"
+_DQ = "acc[r][v] = fmaf(dal[u], cv[u][r][v], acc[r][v]);"
+_ATOMIC = "add_dcat<kVec>(dcat, (int64_t)xs[u] * d + column(r), dal[u], qv[r]);"
 
 
 def variants(src: str) -> dict:
-    def off(text: str, loop: str) -> str:
-        return text.replace(loop, loop.replace("< kBN", "< 0").replace("< kBM", "< 0"))
+    def sub(text: str, *pairs) -> str:
+        for old, new in pairs:
+            if old not in text:
+                raise RuntimeError(f"the source no longer holds {old!r}")
+            text = text.replace(old, new)
+        return text
 
-    out = {
+    return {
         "as_is": src,
+        # the count scan and the lists; each list is read once, so that the
+        # compiler keeps its stores, and not computed
+        "scan_only": sub(
+            src, (_PAIRS, _PAIRS + " acc[0][0] += __int_as_float(pairs[jb].y); continue;")),
+        # no cat row gathered, no shuffle sum, no exponential: dal from the
+        # lane's own registers
+        "no_gather_logits": sub(src, (_GATHER, "cv[u][r][0] = (float)p.x;"), (_DOT_SUM, ""),
+                                (_EXP, "(dot * inv_tau - mi)")),
+        "no_dq": sub(src, (_DQ, ";")),
         # a store the compiler cannot drop, in place of the atomics
-        "no_dcat_atomics": src.replace(_ATOMIC, "if (dc[i][c] == 123.f) dcat[0] = 1.f;"),
-        "no_dcat_product": off(src, _DCAT_LOOP),
-        "no_dq_product": off(src, _DQ_LOOP),
-        "no_zero_skip": src.replace(_SKIP, ""),
-        "logits_and_dal_only": off(off(src, _DCAT_LOOP), _DQ_LOOP),
+        "no_dcat_atomics": sub(src, (_ATOMIC, "if (dal[u] == 123.f) dcat[0] = qv[r][0];")),
     }
-    for name, text in out.items():
-        if name != "as_is" and text == src:
-            raise RuntimeError(f"variant {name}: the source no longer holds its pattern")
-    return out
 
 
 def device_ms(fn, reps: int = 30) -> float:

@@ -264,7 +264,23 @@ def test_lse_backward_breakdown_tool_still_finds_its_patterns_in_the_source():
     from mygenerativerecommenders_tpu_torch.tools.lse_bwd_breakdown import variants
 
     made = variants((_build.CSRC_DIR / "dense_neg_lse.cu").read_text())
-    assert len(made) == 6 and len(set(made.values())) == 6
+    assert set(made) == {"as_is", "scan_only", "no_gather_logits", "no_dq", "no_dcat_atomics"}
+    assert len(set(made.values())) == 5
+
+
+def test_lse_backward_source_adds_atomically_into_dcat_only():
+    """The sparse lse backward stores dq once from the warp that owns the row
+    (bit-identical from call to call); only dcat (in device memory, or a
+    block's partial sum of it in shared memory), which every row reaches,
+    takes atomics, and the forward takes none."""
+    import re
+
+    from mygenerativerecommenders_tpu_torch.ops.kernels import _build
+
+    src = (_build.CSRC_DIR / "dense_neg_lse.cu").read_text()
+    targets = re.findall(r"atomicAdd\(\s*(?:reinterpret_cast<[^>]*>\()?\s*&?\s*([\w.]+)", src)
+    assert targets and set(targets) == {"dcat"}, targets
+    assert len(targets) == src.count("atomicAdd")
 
 
 @pytest.mark.parametrize("source", ["hstu_attention_bwd.cu", "hstu_chunk_bwd.cu"])
