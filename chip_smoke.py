@@ -15,7 +15,9 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    with CUDA events and set against the kernel's bound:
    - the attention forward at the serving shape (B=32, N=L=211, H=1, d=50,
      ragged lengths including 1 and 211, ml-1m-era timestamps) and at the
-     ml-20m-hstu-long widths (B=4, N=L=1035, H=2, d=64), rtol 2e-4 / atol 2e-5;
+     ml-20m-hstu-long widths (B=4, N=L=1035, H=2, d=64), rtol 2e-4 / atol 2e-5,
+     rows past the length exactly zero and the output bit for bit the same in
+     a second call (no atomics touch it);
    - the attention backward against autograd of the plain version at the
      training shape (B=128, N=L=211, H=1, d=50, ragged) and at the wide shape:
      dq, dk, dv at rtol 2e-4 / atol 2e-5, d_pos_w and d_ts_w at rtol 5e-4
@@ -45,7 +47,9 @@ Phases, each of which stops the run with a non-zero exit when it fails:
      packed ml-20m-hstu-long step) and at [4297, 64] x [26744, 64] (its
      256-token class), where the dense plain version runs 2,048 rows at a
      time; and at [4096, 64] x [150, 64] with 255 draws a row, rows denser
-     than the backward's list of 128 live logits;
+     than the backward's list of 128 live logits, where each dcat entry sums
+     thousands of terms (the kernel sums them in float64; dcat's bits in a
+     second call are logged);
    - the same lse kernels with `sup_off` (`fused_dense_neg_lse`, each row's
      positive masked in the kernel) at [8192, 64] x [26744, 64], with the same
      checks, and an all -1 sup_off against the null pointer, lse and dq bit
@@ -54,10 +58,10 @@ Phases, each of which stops the run with a non-zero exit when it fails:
      plain version at ml-20m-hstu-long's widths (B=32, H=2, d=64, L=1035) on
      the zigzag ring's 130 x 130 chunks and the contiguous ring's 259 x 259,
      at the offsets the ring gives them (fully live, the diagonal, dead: all
-     zeros), a partial one and padded rows past the bias table; the backward
-     zero-fills nothing and takes no atomics on dq, dk, dv, so rows that no
-     live pair reaches must come out exactly zero and a second call must give
-     the same bits; each kernel's host time to queue a call.
+     zeros), a partial one and padded rows past the bias table; neither
+     kernel zero-fills anything or takes atomics on out, dq, dk, dv, so rows
+     that no live pair reaches must come out exactly zero and a second call
+     must give the same bits; each kernel's host time to queue a call.
 3. The serving path at the full width of `synthetic-hstu`: `cli.serve.build_engine`
    on a .pt checkpoint written from a seeded init, the HTTP server on an
    ephemeral port, /healthz, a 32-row /v1/retrieve, a burst of concurrent
@@ -110,7 +114,9 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    kernel; 8 x 36 chunk forwards per eval batch. Then hand-stepped trainers
    in the zigzag and contiguous (8 x 10 chunk calls) layouts: step time,
    examples/s, per-step launch counts, a torch.profiler step with its device
-   launches logged beside the expected 4,922 (zigzag) and 1,354 (contiguous).
+   launches logged beside the expected 4,923 (zigzag) and 1,355 (contiguous);
+   then zigzag eval batches, forward only, where the chunk forward runs alone:
+   p50 of 8 synced batches, 288 chunk forwards each, a torch.profiler batch.
 9. The ring model, zigzag and contiguous, against the same weights at
    sp_shards=1 on the card: one full-width batch, the same negatives, dropout
    off, the loss at rtol 1e-5 and every gradient at rtol 5e-4 / atol 1e-6.
@@ -295,6 +301,9 @@ def check_attention(kern, name, seed, b, n, h, d, lengths, max_len=None, seg=Non
     a = attention_inputs(seed, b, n, h, d, lengths, max_len=max_len, seg=seg)
     got = kern.hstu_attention_fused(**a)
     want = kern.hstu_attention_fused_plain(**a)
+    # each output row is written once by the block that owns it, without
+    # atomics: a second call gives the same bits
+    same = torch.equal(got, kern.hstu_attention_fused(**a))
     torch.cuda.synchronize()
     diff = (got - want).abs()
     max_abs = float(diff.max())
@@ -305,8 +314,9 @@ def check_attention(kern, name, seed, b, n, h, d, lengths, max_len=None, seg=Non
     shape = f"B={b} N={n} L={a['max_len']} H={h} d={d}" + (" packed" if seg is not None else "")
     log(f"{name} {shape}: max_abs_err={max_abs:.3e} "
         f"max_rel_err={max_rel:.3e} (|want|>1e-3), within rtol {RTOL} atol {ATOL}: {ok}, "
-        f"rows past length zero: {dead}")
+        f"rows past length zero: {dead}, bit-identical in a second call: {same}")
     check(ok and dead, f"{name} disagrees with its plain version at {shape}")
+    check(same, f"{name}: the output changed between two calls at {shape}")
     if seg is None:
         # one segment per row is an unpacked row: the null pointer and the
         # positions 0..n-1 must give the same bits
@@ -513,10 +523,11 @@ def check_dense_neg_lse(kern, count, bt, d, x, tau, chunk=None) -> tuple[dict, d
     same_inf = bool(torch.equal(finite, torch.isfinite(lse_plain)))
     ok_lse, err_lse = within(lse[finite], lse_plain[finite], RTOL, ATOL)
     same_dq = bool(torch.equal(got[0], again[0]))
+    same_dcat = bool(torch.equal(got[1], again[1]))
     log(f"{kern.KERNEL} / {kern.KERNEL_BWD} [{bt}, {d}] x [{x}, {d}], tau {tau}, "
         f"{count.dtype} counts: max_abs_err lse {err_lse:.3e} within rtol {RTOL} atol {ATOL}: "
         f"{ok_lse}; all-hit row 5: lse {float(lse[5].detach())}, -inf rows agree: {same_inf}; "
-        f"dq the same bits in a second call: {same_dq}")
+        f"dq the same bits in a second call: {same_dq} (dcat: {same_dcat})")
     check(same_inf and float(lse[5].detach()) == float("-inf"), "the all-hit row's lse is not -inf")
     check(ok_lse, f"{kern.KERNEL} disagrees with its plain version")
     check(same_dq, f"{kern.KERNEL_BWD}: dq differs between two calls")
@@ -552,7 +563,8 @@ def check_fused_lse(kern, count, positive, bt, d, x, tau, chunk) -> tuple[dict, 
     """`fused_dense_neg_lse` (the lse kernels with a `sup_off` pointer)
     against the plain version on the count with each row's positive zeroed;
     then an all -1 sup_off against the null pointer of the training path,
-    lse and dq bit for bit (dcat sums with atomics in no fixed order)."""
+    lse and dq bit for bit (dcat sums in float64 with atomics in no fixed
+    order)."""
     rng = np.random.default_rng(19)
     q = torch.tensor(rng.normal(size=(bt, d)), dtype=torch.float32)
     cat = torch.tensor(rng.normal(size=(x, d)), dtype=torch.float32)
@@ -683,24 +695,25 @@ def check_chunk(kern, seed, b, nq, nc, h, d, offd, max_len, timed=False):
         errs.append(f"{name} {err:.3e}")
     dead = offd >= nq
     zeros = not (bool(out.any()) or any(bool(t.any()) for t in got)) if dead else True
-    # the backward writes dq, dk and dv whole (no zero fill): query rows
+    # both kernels write their outputs whole (no zero fill): query rows
     # before offd and key rows from nq - offd on meet no live pair and must
-    # come out exactly zero; no atomics touch them, so a second call gives
-    # the same bits
+    # come out exactly zero (out and dq; dk and dv); no atomics touch out, dq,
+    # dk, dv, so a second call gives the same bits
     q_dead, k_reached = min(max(offd, 0), nq), min(max(nq - offd, 0), nc)
-    unreached = not (bool(got[0][:, :q_dead].any()) or bool(got[1][:, k_reached:].any())
-                     or bool(got[2][:, k_reached:].any()))
+    unreached = not (bool(out[:, :q_dead].any()) or bool(got[0][:, :q_dead].any())
+                     or bool(got[1][:, k_reached:].any()) or bool(got[2][:, k_reached:].any()))
     again = split(torch.autograd.grad(out, leaves, g, retain_graph=True))
     same = all(torch.equal(x, y) for x, y in zip(got[:3], again[:3]))
+    same = same and torch.equal(out, kern.hstu_chunk_attention(**a, **kw))
     shape = f"B={b} Nq={nq} Nc={nc} H={h} d={d} L={max_len} offd={offd}"
     log(f"{kern.KERNEL} / {kern.KERNEL_BWD} {shape}: max_abs_err " + ", ".join(errs)
         + f"; within rtol {RTOL} (tables {BIAS_RTOL}) atol {ATOL}: {ok}"
         + (f"; dead chunk all zeros: {zeros}" if dead else "")
         + f"; {q_dead} query and {nc - k_reached} key rows without a live pair exactly zero: "
-        f"{unreached}; dq, dk, dv bit-identical in a second call: {same}")
+        f"{unreached}; out, dq, dk, dv bit-identical in a second call: {same}")
     check(ok and zeros, f"the chunk kernels disagree with their plain version at {shape}")
-    check(unreached, f"rows without a live pair are not zero in the chunk backward at {shape}")
-    check(same, f"the chunk backward's dq, dk, dv differ between two calls at {shape}")
+    check(unreached, f"rows without a live pair are not zero in the chunk kernels at {shape}")
+    check(same, f"the chunk kernels' out, dq, dk, dv differ between two calls at {shape}")
     if not timed:
         return None
     # host time to queue a call: the wrapper's checks, ctypes and the launch
@@ -1339,13 +1352,47 @@ def run_ring_path(kc: Counts, card: str) -> dict:
             reps=4, what=f"ring train step, {layout}", wall_ms=p50, top=8, by_count=8,
         )
         # the chunk backward zero-fills nothing: a step launches 2 x step_calls
-        # fewer kernels than with the atomic design's zeroed dk and dv
-        expected = 4922 if zigzag else 1354
+        # fewer kernels than with the atomic design's zeroed dk and dv; the lse
+        # backward's call launches two (the walk and dcat's rounding)
+        expected = 4923 if zigzag else 1355
         log(f"  profiled launches a {layout} step: {launches:.0f}, expected {expected} (the "
             f"zero-filling design's {expected + 2 * step_calls} less {2 * step_calls} fills)")
+        if zigzag:
+            ring_eval_read(trainer, kc, step_calls, cfg.data.batch_size, card)
         del trainer, batches
         torch.cuda.empty_cache()
     return counts
+
+
+def ring_eval_read(trainer, kc: Counts, calls: int, batch_size: int, card: str) -> None:
+    """The ring's eval batches, forward only (the chunk forward is the one
+    attention kernel that runs there): p50 of 8 synced batches of the
+    validation split, their launches, and a torch.profiler batch."""
+    trainer.model.eval()
+    candidates = trainer.candidate_fn()
+    batches = [trainer._put(b) for _, b in zip(range(4), trainer.data.loader("val"))]
+    with torch.no_grad():
+        for batch in batches[:2]:
+            trainer.eval_step(batch, candidates)
+        torch.cuda.synchronize()
+        times = []
+        for i in range(8):
+            before = kc.read()
+            t0 = time.perf_counter()
+            trainer.eval_step(batches[i % len(batches)], candidates)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            after = kc.read()
+            delta = [after[k] - before[k] for k in after]
+            check(delta == [0, 0, 0, 0, 0, calls, 0], f"launches of one ring eval batch: {delta}")
+        step_ms = 1e3 * np.asarray(times)
+        p50 = float(np.percentile(step_ms, 50))
+        log(f"ring eval batch, zigzag, batch {batch_size}, synced each batch: p50 {p50:.3f} ms "
+            f"(range {step_ms.min():.3f}-{step_ms.max():.3f}), {1e3 * batch_size / p50:.1f} "
+            f"examples/s on {card}; launches per batch {calls} chunk fwd, nothing else counted")
+        profile_device(lambda i: trainer.eval_step(batches[i % len(batches)], candidates),
+                       reps=4, what="ring eval batch, zigzag", wall_ms=p50, top=6)
+    trainer.model.train()
 
 
 def ring_against_unsharded() -> None:
@@ -1475,10 +1522,11 @@ def main() -> int:
     )
     # dense rows: 255 draws into 150 columns leave few of them dead, more live
     # logits a row than the backward's list holds, which it takes in rounds.
-    # 4,096 rows: each dcat entry sums ~4,000 float atomic adds, as many as
-    # at [26880, 50] x [3706, 50] (~900); at 26,880 rows its error against
-    # autograd reaches ~2.5e-4, and so does index_add_'s in the sparse plain
-    # backward (PERF.md, PR 8)
+    # 4,096 rows: each dcat entry sums ~3,300 terms with much cancelling,
+    # where float32 sums in two orders part by most of the tolerance (the
+    # kernel sums in float64); at 26,880 rows autograd's float32 product and
+    # index_add_ in the sparse plain backward are themselves further than the
+    # tolerance from the exact sum
     dense_bt = 4096
     check_dense_neg_lse(lse_kern, check_count(count_kern, dense_bt, 255, 150)["count"], dense_bt,
                         64, 150, 0.05)

@@ -64,16 +64,27 @@
 //   - the pairs: a group of 16 or 32 lanes takes one pair, its lanes across
 //     D with 1-4 floats each; it gathers cat[x] (0.74 MB or 6.8 MB: L2
 //     hits), sums q[i].cat[x] with shuffles, forms dal, accumulates dq[i] in
-//     registers and adds dal q[i] into dcat[x] with float4 / float2 atomics
-//     where d and the operands' alignment allow (D=64 / D=50);
+//     registers and adds dal q[i] into a float64 copy of dcat[x] with
+//     atomics, the group's lanes on neighbouring columns;
 //   - the outputs: dq is stored once, summed in list order in each group
 //     and over the groups in a fixed order, so it is the same bits from call
 //     to call, and whatever the row's alignment (sup_off all -1 on a padded
 //     count gives the null pointer's dq). A row with s == 0 (or gl == 0)
-//     reads no count, stores an exact 0 in dq and sends nothing to dcat. Float
-//     atomics sum in an order that changes from run to run, so dcat differs
-//     in its last bits between runs, and each adds one term: an entry that
-//     tens of thousands of rows reach rounds further from an ordered sum.
+//     reads no count, stores an exact 0 in dq and sends nothing to dcat;
+//   - dcat: an entry sums one term a live pair, thousands of them where the
+//     rows are dense (4,096 rows on 150 columns: terms of 41 in absolute
+//     value in all for an entry of 0.04), in an order the atomics choose anew
+//     each run. Summed in float32, two such orders (or the kernel and
+//     autograd's ordered product) part by up to the whole of rtol 2e-4 /
+//     atol 2e-5 on those entries. So each term dal q[i, c], a product of two
+//     floats and exact in float64, goes into a float64 accumulator, and a
+//     second small kernel in the same call rounds the sums into dcat: dcat
+//     is the float32 rounding of the sum of the float32 terms, off only by
+//     float64's own error (~1e-16 of the largest partial sum), and its bits
+//     can change between runs only where that sum lies that close to a
+//     rounding boundary. The price is twice the atomic bytes of float32
+//     vectors: a group's lanes take neighbouring columns, so one atomic
+//     instruction covers 128 or 256 contiguous bytes of the accumulator.
 // al is summed in another order than the forward's, so exp(al - m_safe) may
 // pass 1 by an ulp; nothing clamps it.
 //
@@ -229,7 +240,7 @@ __global__ void __launch_bounds__(kThreads) dense_neg_lse_fwd_kernel(
 // (x, count) in shared memory in column order and, when the list fills and at
 // the end of the row, computes the listed pairs: al = q[i].cat[x] / tau with
 // its lanes across D, dal from it, dq[i] += dal cat[x] in registers and
-// dcat[x] += dal q[i] with vector atomics.
+// dcat[x] += dal q[i] with float64 atomics into the float64 accumulator.
 
 constexpr int kBwdWarps = 4;    // rows a block, one a warp
 constexpr int kList = 128;      // live pairs a warp lists before computing them
@@ -280,33 +291,30 @@ __device__ __forceinline__ void store_vec(float* dst, const float (&v)[kVec]) {
     dst[0] = v[0];
 }
 
-// dcat[x, e .. e + kVec) += dal q[i, e .. e + kVec): one vector atomic (global
-// memory, sm_90) for the lane's kVec columns
-template <int kVec>
-__device__ __forceinline__ void add_dcat(float* __restrict__ dcat, int64_t at, float dal,
-                                         const float (&qv)[kVec]) {
-  if constexpr (kVec == 4)
-    atomicAdd(reinterpret_cast<float4*>(dcat + at),
-              make_float4(dal * qv[0], dal * qv[1], dal * qv[2], dal * qv[3]));
-  else if constexpr (kVec == 2)
-    atomicAdd(reinterpret_cast<float2*>(dcat + at), make_float2(dal * qv[0], dal * qv[1]));
-  else
-    atomicAdd(dcat + at, dal * qv[0]);
+// dcat = the float64 sums rounded to float32, once each
+__global__ void round_dcat_kernel(const double* __restrict__ acc, float* __restrict__ dcat,
+                                  int64_t n) {
+  for (int64_t e = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; e < n;
+       e += (int64_t)gridDim.x * blockDim.x)
+    dcat[e] = __double2float_rn(acc[e]);
 }
 
 // One warp's row. Its lanes form 32 / kLanes groups, each computing one pair
 // at a time; lane l of a group holds columns (r kLanes + l) kVec .. + kVec of
-// q[i] and of its group's share of dq[i], for r < kReps.
+// q[i] and of its group's share of dq[i], for r < kReps, and for dcat q[i]'s
+// columns l + t kLanes, t < kT, so that one float64 atomic of the group's
+// lanes covers kLanes neighbouring columns.
 template <int kVec, int kLanes, int kReps>
 struct RowWalk {
   static constexpr int kGroups = 32 / kLanes;
+  static constexpr int kT = kReps * kVec;
   const float* cat;
-  float* dcat;
+  double* dcat;  // the float64 accumulator
   int2* pairs;  // the warp's list: (x, count as float bits)
   int n;        // pairs listed
-  int d, g, col;
+  int d, g, lg, col;  // lg: the lane in its group
   float inv_tau, mi, coef;
-  float qv[kReps][kVec], acc[kReps][kVec];
+  float qv[kReps][kVec], acc[kReps][kVec], qt[kT];
 
   __device__ __forceinline__ int column(int r) const { return col + r * kLanes * kVec; }
 
@@ -316,6 +324,21 @@ struct RowWalk {
 #pragma unroll
       for (int v = 0; v < kVec; ++v) qv[r][v] = acc[r][v] = 0.f;
       if (column(r) < d) load_vec(qv[r], q_row + column(r));
+    }
+#pragma unroll
+    for (int t = 0; t < kT; ++t) {
+      const int c = lg + t * kLanes;
+      qt[t] = c < d ? __ldg(q_row + c) : 0.f;
+    }
+  }
+
+  // dcat[x, c] += dal q[i, c] for the lane's columns c = lg + t kLanes, at =
+  // x d, in float64: each product of two floats is exact there
+  __device__ __forceinline__ void add_dcat(double* __restrict__ dcat, int64_t at, float dal) const {
+#pragma unroll
+    for (int t = 0; t < kT; ++t) {
+      const int c = lg + t * kLanes;
+      if (c < d) atomicAdd(dcat + at + c, (double)dal * (double)qt[t]);
     }
   }
 
@@ -357,8 +380,8 @@ struct RowWalk {
           if (column(r) >= d) continue;
 #pragma unroll
           for (int v = 0; v < kVec; ++v) acc[r][v] = fmaf(dal[u], cv[u][r][v], acc[r][v]);
-          add_dcat<kVec>(dcat, (int64_t)xs[u] * d + column(r), dal[u], qv[r]);
         }
+        add_dcat(dcat, (int64_t)xs[u] * d, dal[u]);
       }
     }
   }
@@ -417,7 +440,7 @@ __global__ void __launch_bounds__(kBwdWarps * 32, 4) dense_neg_lse_bwd_kernel(
     const float* __restrict__ q, const float* __restrict__ cat,
     const C* __restrict__ count, const int* __restrict__ sup_off,
     const float* __restrict__ m_safe, const float* __restrict__ s_in,
-    const float* __restrict__ gl, float* __restrict__ dq, float* __restrict__ dcat,
+    const float* __restrict__ gl, float* __restrict__ dq, double* __restrict__ dcat,
     int bt, int d, int x, int64_t count_ld, float inv_tau) {
   constexpr int kPer = 16 / (int)sizeof(C);  // counts in 16 bytes
   __shared__ int2 pairs_s[kBwdWarps][kList];
@@ -432,7 +455,8 @@ __global__ void __launch_bounds__(kBwdWarps * 32, 4) dense_neg_lse_bwd_kernel(
   w.n = 0;
   w.d = d;
   w.g = lane / kLanes;
-  w.col = (lane % kLanes) * kVec;
+  w.lg = lane % kLanes;
+  w.col = w.lg * kVec;
   w.inv_tau = inv_tau;
   w.load_q(q + (int64_t)row * d);
   const float si = s_in[row];
@@ -505,28 +529,39 @@ int launch_fwd(const float* q, const float* cat, const C* count,
 
 template <int kVec, int kLanes, int kReps, bool kMasked, typename C>
 int launch_bwd_as(const float* q, const float* cat, const C* count, const int* sup_off,
-                  const float* m_safe, const float* s, const float* gl, float* dq, float* dcat,
-                  int bt, int d, int x, int64_t count_ld, float inv_tau, cudaStream_t stream) {
+                  const float* m_safe, const float* s, const float* gl, float* dq,
+                  double* dcat_acc, float* dcat, int bt, int d, int x, int64_t count_ld,
+                  float inv_tau, cudaStream_t stream) {
   dense_neg_lse_bwd_kernel<kVec, kLanes, kReps, kMasked, C>
       <<<(bt + kBwdWarps - 1) / kBwdWarps, kBwdWarps * 32, 0, stream>>>(
-          q, cat, count, sup_off, m_safe, s, gl, dq, dcat, bt, d, x, count_ld, inv_tau);
+          q, cat, count, sup_off, m_safe, s, gl, dq, dcat_acc, bt, d, x, count_ld, inv_tau);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int64_t n = (int64_t)x * d;
+  if (n > 0) {
+    const int threads = 256;
+    const int64_t need = (n + threads - 1) / threads, most = 132 * 16;  // 16 an H100 SM
+    round_dcat_kernel<<<(int)(need < most ? need : most), threads, 0, stream>>>(dcat_acc, dcat,
+                                                                                 n);
+  }
   return (int)cudaGetLastError();
 }
 
-// The widest vector of floats that d and the four float operands' addresses
+// The widest vector of floats that d and the three float operands' addresses
 // allow, 16 lanes a pair where they hold a row (two pairs a warp at once), and
 // as few vectors a lane as hold it: one at D=50 and D=64.
 template <bool kMasked, typename C>
 int launch_bwd(const float* q, const float* cat, const C* count, const int* sup_off,
-               const float* m_safe, const float* s, const float* gl, float* dq, float* dcat,
-               int bt, int d, int x, int64_t count_ld, float inv_tau, cudaStream_t stream) {
+               const float* m_safe, const float* s, const float* gl, float* dq,
+               double* dcat_acc, float* dcat, int bt, int d, int x, int64_t count_ld,
+               float inv_tau, cudaStream_t stream) {
   const uintptr_t addr = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(cat) |
-                         reinterpret_cast<uintptr_t>(dq) | reinterpret_cast<uintptr_t>(dcat);
+                         reinterpret_cast<uintptr_t>(dq);
   const int vec = d % 4 == 0 && addr % 16 == 0 ? 4 : d % 2 == 0 && addr % 8 == 0 ? 2 : 1;
   const int chunks = (d + vec - 1) / vec;
 #define DENSE_NEG_LSE_BWD(V, L, R)                                                            \
-  launch_bwd_as<V, L, R, kMasked, C>(q, cat, count, sup_off, m_safe, s, gl, dq, dcat, bt, d, x, \
-                                     count_ld, inv_tau, stream)
+  launch_bwd_as<V, L, R, kMasked, C>(q, cat, count, sup_off, m_safe, s, gl, dq, dcat_acc, dcat, \
+                                     bt, d, x, count_ld, inv_tau, stream)
   if (chunks <= 16) {
     return vec == 4   ? DENSE_NEG_LSE_BWD(4, 16, 1)
            : vec == 2 ? DENSE_NEG_LSE_BWD(2, 16, 1)
@@ -575,24 +610,26 @@ int dense_neg_lse_fwd(const float* q, const float* cat, const void* count,
                            inv_tau, st);
 }
 
-// dcat [x, d] must arrive zeroed; dq [bt, d] is written whole. count, wide
-// and sup_off as in dense_neg_lse_fwd.
+// dcat_acc [x, d] float64 must arrive zeroed: the walk adds into it, and a
+// second kernel rounds it into dcat [x, d] float32. dq [bt, d] and dcat are
+// written whole. count, wide and sup_off as in dense_neg_lse_fwd.
 int dense_neg_lse_bwd(const float* q, const float* cat, const void* count,
                       const int* sup_off, const float* m_safe, const float* s,
-                      const float* gl, float* dq, float* dcat, int bt, int d, int x,
-                      long long count_ld, float inv_tau, int wide, void* stream) {
+                      const float* gl, float* dq, double* dcat_acc, float* dcat, int bt,
+                      int d, int x, long long count_ld, float inv_tau, int wide,
+                      void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
   const uint8_t* c8 = static_cast<const uint8_t*>(count);
   if (sup_off) {
     if (wide) return (int)cudaErrorInvalidValue;
-    return launch_bwd<true>(q, cat, c8, sup_off, m_safe, s, gl, dq, dcat, bt, d, x, count_ld,
-                            inv_tau, st);
+    return launch_bwd<true>(q, cat, c8, sup_off, m_safe, s, gl, dq, dcat_acc, dcat, bt, d, x,
+                            count_ld, inv_tau, st);
   }
   if (wide)
     return launch_bwd<false>(q, cat, static_cast<const int*>(count), sup_off, m_safe, s, gl,
-                             dq, dcat, bt, d, x, count_ld, inv_tau, st);
-  return launch_bwd<false>(q, cat, c8, sup_off, m_safe, s, gl, dq, dcat, bt, d, x, count_ld,
-                           inv_tau, st);
+                             dq, dcat_acc, dcat, bt, d, x, count_ld, inv_tau, st);
+  return launch_bwd<false>(q, cat, c8, sup_off, m_safe, s, gl, dq, dcat_acc, dcat, bt, d, x,
+                           count_ld, inv_tau, st);
 }
 
 const char* cuda_error_string(int code) {

@@ -1,4 +1,5 @@
-// Fused HSTU pointwise attention forward for Hopper (sm_90a), plain C ABI.
+// Fused HSTU pointwise attention forward for Hopper (sm_90a), plain C ABI:
+// one register-tiled fp32 pass.
 //
 // Replaces the TPU kernel mygenerativerecommenders_tpu/ops/pallas/hstu_attention.py:118
 // (`_kernel`, launched through `hstu_attention_fused`, :225). It computes, for
@@ -20,38 +21,58 @@
 // than L apart are live (in-segment pairs always are, segments being at most L
 // long), so pos_w is never read outside its 2L-1 entries.
 //
-// What bounds it. At serving shapes (B=32, N=L=211, H=1, d=50) the kernel
-// moves ~5.4 MB (q, k, v, out) and does ~0.14 GFLOP of causal fp32 work:
-// ~1.6 us at 3.35 TB/s and ~2 us at 67 TFLOP/s. Both are below a launch's
-// own overhead, so what limits this kernel is latency: each block walks its
-// key tiles one after another, and the longest walk (the last query tile of
-// the longest row) sets the time. The design keeps the [B, N, N] bias and
-// scores out of device memory, as the TPU kernel does, and keeps every
-// thread's arithmetic in independent chains so that shared-memory latency
-// overlaps.
+// What bounds it. Per live pair and head it does two products d long (q.k and
+// p.v) in fp32 at the 67 TFLOP/s non-tensor peak, against the bytes of q, k,
+// v and out at 3.35 TB/s. At B=4, N=1152, L=1035, H=2, d=64, packed (1.3 M
+// live pairs a head) operations bound it: ~0.010 ms. At B=32, N=L=211, H=1,
+// d=50 with ragged lengths both bounds are ~1 us, below a launch's own
+// overhead: there the longest walk sets the time.
 //
-// Design. One block of 128 threads (4 warps) per (batch row, 16-row query
-// tile); the TPU's 128-row pad, its [BQ, NP] Toeplitz position stripe and its
+// What held the first version back (one 128-thread block per batch row and
+// 16-query tile, the heads walked inside the block), and what this one does
+// (the design of the backwards' pass Q, csrc/hstu_attention_bwd.cu, with p.v
+// in place of dz.k and no tables to write):
+//  1. Each key tile was copied in synchronously and took three block
+//     barriers. Now cp.async brings tile t+1 into a second buffer while tile t
+//     is computed, with one barrier a tile.
+//  2. Scalar shared-memory loads: the q.k loop read a k value and four
+//     broadcast q values for every 4 FMAs, and p.v the same. Now the shared
+//     tile step (hstu_common.cuh, forward_tile): a lane owns 4 x 2 pairs of
+//     its warp's 16 x 16 and reads its operands as float4 from rows 4 (mod 8)
+//     floats apart; p goes through a per-warp array (a __syncwarp, no block
+//     barrier) into 4 rows x 8 columns of the output a lane.
+//  3. The output was summed in shared memory, read and written on every
+//     tile. Now it stays in registers, the key slices of a row meet once in
+//     shared memory in a fixed order, and each row is written once: no
+//     atomics, the same bits from call to call.
+//  4. Too few warps and long serial walks. Heads are on the grid now, one
+//     block per (32-query tile, head, batch row): 36 x 2 x 4 = 288 blocks at
+//     the packed long shape, 7 x 32 = 224 at the serving shape, about two an
+//     SM. The last query tile of a 1,035-row segment walks 33 key tiles of 32
+//     one after another, so with the four warps of the backwards' pass Q the
+//     SMs sat latency-bound. Eight warps split a 64-key tile into four 16-key
+//     slices, each warp one query half and one slice: half the serial steps,
+//     twice the warps an SM, and on an H100 about 0.6 times the four-warp
+//     time at the long shape (six slices were faster there, slower on packed
+//     rows of 256).
+//  5. The walk. A block of query rows [r0, r0 + 32) walks the 64-key tiles
+//     from the earliest segment start among its valid rows (and no more than
+//     L - 1 before r0) to its last valid row; a block past the length writes
+//     zeros. So a packed row costs sum(segment^2), not row^2. Inside a tile a
+//     warp skips its 16 x 16 pairs when none is live: rows past the length,
+//     the causal corner of the diagonal tile, keys before every one of its
+//     rows' segments, keys L or more behind them. The longest walks (the last
+//     query tiles) go first.
+//  6. Exact fp32 as before: no TF32, no --use_fast_math, the time bucket
+//     through hstu::bucketize (the delta in wrapping int32, as XLA takes it)
+//     and expf in silu.
+//
+// The TPU's 128-row pad, its [BQ, NP] Toeplitz position stripe and its
 // 128-lane bucket gather exist for Mosaic's limits and are not carried over.
-// The block keeps the ts_w table, its q tile and one 32-row key/value tile
-// in shared memory; tiles are copied in with each thread's loads batched
-// ahead of its stores. Warp w owns query rows 4w..4w+3 of the tile:
-//   scores: lane j takes key j of the tile, builds the bias of its 4 pairs
-//     once, then per head runs 4 independent dot products, reading each k
-//     value once for the 4 rows;
-//   p.v: lane c takes output columns c, c+32, ...; per column it sums the
-//     tile's 32 keys for its 4 rows in registers and adds them into the
-//     block's fp32 accumulator in shared memory.
-// Key tiles past min(len_b, last query row) are never loaded, nor, in a
-// packed row, key tiles before the earliest segment start among the tile's
-// query rows (:209-214), so a packed row costs sum(segment^2), not row^2;
-// query tiles past len_b only write zeros. q, k and v are read through their row
-// strides, so the column slices of the fused uvqk projection need no copy.
-// wgmma and TMA are left for a later change.
-//
-// Numerics: the bucket comes from hstu_common.cuh (logf and IEEE division,
-// never __logf or --use_fast_math); the delta is taken in wrapping int32 as
-// XLA does.
+// q, k and v are read through their batch and row strides (column slices of
+// the fused uvqk projection need no copy); out is contiguous. Depths that are
+// not a multiple of 4 (d=50) are zero-padded in shared memory, and the
+// padding columns are never stored.
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -61,134 +82,183 @@
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
-constexpr int kBQ = 16;              // query rows per block
-constexpr int kBK = 32;              // key rows per tile: one per lane
-constexpr int kRows = kBQ / kWarps;  // query rows per warp
+using hstu::kHalf;
+using hstu::kLdW;
+constexpr int kSlices = 4;           // 16-key slices of a streamed tile
+constexpr int kWarps = 2 * kSlices;  // two 16-query halves x the slices
+constexpr int kThreads = 32 * kWarps;
+constexpr int kT = 2 * kHalf;        // query rows of a block
+constexpr int kS = kSlices * kHalf;  // key rows of a streamed tile
+constexpr int kMaxDepth = 128;       // widest head the 4 x 8-column output tiles reach
 
-__global__ void __launch_bounds__(kThreads) hstu_attention_fwd_kernel(
-    const float* __restrict__ q, const float* __restrict__ k,
-    const float* __restrict__ v, const int* __restrict__ ts,
-    const int* __restrict__ lengths, const int* __restrict__ seg_pos,
-    const float* __restrict__ pos_w, const float* __restrict__ ts_w,
-    float* __restrict__ out, int n, int h, int dqk, int dv, int64_t q_sb,
-    int64_t q_sn, int64_t k_sb, int64_t k_sn, int64_t v_sb, int64_t v_sn,
-    int64_t ts_sb, int64_t seg_sb, int max_len, int num_buckets, float inv_n) {
-  extern __shared__ float smem[];
-  const int hq = h * dqk;  // q/k row width
-  const int hv = h * dv;   // v/out row width
-  const int ks = hq | 1;   // odd k-tile row stride: the 32 lanes hit 32 banks
-  float* tsw_s = smem;                        // [num_buckets + 1]
-  float* q_s = tsw_s + (num_buckets + 1);     // [kBQ, hq]
-  float* k_s = q_s + kBQ * hq;                // [kBK, ks]
-  float* v_s = k_s + kBK * ks;                // [kBK, hv]
-  float* p_s = v_s + kBK * hv;                // [h, kBQ, kBK]
-  float* acc_s = p_s + h * kBQ * kBK;         // [kBQ, hv]
-  int* tsq_s = (int*)(acc_s + kBQ * hv);      // [kBQ] next-item timestamps
-  int* tsk_s = tsq_s + kBQ;                   // [kBK]
-  int* start_s = tsk_s + kBK;                 // [kBQ] segment start of each query row
+struct Args {
+  const float* q;
+  const float* k;
+  const float* v;
+  const int* ts;
+  const int* lengths;
+  const int* seg_pos;
+  const float* pos_w;
+  const float* ts_w;
+  float* out;
+  int b, n, h, dqk, dv;
+  int64_t q_sb, q_sn, k_sb, k_sn, v_sb, v_sn, ts_sb, seg_sb;
+  int max_len, num_buckets;
+  float inv_n;
+  int ld1, ld2;  // shared row strides of dqk- and dv-wide rows
+  int n_tiles;
+};
 
-  const int b = blockIdx.y;
-  const int q0 = blockIdx.x * kBQ;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int r0 = (tid >> 5) * kRows;  // this warp's first query row in the tile
-  const int seq_len = min(lengths[b], n);
-  const int q_rows = min(kBQ, n - q0);
-  const float* qb = q + b * q_sb;
-  const float* kb = k + b * k_sb;
-  const float* vb = v + b * v_sb;
-  const int* tsb = ts + b * ts_sb;
+long long smem_floats(int ld1, int ld2, int num_buckets) {
+  const long long rows = (kT + 2LL * kS) * ld1 + 2LL * kS * ld2;  // q; two stages of k and v
+  return rows + kWarps * kHalf * kLdW + (num_buckets + 1) + 2LL * kT + 2LL * kS;  // p, ts_w, ints
+}
 
-  for (int e = tid; e < kBQ * hv; e += kThreads) acc_s[e] = 0.f;
+// Block i: query tile n_tiles - 1 - i / (B H), so the longest walks go
+// first, then batch row and head.
+template <int kU>
+__global__ void __launch_bounds__(kThreads, kU <= 2 ? 2 : 1)
+    hstu_attention_fwd_kernel(const __grid_constant__ Args a) {
+  extern __shared__ __align__(16) float smem[];
+  int idx = blockIdx.x;
+  const int hh = idx % a.h;
+  idx /= a.h;
+  const int b = idx % a.b;
+  const int r0 = (a.n_tiles - 1 - idx / a.b) * kT;  // first query row
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wr = warp & 1, ws = warp >> 1;  // query half and key slice of the warp
+  const int ls = lane & 7;
+  const int n = a.n, L = a.max_len, nb1 = a.num_buckets + 1;
+  const int ld1 = a.ld1, ld2 = a.ld2;
+  const int seq_len = min(a.lengths[b], n);
 
-  if (q0 < seq_len) {
-    for (int e = tid; e <= num_buckets; e += kThreads) tsw_s[e] = ts_w[e];
-    hstu::copy_rows<kThreads>(q_s, hq, qb + q0 * q_sn, q_sn, kBQ, hq, q_rows);
-    if (tid < kBQ) {
-      const int row = q0 + tid;
-      tsq_s[tid] = tsb[min(row + 1, n - 1)];
-      start_s[tid] = hstu::segment_start(seg_pos, b * seg_sb, row, seq_len);
+  float* res1 = smem;                        // [kT][ld1] q
+  float* str1 = res1 + kT * ld1;             // [2][kS][ld1] k
+  float* str2 = str1 + 2 * kS * ld1;         // [2][kS][ld2] v
+  float* w = str2 + 2 * kS * ld2;            // [kWarps][kHalf][kLdW] p
+  float* tsw_s = w + kWarps * kHalf * kLdW;  // [nb1]
+  int* res_ts = reinterpret_cast<int*>(tsw_s + nb1);  // [kT] next-item stamps of the queries
+  int* res_start = res_ts + kT;              // [kT] segment start of each query row
+  int* str_ts = res_start + kT;              // [2][kS]
+
+  const int ng1 = (a.dqk + 3) / 4, ng2 = (a.dv + 3) / 4;  // 4-column groups
+  int g[kU];  // the lane's output column groups, clamped for the loads
+#pragma unroll
+  for (int u = 0; u < kU; ++u) g[u] = min(ls + 8 * u, ng2 - 1);
+  const int row_lane = kHalf * wr + 4 * (lane >> 3);  // the lane's first query row in the tile
+
+  float4 acc[4][kU];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int u = 0; u < kU; ++u) acc[i][u] = make_float4(0.f, 0.f, 0.f, 0.f);
+
+  if (r0 < seq_len) {
+    const float* kb = a.k + b * a.k_sb + hh * a.dqk;
+    const float* vb = a.v + b * a.v_sb + hh * a.dv;
+    const int* tsb = a.ts + b * a.ts_sb;
+    hstu::copy_rows_async<kThreads>(res1, ld1, a.q + b * a.q_sb + hh * a.dqk + r0 * a.q_sn,
+                                    a.q_sn, kT, a.dqk, seq_len - r0);
+    hstu::cp_async_commit();
+    if (tid < kT) {
+      const int row = r0 + tid;
+      res_ts[tid] = tsb[min(row + 1, n - 1)];
+      res_start[tid] = hstu::segment_start(a.seg_pos, b * a.seg_sb, row, seq_len);
     }
-    __syncthreads();
+    for (int e = tid; e < nb1; e += kThreads) tsw_s[e] = a.ts_w[e];
+    __syncthreads();  // res_start
 
-    const int n_tiles = (min(q0 + kBQ, seq_len) - 1) / kBK + 1;
-    const int t_lo = seg_pos ? hstu::first_key_row(start_s, kBQ) / kBK : 0;
-    for (int t = t_lo; t < n_tiles; ++t) {
-      const int k0 = t * kBK;
-      __syncthreads();  // the last tile's readers are done with k_s/v_s/p_s
-      hstu::copy_rows<kThreads>(k_s, ks, kb + k0 * k_sn, k_sn, kBK, hq, seq_len - k0);
-      hstu::copy_rows<kThreads>(v_s, hv, vb + k0 * v_sn, v_sn, kBK, hv, seq_len - k0);
-      if (tid < kBK) tsk_s[tid] = tsb[min(k0 + tid, n - 1)];
+    // the walk: key tiles t_lo .. t_lo + cnt - 1, from the earliest key a
+    // valid row sees to the last valid row
+    const int first = max(hstu::first_key_row(res_start, kT), max(r0 - L + 1, 0));
+    const int t_lo = first / kS;
+    const int cnt = (min(r0 + kT, seq_len) - 1) / kS - t_lo + 1;
+    const int warp_first = hstu::first_key_row(res_start + kHalf * wr, kHalf);
+
+    auto load_stream = [&](int t, int stage) {
+      const int s0 = t * kS;
+      hstu::copy_rows_async<kThreads>(str1 + stage * kS * ld1, ld1, kb + s0 * a.k_sn, a.k_sn,
+                                      kS, a.dqk, seq_len - s0);
+      hstu::copy_rows_async<kThreads>(str2 + stage * kS * ld2, ld2, vb + s0 * a.v_sn, a.v_sn,
+                                      kS, a.dv, seq_len - s0);
+      if (tid < kS) hstu::cp_async4(str_ts + stage * kS + tid, tsb + min(s0 + tid, n - 1));
+      hstu::cp_async_commit();
+    };
+    load_stream(t_lo, 0);
+
+    const int depth1 = 4 * ng1;
+    const float* q_lane = res1 + row_lane * ld1;
+    float* w_warp = w + warp * kHalf * kLdW;
+    for (int it = 0; it < cnt; ++it) {
+      hstu::cp_async_wait_all();
+      // tile it has landed for every thread, and every thread is done with
+      // tile it - 1, whose buffer the next copy overwrites
       __syncthreads();
-
-      // scores of pairs (r0 + p, lane) for every head, as p = silu(z) / L
-      const int col = k0 + lane;
-      float bias[kRows];
-      bool live[kRows];
-#pragma unroll
-      for (int p = 0; p < kRows; ++p) {
-        const int row = q0 + r0 + p;
-        live[p] = col <= row && col < seq_len && row < seq_len &&
-                  col >= start_s[r0 + p] && row - col < max_len;
-        const int delta = (int)((unsigned int)tsq_s[r0 + p] - (unsigned int)tsk_s[lane]);
-        bias[p] = live[p] ? pos_w[col - row + max_len - 1] +
-                                tsw_s[hstu::bucketize(delta, num_buckets)]
-                          : 0.f;
-      }
-      for (int hh = 0; hh < h; ++hh) {
-        const float* kr = k_s + lane * ks + hh * dqk;
-        const float* qr = q_s + r0 * hq + hh * dqk;
-        float s[kRows] = {};
-#pragma unroll 4
-        for (int d = 0; d < dqk; ++d) {
-          const float kd = kr[d];
-#pragma unroll
-          for (int p = 0; p < kRows; ++p) s[p] = fmaf(qr[p * hq + d], kd, s[p]);
-        }
-#pragma unroll
-        for (int p = 0; p < kRows; ++p) {
-          const float z = s[p] + bias[p];
-          p_s[(hh * kBQ + r0 + p) * kBK + lane] =
-              live[p] ? z / (1.f + expf(-z)) * inv_n : 0.f;
-        }
-      }
-      __syncthreads();
-
-      // p.v for rows r0..r0+3, columns lane, lane+32, ...
-      for (int c = lane; c < hv; c += 32) {
-        const float* pr = p_s + ((c / dv) * kBQ + r0) * kBK;
-        float a[kRows] = {};
-#pragma unroll 8
-        for (int j = 0; j < kBK; ++j) {
-          const float vj = v_s[j * hv + c];
-#pragma unroll
-          for (int p = 0; p < kRows; ++p) a[p] = fmaf(pr[p * kBK + j], vj, a[p]);
-        }
-#pragma unroll
-        for (int p = 0; p < kRows; ++p) acc_s[(r0 + p) * hv + c] += a[p];
-      }
+      if (it + 1 < cnt) load_stream(t_lo + it + 1, (it + 1) & 1);
+      const int stage = it & 1;
+      // the warp's first pair
+      const int n_lo = r0 + kHalf * wr, m_lo = (t_lo + it) * kS + kHalf * ws;
+      // the warp's 16 x 16 pairs are skipped when none is live (the test is
+      // the same for every lane): no valid row, every key after the rows,
+      // before their segments or L or more behind them
+      if (n_lo >= seq_len || m_lo > min(n_lo + kHalf - 1, seq_len - 1) ||
+          m_lo + kHalf - 1 < warp_first || n_lo - (m_lo + kHalf - 1) >= L)
+        continue;
+      const int* ts_warp = str_ts + stage * kS + kHalf * ws;
+      hstu::forward_tile<kU>(
+          acc, q_lane, ld1, str1 + (stage * kS + kHalf * ws) * ld1,
+          str2 + (stage * kS + kHalf * ws) * ld2, ld2, depth1, w_warp, a.inv_n, g,
+          [&](int i, int j, float& bias) {
+            const int row = r0 + row_lane + i, m = m_lo + ls + 8 * j;
+            // m <= row < seq_len: causal, both inside the length
+            if (m > row || row >= seq_len || row - m >= L || m < res_start[row_lane + i])
+              return false;
+            const int bucket = hstu::bucketize(
+                (int)((unsigned int)res_ts[row_lane + i] - (unsigned int)ts_warp[ls + 8 * j]),
+                a.num_buckets);
+            bias = __ldg(a.pos_w + m - row + L - 1) + tsw_s[bucket];
+            return true;
+          });
     }
   }
-  __syncthreads();
-  float* ob = out + ((int64_t)b * n + q0) * hv;
-  for (int e = tid; e < q_rows * hv; e += kThreads) ob[e] = acc_s[e];
+
+  hstu::cp_async_wait_all();
+  __syncthreads();  // every warp is done with the v buffers, which take the halves' sum
+#pragma unroll
+  for (int u = 0; u < kU; ++u) g[u] = ls + 8 * u;
+  hstu::store_slices<kU, kSlices>(a.out, acc, str2, ld2, row_lane, ws,
+                                  ((int64_t)b * n * a.h + hh) * a.dv, r0 + row_lane, n,
+                                  a.h, a.dv, g, ng2);
+}
+
+template <int kU>
+int launch(const Args& a, long long smem, cudaStream_t stream) {
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        hstu_attention_fwd_kernel<kU>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const long long blocks = (long long)a.n_tiles * a.b * a.h;
+  hstu_attention_fwd_kernel<kU><<<(unsigned int)blocks, kThreads, (size_t)smem, stream>>>(a);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
+// Widest head (dqk and dv) the kernel takes.
+int hstu_attention_fwd_max_depth() { return kMaxDepth; }
+
 // Dynamic shared memory one block needs, in bytes.
-long long hstu_attention_fwd_smem_bytes(int h, int dqk, int dv, int num_buckets) {
-  const long long hq = (long long)h * dqk, hv = (long long)h * dv;
-  const long long floats = (num_buckets + 1) + kBQ * hq + kBK * (hq | 1) +
-                           kBK * hv + (long long)h * kBQ * kBK + kBQ * hv;
-  return 4 * (floats + 2 * kBQ + kBK);
+long long hstu_attention_fwd_smem_bytes(int dqk, int dv, int num_buckets) {
+  return 4 * smem_floats(hstu::shared_ld(dqk), hstu::shared_ld(dv), num_buckets);
 }
 
-// `seg_pos` is [b, n] int32 with row stride seg_sb, or null for unpacked rows.
+// q, k [b, n, h, dqk] and v [b, n, h, dv] float32 with heads contiguous in a
+// row (batch and row strides given); ts [b, n] int32 with row stride ts_sb;
+// lengths [b] int32; `seg_pos` is [b, n] int32 with row stride seg_sb, or
+// null for unpacked rows; out [b, n, h, dv] contiguous, written whole.
 // Launches on `stream` without synchronising; returns cudaGetLastError().
 int hstu_attention_fwd(const float* q, const float* k, const float* v,
                        const int* ts, const int* lengths, const int* seg_pos,
@@ -198,19 +268,40 @@ int hstu_attention_fwd(const float* q, const float* k, const float* v,
                        long long v_sb, long long v_sn, long long ts_sb,
                        long long seg_sb, int max_len, int num_buckets,
                        void* stream) {
-  const long long smem = hstu_attention_fwd_smem_bytes(h, dqk, dv, num_buckets);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        hstu_attention_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  const dim3 grid((n + kBQ - 1) / kBQ, b);
-  const float inv_n = (float)(1.0 / (double)max_len);
-  hstu_attention_fwd_kernel<<<grid, kThreads, (size_t)smem, (cudaStream_t)stream>>>(
-      q, k, v, ts, lengths, seg_pos, pos_w, ts_w, out, n, h, dqk, dv, q_sb, q_sn,
-      k_sb, k_sn, v_sb, v_sn, ts_sb, seg_sb, max_len, num_buckets, inv_n);
-  return (int)cudaGetLastError();
+  if (dqk > kMaxDepth || dv > kMaxDepth) return (int)cudaErrorInvalidValue;
+  if ((long long)b * n * h == 0) return (int)cudaSuccess;
+  Args a;
+  a.q = q;
+  a.k = k;
+  a.v = v;
+  a.ts = ts;
+  a.lengths = lengths;
+  a.seg_pos = seg_pos;
+  a.pos_w = pos_w;
+  a.ts_w = ts_w;
+  a.out = out;
+  a.b = b;
+  a.n = n;
+  a.h = h;
+  a.dqk = dqk;
+  a.dv = dv;
+  a.q_sb = q_sb;
+  a.q_sn = q_sn;
+  a.k_sb = k_sb;
+  a.k_sn = k_sn;
+  a.v_sb = v_sb;
+  a.v_sn = v_sn;
+  a.ts_sb = ts_sb;
+  a.seg_sb = seg_sb;
+  a.max_len = max_len;
+  a.num_buckets = num_buckets;
+  a.inv_n = (float)(1.0 / (double)max_len);
+  a.ld1 = hstu::shared_ld(dqk);
+  a.ld2 = hstu::shared_ld(dv);
+  a.n_tiles = (n + kT - 1) / kT;
+  const long long smem = hstu_attention_fwd_smem_bytes(dqk, dv, num_buckets);
+  const cudaStream_t st = (cudaStream_t)stream;
+  return (dv + 3) / 4 <= 16 ? launch<2>(a, smem, st) : launch<4>(a, smem, st);
 }
 
 const char* hstu_cuda_error_string(int code) {

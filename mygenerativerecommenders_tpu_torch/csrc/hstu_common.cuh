@@ -4,8 +4,8 @@
 // All of them must put a (query, key) pair into the same time bucket to the
 // bit and stage strided q/k/v rows into shared memory the same way; the
 // full-sequence kernels bound a packed row's key walk by its segments'
-// starts; the two backward kernels share their register tiles. So the pieces
-// live here once.
+// starts; all four share their register tiles, and the two forwards their
+// tile step. So the pieces live here once.
 
 #pragma once
 
@@ -40,35 +40,6 @@ __device__ __forceinline__ int first_key_row(const int* start_s, int rows) {
   int lo = INT_MAX;
   for (int i = 0; i < rows; ++i) lo = min(lo, start_s[i]);
   return max(lo, 0);
-}
-
-constexpr int kLoadBatch = 16;  // global loads a thread issues before it stores
-
-// Copies `rows` rows of `width` floats (source row stride `stride`) into
-// dst[r * dst_stride + c], zero-filling rows at or past `valid`. Each thread
-// issues kLoadBatch independent loads before its first store, so their
-// device-memory latencies overlap instead of adding up.
-template <int kThreads>
-__device__ __forceinline__ void copy_rows(float* dst, int dst_stride,
-                                          const float* __restrict__ src,
-                                          int64_t stride, int rows, int width,
-                                          int valid) {
-  const int total = rows * width;
-  for (int base = threadIdx.x; base < total; base += kThreads * kLoadBatch) {
-    float buf[kLoadBatch];
-#pragma unroll
-    for (int u = 0; u < kLoadBatch; ++u) {
-      const int e = base + u * kThreads;
-      const int r = e / width;
-      buf[u] = e < total && r < valid ? src[r * stride + (e - r * width)] : 0.f;
-    }
-#pragma unroll
-    for (int u = 0; u < kLoadBatch; ++u) {
-      const int e = base + u * kThreads;
-      const int r = e / width;
-      if (e < total) dst[r * dst_stride + (e - r * width)] = buf[u];
-    }
-  }
 }
 
 // Asynchronous copies (cp.async, sm_80 and later): the copy runs while the
@@ -124,10 +95,10 @@ __device__ __forceinline__ void copy_rows_async(float* dst, int dst_stride,
   }
 }
 
-// Register tiles of the two-pass backward kernels (hstu_attention_bwd.cu,
-// hstu_chunk_bwd.cu). A block's warps split a 32-row resident tile and a
-// 32-row streamed tile into halves; a lane owns 4 resident x 2 streamed
-// pairs of its warp's 16 x 16 and reads its operands as float4.
+// Register tiles of the attention kernels. A block's warps split a 32-row
+// resident tile into halves and a streamed tile into 16-row slices (two in
+// the backwards); a lane owns 4 resident x 2 streamed pairs of its warp's 16 x
+// 16 and reads its operands as float4.
 constexpr int kHalf = 16;       // rows a warp owns on each side of a tile
 constexpr int kLdW = kHalf + 4; // per-warp dz / p rows: 16-byte aligned, 5 x 16 B
 
@@ -186,6 +157,39 @@ __device__ __forceinline__ void accumulate_rows(float4 (&out)[4][kU], const floa
   }
 }
 
+// The forward's tile step (csrc/hstu_attention_fwd.cu, csrc/hstu_chunk_fwd.cu):
+// out[i][u] += sum over the warp's 16 streamed keys s of p(i, s) v[s][group u],
+// with p = silu(q_i.k_s + bias) inv_n on a live pair and 0 on a dead one.
+// q is the lane's first resident row (rows ldq apart), k and v the warp's
+// first streamed rows, w the warp's [kHalf][kLdW] array of p. The lane owns
+// the 4 x 2 pairs of dot_tile; `bias(i, j, b)` says whether its pair (row i,
+// streamed row ls + 8 j) is live and, if so, sets b to the pair's bias.
+template <int kU, class Bias>
+__device__ __forceinline__ void forward_tile(float4 (&out)[4][kU], const float* q, int ldq,
+                                             const float* k, const float* v, int ldv,
+                                             int depth, float* w, float inv_n,
+                                             const int (&groups)[kU], Bias bias) {
+  const int lane = threadIdx.x & 31, lr = lane >> 3, ls = lane & 7;
+  float x[4][2] = {};
+  dot_tile(x, q, ldq, k + ls * ldq, ldq, depth);
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    float p[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float b = 0.f;
+      const bool live = bias(i, j, b);
+      const float z = x[i][j] + b;
+      p[i] = live ? z / (1.f + expf(-z)) * inv_n : 0.f;
+    }
+    *reinterpret_cast<float4*>(w + (ls + 8 * j) * kLdW + 4 * lr) =
+        make_float4(p[0], p[1], p[2], p[3]);
+  }
+  __syncwarp();
+  accumulate_rows<kU>(out, w + 4 * lr, v, ldv, groups);
+  __syncwarp();  // the next tile's p overwrites what the lanes read
+}
+
 // Writes the lane's 4 rows x kU column groups of one output, [B, N, H, d]
 // contiguous, from row `row0`; rows at or past n are not written.
 template <int kU>
@@ -210,6 +214,46 @@ __device__ __forceinline__ void store_rows(float* out, const float4 (&acc)[4][kU
           if (c + e < d) o[c + e] = x[e];
       }
     }
+  }
+}
+
+// The end of a forward pass, for every thread of the block: the kSlices
+// streamed slices (ws 0 .. kSlices - 1) of each resident row meet in `red`
+// ([kSlices - 1][2 kHalf] rows ld apart; free shared memory, the caller's
+// copies waited for); slice 0 adds the others in order, so the sum has one
+// order, and writes the rows once. `groups` are the lane's unclamped column
+// groups.
+template <int kU, int kSlices>
+__device__ __forceinline__ void store_slices(float* out, float4 (&acc)[4][kU], float* red,
+                                             int ld, int row_lane, int ws, int64_t base,
+                                             int row0, int n, int h, int d,
+                                             const int (&groups)[kU], int n_groups) {
+  if (ws > 0) {
+    float* mine = red + (ws - 1) * 2 * kHalf * ld;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int u = 0; u < kU; ++u)
+        if (groups[u] < n_groups)
+          *reinterpret_cast<float4*>(mine + (row_lane + i) * ld + 4 * groups[u]) = acc[i][u];
+  }
+  __syncthreads();
+  if (ws == 0) {
+#pragma unroll
+    for (int s = 0; s < kSlices - 1; ++s)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int u = 0; u < kU; ++u) {
+          if (groups[u] >= n_groups) continue;
+          const float4 o = *reinterpret_cast<const float4*>(
+              red + (s * 2 * kHalf + row_lane + i) * ld + 4 * groups[u]);
+          acc[i][u].x += o.x;
+          acc[i][u].y += o.y;
+          acc[i][u].z += o.z;
+          acc[i][u].w += o.w;
+        }
+    store_rows<kU>(out, acc, base, row0, n, h, d, groups, n_groups);
   }
 }
 

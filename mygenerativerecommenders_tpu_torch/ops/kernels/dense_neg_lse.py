@@ -170,7 +170,7 @@ def _kernel_lib() -> ctypes.CDLL:
         p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
         lib.dense_neg_lse_fwd.argtypes = [p] * 7 + [i, i, i, ll, f, i, p]
         lib.dense_neg_lse_fwd.restype = i
-        lib.dense_neg_lse_bwd.argtypes = [p] * 9 + [i, i, i, ll, f, i, p]
+        lib.dense_neg_lse_bwd.argtypes = [p] * 10 + [i, i, i, ll, f, i, p]
         lib.dense_neg_lse_bwd.restype = i
         lib.dense_neg_lse_fwd_smem_bytes.argtypes = [i]
         lib.dense_neg_lse_fwd_smem_bytes.restype = ll
@@ -246,19 +246,23 @@ class _DenseNegLse(torch.autograd.Function):
         x = cat.shape[0]
         gl = gl.to(torch.float32).contiguous()
         dq = torch.empty_like(q)
-        dcat = torch.zeros_like(cat)  # the kernel adds into it with atomics
-        if bt > 0:
-            err = lib.dense_neg_lse_bwd(
-                q.data_ptr(), cat.data_ptr(), count.data_ptr(), _ptr(sup),
-                m_safe.data_ptr(), s.data_ptr(), gl.data_ptr(), dq.data_ptr(),
-                dcat.data_ptr(), bt, d, x, count.stride(0), ctx.inv_tau, _wide(count),
-                torch.cuda.current_stream(q.device).cuda_stream,
-            )
-            _raise_on(lib, err, KERNEL_BWD)
-            if sup is None:
-                bwd_launches += 1
-            else:
-                fused_bwd_launches += 1
+        if bt == 0:
+            return dq, torch.zeros_like(cat), None, None, None
+        # the walk adds into a float64 dcat with atomics; the same call
+        # rounds it into dcat
+        acc = torch.zeros(cat.shape, dtype=torch.float64, device=cat.device)
+        dcat = torch.empty_like(cat)
+        err = lib.dense_neg_lse_bwd(
+            q.data_ptr(), cat.data_ptr(), count.data_ptr(), _ptr(sup),
+            m_safe.data_ptr(), s.data_ptr(), gl.data_ptr(), dq.data_ptr(),
+            acc.data_ptr(), dcat.data_ptr(), bt, d, x, count.stride(0), ctx.inv_tau,
+            _wide(count), torch.cuda.current_stream(q.device).cuda_stream,
+        )
+        _raise_on(lib, err, KERNEL_BWD)
+        if sup is None:
+            bwd_launches += 1
+        else:
+            fused_bwd_launches += 1
         return dq, dcat, None, None, None
 
 

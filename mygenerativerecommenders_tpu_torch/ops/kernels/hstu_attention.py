@@ -13,8 +13,9 @@ packed tokens, the row may be wider than L (its segments may not), and the
 normaliser stays 1/L.
 
 On a CUDA tensor it is a `torch.autograd.Function`: the forward launches
-csrc/hstu_attention_fwd.cu and saves only its inputs (nothing [N, N]-shaped,
-as `_fused_fwd` of the JAX package, :818); the backward launches
+csrc/hstu_attention_fwd.cu, which writes each output row once (bit-identical
+from run to run), and saves only its inputs (nothing [N, N]-shaped, as
+`_fused_fwd` of the JAX package, :818); the backward launches
 csrc/hstu_attention_bwd.cu, which recomputes the scores and returns dq, dk,
 dv (bit-identical from run to run: no atomics touch them), d_pos_w and
 d_ts_w. Both are built by nvcc at first use; a failed build or launch
@@ -113,8 +114,10 @@ def _kernel_lib() -> ctypes.CDLL:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.hstu_attention_fwd.argtypes = [p] * 9 + [i] * 5 + [ll] * 8 + [i, i, p]
         lib.hstu_attention_fwd.restype = i
-        lib.hstu_attention_fwd_smem_bytes.argtypes = [i, i, i, i]
+        lib.hstu_attention_fwd_smem_bytes.argtypes = [i, i, i]
         lib.hstu_attention_fwd_smem_bytes.restype = ll
+        lib.hstu_attention_fwd_max_depth.argtypes = []
+        lib.hstu_attention_fwd_max_depth.restype = i
         lib.hstu_cuda_error_string.argtypes = [i]
         lib.hstu_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -152,8 +155,6 @@ def _prepare(q, k, v, timestamps, pos_w, ts_w, max_len, num_buckets, lengths, se
         # (q, k, v are column slices of the uvqk projection)
         if t.stride(3) != 1 or t.stride(2) != d:
             raise ValueError(f"{name} needs contiguous [H, d] rows, strides {t.stride()}")
-    if b > 65535:
-        raise ValueError(f"batch {b} exceeds the kernels' grid.y limit 65535")
     ts = timestamps.to(torch.int32).contiguous()
     lens = lengths.to(torch.int32).contiguous()
     pos_w = pos_w.detach().to(torch.float32).contiguous()
@@ -174,10 +175,13 @@ def _launch(q, k, v, ts, lens, seg, pos_w, ts_w, max_len, num_buckets):
     b, n, h, dqk = q.shape
     dv = v.shape[-1]
     lib = _kernel_lib()
-    smem = lib.hstu_attention_fwd_smem_bytes(h, dqk, dv, num_buckets)
+    widest = lib.hstu_attention_fwd_max_depth()
+    if max(dqk, dv) > widest:
+        raise ValueError(f"dqk={dqk}, dv={dv}: the forward kernel takes heads up to {widest} wide")
+    smem = lib.hstu_attention_fwd_smem_bytes(dqk, dv, num_buckets)
     if smem > _build.MAX_SMEM_BYTES:
         raise ValueError(
-            f"H={h}, dqk={dqk}, dv={dv}: a block would need {smem} bytes of shared "
+            f"dqk={dqk}, dv={dv}: a block would need {smem} bytes of shared "
             f"memory, the card gives {_build.MAX_SMEM_BYTES}"
         )
     out = torch.empty((b, n, h, dv), dtype=torch.float32, device=q.device)

@@ -21,10 +21,10 @@ csrc/hstu_chunk_fwd.cu and saves only its inputs; the backward launches
 csrc/hstu_chunk_bwd.cu, which recomputes the scores in two passes of one
 launch (one owns dk and dv, the other dq and the tables) and returns dq, dk,
 dv, d_pos_w and d_ts_w (adding a clipped pair's gradient into the slot it
-read). dq, dk and dv take no atomics and are bit-identical from call to call;
-only the two table gradients are summed with float atomics. A chunk with
-off_delta >= Nq has no live pair: both kernels then write zeros, as does the
-backward for key rows no live pair reaches.
+read). The output, dq, dk and dv take no atomics and are bit-identical from
+call to call; only the two table gradients are summed with float atomics. A
+chunk with off_delta >= Nq has no live pair: both kernels then write zeros,
+as does the backward for key rows no live pair reaches.
 On a CPU tensor it computes `hstu_chunk_attention_plain`, the port's copy of
 the JAX ring's jnp chunk body (`parallel/ring_attention.py:_chunk_contribution`
 with use_pallas=False, :85-101), and autograd differentiates that.
@@ -107,8 +107,10 @@ def _kernel_lib() -> ctypes.CDLL:
         p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
         lib.hstu_chunk_fwd.argtypes = [p] * 8 + [i] * 6 + [ll] * 8 + [i, i, i, f, p]
         lib.hstu_chunk_fwd.restype = i
-        lib.hstu_chunk_fwd_smem_bytes.argtypes = [i, i, i, i]
+        lib.hstu_chunk_fwd_smem_bytes.argtypes = [i, i, i]
         lib.hstu_chunk_fwd_smem_bytes.restype = ll
+        lib.hstu_chunk_fwd_max_depth.argtypes = []
+        lib.hstu_chunk_fwd_max_depth.restype = i
         lib.hstu_chunk_cuda_error_string.argtypes = [i]
         lib.hstu_chunk_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -143,8 +145,6 @@ def _prepare(q, k, v, tsq_next, tsk, pos_w, ts_w):
         # (q, k, v are chunk slices of the uvqk projection's column slices)
         if t.stride(3) != 1 or t.stride(2) != t.shape[3]:
             raise ValueError(f"{name} needs contiguous [H, d] rows, strides {t.stride()}")
-    if q.shape[0] > 65535:
-        raise ValueError(f"batch {q.shape[0]} exceeds the forward kernel's grid.y limit 65535")
 
     def stamps(ts):
         ts = ts.to(torch.int32)
@@ -166,10 +166,13 @@ def _launch(q, k, v, tsq, tsk, pos_w, ts_w, off_delta, inv_n, max_len, num_bucke
     b, nq, h, dqk = q.shape
     nc, dv = k.shape[1], v.shape[-1]
     lib = _kernel_lib()
-    smem = lib.hstu_chunk_fwd_smem_bytes(h, dqk, dv, num_buckets)
+    widest = lib.hstu_chunk_fwd_max_depth()
+    if max(dqk, dv) > widest:
+        raise ValueError(f"dqk={dqk}, dv={dv}: the forward kernel takes heads up to {widest} wide")
+    smem = lib.hstu_chunk_fwd_smem_bytes(dqk, dv, num_buckets)
     if smem > _build.MAX_SMEM_BYTES:
         raise ValueError(
-            f"H={h}, dqk={dqk}, dv={dv}: a block would need {smem} bytes of shared "
+            f"dqk={dqk}, dv={dv}: a block would need {smem} bytes of shared "
             f"memory, the card gives {_build.MAX_SMEM_BYTES}"
         )
     out = torch.empty((b, nq, h, dv), dtype=torch.float32, device=q.device)

@@ -30,7 +30,10 @@ def test_kernel_matches_plain_on_card(b, n, h, dqk, dv):
     ts = np.sort(978_000_000 + rng.integers(0, 3 * 365 * 86400, size=(b, n)), axis=1)
     pos_w = torch.tensor(rng.normal(size=(2 * n - 1,)) * 0.02, dtype=torch.float32)
     ts_w = torch.tensor(rng.normal(size=(129,)) * 0.02, dtype=torch.float32)
-    lengths = torch.tensor(np.linspace(1, n, b).astype(np.int32))
+    lengths = np.linspace(1, n, b).astype(np.int32)
+    if dqk != dv:
+        lengths[1] = 0  # an empty row: written as exact zeros
+    lengths = torch.tensor(lengths)
     args = [proj.cuda(), torch.tensor(ts, dtype=torch.int32).cuda(), pos_w.cuda(), ts_w.cuda()]
     p, ts_c, pw, tw = args
     q = p[..., : h * dqk].unflatten(-1, (h, dqk))
@@ -44,6 +47,9 @@ def test_kernel_matches_plain_on_card(b, n, h, dqk, dv):
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=2e-4, atol=2e-5)
     for i, length in enumerate(lengths.tolist()):
         assert not got[i, length:].any()
+    # each output is written once, without atomics: the same bits every call
+    again = kern.hstu_attention_fused(q, k, v, ts_c, pw, tw, n, 128, lengths=lengths.cuda())
+    assert torch.equal(again, got)
 
 
 @pytest.mark.gpu
@@ -164,6 +170,34 @@ def test_dense_neg_lse_kernels_match_plain_on_card(bt, d, x, r):
     _check_lse_backward(q, cat, count, lse, gl, got)
 
 
+@pytest.mark.gpu
+def test_dense_neg_lse_dcat_is_the_float64_sum_on_dense_rows():
+    """255 draws into 150 columns over 4,096 rows: each dcat entry sums some
+    3,300 terms that mostly cancel, where two float32 orders part by most of
+    rtol 2e-4 / atol 2e-5. The kernel sums them in float64: held against the
+    whole function in float64."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA)")
+    bt, d, x, r = 4096, 64, 150, 255
+    rng = np.random.default_rng(5)
+    q = torch.tensor(rng.normal(size=(bt, d)), dtype=torch.float32)
+    cat = torch.tensor(rng.normal(size=(x, d)), dtype=torch.float32)
+    q = (q / q.norm(dim=-1, keepdim=True)).cuda().requires_grad_()
+    cat = (cat / cat.norm(dim=-1, keepdim=True)).cuda().requires_grad_()
+    offsets = torch.tensor(rng.integers(0, x, size=(bt, r)), dtype=torch.int32).cuda()
+    positive = torch.tensor(rng.integers(-1, x, size=bt), dtype=torch.int32).cuda()
+    count = count_kern.count_offsets(offsets, positive, x)
+    gl = torch.tensor(rng.normal(size=(bt,)), dtype=torch.float32).cuda()
+    lse = lse_kern.dense_neg_lse(q, cat, count, 0.05)
+    assert torch.isfinite(lse).all()
+    dcat = torch.autograd.grad(lse, [cat], gl)[0]
+    q64, cat64 = q.detach().double(), cat.detach().double()
+    al = torch.where(count > 0, q64 @ cat64.T / 0.05, -torch.inf)
+    p = count.double() * torch.exp(al - al.max(dim=-1, keepdim=True).values)
+    want = (p / p.sum(dim=-1, keepdim=True) * gl.double()[:, None] / 0.05).T @ q64
+    np.testing.assert_allclose(dcat.cpu().numpy(), want.cpu().numpy(), rtol=2e-4, atol=2e-5)
+
+
 def _packed_layout(rng, b, n, max_seg):
     """Within-segment positions [b, n] and packed lengths [b]: segments of
     mixed lengths (1 and max_seg among them) laid end to end; row 0 keeps a
@@ -231,8 +265,10 @@ def test_packed_attention_kernels_match_plain_on_card(b, n, h, d, max_len):
         np.testing.assert_allclose(a.cpu().numpy(), w.cpu().numpy(), rtol=rtol, atol=2e-5)
     for r, length in enumerate(lengths.tolist()):
         assert not got[r, length:].any() and not got_grads[0][r, length:].any()
-    # dq, dk and dv take no atomics: the same bits every call
-    assert torch.equal(run(kern.hstu_attention_fused, seg)[1][0], got_grads[0])
+    # the output and dq, dk, dv take no atomics: the same bits every call
+    out_again, grads_again = run(kern.hstu_attention_fused, seg)
+    assert torch.equal(out_again, got)
+    assert torch.equal(grads_again[0], got_grads[0])
     if n <= max_len:  # unpacked rows may not be wider than the table
         null, _ = run(kern.hstu_attention_fused, None)
         plain, _ = run(kern.hstu_attention_fused_plain, None)
@@ -289,14 +325,16 @@ def test_dense_neg_lse_kernels_match_plain_on_a_wide_catalog_on_card(bt, d, x):
         (2, 40, 70, 2, 16, 40, 100),  # dead: zeros
         (2, 130, 130, 2, 64, -910, 1035),  # padded rows past the table: clipped slot
         (4, 259, 259, 2, 64, -259, 1035),  # the contiguous ring's fully live chunk
+        (3, 45, 70, 2, 64, 10, 100),  # Nq off the 32-row tile, Nq != Nc, partial
     ],
-    ids=["negative", "zero", "partial", "dead", "off-table", "full-259"],
+    ids=["negative", "zero", "partial", "dead", "off-table", "full-259", "ragged-partial"],
 )
 def test_chunk_kernels_match_plain_on_card(b, nq, nc, h, d, offd, max_len):
     """Chunk forward and backward against autograd of the plain version, q, k,
     v read as strided slices of one projection (as the ring hands them over).
-    The backward writes dq, dk and dv whole without atomics: bit-identical in
-    a second call, exactly zero in key rows no live pair reaches."""
+    Both kernels write their outputs whole without atomics: the forward's
+    output and dq, dk, dv are bit-identical in a second call, and key rows no
+    live pair reaches are exactly zero."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card (CUDA)")
     rng = np.random.default_rng(6)
@@ -331,7 +369,8 @@ def test_chunk_kernels_match_plain_on_card(b, nq, nc, h, d, offd, max_len):
         assert not got.any() and not any(x.any() for x in got_grads)
     # key rows m >= nq - offd see no query row (proj rows nq + m hold only dk, dv)
     assert not got_grads[0][:, nq + min(max(nq - offd, 0), nc):].any()
-    _, again = run(chunk_kern.hstu_chunk_attention)
+    out_again, again = run(chunk_kern.hstu_chunk_attention)
+    assert torch.equal(out_again, got)
     assert torch.equal(again[0], got_grads[0])
 
 

@@ -131,3 +131,17 @@ def test_sparse_backward_with_sup_off_matches_the_jax_fused_kernels(monkeypatch,
     assert not dq[0].any()
     np.testing.assert_allclose(dq.numpy(), np.asarray(want[0]), **DQ_TOL)
     np.testing.assert_allclose(dcat.numpy(), np.asarray(want[1]), **DCAT_TOL)
+
+
+def test_dcat_accuracy_tool_holds_the_plain_versions_to_the_float64_sum():
+    """tools/lse_dcat_accuracy.py on the CPU, where the wrapper's "kernel" is
+    autograd of the plain version: every float32 dcat lies well inside rtol
+    2e-4 / atol 2e-5 of the float64 sum at a small dense size, and the plain
+    version gives the same bits in every call."""
+    from mygenerativerecommenders_tpu_torch.tools.lse_dcat_accuracy import measure
+
+    r = measure(bt=300, d=16, x=40, draws=60, calls=2, tau=TAU, device="cpu")
+    assert r["same_bits"] and r["past_edge"] == 0
+    for key in ("kernel_exact", "kernel_autograd", "kernel_sparse", "autograd_exact",
+                "sparse_exact"):
+        assert 0 <= r[key] < 0.5, (key, r[key])

@@ -297,3 +297,16 @@ def test_attention_backward_source_adds_atomically_into_the_tables_only(source):
     targets = re.findall(r"atomicAdd\(\s*&\s*([\w.]+)", src)
     assert targets and set(targets) <= {"diag_s", "hist_s", "a.dpw", "a.dtw"}, targets
     assert "copy_rows_async" in src
+
+
+@pytest.mark.parametrize("source", ["hstu_attention_fwd.cu", "hstu_chunk_fwd.cu"])
+def test_attention_forward_source_writes_without_atomics(source):
+    """The attention forwards (full-sequence and ring chunk) write each output
+    row once from the block that owns it (bit-identical from call to call):
+    no atomics. Both stream their key tiles with cp.async through the shared
+    forward tile step."""
+    from mygenerativerecommenders_tpu_torch.ops.kernels import _build
+
+    src = (_build.CSRC_DIR / source).read_text()
+    assert "atomicAdd" not in src
+    assert "copy_rows_async" in src and "forward_tile" in src
