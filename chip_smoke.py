@@ -34,14 +34,20 @@ Phases, each of which stops the run with a non-zero exit when it fails:
      backward also at B=4, N=1121 (not a multiple of its 32-row tile), L=1035,
      H=2, d=64, packed, with rows of packed length 1 and 20;
    - the negative count at [26880, 128] into X=3,706 and X=26,744, with
-     accidental hits and sentinels, exactly; and at [26880, 256] into X=3,706
-     (int32 counts, one bin of 256), with the lse kernels on those counts;
+     accidental hits and sentinels, exactly; at [37, 16] and [37, 300] into
+     X=1, 15 and 17 (rows narrower than a 16-byte store or just wider); and
+     at [26880, 256] into X=3,706 (int32 counts, one bin of 256), with the
+     lse kernels on those counts;
    - the dense-negative lse forward and backward at [26880, 50] x [3706, 50]
      with those counts, tau 0.05, one all-hit row: lse, dq, dcat at rtol 2e-4
-     / atol 2e-5, dq and dcat against autograd of the plain version and
+     / atol 2e-5, lse, dq and dcat against the dense plain version (autograd
+     of it for the gradients), the forward's m_safe and s against the sparse
+     plain forward (`dense_neg_lse_stats_sparse_plain`) and dq and dcat
      against the sparse plain backward (`dense_neg_lse_bwd_plain`, given the
-     plain forward's m_safe and s), the all-hit row's dq exactly zero and dq
-     bit for bit the same in a second call (no atomics touch it); the same
+     sparse plain forward's m_safe and s), the all-hit row's lse -inf and dq
+     exactly zero, and lse and dq bit for bit the same in a second call (no
+     atomics touch them); the forward's log gives the live logits and the
+     rate at which it read the count; the same
      over the ml-20m catalog, at [26880, 50] x [26744, 50] (the step of
      ml-20m-hstu), at [24552, 64] x [26744, 64] (the 1024-token class of a
      packed ml-20m-hstu-long step) and at [4297, 64] x [26744, 64] (its
@@ -52,8 +58,8 @@ Phases, each of which stops the run with a non-zero exit when it fails:
      second call are logged);
    - the same lse kernels with `sup_off` (`fused_dense_neg_lse`, each row's
      positive masked in the kernel) at [8192, 64] x [26744, 64], with the same
-     checks, and an all -1 sup_off against the null pointer, lse and dq bit
-     for bit;
+     checks, and an all -1 sup_off on the same count against the null pointer,
+     lse and dq bit for bit;
    - the ring's chunk attention forward and backward against autograd of the
      plain version at ml-20m-hstu-long's widths (B=32, H=2, d=64, L=1035) on
      the zigzag ring's 130 x 130 chunks and the contiguous ring's 259 x 259,
@@ -456,6 +462,20 @@ def check_count(kern, bt, r, x) -> dict:
                 bound_by=bound_by, library_ms=library_ms, count=got)
 
 
+def check_count_edges(kern) -> None:
+    """The count, uint8 and int32, exactly, at widths whose 37 rows start at
+    every offset from a 16-byte boundary and hold less than one vector, or
+    one and a bit: what the kernel writes element by element."""
+    for r in (16, 300):
+        for x in (1, 15, 17):
+            offsets, positive = negative_draws(x, 37, r, x)
+            got = kern.count_offsets(offsets, positive, x)
+            want = kern.count_offsets_plain(offsets, positive, x)
+            check(torch.equal(got, want), f"{kern.KERNEL} disagrees with its plain version at "
+                  f"[37, {r}] into X={x}")
+    log(f"{kern.KERNEL} [37, 16] and [37, 300] into X=1, 15, 17: equal to plain")
+
+
 def plain_lse_in_chunks(kern, q, cat, count, tau, gl, chunk, with_grads=True):
     """`dense_neg_lse_plain` and its gradients on `chunk` rows at a time: at a
     wide catalog its [BT, X] float32 logits (2.9 GB at 26,880 x 26,744, several
@@ -473,13 +493,30 @@ def plain_lse_in_chunks(kern, q, cat, count, tau, gl, chunk, with_grads=True):
     return torch.cat(lse), (torch.cat(dq) if with_grads else None), dcat
 
 
-def plain_lse_stats(kern, q, cat, count, tau, chunk):
-    """The forward's per-row (m_safe, s) by `dense_neg_lse_stats_plain`,
-    `chunk` rows at a time."""
-    with torch.no_grad():
-        parts = [kern.dense_neg_lse_stats_plain(q[lo : lo + chunk], cat, count[lo : lo + chunk],
-                                                tau) for lo in range(0, q.shape[0], chunk)]
-    return torch.cat([m for m, _ in parts]), torch.cat([s for _, s in parts])
+def check_lse_stats(name, kern, q, cat, count, tau, lse, sup_off=None):
+    """The forward kernel's per-row (m_safe, s) against the sparse plain
+    forward (`dense_neg_lse_stats_sparse_plain`), and its lse the same bits
+    in a second call (each row is written once, without atomics). Returns
+    the plain (m_safe, s), which the sparse plain backward takes, and the
+    largest error."""
+    q, cat = q.detach(), cat.detach()
+    again, m_k, s_k = kern.dense_neg_lse_stats(q, cat, count, tau, sup_off)
+    m_safe, s = kern.dense_neg_lse_stats_sparse_plain(q, cat, count, tau, sup_off)
+    torch.cuda.synchronize()
+    ok_m, err_m = within(m_k, m_safe, RTOL, ATOL)
+    ok_s, err_s = within(s_k, s, RTOL, ATOL)
+    same = bool(torch.equal(again, lse.detach()))
+    log(f"  {name}: m_safe, s max_abs_err vs the sparse plain forward {err_m:.3e}, {err_s:.3e} "
+        f"within rtol {RTOL} atol {ATOL}: {ok_m and ok_s}; lse the same bits in a second call: "
+        f"{same}")
+    check(ok_m and ok_s, f"{name}: m_safe or s disagrees with the sparse plain forward")
+    check(same, f"{name}: lse differs between two calls")
+    return m_safe, s, max(err_m, err_s)
+
+
+def lse_rates(fwd_ms, nnz, bt, x, count_bytes) -> str:
+    return (f"{nnz} live logits of {bt * x} ({100 * nnz / (bt * x):.2f}%), the count read at "
+            f"{count_bytes / fwd_ms * 1e-6:.0f} GB/s")
 
 
 def check_lse_bwd(name, got, want_dense, want_sparse, all_hit):
@@ -517,8 +554,6 @@ def check_dense_neg_lse(kern, count, bt, d, x, tau, chunk=None) -> tuple[dict, d
     got = torch.autograd.grad(lse, [q, cat], gl, retain_graph=True)
     again = torch.autograd.grad(lse, [q, cat], gl, retain_graph=True)
     lse_plain, *want = plain_lse_in_chunks(kern, q, cat, count, tau, gl, chunk)
-    m_safe, s = plain_lse_stats(kern, q, cat, count, tau, chunk)
-    sparse = kern.dense_neg_lse_bwd_plain(q.detach(), cat.detach(), count, m_safe, s, gl, tau)
     torch.cuda.synchronize()
     same_inf = bool(torch.equal(finite, torch.isfinite(lse_plain)))
     ok_lse, err_lse = within(lse[finite], lse_plain[finite], RTOL, ATOL)
@@ -531,6 +566,8 @@ def check_dense_neg_lse(kern, count, bt, d, x, tau, chunk=None) -> tuple[dict, d
     check(same_inf and float(lse[5].detach()) == float("-inf"), "the all-hit row's lse is not -inf")
     check(ok_lse, f"{kern.KERNEL} disagrees with its plain version")
     check(same_dq, f"{kern.KERNEL_BWD}: dq differs between two calls")
+    m_safe, s, err_stats = check_lse_stats(kern.KERNEL, kern, q, cat, count, tau, lse)
+    sparse = kern.dense_neg_lse_bwd_plain(q.detach(), cat.detach(), count, m_safe, s, gl, tau)
     err_bwd = check_lse_bwd(kern.KERNEL_BWD, got, want, sparse, 5)
     nnz = int(count.count_nonzero())
     with torch.no_grad():
@@ -547,13 +584,11 @@ def check_dense_neg_lse(kern, count, bt, d, x, tau, chunk=None) -> tuple[dict, d
     fwd_bound = bound(4 * (bt * d + x * d + 3 * bt) + count_bytes, nnz * 2 * d)
     bwd_bound = bound(4 * (2 * bt * d + 2 * x * d + 3 * bt) + count_bytes, nnz * 6 * d)
     log(f"  forward: kernel {fwd_ms:.5f} ms, plain {fwd_plain:.5f} ms, bound "
-        f"{fwd_bound[0]:.5f} ms ({fwd_bound[1]}); {nnz} live logits of {bt * x}; the "
-        f"dense product is {2e-9 * bt * x * d:.2f} GFLOP, {2e-6 * bt * x * d / fwd_ms:.0f} "
-        f"GFLOP/s as run")
+        f"{fwd_bound[0]:.5f} ms ({fwd_bound[1]}); {lse_rates(fwd_ms, nnz, bt, x, count_bytes)}")
     log(f"  backward: kernel {bwd_ms:.5f} ms, sparse plain {bwd_plain:.5f} ms, bound "
         f"{bwd_bound[0]:.5f} ms ({bwd_bound[1]})")
-    fwd = dict(max_abs_err=err_lse, ms=fwd_ms, plain_ms=fwd_plain, bound_ms=fwd_bound[0],
-               bound_by=fwd_bound[1])
+    fwd = dict(max_abs_err=max(err_lse, err_stats), ms=fwd_ms, plain_ms=fwd_plain,
+               bound_ms=fwd_bound[0], bound_by=fwd_bound[1])
     bwd = dict(max_abs_err=err_bwd, ms=bwd_ms, plain_ms=bwd_plain, bound_ms=bwd_bound[0],
                bound_by=bwd_bound[1])
     return fwd, bwd
@@ -588,9 +623,6 @@ def check_fused_lse(kern, count, positive, bt, d, x, tau, chunk) -> tuple[dict, 
     live = positive >= 0
     masked[torch.arange(bt, device="cuda")[live], positive[live].long()] = 0
     lse_plain, *want = plain_lse_in_chunks(kern, q, cat, masked, tau, gl, chunk)
-    m_safe, s = plain_lse_stats(kern, q, cat, masked, tau, chunk)
-    sparse = kern.dense_neg_lse_bwd_plain(q.detach(), cat.detach(), count, m_safe, s, gl, tau,
-                                          positive)
     torch.cuda.synchronize()
     ok_lse, err_lse = within(lse[finite], lse_plain[finite], RTOL, ATOL)
     same_inf = bool(torch.equal(finite, torch.isfinite(lse_plain)))
@@ -600,6 +632,9 @@ def check_fused_lse(kern, count, positive, bt, d, x, tau, chunk) -> tuple[dict, 
         f"second call: {same_dq}")
     check(ok_lse and same_inf, f"{kern.FUSED} disagrees with its plain version")
     check(same_dq, f"{kern.FUSED} backward: dq differs between two calls")
+    m_safe, s, err_stats = check_lse_stats(kern.FUSED, kern, q, cat, count, tau, lse, positive)
+    sparse = kern.dense_neg_lse_bwd_plain(q.detach(), cat.detach(), count, m_safe, s, gl, tau,
+                                          positive)
     all_hit = torch.nonzero(~finite)[:1, 0]
     err_bwd = check_lse_bwd(kern.FUSED + " backward", got, want, sparse, all_hit)
     none = torch.full_like(positive, -1)
@@ -621,10 +656,11 @@ def check_fused_lse(kern, count, positive, bt, d, x, tau, chunk) -> tuple[dict, 
     fwd_bound = bound(4 * (bt * d + x * d + 4 * bt) + bt * x, nnz * 2 * d)
     bwd_bound = bound(4 * (2 * bt * d + 2 * x * d + 4 * bt) + bt * x, nnz * 6 * d)
     log(f"  forward: kernel {fwd_ms:.5f} ms, plain {fwd_plain:.5f} ms, bound {fwd_bound[0]:.5f} "
-        f"ms ({fwd_bound[1]}); backward: kernel {bwd_ms:.5f} ms, sparse plain "
-        f"{bwd_plain:.5f} ms, bound {bwd_bound[0]:.5f} ms ({bwd_bound[1]})")
-    fwd = dict(max_abs_err=err_lse, ms=fwd_ms, plain_ms=fwd_plain, bound_ms=fwd_bound[0],
-               bound_by=fwd_bound[1])
+        f"ms ({fwd_bound[1]}); {lse_rates(fwd_ms, nnz, bt, x, bt * x)}; backward: kernel "
+        f"{bwd_ms:.5f} ms, sparse plain {bwd_plain:.5f} ms, bound {bwd_bound[0]:.5f} ms "
+        f"({bwd_bound[1]})")
+    fwd = dict(max_abs_err=max(err_lse, err_stats), ms=fwd_ms, plain_ms=fwd_plain,
+               bound_ms=fwd_bound[0], bound_by=fwd_bound[1])
     bwd = dict(max_abs_err=err_bwd, ms=bwd_ms, plain_ms=bwd_plain, bound_ms=bwd_bound[0],
                bound_by=bwd_bound[1])
     return fwd, bwd
@@ -1495,6 +1531,7 @@ def main() -> int:
     check_attention_bwd(kern, 42, 4, 1121, 2, 64, lens, 1035, pos, seg_bounds)
     counted = check_count(count_kern, TRAIN_BT, TRAIN_R, 3706)
     counted_wide = check_count(count_kern, TRAIN_BT, TRAIN_R, 26744)
+    check_count_edges(count_kern)
     lse_fwd, lse_bwd = check_dense_neg_lse(
         lse_kern, counted.pop("count"), TRAIN_BT, 50, 3706, 0.05
     )

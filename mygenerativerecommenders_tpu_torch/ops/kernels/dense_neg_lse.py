@@ -17,14 +17,16 @@ gradient reaching such a row is dropped.
 
 On CUDA tensors it is a `torch.autograd.Function`: the forward launches
 `dense_neg_lse_fwd` of csrc/dense_neg_lse.cu and keeps q, cat, count and the
-per-row (m_safe, s); the backward launches `dense_neg_lse_bwd`, which walks
-each row's live logits only (count > 0) and returns dq and dcat. The [BT, X]
-logits never reach device memory. Both are built by nvcc at first use; a
-failed build or launch raises. On CPU tensors it computes
-`dense_neg_lse_plain` and autograd differentiates that. No gradient flows to
-count. `dense_neg_lse_bwd_plain` is the backward alone in plain PyTorch, in
-the kernel's sparse form, given the forward's (m_safe, s)
-(`dense_neg_lse_stats_plain`).
+per-row (m_safe, s); the backward launches `dense_neg_lse_bwd`. Both walk
+each row's live logits only (count > 0), so the [BT, X] logits are neither
+computed whole nor stored. Both are built by nvcc at first use; a failed
+build or launch raises. On CPU tensors it computes `dense_neg_lse_plain` and
+autograd differentiates that. No gradient flows to count.
+`dense_neg_lse_stats` gives the forward's lse and per-row (m_safe, s)
+without a gradient. In the kernels' sparse form, in plain PyTorch:
+`dense_neg_lse_stats_sparse_plain` is the forward's (m_safe, s) and
+`dense_neg_lse_bwd_plain` the backward given them
+(`dense_neg_lse_stats_plain` is the dense form of the former).
 
 `fused_dense_neg_lse(q2, norm_catalog, count, sup_off, temperature)` is the
 JAX package's function of that name (dense_softmax.py:167-175, the kernels
@@ -87,12 +89,48 @@ def dense_neg_lse_stats_plain(
     return m_safe, (c * torch.exp(al_live - m_safe[:, None])).sum(dim=-1)
 
 
+def _lse(m_safe: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    return torch.where(s > 0, m_safe + torch.log(torch.clamp(s, min=1e-30)), -torch.inf)
+
+
 def dense_neg_lse_plain(
     q: torch.Tensor, cat: torch.Tensor, count: torch.Tensor, temperature: float
 ) -> torch.Tensor:
     """The kernels' function in plain PyTorch, [BT] float32."""
-    m_safe, s = dense_neg_lse_stats_plain(q, cat, count, temperature)
-    return torch.where(s > 0, m_safe + torch.log(torch.clamp(s, min=1e-30)), -torch.inf)
+    return _lse(*dense_neg_lse_stats_plain(q, cat, count, temperature))
+
+
+def _live_pairs(
+    count: torch.Tensor, x: int, sup_off: Optional[torch.Tensor]
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The (row, column) of each live logit: count > 0 in the catalog's x
+    columns (count may be wider), and column != sup_off[row]."""
+    rows, cols = (count[:, :x] > 0).nonzero(as_tuple=True)
+    if sup_off is not None:
+        keep = cols != sup_off.to(cols.device).long()[rows]
+        rows, cols = rows[keep], cols[keep]
+    return rows, cols
+
+
+def dense_neg_lse_stats_sparse_plain(
+    q: torch.Tensor,
+    cat: torch.Tensor,
+    count: torch.Tensor,
+    temperature: float,
+    sup_off: Optional[torch.Tensor] = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The forward kernel's per-row (m_safe, s) in plain PyTorch, in its
+    sparse form: the live (i, x) pairs (count > 0, x != sup_off[i]) only, the
+    row maximum of al by `scatter_reduce` and s by `index_add_`. count may be
+    wider than the catalog, as `fused_dense_neg_lse` takes it."""
+    q, cat = q.float(), cat.float()
+    rows, cols = _live_pairs(count, cat.shape[0], sup_off)
+    al = (q[rows] * cat[cols]).sum(dim=-1) * (1.0 / temperature)
+    m = torch.full((q.shape[0],), _NO_LOGIT, dtype=torch.float32, device=q.device)
+    m = m.scatter_reduce(0, rows, al, "amax")
+    m_safe = torch.where(m > 0.5 * _NO_LOGIT, m, 0.0)
+    terms = count[rows, cols].float() * torch.exp(al - m_safe[rows])
+    return m_safe, torch.zeros_like(m_safe).index_add_(0, rows, terms)
 
 
 def dense_neg_lse_bwd_plain(
@@ -111,10 +149,7 @@ def dense_neg_lse_bwd_plain(
     dq = dal cat and dcat = dal^T q by `index_add_`. count may be wider than
     the catalog where sup_off is given, as `fused_dense_neg_lse` takes it."""
     q, cat = q.float(), cat.float()
-    rows, cols = (count[:, : cat.shape[0]] > 0).nonzero(as_tuple=True)
-    if sup_off is not None:
-        keep = cols != sup_off.to(cols.device).long()[rows]
-        rows, cols = rows[keep], cols[keep]
+    rows, cols = _live_pairs(count, cat.shape[0], sup_off)
     inv_tau = 1.0 / temperature
     coef = torch.where(s > 0, gl.float() / torch.clamp(s, min=1e-30) * inv_tau, 0.0)
     qr, cc = q[rows], cat[cols]
@@ -172,8 +207,6 @@ def _kernel_lib() -> ctypes.CDLL:
         lib.dense_neg_lse_fwd.restype = i
         lib.dense_neg_lse_bwd.argtypes = [p] * 10 + [i, i, i, ll, f, i, p]
         lib.dense_neg_lse_bwd.restype = i
-        lib.dense_neg_lse_fwd_smem_bytes.argtypes = [i]
-        lib.dense_neg_lse_fwd_smem_bytes.restype = ll
         lib.dense_neg_lse_max_depth.argtypes = []
         lib.dense_neg_lse_max_depth.restype = i
         lib.cuda_error_string.argtypes = [i]
@@ -198,42 +231,44 @@ def _raise_on(lib, err: int, kernel: str) -> None:
         raise RuntimeError(f"{kernel} launch failed: CUDA error {err} ({msg})")
 
 
+def _forward(q, cat, count, sup_off, inv_tau):
+    """Launches the forward kernel: (lse, m_safe, s) and the operands as the
+    kernels take them (`sup_off` None: the null pointer)."""
+    global launches, fused_launches
+    lib = _kernel_lib()
+    bt, d = q.shape
+    x = cat.shape[0]
+    if d > lib.dense_neg_lse_max_depth():
+        raise ValueError(f"D={d} is wider than the kernels take")
+    if q.dtype != torch.float32 or cat.dtype != torch.float32:
+        raise TypeError(f"q and cat must be float32, got {q.dtype} and {cat.dtype}")
+    q, cat = q.detach().contiguous(), cat.detach().contiguous()
+    count = count.contiguous()
+    sup = None if sup_off is None else sup_off.to(torch.int32).contiguous()
+    lse, m_safe, s = (torch.empty((bt,), dtype=torch.float32, device=q.device) for _ in range(3))
+    if bt > 0:
+        err = lib.dense_neg_lse_fwd(
+            q.data_ptr(), cat.data_ptr(), count.data_ptr(), _ptr(sup),
+            lse.data_ptr(), m_safe.data_ptr(), s.data_ptr(),
+            bt, d, x, count.stride(0), inv_tau, _wide(count),
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
+        _raise_on(lib, err, KERNEL)
+        if sup is None:
+            launches += 1
+        else:
+            fused_launches += 1
+    return (lse, m_safe, s), (q, cat, count, sup)
+
+
 class _DenseNegLse(torch.autograd.Function):
     """`sup_off` None is the training path's `dense_neg_lse` (the kernels'
     null pointer); a tensor is `fused_dense_neg_lse`."""
 
     @staticmethod
     def forward(ctx, q, cat, count, sup_off, inv_tau):
-        global launches, fused_launches
-        lib = _kernel_lib()
-        bt, d = q.shape
-        x = cat.shape[0]
-        if d > lib.dense_neg_lse_max_depth():
-            raise ValueError(f"D={d} is wider than the kernels take")
-        smem = lib.dense_neg_lse_fwd_smem_bytes(d)
-        if smem > _build.MAX_SMEM_BYTES:
-            raise ValueError(f"D={d}: a block would need {smem} bytes of shared memory")
-        if q.dtype != torch.float32 or cat.dtype != torch.float32:
-            raise TypeError(f"q and cat must be float32, got {q.dtype} and {cat.dtype}")
-        q, cat = q.detach().contiguous(), cat.detach().contiguous()
-        count = count.contiguous()
-        sup = None if sup_off is None else sup_off.to(torch.int32).contiguous()
-        lse, m_safe, s = (
-            torch.empty((bt,), dtype=torch.float32, device=q.device) for _ in range(3)
-        )
-        if bt > 0:
-            err = lib.dense_neg_lse_fwd(
-                q.data_ptr(), cat.data_ptr(), count.data_ptr(), _ptr(sup),
-                lse.data_ptr(), m_safe.data_ptr(), s.data_ptr(),
-                bt, d, x, count.stride(0), inv_tau, _wide(count),
-                torch.cuda.current_stream(q.device).cuda_stream,
-            )
-            _raise_on(lib, err, KERNEL)
-            if sup is None:
-                launches += 1
-            else:
-                fused_launches += 1
-        ctx.save_for_backward(q, cat, count, sup, m_safe, s)
+        (lse, m_safe, s), operands = _forward(q, cat, count, sup_off, inv_tau)
+        ctx.save_for_backward(*operands, m_safe, s)
         ctx.inv_tau = inv_tau
         return lse
 
@@ -264,7 +299,6 @@ class _DenseNegLse(torch.autograd.Function):
         else:
             fused_bwd_launches += 1
         return dq, dcat, None, None, None
-
 
 
 def dense_neg_lse(
@@ -301,3 +335,24 @@ def fused_dense_neg_lse(
     if q2.device.type != "cuda":
         raise ValueError(f"no kernel for device {q2.device}")
     return _DenseNegLse.apply(q2, norm_catalog, count, sup_off, float(1.0 / temperature))
+
+
+def dense_neg_lse_stats(
+    q: torch.Tensor,
+    cat: torch.Tensor,
+    count: torch.Tensor,
+    temperature: float,
+    sup_off: Optional[torch.Tensor] = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The forward's (lse, m_safe, s), [BT] each, without a gradient: the
+    kernel on CUDA tensors (counted as `dense_neg_lse`'s launch, or with
+    sup_off as `fused_dense_neg_lse`'s), `dense_neg_lse_stats_sparse_plain`
+    on CPU tensors. Operands as `dense_neg_lse` takes them, or with sup_off
+    as `fused_dense_neg_lse` does."""
+    _check(q, cat, count, sup_off)
+    if q.device.type == "cpu":
+        m_safe, s = dense_neg_lse_stats_sparse_plain(q, cat, count, temperature, sup_off)
+        return _lse(m_safe, s), m_safe, s
+    if q.device.type != "cuda":
+        raise ValueError(f"no kernel for device {q.device}")
+    return _forward(q, cat, count, sup_off, float(1.0 / temperature))[0]

@@ -1,8 +1,9 @@
 """Where the dense-negative lse backward kernel spends its time.
 
 Builds timing-only variants of csrc/dense_neg_lse.cu, each with one part of
-`dense_neg_lse_bwd` switched off by a text substitution (the variants compute
-wrong gradients and are never loaded by the port), and times every variant's
+`dense_neg_lse_bwd` switched off by a text substitution in the backward's own
+part of the source (the variants compute wrong gradients and are never loaded
+by the port; their forwards are the port's), and times every variant's
 backward and forward with CUDA events, by default at the training shape of
 synthetic-hstu: q [26880, 50], cat [3706, 50], 128 draws a row, tau 0.05.
 The sources are written to a temporary directory and built with the port's
@@ -32,35 +33,47 @@ import torch
 from mygenerativerecommenders_tpu_torch.ops.kernels import _build
 from mygenerativerecommenders_tpu_torch.ops.kernels.count_offsets import count_offsets
 
-_PAIRS = "for (int jb = 0; jb < n; jb += kGroups * kPairUnroll) {"
-_GATHER = "load_vec(cv[u][r], cat + (int64_t)p.x * d + column(r));"
-_DOT_SUM = "for (int off = kLanes / 2; off > 0; off >>= 1) dot += __shfl_xor_sync(kAll, dot, off);"
-_EXP = "expf(dot * inv_tau - mi)"
+# the backward's own part of the source; the walk it shares with the forward
+# lies above it and is left as it is, so each variant's forward stays right
+_BWD_FROM = "// ---------------------------------------------------------------- backward"
+_BWD_TO = "// ---------------------------------------------------------------- launch"
+_PAIRS = "for (int jb = 0; jb < p.n; jb += p.kGroups * kPairUnroll) {"
+_LOGITS = "p.logits(jb, xs, cnt, cv, al);"
+_EXP = "expf(al[u] - mi)"
 _DQ = "acc[r][v] = fmaf(dal[u], cv[u][r][v], acc[r][v]);"
-_ATOMIC = "add_dcat(dcat, (int64_t)xs[u] * d, dal[u]);"
+_ATOMIC = "add_dcat(dcat, (int64_t)xs[u] * p.d, dal[u]);"
+# the listed pairs read, nothing gathered, no dot product, no shuffle sum
+_LIST_ONLY = (
+    "for (int u = 0; u < kPairUnroll; ++u) { const int j = jb + u * p.kGroups + p.g;"
+    " const int2 e = j < p.n ? p.pairs[j] : make_int2(-1, 0); xs[u] = e.x;"
+    " cnt[u] = __int_as_float(e.y); al[u] = (float)e.x;"
+    " for (int r = 0; r < kReps; ++r) for (int v = 0; v < kVec; ++v) cv[u][r][v] = (float)e.x; }"
+)
 
 
 def variants(src: str) -> dict:
-    def sub(text: str, *pairs) -> str:
+    lo, hi = src.index(_BWD_FROM), src.index(_BWD_TO)
+
+    def sub(*pairs) -> str:
+        bwd = src[lo:hi]
         for old, new in pairs:
-            if old not in text:
-                raise RuntimeError(f"the source no longer holds {old!r}")
-            text = text.replace(old, new)
-        return text
+            if bwd.count(old) != 1:
+                raise RuntimeError(f"the backward holds {old!r} {bwd.count(old)} times, not once")
+            bwd = bwd.replace(old, new)
+        return src[:lo] + bwd + src[hi:]
 
     return {
         "as_is": src,
         # the count scan and the lists; each list is read once, so that the
         # compiler keeps its stores, and not computed
         "scan_only": sub(
-            src, (_PAIRS, _PAIRS + " acc[0][0] += __int_as_float(pairs[jb].y); continue;")),
+            (_PAIRS, _PAIRS + " acc[0][0] += __int_as_float(p.pairs[jb].y); continue;")),
         # no cat row gathered, no shuffle sum, no exponential: dal from the
         # lane's own registers
-        "no_gather_logits": sub(src, (_GATHER, "cv[u][r][0] = (float)p.x;"), (_DOT_SUM, ""),
-                                (_EXP, "(dot * inv_tau - mi)")),
-        "no_dq": sub(src, (_DQ, ";")),
+        "no_gather_logits": sub((_LOGITS, _LIST_ONLY), (_EXP, "(al[u] - mi)")),
+        "no_dq": sub((_DQ, ";")),
         # a store the compiler cannot drop, in place of the atomics
-        "no_dcat_atomics": sub(src, (_ATOMIC, "if (dal[u] == 123.f) dcat[0] = qt[0];")),
+        "no_dcat_atomics": sub((_ATOMIC, "if (dal[u] == 123.f) dcat[0] = qt[0];")),
     }
 
 

@@ -93,10 +93,14 @@ def test_backward_kernel_matches_autograd_of_plain_on_card(b, n, h, d):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize(
-    "bt,r,x", [(100, 16, 200), (2000, 128, 3706), (64, 255, 26744), (64, 256, 26744),
-               (300, 300, 3706)]
+    "bt,r,x",
+    [(37, r, x) for r in (16, 300) for x in (1, 15, 17, 3706, 26744)]
+    + [(100, 16, 200), (2000, 128, 3706), (64, 255, 26744), (64, 256, 26744), (300, 300, 3706)],
 )
 def test_count_kernel_equals_plain_on_card(bt, r, x):
+    """uint8 (r <= 255) and int32 counts; 37 rows start at every offset from
+    a 16-byte boundary that X gives them, and X = 1, 15, 17 hold less than
+    one 16-byte store a row, or one and a bit."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card (CUDA)")
     rng = np.random.default_rng(2)
@@ -111,6 +115,17 @@ def test_count_kernel_equals_plain_on_card(bt, r, x):
     assert count_kern.launches == before + 1
     assert got.dtype == (torch.uint8 if r <= 255 else torch.int32)
     assert torch.equal(got, count_kern.count_offsets_plain(o, p, x))
+
+
+def _check_lse_forward(q, cat, count, lse, sup_off=None):
+    """The forward kernel's (m_safe, s) against the sparse plain forward; lse
+    the same bits in a second call."""
+    q, cat = q.detach(), cat.detach()
+    again, m_safe, s = lse_kern.dense_neg_lse_stats(q, cat, count, 0.05, sup_off)
+    want = lse_kern.dense_neg_lse_stats_sparse_plain(q, cat, count, 0.05, sup_off)
+    for a, w in zip((m_safe, s), want):
+        np.testing.assert_allclose(a.cpu().numpy(), w.cpu().numpy(), rtol=2e-4, atol=2e-5)
+    assert torch.equal(again, lse.detach())
 
 
 def _check_lse_backward(q, cat, count, lse, gl, got, sup_off=None, stats_count=None):
@@ -133,8 +148,9 @@ def _check_lse_backward(q, cat, count, lse, gl, got, sup_off=None, stats_count=N
 )
 def test_dense_neg_lse_kernels_match_plain_on_card(bt, d, x, r):
     """r > 255 draws a row: int32 counts, some of them above 255. 255 draws
-    into 150 columns: rows with more live logits than the backward lists at
-    once. dq takes no atomics: the same bits in a second call."""
+    into 150 columns: rows with more live logits than the kernels list at
+    once. The forward's m_safe and s against the sparse plain forward; lse
+    and dq take no atomics: the same bits in a second call."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card (CUDA)")
     rng = np.random.default_rng(3)
@@ -167,6 +183,7 @@ def test_dense_neg_lse_kernels_match_plain_on_card(bt, d, x, r):
     for a, w in zip(got, want):
         np.testing.assert_allclose(a.cpu().numpy(), w.cpu().numpy(), rtol=2e-4, atol=2e-5)
     assert not got[0][0].any()
+    _check_lse_forward(q, cat, count, lse)
     _check_lse_backward(q, cat, count, lse, gl, got)
 
 
@@ -312,6 +329,7 @@ def test_dense_neg_lse_kernels_match_plain_on_a_wide_catalog_on_card(bt, d, x):
     for a, w in zip(got, want):
         np.testing.assert_allclose(a.cpu().numpy(), w.cpu().numpy(), rtol=2e-4, atol=2e-5)
     assert not got[0][0].any()
+    _check_lse_forward(q, cat, count, lse)
     _check_lse_backward(q, cat, count, lse, gl, got)
 
 
@@ -377,8 +395,10 @@ def test_chunk_kernels_match_plain_on_card(b, nq, nc, h, d, offd, max_len):
 @pytest.mark.gpu
 @pytest.mark.parametrize("bt,d,x,padded", [(70, 12, 150, True), (700, 64, 26744, False)])
 def test_fused_dense_neg_lse_with_and_without_sup_off_on_card(bt, d, x, padded):
-    """The lse kernels with sup_off against the plain version; an all -1
-    sup_off gives the bits of the training path's null pointer."""
+    """The lse kernels with sup_off against the plain version, the forward's
+    m_safe and s against the sparse plain forward, lse the same bits in a
+    second call; an all -1 sup_off gives the bits of the training path's null
+    pointer."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card (CUDA)")
     rng = np.random.default_rng(7)
@@ -417,6 +437,7 @@ def test_fused_dense_neg_lse_with_and_without_sup_off_on_card(bt, d, x, padded):
     no_hits = count[:, :x].clone()
     live = sup >= 0
     no_hits[torch.arange(bt, device="cuda")[live], sup[live].long()] = 0
+    _check_lse_forward(q, cat, count, lse, sup)
     _check_lse_backward(q, cat, count, lse, gl, got, sup, no_hits)
     # all -1 masks nothing: the null pointer's lse and dq to the bit
     none = torch.full_like(sup, -1)

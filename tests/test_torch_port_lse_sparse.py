@@ -1,14 +1,18 @@
-"""The lse backward in its sparse form (`dense_neg_lse_bwd_plain`: the live
-(i, x) pairs only, cat gathered at them, `index_add_` into dq and dcat), on
-the CPU, against autograd of the dense plain version and against the JAX
-package's gradients from the same numpy inputs: `sampled_softmax_dense_neg_lse`
-with `use_pallas=True` and `fused_dense_neg_lse` (with `sup_off`), their
-Pallas kernels in interpret mode.
+"""The lse forward and backward in their sparse form, on the CPU: the live
+(i, x) pairs only, cat gathered at them. `dense_neg_lse_stats_sparse_plain`
+(the row maximum by `scatter_reduce`, s by `index_add_`) and
+`dense_neg_lse_bwd_plain` (`index_add_` into dq and dcat) against the dense
+plain version (autograd of it for the backward) and against the JAX
+package's forward and gradients from the same numpy inputs:
+`sampled_softmax_dense_neg_lse` with `use_pallas=True` and
+`fused_dense_neg_lse` (with `sup_off`), their Pallas kernels in interpret
+mode.
 
-It is the function the sparse CUDA backward computes (csrc/dense_neg_lse.cu),
-given the forward's per-row (m_safe, s). Tolerances: dq at rtol 2e-4 / atol
-2e-5 and dcat at rtol 5e-4 / atol 2e-5 (float32 sums in another order; dcat
-sums a catalog row's terms over every row of q).
+They are the functions the sparse CUDA kernels compute
+(csrc/dense_neg_lse.cu); the backward is given the forward's per-row (m_safe,
+s). Tolerances: lse, m_safe, s and dq at rtol 2e-4 / atol 2e-5 and dcat at
+rtol 5e-4 / atol 2e-5 (float32 sums in another order; dcat sums a catalog
+row's terms over every row of q).
 """
 
 import jax
@@ -26,6 +30,7 @@ from mygenerativerecommenders_tpu_torch.ops.kernels import count_offsets as coun
 from mygenerativerecommenders_tpu_torch.ops.kernels import dense_neg_lse as lse_mod
 
 TAU = 0.05
+LSE_TOL = dict(rtol=2e-4, atol=2e-5)
 DQ_TOL = dict(rtol=2e-4, atol=2e-5)
 DCAT_TOL = dict(rtol=5e-4, atol=2e-5)
 
@@ -47,6 +52,97 @@ def _draws(seed, bt, d, x, r):
     offs[3, : r // 2] = sup[3]
     gl = rng.normal(size=(bt,)).astype(np.float32)
     return q, cat, offs, sup, gl
+
+
+def _padded_count(offs, sup, x, padded):
+    """The count as `fused_dense_neg_lse` takes it: positives included (sup_off
+    takes them out), rows padded to the catalog rounded up to 128 where
+    `padded`; row 0 an all-hit row. Also the count with each row's positive
+    zeroed, X wide."""
+    bt = offs.shape[0]
+    width = -(-x // 128) * 128 if padded else x
+    count = np.zeros((bt, width), dtype=np.uint8)
+    for i in range(bt):
+        np.add.at(count[i], offs[i], 1)
+    count[0] = 0
+    count[0, sup[0]] = 3
+    masked = count[:, :x].copy()
+    hit = sup >= 0
+    masked[np.flatnonzero(hit), sup[hit]] = 0
+    return count, masked
+
+
+def _lse_of(m_safe, s):
+    return torch.where(s > 0, m_safe + torch.log(torch.clamp(s, min=1e-30)), -torch.inf)
+
+
+@pytest.mark.parametrize(
+    "bt,d,x,r,padded",
+    [(40, 50, 300, 128, None), (40, 64, 300, 128, None), (24, 16, 48, 300, None),
+     (24, 16, 48, 255, None), (40, 64, 300, 24, True), (40, 16, 200, 24, False)],
+    ids=["d50", "d64", "int32-bin-above-255", "every-column-live", "sup-off-padded-count",
+         "sup-off"],
+)
+def test_sparse_forward_matches_the_dense_plain_version(bt, d, x, r, padded):
+    """(m_safe, s) and lse of the live pairs only against the dense plain
+    forward; with sup_off on a count whose positives are still in it (and
+    rows padded past X) against the dense plain forward of the masked count.
+    The all-hit row gives m_safe 0, s 0 and lse -inf. `dense_neg_lse_stats`
+    on CPU tensors is the sparse plain version."""
+    q, cat, offs, sup, gl = _draws(bt + d + r, bt, d, x, r)
+    if r == 255:  # dense rows: 255 draws into 48 columns leave none out
+        offs[4:] = np.arange(bt * r).reshape(bt, r)[4:] % x
+        sup[4:] = -1
+    tq, tcat = torch.tensor(q), torch.tensor(cat)
+    if padded is None:
+        count = dense = count_mod.count_offsets(torch.tensor(offs), torch.tensor(sup), x)
+        sup_off = None
+    else:
+        count, dense = (torch.tensor(c) for c in _padded_count(offs, sup, x, padded))
+        sup_off = torch.tensor(sup)
+    m_safe, s = lse_mod.dense_neg_lse_stats_sparse_plain(tq, tcat, count, TAU, sup_off)
+    want_m, want_s = lse_mod.dense_neg_lse_stats_plain(tq, tcat, dense, TAU)
+    np.testing.assert_allclose(m_safe.numpy(), want_m.numpy(), **LSE_TOL)
+    np.testing.assert_allclose(s.numpy(), want_s.numpy(), **LSE_TOL)
+    assert float(m_safe[0]) == 0.0 and float(s[0]) == 0.0
+    lse = _lse_of(m_safe, s)
+    want = lse_mod.dense_neg_lse_plain(tq, tcat, dense, TAU)
+    assert lse[0] == -torch.inf and torch.equal(torch.isfinite(lse), torch.isfinite(want))
+    np.testing.assert_allclose(lse.numpy(), want.numpy(), **LSE_TOL)
+    stats = lse_mod.dense_neg_lse_stats(tq, tcat, count, TAU, sup_off)
+    for a, b in zip(stats, (lse, m_safe, s)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("d,r", [(50, 128), (64, 256)], ids=["d50-uint8", "d64-int32"])
+def test_sparse_forward_matches_the_jax_pallas_forward(d, r):
+    bt, x = 32, 200
+    q, cat, offs, sup, _ = _draws(d + r, bt, d, x, r)
+    with pltpu.force_tpu_interpret_mode():
+        want = jax_dense_neg_lse(jnp.asarray(q), jnp.asarray(cat), jnp.asarray(offs),
+                                 jnp.asarray(sup), TAU, use_pallas=True)
+    count = count_mod.count_offsets(torch.tensor(offs), torch.tensor(sup), x)
+    lse = _lse_of(*lse_mod.dense_neg_lse_stats_sparse_plain(
+        torch.tensor(q), torch.tensor(cat), count, TAU))
+    assert lse[0] == -torch.inf
+    np.testing.assert_allclose(lse.numpy(), np.asarray(want), **LSE_TOL)
+
+
+@pytest.mark.parametrize("xb,x,padded", [(4096, 300, True), (256, 600, False)],
+                         ids=["one-x-block-padded", "five-x-blocks"])
+def test_sparse_forward_with_sup_off_matches_the_jax_fused_kernel(monkeypatch, xb, x, padded):
+    bt, d = 40, 64
+    q, cat, offs, sup, _ = _draws(x + 1, bt, d, x, 24)
+    sup[5] = -1
+    count, _ = _padded_count(offs, sup, x, padded)
+    monkeypatch.setattr(jax_dense_softmax, "_XB", xb)
+    with pltpu.force_tpu_interpret_mode():
+        want = jax_dense_softmax.fused_dense_neg_lse(
+            jnp.asarray(q), jnp.asarray(cat), jnp.asarray(count), jnp.asarray(sup), TAU)
+    lse = _lse_of(*lse_mod.dense_neg_lse_stats_sparse_plain(
+        torch.tensor(q), torch.tensor(cat), torch.tensor(count), TAU, torch.tensor(sup)))
+    assert lse[0] == -torch.inf
+    np.testing.assert_allclose(lse.numpy(), np.asarray(want), **LSE_TOL)
 
 
 def _sparse(q, cat, count, gl, sup_off=None, stats_count=None):
@@ -109,12 +205,7 @@ def test_sparse_backward_with_sup_off_matches_the_jax_fused_kernels(monkeypatch,
     bt, d = 40, 64
     q, cat, offs, sup, gl = _draws(x, bt, d, x, 24)
     sup[5] = -1
-    width = -(-x // 128) * 128 if padded else x
-    count = np.zeros((bt, width), dtype=np.uint8)
-    for i in range(bt):
-        np.add.at(count[i], offs[i], 1)  # positives included: sup_off takes them out
-    count[0] = 0
-    count[0, sup[0]] = 3  # an all-hit row
+    count, masked = _padded_count(offs, sup, x, padded)
     monkeypatch.setattr(jax_dense_softmax, "_XB", xb)
 
     def jax_f(q_, cat_):
@@ -124,10 +215,7 @@ def test_sparse_backward_with_sup_off_matches_the_jax_fused_kernels(monkeypatch,
 
     with pltpu.force_tpu_interpret_mode():
         want = jax.grad(jax_f, argnums=(0, 1))(jnp.asarray(q), jnp.asarray(cat))
-    masked = torch.tensor(count[:, :x])
-    hit = sup >= 0
-    masked[np.flatnonzero(hit), sup[hit]] = 0
-    dq, dcat = _sparse(q, cat, torch.tensor(count), gl, torch.tensor(sup), masked)
+    dq, dcat = _sparse(q, cat, torch.tensor(count), gl, torch.tensor(sup), torch.tensor(masked))
     assert not dq[0].any()
     np.testing.assert_allclose(dq.numpy(), np.asarray(want[0]), **DQ_TOL)
     np.testing.assert_allclose(dcat.numpy(), np.asarray(want[1]), **DCAT_TOL)

@@ -283,6 +283,26 @@ def test_lse_backward_source_adds_atomically_into_dcat_only():
     assert len(targets) == src.count("atomicAdd")
 
 
+def test_lse_forward_source_walks_the_live_logits_with_the_backward_scan():
+    """The lse forward computes the live logits only: no dense product of
+    q with staged catalog tiles (the former `logits_4x4` path, its shared
+    memory tiles) is left. Both kernels call the one row scan (`scan_row`,
+    the count's only 16-byte loads) and form al in the one pair step
+    (`RowPairs::logits`), so the forward's al is the backward's."""
+    from mygenerativerecommenders_tpu_torch.ops.kernels import _build
+
+    src = (_build.CSRC_DIR / "dense_neg_lse.cu").read_text()
+    for gone in ("logits_4x4", "stage_tile", "extern __shared__", "smem_bytes"):
+        assert gone not in src, gone
+    bwd_at = src.index("// " + "-" * 64 + " backward")
+    fwd = src[src.index("dense_neg_lse_fwd_kernel("):bwd_at]
+    bwd = src[src.index("dense_neg_lse_bwd_kernel(", bwd_at):]
+    for kernel in (fwd, bwd):
+        assert "scan_row<kMasked>(" in kernel and "w.step();" in kernel
+    assert src.count("void scan_row(") == 1 and src.count("__ldcs(") == 1
+    assert src.count("p.logits(jb, xs, cnt, cv, al);") == 2
+
+
 @pytest.mark.parametrize("source", ["hstu_attention_bwd.cu", "hstu_chunk_bwd.cu"])
 def test_attention_backward_source_adds_atomically_into_the_tables_only(source):
     """dq, dk and dv of the attention backward (full-sequence and ring chunk)
