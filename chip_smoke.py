@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving and training paths (padded, packed and
-through ring attention) on one NVIDIA card and check its kernels.
+through ring attention, eager and as CUDA graphs) on one NVIDIA card and
+check its kernels.
 
 Run from the root of a checkout, with no arguments:
 
@@ -81,18 +82,23 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    call, set against its host wall time.
 4. The training path at the full width of `synthetic-hstu` (batch 128, so
    26,880 supervision rows, 128 negatives, 3,706 catalog rows, dropout 0.2,
-   AdamW): `cli.train.main` on the card for 30 epochs (480 optimizer steps,
-   validation after each, then the test pass on the best checkpoint), the
-   run of the JAX package's recipe validation (PARITY.md, "Recipe
-   validation": test ndcg@10 0.037-0.039 on the same data). The launch
-   counts are set to 0 just before and read just after: per optimizer step 2
-   attention forwards, 2 attention backwards, 1 count, 1 lse forward, 1 lse
-   backward, and 2 attention forwards per eval batch. Every loss must be
-   finite, the last five lower than the first five on average, the metrics in
-   [0, 1] and the test ndcg@10 at least 0.03 (chance is 10 / 3706; torch's
-   random streams are not JAX's, so the band itself is not asserted). Then a
-   second trainer is stepped by hand for the step time, the per-step launch
-   counts and a torch.profiler step.
+   fused AdamW): `cli.train.main` on the card for 30 epochs (480 optimizer
+   steps, validation after each, then the test pass on the best checkpoint),
+   the run of the JAX package's recipe validation (PARITY.md, "Recipe
+   validation": test ndcg@10 0.037-0.039 on the same data). The preset's
+   `trainer.steps_per_call=8` makes every step and eval batch a replay of a
+   CUDA graph (train/graphs.py). The launch counts and the graphs' counts are
+   set to 0 just before and read just after: every step and eval batch a
+   replay, each replay counting the launches its capture recorded and each
+   capture's warm-up runs their own; per optimizer step 2 attention
+   forwards, 2 attention backwards, 1 count, 1 lse forward, 1 lse backward,
+   and 2 attention forwards per eval batch. Every loss must be finite, the
+   last five lower than the first five on average, the metrics in [0, 1] and
+   the test ndcg@10 at least 0.03 (chance is 10 / 3706; torch's random
+   streams are not JAX's, so the band itself is not asserted). Then a second
+   trainer is stepped by hand, eagerly (steps_per_call=1's step) and graphed,
+   side by side: step p50, per-step launch counts, device ms and idle share
+   from torch.profiler, the graphs captured, and the graphed 8-step call.
 5. One step on the card against the same step on the CPU: the same weights,
    batch and negative offsets, dropout off, through the port on `cuda`
    (kernels) and on `cpu` (plain versions): the loss at rtol 1e-5, every
@@ -102,30 +108,38 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    of 32 examples packed into rows of 256 / 512 / 1024 / 1152 tokens, 26,744
    catalog rows among ids up to 131,262, 128 negatives, dropout 0.2, AdamW):
    `cli.train.main` on the card for two epochs with the packed eval after
-   each and the test pass on the best checkpoint. The launch counts are set
-   to 0 just before and read just after: per optimizer step 8 attention
-   forwards, 8 backwards, 1 count, 1 lse forward, 1 lse backward, and 8
-   forwards per eval batch. Losses finite and falling, metrics in [0, 1].
-   Then a second trainer is stepped by hand, class of capacity by class: step
-   time, examples/s, tokens a step and a torch.profiler step.
+   each and the test pass on the best checkpoint, graphed (the preset's
+   steps_per_call=8: one graph a class of capacity, whose row count is
+   fixed). The launch counts are set to 0 just before and read just after,
+   as in phase 4: per optimizer step 8 attention forwards, 8 backwards, 1
+   count, 1 lse forward, 1 lse backward, and 8 forwards per eval batch.
+   Losses finite and falling, metrics in [0, 1]. Then a second trainer is
+   stepped by hand, class of capacity by class, eager and graphed side by
+   side as in phase 4, with examples/s and tokens a step.
 7. Phase 5 once more on one packed batch of capacity 256 of that
    configuration.
 8. Ring (sequence-parallel) attention at the full width of ml-20m-hstu-long
    on synthetic data with padded rows: `cli.train.main` with
    model.encoder.sp_shards=4 and the zigzag layout, the 4 shards of the ring
    run in turn on the card, for two epochs over 1,024 users with validation
-   after each and the test pass. The launch counts are set to 0 just before
-   and read just after: per optimizer step 8 x 36 chunk forwards and as many
-   backwards, 1 count, 1 lse forward, 1 lse backward and no full attention
-   kernel; 8 x 36 chunk forwards per eval batch. Then hand-stepped trainers
-   in the zigzag and contiguous (8 x 10 chunk calls) layouts: step time,
-   examples/s, per-step launch counts, a torch.profiler step with its device
-   launches logged beside the expected 4,923 (zigzag) and 1,355 (contiguous);
-   then zigzag eval batches, forward only, where the chunk forward runs alone:
-   p50 of 8 synced batches, 288 chunk forwards each, a torch.profiler batch.
+   after each and the test pass, graphed (steps_per_call=8). The launch counts
+   are set to 0 just before and read just after, as in phase 4: per optimizer
+   step 8 x 36 chunk forwards and as many backwards, 1 count, 1 lse forward,
+   1 lse backward and no full attention kernel; 8 x 36 chunk forwards per
+   eval batch. Then hand-stepped trainers in the zigzag and contiguous (8 x 10
+   chunk calls) layouts, eager and graphed side by side as in phase 4, the
+   eager step's profiled launches logged beside the expected 4,923 (zigzag)
+   and 1,355 (contiguous); then zigzag eval batches, forward only, where the
+   chunk forward runs alone, eager and graphed: 288 chunk forwards each.
 9. The ring model, zigzag and contiguous, against the same weights at
    sp_shards=1 on the card: one full-width batch, the same negatives, dropout
    off, the loss at rtol 1e-5 and every gradient at rtol 5e-4 / atol 1e-6.
+10. The graphed step against the eager step: two trainers of one
+   configuration (the same weights, negatives and dropout streams, dropout
+   on), steps_per_call=1 and 8, three steps each on one batch: the losses at
+   rtol 1e-5, the parameters at rtol 5e-4 / atol 1e-6 (phase 5's). A padded
+   synthetic-hstu batch, packed ml-20m-hstu-long batches of class 256 and
+   1152, and a zigzag ring batch.
 
 It ends with one JSON line of the kernels' numbers and, last, the line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -133,6 +147,7 @@ It ends with one JSON line of the kernels' numbers and, last, the line
 
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -940,11 +955,12 @@ def timed_rounds(port: int, engine, req: dict, rounds: int = 3, reps: int = 10):
     return np.asarray(over_http), np.asarray(direct)
 
 
-def profile_device(fn, reps: int, what: str, wall_ms: float, top: int, by_count: int = 0) -> float:
+def profile_device(fn, reps: int, what: str, wall_ms: float, top: int,
+                   by_count: int = 0) -> tuple[float, float]:
     """Where the time of `fn` goes: torch.profiler's device time of the kernels
     one call launches, against its host wall time `wall_ms` (measured without
     the profiler); with `by_count`, also the kernels launched most often.
-    -> the device launches of one call."""
+    -> (device ms, device launches) of one call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -970,7 +986,7 @@ def profile_device(fn, reps: int, what: str, wall_ms: float, top: int, by_count:
         log("  most launched: " + "; ".join(
             f"x{e.count / reps:.0f} {e.self_device_time_total / 1e3 / reps:.3f} ms {e.key[:60]}"
             for e in sorted(kernels, key=lambda e: -e.count)[:by_count]))
-    return launches
+    return device_ms, launches
 
 
 # ---------------------------------------------------------------- phase 4
@@ -979,10 +995,15 @@ def profile_device(fn, reps: int, what: str, wall_ms: float, top: int, by_count:
 class Counts:
     """The launch counters of every kernel wrapper on the training paths, in
     the order attention forward and backward, count, lse forward and
-    backward, chunk forward and backward."""
+    backward, chunk forward and backward; and the CUDA graphs' captures,
+    warm-up runs and replays (train/graphs.py), which a reset clears too."""
 
-    def __init__(self, attn, count_kern, lse_kern, chunk):
+    def __init__(self, attn, count_kern, lse_kern, chunk, graphs):
         self.attn, self.count, self.lse, self.chunk = attn, count_kern, lse_kern, chunk
+        self.graphs = graphs
+
+    def read_graphs(self) -> dict:
+        return {name: dict(c) for name, c in self.graphs.counts.items()}
 
     def read(self) -> dict:
         a, c, l, k = self.attn, self.count, self.lse, self.chunk
@@ -997,6 +1018,7 @@ class Counts:
         self.count.launches = 0
         self.lse.launches = self.lse.bwd_launches = 0
         self.chunk.launches = self.chunk.bwd_launches = 0
+        self.graphs.counts.clear()
 
     def per_step(self, attn: int, chunk: int) -> list:
         """One optimizer step's launches: `attn` attention and `chunk` chunk
@@ -1005,11 +1027,14 @@ class Counts:
 
 
 def read_training_run(metrics: Path, epochs: int, monitored: float):
-    """The losses, val rows and test row a `cli.train` run logged, checked:
-    finite and falling losses, a val row per epoch and one test row, every
-    metric and the monitored one in [0, 1]."""
+    """The losses, optimizer steps, val rows and test row a `cli.train` run
+    logged, checked: finite and falling losses, a val row per epoch and one
+    test row, every metric and the monitored one in [0, 1]. With
+    log_every_n_steps=1 a loss is logged at every call: every step eagerly,
+    the call's last step in calls of k; the last one's step is the run's."""
     rows = [json.loads(line) for line in metrics.read_text().splitlines()]
     losses = np.asarray([r["train/loss"] for r in rows if "train/loss" in r])
+    steps = max(r["step"] for r in rows if "train/loss" in r)
     val = [r for r in rows if "val/ndcg@100" in r]
     test = [r for r in rows if "test/ndcg@100" in r]
     log(f"  loss: first {losses[0]:.4f} (log 129 = {np.log(129):.4f}), first five mean "
@@ -1022,21 +1047,68 @@ def read_training_run(metrics: Path, epochs: int, monitored: float):
             if "/" in key and not key.startswith("train/"):
                 check(0.0 <= value <= 1.0, f"{key}={value} outside [0, 1]")
     check(0.0 <= monitored <= 1.0, f"the monitored metric {monitored} is outside [0, 1]")
-    return losses, val, test[0]
+    return losses, steps, val, test[0]
 
 
 def check_step_launches(kc: Counts, steps: int, eval_batches: int, counts: dict,
-                        attn: int = 0, chunk: int = 0) -> None:
+                        graph_counts: dict, attn: int = 0, chunk: int = 0) -> None:
     """Per optimizer step `attn` attention forwards and backwards (one per
     block) or `chunk` chunk forwards and backwards (the ring's, per block
     times chunk calls), one count, one lse forward and backward; per eval
-    batch the forwards alone."""
+    batch the forwards alone. With graphs (`graph_counts`, read with
+    `counts`), every step and eval batch must be a replay, and each replay
+    counts the launches its capture recorded; a capture's warm-up runs are
+    steps too, and add theirs."""
+    runs = {}
+    for name, n in (("train", steps), ("eval", eval_batches)):
+        g = graph_counts.get(name)
+        if g:
+            check(g["replays"] == n, f"{name}: {g['replays']} graph replays, expected {n}")
+            n += g["warmup_runs"]
+        runs[name] = n
+    tr, ev = runs["train"], runs["eval"]
     per = kc.per_step(attn, chunk)
     want = dict(zip(kc.read(), (
-        per[0] * (steps + eval_batches), per[1] * steps, steps, steps, steps,
-        per[5] * (steps + eval_batches), per[6] * steps,
+        per[0] * (tr + ev), per[1] * tr, tr, tr, tr, per[5] * (tr + ev), per[6] * tr,
     )))
     check(counts == want, f"launches {counts} != expected {want}")
+    log("  graphs: " + "; ".join(
+        f"{name} {g['captures']} captured ({g['warmup_runs']} warm-up runs), {g['replays']} "
+        f"replays" for name, g in sorted(graph_counts.items())) if graph_counts else
+        "  no graphs: every step eager")
+
+
+def eager_and_graphed(kc: Counts, fns: dict, what: str, per_step: list, graphs, card: str,
+                      reps: int = 8, warm: int = 2) -> dict:
+    """The eager and the graphed form of one step ({"eager": fn, "graphed":
+    fn}, fn(i) taking batch i) side by side: the p50 of `reps` calls synced
+    each call, each call's launches (`per_step`; a replay adds the launches
+    its capture recorded), device ms and idle share from torch.profiler, and
+    the graphs captured. -> {mode: {"p50", "device_ms", "idle", "launches"}}"""
+    out = {}
+    for mode, fn in fns.items():
+        for i in range(warm):  # the graphed form captures each shape here
+            fn(i)
+        torch.cuda.synchronize()
+        times = []
+        for i in range(reps):
+            before = kc.read()
+            t0 = time.perf_counter()
+            fn(i)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+            after = kc.read()
+            delta = [after[key] - before[key] for key in after]
+            check(delta == per_step, f"{what}, {mode}: launches of one call {delta}")
+        p50 = float(np.percentile(times, 50))
+        dev, launches = profile_device(fn, reps=4, what=f"{what}, {mode}", wall_ms=p50, top=6)
+        out[mode] = dict(p50=p50, device_ms=dev, idle=max(0.0, 1 - dev / p50), launches=launches)
+    e, g = out["eager"], out["graphed"]
+    log(f"{what}, eager | graphed, synced each call: p50 {e['p50']:.3f} | {g['p50']:.3f} ms; "
+        f"device {e['device_ms']:.3f} | {g['device_ms']:.3f} ms in {e['launches']:.0f} | "
+        f"{g['launches']:.0f} profiled launches; idle {100 * e['idle']:.1f}% | "
+        f"{100 * g['idle']:.1f}%; {len(graphs)} graphs captured so far on {card}")
+    return out
 
 
 def run_training_path(kc: Counts, card: str) -> dict:
@@ -1060,7 +1132,7 @@ def run_training_path(kc: Counts, card: str) -> dict:
     monitored = cli_train.main(args)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = kc.read()
+    counts, graph_counts = kc.read(), kc.read_graphs()
 
     blocks = cfg.model.encoder.num_blocks
     per_epoch = -(-cfg.data.synthetic_num_users // cfg.data.batch_size)
@@ -1068,10 +1140,10 @@ def run_training_path(kc: Counts, card: str) -> dict:
     log(f"training path: cli.train on {card}, synthetic-hstu D={cfg.model.item_embedding_dim} "
         f"blocks={blocks} N={cfg.data.max_sequence_length + cfg.model.gr_output_length + 1} "
         f"batch={cfg.data.batch_size} R={cfg.model.loss.num_to_sample} "
-        f"dropout={cfg.model.encoder.linear_dropout_rate}: {epochs * per_epoch} optimizer steps, "
+        f"dropout={cfg.model.encoder.linear_dropout_rate}, steps_per_call="
+        f"{cfg.trainer.steps_per_call}: {epochs * per_epoch} optimizer steps, "
         f"{eval_batches} eval batches in {wall:.2f} s; launches {counts}")
-    losses, val, test = read_training_run(metrics, epochs, monitored)
-    steps = len(losses)
+    losses, steps, val, test = read_training_run(metrics, epochs, monitored)
     check(steps == epochs * per_epoch, f"{steps} optimizer steps, expected {epochs * per_epoch}")
     best = max(val, key=lambda r: r["val/ndcg@100"])
     log(f"  val/ndcg@100 first epoch {val[0]['val/ndcg@100']:.5f}, best {best['val/ndcg@100']:.5f} "
@@ -1081,44 +1153,33 @@ def run_training_path(kc: Counts, card: str) -> dict:
         f"package's 30-epoch band on this data: ndcg@10 0.037-0.039, PARITY.md)")
     check(test["test/ndcg@10"] >= MIN_TEST_NDCG10,
           f"test ndcg@10 {test['test/ndcg@10']} below {MIN_TEST_NDCG10} after {epochs} epochs")
-    check_step_launches(kc, steps, eval_batches, counts, attn=blocks)
+    check(cfg.trainer.steps_per_call > 1 and graph_counts.get("train"),
+          "the cli.train run did not replay graphed steps")
+    check_step_launches(kc, steps, eval_batches, counts, graph_counts, attn=blocks)
     for name in ("best.pt", "last.pt"):
         check((out_dir / "synthetic-hstu" / "checkpoints" / name).exists(), f"no {name}")
 
-    # a second trainer, stepped by hand: step time, per-step counts, profile
+    # a second trainer, stepped by hand: the eager step (steps_per_call=1's)
+    # and the graphed one (the preset's 8) side by side
     trainer = Trainer(cli_train.parse_args(args[:1] + [f"trainer.output_dir={OUT_DIR / 'train2'}"]))
     trainer.model.train()
     batches = [trainer._put(b) for b in trainer.data.loader("train")]
-    for batch in batches[:3]:
-        trainer.train_step(batch, trainer.lr1)
-    torch.cuda.synchronize()
-    times = []
-    for i in range(40):
-        before = kc.read()
-        t0 = time.perf_counter()
-        trainer.train_step(batches[i % len(batches)], trainer.lr1)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-        after = kc.read()
-        delta = [after[k] - before[k] for k in after]
-        check(delta == kc.per_step(blocks, 0), f"launches of one step: {delta}")
-    step_ms = 1e3 * np.asarray(times)
-    p50 = float(np.percentile(step_ms, 50))
-    log(f"train step, batch {cfg.data.batch_size} ({TRAIN_BT} supervision rows), synced each "
-        f"step: p50 {p50:.3f} ms, p99 {np.percentile(step_ms, 99):.3f} ms, "
-        f"{1e3 * cfg.data.batch_size / p50:.1f} examples/s on {card}; launches per step "
-        f"{blocks} attention fwd, {blocks} attention bwd, 1 count, 1 lse fwd, 1 lse bwd")
+    n = len(batches)
+    k = trainer.steps_per_call
+    times = eager_and_graphed(kc, {
+        "eager": lambda i: trainer.train_step(batches[i % n], trainer.lr1),
+        "graphed": lambda i: trainer.train_steps([batches[i % n]], trainer.lr1),
+    }, f"train step, batch {cfg.data.batch_size} ({TRAIN_BT} supervision rows)",
+        kc.per_step(blocks, 0), trainer.train_steps.graphs, card, reps=40)
     t0 = time.perf_counter()
-    for i in range(40):
-        trainer.train_step(batches[i % len(batches)], trainer.lr1)
-    torch.cuda.synchronize()
-    free_ms = 1e3 * (time.perf_counter() - t0) / 40
-    log(f"  40 steps back to back, one sync at the end: {free_ms:.3f} ms per step, "
-        f"{1e3 * cfg.data.batch_size / free_ms:.1f} examples/s on {card}")
-    profile_device(
-        lambda i: trainer.train_step(batches[i % len(batches)], trainer.lr1),
-        reps=8, what="train step", wall_ms=free_ms, top=10,
-    )
+    for _ in range(8):
+        trainer.train_steps(batches[:k], trainer.lr1)
+        torch.cuda.synchronize()
+    call_ms = 1e3 * (time.perf_counter() - t0) / 8
+    log(f"  examples/s at the synced p50: eager {1e3 * cfg.data.batch_size / times['eager']['p50']:.1f}, "
+        f"graphed {1e3 * cfg.data.batch_size / times['graphed']['p50']:.1f}; graphed in calls "
+        f"of {k} steps synced a call, mean of 8: {call_ms / k:.3f} ms a step, "
+        f"{1e3 * k * cfg.data.batch_size / call_ms:.1f} examples/s on {card}")
     return counts
 
 
@@ -1154,7 +1215,7 @@ def run_long_path(kc: Counts, card: str) -> dict:
     monitored = cli_train.main(args)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = kc.read()
+    counts, graph_counts = kc.read(), kc.read_graphs()
 
     # the batches that run must have held, from loaders of the same plan
     planner = Trainer(cli_train.parse_args(LONG_ARGS + [f"trainer.output_dir={OUT_DIR / 'long2'}"]))
@@ -1168,17 +1229,16 @@ def run_long_path(kc: Counts, card: str) -> dict:
         f"L={cfg.data.max_sequence_length + cfg.model.gr_output_length + 1} "
         f"batch={cfg.data.batch_size} examples, capacities {list(cfg.data.pack_capacities)}, "
         f"catalog={len(planner.all_item_ids)} (max id {planner.data.max_item_id}), "
-        f"R={cfg.model.loss.num_to_sample}, dropout={cfg.model.encoder.linear_dropout_rate}: "
-        f"{want_steps} optimizer steps, {eval_batches} packed eval batches in {wall:.2f} s; "
-        f"launches {counts}")
-    losses, val, test = read_training_run(metrics, epochs, monitored)
-    steps = len(losses)
+        f"R={cfg.model.loss.num_to_sample}, dropout={cfg.model.encoder.linear_dropout_rate}, "
+        f"steps_per_call={cfg.trainer.steps_per_call}: {want_steps} optimizer steps, "
+        f"{eval_batches} packed eval batches in {wall:.2f} s; launches {counts}")
+    losses, steps, val, test = read_training_run(metrics, epochs, monitored)
     check(steps == want_steps, f"{steps} optimizer steps, expected {want_steps}")
     log(f"  val/ndcg@100 by epoch {[round(r['val/ndcg@100'], 5) for r in val]}, test on the best "
         f"checkpoint: ndcg@10 {test['test/ndcg@10']:.5f}, ndcg@100 "
         f"{test['test/ndcg@100']:.5f}, hr@200 {test['test/hr@200']:.5f} (chance hr@200: "
         f"{200 / len(planner.all_item_ids):.5f})")
-    check_step_launches(kc, steps, eval_batches, counts, attn=blocks)
+    check_step_launches(kc, steps, eval_batches, counts, graph_counts, attn=blocks)
     for ckpt in ("best.pt", "last.pt"):
         check((out_dir / name / "checkpoints" / ckpt).exists(), f"no {ckpt}")
     del planner
@@ -1187,46 +1247,40 @@ def run_long_path(kc: Counts, card: str) -> dict:
     # 1,200 items (cut to the newest 1,024) give the widest class, 1,152, its
     # segments of 1,025; the command line above leaves that class empty
     trainer = Trainer(cli_train.parse_args(
-        LONG_ARGS[:2] + ["data.synthetic_max_seq_len=1200",
+        LONG_ARGS[:2] + ["data.synthetic_max_seq_len=1200", "trainer.steps_per_call=8",
                          f"trainer.output_dir={OUT_DIR / 'long3'}"]))
     trainer.model.train()
     by_cap = {}
     for batch in trainer._loader("train", packed=True):
         by_cap.setdefault(batch["ids"].shape[1], []).append(batch)
     check(sorted(by_cap) == sorted(cfg.data.pack_capacities), f"classes {sorted(by_cap)}")
-    epoch_s, epoch_examples = 0.0, 0
+    for host in by_cap.values():  # one row count a class: one graph a class
+        check(len({b["ids"].shape for b in host}) == 1, "a class with two row counts")
+    epoch_s, epoch_examples = {"eager": 0.0, "graphed": 0.0}, 0
     for cap in sorted(by_cap):
         host = by_cap[cap]
         batches = [trainer._put(b) for b in host[:4]]
-        for batch in batches[:2]:
-            trainer.train_step(batch, trainer.lr1)
-        torch.cuda.synchronize()
-        times = []
-        for i in range(8):
-            before = kc.read()
-            t0 = time.perf_counter()
-            trainer.train_step(batches[i % len(batches)], trainer.lr1)
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-            after = kc.read()
-            delta = [after[k] - before[k] for k in after]
-            check(delta == kc.per_step(blocks, 0), f"launches of one step: {delta}")
-        p50 = 1e3 * float(np.percentile(times, 50))
+        n = len(batches)
         examples = float(np.mean([b["num_segments"].sum() for b in host[:4]]))
         tokens = float(np.mean([b["lengths"].sum() for b in host[:4]]))
         rows_cap = host[0]["ids"].shape[0]
-        log(f"train step, class {cap}: {rows_cap} rows x {cap} ({rows_cap * (cap - 1)} supervision "
-            f"rows), {examples:.1f} examples and {tokens:.0f} tokens a step, synced each step: "
-            f"p50 {p50:.3f} ms, {1e3 * examples / p50:.1f} examples/s, "
-            f"{1e3 * tokens / p50:.0f} tokens/s on {card}; {len(host)} such steps an epoch")
-        profile_device(
-            lambda i: trainer.train_step(batches[i % len(batches)], trainer.lr1),
-            reps=4, what=f"train step, class {cap}", wall_ms=p50, top=6,
-        )
-        epoch_s += 1e-3 * p50 * len(host)
+        times = eager_and_graphed(kc, {
+            "eager": lambda i: trainer.train_step(batches[i % n], trainer.lr1),
+            "graphed": lambda i: trainer.train_steps([batches[i % n]], trainer.lr1),
+        }, f"train step, class {cap}", kc.per_step(blocks, 0), trainer.train_steps.graphs, card)
+        log(f"  class {cap}: {rows_cap} rows x {cap} ({rows_cap * (cap - 1)} supervision rows), "
+            f"{examples:.1f} examples and {tokens:.0f} tokens a step; examples/s eager "
+            f"{1e3 * examples / times['eager']['p50']:.1f}, graphed "
+            f"{1e3 * examples / times['graphed']['p50']:.1f}; tokens/s eager "
+            f"{1e3 * tokens / times['eager']['p50']:.0f}, graphed "
+            f"{1e3 * tokens / times['graphed']['p50']:.0f} on {card}; {len(host)} such steps an "
+            f"epoch")
+        for mode in epoch_s:
+            epoch_s[mode] += 1e-3 * times[mode]["p50"] * len(host)
         epoch_examples += sum(int(b["num_segments"].sum()) for b in host)
-    log(f"an epoch of these steps ({epoch_examples} examples, from the class p50s): "
-        f"{epoch_s:.2f} s, {epoch_examples / epoch_s:.1f} examples/s on {card}")
+    log(f"an epoch of these steps ({epoch_examples} examples, from the class p50s): eager "
+        f"{epoch_s['eager']:.2f} s, {epoch_examples / epoch_s['eager']:.1f} examples/s; graphed "
+        f"{epoch_s['graphed']:.2f} s, {epoch_examples / epoch_s['graphed']:.1f} examples/s on {card}")
     return counts
 
 
@@ -1332,7 +1386,7 @@ def run_ring_path(kc: Counts, card: str) -> dict:
     monitored = cli_train.main(args)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = kc.read()
+    counts, graph_counts = kc.read(), kc.read_graphs()
 
     per_epoch = -(-RING_USERS // cfg.data.batch_size)
     eval_batches = (epochs + 1) * per_epoch  # validation each epoch, then the test pass
@@ -1344,90 +1398,66 @@ def run_ring_path(kc: Counts, card: str) -> dict:
         f"blocks={blocks} H={enc.num_heads} N=L={n} (padded to {-(-n // 8) * 8}, chunks of "
         f"{-(-n // 8)} rows) batch={cfg.data.batch_size} ({cfg.data.batch_size * (n - 1)} "
         f"supervision rows) R={cfg.model.loss.num_to_sample} dropout={enc.linear_dropout_rate}, "
-        f"{RING_USERS} users: {epochs * per_epoch} optimizer steps, {eval_batches} eval batches "
-        f"in {wall:.2f} s; launches {counts}")
-    losses, val, test = read_training_run(metrics, epochs, monitored)
-    check(len(losses) == epochs * per_epoch, f"{len(losses)} optimizer steps")
+        f"steps_per_call={cfg.trainer.steps_per_call}, {RING_USERS} users: {epochs * per_epoch} "
+        f"optimizer steps, {eval_batches} eval batches in {wall:.2f} s; launches {counts}")
+    losses, steps, val, test = read_training_run(metrics, epochs, monitored)
+    check(steps == epochs * per_epoch, f"{steps} optimizer steps, expected {epochs * per_epoch}")
     log(f"  val/ndcg@100 by epoch {[round(r['val/ndcg@100'], 5) for r in val]}, test on the best "
         f"checkpoint: ndcg@10 {test['test/ndcg@10']:.5f}, ndcg@100 "
         f"{test['test/ndcg@100']:.5f}, hr@200 {test['test/hr@200']:.5f}")
-    check_step_launches(kc, len(losses), eval_batches, counts, chunk=calls)
+    check_step_launches(kc, steps, eval_batches, counts, graph_counts, chunk=calls)
     for ckpt in ("best.pt", "last.pt"):
         check((out_dir / name / "checkpoints" / ckpt).exists(), f"no {ckpt}")
 
-    # hand-stepped trainers, zigzag then contiguous: step time, launches, profile
+    # hand-stepped trainers, zigzag then contiguous: the eager and the graphed
+    # step side by side, their launches and profiles
     for zigzag in (True, False):
         trainer = Trainer(cli_train.parse_args(RING_ARGS + [
             f"data.synthetic_num_users={RING_USERS}", f"model.encoder.sp_zigzag={zigzag}",
-            f"trainer.output_dir={OUT_DIR / 'ring2'}"]))
+            "trainer.steps_per_call=8", f"trainer.output_dir={OUT_DIR / 'ring2'}"]))
         trainer.model.train()
         batches = [trainer._put(b) for _, b in zip(range(4), trainer.data.loader("train"))]
-        for batch in batches[:2]:
-            trainer.train_step(batch, trainer.lr1)
-        torch.cuda.synchronize()
-        times = []
         step_calls = blocks * ring_chunk_calls(enc.sp_shards, zigzag)
-        for i in range(8):
-            before = kc.read()
-            t0 = time.perf_counter()
-            trainer.train_step(batches[i % len(batches)], trainer.lr1)
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-            after = kc.read()
-            delta = [after[k] - before[k] for k in after]
-            check(delta == kc.per_step(0, step_calls), f"launches of one ring step: {delta}")
-        step_ms = 1e3 * np.asarray(times)
-        p50 = float(np.percentile(step_ms, 50))
         layout = "zigzag" if zigzag else "contiguous"
-        log(f"ring train step, {layout}, batch {cfg.data.batch_size}, synced each step: p50 "
-            f"{p50:.3f} ms (range {step_ms.min():.3f}-{step_ms.max():.3f}), "
-            f"{1e3 * cfg.data.batch_size / p50:.1f} examples/s on {card}; launches per step "
+        times = eager_and_graphed(kc, {
+            "eager": lambda i: trainer.train_step(batches[i % 4], trainer.lr1),
+            "graphed": lambda i: trainer.train_steps([batches[i % 4]], trainer.lr1),
+        }, f"ring train step, {layout}, batch {cfg.data.batch_size}", kc.per_step(0, step_calls),
+            trainer.train_steps.graphs, card)
+        log(f"  examples/s eager {1e3 * cfg.data.batch_size / times['eager']['p50']:.1f}, graphed "
+            f"{1e3 * cfg.data.batch_size / times['graphed']['p50']:.1f}; launches per step "
             f"{step_calls} chunk fwd, {step_calls} chunk bwd, 1 count, 1 lse fwd, 1 lse bwd")
-        launches = profile_device(
-            lambda i: trainer.train_step(batches[i % len(batches)], trainer.lr1),
-            reps=4, what=f"ring train step, {layout}", wall_ms=p50, top=8, by_count=8,
-        )
         # the chunk backward zero-fills nothing: a step launches 2 x step_calls
         # fewer kernels than with the atomic design's zeroed dk and dv; the lse
         # backward's call launches two (the walk and dcat's rounding)
         expected = 4923 if zigzag else 1355
-        log(f"  profiled launches a {layout} step: {launches:.0f}, expected {expected} (the "
-            f"zero-filling design's {expected + 2 * step_calls} less {2 * step_calls} fills)")
+        log(f"  profiled launches of an eager {layout} step: {times['eager']['launches']:.0f}, "
+            f"expected {expected} (the zero-filling design's {expected + 2 * step_calls} less "
+            f"{2 * step_calls} fills); of a graphed step: {times['graphed']['launches']:.0f}")
         if zigzag:
             ring_eval_read(trainer, kc, step_calls, cfg.data.batch_size, card)
         del trainer, batches
+        gc.collect()
         torch.cuda.empty_cache()
     return counts
 
 
 def ring_eval_read(trainer, kc: Counts, calls: int, batch_size: int, card: str) -> None:
     """The ring's eval batches, forward only (the chunk forward is the one
-    attention kernel that runs there): p50 of 8 synced batches of the
-    validation split, their launches, and a torch.profiler batch."""
+    attention kernel that runs there), eager and graphed: p50 of 8 synced
+    batches of the validation split, their launches, a torch.profiler batch."""
     trainer.model.eval()
     candidates = trainer.candidate_fn()
     batches = [trainer._put(b) for _, b in zip(range(4), trainer.data.loader("val"))]
     with torch.no_grad():
-        for batch in batches[:2]:
-            trainer.eval_step(batch, candidates)
-        torch.cuda.synchronize()
-        times = []
-        for i in range(8):
-            before = kc.read()
-            t0 = time.perf_counter()
-            trainer.eval_step(batches[i % len(batches)], candidates)
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-            after = kc.read()
-            delta = [after[k] - before[k] for k in after]
-            check(delta == [0, 0, 0, 0, 0, calls, 0], f"launches of one ring eval batch: {delta}")
-        step_ms = 1e3 * np.asarray(times)
-        p50 = float(np.percentile(step_ms, 50))
-        log(f"ring eval batch, zigzag, batch {batch_size}, synced each batch: p50 {p50:.3f} ms "
-            f"(range {step_ms.min():.3f}-{step_ms.max():.3f}), {1e3 * batch_size / p50:.1f} "
-            f"examples/s on {card}; launches per batch {calls} chunk fwd, nothing else counted")
-        profile_device(lambda i: trainer.eval_step(batches[i % len(batches)], candidates),
-                       reps=4, what="ring eval batch, zigzag", wall_ms=p50, top=6)
+        times = eager_and_graphed(kc, {
+            "eager": lambda i: trainer.eval_step(batches[i % 4], candidates),
+            "graphed": lambda i: trainer.eval_steps([batches[i % 4]], candidates),
+        }, f"ring eval batch, zigzag, batch {batch_size}", [0, 0, 0, 0, 0, calls, 0],
+            trainer.eval_steps.graphs, card)
+    log(f"  examples/s eager {1e3 * batch_size / times['eager']['p50']:.1f}, graphed "
+        f"{1e3 * batch_size / times['graphed']['p50']:.1f}; launches per batch {calls} chunk "
+        f"fwd, nothing else counted")
     trainer.model.train()
 
 
@@ -1489,6 +1519,65 @@ def ring_against_unsharded() -> None:
         check(ok_all, f"a gradient of the {layout} ring disagrees with sp_shards=1")
 
 
+# ---------------------------------------------------------------- phase 10
+
+
+def graphed_against_eager() -> None:
+    """The graphed step against the eager step on the card: two trainers of
+    one configuration (the same seeds, so the same weights, negatives and
+    dropout streams; dropout on), steps_per_call=1 (eager) and 8 (graphed),
+    three optimizer steps each on one batch: the losses at phase 5's rtol and
+    the parameters at its gradients' rtol / atol. A padded synthetic-hstu
+    batch, packed ml-20m-hstu-long batches of class 256 then 1152, and a
+    zigzag ring batch."""
+    from mygenerativerecommenders_tpu_torch.cli.train import parse_args
+    from mygenerativerecommenders_tpu_torch.train.driver import Trainer
+
+    cases = [
+        ("synthetic-hstu, padded", ["experiment=synthetic-hstu"], [None]),
+        ("ml-20m-hstu-long, packed", LONG_ARGS[:2] + ["data.synthetic_max_seq_len=1200"],
+         [256, 1152]),
+        ("ml-20m-hstu-long, zigzag ring", RING_ARGS + [f"data.synthetic_num_users={RING_USERS}"],
+         [None]),
+    ]
+    for label, args, classes in cases:
+        eager, graphed = (
+            Trainer(parse_args(args + [f"trainer.steps_per_call={k}",
+                                       f"trainer.output_dir={OUT_DIR / 'graphed_vs_eager'}"]))
+            for k in (1, 8)
+        )
+        for t in (eager, graphed):
+            t.model.train()
+        for cap in classes:
+            loader = eager._loader("train", packed=eager._packed)
+            host = next(b for b in loader if cap is None or b["ids"].shape[1] == cap)
+            batch = eager._put(host)
+            torch.manual_seed(17)
+            want = torch.stack([eager.train_step(batch, eager.lr1) for _ in range(3)]).cpu()
+            torch.manual_seed(17)
+            got = graphed.train_steps([batch] * 3, graphed.lr1).cpu()
+            rel = float(((got - want).abs() / want.abs()).max())
+            what = f"{label}" + (f" class {cap}" if cap else "") + f", {host['ids'].shape[0]} rows"
+            ok_all, worst, worst_name = True, 0.0, ""
+            for (name, p), q in zip(eager.model.named_parameters(), graphed.model.parameters()):
+                ok, err = within(q, p, STEP_GRAD_RTOL, STEP_GRAD_ATOL)
+                ok_all = ok_all and ok
+                if err >= worst:
+                    worst, worst_name = err, name
+                if not ok:
+                    log(f"  {name}: max_abs_err {err:.3e} outside rtol {STEP_GRAD_RTOL} atol "
+                        f"{STEP_GRAD_ATOL}")
+            log(f"graphed vs eager, three steps on one batch, {what}: losses {got.tolist()} vs "
+                f"{want.tolist()}, largest relative difference {rel:.3e} (rtol {STEP_LOSS_RTOL}); "
+                f"parameters within rtol {STEP_GRAD_RTOL} atol {STEP_GRAD_ATOL}: {ok_all}, largest "
+                f"difference {worst:.3e} in {worst_name}; {len(graphed.train_steps.graphs)} graphs")
+            check(rel <= STEP_LOSS_RTOL, f"{what}: the graphed losses disagree with the eager ones")
+            check(ok_all, f"{what}: the graphed parameters disagree with the eager ones")
+        del eager, graphed
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on an NVIDIA card",
@@ -1501,6 +1590,7 @@ def main() -> int:
     from mygenerativerecommenders_tpu_torch.ops.kernels import dense_neg_lse as lse_kern
     from mygenerativerecommenders_tpu_torch.ops.kernels import hstu_attention as kern
     from mygenerativerecommenders_tpu_torch.ops.kernels import hstu_chunk as chunk_kern
+    from mygenerativerecommenders_tpu_torch.train import graphs
 
     check(Path(port.__file__).resolve().parent.parent == HERE,
           f"the port was imported from {port.__file__}, not from this checkout")
@@ -1589,16 +1679,21 @@ def main() -> int:
     check_chunk(chunk_kern, 56, 32, 130, 130, 2, 64, -910, 1035)
     torch.cuda.empty_cache()
 
-    kc = Counts(kern, count_kern, lse_kern, chunk_kern)
+    kc = Counts(kern, count_kern, lse_kern, chunk_kern, graphs)
     lse_kern.fused_launches = lse_kern.fused_bwd_launches = 0
     serving_launches = run_main_path(kern, num_blocks_expected=2, card=kind)
     train_counts = run_training_path(kc, card=kind)
     card_against_cpu_step(["experiment=synthetic-hstu"])
+    gc.collect()
+    torch.cuda.empty_cache()
     long_counts = run_long_path(kc, card=kind)
     card_against_cpu_step(LONG_ARGS, packed_capacity=256)
+    gc.collect()
+    torch.cuda.empty_cache()
     ring_counts = run_ring_path(kc, card=kind)
     ring_against_unsharded()
     fused_on_paths = (lse_kern.fused_launches, lse_kern.fused_bwd_launches)
+    graphed_against_eager()
 
     # no PyTorch call computes HSTU's silu attention with this bias, its
     # backward, or a count-weighted log-sum-exp over a matrix product that is

@@ -20,7 +20,14 @@ training checkpoint whose "model" entry holds it) or an `.npz` whose keys are
 `CheckpointManager` is the trainer's: `best` (by the monitored metric) and
 `last`, each one torch file `<dir>/<name>.pt` holding the model's and the
 optimizer's `state_dict`, step, epoch, the metric and the controllers' state.
-It replaces the JAX package's orbax manager (train/checkpoint.py).
+On the card the optimizer is fused: its state holds the learning rate as a
+device tensor and the step counts on the device, which `load` maps to the
+trainer's device and `train/optimizers.py:load_optimizer_state` takes into
+the optimizer's own tensors. The random states are read after the epoch's
+last step, graph replays included: each replay advances the default CUDA
+generator (dropout) by the captured step's draws, and the negatives are drawn
+outside the graphs. It replaces the JAX package's orbax manager
+(train/checkpoint.py).
 """
 
 from __future__ import annotations

@@ -1,8 +1,8 @@
 """Sequence dataset and batch loader.
 
-Port of `SequenceDataset`, the unbucketed `BatchLoader` and `RecoData`
-(mygenerativerecommenders_tpu/data/dataset.py:104-177, 208-277, 309-334,
-337-419) for synthetic data. Each split is a set of dense numpy arrays
+Port of `SequenceDataset`, `BatchLoader` (length buckets included) and
+`RecoData` (mygenerativerecommenders_tpu/data/dataset.py:104-177, 180-334,
+337-419) for synthetic data on one process. Each split is a set of dense numpy arrays
 ([U, L] ids / ratings / timestamps, [U] lengths and targets) built once, in
 memory, from the generated sequences; a step's loader work is a numpy gather.
 Split semantics are the JAX package's:
@@ -15,7 +15,7 @@ Every split reads all users, as the JAX package's `RecoData.dataset` does.
 With `data.pack_sequences` the trainer reads the same splits through
 data/packing.py. The data has the shape the configuration states: the
 ml-20m presets on `data.dataset_name=synthetic` give 26,744 catalog items
-spread over ids up to 131,262. Length buckets, the multi-process stride,
+spread over ids up to 131,262. The multi-process stride,
 positional subsampling, reverse-chronological histories and real (MovieLens)
 data raise.
 """
@@ -23,7 +23,7 @@ data raise.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Iterator, Optional
+from typing import Dict, Iterator, Optional, Sequence
 
 import numpy as np
 
@@ -86,46 +86,94 @@ class SequenceDataset:
 class BatchLoader:
     """Shuffling fixed-shape batch iterator: the permutation of an epoch comes
     from `seed + epoch`, and the last partial batch is padded to a full one
-    with rows of `sample_weight` 0."""
+    with rows of `sample_weight` 0.
+
+    Length buckets (`buckets`, ascending capacities whose largest covers the
+    longest history): each example goes to the smallest capacity that holds
+    its history, and each batch holds one bucket's examples with the history
+    arrays cut to that capacity, so short histories run in narrow batches.
+    Each bucket's last batch is padded as above. The epoch's permutation
+    orders the examples inside each bucket; the order of the buckets is
+    shuffled from the same generator, with the batches of one capacity kept
+    adjacent, so that the trainer's k-step calls find runs of one shape."""
 
     def __init__(
-        self, dataset: SequenceDataset, batch_size: int, shuffle: bool = False, seed: int = 0
+        self, dataset: SequenceDataset, batch_size: int, shuffle: bool = False, seed: int = 0,
+        buckets: Optional[Sequence[int]] = None,
     ):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.seed = seed
         self.epoch = 0
+        self.buckets = sorted(buckets) if buckets else None
+        if self.buckets:
+            longest = int(dataset.lengths.max()) if len(dataset) else 0
+            if self.buckets[-1] < longest:
+                raise ValueError(
+                    f"length_buckets max {self.buckets[-1]} < dataset max sequence length {longest}"
+                )
+            # each example's bucket: the smallest capacity >= its length
+            self._bucket_of = np.searchsorted(
+                np.asarray(self.buckets), np.maximum(dataset.lengths, 1)
+            )
 
     def __len__(self) -> int:
-        return (len(self.dataset) + self.batch_size - 1) // self.batch_size
+        bs = self.batch_size
+        if self.buckets:
+            sizes = np.bincount(self._bucket_of, minlength=len(self.buckets))
+            return int(sum(-(-int(c) // bs) for c in sizes))
+        return (len(self.dataset) + bs - 1) // bs
 
-    def _emit(self, idx: np.ndarray) -> Dict[str, np.ndarray]:
+    def _emit(self, idx: np.ndarray, cap: Optional[int] = None) -> Dict[str, np.ndarray]:
         ds = self.dataset
         weight = (idx >= 0).astype(np.float32)
         idx = np.maximum(idx, 0)
+        cols = slice(None) if cap is None else slice(0, cap)
         return {
             "lengths": np.maximum(ds.lengths[idx], 1),
-            "ids": ds.ids[idx],
-            "ratings": ds.ratings[idx],
-            "timestamps": ds.timestamps[idx],
+            "ids": ds.ids[idx, cols],
+            "ratings": ds.ratings[idx, cols],
+            "timestamps": ds.timestamps[idx, cols],
             "target_id": ds.target_id[idx],
             "target_rating": ds.target_rating[idx],
             "target_timestamp": ds.target_timestamp[idx],
             "sample_weight": weight,
         }
 
+    def _pad(self, idx: np.ndarray) -> np.ndarray:
+        """A short batch's indices padded with -1 (rows of sample_weight 0)."""
+        short = self.batch_size - len(idx)
+        return np.concatenate([idx, np.full(short, -1, dtype=idx.dtype)]) if short else idx
+
+    def _iter_bucketed(self, order: np.ndarray, rng) -> Iterator[Dict[str, np.ndarray]]:
+        bs = self.batch_size
+        bucket_of = self._bucket_of[order]
+        batches = []  # (capacity, example indices)
+        for bi, cap in enumerate(self.buckets):
+            members = order[bucket_of == bi]
+            for start in range(0, len(members), bs):
+                batches.append((cap, self._pad(members[start : start + bs])))
+        if rng is not None:
+            # shuffle the order of the buckets, keep same-capacity batches adjacent
+            cap_rank = {c: i for i, c in enumerate(rng.permutation(self.buckets))}
+            batches.sort(key=lambda t: cap_rank[t[0]])
+        for cap, idx in batches:
+            yield self._emit(idx, cap)
+
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         order = np.arange(len(self.dataset))
+        rng = None
         if self.shuffle:
-            np.random.default_rng(self.seed + self.epoch).shuffle(order)
+            rng = np.random.default_rng(self.seed + self.epoch)
+            rng.shuffle(order)
         self.epoch += 1
+        if self.buckets:
+            yield from self._iter_bucketed(order, rng)
+            return
         bs = self.batch_size
         for b in range(len(self)):
-            idx = order[b * bs : (b + 1) * bs]
-            if len(idx) < bs:
-                idx = np.concatenate([idx, np.full(bs - len(idx), -1, dtype=idx.dtype)])
-            yield self._emit(idx)
+            yield self._emit(self._pad(order[b * bs : (b + 1) * bs]))
 
 
 class RecoData:
@@ -135,8 +183,6 @@ class RecoData:
     def __init__(self, cfg: DataConfig, seed: int = 42):
         if not cfg.dataset_name.startswith("synthetic"):
             raise not_ported(f"data.dataset_name={cfg.dataset_name} (real data files)", "Real data")
-        if cfg.length_buckets:
-            raise not_ported("data.length_buckets", "Training variants")
         if cfg.additional_columns or cfg.item_year_feature:
             raise not_ported("data.additional_columns / item_year_feature", "Other model families")
         if cfg.positional_sampling_ratio < 1.0 or not cfg.chronological:
@@ -174,4 +220,5 @@ class RecoData:
             batch_size=bs or self.cfg.batch_size,
             shuffle=(split == "train"),
             seed=self._seed,
+            buckets=list(self.cfg.length_buckets) or None,
         )

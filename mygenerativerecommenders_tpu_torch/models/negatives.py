@@ -9,7 +9,7 @@ train/task_retrieval.py.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -29,14 +29,16 @@ class LocalNegativesSampler:
     def offsets_only(
         self,
         generator: Optional[torch.Generator],
-        positive_ids: torch.Tensor,  # [...]: gives the shape and the device
+        shape: Tuple[int, ...],  # the positives' shape
         num_to_sample: int,
         num_catalog: int,
+        device: torch.device,
+        out: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
-        """[..., R] int32 offsets, uniform over [0, num_catalog), drawn on
-        positive_ids' device from `generator` (None: the device's default)."""
-        shape = tuple(positive_ids.shape) + (num_to_sample,)
+        """[*shape, R] int32 offsets, uniform over [0, num_catalog), drawn on
+        `device` from `generator` (None: the device's default), into `out`
+        when given: the same numbers either way."""
         return torch.randint(
-            0, num_catalog, shape, generator=generator, dtype=torch.int32,
-            device=positive_ids.device,
+            0, num_catalog, tuple(shape) + (num_to_sample,), generator=generator,
+            dtype=torch.int32, device=device, out=out,
         )

@@ -39,7 +39,8 @@ on the CPU.
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+import functools
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -138,6 +139,20 @@ def inverse_permutation(perm: np.ndarray) -> np.ndarray:
     return inv
 
 
+@functools.lru_cache(maxsize=None)
+def _zigzag_index(
+    num_shards: int, n: int, device: torch.device
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`zigzag_order` and its inverse as index tensors on `device`, made once
+    per (P, N, device): a forward then copies nothing from the host, which a
+    CUDA graph of the step could not capture. A run meets one or two N."""
+    order = zigzag_order(num_shards, n)
+    return (
+        torch.as_tensor(order, device=device),
+        torch.as_tensor(inverse_permutation(order), device=device),
+    )
+
+
 def ring_hstu_attention_zigzag_local(
     q, timestamps, ring, p: int, pos_w, ts_w, *, max_len: int, num_buckets: int,
 ) -> torch.Tensor:
@@ -204,8 +219,7 @@ def ring_hstu_attention(
     contiguous order; N must divide by P (2P for zigzag). -> [B, N, H, Dv]."""
     if zigzag:
         # contiguous -> zigzag -> (ring) -> contiguous
-        order = zigzag_order(num_shards, q.shape[1])
-        perm = torch.as_tensor(order, device=q.device)
+        perm, inverse = _zigzag_index(num_shards, q.shape[1], q.device)
         q, k, v, timestamps = (x.index_select(1, perm) for x in (q, k, v, timestamps))
     ring = OneDeviceRing(k, v, timestamps, num_shards)
     body = ring_hstu_attention_zigzag_local if zigzag else ring_hstu_attention_local
@@ -217,5 +231,5 @@ def ring_hstu_attention(
         for p in range(num_shards)
     ], dim=1)
     if zigzag:
-        out = out.index_select(1, torch.as_tensor(inverse_permutation(order), device=q.device))
+        out = out.index_select(1, inverse)
     return out

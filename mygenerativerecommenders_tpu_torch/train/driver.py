@@ -1,8 +1,9 @@
-"""The trainer: one device, one optimizer step per call.
+"""The trainer: one device.
 
 Port of `Trainer` (mygenerativerecommenders_tpu/train/driver.py:117,
-232-297, 492-539, 588-656, 717-830, 832-886, 932-961): model and optimizer
-set-up, the epoch loop over the host loader, validation (candidate refresh ->
+232-297, 400-478, 492-539, 588-716, 717-830, 832-886, 932-961): model and
+optimizer set-up, the epoch loop over the prefetching host loader, one or k
+steps a call, validation (candidate refresh ->
 filtered top-k -> metrics), plateau LR and early stopping keyed on the
 monitored metric, best/last checkpoints with resume, CSV/JSONL metric logging,
 and seeded randomness: the weights come from `trainer.seed`, dropout draws from the
@@ -10,9 +11,13 @@ device's default generator (seeded with `trainer.seed`) and the negatives
 from a generator of their own on the device.
 
 It runs on `trainer.device` (default cuda; a machine without a card raises,
-it does not carry on on the CPU). The step runs eagerly, so
-`trainer.steps_per_call`, a dispatch-amortising knob of the JAX package that
-leaves the training stream unchanged, has no effect here. With
+it does not carry on on the CPU). `trainer.steps_per_call` = k > 1 runs an
+epoch in calls of k steps (`_train_epoch_multi`, JAX :658-716) and evaluates
+k batches a call, with the loss read only when a `log_every_n_steps`
+boundary falls inside a call. On cuda every such step and eval batch is one
+replay of a CUDA graph of the whole step (train/graphs.py); k = 1 keeps the
+eager step, one launch a kernel, as the reference. Batches reach the device
+`trainer.prefetch` ahead of the step, from pinned host memory. With
 `data.pack_sequences` the train batches come packed from data/packing.py, and
 `data.pack_eval` (auto: histories of 512 and longer) packs the eval splits
 too, one query per segment; both eval paths are exact. With
@@ -25,6 +30,7 @@ loader, the ranking task and the profiler hooks raise.
 
 from __future__ import annotations
 
+import collections
 import os
 import time
 from typing import Any, Dict, Optional, Union
@@ -45,7 +51,10 @@ from mygenerativerecommenders_tpu_torch.train.controllers import (
     PlateauLRController,
 )
 from mygenerativerecommenders_tpu_torch.train.loggers import MetricsWriter, get_logger
-from mygenerativerecommenders_tpu_torch.train.optimizers import build_optimizer
+from mygenerativerecommenders_tpu_torch.train.optimizers import (
+    build_optimizer,
+    load_optimizer_state,
+)
 
 log = get_logger(__name__)
 
@@ -84,17 +93,28 @@ class Trainer:
         self.all_item_ids = np.asarray(self.data.all_item_ids, dtype=np.int32)
         self.neg_generator = torch.Generator(device=self.device).manual_seed(t.seed)
 
+        # the fused kernels on the card, for eager and graphed steps alike
         self.optimizer = build_optimizer(
-            cfg.optimizer1, cfg.optimizer2, self.model.parameters(), cfg.optimizer1.lr
+            cfg.optimizer1, cfg.optimizer2, self.model.parameters(), cfg.optimizer1.lr,
+            fused=self.device.type == "cuda",
         )
         self._packed = bool(cfg.data.pack_sequences)
+        self.steps_per_call = max(int(t.steps_per_call), 1)
+        k = self.steps_per_call
         self.train_step = task_retrieval.make_train_step(
             self.model, cfg, self.all_item_ids, self.optimizer,
             packed=self._packed, generator=self.neg_generator,
         )
+        self.train_steps = task_retrieval.make_train_step(
+            self.model, cfg, self.all_item_ids, self.optimizer, steps=k,
+            packed=self._packed, generator=self.neg_generator,
+        ) if k > 1 else None
         self.eval_step = task_retrieval.make_eval_step(
             self.model, cfg, self.all_item_ids, self.data.max_item_id
         )
+        self.eval_steps = task_retrieval.make_eval_step(
+            self.model, cfg, self.all_item_ids, self.data.max_item_id, steps=k
+        ) if k > 1 else None
         # packed eval: history-only segments, one query each. Both eval paths
         # are exact, so the choice is throughput alone; auto packs long histories
         pack_eval = str(cfg.data.pack_eval).lower()
@@ -110,6 +130,9 @@ class Trainer:
         self.packed_eval_step = task_retrieval.make_packed_eval_step(
             self.model, cfg, self.all_item_ids, self.data.max_item_id
         ) if self._eval_packed else None
+        self.packed_eval_steps = task_retrieval.make_packed_eval_step(
+            self.model, cfg, self.all_item_ids, self.data.max_item_id, steps=k
+        ) if self._eval_packed and k > 1 else None
         self.candidate_fn = task_retrieval.make_candidate_fn(self.model, cfg, self.all_item_ids)
 
         self.lr1_ctrl = PlateauLRController(
@@ -131,13 +154,9 @@ class Trainer:
         self.global_step = 0
         self.epoch = 0
         self.lr1 = cfg.optimizer1.lr
+        self.epoch_examples = 0  # examples of the last train epoch
         if t.detect_anomaly:
             torch.autograd.set_detect_anomaly(True)
-        if t.steps_per_call > 1:
-            log.info(
-                f"trainer.steps_per_call={t.steps_per_call} has no effect: the step runs "
-                "eagerly, one optimizer step per call"
-            )
 
         counts: Dict[str, int] = {}
         for name, p in self.model.named_parameters():
@@ -151,7 +170,19 @@ class Trainer:
 
     # ------------------------------------------------------------------
     def _put(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-        return {k: torch.as_tensor(v).to(self.device, non_blocking=True) for k, v in batch.items()}
+        """The batch on the device. On cuda each array is staged in pinned
+        host memory and copied without blocking: `pin_memory()` takes a fresh
+        block of torch's pinned-host cache, which hands a block out again only
+        once the copy that read it has finished, so no staged batch is
+        overwritten while its copy is in flight."""
+        if self.device.type != "cuda":
+            return {k: torch.as_tensor(v) for k, v in batch.items()}
+        return {
+            k: torch.from_numpy(np.ascontiguousarray(v)).pin_memory().to(
+                self.device, non_blocking=True
+            )
+            for k, v in batch.items()
+        }
 
     def _loader(self, split: str, packed: bool = False) -> Loader:
         """The split's loader. packed=True gives the PackedBatchLoader: train
@@ -184,11 +215,42 @@ class Trainer:
         )
 
     def _batches(self, loader: Loader, limit: int):
-        """Yield (host_batch, device_batch) for the first `limit` batches."""
+        """Yield (host_batch, device_batch) for the first `limit` batches, the
+        copies of the next `trainer.prefetch` batches issued before the
+        current one is handed out (JAX :400-424)."""
+        depth = max(int(self.cfg.trainer.prefetch), 1)
+        queue = collections.deque()
         for i, batch in enumerate(loader):
             if i >= limit:
                 break
-            yield batch, self._put(batch)
+            queue.append((batch, self._put(batch)))
+            if len(queue) >= depth:
+                yield queue.popleft()
+        while queue:
+            yield queue.popleft()
+
+    def _stacked_batches(self, loader: Loader, limit: int, k: int):
+        """Yield (host_batches, device_batches, n_steps): n_steps == k for a
+        run of k batches of one shape, 1 for each batch left over where the
+        shape changes (length buckets, packing classes) or the epoch ends
+        (JAX :426-460)."""
+        chunk = []
+        for host, dev in self._batches(loader, limit):
+            if chunk and host["ids"].shape != chunk[0][0]["ids"].shape:
+                yield from (([h], [d], 1) for h, d in chunk)
+                chunk = []
+            chunk.append((host, dev))
+            if len(chunk) == k:
+                yield [h for h, _ in chunk], [d for _, d in chunk], k
+                chunk = []
+        yield from (([h], [d], 1) for h, d in chunk)
+
+    @staticmethod
+    def _examples(batch: Dict[str, np.ndarray]) -> int:
+        return int(
+            batch["num_segments"].sum() if "num_segments" in batch
+            else batch["sample_weight"].sum()
+        )
 
     # ------------------------------------------------------------------
     def train_epoch(self, loader: Loader) -> float:
@@ -202,16 +264,15 @@ class Trainer:
             limit = max(1, int(len(loader) * t_cfg.limit_train_batches))
 
         self.model.train()
+        if self.train_steps is not None:
+            return self._train_epoch_multi(loader, limit, self.steps_per_call)
         start = time.time()
         examples = 0
         loss = None
         for batch, dev_batch in self._batches(loader, limit):
             loss = self.train_step(dev_batch, self.lr1)
             self.global_step += 1
-            examples += int(
-                batch["num_segments"].sum() if "num_segments" in batch
-                else batch["sample_weight"].sum()
-            )
+            examples += self._examples(batch)
             if self.global_step % t_cfg.log_every_n_steps == 0:
                 # reading the loss waits for the device: only at the log cadence
                 self.writer.log(
@@ -221,9 +282,39 @@ class Trainer:
                 )
         final = float(loss)  # one more read per epoch, for the summary
         dt = time.time() - start
+        self.epoch_examples = examples
         log.info(
             f"epoch {self.epoch}: train loss {final:.4f} "
             f"({examples / max(dt, 1e-9):.0f} ex/s)"
+        )
+        return final
+
+    def _train_epoch_multi(self, loader: Loader, limit: int, k: int) -> float:
+        """The epoch in calls of k steps (the shape changes and the epoch's
+        remainder in calls of one). The loss is read only when a
+        `log_every_n_steps` boundary falls inside a call: a read waits for the
+        device."""
+        log_n = self.cfg.trainer.log_every_n_steps
+        start = time.time()
+        examples = 0
+        losses = None
+        for host_batches, dev_batches, n_steps in self._stacked_batches(loader, limit, k):
+            losses = self.train_steps(dev_batches, self.lr1)
+            prev = self.global_step
+            self.global_step += n_steps
+            examples += sum(self._examples(b) for b in host_batches)
+            if prev // log_n != self.global_step // log_n:
+                self.writer.log(
+                    {"train/loss": float(losses[-1]), "lr1": self.lr1},
+                    self.global_step,
+                    self.epoch,
+                )
+        final = float(losses[-1])
+        dt = time.time() - start
+        self.epoch_examples = examples
+        log.info(
+            f"epoch {self.epoch}: train loss {final:.4f} "
+            f"({examples / max(dt, 1e-9):.0f} ex/s, {k} steps/call)"
         )
         return final
 
@@ -243,15 +334,25 @@ class Trainer:
         # a packed loader of history-only segments: one query per segment,
         # the padding slots (seg_weight 0) dropped
         packed = self._eval_packed and getattr(loader, "include_target", True) is False
-        step = self.packed_eval_step if packed else self.eval_step
         weight_key, target_key = (
             ("seg_weight", "seg_target") if packed else ("sample_weight", "target_id")
         )
-        for batch, dev_batch in self._batches(loader, limit):
-            top_ids = step(dev_batch, candidates)[0]
-            valid = batch[weight_key] > 0
-            all_topk.append(top_ids.cpu().numpy()[valid])
-            all_targets.append(batch[target_key][valid])
+        many = self.packed_eval_steps if packed else self.eval_steps
+        if many is not None:
+            # k batches a call, one read of their top-k a call
+            for hbs, devs, _ in self._stacked_batches(loader, limit, self.steps_per_call):
+                top_ids = many(devs, candidates)[0].cpu().numpy()
+                for ids, batch in zip(top_ids, hbs):
+                    valid = batch[weight_key] > 0
+                    all_topk.append(ids[valid])
+                    all_targets.append(batch[target_key][valid])
+        else:
+            step = self.packed_eval_step if packed else self.eval_step
+            for batch, dev_batch in self._batches(loader, limit):
+                top_ids = step(dev_batch, candidates)[0]
+                valid = batch[weight_key] > 0
+                all_topk.append(top_ids.cpu().numpy()[valid])
+                all_targets.append(batch[target_key][valid])
         results = retrieval_metrics(
             np.concatenate(all_topk, axis=0),
             np.concatenate(all_targets, axis=0)[:, None],
@@ -270,6 +371,9 @@ class Trainer:
         val_loader = self._loader("val", packed=self._eval_packed)
         if t.ckpt_path:
             self.restore(t.ckpt_path)
+            # the permutation of the epoch it resumes at (seed + epoch), as an
+            # uninterrupted run draws it; the JAX trainer restarts at epoch 0's
+            train_loader.epoch = self.epoch
         last_results: Dict[str, float] = {}
         max_epochs = 1 if t.fast_dev_run else t.max_epochs
         for self.epoch in range(self.epoch, max_epochs):
@@ -321,7 +425,11 @@ class Trainer:
     def restore(self, path: str) -> None:
         state = CheckpointManager.load(path, self.device)
         self.model.load_state_dict(state["model"])
-        self.optimizer.load_state_dict(state["optimizer"])
+        load_optimizer_state(self.optimizer, state["optimizer"])
+        # the optimizer's state tensors are new: the next graphed step
+        # captures anew, against them (the weights were copied in place)
+        if self.train_steps is not None and self.train_steps.graphs is not None:
+            self.train_steps.graphs.reset()
         self.global_step = state["step"]
         self.epoch = state["epoch"] + 1
         extra = state.get("extra", {})

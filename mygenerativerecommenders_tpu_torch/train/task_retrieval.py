@@ -3,10 +3,11 @@ candidate matrix.
 
 Port of mygenerativerecommenders_tpu/train/task_retrieval.py: `make_loss_fn`
 with `ids_to_offsets`, `encode_for_loss` (padded and packed) and the
-dense-catalog `loss_fn_dense` (:65-282), `make_train_step` (:315-394) for one
-optimizer step per call, `make_candidate_fn` (:423-501, replicated exact
-path), `make_eval_step` (:580-612) and `make_packed_eval_step` (:627-716,
-exact top-k). Serving and the trainer's eval share the eval step.
+dense-catalog `loss_fn_dense` (:65-282), `make_train_step` (:315-394) with
+the k steps of `train_step_from_loss` (:326-379), `make_candidate_fn`
+(:423-501, replicated exact path), `make_eval_step` (:504-625) and
+`make_packed_eval_step` (:627-730, exact top-k), each with its k-batch form.
+Serving and the trainer's eval share the eval step.
 
 The training step is: scatter the target into the history at position
 `length`, embed, forward (dropout on under `model.train()`), supervise
@@ -14,9 +15,11 @@ position p with the id at p+1, draw R negative catalog offsets per position,
 and take the sampled-softmax loss through the dense-catalog path
 (ops/dense_negatives.py). A packed batch (data/packing.py) has its targets
 inline as each segment's last token: nothing is scattered, and position p
-supervises the id at p+1 only where both lie in one segment. The per-sample
-gather loss, the shared-negatives loss, the in-batch sampler, BCE and several
-steps per call raise, naming their ROADMAP.md item.
+supervises the id at p+1 only where both lie in one segment. On cuda the
+k-step and k-batch forms replay CUDA graphs of the whole step
+(train/graphs.py); one step a call stays eager. The per-sample gather loss,
+the shared-negatives loss, the in-batch sampler and BCE raise, naming their
+ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -39,10 +42,16 @@ from mygenerativerecommenders_tpu_torch.ops.sequence import (
     scatter_at_lengths,
 )
 from mygenerativerecommenders_tpu_torch.ops.topk import mips_top_k
+from mygenerativerecommenders_tpu_torch.train.graphs import StepGraphs, training_state
+from mygenerativerecommenders_tpu_torch.train.optimizers import set_lr
 from mygenerativerecommenders_tpu_torch.utils.features import (
     packed_seq_features,
     seq_features_from_batch,
 )
+
+
+# the static inputs that a graphed step's caller fills itself (train/graphs.py)
+_OFFSETS, _CANDIDATES = "neg_offsets", "candidates"
 
 
 def _check_packable(cfg: Config) -> None:
@@ -102,6 +111,21 @@ def make_loss_fn(
     [B, N-1, R] itself, as the parity tests do with the JAX package's draw.
     packed=True takes PackedBatchLoader batches; the supervised (position,
     target) pairs are those of the padded layout for the same examples."""
+    return _loss_parts(model, cfg, all_item_ids, packed, generator)[0]
+
+
+def _loss_parts(
+    model: GenerativeRecommender,
+    cfg: Config,
+    all_item_ids: np.ndarray,
+    packed: bool,
+    generator: Optional[torch.Generator],
+) -> Tuple[Callable[..., torch.Tensor], Callable[..., Tuple[int, int, int]],
+           Callable[..., torch.Tensor]]:
+    """(loss_fn, negatives_shape, draw_negatives): `make_loss_fn`'s loss, the
+    shape of a batch's negative offsets, and the draw the loss makes when no
+    offsets are handed in, draw_negatives(batch, out=None) -> [B, N-1, R]
+    int32; a graphed step makes it outside its graph, into `out`."""
     if packed:
         _check_packable(cfg)
     sampler = make_sampler(cfg)
@@ -140,6 +164,20 @@ def make_loss_fn(
     catalog = torch.as_tensor(np.asarray(all_item_ids, dtype=np.int64), device=device)
     ids_to_offsets = make_ids_to_offsets(all_item_ids, device)
 
+    def negatives_shape(batch: Dict[str, torch.Tensor]) -> Tuple[int, int, int]:
+        """[B, N-1, R]: R draws for each supervised position, N the row
+        (packed) or the history plus max_out."""
+        rows, cols = batch["ids"].shape
+        return rows, cols - 1 + (0 if packed else max_out), loss_cfg.num_to_sample
+
+    def draw_negatives(
+        batch: Dict[str, torch.Tensor], out: Optional[torch.Tensor] = None
+    ) -> torch.Tensor:
+        rows, positions, draws = negatives_shape(batch)
+        return sampler.offsets_only(
+            generator, (rows, positions), draws, len(all_item_ids), device, out=out
+        )
+
     def encode_for_loss(batch: Dict[str, torch.Tensor]):
         """Target scatter, embed, forward, the shift-by-one supervision layout
         (outputs[:, :-1] against ids[:, 1:]) and the presence weights."""
@@ -171,9 +209,7 @@ def make_loss_fn(
         outputs, sup_ids, sup_emb, weights = encode_for_loss(batch)
         norm_catalog = sampler.normalize_embeddings(model.item_embeddings(catalog))
         if neg_offsets is None:
-            neg_offsets = sampler.offsets_only(
-                generator, sup_ids, loss_cfg.num_to_sample, norm_catalog.shape[0]
-            )
+            neg_offsets = draw_negatives(batch)
         sup_offsets = ids_to_offsets(sup_ids)
         t = loss_cfg.temperature
         pos_emb = sampler.normalize_embeddings(sup_emb)
@@ -184,7 +220,7 @@ def make_loss_fn(
         per_pos = torch.logaddexp(pos_logits, neg_lse) - pos_logits
         return _weighted_mean(per_pos, weights)
 
-    return loss_fn_dense
+    return loss_fn_dense, negatives_shape, draw_negatives
 
 
 def make_train_step(
@@ -196,25 +232,73 @@ def make_train_step(
     packed: bool = False,
     generator: Optional[torch.Generator] = None,
 ) -> Callable[..., torch.Tensor]:
-    """train_step(batch, lr1, neg_offsets=None) -> the step's loss (detached).
-    Sets the optimizer's learning rate to lr1, takes one step and updates the
-    model's parameters in place."""
-    if steps > 1:
-        raise not_ported("trainer.steps_per_call > 1", "Training variants")
+    """steps=1: train_step(batch, lr1, neg_offsets=None) -> the step's loss
+    (detached). Sets the optimizer's learning rate to lr1, takes one step and
+    updates the model's parameters in place, eagerly.
+
+    steps=k > 1 (`train_step_from_loss`'s scan, JAX :326-379):
+    train_steps(batches, lr1, neg_offsets=None) -> [len(batches)] losses for
+    up to k batches, one optimizer step each, in order; `neg_offsets` is then
+    a list with one [B, N-1, R] tensor per batch. On cuda each step is one
+    replay of a CUDA graph of the whole step (train/graphs.py: one graph per
+    batch shape, captured at the first step of that shape): the batch is
+    copied into the graph's buffers and the step's negatives are drawn into
+    its offsets buffer (one `torch.randint` on `generator`, the eager step's
+    draw), both outside the graph. `train_steps.graphs` holds the graphs; it
+    is None on the CPU, where the k steps run eagerly."""
     if cfg.model.embedding.lazy_update:
         raise not_ported("embedding.lazy_update", "Lazy embedding update")
-    loss_fn = make_loss_fn(model, cfg, all_item_ids, packed=packed, generator=generator)
+    loss_fn, negatives_shape, draw_negatives = _loss_parts(
+        model, cfg, all_item_ids, packed, generator
+    )
 
-    def train_step(batch, lr1: float, neg_offsets: Optional[torch.Tensor] = None):
-        for group in optimizer.param_groups:
-            group["lr"] = lr1
+    def one_step(batch, neg_offsets):
         optimizer.zero_grad(set_to_none=True)
         loss = loss_fn(batch, neg_offsets=neg_offsets)
         loss.backward()
         optimizer.step()
         return loss.detach()
 
-    return train_step
+    if steps <= 1:
+        def train_step(batch, lr1: float, neg_offsets: Optional[torch.Tensor] = None):
+            set_lr(optimizer, lr1)
+            return one_step(batch, neg_offsets)
+
+        return train_step
+
+    device = next(model.parameters()).device
+    graphs = None
+    if device.type == "cuda":
+        def body(static: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor]:
+            batch = {k: v for k, v in static.items() if k != _OFFSETS}
+            return (one_step(batch, static[_OFFSETS]),)
+
+        graphs = StepGraphs(
+            body, "train", keep=training_state(list(model.parameters()), optimizer)
+        )
+
+    def train_steps(batches, lr1: float, neg_offsets=None) -> torch.Tensor:
+        if not 0 < len(batches) <= steps:
+            raise ValueError(f"{len(batches)} batches for a call of up to {steps} steps")
+        set_lr(optimizer, lr1)
+        if graphs is None:
+            return torch.stack([
+                one_step(batch, None if neg_offsets is None else neg_offsets[i])
+                for i, batch in enumerate(batches)
+            ])
+        losses = torch.empty(len(batches), dtype=torch.float32, device=device)
+        for i, batch in enumerate(batches):
+            offsets = graphs.buffer(_OFFSETS, negatives_shape(batch), torch.int32, device)
+            if neg_offsets is None:
+                draw_negatives(batch, out=offsets)
+            else:
+                offsets.copy_(neg_offsets[i])
+            (loss,) = graphs(batch, bound={_OFFSETS: offsets}, tag=model.training)
+            losses[i].copy_(loss)  # before the next replay overwrites it
+        return losses
+
+    train_steps.graphs = graphs
+    return train_steps
 
 
 def _check_index(cfg: Config) -> None:
@@ -243,10 +327,58 @@ def make_candidate_fn(
     return candidates
 
 
+def _eval_many(model: GenerativeRecommender, eval_step: Callable, steps: int) -> Callable:
+    """eval_steps(batches, candidates) -> each output of
+    eval_step(batch, candidates) stacked over up to `steps` batches,
+    [len(batches), ...] (the `lax.map` of JAX :504-625, :627-730). On cuda
+    each batch is one replay of a CUDA graph of the eval step (one graph per
+    batch shape, train/graphs.py), and the candidates are copied into the
+    graphs' static buffer only when a call hands in another tensor than the
+    last one: once an epoch. `eval_steps.graphs` holds the graphs; None on the
+    CPU, where the batches run eagerly."""
+    device = next(model.parameters()).device
+    graphs = None
+    if device.type == "cuda":
+        def body(static: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, ...]:
+            batch = {k: v for k, v in static.items() if k != _CANDIDATES}
+            return tuple(eval_step(batch, static[_CANDIDATES]))
+
+        graphs = StepGraphs(body, "eval")
+    copied: list = [None]  # the candidates tensor last copied into the buffer
+
+    def eval_steps(batches, candidates: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        if not 0 < len(batches) <= steps:
+            raise ValueError(f"{len(batches)} batches for a call of up to {steps}")
+        if graphs is None:
+            outs = [eval_step(batch, candidates) for batch in batches]
+            return tuple(torch.stack(parts) for parts in zip(*outs))
+        static = graphs.buffer(_CANDIDATES, candidates.shape, candidates.dtype, device)
+        if copied[0] is not candidates:
+            static.copy_(candidates)
+            copied[0] = candidates
+        results: Tuple[torch.Tensor, ...] = ()
+        for i, batch in enumerate(batches):
+            outs = graphs(batch, bound={_CANDIDATES: static}, tag=model.training)
+            if not results:
+                results = tuple(
+                    torch.empty((len(batches),) + tuple(o.shape), dtype=o.dtype, device=device)
+                    for o in outs
+                )
+            for result, o in zip(results, outs):
+                result[i].copy_(o)  # before the next replay overwrites it
+        return results
+
+    eval_steps.graphs = graphs
+    return eval_steps
+
+
 def make_eval_step(
-    model: GenerativeRecommender, cfg: Config, all_item_ids: np.ndarray, max_item_id: int
+    model: GenerativeRecommender, cfg: Config, all_item_ids: np.ndarray, max_item_id: int,
+    steps: int = 1,
 ) -> Callable[[Dict[str, torch.Tensor], torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]:
-    """eval_step(batch, candidates) -> (top_k_ids [B, k], top_k_scores [B, k])."""
+    """eval_step(batch, candidates) -> (top_k_ids [B, k], top_k_scores [B, k]).
+    steps > 1: eval_steps(batches, candidates) over up to `steps` batches,
+    each result [len(batches), B, k] (`_eval_many`: graphed on cuda)."""
     _check_index(cfg)
     device = next(model.parameters()).device
     catalog = torch.as_tensor(np.asarray(all_item_ids, dtype=np.int64), device=device)
@@ -266,14 +398,16 @@ def make_eval_step(
             max_item_id=max_item_id, approx_recall=approx_recall,
         )
 
-    return eval_step
+    return _eval_many(model, eval_step, steps) if steps > 1 else eval_step
 
 
 def make_packed_eval_step(
-    model: GenerativeRecommender, cfg: Config, all_item_ids: np.ndarray, max_item_id: int
+    model: GenerativeRecommender, cfg: Config, all_item_ids: np.ndarray, max_item_id: int,
+    steps: int = 1,
 ) -> Callable[[Dict[str, torch.Tensor], torch.Tensor], Tuple[torch.Tensor, ...]]:
     """eval_step(batch, candidates) -> (ids [S_cap, k], scores [S_cap, k],
-    seg_target [S_cap], seg_weight [S_cap]): the packed eval path.
+    seg_target [S_cap], seg_weight [S_cap]): the packed eval path. steps > 1:
+    eval_steps(batches, candidates), each result stacked over the batches.
 
     Takes PackedBatchLoader(include_target=False) batches: several history
     segments per attention row, each segment's last history token one
@@ -301,4 +435,4 @@ def make_packed_eval_step(
         )
         return ids, scores, batch["seg_target"], batch["seg_weight"]
 
-    return eval_step
+    return _eval_many(model, eval_step, steps) if steps > 1 else eval_step

@@ -1,4 +1,5 @@
-"""The CUDA kernels against their plain PyTorch versions, on the card.
+"""The CUDA kernels against their plain PyTorch versions, and the graphed
+train step (a CUDA graph replay) against the eager one, on the card.
 
 Marked `gpu`: each test decides inside whether a card is present and skips
 without one. Run on the card with
@@ -446,3 +447,105 @@ def test_fused_dense_neg_lse_with_and_without_sup_off_on_card(bt, d, x, padded):
     null_dq = torch.autograd.grad(
         (torch.where(torch.isfinite(null), null, 0.0) * gl).sum(), [q])[0]
     assert torch.equal(masked, null) and torch.equal(masked_grads[0], null_dq)
+
+
+# ---------------------------------------------------------------- CUDA graphs
+# trainer.steps_per_call > 1 replays a CUDA graph of the whole step
+# (train/graphs.py); 1 runs it eagerly. Both use the fused AdamW and draw the
+# negatives from the trainer's generator and dropout from the default one, so
+# the two follow one stream. The kernels sum in the same order in both, but
+# the attention backward adds its bias-table gradients with float atomics:
+# the loss at rtol 1e-5 and the parameters at rtol 5e-4 / atol 1e-6, the
+# tolerances of chip_smoke.py's card-vs-CPU step.
+
+_GRAPH_CASES = {
+    "padded": [],
+    # the fused SGD with momentum and a tensor learning rate
+    "padded-sgd": ["optimizer1.kind=sgd", "optimizer1.momentum=0.9", "optimizer1.lr=0.05"],
+    "packed": ["data.pack_sequences=true", "data.pack_eval=true"],
+    "ring": ["model.encoder.sp_shards=4", "model.encoder.sp_zigzag=true"],
+}
+
+
+def _card_trainer(tmp_path, case, k, *extra):
+    from mygenerativerecommenders_tpu_torch.cli import train as cli_train
+    from mygenerativerecommenders_tpu_torch.train.driver import Trainer
+
+    return Trainer(cli_train.parse_args([
+        "experiment=synthetic-smoke", f"trainer.output_dir={tmp_path / f'{case}{k}'}",
+        f"trainer.steps_per_call={k}", *_GRAPH_CASES[case], *extra,
+    ]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(_GRAPH_CASES))
+def test_graphed_steps_follow_the_eager_steps_on_card(tmp_path, case):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA)")
+    from mygenerativerecommenders_tpu_torch.train import graphs
+
+    packed = case == "packed"
+    runs = []
+    for k in (1, 3):
+        trainer = _card_trainer(tmp_path, case, k)
+        trainer.model.train()  # dropout 0.2 on
+        batches = [trainer._put(b) for _, b in zip(range(3), trainer._loader("train", packed))]
+        torch.manual_seed(11)
+        if k == 1:
+            losses = torch.stack([trainer.train_step(b, trainer.lr1) for b in batches])
+        else:
+            graphs.counts.clear()
+            before = [getattr(m, a) for m, a in graphs._COUNTERS]
+            losses = trainer.train_steps(batches, trainer.lr1)
+            torch.cuda.synchronize()
+            made = [getattr(m, a) - b for (m, a), b in zip(graphs._COUNTERS, before)]
+            got = dict(graphs.counts["train"])
+            assert got == {"captures": 1, "warmup_runs": graphs.WARMUP_RUNS, "replays": 3}, got
+            # every launch counted: the warm-up runs' own, and each replay's
+            # the launches the capture recorded
+            assert sum(made) > 0 and all(m % (graphs.WARMUP_RUNS + 3) == 0 for m in made)
+        runs.append((losses.cpu().numpy(), {n: p.detach().cpu() for n, p in
+                                           trainer.model.named_parameters()}))
+    (eager, p_eager), (graphed, p_graphed) = runs
+    np.testing.assert_allclose(graphed, eager, rtol=1e-5)
+    for name, want in p_eager.items():
+        np.testing.assert_allclose(p_graphed[name].numpy(), want.numpy(), rtol=5e-4, atol=1e-6,
+                                   err_msg=name)
+
+
+@pytest.mark.gpu
+def test_resume_after_graphed_steps_gives_the_uninterrupted_losses_on_card(tmp_path):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA)")
+    import json
+
+    def losses(trainer, epoch):
+        path = trainer.out_dir + "/metrics.jsonl"
+        rows = [json.loads(line) for line in open(path).read().splitlines()]
+        return [r["train/loss"] for r in rows if "train/loss" in r and r["epoch"] == epoch]
+
+    extra = ["trainer.log_every_n_steps=1", "trainer.max_epochs=2"]
+    whole = _card_trainer(tmp_path / "whole", "padded", 2, *extra)
+    whole.fit()
+    _card_trainer(tmp_path / "cut", "padded", 2, *extra[:1], "trainer.max_epochs=1").fit()
+    last = tmp_path / "cut" / "padded2" / "synthetic-smoke" / "checkpoints" / "last.pt"
+    resumed = _card_trainer(tmp_path / "cut", "padded", 2, *extra, f"trainer.ckpt_path={last}")
+    resumed.fit()
+    want, got = losses(whole, 1), losses(resumed, 1)
+    assert len(got) == len(want) == 4  # one loss a call of two steps
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+
+
+@pytest.mark.gpu
+def test_a_failed_capture_raises_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA)")
+    from mygenerativerecommenders_tpu_torch.train.graphs import StepGraphs
+
+    def body(inputs):  # reading a value back to the host cannot be captured
+        return (inputs["x"] * float(inputs["x"].sum()),)
+
+    with pytest.raises(RuntimeError):
+        StepGraphs(body, "test")({"x": torch.ones(4, device="cuda")})
+    torch.cuda.synchronize()
+    assert float(torch.ones(3, device="cuda").sum()) == 3.0  # the card still works

@@ -114,7 +114,6 @@ def test_packed_eval_epoch_gives_the_padded_eval_epochs_metrics(tmp_path):
 @pytest.mark.parametrize(
     "override,item",
     [
-        ("data.length_buckets=[16,32]", "Training variants"),
         ("model.encoder.remat=true", "Training variants"),
         ("model.embedding.lazy_update=true", "Lazy embedding update"),
         ("model.task=ranking", "Other model families"),

@@ -85,7 +85,6 @@ def test_user_id_split_threshold_matches_the_jax_split_files(tmp_path):
     "key,value,item",
     [
         ("dataset_name", "ml-1m", "Real data"),
-        ("length_buckets", (16, 32), "Training variants"),
         ("item_year_feature", True, "Other model families"),
         ("additional_columns", ("sex",), "Other model families"),
         ("positional_sampling_ratio", 0.5, "Real data"),
