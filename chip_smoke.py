@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving and training paths (padded, packed and
-through ring attention, eager and as CUDA graphs) on one NVIDIA card and
-check its kernels.
+"""Drive the PyTorch port's serving and training paths (retrieval padded,
+packed and through ring attention; ranking padded and packed; eager and as
+CUDA graphs) on one NVIDIA card and check its kernels.
 
 Run from the root of a checkout, with no arguments:
 
@@ -34,6 +34,12 @@ Phases, each of which stops the run with a non-zero exit when it fails:
      null `seg_positions` must give the bits of one segment per row; the
      backward also at B=4, N=1121 (not a multiple of its 32-row tile), L=1035,
      H=2, d=64, packed, with rows of packed length 1 and 20;
+   - both attention kernels at the ranking shape R (B=128, N=L=422: two
+     tokens, item and rating, a history position; N off the 64-key tile;
+     each timestamp repeated for the two tokens of a pair; ragged even
+     lengths), and packed at B=48, N=512, L=422 (rows of 256 doubled,
+     segment positions doubled to (2p, 2p + 1)), with the checks and
+     tolerances above;
    - the negative count at [26880, 128] into X=3,706 and X=26,744, with
      accidental hits and sentinels, exactly; at [37, 16] and [37, 300] into
      X=1, 15 and 17 (rows narrower than a 16-byte store or just wider); and
@@ -139,7 +145,24 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    on), steps_per_call=1 and 8, three steps each on one batch: the losses at
    rtol 1e-5, the parameters at rtol 5e-4 / atol 1e-6 (phase 5's). A padded
    synthetic-hstu batch, packed ml-20m-hstu-long batches of class 256 and
-   1152, and a zigzag ring batch.
+   1152, a zigzag ring batch, and a padded and a packed synthetic-rank batch.
+11. The ranking task at the full width of `synthetic-rank` (the ml-1m-rank
+   recipe on ratings drawn around each item's quality: D=50, 2 blocks, H=1,
+   211 input positions interleaved into 422 item and rating tokens, 6 rating
+   classes, batch 128, 2,048 users, dropout 0.2, AdamW): `cli.train.main` on
+   the card for up to 30 epochs (early stopping on val/ap may end it
+   sooner), validation after each and the test pass on the best checkpoint,
+   graphed (steps_per_call=8). The launch counts are set to 0 just before
+   and read just after: every step and eval batch a replay, per optimizer
+   step 2 attention forwards and 2 backwards and no count or lse launch, 2
+   forwards per eval batch. Losses finite and falling, metrics in [0, 1],
+   test AUROC above 0.62 and precision above 0.25 (the JAX package's bars;
+   chance 0.5 and about 0.2), precision equal to recall. Then a second
+   trainer's train step and eval batch, eager and graphed side by side, as
+   in phase 4.
+12. Phase 5 for the ranking loss: one padded and one packed synthetic-rank
+   batch (one capacity class of 256 tokens), card against CPU, the same
+   tolerances.
 
 It ends with one JSON line of the kernels' numbers and, last, the line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -234,17 +257,21 @@ def packed_layout(seed, b, n, max_seg):
 
 
 def attention_inputs(seed, b, n, h, d, lengths, proj_grad: bool = False, max_len=None,
-                     seg=None):
+                     seg=None, paired=False):
     """q, k, v as column slices of one uvqk projection `proj`, as the block
     gives them; with proj_grad, proj is a leaf that takes their gradients and
     is returned beside the inputs. `max_len` (default n) sizes pos_w; `seg`
-    [b, n] are the within-segment positions of packed rows."""
+    [b, n] are the within-segment positions of packed rows; `paired` repeats
+    each timestamp for two adjacent tokens, as the ranking task's interleaved
+    item and rating tokens have them (a zero gap between the two)."""
     rng = np.random.default_rng(seed)
     max_len = max_len or n
     proj = torch.tensor(rng.normal(size=(b, n, 4 * h * d)), dtype=torch.float32).cuda()
     proj.requires_grad_(proj_grad)
     _, v, q, k = torch.split(proj, [h * d] * 4, dim=-1)
     ts = np.sort(978_000_000 + rng.integers(0, 3 * 365 * 86400, size=(b, n)), axis=1)
+    if paired:
+        ts = np.repeat(ts[:, : (n + 1) // 2], 2, axis=1)[:, :n]
     inputs = dict(
         q=q.unflatten(-1, (h, d)), k=k.unflatten(-1, (h, d)), v=v.unflatten(-1, (h, d)),
         timestamps=torch.tensor(ts, dtype=torch.int32).cuda(),
@@ -318,8 +345,9 @@ def attention_bound(a) -> tuple[float, str]:
     return bound(4 * (reads + b * n * h * dv), pairs * h * 2 * (dqk + dv))
 
 
-def check_attention(kern, name, seed, b, n, h, d, lengths, max_len=None, seg=None) -> dict:
-    a = attention_inputs(seed, b, n, h, d, lengths, max_len=max_len, seg=seg)
+def check_attention(kern, name, seed, b, n, h, d, lengths, max_len=None, seg=None,
+                    paired=False) -> dict:
+    a = attention_inputs(seed, b, n, h, d, lengths, max_len=max_len, seg=seg, paired=paired)
     got = kern.hstu_attention_fused(**a)
     want = kern.hstu_attention_fused_plain(**a)
     # each output row is written once by the block that owns it, without
@@ -332,7 +360,8 @@ def check_attention(kern, name, seed, b, n, h, d, lengths, max_len=None, seg=Non
     max_rel = float((diff[big] / want.abs()[big]).max()) if bool(big.any()) else 0.0
     ok = bool((diff <= ATOL + RTOL * want.abs()).all())
     dead = all(not bool(got[i, length:].any()) for i, length in enumerate(lengths))
-    shape = f"B={b} N={n} L={a['max_len']} H={h} d={d}" + (" packed" if seg is not None else "")
+    shape = (f"B={b} N={n} L={a['max_len']} H={h} d={d}" + (" packed" if seg is not None else "")
+             + (" paired timestamps" if paired else ""))
     log(f"{name} {shape}: max_abs_err={max_abs:.3e} "
         f"max_rel_err={max_rel:.3e} (|want|>1e-3), within rtol {RTOL} atol {ATOL}: {ok}, "
         f"rows past length zero: {dead}, bit-identical in a second call: {same}")
@@ -366,11 +395,11 @@ def attention_bwd_bound(a) -> tuple[float, str]:
 
 
 def check_attention_bwd(kern, seed, b, n, h, d, lengths, max_len=None, seg=None,
-                        bounds=None) -> dict:
+                        bounds=None, paired=False) -> dict:
     """`bounds[r]` lists the (start, end) of row r's segments, for the check
     that no gradient crosses a segment's edge."""
     a, proj = attention_inputs(seed, b, n, h, d, lengths, proj_grad=True, max_len=max_len,
-                               seg=seg)
+                               seg=seg, paired=paired)
     a["pos_w"].requires_grad_(), a["ts_w"].requires_grad_()
     leaves = [proj, a["pos_w"], a["ts_w"]]
     rng = np.random.default_rng(seed + 100)
@@ -398,7 +427,8 @@ def check_attention_bwd(kern, seed, b, n, h, d, lengths, max_len=None, seg=None,
     dead = all(
         not bool(t[i, length:].any()) for t in got[:3] for i, length in enumerate(lengths)
     )
-    shape = f"B={b} N={n} L={a['max_len']} H={h} d={d}" + (" packed" if seg is not None else "")
+    shape = (f"B={b} N={n} L={a['max_len']} H={h} d={d}" + (" packed" if seg is not None else "")
+             + (" paired timestamps" if paired else ""))
     log(f"{kern.KERNEL_BWD} {shape}: max_abs_err " + ", ".join(errs)
         + f"; within rtol {RTOL} (tables {BIAS_RTOL}) atol {ATOL}: {ok}, "
         f"rows past length zero: {dead}, dq, dk, dv bit-identical in a second call: {same}")
@@ -1020,24 +1050,27 @@ class Counts:
         self.chunk.launches = self.chunk.bwd_launches = 0
         self.graphs.counts.clear()
 
-    def per_step(self, attn: int, chunk: int) -> list:
+    def per_step(self, attn: int, chunk: int, lse: int = 1) -> list:
         """One optimizer step's launches: `attn` attention and `chunk` chunk
-        forwards and as many backwards, one count, one lse pair."""
-        return [attn, attn, 1, 1, 1, chunk, chunk]
+        forwards and as many backwards, and `lse` counts and lse pairs (one
+        for retrieval, none for ranking, which samples no negatives)."""
+        return [attn, attn, lse, lse, lse, chunk, chunk]
 
 
-def read_training_run(metrics: Path, epochs: int, monitored: float):
+def read_training_run(metrics: Path, epochs: int, monitored: float, key: str = "ndcg@100",
+                      chance: str = f"log 129 = {np.log(129):.4f}"):
     """The losses, optimizer steps, val rows and test row a `cli.train` run
-    logged, checked: finite and falling losses, a val row per epoch and one
-    test row, every metric and the monitored one in [0, 1]. With
-    log_every_n_steps=1 a loss is logged at every call: every step eagerly,
-    the call's last step in calls of k; the last one's step is the run's."""
+    logged, checked: finite and falling losses, a val row per epoch (rows
+    carrying `key`) and one test row, every metric and the monitored one in
+    [0, 1]. With log_every_n_steps=1 a loss is logged at every call: every
+    step eagerly, the call's last step in calls of k; the last one's step is
+    the run's."""
     rows = [json.loads(line) for line in metrics.read_text().splitlines()]
     losses = np.asarray([r["train/loss"] for r in rows if "train/loss" in r])
     steps = max(r["step"] for r in rows if "train/loss" in r)
-    val = [r for r in rows if "val/ndcg@100" in r]
-    test = [r for r in rows if "test/ndcg@100" in r]
-    log(f"  loss: first {losses[0]:.4f} (log 129 = {np.log(129):.4f}), first five mean "
+    val = [r for r in rows if f"val/{key}" in r]
+    test = [r for r in rows if f"test/{key}" in r]
+    log(f"  loss: first {losses[0]:.4f} ({chance}), first five mean "
         f"{losses[:5].mean():.4f}, last five mean {losses[-5:].mean():.4f}")
     check(bool(np.isfinite(losses).all()), "a non-finite training loss")
     check(losses[-5:].mean() < losses[:5].mean(), "the loss did not fall")
@@ -1051,10 +1084,10 @@ def read_training_run(metrics: Path, epochs: int, monitored: float):
 
 
 def check_step_launches(kc: Counts, steps: int, eval_batches: int, counts: dict,
-                        graph_counts: dict, attn: int = 0, chunk: int = 0) -> None:
+                        graph_counts: dict, attn: int = 0, chunk: int = 0, lse: int = 1) -> None:
     """Per optimizer step `attn` attention forwards and backwards (one per
     block) or `chunk` chunk forwards and backwards (the ring's, per block
-    times chunk calls), one count, one lse forward and backward; per eval
+    times chunk calls), `lse` counts and lse forwards and backwards; per eval
     batch the forwards alone. With graphs (`graph_counts`, read with
     `counts`), every step and eval batch must be a replay, and each replay
     counts the launches its capture recorded; a capture's warm-up runs are
@@ -1067,9 +1100,10 @@ def check_step_launches(kc: Counts, steps: int, eval_batches: int, counts: dict,
             n += g["warmup_runs"]
         runs[name] = n
     tr, ev = runs["train"], runs["eval"]
-    per = kc.per_step(attn, chunk)
+    per = kc.per_step(attn, chunk, lse)
     want = dict(zip(kc.read(), (
-        per[0] * (tr + ev), per[1] * tr, tr, tr, tr, per[5] * (tr + ev), per[6] * tr,
+        per[0] * (tr + ev), per[1] * tr, lse * tr, lse * tr, lse * tr, per[5] * (tr + ev),
+        per[6] * tr,
     )))
     check(counts == want, f"launches {counts} != expected {want}")
     log("  graphs: " + "; ".join(
@@ -1284,7 +1318,36 @@ def run_long_path(kc: Counts, card: str) -> dict:
     return counts
 
 
-# ---------------------------------------------------------------- phases 5 and 7
+# ---------------------------------------------------------------- phases 5, 7 and 12
+
+
+def compare_card_and_cpu(what: str, cfg, batch, loss_of) -> None:
+    """One loss and its gradients through the port on the card (kernels) and
+    on the CPU (plain versions): the same weights (a seeded init) and batch,
+    dropout off. loss_of(model, device_batch, device) -> the loss."""
+    from mygenerativerecommenders_tpu_torch.models.model import build_model
+
+    results = {}
+    for device in ("cuda", "cpu"):
+        model = build_model(cfg, device=device, seed=99)  # eval mode: dropout off
+        dev_batch = {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
+        loss = loss_of(model, dev_batch, device)
+        loss.backward()
+        results[device] = (
+            loss.item(), {k: p.grad.detach().cpu() for k, p in model.named_parameters()}
+        )
+    (loss_card, grads_card), (loss_cpu, grads_cpu) = results["cuda"], results["cpu"]
+    rel = abs(loss_card - loss_cpu) / abs(loss_cpu)
+    log(f"one step of {what}, card (kernels) vs CPU (plain versions): loss {loss_card:.6f} vs "
+        f"{loss_cpu:.6f}, relative difference {rel:.3e} (rtol {STEP_LOSS_RTOL})")
+    check(rel <= STEP_LOSS_RTOL, "the card's loss disagrees with the CPU's")
+    worst = True
+    for name, want in grads_cpu.items():
+        ok, err = within(grads_card[name], want, STEP_GRAD_RTOL, STEP_GRAD_ATOL)
+        log(f"  grad {name}: max_abs_err {err:.3e}, max |grad| {float(want.abs().max()):.3e}, "
+            f"within rtol {STEP_GRAD_RTOL} atol {STEP_GRAD_ATOL}: {ok}")
+        worst = worst and ok
+    check(worst, "a parameter's gradient on the card disagrees with the CPU's")
 
 
 def card_against_cpu_step(args, packed_capacity=None) -> None:
@@ -1296,7 +1359,6 @@ def card_against_cpu_step(args, packed_capacity=None) -> None:
     from mygenerativerecommenders_tpu_torch.configs import resolve
     from mygenerativerecommenders_tpu_torch.data.dataset import RecoData
     from mygenerativerecommenders_tpu_torch.data.packing import PackedBatchLoader
-    from mygenerativerecommenders_tpu_torch.models.model import build_model
     from mygenerativerecommenders_tpu_torch.train.task_retrieval import make_loss_fn
 
     cfg = parse_args(args)
@@ -1317,31 +1379,12 @@ def card_against_cpu_step(args, packed_capacity=None) -> None:
         0, len(data.all_item_ids), (rows, n - 1, cfg.model.loss.num_to_sample),
         generator=gen, dtype=torch.int32,
     )
-    results = {}
-    for device in ("cuda", "cpu"):
-        model = build_model(cfg, device=device, seed=99)  # eval mode: dropout off
-        loss_fn = make_loss_fn(model, cfg, data.all_item_ids, packed=bool(packed_capacity))
-        dev_batch = {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
-        loss = loss_fn(dev_batch, neg_offsets=offsets.to(device))
-        loss.backward()
-        results[device] = (
-            loss.item(), {k: p.grad.detach().cpu() for k, p in model.named_parameters()}
-        )
-    (loss_card, grads_card), (loss_cpu, grads_cpu) = results["cuda"], results["cpu"]
-    rel = abs(loss_card - loss_cpu) / abs(loss_cpu)
     what = f"{cfg.experiment}, " + (
         f"a packed batch of {rows} rows x {packed_capacity}" if packed_capacity
         else f"a batch of {rows} rows")
-    log(f"one step of {what}, card (kernels) vs CPU (plain versions): loss {loss_card:.6f} vs "
-        f"{loss_cpu:.6f}, relative difference {rel:.3e} (rtol {STEP_LOSS_RTOL})")
-    check(rel <= STEP_LOSS_RTOL, "the card's loss disagrees with the CPU's")
-    worst = True
-    for name, want in grads_cpu.items():
-        ok, err = within(grads_card[name], want, STEP_GRAD_RTOL, STEP_GRAD_ATOL)
-        log(f"  grad {name}: max_abs_err {err:.3e}, max |grad| {float(want.abs().max()):.3e}, "
-            f"within rtol {STEP_GRAD_RTOL} atol {STEP_GRAD_ATOL}: {ok}")
-        worst = worst and ok
-    check(worst, "a parameter's gradient on the card disagrees with the CPU's")
+    compare_card_and_cpu(what, cfg, batch, lambda model, b, device: make_loss_fn(
+        model, cfg, data.all_item_ids, packed=bool(packed_capacity))(
+            b, neg_offsets=offsets.to(device)))
 
 
 # ---------------------------------------------------------------- phases 8 and 9
@@ -1519,6 +1562,125 @@ def ring_against_unsharded() -> None:
         check(ok_all, f"a gradient of the {layout} ring disagrees with sp_shards=1")
 
 
+# ---------------------------------------------------------------- phases 11 and 12 (ranking)
+
+RANK_ARGS = ["experiment=synthetic-rank"]
+# 30 epochs of synthetic-rank: the JAX package's own bars for its ranking
+# recipe (tests/test_train_e2e.py:278-280); chance is 0.5 and about 0.2
+MIN_TEST_AUROC, MIN_TEST_PRECISION = 0.62, 0.25
+
+
+def run_ranking_path(kc: Counts, card: str) -> dict:
+    """`cli.train.main` on the card at the full width of synthetic-rank (the
+    ranking task: interleaved item and rating tokens, N = 2 x 211), graphed,
+    then a second trainer stepped by hand for times. -> launch counts of the
+    first."""
+    from mygenerativerecommenders_tpu_torch.cli import train as cli_train
+    from mygenerativerecommenders_tpu_torch.train.driver import Trainer
+
+    epochs = 30
+    out_dir = OUT_DIR / "rank"
+    args = RANK_ARGS + [
+        f"trainer.output_dir={out_dir}", f"trainer.max_epochs={epochs}",
+        "trainer.log_every_n_steps=1",
+    ]
+    name = "synthetic-rank"
+    metrics = out_dir / name / "metrics.jsonl"
+    metrics.unlink(missing_ok=True)
+    cfg = cli_train.parse_args(args)
+    check(cfg.trainer.device == "cuda" and cfg.model.task == "ranking"
+          and cfg.trainer.steps_per_call > 1, "not the graphed ranking card path")
+    kc.reset()
+    t0 = time.perf_counter()
+    monitored = cli_train.main(args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, graph_counts = kc.read(), kc.read_graphs()
+
+    blocks = cfg.model.encoder.num_blocks
+    n_in = cfg.data.max_sequence_length + cfg.model.gr_output_length + 1
+    per_epoch = -(-cfg.data.synthetic_num_users // cfg.data.batch_size)
+    rows = [json.loads(line) for line in metrics.read_text().splitlines()]
+    ran = sum(1 for r in rows if "val/ap" in r)  # early stopping may end the run sooner
+    check(cfg.trainer.min_epochs <= ran <= epochs, f"{ran} epochs ran")
+    eval_batches = (ran + 1) * per_epoch  # validation each epoch, then the test pass
+    log(f"ranking path: cli.train on {card}, {name}: D={cfg.model.item_embedding_dim} "
+        f"blocks={blocks} H={cfg.model.encoder.num_heads} N={n_in} input positions, {2 * n_in} "
+        f"encoder tokens, R={cfg.model.preprocessor.num_ratings} rating classes, batch="
+        f"{cfg.data.batch_size}, dropout={cfg.model.encoder.linear_dropout_rate}, steps_per_call="
+        f"{cfg.trainer.steps_per_call}: {ran} epochs, {ran * per_epoch} optimizer steps, "
+        f"{eval_batches} eval batches in {wall:.2f} s; launches {counts}")
+    losses, steps, val, test = read_training_run(
+        metrics, ran, monitored, key="ap",
+        chance=f"log {cfg.model.preprocessor.num_ratings} = {np.log(6):.4f} at uniform scores")
+    check(steps == ran * per_epoch, f"{steps} optimizer steps, expected {ran * per_epoch}")
+    best = max(val, key=lambda r: r["val/ap"])
+    log(f"  val/ap first epoch {val[0]['val/ap']:.5f}, best {best['val/ap']:.5f} (epoch "
+        f"{best['epoch']}), last {val[-1]['val/ap']:.5f}; test on the best checkpoint: auroc "
+        f"{test['test/auroc']:.5f}, ap {test['test/ap']:.5f}, precision "
+        f"{test['test/precision']:.5f}, recall {test['test/recall']:.5f} (bars: auroc > "
+        f"{MIN_TEST_AUROC}, precision > {MIN_TEST_PRECISION})")
+    check(test["test/auroc"] > MIN_TEST_AUROC, f"test auroc {test['test/auroc']} too low")
+    check(test["test/precision"] > MIN_TEST_PRECISION,
+          f"test precision {test['test/precision']} too low")
+    check(test["test/precision"] == test["test/recall"], "precision and recall differ")
+    check(graph_counts.get("train") and graph_counts.get("eval"),
+          "the ranking run did not replay graphed steps and eval batches")
+    check_step_launches(kc, steps, eval_batches, counts, graph_counts, attn=blocks, lse=0)
+    for ckpt in ("best.pt", "last.pt"):
+        check((out_dir / name / "checkpoints" / ckpt).exists(), f"no {ckpt}")
+
+    # a second trainer, stepped by hand: the eager and the graphed step
+    trainer = Trainer(cli_train.parse_args(RANK_ARGS + [f"trainer.output_dir={OUT_DIR / 'rank2'}"]))
+    trainer.model.train()
+    batches = [trainer._put(b) for _, b in zip(range(8), trainer.data.loader("train"))]
+    n = len(batches)
+    times = eager_and_graphed(kc, {
+        "eager": lambda i: trainer.train_step(batches[i % n], trainer.lr1),
+        "graphed": lambda i: trainer.train_steps([batches[i % n]], trainer.lr1),
+    }, f"ranking train step, batch {cfg.data.batch_size} ({2 * n_in} tokens a row)",
+        kc.per_step(blocks, 0, lse=0), trainer.train_steps.graphs, card, reps=40)
+    log(f"  examples/s at the synced p50: eager "
+        f"{1e3 * cfg.data.batch_size / times['eager']['p50']:.1f}, graphed "
+        f"{1e3 * cfg.data.batch_size / times['graphed']['p50']:.1f} on {card}")
+    trainer.model.eval()
+    val_batches = [trainer._put(b) for _, b in zip(range(4), trainer.data.loader("val"))]
+    with torch.no_grad():
+        eager_and_graphed(kc, {
+            "eager": lambda i: trainer.eval_step(val_batches[i % 4]),
+            "graphed": lambda i: trainer.eval_steps([val_batches[i % 4]]),
+        }, f"ranking eval batch, batch {cfg.data.batch_size}", [blocks, 0, 0, 0, 0, 0, 0],
+            trainer.eval_steps.graphs, card)
+    return counts
+
+
+def card_against_cpu_ranking_step(packed: bool) -> None:
+    """Phase 5 for the ranking loss: the first padded train batch of
+    synthetic-rank, or its first packed batch (data.pack_sequences=true, one
+    capacity class of 256 tokens, 512 after the interleaving)."""
+    from mygenerativerecommenders_tpu_torch.cli.train import parse_args
+    from mygenerativerecommenders_tpu_torch.configs import resolve
+    from mygenerativerecommenders_tpu_torch.data.dataset import RecoData
+    from mygenerativerecommenders_tpu_torch.data.packing import PackedBatchLoader
+    from mygenerativerecommenders_tpu_torch.train.task_ranking import make_loss_fn
+
+    cfg = parse_args(RANK_ARGS + (["data.pack_sequences=true"] if packed else []))
+    data = RecoData(cfg.data, seed=cfg.trainer.seed)
+    resolve(cfg, data.max_item_id)
+    if packed:
+        cap = (cfg.data.max_sequence_length + 1 + 127) // 128 * 128  # the trainer's one class
+        batch = next(iter(PackedBatchLoader(data.dataset("train"), rows_per_batch=1,
+                                            row_capacity=cap,
+                                            segments_per_batch=cfg.data.batch_size)))
+        what = (f"synthetic-rank, a packed batch of {batch['ids'].shape[0]} rows x {cap} "
+                f"({int(batch['num_segments'].sum())} examples)")
+    else:
+        batch = next(iter(data.loader("train")))
+        what = f"synthetic-rank, a batch of {batch['ids'].shape[0]} rows"
+    compare_card_and_cpu(
+        what, cfg, batch, lambda model, b, device: make_loss_fn(model, cfg, packed)(b))
+
+
 # ---------------------------------------------------------------- phase 10
 
 
@@ -1528,8 +1690,9 @@ def graphed_against_eager() -> None:
     dropout streams; dropout on), steps_per_call=1 (eager) and 8 (graphed),
     three optimizer steps each on one batch: the losses at phase 5's rtol and
     the parameters at its gradients' rtol / atol. A padded synthetic-hstu
-    batch, packed ml-20m-hstu-long batches of class 256 then 1152, and a
-    zigzag ring batch."""
+    batch, packed ml-20m-hstu-long batches of class 256 then 1152, a zigzag
+    ring batch, and a padded and a packed synthetic-rank batch (the ranking
+    graph binds no negatives' buffer)."""
     from mygenerativerecommenders_tpu_torch.cli.train import parse_args
     from mygenerativerecommenders_tpu_torch.train.driver import Trainer
 
@@ -1539,6 +1702,8 @@ def graphed_against_eager() -> None:
          [256, 1152]),
         ("ml-20m-hstu-long, zigzag ring", RING_ARGS + [f"data.synthetic_num_users={RING_USERS}"],
          [None]),
+        ("synthetic-rank, padded", RANK_ARGS, [None]),
+        ("synthetic-rank, packed", RANK_ARGS + ["data.pack_sequences=true"], [None]),
     ]
     for label, args, classes in cases:
         eager, graphed = (
@@ -1619,6 +1784,21 @@ def main() -> int:
     pos[2], lens[2] = 0, 1
     pos[3, 20:], lens[3] = 0, 20
     check_attention_bwd(kern, 42, 4, 1121, 2, 64, lens, 1035, pos, seg_bounds)
+    # the ranking shape R: synthetic-rank's interleaved rows, N = 2 x 211 = 422
+    # (not a multiple of the 64-key tile), each timestamp on two adjacent
+    # tokens, a table of 2 x 422 - 1 = 843 entries; lengths 2 x (history +
+    # target). Then its packed rows: one class of 256 tokens doubled to 512,
+    # wider than the table reaches, segments doubled to (2p, 2p + 1)
+    rank_lengths = [2, 422] + [2 * (x + 1) for x in ragged]
+    rank_fwd = check_attention(kern, kern.KERNEL, 60, 128, 422, 1, 50, rank_lengths, 422,
+                               paired=True)
+    rank_bwd = check_attention_bwd(kern, 61, 128, 422, 1, 50, rank_lengths, 422, paired=True)
+    pos, lens, seg_bounds = packed_layout(62, 48, 256, 201)
+    pos = np.stack([2 * pos, 2 * pos + 1], axis=2).reshape(48, 512)
+    lens = [2 * x for x in lens]
+    seg_bounds = [[(2 * lo, 2 * hi) for lo, hi in row] for row in seg_bounds]
+    check_attention(kern, kern.KERNEL, 63, 48, 512, 1, 50, lens, 422, pos, paired=True)
+    check_attention_bwd(kern, 64, 48, 512, 1, 50, lens, 422, pos, seg_bounds, paired=True)
     counted = check_count(count_kern, TRAIN_BT, TRAIN_R, 3706)
     counted_wide = check_count(count_kern, TRAIN_BT, TRAIN_R, 26744)
     check_count_edges(count_kern)
@@ -1694,6 +1874,11 @@ def main() -> int:
     ring_against_unsharded()
     fused_on_paths = (lse_kern.fused_launches, lse_kern.fused_bwd_launches)
     graphed_against_eager()
+    gc.collect()
+    torch.cuda.empty_cache()
+    rank_counts = run_ranking_path(kc, card=kind)
+    card_against_cpu_ranking_step(packed=False)
+    card_against_cpu_ranking_step(packed=True)
 
     # no PyTorch call computes HSTU's silu attention with this bias, its
     # backward, or a count-weighted log-sum-exp over a matrix product that is
@@ -1705,6 +1890,13 @@ def main() -> int:
         dict(name=kern.KERNEL_BWD, source=kern.SOURCE_BWD, replaces=kern.REPLACES_BWD,
              launches=train_counts[kern.KERNEL_BWD] + long_counts[kern.KERNEL_BWD],
              library_ms=None, **attn_bwd),
+        # rows 1-2 at the ranking shape R; their launches are the ranking run's
+        dict(name=kern.KERNEL + " (ranking shape R)", source=kern.SOURCE,
+             replaces=kern.REPLACES, launches=rank_counts[kern.KERNEL], library_ms=None,
+             **rank_fwd),
+        dict(name=kern.KERNEL_BWD + " (ranking shape R)", source=kern.SOURCE_BWD,
+             replaces=kern.REPLACES_BWD, launches=rank_counts[kern.KERNEL_BWD],
+             library_ms=None, **rank_bwd),
         dict(name=count_kern.KERNEL, source=count_kern.SOURCE, replaces=count_kern.REPLACES,
              launches=sum(c[count_kern.KERNEL] for c in (train_counts, long_counts, ring_counts)),
              **counted),

@@ -66,8 +66,8 @@ def params_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     for path, arr in _flatten(params).items():
         if path == ("embeddings", "item_emb"):
             key = "embeddings._item_emb.weight"
-        elif path == ("preprocessor", "pos_emb"):
-            key = "preprocessor._pos_emb.weight"
+        elif path in (("preprocessor", "pos_emb"), ("preprocessor", "rating_emb")):
+            key = f"preprocessor._{path[1]}.weight"
         elif path[0] == "encoder" and path[1].startswith("block_") and path[2:] in _BLOCK_KEYS:
             key = f"{_ENCODER}.{path[1][len('block_'):]}.{_BLOCK_KEYS[path[2:]]}"
             if path[2:] == ("o", "kernel"):

@@ -1,5 +1,6 @@
-"""Autoregressive losses. Port of `sampled_softmax_loss` and `_weighted_mean`
-(mygenerativerecommenders_tpu/models/losses.py:19-44). Every loss runs dense
+"""Autoregressive losses. Port of `sampled_softmax_loss`, `ce_rating_loss` and
+`_weighted_mean` (mygenerativerecommenders_tpu/models/losses.py:19-44, 75-84).
+Every loss runs dense
 over [B, T, ...] with a `weights` mask and returns
 `sum(per_pos * weights) / sum(weights)`.
 
@@ -30,4 +31,17 @@ def sampled_softmax_loss(
     negative_logits = torch.where(accidental_hits, _ACCIDENTAL_HIT_LOGIT, negative_logits)
     neg_lse = torch.logsumexp(negative_logits, dim=-1)
     per_pos = torch.logaddexp(positive_logits, neg_lse) - positive_logits
+    return _weighted_mean(per_pos, weights)
+
+
+def ce_rating_loss(
+    logits: torch.Tensor,  # [B, T, R] scores against the R rating embeddings
+    ratings: torch.Tensor,  # [B, T] int class labels
+    weights: torch.Tensor,  # [B, T]
+) -> torch.Tensor:
+    """Multiclass cross-entropy over the rating classes, the labels clipped to
+    [0, R - 1]."""
+    log_probs = torch.log_softmax(logits, dim=-1)
+    safe = ratings.long().clamp(0, logits.shape[-1] - 1)
+    per_pos = -torch.gather(log_probs, -1, safe[..., None])[..., 0]
     return _weighted_mean(per_pos, weights)

@@ -1,12 +1,16 @@
 """The composed generative-recommender model.
 
-Port of mygenerativerecommenders_tpu/models/model.py:252-291 for the
-components retrieval serving and training run: local embedding -> learnable
-positional preprocessor (with dropout) -> HSTU -> L2 postprocessor,
-dot-product similarity. Other
-kinds raise, naming the ROADMAP.md item that ports them. Submodule names
-follow the reference checkpoint's keys, so `state_dict()` reads
-`embeddings._item_emb.weight`, `preprocessor._pos_emb.weight`,
+Port of mygenerativerecommenders_tpu/models/model.py:59-291 for the
+components the retrieval and ranking tasks run: local embedding -> learnable
+positional preprocessor (plain, rated or combined item-and-rating; with
+dropout) -> HSTU -> aux-mask compaction -> L2 postprocessor, dot-product
+similarity. The encoder's dims follow the preprocessor's layout: the rated
+variant widens D (the postprocessor truncates back to item_embedding_dim),
+the combined one doubles N, and its aux_mask maps the encoder's output back
+to the item slots. Other kinds raise, naming the ROADMAP.md item that ports
+them. Submodule names follow the reference checkpoint's keys, so
+`state_dict()` reads `embeddings._item_emb.weight`,
+`preprocessor._pos_emb.weight`, `preprocessor._rating_emb.weight`,
 `sequence_encoder._hstu._attention_layers.{i}...`.
 """
 
@@ -23,9 +27,12 @@ from mygenerativerecommenders_tpu_torch.models.embeddings import LocalEmbedding
 from mygenerativerecommenders_tpu_torch.models.hstu import HSTU
 from mygenerativerecommenders_tpu_torch.models.postprocessors import L2NormPostprocessor
 from mygenerativerecommenders_tpu_torch.models.preprocessors import (
+    CombinedItemAndRatingPreprocessor,
     LearnablePositionalEmbeddingPreprocessor,
+    LearnablePositionalEmbeddingRatedPreprocessor,
 )
 from mygenerativerecommenders_tpu_torch.models.similarity import DotProductSimilarity
+from mygenerativerecommenders_tpu_torch.ops.sequence import mask_dense_by_aux_mask
 from mygenerativerecommenders_tpu_torch.utils.features import SequenceBatch
 
 
@@ -41,8 +48,6 @@ class GenerativeRecommender(nn.Module):
         super().__init__()
         m = cfg
         self.cfg = m
-        if m.task != "retrieval":
-            raise not_ported(f"model.task={m.task}", "Other model families")
         if m.compute_dtype != "float32":
             raise not_ported(f"model.compute_dtype={m.compute_dtype}", "Mixed precision")
         if m.embedding.kind == "item_year":
@@ -56,10 +61,28 @@ class GenerativeRecommender(nn.Module):
         self.embeddings = LocalEmbedding(
             m.embedding.num_items, m.item_embedding_dim, m.embedding.init_std, generator
         )
-        if m.preprocessor.kind != "learnable_positional":
-            raise not_ported(f"preprocessor.kind={m.preprocessor.kind}", "Other model families")
-        self.preprocessor = LearnablePositionalEmbeddingPreprocessor(
-            total_seq_len, m.item_embedding_dim, generator, m.preprocessor.dropout_rate
+        p = m.preprocessor
+        if p.kind == "learnable_positional":
+            self.preprocessor = LearnablePositionalEmbeddingPreprocessor(
+                total_seq_len, m.item_embedding_dim, generator, p.dropout_rate
+            )
+        elif p.kind == "learnable_positional_rated":
+            self.preprocessor = LearnablePositionalEmbeddingRatedPreprocessor(
+                total_seq_len, m.item_embedding_dim, p.rating_embedding_dim, p.num_ratings,
+                generator, p.dropout_rate,
+            )
+        elif p.kind == "combined_item_and_rating":
+            self.preprocessor = CombinedItemAndRatingPreprocessor(
+                total_seq_len, m.item_embedding_dim, p.num_ratings, generator, p.dropout_rate
+            )
+        elif p.kind == "learnable_positional_aux":
+            raise not_ported(f"preprocessor.kind={p.kind}", "Other model families")
+        else:
+            raise ValueError(f"Unknown preprocessor kind {p.kind}")
+        # the combined variant doubles N, the rated one widens D
+        seq_mult = 2 if p.kind == "combined_item_and_rating" else 1
+        enc_dim = m.item_embedding_dim + (
+            p.rating_embedding_dim if p.kind == "learnable_positional_rated" else 0
         )
         enc = m.encoder
         if enc.kind != "hstu":
@@ -74,9 +97,9 @@ class GenerativeRecommender(nn.Module):
         out_len = m.gr_output_length + 1
         # keyed "_hstu" like the reference's sequence_encoder._hstu
         self.sequence_encoder = nn.ModuleDict({"_hstu": HSTU(
-            max_sequence_len=total_seq_len - out_len,
-            max_output_len=out_len,
-            embedding_dim=m.item_embedding_dim,
+            max_sequence_len=seq_mult * (total_seq_len - out_len),
+            max_output_len=seq_mult * out_len,
+            embedding_dim=enc_dim,
             num_blocks=enc.num_blocks,
             num_heads=enc.num_heads,
             linear_dim=enc.linear_dim,
@@ -105,22 +128,38 @@ class GenerativeRecommender(nn.Module):
     def item_embeddings(self, ids: torch.Tensor) -> torch.Tensor:
         return self.embeddings(ids)
 
+    def ratings_embeddings(self) -> torch.Tensor:
+        """The rating table [R, D] the ranking head scores against."""
+        if not hasattr(self.preprocessor, "ratings_emb"):
+            raise ValueError(
+                "Preprocessor has no ratings embeddings; the ranking task "
+                "requires the combined_item_and_rating preprocessor"
+            )
+        return self.preprocessor.ratings_emb()
+
     def score(
         self, input_embeddings: torch.Tensor, item_embeddings: torch.Tensor
     ) -> torch.Tensor:
         return self.similarity(input_embeddings, item_embeddings)
 
     def forward(self, seq: SequenceBatch) -> Tuple[torch.Tensor, torch.Tensor]:
-        """-> (encoded [B, N, D] postprocessed, lengths [B])."""
+        """-> (encoded [B, N, D] postprocessed, lengths [B]); N is past_ids' N
+        and lengths are the item positions', also where the preprocessor
+        doubled the row."""
         past_embeddings = seq.past_embeddings
         if past_embeddings is None:
             past_embeddings = self.embeddings(seq.past_ids)
-        lengths, user_embeddings, valid_mask, _, payloads = self.preprocessor(
+        lengths, user_embeddings, valid_mask, aux_mask, payloads = self.preprocessor(
             seq.past_lengths, seq.past_ids, past_embeddings, seq.past_payloads
         )
         encoded = self.sequence_encoder["_hstu"](
             lengths, user_embeddings.float(), valid_mask, payloads
         )
+        if aux_mask is not None:
+            # back to the kept (item) positions, cropped to past_ids' N: at
+            # most `lengths` <= N positions survive
+            encoded, lengths = mask_dense_by_aux_mask(encoded, aux_mask, lengths)
+            encoded = encoded[:, : seq.past_ids.shape[1]]
         return self.postprocessor(encoded), lengths
 
 

@@ -50,6 +50,9 @@ class ServingEngine:
         batch_size: int = 32,
         device: Union[str, torch.device] = "cuda",
     ):
+        if cfg.model.task != "retrieval":
+            # the server answers retrieval requests only, as the JAX package's
+            raise not_ported(f"serving model.task={cfg.model.task}", "Other model families")
         self.device = torch.device(device)
         self.model = model.to(self.device).eval()
         self.cfg = cfg

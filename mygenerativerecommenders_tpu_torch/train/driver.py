@@ -1,10 +1,11 @@
 """The trainer: one device.
 
 Port of `Trainer` (mygenerativerecommenders_tpu/train/driver.py:117,
-232-297, 400-478, 492-539, 588-716, 717-830, 832-886, 932-961): model and
+232-301, 400-478, 492-539, 588-716, 717-830, 832-886, 932-961): model and
 optimizer set-up, the epoch loop over the prefetching host loader, one or k
-steps a call, validation (candidate refresh ->
-filtered top-k -> metrics), plateau LR and early stopping keyed on the
+steps a call, validation (retrieval: candidate refresh -> filtered top-k ->
+ranking metrics; ranking: rating probabilities -> multiclass AUROC, AP,
+precision and recall), plateau LR and early stopping keyed on the
 monitored metric, best/last checkpoints with resume, CSV/JSONL metric logging,
 and seeded randomness: the weights come from `trainer.seed`, dropout draws from the
 device's default generator (seeded with `trainer.seed`) and the negatives
@@ -24,8 +25,11 @@ too, one query per segment; both eval paths are exact. With
 `model.encoder.sp_shards` > 1 the model's attention is the ring of
 parallel/ring_attention.py, whose shards run in turn on this one device: the
 JAX trainer's (data, sp) mesh has no counterpart, and packed batches raise
-with it, as there. The mesh (`trainer.num_devices` > 1), the multi-process
-loader, the ranking task and the profiler hooks raise.
+with it, as there. `model.task=ranking` (train/task_ranking.py) trains
+padded or packed, one or k steps a call as retrieval does, and evaluates
+padded rows only: its eval splits are never packed. The mesh
+(`trainer.num_devices` > 1), the multi-process loader and the profiler hooks
+raise.
 """
 
 from __future__ import annotations
@@ -43,9 +47,12 @@ from mygenerativerecommenders_tpu_torch.checkpoint import CheckpointManager
 from mygenerativerecommenders_tpu_torch.configs import Config, resolve
 from mygenerativerecommenders_tpu_torch.data.dataset import BatchLoader, RecoData
 from mygenerativerecommenders_tpu_torch.data.packing import PackedBatchLoader
-from mygenerativerecommenders_tpu_torch.models.metrics import retrieval_metrics
+from mygenerativerecommenders_tpu_torch.models.metrics import (
+    multiclass_metrics,
+    retrieval_metrics,
+)
 from mygenerativerecommenders_tpu_torch.models.model import build_model
-from mygenerativerecommenders_tpu_torch.train import task_retrieval
+from mygenerativerecommenders_tpu_torch.train import task_ranking, task_retrieval
 from mygenerativerecommenders_tpu_torch.train.controllers import (
     EarlyStopping,
     PlateauLRController,
@@ -100,6 +107,49 @@ class Trainer:
         )
         self._packed = bool(cfg.data.pack_sequences)
         self.steps_per_call = max(int(t.steps_per_call), 1)
+        self.task = cfg.model.task
+        if self.task == "retrieval":
+            self._retrieval_steps(cfg)
+        elif self.task == "ranking":
+            self._ranking_steps(cfg)
+        else:
+            raise ValueError(f"Unknown task {self.task}")
+
+        self.lr1_ctrl = PlateauLRController(
+            lr=cfg.optimizer1.lr,
+            mode=cfg.scheduler1.mode,
+            factor=cfg.scheduler1.factor,
+            patience=cfg.scheduler1.patience,
+            threshold=cfg.scheduler1.threshold,
+            min_lr=cfg.scheduler1.min_lr,
+        ) if cfg.scheduler1.kind == "plateau" else None
+        self.early_stop = EarlyStopping(mode=t.mode, patience=t.early_stop_patience)
+        self.out_dir = os.path.join(t.output_dir, cfg.experiment)
+        self.writer = MetricsWriter(
+            self.out_dir, enable_tensorboard=t.tensorboard, mlflow_dir=t.mlflow_dir
+        )
+        self.ckpt = CheckpointManager(
+            os.path.join(self.out_dir, "checkpoints"), monitor=t.monitor, mode=t.mode
+        )
+        self.global_step = 0
+        self.epoch = 0
+        self.lr1 = cfg.optimizer1.lr
+        self.epoch_examples = 0  # examples of the last train epoch
+        if t.detect_anomaly:
+            torch.autograd.set_detect_anomaly(True)
+
+        counts: Dict[str, int] = {}
+        for name, p in self.model.named_parameters():
+            family = name.split(".", 1)[0]
+            counts[family] = counts.get(family, 0) + p.numel()
+        log.info(
+            f"model on {self.device}; params: "
+            + ", ".join(f"{k}={v:,}" for k, v in sorted(counts.items()))
+            + f" | total={sum(counts.values()):,}"
+        )
+
+    def _retrieval_steps(self, cfg: Config) -> None:
+        """The retrieval task's train, eval and candidate functions."""
         k = self.steps_per_call
         self.train_step = task_retrieval.make_train_step(
             self.model, cfg, self.all_item_ids, self.optimizer,
@@ -135,38 +185,21 @@ class Trainer:
         ) if self._eval_packed and k > 1 else None
         self.candidate_fn = task_retrieval.make_candidate_fn(self.model, cfg, self.all_item_ids)
 
-        self.lr1_ctrl = PlateauLRController(
-            lr=cfg.optimizer1.lr,
-            mode=cfg.scheduler1.mode,
-            factor=cfg.scheduler1.factor,
-            patience=cfg.scheduler1.patience,
-            threshold=cfg.scheduler1.threshold,
-            min_lr=cfg.scheduler1.min_lr,
-        ) if cfg.scheduler1.kind == "plateau" else None
-        self.early_stop = EarlyStopping(mode=t.mode, patience=t.early_stop_patience)
-        self.out_dir = os.path.join(t.output_dir, cfg.experiment)
-        self.writer = MetricsWriter(
-            self.out_dir, enable_tensorboard=t.tensorboard, mlflow_dir=t.mlflow_dir
+    def _ranking_steps(self, cfg: Config) -> None:
+        """The ranking task's train and eval steps. Its eval stays padded (one
+        row's last-position class probabilities; packing speeds up training
+        only), and it scores against no candidates."""
+        k = self.steps_per_call
+        self.train_step = task_ranking.make_train_step(
+            self.model, cfg, self.optimizer, packed=self._packed
         )
-        self.ckpt = CheckpointManager(
-            os.path.join(self.out_dir, "checkpoints"), monitor=t.monitor, mode=t.mode
-        )
-        self.global_step = 0
-        self.epoch = 0
-        self.lr1 = cfg.optimizer1.lr
-        self.epoch_examples = 0  # examples of the last train epoch
-        if t.detect_anomaly:
-            torch.autograd.set_detect_anomaly(True)
-
-        counts: Dict[str, int] = {}
-        for name, p in self.model.named_parameters():
-            family = name.split(".", 1)[0]
-            counts[family] = counts.get(family, 0) + p.numel()
-        log.info(
-            f"model on {self.device}; params: "
-            + ", ".join(f"{k}={v:,}" for k, v in sorted(counts.items()))
-            + f" | total={sum(counts.values()):,}"
-        )
+        self.train_steps = task_ranking.make_train_step(
+            self.model, cfg, self.optimizer, steps=k, packed=self._packed
+        ) if k > 1 else None
+        self.eval_step = task_ranking.make_eval_step(self.model, cfg)
+        self.eval_steps = task_ranking.make_eval_step(self.model, cfg, steps=k) if k > 1 else None
+        self._eval_packed = False
+        self.packed_eval_step = self.packed_eval_steps = self.candidate_fn = None
 
     # ------------------------------------------------------------------
     def _put(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
@@ -329,6 +362,41 @@ class Trainer:
             limit = max(1, int(len(loader) * t_cfg.limit_val_batches))
 
         self.model.eval()
+        if self.task == "ranking":
+            results = self._ranking_metrics(loader, limit)
+        else:
+            results = self._retrieval_metrics(loader, limit)
+        self.writer.log(
+            {f"{prefix}/{k}": v for k, v in results.items()}, self.global_step, self.epoch
+        )
+        return results
+
+    def _ranking_metrics(self, loader: Loader, limit: int) -> Dict[str, float]:
+        """Multiclass AUROC, AP, precision and recall of the rows with
+        sample_weight > 0, from each row's class probabilities."""
+        all_probs, all_targets = [], []
+
+        def collect(probs: np.ndarray, batch: Dict[str, np.ndarray]) -> None:
+            valid = batch["sample_weight"] > 0
+            all_probs.append(probs[valid])
+            all_targets.append(batch["target_rating"][valid])
+
+        if self.eval_steps is not None:
+            # k batches a call, one read of their probabilities a call
+            for hbs, devs, _ in self._stacked_batches(loader, limit, self.steps_per_call):
+                for probs, batch in zip(self.eval_steps(devs)[0].cpu().numpy(), hbs):
+                    collect(probs, batch)
+        else:
+            for batch, dev_batch in self._batches(loader, limit):
+                collect(self.eval_step(dev_batch).cpu().numpy(), batch)
+        return multiclass_metrics(
+            np.concatenate(all_probs, axis=0),
+            np.concatenate(all_targets, axis=0),
+            num_classes=self.cfg.model.preprocessor.num_ratings,
+        )
+
+    def _retrieval_metrics(self, loader: Loader, limit: int) -> Dict[str, float]:
+        """NDCG, HR and MRR of the filtered top-k against each query's target."""
         candidates = self.candidate_fn()
         all_topk, all_targets = [], []
         # a packed loader of history-only segments: one query per segment,
@@ -353,15 +421,11 @@ class Trainer:
                 valid = batch[weight_key] > 0
                 all_topk.append(top_ids.cpu().numpy()[valid])
                 all_targets.append(batch[target_key][valid])
-        results = retrieval_metrics(
+        return retrieval_metrics(
             np.concatenate(all_topk, axis=0),
             np.concatenate(all_targets, axis=0)[:, None],
             self.cfg.model.metrics.at_k_list,
         )
-        self.writer.log(
-            {f"{prefix}/{k}": v for k, v in results.items()}, self.global_step, self.epoch
-        )
-        return results
 
     # ------------------------------------------------------------------
     def fit(self) -> Dict[str, float]:

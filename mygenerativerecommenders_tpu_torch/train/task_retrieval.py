@@ -4,7 +4,8 @@ candidate matrix.
 Port of mygenerativerecommenders_tpu/train/task_retrieval.py: `make_loss_fn`
 with `ids_to_offsets`, `encode_for_loss` (padded and packed) and the
 dense-catalog `loss_fn_dense` (:65-282), `make_train_step` (:315-394) with
-the k steps of `train_step_from_loss` (:326-379), `make_candidate_fn`
+the optimizer step and its k-step form `train_step_from_loss` (:326-379,
+shared with the ranking task), `make_candidate_fn`
 (:423-501, replicated exact path), `make_eval_step` (:504-625) and
 `make_packed_eval_step` (:627-730, exact top-k), each with its k-batch form.
 Serving and the trainer's eval share the eval step.
@@ -24,7 +25,7 @@ ROADMAP.md item.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -223,6 +224,100 @@ def _loss_parts(
     return loss_fn_dense, negatives_shape, draw_negatives
 
 
+class DrawnInput(NamedTuple):
+    """An input of the loss that the step makes itself: `draw(batch, out)`
+    fills `out`, a [shape(batch)] tensor of `dtype`, before each step. A
+    graphed step draws it outside the graph, into a static buffer bound to
+    the graph. The loss takes it as the keyword `name`."""
+
+    name: str
+    shape: Callable[[Dict[str, torch.Tensor]], Tuple[int, ...]]
+    dtype: torch.dtype
+    draw: Callable[[Dict[str, torch.Tensor], torch.Tensor], torch.Tensor]
+
+
+def train_step_from_loss(
+    model: torch.nn.Module,
+    optimizer: torch.optim.Optimizer,
+    loss_fn: Callable[..., torch.Tensor],
+    steps: int = 1,
+    drawn: Optional[DrawnInput] = None,
+) -> Callable[..., torch.Tensor]:
+    """The optimizer step around `loss_fn(batch[, <drawn.name>=...])` (JAX
+    :326-379).
+
+    steps=1: train_step(batch, lr1[, <drawn.name>=None]) -> the step's loss
+    (detached). Sets the optimizer's learning rate to lr1, takes one step and
+    updates the model's parameters in place, eagerly; the loss draws the
+    drawn input itself unless the caller hands it in.
+
+    steps=k > 1: train_steps(batches, lr1[, <drawn.name>=None]) ->
+    [len(batches)] losses for up to k batches, one optimizer step each, in
+    order; a drawn input handed in is then a list with one tensor per batch.
+    On cuda each step is one replay of a CUDA graph of the whole step
+    (train/graphs.py: one graph per batch shape, captured at the first step
+    of that shape): the batch is copied into the graph's buffers and the
+    drawn input is drawn (or copied) into its bound buffer, both outside the
+    graph. Without a drawn input the graph binds nothing and nothing is made
+    between replays. `train_steps.graphs` holds the graphs; it is None on the
+    CPU, where the k steps run eagerly."""
+
+    def one_step(batch, **inputs):
+        optimizer.zero_grad(set_to_none=True)
+        loss = loss_fn(batch, **inputs)
+        loss.backward()
+        optimizer.step()
+        return loss.detach()
+
+    if steps <= 1:
+        def train_step(batch, lr1: float, **inputs):
+            set_lr(optimizer, lr1)
+            return one_step(batch, **inputs)
+
+        return train_step
+
+    device = next(model.parameters()).device
+    names = () if drawn is None else (drawn.name,)
+    graphs = None
+    if device.type == "cuda":
+        def body(static: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor]:
+            batch = {k: v for k, v in static.items() if k not in names}
+            return (one_step(batch, **{k: static[k] for k in names}),)
+
+        graphs = StepGraphs(
+            body, "train", keep=training_state(list(model.parameters()), optimizer)
+        )
+
+    def train_steps(batches, lr1: float, **inputs) -> torch.Tensor:
+        if not 0 < len(batches) <= steps:
+            raise ValueError(f"{len(batches)} batches for a call of up to {steps} steps")
+        if set(inputs) - set(names):
+            raise TypeError(f"unexpected inputs {sorted(set(inputs) - set(names))}")
+        set_lr(optimizer, lr1)
+        given = {k: v for k, v in inputs.items() if v is not None}
+        if graphs is None:
+            return torch.stack([
+                one_step(batch, **{k: v[i] for k, v in given.items()})
+                for i, batch in enumerate(batches)
+            ])
+        losses = torch.empty(len(batches), dtype=torch.float32, device=device)
+        for i, batch in enumerate(batches):
+            bound = {}
+            if drawn is not None:
+                buf = graphs.buffer(drawn.name, drawn.shape(batch), drawn.dtype, device)
+                if drawn.name in given:
+                    buf.copy_(given[drawn.name][i])
+                else:
+                    drawn.draw(batch, buf)
+                bound[drawn.name] = buf
+            (loss,) = graphs(batch, bound=bound, tag=model.training)
+            losses[i].copy_(loss)  # before the next replay overwrites it
+        return losses
+
+    train_steps.graphs = graphs
+    return train_steps
+
+
 def make_train_step(
     model: GenerativeRecommender,
     cfg: Config,
@@ -232,73 +327,22 @@ def make_train_step(
     packed: bool = False,
     generator: Optional[torch.Generator] = None,
 ) -> Callable[..., torch.Tensor]:
-    """steps=1: train_step(batch, lr1, neg_offsets=None) -> the step's loss
-    (detached). Sets the optimizer's learning rate to lr1, takes one step and
-    updates the model's parameters in place, eagerly.
+    """`train_step_from_loss` on the retrieval loss, whose negatives' offsets
+    are its drawn input `neg_offsets` ([B, N-1, R] int32; one `torch.randint`
+    on `generator`, the eager step's draw):
 
-    steps=k > 1 (`train_step_from_loss`'s scan, JAX :326-379):
-    train_steps(batches, lr1, neg_offsets=None) -> [len(batches)] losses for
-    up to k batches, one optimizer step each, in order; `neg_offsets` is then
-    a list with one [B, N-1, R] tensor per batch. On cuda each step is one
-    replay of a CUDA graph of the whole step (train/graphs.py: one graph per
-    batch shape, captured at the first step of that shape): the batch is
-    copied into the graph's buffers and the step's negatives are drawn into
-    its offsets buffer (one `torch.randint` on `generator`, the eager step's
-    draw), both outside the graph. `train_steps.graphs` holds the graphs; it
-    is None on the CPU, where the k steps run eagerly."""
+    steps=1: train_step(batch, lr1, neg_offsets=None) -> the step's loss.
+    steps=k > 1: train_steps(batches, lr1, neg_offsets=None) -> [len(batches)]
+    losses; `neg_offsets` is then a list with one tensor per batch."""
     if cfg.model.embedding.lazy_update:
         raise not_ported("embedding.lazy_update", "Lazy embedding update")
     loss_fn, negatives_shape, draw_negatives = _loss_parts(
         model, cfg, all_item_ids, packed, generator
     )
-
-    def one_step(batch, neg_offsets):
-        optimizer.zero_grad(set_to_none=True)
-        loss = loss_fn(batch, neg_offsets=neg_offsets)
-        loss.backward()
-        optimizer.step()
-        return loss.detach()
-
-    if steps <= 1:
-        def train_step(batch, lr1: float, neg_offsets: Optional[torch.Tensor] = None):
-            set_lr(optimizer, lr1)
-            return one_step(batch, neg_offsets)
-
-        return train_step
-
-    device = next(model.parameters()).device
-    graphs = None
-    if device.type == "cuda":
-        def body(static: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor]:
-            batch = {k: v for k, v in static.items() if k != _OFFSETS}
-            return (one_step(batch, static[_OFFSETS]),)
-
-        graphs = StepGraphs(
-            body, "train", keep=training_state(list(model.parameters()), optimizer)
-        )
-
-    def train_steps(batches, lr1: float, neg_offsets=None) -> torch.Tensor:
-        if not 0 < len(batches) <= steps:
-            raise ValueError(f"{len(batches)} batches for a call of up to {steps} steps")
-        set_lr(optimizer, lr1)
-        if graphs is None:
-            return torch.stack([
-                one_step(batch, None if neg_offsets is None else neg_offsets[i])
-                for i, batch in enumerate(batches)
-            ])
-        losses = torch.empty(len(batches), dtype=torch.float32, device=device)
-        for i, batch in enumerate(batches):
-            offsets = graphs.buffer(_OFFSETS, negatives_shape(batch), torch.int32, device)
-            if neg_offsets is None:
-                draw_negatives(batch, out=offsets)
-            else:
-                offsets.copy_(neg_offsets[i])
-            (loss,) = graphs(batch, bound={_OFFSETS: offsets}, tag=model.training)
-            losses[i].copy_(loss)  # before the next replay overwrites it
-        return losses
-
-    train_steps.graphs = graphs
-    return train_steps
+    drawn = DrawnInput(
+        _OFFSETS, negatives_shape, torch.int32, lambda batch, out: draw_negatives(batch, out=out)
+    )
+    return train_step_from_loss(model, optimizer, loss_fn, steps, drawn)
 
 
 def _check_index(cfg: Config) -> None:
@@ -327,38 +371,46 @@ def make_candidate_fn(
     return candidates
 
 
-def _eval_many(model: GenerativeRecommender, eval_step: Callable, steps: int) -> Callable:
-    """eval_steps(batches, candidates) -> each output of
-    eval_step(batch, candidates) stacked over up to `steps` batches,
+def _eval_many(model: torch.nn.Module, eval_step: Callable, steps: int) -> Callable:
+    """eval_steps(batches, candidates=None) -> each output of
+    eval_step(batch[, candidates]) stacked over up to `steps` batches,
     [len(batches), ...] (the `lax.map` of JAX :504-625, :627-730). On cuda
     each batch is one replay of a CUDA graph of the eval step (one graph per
     batch shape, train/graphs.py), and the candidates are copied into the
     graphs' static buffer only when a call hands in another tensor than the
-    last one: once an epoch. `eval_steps.graphs` holds the graphs; None on the
+    last one: once an epoch. Without candidates (the ranking task's step) the
+    graphs bind nothing. `eval_steps.graphs` holds the graphs; None on the
     CPU, where the batches run eagerly."""
     device = next(model.parameters()).device
     graphs = None
     if device.type == "cuda":
         def body(static: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, ...]:
             batch = {k: v for k, v in static.items() if k != _CANDIDATES}
-            return tuple(eval_step(batch, static[_CANDIDATES]))
+            extra = (static[_CANDIDATES],) if _CANDIDATES in static else ()
+            return tuple(eval_step(batch, *extra))
 
         graphs = StepGraphs(body, "eval")
     copied: list = [None]  # the candidates tensor last copied into the buffer
 
-    def eval_steps(batches, candidates: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    def eval_steps(
+        batches, candidates: Optional[torch.Tensor] = None
+    ) -> Tuple[torch.Tensor, ...]:
         if not 0 < len(batches) <= steps:
             raise ValueError(f"{len(batches)} batches for a call of up to {steps}")
+        extra = () if candidates is None else (candidates,)
         if graphs is None:
-            outs = [eval_step(batch, candidates) for batch in batches]
+            outs = [eval_step(batch, *extra) for batch in batches]
             return tuple(torch.stack(parts) for parts in zip(*outs))
-        static = graphs.buffer(_CANDIDATES, candidates.shape, candidates.dtype, device)
-        if copied[0] is not candidates:
-            static.copy_(candidates)
-            copied[0] = candidates
+        bound = {}
+        if candidates is not None:
+            static = graphs.buffer(_CANDIDATES, candidates.shape, candidates.dtype, device)
+            if copied[0] is not candidates:
+                static.copy_(candidates)
+                copied[0] = candidates
+            bound[_CANDIDATES] = static
         results: Tuple[torch.Tensor, ...] = ()
         for i, batch in enumerate(batches):
-            outs = graphs(batch, bound={_CANDIDATES: static}, tag=model.training)
+            outs = graphs(batch, bound=bound, tag=model.training)
             if not results:
                 results = tuple(
                     torch.empty((len(batches),) + tuple(o.shape), dtype=o.dtype, device=device)

@@ -296,6 +296,46 @@ def test_packed_attention_kernels_match_plain_on_card(b, n, h, d, max_len):
 
 
 @pytest.mark.gpu
+def test_attention_kernels_match_plain_at_the_ranking_shape_on_card():
+    """The ranking task's rows: N = 2 x 211 = 422 item and rating tokens (off
+    the 64-key tile), each timestamp on the two tokens of a pair (a zero
+    gap), a table of 843 entries, even lengths."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA)")
+    rng = np.random.default_rng(6)
+    b, n, h, d = 16, 422, 1, 50
+    proj = torch.tensor(rng.normal(size=(b, n, 4 * h * d)), dtype=torch.float32).cuda()
+    proj.requires_grad_()
+    ts = np.sort(978_000_000 + rng.integers(0, 3 * 365 * 86400, size=(b, n // 2)), axis=1)
+    ts = torch.tensor(np.repeat(ts, 2, axis=1), dtype=torch.int32).cuda()
+    pw = torch.tensor(rng.normal(size=(2 * n - 1,)) * 0.02, dtype=torch.float32).cuda()
+    tw = torch.tensor(rng.normal(size=(129,)) * 0.02, dtype=torch.float32).cuda()
+    pw.requires_grad_(), tw.requires_grad_()
+    lengths = torch.tensor(2 * np.linspace(1, n // 2, b).astype(np.int32)).cuda()
+    g = torch.tensor(rng.normal(size=(b, n, h, d)), dtype=torch.float32).cuda()
+
+    def run(fn):
+        _, v, q, k = torch.split(proj, [h * d] * 4, dim=-1)
+        out = fn(q.unflatten(-1, (h, d)), k.unflatten(-1, (h, d)), v.unflatten(-1, (h, d)),
+                 ts, pw, tw, n, 128, lengths)
+        return out, torch.autograd.grad(out, [proj, pw, tw], g)
+
+    before = (kern.launches, kern.bwd_launches)
+    got, got_grads = run(kern.hstu_attention_fused)
+    torch.cuda.synchronize()
+    assert (kern.launches, kern.bwd_launches) == (before[0] + 1, before[1] + 1)
+    want, want_grads = run(kern.hstu_attention_fused_plain)
+    np.testing.assert_allclose(
+        got.detach().cpu().numpy(), want.detach().cpu().numpy(), rtol=2e-4, atol=2e-5
+    )
+    for i, (a, w) in enumerate(zip(got_grads, want_grads)):
+        rtol = 2e-4 if i == 0 else 5e-4
+        np.testing.assert_allclose(a.cpu().numpy(), w.cpu().numpy(), rtol=rtol, atol=2e-5)
+    for r, length in enumerate(lengths.tolist()):
+        assert not got[r, length:].any() and not got_grads[0][r, length:].any()
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("bt,d,x", [(700, 64, 26744), (300, 50, 26744), (4297, 64, 26744)])
 def test_dense_neg_lse_kernels_match_plain_on_a_wide_catalog_on_card(bt, d, x):
     """The lse forward and backward over a catalog many tiles wide (the TPU
@@ -464,6 +504,9 @@ _GRAPH_CASES = {
     "padded-sgd": ["optimizer1.kind=sgd", "optimizer1.momentum=0.9", "optimizer1.lr=0.05"],
     "packed": ["data.pack_sequences=true", "data.pack_eval=true"],
     "ring": ["model.encoder.sp_shards=4", "model.encoder.sp_zigzag=true"],
+    # the ranking step binds no negatives' buffer
+    "ranking": ["experiment=synthetic-rank-smoke"],
+    "ranking-packed": ["experiment=synthetic-rank-smoke", "data.pack_sequences=true"],
 }
 
 
@@ -484,7 +527,7 @@ def test_graphed_steps_follow_the_eager_steps_on_card(tmp_path, case):
         pytest.skip("needs an NVIDIA card (CUDA)")
     from mygenerativerecommenders_tpu_torch.train import graphs
 
-    packed = case == "packed"
+    packed = case.endswith("packed")
     runs = []
     for k in (1, 3):
         trainer = _card_trainer(tmp_path, case, k)

@@ -116,7 +116,7 @@ def test_packed_eval_epoch_gives_the_padded_eval_epochs_metrics(tmp_path):
     [
         ("model.encoder.remat=true", "Training variants"),
         ("model.embedding.lazy_update=true", "Lazy embedding update"),
-        ("model.task=ranking", "Other model families"),
+        ("model.encoder.attn_dropout_rate=0.1", "Training variants"),
     ],
 )
 def test_knobs_beside_packing_still_raise_naming_the_roadmap_item(tmp_path, override, item):
