@@ -76,16 +76,35 @@ Phases, each of which stops the run with a non-zero exit when it fails:
      that no live pair reaches must come out exactly zero and a second call
      must give the same bits; each kernel's host time to queue a call.
 3. The serving path at the full width of `synthetic-hstu`: `cli.serve.build_engine`
-   on a .pt checkpoint written from a seeded init, the HTTP server on an
-   ephemeral port, /healthz, a 32-row /v1/retrieve, a burst of concurrent
-   single-row requests through the coalescer, then rounds of timed 32-row
-   requests alternated with the same call made on the engine directly (the
+   on a .pt checkpoint written from a seeded init (its engine runs every
+   program as a CUDA graph replay, serving/service.py), the HTTP server on
+   an ephemeral port, a warm-up request (the retrieve graph's capture),
+   /healthz, a 32-row /v1/retrieve, a burst of concurrent single-row
+   requests through the coalescer, then rounds of timed 32-row requests
+   alternated with the same call made on the engine directly (the
    difference is the HTTP + JSON cost). The launch counts are set to 0 just
    before and read just after: each engine call must launch the attention
-   kernel once per HSTU block. The same requests then go through an engine
-   built with device="cpu" from the same checkpoint; the two must agree.
-   Last, torch.profiler reads the device kernel time of a 32-row engine
-   call, set against its host wall time.
+   kernel once per HSTU block (a replay counts the launches its capture
+   recorded). The same requests then go through an engine built with
+   device="cpu" from the same checkpoint; the two must agree. An eager
+   engine on the card over the same model (graphs=False) must give the
+   graphed one's ids and scores bit for bit. Last, the eager and the graphed
+   32-row engine call side by side: p50, and torch.profiler's device kernel
+   time, launches and idle share.
+3b. Generation over HTTP on the same graphed engine: /v1/generate with the
+   32 rows at steps=11 (the whole output window) for greedy, sample
+   (temperature 0.7, top_k 50, top_p 0.9, seed 3) and beam (4 beams), after
+   a warm-up request of each (their captures); then ten rounds of the three
+   with the counts set to 0 just before and read just after: num_blocks
+   attention launches per generation call (the prefill; the decode steps
+   are torch ops), replays only. Every id in the catalog, none from its
+   row's history, none twice in a row; the same request gives the same ids
+   every time; the eager engine's ids equal the graphed one's. Against the
+   CPU engine: the prefill's query rows and the first decode step's output
+   within E2E_ATOL, and the greedy ids equal up to the first step whose
+   top-2 margin on the CPU is within E2E_ATOL. Then p50 and p99 of each mode
+   over HTTP, and each mode's eager and graphed engine call side by side as
+   in phase 3.
 4. The training path at the full width of `synthetic-hstu` (batch 128, so
    26,880 supervision rows, 128 negatives, 3,706 catalog rows, dropout 0.2,
    fused AdamW): `cli.train.main` on the card for 30 epochs (480 optimizer
@@ -962,10 +981,180 @@ def run_main_path(kern, num_blocks_expected: int, card: str):
         f"range {gap.min():.3f}-{gap.max():.3f} ms on {card}")
     log(f"{len(singles)} concurrent single-row requests: p50 {p(lat_single_ms, 50):.3f} ms, "
         f"p99 {p(lat_single_ms, 99):.3f} ms on {card}")
-    profile_device(
-        lambda _: engine.retrieve(big["sequences"], big["timestamps"], k=big["k"]),
-        reps=20, what="engine call, 32 rows, no HTTP, p50", wall_ms=float(p(direct_ms, 50)), top=6,
+    eager = eager_twin(engine)
+    got = engine.retrieve(big["sequences"], big["timestamps"])
+    want = eager.retrieve(big["sequences"], big["timestamps"])
+    check(got[0] == want[0] and got[1] == want[1],
+          "the graphed engine's 32-row answer differs from the eager engine's")
+    log("graphed and eager engines on the card: the same ids and scores, bit for bit")
+    engines_side_by_side(
+        "retrieve, 32 rows", card,
+        {name: (lambda e=e: e.retrieve(big["sequences"], big["timestamps"], k=big["k"]))
+         for name, e in (("eager", eager), ("graphed", engine))},
     )
+    return launches, engine, eager, cpu_engine, big
+
+
+def eager_twin(engine):
+    """An engine on the card over the same model, with graphs=False."""
+    from mygenerativerecommenders_tpu_torch.serving.service import ServingEngine
+
+    return ServingEngine(engine.model, engine.cfg, engine.all_item_ids, engine.max_item_id,
+                         engine.batch_size, device=engine.device, graphs=False)
+
+
+def engines_side_by_side(what: str, card: str, calls: dict, reps: int = 20,
+                         profiled: int = 10) -> None:
+    """Each engine call of `calls` (name -> a call), eager and graphed: the
+    p50 of `reps` host-clock calls (each ends in its read-back), then
+    torch.profiler's device ms, launches and idle share of a call, averaged
+    over `profiled` calls."""
+    for name, fn in calls.items():
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            times.append(time.perf_counter() - t0)
+        wall_ms = 1e3 * float(np.median(times))
+        profile_device(lambda _: fn(), reps=profiled, top=3, wall_ms=wall_ms,
+                       what=f"engine call, {what}, {name}, p50 on {card}")
+
+
+# ---------------------------------------------------------------- phase 3b
+
+
+GEN_STEPS = 11  # synthetic-hstu's gr_output_length + 1: the whole output window
+GEN_MODES = {
+    "greedy": {},
+    "sample": {"temperature": 0.7, "top_k": 50, "top_p": 0.9, "seed": 3},
+    "beam": {"num_beams": 4},
+}
+
+
+def check_generated(req: dict, ids: list, catalog_set: set, max_len: int) -> None:
+    check(len(ids) == len(req["sequences"]), "one answer row per request row")
+    for hist, row in zip(req["sequences"], ids):
+        check(len(row) == GEN_STEPS, f"{len(row)} ids generated, not {GEN_STEPS}")
+        check(set(row) <= catalog_set, "a generated id outside the catalog")
+        check(not set(hist[-max_len:]) & set(row), "a generated id from the row's history")
+        check(len(set(row)) == GEN_STEPS, "an id generated twice in one row")
+
+
+def greedy_replay(engine, req: dict):
+    """The greedy program step by step on the engine's device, through
+    models/decode.py: -> (ids [rows, steps], each pick's top-2 margin [rows,
+    steps], the prefill's query rows, the first decode step's output rows)."""
+    from mygenerativerecommenders_tpu_torch.models import decode
+    from mygenerativerecommenders_tpu_torch.ops.sequence import (
+        get_current_embeddings,
+        scatter_at_lengths,
+    )
+    from mygenerativerecommenders_tpu_torch.ops.topk import masked_mips_scores
+    from mygenerativerecommenders_tpu_torch.utils.features import seq_features_from_batch
+
+    batch, n = engine._pack(req["sequences"], req["timestamps"])
+    tensors = {k: torch.from_numpy(v).to(engine.device) for k, v in batch.items()}
+    catalog = engine._catalog
+    ids, margins, queries = [], [], []
+    with torch.no_grad():
+        seq, _, _ = seq_features_from_batch(tensors, GEN_STEPS)
+        encoded, cache = decode.prefill(engine.model, seq)
+        query = get_current_embeddings(cache.lengths, encoded)
+        invalid = seq.past_ids
+        for _ in range(GEN_STEPS):
+            queries.append(query[:n].cpu().numpy())
+            scores = masked_mips_scores(query, engine.candidates, catalog, invalid,
+                                        engine.max_item_id)
+            top2, idx = torch.topk(scores, 2, dim=1)
+            margins.append((top2[:, 0] - top2[:, 1])[:n].cpu().numpy())
+            picked = catalog[idx[:, 0]]
+            ids.append(picked[:n].cpu().numpy())
+            invalid = scatter_at_lengths(invalid, cache.lengths, picked.to(invalid.dtype))
+            query, cache = decode.decode_step(engine.model, cache, picked,
+                                              decode.last_timestamps(cache))
+    return np.stack(ids, axis=1), np.stack(margins, axis=1), queries[0], queries[1]
+
+
+def run_generation_path(kern, engine, eager, cpu_engine, req: dict, num_blocks: int,
+                        card: str, rounds: int = 10) -> int:
+    """/v1/generate at synthetic-hstu's full width on phase 3's graphed engine.
+    -> the attention launches of its counted requests."""
+    from mygenerativerecommenders_tpu_torch.serving.service import RecommenderHTTPServer
+    from mygenerativerecommenders_tpu_torch.train import graphs
+
+    req = {"sequences": req["sequences"], "timestamps": req["timestamps"], "steps": GEN_STEPS}
+    catalog_set = set(engine.all_item_ids.tolist())
+    server = RecommenderHTTPServer(engine, "127.0.0.1", 0).start()
+    lat = {mode: [] for mode in GEN_MODES}
+    answers = {mode: [] for mode in GEN_MODES}
+    try:
+        for mode, kw in GEN_MODES.items():  # warm-up: each program's capture
+            http(server.port, "/v1/generate", {**req, "mode": mode, **kw})
+        before = graphs.counts["serve"].copy()
+        kern.launches, engine.calls = 0, 0
+        for _ in range(rounds):
+            for mode, kw in GEN_MODES.items():
+                body, seconds = http(server.port, "/v1/generate", {**req, "mode": mode, **kw})
+                answers[mode].append(body["ids"])
+                lat[mode].append(1e3 * seconds)
+        launches, calls = kern.launches, engine.calls
+    finally:
+        server.stop()
+    made = dict(graphs.counts["serve"] - before)
+    check(made == {"replays": calls}, f"the counted requests were not all replays: {made}")
+    log(f"generation: {calls} engine calls, {launches} attention launches, graphs "
+        f"{dict(graphs.counts['serve'])}")
+    check(launches == num_blocks * calls,
+          f"launches {launches} != {num_blocks} blocks x {calls} generation calls")
+    for mode in GEN_MODES:
+        for ids in answers[mode]:
+            check_generated(req, ids, catalog_set, engine.max_len)
+        check(all(ids == answers[mode][0] for ids in answers[mode]),
+              f"{mode}: the same request gave other ids")
+        want = eager.generate(req["sequences"], req["timestamps"], steps=GEN_STEPS, mode=mode,
+                              **GEN_MODES[mode])
+        check(answers[mode][0] == want, f"{mode}: the graphed engine's ids differ from the eager's")
+    check(answers["sample"][0] != answers["greedy"][0], "sampling gave the greedy ids")
+    log(f"generated ids in the catalog, none from a row's history, none twice in a row; "
+        f"{rounds} identical answers per mode (sample: seed 3); graphed = eager on the card")
+
+    # the card against the CPU: the prefill, one decode step, the greedy ids
+    ids_gpu, _, q_gpu, d_gpu = greedy_replay(engine, req)
+    ids_cpu, margin, q_cpu, d_cpu = greedy_replay(cpu_engine, req)
+    check((ids_gpu == np.asarray(answers["greedy"][0])).all(),
+          "the step-by-step greedy replay on the card differs from the engine's ids")
+    check((ids_cpu == np.asarray(cpu_engine.generate(
+        req["sequences"], req["timestamps"], steps=GEN_STEPS))).all(),
+        "the step-by-step greedy replay on the CPU differs from the CPU engine's ids")
+    err_q = float(np.abs(q_gpu - q_cpu).max())
+    clear = margin[:, 0] > E2E_ATOL  # rows whose first pick, the step's input, is no near tie
+    err_d = float(np.abs(d_gpu - d_cpu)[clear].max())
+    check(err_q <= E2E_ATOL and err_d <= E2E_ATOL,
+          f"card vs CPU: prefill queries {err_q:.3e}, decode step {err_d:.3e} (atol {E2E_ATOL})")
+    tie = margin <= E2E_ATOL
+    first_tie = np.where(tie.any(axis=1), tie.argmax(axis=1), GEN_STEPS)
+    for r, upto in enumerate(first_tie):
+        check((ids_gpu[r, :upto] == ids_cpu[r, :upto]).all(),
+              f"row {r}: greedy ids differ from the CPU's before a near tie (step {upto})")
+    log(f"card vs CPU: prefill query rows {err_q:.3e}, first decode step {err_d:.3e} apart "
+        f"(atol {E2E_ATOL}); greedy ids equal through step {int(first_tie.min())} of "
+        f"{GEN_STEPS} in every row ({int((first_tie < GEN_STEPS).sum())} rows reach a near "
+        f"tie on the CPU, min margin {float(margin.min()):.3e})")
+
+    p = np.percentile
+    for mode, ms in lat.items():
+        log(f"32-row /v1/generate, {mode}, {GEN_STEPS} steps, over HTTP: p50 "
+            f"{p(ms, 50):.3f} ms, p99 {p(ms, 99):.3f} ms ({len(ms)} requests) on {card}")
+    for mode, kw in GEN_MODES.items():
+        engines_side_by_side(
+            f"generate {mode}, 32 rows x {GEN_STEPS} steps", card,
+            {name: (lambda e=e, mode=mode, kw=kw: e.generate(
+                req["sequences"], req["timestamps"], steps=GEN_STEPS, mode=mode, **kw))
+             for name, e in (("eager", eager), ("graphed", engine))},
+            # a generation call is ~1,100-1,500 kernels: the profiler's
+            # bookkeeping of many calls would take most of the phase
+            reps=10, profiled=2,
+        )
     return launches
 
 
@@ -1861,7 +2050,14 @@ def main() -> int:
 
     kc = Counts(kern, count_kern, lse_kern, chunk_kern, graphs)
     lse_kern.fused_launches = lse_kern.fused_bwd_launches = 0
-    serving_launches = run_main_path(kern, num_blocks_expected=2, card=kind)
+    t0 = time.perf_counter()
+    serving_launches, engine, eager, cpu_engine, big = run_main_path(
+        kern, num_blocks_expected=2, card=kind)
+    t1 = time.perf_counter()
+    serving_launches += run_generation_path(kern, engine, eager, cpu_engine, big,
+                                            num_blocks=2, card=kind)
+    log(f"phase 3 took {t1 - t0:.1f} s, phase 3b {time.perf_counter() - t1:.1f} s")
+    del engine, eager, cpu_engine
     train_counts = run_training_path(kc, card=kind)
     card_against_cpu_step(["experiment=synthetic-hstu"])
     gc.collect()

@@ -1,4 +1,5 @@
-"""Serving entry point: the HTTP retrieval service from a checkpoint.
+"""Serving entry point: the HTTP retrieval and generation service from a
+checkpoint.
 
 Port of mygenerativerecommenders_tpu/cli/serve.py. Usage:
 
@@ -6,7 +7,8 @@ Port of mygenerativerecommenders_tpu/cli/serve.py. Usage:
       trainer.ckpt_path=<model.pt | params.npz> serve.port=8000 serve.batch_size=32
 
 Dotted options under `serve.`: host, port, batch_size, and device (default
-cuda; serve.device=cpu runs the plain PyTorch versions of the kernels).
+cuda, where every engine program is a CUDA graph replay; serve.device=cpu
+runs them eagerly, on the plain PyTorch versions of the kernels).
 """
 
 from __future__ import annotations

@@ -34,7 +34,7 @@ non-zero rate raises.
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -127,13 +127,18 @@ class HSTUBlock(nn.Module):
         timestamps: Optional[torch.Tensor],  # [B, N]
         lengths: Optional[torch.Tensor] = None,  # [B] valid row counts
         seg_pos: Optional[torch.Tensor] = None,  # [B, N] within-segment positions (packed)
+        kv: Optional[List[Tuple[torch.Tensor, torch.Tensor]]] = None,
     ) -> torch.Tensor:
+        """-> the block's output [B, N, D]; with a `kv` list, its k [B, N, H*Dqk]
+        and v [B, N, H*Dv] are appended to it (the decode cache's rows)."""
         h, dv, dqk = self.num_heads, self.linear_dim, self.attention_dim
         b, n, d = x.shape
         proj = F.layer_norm(x, (d,), eps=self.eps) @ self._uvqk
         if self.linear_activation == "silu":
             proj = F.silu(proj)
         u, v, q, k = torch.split(proj, [dv * h, dv * h, dqk * h, dqk * h], dim=-1)
+        if kv is not None:
+            kv.append((k, v))
         # [B, N, H, d] views of the column slices: no copy
         qh, kh, vh = q.unflatten(-1, (h, dqk)), k.unflatten(-1, (h, dqk)), v.unflatten(-1, (h, dv))
 
@@ -262,7 +267,10 @@ class HSTU(nn.Module):
         user_embeddings: torch.Tensor,  # [B, N, D]
         valid_mask: torch.Tensor,  # [B, N, 1]
         past_payloads: Dict[str, torch.Tensor],
+        kv: Optional[List[Tuple[torch.Tensor, torch.Tensor]]] = None,
     ) -> torch.Tensor:
+        """-> [B, N, D], zero at invalid rows; a `kv` list collects each
+        block's (k, v) in block order (`HSTUBlock.forward`)."""
         del past_lengths
         x = user_embeddings
         timestamps = past_payloads.get(TIMESTAMPS_KEY)
@@ -280,5 +288,5 @@ class HSTU(nn.Module):
         kernel_lengths = (valid_mask[:, :, 0].to(torch.int32) * pos1).amax(dim=1)
         for block in self._attention_layers:
             x = x * mask  # padded rows stay exactly zero
-            x = block(x, timestamps, kernel_lengths, seg_pos)
+            x = block(x, timestamps, kernel_lengths, seg_pos, kv)
         return x * mask

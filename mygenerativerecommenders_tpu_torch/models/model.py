@@ -16,7 +16,7 @@ them. Submodule names follow the reference checkpoint's keys, so
 
 from __future__ import annotations
 
-from typing import Optional, Tuple, Union
+from typing import List, Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -142,10 +142,14 @@ class GenerativeRecommender(nn.Module):
     ) -> torch.Tensor:
         return self.similarity(input_embeddings, item_embeddings)
 
-    def forward(self, seq: SequenceBatch) -> Tuple[torch.Tensor, torch.Tensor]:
+    def forward(
+        self, seq: SequenceBatch,
+        kv: Optional[List[Tuple[torch.Tensor, torch.Tensor]]] = None,
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
         """-> (encoded [B, N, D] postprocessed, lengths [B]); N is past_ids' N
         and lengths are the item positions', also where the preprocessor
-        doubled the row."""
+        doubled the row. A `kv` list collects each HSTU block's (k, v), the
+        rows of the decode cache (models/decode.py:prefill)."""
         past_embeddings = seq.past_embeddings
         if past_embeddings is None:
             past_embeddings = self.embeddings(seq.past_ids)
@@ -153,7 +157,7 @@ class GenerativeRecommender(nn.Module):
             seq.past_lengths, seq.past_ids, past_embeddings, seq.past_payloads
         )
         encoded = self.sequence_encoder["_hstu"](
-            lengths, user_embeddings.float(), valid_mask, payloads
+            lengths, user_embeddings.float(), valid_mask, payloads, kv
         )
         if aux_mask is not None:
             # back to the kept (item) positions, cropped to past_ids' N: at

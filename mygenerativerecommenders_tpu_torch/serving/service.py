@@ -1,21 +1,33 @@
-"""Online serving: batch retrieval behind a small stdlib HTTP service.
+"""Online serving: batch retrieval and generation behind a small stdlib HTTP
+service.
 
 Port of mygenerativerecommenders_tpu/serving/service.py. The engine pads
 every request to a fixed serving batch and the model's max length (keeping
-the most recent items), runs the retrieval eval step on its device, and
-keeps the candidate matrix resident there. A coalescer groups concurrent
-single-row requests into one engine call.
+the most recent items) and keeps the candidate matrix resident on its
+device. Its programs are the retrieval eval step and one generation program
+per (mode, steps, num_beams) (models/decode.py). On the card each program is
+one CUDA graph, captured at its first call and replayed after
+(train/graphs.py, one graph per static shape: the counterpart of the JAX
+engine's `jax.jit`); on the CPU, or with `graphs=False`, it runs eagerly. A
+coalescer groups concurrent single-row retrieve requests into one engine
+call; generation is not coalesced, as in JAX.
 
-Every engine call runs under one lock and `torch.inference_mode()`:
-multi-row requests call the engine straight from handler threads, and the
-lock keeps the calls, and so the kernels' launch counts, one at a time.
+Every engine call runs under one lock and `torch.no_grad()`, around the
+copies in, the run or replay and the read-back: multi-row requests call the
+engine straight from handler threads, and the lock keeps the calls, the
+graphs' static buffers and the kernels' launch counts one call at a time.
+(Not `torch.inference_mode()`: a graph's buffers outlive the call, and an
+inference tensor cannot be written in place outside that mode.)
 
 Endpoints (JSON over HTTP):
   GET  /healthz                      -> {"status": "ok", ...}
   POST /v1/retrieve  {"sequences": [[id,...],...],
                       "timestamps": [[t,...],...]?, "k": int?}
                                      -> {"ids": [[...]], "scores": [[...]]}
-  POST /v1/generate                  -> 501 until models/decode.py is ported
+  POST /v1/generate  {"sequences": ..., "timestamps": ...?, "steps": int,
+                      "mode": "greedy"|"sample"|"beam",
+                      "temperature"/"top_k"/"top_p"/"num_beams"?, "seed"?}
+                                     -> {"ids": [[...]]}
 """
 
 from __future__ import annotations
@@ -24,22 +36,46 @@ import json
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
+from typing import Callable, Dict, Hashable, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from mygenerativerecommenders_tpu_torch import not_ported
 from mygenerativerecommenders_tpu_torch.configs import Config
+from mygenerativerecommenders_tpu_torch.models import decode
 from mygenerativerecommenders_tpu_torch.models.model import GenerativeRecommender
+from mygenerativerecommenders_tpu_torch.train.graphs import WARMUP_RUNS, StepGraphs
 from mygenerativerecommenders_tpu_torch.train.task_retrieval import (
     make_candidate_fn,
     make_eval_step,
 )
+from mygenerativerecommenders_tpu_torch.utils.features import seq_features_from_batch
+
+GENERATION_MODES = ("greedy", "sample", "beam")
+_CANDIDATES = "candidates"
+# the loader-batch columns of a packed request, as the programs read them
+_BATCH_KEYS = (
+    "lengths", "ids", "ratings", "timestamps", "target_id", "target_rating", "target_timestamp",
+)
+
+Body = Callable[[Dict[str, torch.Tensor]], Tuple[torch.Tensor, ...]]
+
+
+def _gumbel_(out: torch.Tensor, seed: int) -> torch.Tensor:
+    """Fill `out` with standard Gumbel noise from a generator on its device
+    seeded with `seed`: -log(-log(u)), u uniform in [tiny, 1) as JAX draws it."""
+    gen = torch.Generator(device=out.device).manual_seed(seed)
+    out.uniform_(generator=gen).clamp_(min=torch.finfo(out.dtype).tiny)
+    return out.log_().neg_().log_().neg_()
 
 
 class ServingEngine:
-    """Model + candidate matrix + the eval step, at a static batch shape."""
+    """Model + candidate matrix + the serving programs, at a static batch shape.
+
+    `graphs` (on a cuda device; the CPU is always eager) runs every program
+    as a CUDA graph replay; `graphs=False` keeps the eager form on the card,
+    the reference the graphed one is held to."""
 
     def __init__(
         self,
@@ -49,6 +85,7 @@ class ServingEngine:
         max_item_id: int,
         batch_size: int = 32,
         device: Union[str, torch.device] = "cuda",
+        graphs: bool = True,
     ):
         if cfg.model.task != "retrieval":
             # the server answers retrieval requests only, as the JAX package's
@@ -60,16 +97,26 @@ class ServingEngine:
         self.max_len = int(cfg.data.max_sequence_length)
         self.all_item_ids = np.asarray(all_item_ids, dtype=np.int32)
         self.max_item_id = int(max_item_id)
+        self.graphed = bool(graphs) and self.device.type == "cuda"
         self.calls = 0  # engine calls so far (each runs the model once)
         self._lock = threading.Lock()
+        self._catalog = torch.as_tensor(self.all_item_ids.astype(np.int64), device=self.device)
         self._eval_step = make_eval_step(self.model, cfg, self.all_item_ids, max_item_id)
         self._candidate_fn = make_candidate_fn(self.model, cfg, self.all_item_ids)
+        # program key -> its body, or its StepGraphs when graphed
+        self._programs: Dict[Hashable, Union[Body, StepGraphs]] = {}
+        self.candidates: Optional[torch.Tensor] = None
         self.refresh_candidates()
 
     def refresh_candidates(self) -> None:
-        """Rebuild the device-resident candidate matrix from current weights."""
-        with self._lock, torch.inference_mode():
-            self.candidates = self._candidate_fn()
+        """Rebuild the device-resident candidate matrix from current weights,
+        in place: every graph reads it as the buffer it captured."""
+        with self._lock, torch.no_grad():
+            fresh = self._candidate_fn()
+            if self.candidates is None:
+                self.candidates = fresh
+            else:
+                self.candidates.copy_(fresh)
 
     def _pack(
         self,
@@ -120,9 +167,50 @@ class ServingEngine:
             "target_rating": np.zeros(b, dtype=np.int32),
             # the query position's "next-item" timestamp: last seen + 1
             "target_timestamp": (ts.max(axis=1) + 1).astype(np.int32),
-            "sample_weight": (np.arange(b) < n_real).astype(np.float32),
         }
         return batch, n_real
+
+    def _call(
+        self, key: Hashable, make_body: Callable[[], Body], arrays: Dict[str, np.ndarray],
+        noise: Optional[Tuple[Sequence[int], int]] = None,
+    ) -> List[np.ndarray]:
+        """One engine call of the program `key` (`make_body()` builds it at
+        its first call): eagerly, or as one replay of its CUDA graph. The
+        candidates are bound; `noise` = (shape, seed) binds a Gumbel draw too,
+        made outside the graph into its buffer. -> the outputs on the host."""
+        inputs = {name: torch.from_numpy(a).to(self.device) for name, a in arrays.items()}
+        with self._lock, torch.no_grad():
+            program = self._programs.get(key)
+            if program is None:
+                program = make_body()
+                if self.graphed:
+                    program = StepGraphs(program, "serve")
+                self._programs[key] = program
+            bound = {_CANDIDATES: self.candidates}
+            if noise is not None:
+                shape, seed = noise
+                if self.graphed:
+                    out = program.buffer("gumbel", shape, torch.float32, self.device)
+                else:
+                    out = torch.empty(tuple(shape), dtype=torch.float32, device=self.device)
+                bound["gumbel"] = _gumbel_(out, seed)
+            if self.graphed:
+                captured = len(program)
+                outs = program(inputs, bound=bound)
+                # a capture's warm-up runs are calls too: each launches what one call does
+                self.calls += 1 + WARMUP_RUNS * (len(program) - captured)
+            else:
+                outs = program({**inputs, **bound})
+                self.calls += 1
+            return [o.cpu().numpy() for o in outs]
+
+    def _retrieve_body(self) -> Body:
+        eval_step = self._eval_step
+
+        def body(inputs: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, ...]:
+            return tuple(eval_step({k: inputs[k] for k in _BATCH_KEYS}, inputs[_CANDIDATES]))
+
+        return body
 
     def retrieve(
         self,
@@ -132,21 +220,81 @@ class ServingEngine:
     ) -> Tuple[List[List[int]], List[List[float]]]:
         """Top-k next-item retrieval for raw id sequences."""
         batch, n_real = self._pack(sequences, timestamps)
-        tensors = {
-            key: torch.from_numpy(val).to(self.device) for key, val in batch.items()
-        }
-        with self._lock, torch.inference_mode():
-            self.calls += 1
-            top_ids, top_scores = self._eval_step(tensors, self.candidates)
-            top_ids = top_ids[:n_real].cpu().numpy()
-            top_scores = top_scores[:n_real].cpu().numpy()
+        top_ids, top_scores = self._call(("retrieve",), self._retrieve_body, batch)
+        top_ids, top_scores = top_ids[:n_real], top_scores[:n_real]
         if k is not None:
             k = max(1, min(int(k), top_ids.shape[1]))
             top_ids, top_scores = top_ids[:, :k], top_scores[:, :k]
         return top_ids.tolist(), [[float(s) for s in row] for row in top_scores.tolist()]
 
-    def generate(self, *args, **kwargs) -> List[List[int]]:
-        raise not_ported("autoregressive generation (models/decode.py)", "Generation")
+    def _generate_body(self, mode: str, steps: int, num_beams: int = 0) -> Body:
+        model, catalog, max_id = self.model, self._catalog, self.max_item_id
+        max_out = self.cfg.model.gr_output_length + 1
+
+        def body(inputs: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, ...]:
+            seq, _, _ = seq_features_from_batch({k: inputs[k] for k in _BATCH_KEYS}, max_out)
+            cands = inputs[_CANDIDATES]
+            if mode == "greedy":
+                return (decode.greedy_generate(model, seq, cands, catalog, steps, max_id),)
+            if mode == "sample":
+                return (decode.sample_generate(
+                    model, seq, cands, catalog, steps, max_id, inputs["gumbel"],
+                    inputs["temperature"], inputs["top_k"], inputs["top_p"],
+                ),)
+            return (decode.beam_generate(model, seq, cands, catalog, steps, max_id, num_beams)[0],)
+
+        return body
+
+    def generate(
+        self,
+        sequences: Sequence[Sequence[int]],
+        timestamps: Optional[Sequence[Sequence[int]]] = None,
+        steps: int = 1,
+        mode: str = "greedy",
+        seed: int = 0,
+        temperature: float = 1.0,
+        top_k: int = 0,
+        top_p: float = 0.0,
+        num_beams: int = 4,
+    ) -> List[List[int]]:
+        """Autoregressive multi-step generation (greedy, sample or beam).
+
+        One program per (mode, steps) and, for beam, num_beams: the sampling
+        knobs are inputs of the sample program, not part of its key. An
+        unknown keyword raises a TypeError (JAX's engine ignores it)."""
+        steps = int(steps)
+        if not 1 <= steps <= self.cfg.model.gr_output_length + 1:
+            raise ValueError(
+                f"steps {steps} outside [1, {self.cfg.model.gr_output_length + 1}]"
+                " (the model's generative output window)"
+            )
+        if mode not in GENERATION_MODES:
+            raise ValueError(
+                f"unknown generation mode {mode!r}; expected greedy | sample | beam"
+            )
+        decode.check_decodable(self.cfg.model)
+        batch, n_real = self._pack(sequences, timestamps)
+        noise = None
+        if mode == "sample":
+            seed, top_k = int(seed), int(top_k)
+            if not 0 <= seed < 2**63:
+                raise ValueError(f"seed {seed} outside [0, 2**63)")
+            if top_k < 0:
+                raise ValueError(f"top_k {top_k} < 0")
+            batch["temperature"] = np.asarray(temperature, dtype=np.float32)
+            batch["top_k"] = np.asarray(top_k, dtype=np.int64)
+            batch["top_p"] = np.asarray(top_p, dtype=np.float32)
+            noise = ((steps, self.batch_size, len(self.all_item_ids)), seed)
+            key: Tuple = ("sample", steps)
+        elif mode == "beam":
+            num_beams = int(num_beams)
+            if not 1 <= num_beams <= len(self.all_item_ids):
+                raise ValueError(f"num_beams {num_beams} outside [1, catalog size]")
+            key = ("beam", steps, num_beams)
+        else:
+            key = ("greedy", steps)
+        (ids,) = self._call(key, lambda: self._generate_body(*key), batch, noise)
+        return ids[:n_real].tolist()
 
 
 class _Coalescer:
@@ -312,7 +460,18 @@ def _make_handler(engine: ServingEngine, coalescer: _Coalescer):
                     )
                     self._send(200, {"ids": ids, "scores": scores})
                 elif self.path == "/v1/generate":
-                    engine.generate()
+                    # unknown keys pass through as keywords, as in JAX
+                    known = {"sequences", "timestamps", "steps", "mode", "seed"}
+                    kw = {key: value for key, value in req.items() if key not in known}
+                    ids = engine.generate(
+                        req.get("sequences"),
+                        req.get("timestamps"),
+                        steps=req.get("steps", 1),
+                        mode=req.get("mode", "greedy"),
+                        seed=req.get("seed", 0),
+                        **kw,
+                    )
+                    self._send(200, {"ids": ids})
                 else:
                     self._send(404, {"error": f"unknown path {self.path}"})
             except NotImplementedError as exc:

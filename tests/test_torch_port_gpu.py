@@ -592,3 +592,76 @@ def test_a_failed_capture_raises_on_card():
         StepGraphs(body, "test")({"x": torch.ones(4, device="cuda")})
     torch.cuda.synchronize()
     assert float(torch.ones(3, device="cuda").sum()) == 3.0  # the card still works
+
+
+def _card_engines(tmp_path):
+    """A graphed and an eager engine on the card over one synthetic-smoke
+    model, and requests: ragged rows, some with timestamps."""
+    from mygenerativerecommenders_tpu_torch.cli.train import parse_args
+    from mygenerativerecommenders_tpu_torch.configs import resolve
+    from mygenerativerecommenders_tpu_torch.data.catalog import load_catalog
+    from mygenerativerecommenders_tpu_torch.models.model import build_model
+    from mygenerativerecommenders_tpu_torch.serving.service import ServingEngine
+
+    cfg = parse_args(["experiment=synthetic-smoke", f"data.data_dir={tmp_path}"])
+    ids, max_id = load_catalog(cfg.data)
+    resolve(cfg, max_id)
+    model = build_model(cfg, device="cuda", seed=3)
+    graphed, eager = (
+        ServingEngine(model, cfg, ids, max_id, batch_size=8, device="cuda", graphs=g)
+        for g in (True, False)
+    )
+    rng = np.random.default_rng(4)
+    seqs = [rng.choice(ids, size=int(n)).tolist() for n in (1, 5, 30, 80)]
+    stamps = [np.sort(978_000_000 + rng.integers(0, 10**7, size=len(s))).tolist() for s in seqs]
+    stamps[1] = None
+    return graphed, eager, seqs, stamps
+
+
+_GENERATE = {"greedy": {}, "sample": dict(seed=3, temperature=0.7, top_k=20, top_p=0.9),
+             "beam": dict(num_beams=3)}
+
+
+@pytest.mark.gpu
+def test_graphed_engine_answers_as_the_eager_one_on_card(tmp_path):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA)")
+    from mygenerativerecommenders_tpu_torch.train import graphs
+
+    graphed, eager, seqs, stamps = _card_engines(tmp_path)
+    assert graphed.graphed and not eager.graphed
+    graphs.counts.clear()
+    for _ in range(2):  # the second call of each program replays, no capture
+        got, want = graphed.retrieve(seqs, stamps), eager.retrieve(seqs, stamps)
+        assert got[0] == want[0]
+        np.testing.assert_array_equal(got[1], want[1])
+        for mode, kw in _GENERATE.items():
+            got = graphed.generate(seqs, stamps, steps=4, mode=mode, **kw)
+            assert got == eager.generate(seqs, stamps, steps=4, mode=mode, **kw), mode
+    assert dict(graphs.counts["serve"]) == {
+        "captures": 4, "warmup_runs": 4 * graphs.WARMUP_RUNS, "replays": 8}
+    assert len(graphed._programs) == 4
+    # another temperature, top-k and top-p: the same sample program
+    graphed.generate(seqs, stamps, steps=4, mode="sample", seed=1, temperature=0.3, top_k=0)
+    assert graphs.counts["serve"]["captures"] == 4
+
+
+@pytest.mark.gpu
+def test_refreshed_candidates_reach_the_graphs_on_card(tmp_path):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA)")
+    graphed, eager, seqs, stamps = _card_engines(tmp_path)
+    before = graphed.retrieve(seqs, stamps)
+    candidates = graphed.candidates
+    with torch.no_grad():  # new weights into the model both engines serve
+        for p in graphed.model.parameters():
+            p.mul_(1.5).add_(0.01)
+    for engine in (graphed, eager):
+        engine.refresh_candidates()
+    assert graphed.candidates is candidates  # refreshed in place: the buffer the graphs bound
+    got, want = graphed.retrieve(seqs, stamps), eager.retrieve(seqs, stamps)
+    assert got[0] == want[0] and got[0] != before[0]
+    np.testing.assert_array_equal(got[1], want[1])
+    for mode, kw in _GENERATE.items():
+        got = graphed.generate(seqs, stamps, steps=4, mode=mode, **kw)
+        assert got == eager.generate(seqs, stamps, steps=4, mode=mode, **kw), mode

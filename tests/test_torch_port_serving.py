@@ -137,8 +137,10 @@ def test_engine_rejects_bad_requests(engines):
         engine.retrieve([[1, 2]] * 5)  # > batch_size
     with pytest.raises(ValueError):
         engine.retrieve([[1, 2]], timestamps=[[5]])
-    with pytest.raises(NotImplementedError, match="Generation"):
-        engine.generate([[1, 2]])
+    with pytest.raises(ValueError, match="steps"):
+        engine.generate([[1, 2]], steps=0)
+    with pytest.raises(ValueError, match="mode"):
+        engine.generate([[1, 2]], mode="nope")
 
 
 def test_http_healthz_retrieve_and_errors(server, engines):
@@ -152,7 +154,8 @@ def test_http_healthz_retrieve_and_errors(server, engines):
     assert body["ids"] == want_ids
     np.testing.assert_allclose(body["scores"], want_scores, rtol=1e-6)
     status, body = _post(server, "/v1/generate", {"sequences": [[1, 2]], "steps": 2})
-    assert status == 501 and "Generation" in body["error"]
+    assert status == 200 and body["ids"] == engines[1].generate([[1, 2]], steps=2)
+    assert len(body["ids"][0]) == 2 and not {1, 2} & set(body["ids"][0])
     status, body = _post(server, "/v1/retrieve", {"sequences": []})
     assert status == 400 and "error" in body
     status, _ = _post(server, "/v1/nope", {})
