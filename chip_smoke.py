@@ -182,6 +182,43 @@ Phases, each of which stops the run with a non-zero exit when it fails:
 12. Phase 5 for the ranking loss: one padded and one packed synthetic-rank
    batch (one capacity class of 256 tokens), card against CPU, the same
    tolerances.
+13. `synthetic-large-vocab` at full width on one card, with the JAX package's
+   one-chip overlay (model.embedding.kind=local, num_shards=1): 10,000,000
+   items, D=64, 4 blocks, H=2, batch 64, N=211, 512 negatives, int8 index
+   (phase 2 also checks rows 1-2 at this shape V: B=64, N=L=211, H=2, d=64).
+   The data's build time; `cli.train.main` on the lazy overlay (shared
+   negatives, the lazy row AdamW) for one epoch, graphed (steps_per_call=8:
+   64 steps, then validation and the test pass on the int8 index), its
+   checkpoint (~7.7 GB: the model, mv and the AdamW state) in a temporary
+   directory that is removed after, with the seconds of a save and the peak
+   memory. Cut: the number of epochs (the preset allows 500). Launch counts
+   as in phase 4: per optimizer step 4 attention forwards and 4 backwards,
+   no count or lse; 4 forwards per eval batch. Then the trained checkpoint
+   served with the int8 index: 32-row /v1/retrieve (k=200) over HTTP, ids
+   in the catalog and none from the row's history, p50 and p99; greedy
+   /v1/generate at steps=11 (sample mode's Gumbel buffer would be 14 GB and
+   is not driven); the graphed engine bit for bit against the eager one;
+   the int8 pre-rank with its exact re-score against the exact scan on the
+   same 32 queries: recall >= 0.95 (the JAX package's bar) and the scores
+   the exact inner products (rtol 1e-5) where the ids agree. Last, trainers
+   stepped by hand, eager and graphed side by side as in phase 4: (a) the
+   gather loss with dense fused AdamW, (b') shared negatives with dense
+   fused AdamW, (b) shared negatives with the lazy update; each with its
+   build time, peak memory and the optimizer's share of the eager step's
+   device time, and for (a) and (b') the fused AdamW kernels' time against
+   the table's 17.9 GB of traffic a step.
+14. Phase 5 for (a) and (b) at X=10M: one step on the card and on the CPU
+   from the same weights, batch and negatives, dropout off: (a) on the loss
+   (rtol 1e-5) and every gradient (rtol 5e-4 / atol 1e-6), (b) on mv, the
+   count and every parameter but the table after the step, at the same
+   tolerances, and the table on each device against the AdamW step of its
+   own moments in float64 (card against CPU directly, Adam's first step
+   lr * g / (|g| + eps) would turn the float32 difference of a gradient near
+   eps into up to lr / 4 of it; the largest such difference is logged),
+   untouched rows bit for bit. Then
+   phase 10's check for (a) and (b): three graphed steps against three
+   eager ones on one batch with the same negatives; for (b) the rows no step
+   touched are bit for bit unchanged and their moments zero.
 
 It ends with one JSON line of the kernels' numbers and, last, the line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -1932,6 +1969,505 @@ def graphed_against_eager() -> None:
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------- phases 13 and 14 (10M items)
+
+# synthetic-large-vocab on one card: the JAX package's one-chip overlay
+LARGE_ARGS = ["experiment=synthetic-large-vocab", "model.embedding.kind=local",
+              "model.embedding.num_shards=1"]
+SHARED = ["model.loss.shared_negatives=true"]
+LAZY = SHARED + ["model.embedding.lazy_update=true"]
+# the hand-stepped trainers: (a) the preset as it stands, the gather loss
+# (64 x 211 x 10M is past the 3e9 gate) with dense fused AdamW; (b') shared
+# negatives with dense fused AdamW; (b) the lazy overlay
+LARGE_VARIANTS = {"(a) gather + dense AdamW": [], "(b') shared + dense AdamW": SHARED,
+                  "(b) shared + lazy update": LAZY}
+# the optimizer's profiler ranges: torch's, and the lazy one's around it
+OPTIMIZER_RANGES = ("LazyEmbeddingAdamW.step", "Optimizer.step#AdamW.step")
+
+
+def gb(nbytes: float) -> str:
+    return f"{nbytes / 1e9:.2f} GB"
+
+
+def peak() -> str:
+    return gb(torch.cuda.max_memory_allocated())
+
+
+def profile_optimizer(fn, reps: int) -> tuple[float, float, float]:
+    """torch.profiler over `reps` eager steps: (device ms of every kernel,
+    device ms under the optimizer's range, device ms of the fused AdamW
+    kernels) a step."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(reps):
+            fn(i)
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+    total = sum(e.self_device_time_total for e in kernels)
+    adam = sum(e.self_device_time_total for e in kernels if "FusedAdam" in e.key)
+    ranges = {e.key: e.device_time_total for e in events if e.device_type == DeviceType.CPU}
+    # the lazy range holds the AdamW's of the other parameters: count it alone where it ran
+    opt = next((ranges[k] for k in OPTIMIZER_RANGES if k in ranges), 0.0)
+    return total / 1e3 / reps, opt / 1e3 / reps, adam / 1e3 / reps
+
+
+def run_large_vocab_path(kc: Counts, card: str):
+    """Phase 13: synthetic-large-vocab at full width on the card. -> (the
+    launch counts of its cli.train run and engine calls, the data)."""
+    import shutil
+    import tempfile
+
+    from mygenerativerecommenders_tpu_torch.checkpoint import CheckpointManager
+    from mygenerativerecommenders_tpu_torch.cli import train as cli_train
+    from mygenerativerecommenders_tpu_torch.data.dataset import RecoData
+
+    cfg = cli_train.parse_args(LARGE_ARGS)
+    t0 = time.perf_counter()
+    data = RecoData(cfg.data, seed=cfg.trainer.seed)
+    for split in ("train", "val", "test"):
+        data.dataset(split)
+    x, max_id = len(data.all_item_ids), data.max_item_id
+    log(f"synthetic-large-vocab data: {x:,} catalog items (max id {max_id:,}), "
+        f"{cfg.data.synthetic_num_users} users, built in {time.perf_counter() - t0:.2f} s "
+        f"(the catalog's cdf once, one rng.random draw a user)")
+    d, blocks = cfg.model.item_embedding_dim, cfg.model.encoder.num_blocks
+    n = cfg.data.max_sequence_length + cfg.model.gr_output_length + 1
+    r = cfg.model.loss.num_to_sample
+    check(x == 10_000_000 and d == 64 and blocks == 4 and r == 512, "not the preset's widths")
+
+    tmp = Path(tempfile.mkdtemp(prefix="large_vocab_", dir=OUT_DIR))
+    saves = []
+    save = CheckpointManager.save
+
+    def timed_save(self, *a, **k):
+        t = time.perf_counter()
+        save(self, *a, **k)
+        saves.append(time.perf_counter() - t)
+
+    epochs = 1
+    args = LARGE_ARGS + LAZY + [
+        f"trainer.output_dir={tmp}", f"trainer.max_epochs={epochs}", "trainer.min_epochs=1",
+        "trainer.steps_per_call=8", "trainer.log_every_n_steps=1",
+    ]
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        kc.reset()
+        CheckpointManager.save = timed_save
+        t0 = time.perf_counter()
+        try:
+            monitored = cli_train.main(args)
+        finally:
+            CheckpointManager.save = save
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts, graph_counts = kc.read(), kc.read_graphs()
+        per_epoch = -(-cfg.data.synthetic_num_users // cfg.data.batch_size)
+        eval_batches = 2 * per_epoch  # validation after the epoch, then the test pass
+        log(f"large-vocab path: cli.train (b) on {card}, D={d} blocks={blocks} "
+            f"H={cfg.model.encoder.num_heads} N={n} batch={cfg.data.batch_size} R={r} "
+            f"shared negatives, lazy update, int8 index (over-fetch "
+            f"{cfg.model.index.rescore_over_fetch}), steps_per_call=8: {per_epoch} optimizer "
+            f"steps and {eval_batches} eval batches in {wall:.2f} s; peak memory {peak()}; "
+            f"checkpoint saves {', '.join(f'{s:.2f}' for s in saves)} s "
+            f"({gb(sum(f.stat().st_size for f in tmp.rglob('last.pt')))} each); launches {counts}")
+        metrics = tmp / "synthetic-large-vocab" / "metrics.jsonl"
+        losses, steps, val, test = read_training_run(
+            metrics, epochs, monitored, chance=f"log {r + 1} = {np.log(r + 1):.4f}")
+        check(steps == per_epoch, f"{steps} optimizer steps, expected {per_epoch}")
+        log(f"  val/ndcg@100 {val[0]['val/ndcg@100']:.5f}, test ndcg@10 "
+            f"{test['test/ndcg@10']:.5f}, hr@200 {test['test/hr@200']:.5f} after one epoch")
+        check(graph_counts.get("train") and graph_counts.get("eval"),
+              "the cli.train run did not replay graphed steps and eval batches")
+        check_step_launches(kc, steps, eval_batches, counts, graph_counts, attn=blocks, lse=0)
+        check(len(saves) == 1, f"{len(saves)} checkpoint saves, expected 1")
+        serve_counts = serve_large_vocab(kc, card, tmp / "synthetic-large-vocab" / "checkpoints"
+                                        / "best.pt", data)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    step_large_vocab_by_hand(kc, card, data)
+    return {key: counts[key] + serve_counts.get(key, 0) for key in counts}, data
+
+
+def serve_large_vocab(kc: Counts, card: str, ckpt: Path, data) -> dict:
+    """The trained checkpoint behind the HTTP server with the int8 index:
+    /v1/retrieve and greedy /v1/generate with 32 rows, graphed against eager,
+    and the int8 scan against the exact one on the same queries."""
+    from mygenerativerecommenders_tpu_torch.cli.serve import build_engine
+    from mygenerativerecommenders_tpu_torch.ops.quantized_topk import (
+        QuantizedCatalog,
+        mips_top_k_int8,
+    )
+    from mygenerativerecommenders_tpu_torch.ops.sequence import get_current_embeddings
+    from mygenerativerecommenders_tpu_torch.ops.topk import mips_top_k
+    from mygenerativerecommenders_tpu_torch.serving.service import RecommenderHTTPServer
+    from mygenerativerecommenders_tpu_torch.utils.features import seq_features_from_batch
+
+    t0 = time.perf_counter()
+    engine, _ = build_engine(LARGE_ARGS + [f"trainer.ckpt_path={ckpt}"])
+    check(engine.device.type == "cuda" and engine.graphed, "the engine is not graphed on the card")
+    check(isinstance(engine.candidates, QuantizedCatalog), "the engine's index is not int8")
+    log(f"large-vocab engine from the trained checkpoint in {time.perf_counter() - t0:.2f} s; "
+        f"peak memory {peak()}")
+    catalog = np.asarray(data.all_item_ids)
+    in_catalog = np.zeros(data.max_item_id + 1, dtype=bool)
+    in_catalog[catalog] = True
+    rng = np.random.default_rng(13)
+    lens = np.concatenate([[1, 200, 250], rng.integers(2, 200, size=29)])
+    rows = [rng.choice(catalog, size=int(m)).tolist() for m in lens]
+    stamps = [np.sort(978_000_000 + rng.integers(0, 10**8, size=len(q))).tolist() for q in rows]
+    req = {"sequences": rows, "timestamps": stamps}
+    k = engine.cfg.model.index.k
+
+    def check_ids(body_ids, what):
+        for hist, ids in zip(rows, body_ids):
+            ids = np.asarray(ids)
+            check(bool(in_catalog[ids].all()), f"{what}: an id outside the catalog")
+            check(not set(hist[-engine.max_len:]) & set(ids.tolist()),
+                  f"{what}: an id from the row's own history")
+
+    server = RecommenderHTTPServer(engine, "127.0.0.1", 0).start()
+    try:
+        http(server.port, "/v1/retrieve", req)  # the captures, before the counts
+        http(server.port, "/v1/generate", {**req, "steps": 11, "mode": "greedy"})
+        kc.reset()
+        engine.calls = 0
+        retrieve_ms, generate_ms = [], []
+        for _ in range(10):
+            body, sec = http(server.port, "/v1/retrieve", req)
+            retrieve_ms.append(1e3 * sec)
+        gen, sec = http(server.port, "/v1/generate", {**req, "steps": 11, "mode": "greedy"})
+        generate_ms.append(1e3 * sec)
+        counts, graph_counts, calls = kc.read(), kc.read_graphs(), engine.calls
+    finally:
+        server.stop()
+    blocks = engine.cfg.model.encoder.num_blocks
+    check(counts[kc.attn.KERNEL] == blocks * calls == blocks * 11,
+          f"{counts[kc.attn.KERNEL]} attention launches for {calls} engine calls")
+    check(graph_counts["serve"]["replays"] == 11 and not graph_counts["serve"].get("captures"),
+          f"engine calls not all replays: {graph_counts}")
+    for scores in body["scores"]:
+        check(len(scores) == k and bool(np.all(np.diff(scores) <= 0)), "retrieve scores")
+    check_ids(body["ids"], "/v1/retrieve")
+    check_ids(gen["ids"], "/v1/generate greedy")
+    p = np.percentile
+    log(f"large-vocab /v1/retrieve, 32 rows, k={k}, int8 pre-rank of {engine.all_item_ids.size:,}"
+        f" items then {engine.cfg.model.index.rescore_over_fetch * k} exact: p50 "
+        f"{p(retrieve_ms, 50):.3f} ms, p99 {p(retrieve_ms, 99):.3f} ms over 10 requests; "
+        f"/v1/generate greedy, steps=11: {generate_ms[0]:.3f} ms; launches {counts} on {card}")
+    log(f"  sample mode is not driven here: its Gumbel buffer [steps, B, X] would be "
+        f"{gb(11 * 32 * engine.all_item_ids.size * 4)}")
+
+    eager = eager_twin(engine)
+    got, want = engine.retrieve(rows, stamps), eager.retrieve(rows, stamps)
+    check(got[0] == want[0] and got[1] == want[1], "graphed and eager large-vocab answers differ")
+    check(engine.generate(rows, stamps, steps=11) == eager.generate(rows, stamps, steps=11),
+          "graphed and eager greedy ids differ")
+    log("graphed and eager large-vocab engines: the same ids and scores, bit for bit "
+        "(retrieve and greedy generate)")
+    engines_side_by_side("large-vocab retrieve, 32 rows, int8", card, {
+        name: (lambda e=e: e.retrieve(rows, stamps)) for name, e in (("eager", eager),
+                                                                   ("graphed", engine))
+    }, reps=10, profiled=3)
+
+    # the int8 index against the exact scan on the engine's own queries
+    batch, _ = engine._pack(rows, stamps)
+    with torch.no_grad():
+        dev = {key: torch.from_numpy(v).cuda() for key, v in batch.items()}
+        seq, _, _ = seq_features_from_batch(dev, engine.cfg.model.gr_output_length + 1)
+        seq = seq._replace(past_embeddings=engine.model.item_embeddings(seq.past_ids))
+        encoded, lengths = engine.model(seq)
+        queries = get_current_embeddings(lengths, encoded)
+        cat_t = torch.as_tensor(catalog.astype(np.int64), device="cuda")
+        cands = engine.candidates
+        q_ids, q_scores = mips_top_k_int8(queries, cands, cat_t, k, invalid_ids=seq.past_ids,
+                                          max_item_id=data.max_item_id)
+        e_ids, e_scores = mips_top_k(queries, cands.exact, cat_t, k, invalid_ids=seq.past_ids,
+                                     max_item_id=data.max_item_id)
+        int8_ms = device_ms(lambda: mips_top_k_int8(
+            queries, cands, cat_t, k, invalid_ids=seq.past_ids, max_item_id=data.max_item_id), 5)
+        exact_ms = device_ms(lambda: mips_top_k(
+            queries, cands.exact, cat_t, k, invalid_ids=seq.past_ids,
+            max_item_id=data.max_item_id), 5)
+    q_ids, e_ids = q_ids.cpu().numpy(), e_ids.cpu().numpy()
+    recall = float(np.mean([len(set(a) & set(b)) / k for a, b in zip(q_ids, e_ids)]))
+    agree = q_ids == e_ids
+    rel = float(((q_scores - e_scores).abs() / e_scores.abs()).cpu().numpy()[agree].max())
+    log(f"int8 + exact re-score against the exact scan, 32 queries, k={k}, X={len(catalog):,}: "
+        f"recall {recall:.4f} (the JAX package's bar 0.95), {int(agree.sum())} of {agree.size} "
+        f"ranks the same id, largest relative score difference there {rel:.3e} (rtol 1e-5); "
+        f"device {int8_ms:.3f} ms int8 vs {exact_ms:.3f} ms exact a call on {card}")
+    check(recall >= 0.95, f"int8 recall {recall} below 0.95")
+    check(rel <= 1e-5, "the re-scored scores are not the exact inner products")
+    del engine, eager
+    return counts
+
+
+def step_large_vocab_by_hand(kc: Counts, card: str, data) -> None:
+    """(a), (b') and (b) stepped by hand, eager against graphed, with their
+    peak memory and the optimizer's share of the eager step's device time."""
+    from mygenerativerecommenders_tpu_torch.cli import train as cli_train
+    from mygenerativerecommenders_tpu_torch.train.driver import Trainer
+
+    for label, extra in LARGE_VARIANTS.items():
+        torch.cuda.reset_peak_memory_stats()
+        held = gb(torch.cuda.memory_allocated())  # before this trainer
+        t0 = time.perf_counter()
+        trainer = Trainer(cli_train.parse_args(LARGE_ARGS + extra + [
+            "trainer.steps_per_call=8", f"trainer.output_dir={OUT_DIR / 'large_by_hand'}"]),
+            data=data)
+        log(f"large-vocab trainer {label}: model and optimizer built in "
+            f"{time.perf_counter() - t0:.2f} s; {gb(torch.cuda.memory_allocated())} allocated on "
+            f"the card ({held} before it)")
+        trainer.model.train()
+        batches = [trainer._put(b) for _, b in zip(range(4), trainer.data.loader("train"))]
+        blocks = trainer.cfg.model.encoder.num_blocks
+        times = eager_and_graphed(kc, {
+            "eager": lambda i: trainer.train_step(batches[i % 4], trainer.lr1),
+            "graphed": lambda i: trainer.train_steps([batches[i % 4]], trainer.lr1),
+        }, f"large-vocab step {label}", kc.per_step(blocks, 0, lse=0),
+            trainer.train_steps.graphs, card, reps=8)
+        dev, opt, adam = profile_optimizer(
+            lambda i: trainer.train_step(batches[i % 4], trainer.lr1), reps=3)
+        table = trainer.model.embeddings._item_emb.weight
+        line = (f"  {label}: peak memory {peak()} ({held} held before the trainer); eager "
+                f"step device {dev:.3f} ms, optimizer "
+                f"{opt:.3f} ms ({100 * opt / dev:.1f}%)")
+        if "dense" in label:
+            # fused AdamW over the table: read p, g, m, v and write p, m, v
+            traffic = 7 * table.numel() * 4
+            line += (f"; fused AdamW kernels {adam:.3f} ms against {gb(traffic)} of table "
+                     f"traffic, {traffic / PEAK_BYTES_PER_S * 1e3:.3f} ms at the peak rate "
+                     f"({traffic / (adam / 1e3) / 1e9:.0f} GB/s reached)")
+        log(line + f"; graphed p50 {times['graphed']['p50']:.3f} ms on {card}")
+        del trainer, batches, table  # the table holds its dense gradient too
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def large_vocab_card_against_cpu(data) -> None:
+    """Phase 14, first half: one step of (a) and one of (b) on the card and on
+    the CPU, the same weights, batch and negatives, dropout off; (a) on the
+    loss and every gradient, (b) on the parameters, `mv` and the count after
+    the step (`check_lazy_step`)."""
+    from mygenerativerecommenders_tpu_torch.cli import train as cli_train
+    from mygenerativerecommenders_tpu_torch.configs import resolve
+    from mygenerativerecommenders_tpu_torch.models.model import build_model
+    from mygenerativerecommenders_tpu_torch.train.lazy_embedding import init_lazy_optimizer
+    from mygenerativerecommenders_tpu_torch.train.task_retrieval import (
+        make_loss_fn,
+        make_train_step,
+    )
+
+    batch = next(iter(data.loader("train")))
+    ids = data.all_item_ids
+    cfg = cli_train.parse_args(LARGE_ARGS)
+    resolve(cfg, data.max_item_id)
+    r = cfg.model.loss.num_to_sample
+    gen = torch.Generator().manual_seed(3)
+    n = batch["ids"].shape[1] + cfg.model.gr_output_length
+    offsets = torch.randint(0, len(ids), (batch["ids"].shape[0], n, r), generator=gen,
+                            dtype=torch.int32)
+    t0 = time.perf_counter()
+    compare_card_and_cpu(f"synthetic-large-vocab (a), gather loss, X={len(ids):,}", cfg, batch,
+                         lambda model, b, device: make_loss_fn(model, cfg, ids)(
+                             b, neg_offsets=offsets.to(device)))
+    log(f"  (a) card and CPU step with both models built: {time.perf_counter() - t0:.1f} s")
+
+    cfg = cli_train.parse_args(LARGE_ARGS + LAZY)
+    resolve(cfg, data.max_item_id)
+    shared = torch.randint(0, len(ids), (r,), generator=gen, dtype=torch.int32)
+    after = {}
+    t0 = time.perf_counter()
+    for device in ("cuda", "cpu"):
+        model = build_model(cfg, device=device, seed=99)  # eval mode: dropout off
+        table0 = model.embeddings._item_emb.weight.detach().cpu().clone()
+        opt = init_lazy_optimizer(cfg, model, fused=device == "cuda")
+        step = make_train_step(model, cfg, ids, opt)
+        step({k: torch.as_tensor(v).to(device) for k, v in batch.items()}, cfg.optimizer1.lr,
+             neg_offsets=shared.to(device))
+        state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+        state["mv"], state["count"] = opt.mv.detach().cpu(), opt.count.cpu()
+        after[device] = state
+        del model, opt, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    touched = torch.zeros(table0.shape[0], dtype=torch.bool)
+    touched[torch.as_tensor(batch["ids"]).long()] = True
+    touched[torch.as_tensor(batch["target_id"]).long()] = True
+    touched[torch.as_tensor(np.asarray(ids))[shared.long()].long()] = True
+    touched[0] = True
+    check_lazy_step(after, table0, touched, cfg, "synthetic-large-vocab (b)")
+    log(f"  (b) card and CPU step with both models built: {time.perf_counter() - t0:.1f} s")
+
+
+def check_lazy_step(after: dict, table0: torch.Tensor, touched: torch.Tensor, cfg,
+                    what: str) -> None:
+    """One lazy step on the card against the CPU (`after[device]`: the
+    state_dict, "mv" and "count" after it). mv (the moments, so the
+    gradient), the count and every parameter but the table are held card
+    against CPU at rtol 5e-4 / atol 1e-6. The table is held, on each device,
+    to the AdamW step that device's own moments give, computed in float64
+    (rtol 5e-4 / atol 1e-6): card against CPU directly it would not be,
+    because Adam's first step lr * g / (|g| + eps) turns the few-percent
+    difference of a gradient near eps = 1e-8 (a softmax tail, summed in
+    another order) into up to lr / 4 of that difference. Rows no step
+    touched must equal the initial table bit for bit, moments zero."""
+    b1, b2 = cfg.optimizer1.betas
+    lr, eps, wd = cfg.optimizer1.lr, cfg.optimizer1.eps, cfg.optimizer1.weight_decay
+    key = "embeddings._item_emb.weight"
+    d = table0.shape[1]
+    ok_all = True
+    for name, want in after["cpu"].items():
+        if name == key:
+            continue
+        ok, err = within(after["cuda"][name].double(), want.double(), STEP_GRAD_RTOL,
+                         STEP_GRAD_ATOL)
+        ok_all = ok_all and ok
+        if not ok or name in ("mv", "count"):
+            log(f"  {what}, card vs CPU after one lazy step, {name}: max_abs_err {err:.3e}, "
+                f"within rtol {STEP_GRAD_RTOL} atol {STEP_GRAD_ATOL}: {ok}")
+    c = float(after["cpu"]["count"])
+    p0 = table0[touched].double()
+    for device, state in after.items():
+        mv = state["mv"][touched].double()
+        m_hat, v_hat = mv[:, :d] / (1 - b1**c), mv[:, d:] / (1 - b2**c)
+        want = p0 - lr * (m_hat / (torch.sqrt(v_hat) + eps) + wd * p0)
+        ok, err = within(state[key][touched].double(), want, STEP_GRAD_RTOL, STEP_GRAD_ATOL)
+        same = torch.equal(state[key][~touched], table0[~touched])
+        zero = not bool(state["mv"][~touched].any())
+        log(f"  {what} on {device}: the {int(touched.sum()):,} touched rows are the AdamW step "
+            f"of its own moments (float64), max_abs_err {err:.3e}: {ok}; "
+            f"{int((~touched).sum()):,} untouched rows bit for bit unchanged: {same}, "
+            f"moments zero: {zero}")
+        ok_all = ok_all and ok and same and zero
+    diff = (after["cuda"][key] - after["cpu"][key]).abs()
+    flat = int(diff.argmax())
+    row, col = divmod(flat, d)
+    g = [float(after[dev]["mv"][row, col]) / (1 - b1) for dev in ("cuda", "cpu")]
+    log(f"  {what}: the table card vs CPU directly differs by at most {float(diff.max()):.3e}, "
+        f"at row {row} col {col}, whose gradient is {g[0]:.4e} on the card and {g[1]:.4e} "
+        f"on the CPU (Adam's eps {eps})")
+    check(ok_all, f"{what}: the lazy step on the card disagrees with the CPU's")
+
+
+def table_moments(trainer, lazy: bool) -> tuple:
+    """(m, v) of the item table: the lazy update's mv, or the AdamW state."""
+    table = trainer.model.embeddings._item_emb.weight
+    if lazy:
+        d = table.shape[1]
+        return trainer.optimizer.mv[:, :d], trainer.optimizer.mv[:, d:]
+    state = trainer.optimizer.state[table]
+    return state["exp_avg"], state["exp_avg_sq"]
+
+
+def check_adam_table(want, got, moments, opt, steps: int, what: str) -> bool:
+    """The item table after `steps` Adam steps of two runs whose gradients
+    differ by float32 rounding (graphed against eager: the attention
+    backward's bias tables take float atomics, and every step after the
+    first sees their last bits). An element whose gradient is near Adam's
+    eps moves by lr * g / (|g| + eps), which turns the gradient's rounding
+    into up to lr / 4 of its relative difference; so the table is held at
+    rtol 5e-4 / atol 1e-6 where the bias-corrected second moment is at least
+    (1000 eps)^2 in both runs (a gradient's relative difference then moves
+    the step by at most 1e-3 of it), and elsewhere to the most `steps` Adam
+    steps can part two runs, 2 * lr * steps, with their moments (held by the
+    caller) the gradients' check. -> whether both hold."""
+    lr, eps, b2 = opt.lr, opt.eps, opt.betas[1]
+    floor = (1000 * eps) ** 2 * (1 - b2**steps)
+    well = (moments[0][1] >= floor) & (moments[1][1] >= floor)
+    ok, err = within(got[well], want[well], STEP_GRAD_RTOL, STEP_GRAD_ATOL)
+    small = float((got[~well] - want[~well]).abs().max()) if bool((~well).any()) else 0.0
+    ok_small = small <= 2 * lr * steps
+    log(f"  {what}: the table where sqrt(v_hat) >= {1000 * eps:g} ({int(well.sum()):,} "
+        f"elements) within rtol {STEP_GRAD_RTOL} atol {STEP_GRAD_ATOL}: {ok}, largest "
+        f"difference {err:.3e}; the other {int((~well).sum()):,} (gradients near eps) differ "
+        f"by at most {small:.3e} (bound 2 x lr x steps = {2 * lr * steps:g}): {ok_small}")
+    return ok and ok_small
+
+
+def large_vocab_graphed_against_eager(data) -> None:
+    """Phase 14, second half: phase 10's check for (a) and (b), three graphed
+    steps against three eager ones on one batch with the same injected
+    negatives: the losses, every parameter but the table and the table's
+    moments at phase 10's tolerances, the table by `check_adam_table`; for
+    (b) the rows no step touched are unchanged, bit for bit, and their
+    moments zero."""
+    from mygenerativerecommenders_tpu_torch.cli import train as cli_train
+    from mygenerativerecommenders_tpu_torch.train.driver import Trainer
+
+    for label, extra in (("(a)", []), ("(b)", LAZY)):
+        eager, graphed = (
+            Trainer(cli_train.parse_args(LARGE_ARGS + extra + [
+                f"trainer.steps_per_call={k}", f"trainer.output_dir={OUT_DIR / 'large_vs'}"]),
+                data=data)
+            for k in (1, 8)
+        )
+        for t in (eager, graphed):
+            t.model.train()
+        host = next(iter(eager.data.loader("train")))
+        batch = eager._put(host)
+        r = eager.cfg.model.loss.num_to_sample
+        n = host["ids"].shape[1] + eager.cfg.model.gr_output_length
+        gen = torch.Generator().manual_seed(21)
+        offsets = [torch.randint(0, len(eager.all_item_ids), (r,) if extra else (64, n, r),
+                                 generator=gen, dtype=torch.int32).cuda() for _ in range(3)]
+        table0 = eager.model.embeddings._item_emb.weight.detach().clone()
+        torch.manual_seed(17)
+        want = torch.stack([eager.train_step(batch, eager.lr1, neg_offsets=o)
+                            for o in offsets]).cpu()
+        torch.manual_seed(17)
+        got = graphed.train_steps([batch] * 3, graphed.lr1, neg_offsets=offsets).cpu()
+        rel = float(((got - want).abs() / want.abs()).max())
+        ok_all, worst, worst_name = True, 0.0, ""
+        key = "embeddings._item_emb.weight"
+        moments = [table_moments(t, bool(extra)) for t in (eager, graphed)]
+        pairs = [(name, p, q) for (name, p), q in zip(eager.model.named_parameters(),
+                                                      graphed.model.parameters()) if name != key]
+        pairs += [("table m", moments[0][0], moments[1][0]), ("table v", moments[0][1],
+                                                              moments[1][1])]
+        for name, p, q in pairs:
+            ok, err = within(q, p, STEP_GRAD_RTOL, STEP_GRAD_ATOL)
+            ok_all = ok_all and ok
+            if err >= worst:
+                worst, worst_name = err, name
+        what = f"synthetic-large-vocab {label}, three steps on one batch of 64"
+        log(f"graphed vs eager, {what}: losses {got.tolist()} vs {want.tolist()}, largest "
+            f"relative difference {rel:.3e} (rtol {STEP_LOSS_RTOL}); every other parameter and "
+            f"the table's moments within rtol {STEP_GRAD_RTOL} atol {STEP_GRAD_ATOL}: "
+            f"{ok_all}, largest difference {worst:.3e} in {worst_name}")
+        ok_all = check_adam_table(
+            eager.model.embeddings._item_emb.weight.detach(),
+            graphed.model.embeddings._item_emb.weight.detach(),
+            moments, eager.cfg.optimizer1, 3, what) and ok_all
+        check(rel <= STEP_LOSS_RTOL, f"{what}: the graphed losses disagree with the eager ones")
+        check(ok_all, f"{what}: the graphed parameters disagree with the eager ones")
+        if extra:
+            catalog = torch.as_tensor(np.asarray(eager.all_item_ids, dtype=np.int64),
+                                      device="cuda")
+            touched = torch.zeros(table0.shape[0], dtype=torch.bool, device="cuda")
+            touched[batch["ids"].long()] = True
+            touched[batch["target_id"].long()] = True
+            for o in offsets:
+                touched[catalog[o.long()]] = True
+            touched[0] = True
+            for t, name in ((eager, "eager"), (graphed, "graphed")):
+                table = t.model.embeddings._item_emb.weight.detach()
+                same = torch.equal(table[~touched], table0[~touched])
+                zero = not bool(t.optimizer.mv[~touched].any())
+                log(f"  {name}: {int((~touched).sum()):,} untouched rows bit for bit unchanged: "
+                    f"{same}, their moments zero: {zero}; count {int(t.optimizer.count)}")
+                check(same and zero, f"{name} lazy steps moved an untouched row")
+                check(int(t.optimizer.count) == 3, "the lazy step count is not 3")
+        del eager, graphed
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on an NVIDIA card",
@@ -1982,6 +2518,10 @@ def main() -> int:
     rank_fwd = check_attention(kern, kern.KERNEL, 60, 128, 422, 1, 50, rank_lengths, 422,
                                paired=True)
     rank_bwd = check_attention_bwd(kern, 61, 128, 422, 1, 50, rank_lengths, 422, paired=True)
+    # the shape V of synthetic-large-vocab: B=64, N=L=211, H=2, d=64, ragged
+    large_lengths = [1, 211] + ragged[:62]
+    large_fwd = check_attention(kern, kern.KERNEL, 70, 64, 211, 2, 64, large_lengths)
+    large_bwd = check_attention_bwd(kern, 71, 64, 211, 2, 64, large_lengths)
     pos, lens, seg_bounds = packed_layout(62, 48, 256, 201)
     pos = np.stack([2 * pos, 2 * pos + 1], axis=2).reshape(48, 512)
     lens = [2 * x for x in lens]
@@ -2075,6 +2615,14 @@ def main() -> int:
     rank_counts = run_ranking_path(kc, card=kind)
     card_against_cpu_ranking_step(packed=False)
     card_against_cpu_ranking_step(packed=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    large_counts, large_data = run_large_vocab_path(kc, card=kind)
+    t1 = time.perf_counter()
+    large_vocab_card_against_cpu(large_data)
+    large_vocab_graphed_against_eager(large_data)
+    log(f"phase 13 took {t1 - t0:.1f} s, phase 14 {time.perf_counter() - t1:.1f} s")
 
     # no PyTorch call computes HSTU's silu attention with this bias, its
     # backward, or a count-weighted log-sum-exp over a matrix product that is
@@ -2093,6 +2641,14 @@ def main() -> int:
         dict(name=kern.KERNEL_BWD + " (ranking shape R)", source=kern.SOURCE_BWD,
              replaces=kern.REPLACES_BWD, launches=rank_counts[kern.KERNEL_BWD],
              library_ms=None, **rank_bwd),
+        # rows 1-2 at synthetic-large-vocab's shape V; their launches are
+        # phase 13's (cli.train and the engine calls)
+        dict(name=kern.KERNEL + " (large-vocab shape V)", source=kern.SOURCE,
+             replaces=kern.REPLACES, launches=large_counts[kern.KERNEL], library_ms=None,
+             **large_fwd),
+        dict(name=kern.KERNEL_BWD + " (large-vocab shape V)", source=kern.SOURCE_BWD,
+             replaces=kern.REPLACES_BWD, launches=large_counts[kern.KERNEL_BWD],
+             library_ms=None, **large_bwd),
         dict(name=count_kern.KERNEL, source=count_kern.SOURCE, replaces=count_kern.REPLACES,
              launches=sum(c[count_kern.KERNEL] for c in (train_counts, long_counts, ring_counts)),
              **counted),

@@ -19,7 +19,11 @@ training checkpoint whose "model" entry holds it) or an `.npz` whose keys are
 
 `CheckpointManager` is the trainer's: `best` (by the monitored metric) and
 `last`, each one torch file `<dir>/<name>.pt` holding the model's and the
-optimizer's `state_dict`, step, epoch, the metric and the controllers' state.
+optimizer's `state_dict`, step, epoch, the metric and the controllers' state
+(under `embedding.lazy_update` the optimizer's holds the table's moments `mv`
+and step count beside the AdamW state, train/lazy_embedding.py). A save
+writes `last` once; a new `best` is a second link to that file, not a
+second write (at a 10M-item catalog one checkpoint is ~7.7 GB).
 On the card the optimizer is fused: its state holds the learning rate as a
 device tensor and the step counts on the device, which `load` maps to the
 trainer's device and `train/optimizers.py:load_optimizer_state` takes into
@@ -147,7 +151,11 @@ class CheckpointManager:
         if metric_value is not None and self._is_better(metric_value):
             self.best_value = metric_value
             self.best_path = os.path.join(self.ckpt_dir, "best.pt")
-            torch.save(state, tmp)
+            try:
+                # the next save replaces `last` by another file: this one stays `best`
+                os.link(self.last_path, tmp)
+            except OSError:  # a file system without hard links
+                torch.save(state, tmp)
             os.replace(tmp, self.best_path)
 
     @staticmethod

@@ -4,9 +4,10 @@ Every loss runs dense
 over [B, T, ...] with a `weights` mask and returns
 `sum(per_pos * weights) / sum(weights)`.
 
-The training step computes its loss through the dense-catalog path
-(ops/dense_negatives.py); the per-sample form here is what that path is held
-to in the tests.
+`sampled_softmax_loss` is the per-sample form: the training step takes it
+for the per-sample gather loss and the shared-negatives loss
+(train/task_retrieval.py, train/lazy_embedding.py), and the tests hold the
+dense-catalog path (ops/dense_negatives.py) to it.
 """
 
 from __future__ import annotations

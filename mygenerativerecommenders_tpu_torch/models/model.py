@@ -56,8 +56,6 @@ class GenerativeRecommender(nn.Module):
             raise not_ported(f"embedding.kind={m.embedding.kind}", "Distributed")
         if m.embedding.kind != "local":
             raise ValueError(f"Unknown embedding kind {m.embedding.kind}")
-        if m.embedding.lazy_update:
-            raise not_ported("embedding.lazy_update", "Lazy embedding update")
         self.embeddings = LocalEmbedding(
             m.embedding.num_items, m.item_embedding_dim, m.embedding.init_std, generator
         )

@@ -5,7 +5,9 @@ Port of mygenerativerecommenders_tpu/serving/service.py. The engine pads
 every request to a fixed serving batch and the model's max length (keeping
 the most recent items) and keeps the candidate matrix resident on its
 device. Its programs are the retrieval eval step and one generation program
-per (mode, steps, num_beams) (models/decode.py). On the card each program is
+per (mode, steps, num_beams) (models/decode.py). With index.quantize=int8
+retrieval pre-ranks on the int8 rows and re-scores on the exact ones, and
+generation decodes against the exact rows, as the JAX engine does. On the card each program is
 one CUDA graph, captured at its first call and replayed after
 (train/graphs.py, one graph per static shape: the counterpart of the JAX
 engine's `jax.jit`); on the CPU, or with `graphs=False`, it runs eagerly. A
@@ -47,13 +49,16 @@ from mygenerativerecommenders_tpu_torch.models import decode
 from mygenerativerecommenders_tpu_torch.models.model import GenerativeRecommender
 from mygenerativerecommenders_tpu_torch.train.graphs import WARMUP_RUNS, StepGraphs
 from mygenerativerecommenders_tpu_torch.train.task_retrieval import (
+    Candidates,
+    candidate_inputs,
+    candidates_from,
     make_candidate_fn,
     make_eval_step,
 )
 from mygenerativerecommenders_tpu_torch.utils.features import seq_features_from_batch
 
 GENERATION_MODES = ("greedy", "sample", "beam")
-_CANDIDATES = "candidates"
+_CANDIDATES = "candidates"  # the exact rows, candidate_inputs' first entry
 # the loader-batch columns of a packed request, as the programs read them
 _BATCH_KEYS = (
     "lengths", "ids", "ratings", "timestamps", "target_id", "target_rating", "target_timestamp",
@@ -105,18 +110,21 @@ class ServingEngine:
         self._candidate_fn = make_candidate_fn(self.model, cfg, self.all_item_ids)
         # program key -> its body, or its StepGraphs when graphed
         self._programs: Dict[Hashable, Union[Body, StepGraphs]] = {}
-        self.candidates: Optional[torch.Tensor] = None
+        self.candidates: Optional[Candidates] = None
         self.refresh_candidates()
 
     def refresh_candidates(self) -> None:
-        """Rebuild the device-resident candidate matrix from current weights,
-        in place: every graph reads it as the buffer it captured."""
+        """Rebuild the device-resident candidates from current weights, in
+        place: every graph reads them as the buffers it captured (the exact
+        rows, and with index.quantize=int8 the int8 rows and their scales)."""
         with self._lock, torch.no_grad():
             fresh = self._candidate_fn()
             if self.candidates is None:
                 self.candidates = fresh
             else:
-                self.candidates.copy_(fresh)
+                fresh = candidate_inputs(fresh)
+                for name, t in candidate_inputs(self.candidates).items():
+                    t.copy_(fresh[name])
 
     def _pack(
         self,
@@ -186,7 +194,7 @@ class ServingEngine:
                 if self.graphed:
                     program = StepGraphs(program, "serve")
                 self._programs[key] = program
-            bound = {_CANDIDATES: self.candidates}
+            bound = dict(candidate_inputs(self.candidates))
             if noise is not None:
                 shape, seed = noise
                 if self.graphed:
@@ -208,7 +216,7 @@ class ServingEngine:
         eval_step = self._eval_step
 
         def body(inputs: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, ...]:
-            return tuple(eval_step({k: inputs[k] for k in _BATCH_KEYS}, inputs[_CANDIDATES]))
+            return tuple(eval_step({k: inputs[k] for k in _BATCH_KEYS}, candidates_from(inputs)))
 
         return body
 

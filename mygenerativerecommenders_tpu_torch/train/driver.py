@@ -25,7 +25,10 @@ too, one query per segment; both eval paths are exact. With
 `model.encoder.sp_shards` > 1 the model's attention is the ring of
 parallel/ring_attention.py, whose shards run in turn on this one device: the
 JAX trainer's (data, sp) mesh has no counterpart, and packed batches raise
-with it, as there. `model.task=ranking` (train/task_ranking.py) trains
+with it, as there. `model.embedding.lazy_update` trains the item table with
+the lazy row update of train/lazy_embedding.py beside the fused AdamW of the
+other parameters; its moments and count go into the checkpoints.
+`model.task=ranking` (train/task_ranking.py) trains
 padded or packed, one or k steps a call as retrieval does, and evaluates
 padded rows only: its eval splits are never packed. The mesh
 (`trainer.num_devices` > 1), the multi-process loader and the profiler hooks
@@ -56,6 +59,10 @@ from mygenerativerecommenders_tpu_torch.train import task_ranking, task_retrieva
 from mygenerativerecommenders_tpu_torch.train.controllers import (
     EarlyStopping,
     PlateauLRController,
+)
+from mygenerativerecommenders_tpu_torch.train.lazy_embedding import (
+    LazyEmbeddingAdamW,
+    init_lazy_optimizer,
 )
 from mygenerativerecommenders_tpu_torch.train.loggers import MetricsWriter, get_logger
 from mygenerativerecommenders_tpu_torch.train.optimizers import (
@@ -100,11 +107,17 @@ class Trainer:
         self.all_item_ids = np.asarray(self.data.all_item_ids, dtype=np.int32)
         self.neg_generator = torch.Generator(device=self.device).manual_seed(t.seed)
 
-        # the fused kernels on the card, for eager and graphed steps alike
-        self.optimizer = build_optimizer(
-            cfg.optimizer1, cfg.optimizer2, self.model.parameters(), cfg.optimizer1.lr,
-            fused=self.device.type == "cuda",
-        )
+        # the fused kernels on the card, for eager and graphed steps alike;
+        # with embedding.lazy_update the item table is updated lazily beside
+        # them (train/lazy_embedding.py)
+        fused = self.device.type == "cuda"
+        if cfg.model.embedding.lazy_update:
+            self.optimizer = init_lazy_optimizer(cfg, self.model, fused=fused)
+        else:
+            self.optimizer = build_optimizer(
+                cfg.optimizer1, cfg.optimizer2, self.model.parameters(), cfg.optimizer1.lr,
+                fused=fused,
+            )
         self._packed = bool(cfg.data.pack_sequences)
         self.steps_per_call = max(int(t.steps_per_call), 1)
         self.task = cfg.model.task
@@ -489,7 +502,10 @@ class Trainer:
     def restore(self, path: str) -> None:
         state = CheckpointManager.load(path, self.device)
         self.model.load_state_dict(state["model"])
-        load_optimizer_state(self.optimizer, state["optimizer"])
+        if isinstance(self.optimizer, LazyEmbeddingAdamW):
+            self.optimizer.load_state_dict(state["optimizer"])  # with mv and the count
+        else:
+            load_optimizer_state(self.optimizer, state["optimizer"])
         # the optimizer's state tensors are new: the next graphed step
         # captures anew, against them (the weights were copied in place)
         if self.train_steps is not None and self.train_steps.graphs is not None:

@@ -19,7 +19,8 @@ the step's inputs, and a tag such as the model's mode). Each graph has
 - warm-up runs on a side stream before capture, as `torch.cuda.graph`
   requires; they also build and load the kernels outside the capture. A
   warm-up of a training step is a real step, so `keep` snapshots what it
-  changes (parameters, optimizer state) and the default CUDA generator
+  changes (parameters, optimizer state, the lazy table update's moments and
+  count) and the default CUDA generator
   (dropout) is put back too: the run's stream stays the eager step's.
 
 A capture that fails raises; nothing falls back to the eager step.
@@ -72,15 +73,19 @@ def _set_counters(values: Sequence[int]) -> None:
 
 
 def training_state(params: Sequence[torch.Tensor], optimizer: torch.optim.Optimizer) -> Snapshot:
-    """A `keep` for a training step: the snapshot clones the parameters and
-    the optimizer's state tensors; restoring copies them back in place. State
+    """A `keep` for a training step: the snapshot clones the parameters, the
+    optimizer's state tensors and any tensors its `state_tensors()` names
+    (the lazy table update's moments and step count,
+    train/lazy_embedding.py); restoring copies them back in place. State
     that a warm-up created (the optimizer builds it at its first step) goes
     back to zeros, the value a first step starts from (AdamW's moments and
     step count; SGD's momentum, whose first update then equals the gradient)."""
     params = list(params)
+    own = list(getattr(optimizer, "state_tensors", lambda: ())())
 
     def snapshot() -> Callable[[], None]:
         saved = [p.detach().clone() for p in params]
+        saved_own = [t.clone() for t in own]
         state = {
             p: {k: v.clone() for k, v in optimizer.state[p].items() if isinstance(v, torch.Tensor)}
             for p in params if p in optimizer.state
@@ -88,7 +93,7 @@ def training_state(params: Sequence[torch.Tensor], optimizer: torch.optim.Optimi
 
         @torch.no_grad()
         def restore() -> None:
-            for p, value in zip(params, saved):
+            for p, value in zip(params + own, saved + saved_own):
                 p.copy_(value)
             for p in params:
                 before = state.get(p, {})

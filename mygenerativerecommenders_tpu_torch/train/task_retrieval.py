@@ -2,37 +2,46 @@
 candidate matrix.
 
 Port of mygenerativerecommenders_tpu/train/task_retrieval.py: `make_loss_fn`
-with `ids_to_offsets`, `encode_for_loss` (padded and packed) and the
-dense-catalog `loss_fn_dense` (:65-282), `make_train_step` (:315-394) with
-the optimizer step and its k-step form `train_step_from_loss` (:326-379,
-shared with the ranking task), `make_candidate_fn`
-(:423-501, replicated exact path), `make_eval_step` (:504-625) and
-`make_packed_eval_step` (:627-730, exact top-k), each with its k-batch form.
-Serving and the trainer's eval share the eval step.
+with `ids_to_offsets`, `encode_for_loss` (padded and packed) and its three
+sampled-softmax losses, the dense-catalog `loss_fn_dense`, the per-sample
+gather `loss_fn` and `loss_fn_shared` (:65-321), `make_train_step`
+(:315-394) with the optimizer step and its k-step form
+`train_step_from_loss` (:326-379, shared with the ranking task; with
+`embedding.lazy_update` the step of train/lazy_embedding.py),
+`make_candidate_fn` (:423-501, replicated path, exact or int8),
+`make_eval_step` (:504-625) and `make_packed_eval_step` (:627-730), each with
+its k-batch form. Serving and the trainer's eval share the eval step.
 
 The training step is: scatter the target into the history at position
 `length`, embed, forward (dropout on under `model.train()`), supervise
-position p with the id at p+1, draw R negative catalog offsets per position,
-and take the sampled-softmax loss through the dense-catalog path
-(ops/dense_negatives.py). A packed batch (data/packing.py) has its targets
-inline as each segment's last token: nothing is scattered, and position p
-supervises the id at p+1 only where both lie in one segment. On cuda the
-k-step and k-batch forms replay CUDA graphs of the whole step
-(train/graphs.py); one step a call stays eager. The per-sample gather loss,
-the shared-negatives loss, the in-batch sampler and BCE raise, naming their
-ROADMAP.md item.
+position p with the id at p+1, draw R negative catalog offsets per position
+(or R for the whole step, shared), and take the sampled-softmax loss: through
+the dense-catalog path (ops/dense_negatives.py) where the JAX package takes
+it (`loss_variant`: the [B*T, X] count under its 3e9 gate), else by
+gathering each position's negatives from the table. A packed batch
+(data/packing.py) has its targets inline as each segment's last token:
+nothing is scattered, and position p supervises the id at p+1 only where both
+lie in one segment. With `index.quantize=int8` the candidates are a
+`QuantizedCatalog` (ops/quantized_topk.py): the eval step pre-ranks on the
+int8 rows and re-scores on the exact ones. On cuda the k-step and k-batch
+forms replay CUDA graphs of the whole step (train/graphs.py); one step a call
+stays eager. The in-batch sampler and BCE raise, naming their ROADMAP.md
+item.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, NamedTuple, Optional, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from mygenerativerecommenders_tpu_torch import not_ported
 from mygenerativerecommenders_tpu_torch.configs import Config
-from mygenerativerecommenders_tpu_torch.models.losses import _weighted_mean
+from mygenerativerecommenders_tpu_torch.models.losses import (
+    _weighted_mean,
+    sampled_softmax_loss,
+)
 from mygenerativerecommenders_tpu_torch.models.model import GenerativeRecommender
 from mygenerativerecommenders_tpu_torch.models.negatives import LocalNegativesSampler
 from mygenerativerecommenders_tpu_torch.ops.dense_negatives import (
@@ -42,17 +51,48 @@ from mygenerativerecommenders_tpu_torch.ops.sequence import (
     get_current_embeddings,
     scatter_at_lengths,
 )
+from mygenerativerecommenders_tpu_torch.ops.quantized_topk import (
+    QuantizedCatalog,
+    mips_top_k_int8,
+    quantize_catalog,
+)
 from mygenerativerecommenders_tpu_torch.ops.topk import mips_top_k
 from mygenerativerecommenders_tpu_torch.train.graphs import StepGraphs, training_state
 from mygenerativerecommenders_tpu_torch.train.optimizers import set_lr
 from mygenerativerecommenders_tpu_torch.utils.features import (
+    SequenceBatch,
     packed_seq_features,
     seq_features_from_batch,
 )
 
 
-# the static inputs that a graphed step's caller fills itself (train/graphs.py)
+# the static inputs that a graphed step's caller fills itself (train/graphs.py):
+# the negatives' offsets, and the candidates (the exact rows; with an int8
+# index also its int8 rows and scales)
 _OFFSETS, _CANDIDATES = "neg_offsets", "candidates"
+_CANDIDATES_Q, _CANDIDATES_SCALES = "candidates_q", "candidates_scales"
+_CANDIDATE_KEYS = (_CANDIDATES, _CANDIDATES_Q, _CANDIDATES_SCALES)
+
+# what the eval step scores against: the exact [X, D] rows, or the int8 index
+Candidates = Union[torch.Tensor, QuantizedCatalog]
+
+
+def candidate_inputs(candidates: Candidates) -> Dict[str, torch.Tensor]:
+    """The candidates as named tensors, the inputs a graph binds: the exact
+    rows under "candidates" (generation decodes against them), and an int8
+    index's rows and scales beside them."""
+    if isinstance(candidates, QuantizedCatalog):
+        return {_CANDIDATES: candidates.exact, _CANDIDATES_Q: candidates.q,
+                _CANDIDATES_SCALES: candidates.scales}
+    return {_CANDIDATES: candidates}
+
+
+def candidates_from(inputs: Dict[str, torch.Tensor]) -> Candidates:
+    """`candidate_inputs`' inverse."""
+    if _CANDIDATES_Q in inputs:
+        return QuantizedCatalog(inputs[_CANDIDATES_Q], inputs[_CANDIDATES_SCALES],
+                                inputs[_CANDIDATES])
+    return inputs[_CANDIDATES]
 
 
 def _check_packable(cfg: Config) -> None:
@@ -105,91 +145,101 @@ def make_loss_fn(
     packed: bool = False,
     generator: Optional[torch.Generator] = None,
 ) -> Callable[..., torch.Tensor]:
-    """Builds loss_fn(batch, neg_offsets=None) -> scalar loss.
+    """Builds loss_fn(batch, neg_offsets=None) -> scalar loss: the
+    dense-catalog loss, the per-sample gather loss or the shared-negatives
+    loss, chosen as the JAX package chooses (`loss_variant`).
 
     The negatives are drawn from `generator` (on the model's device; None:
-    the device's default), unless the caller hands in `neg_offsets`
-    [B, N-1, R] itself, as the parity tests do with the JAX package's draw.
-    packed=True takes PackedBatchLoader batches; the supervised (position,
-    target) pairs are those of the padded layout for the same examples."""
+    the device's default), unless the caller hands in `neg_offsets` itself
+    ([B, N-1, R], or [R] shared), as the parity tests do with the JAX
+    package's draw. packed=True takes PackedBatchLoader batches; the
+    supervised (position, target) pairs are those of the padded layout for
+    the same examples. `loss_fn.variant` names the loss."""
     return _loss_parts(model, cfg, all_item_ids, packed, generator)[0]
 
 
-def _loss_parts(
-    model: GenerativeRecommender,
-    cfg: Config,
-    all_item_ids: np.ndarray,
-    packed: bool,
-    generator: Optional[torch.Generator],
-) -> Tuple[Callable[..., torch.Tensor], Callable[..., Tuple[int, int, int]],
-           Callable[..., torch.Tensor]]:
-    """(loss_fn, negatives_shape, draw_negatives): `make_loss_fn`'s loss, the
-    shape of a batch's negative offsets, and the draw the loss makes when no
-    offsets are handed in, draw_negatives(batch, out=None) -> [B, N-1, R]
-    int32; a graphed step makes it outside its graph, into `out`."""
-    if packed:
-        _check_packable(cfg)
-    sampler = make_sampler(cfg)
+def loss_variant(cfg: Config, num_catalog: int) -> str:
+    """"shared" (loss.shared_negatives), "dense" (the dense-catalog path:
+    loss.dense_catalog_negatives=true, or auto under the gate) or "gather"
+    (the per-sample gather loss), for a sampled-softmax retrieval loss over
+    a catalog of `num_catalog` items (JAX :97-134, :314-321)."""
     loss_cfg = cfg.model.loss
     if loss_cfg.kind == "bce":
         raise not_ported("loss.kind=bce", "Other model families")
     if loss_cfg.kind != "sampled_softmax":
         raise ValueError(f"Unknown retrieval loss {loss_cfg.kind}")
-    if loss_cfg.shared_negatives:
-        raise not_ported("loss.shared_negatives", "Other model families")
-    max_out = cfg.model.gr_output_length + 1
-    # dense-catalog negatives: valid exactly when the negative logits are
-    # plain dot products against normalized catalog rows; auto also gates
-    # on the [B*T, X] uint8 count footprint, as the JAX package does
-    dense_neg = str(loss_cfg.dense_catalog_negatives).lower()
+    # valid exactly when the negative logits are plain dot products against
+    # normalized catalog rows (make_sampler raises for the in-batch sampler)
     applicable = cfg.model.similarity.kind == "dot_product"
+    if loss_cfg.shared_negatives:
+        if not applicable:
+            raise ValueError(
+                "loss.shared_negatives requires sampled_softmax + local "
+                "sampler + dot_product similarity"
+            )
+        return "shared"
+    # auto also gates on the [B*T, X] uint8 count footprint, as the JAX
+    # package does with its Pallas kernels (3e9 elements, ~2.7 GB)
+    dense_neg = str(loss_cfg.dense_catalog_negatives).lower()
     bt_rows = cfg.data.batch_size * (
         cfg.data.max_sequence_length + cfg.model.gr_output_length + 1
     )
-    x_pad = ((len(all_item_ids) + 127) // 128) * 128
+    x_pad = ((num_catalog + 127) // 128) * 128
     fits = bt_rows * x_pad <= 3e9
     if dense_neg in ("true", "1", "yes") and not applicable:
         raise ValueError(
             "loss.dense_catalog_negatives=true requires sampled_softmax + "
             "local sampler + dot_product similarity"
         )
-    if not applicable or not (
-        dense_neg in ("true", "1", "yes") or (dense_neg == "auto" and fits)
-    ):
-        raise not_ported(
-            "the per-sample gather loss (loss.dense_catalog_negatives=false, or a "
-            "[B*T, X] count past the auto gate)", "Training variants",
-        )
+    if applicable and (dense_neg in ("true", "1", "yes") or (dense_neg == "auto" and fits)):
+        return "dense"
+    return "gather"
 
-    device = next(model.parameters()).device
-    catalog = torch.as_tensor(np.asarray(all_item_ids, dtype=np.int64), device=device)
-    ids_to_offsets = make_ids_to_offsets(all_item_ids, device)
 
-    def negatives_shape(batch: Dict[str, torch.Tensor]) -> Tuple[int, int, int]:
-        """[B, N-1, R]: R draws for each supervised position, N the row
-        (packed) or the history plus max_out."""
-        rows, cols = batch["ids"].shape
-        return rows, cols - 1 + (0 if packed else max_out), loss_cfg.num_to_sample
+def make_encoder(
+    model: GenerativeRecommender, cfg: Config, packed: bool
+) -> Tuple[Callable[..., Tuple[SequenceBatch, torch.Tensor]], Callable[..., tuple]]:
+    """(seq_and_past_ids, encode_for_loss), the preamble every retrieval
+    loss shares (JAX `encode_for_loss`, :157-206).
 
-    def draw_negatives(
-        batch: Dict[str, torch.Tensor], out: Optional[torch.Tensor] = None
-    ) -> torch.Tensor:
-        rows, positions, draws = negatives_shape(batch)
-        return sampler.offsets_only(
-            generator, (rows, positions), draws, len(all_item_ids), device, out=out
-        )
+    seq_and_past_ids(batch) -> (features, past_ids [B, N]): the target
+    scattered into the history at position `length` (a packed batch has its
+    targets inline, and nothing is scattered).
 
-    def encode_for_loss(batch: Dict[str, torch.Tensor]):
-        """Target scatter, embed, forward, the shift-by-one supervision layout
-        (outputs[:, :-1] against ids[:, 1:]) and the presence weights."""
+    encode_for_loss(batch, extra_ids=None, lookup=None) -> (outputs
+    [B, N-1, D], sup_ids [B, N-1], sup_emb [B, N-1, D], weights [B, N-1],
+    extra_emb [*extra_ids.shape, D] or None): one lookup of the table for
+    the flattened past_ids and, after them, `extra_ids` (the shared
+    negatives), so that the backward builds one [V, D] table gradient, not
+    one a lookup and their sum (`lookup(ids)`, default the model's table;
+    the lazy step hands in the rows it gathered for those ids); then the forward (dropout on under
+    `model.train()`), the shift-by-one supervision layout (outputs[:, :-1]
+    against ids[:, 1:]) and the presence weights; packed, position p
+    supervises the id at p+1 only where both lie in one segment."""
+    max_out = cfg.model.gr_output_length + 1
+
+    def seq_and_past_ids(batch: Dict[str, torch.Tensor]) -> Tuple[SequenceBatch, torch.Tensor]:
         if packed:
             seq = packed_seq_features(batch)
-            past_ids = seq.past_ids  # the targets are inline
-        else:
-            seq, target_ids, _ = seq_features_from_batch(batch, max_out)
-            # the target goes at position `length`
-            past_ids = scatter_at_lengths(seq.past_ids, seq.past_lengths, target_ids)
-        input_embeddings = model.item_embeddings(past_ids)
+            return seq, seq.past_ids
+        seq, target_ids, _ = seq_features_from_batch(batch, max_out)
+        return seq, scatter_at_lengths(seq.past_ids, seq.past_lengths, target_ids)
+
+    def encode_for_loss(
+        batch: Dict[str, torch.Tensor],
+        extra_ids: Optional[torch.Tensor] = None,
+        lookup: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+    ) -> Tuple[Optional[torch.Tensor], ...]:
+        seq, past_ids = seq_and_past_ids(batch)
+        ids = past_ids.reshape(-1).long()
+        if extra_ids is not None:
+            ids = torch.cat([ids, extra_ids.reshape(-1).long()])
+        rows = (lookup or model.item_embeddings)(ids)
+        n = past_ids.numel()
+        input_embeddings = rows[:n].reshape(*past_ids.shape, -1)
+        extra_emb = None
+        if extra_ids is not None:
+            extra_emb = rows[n:].reshape(*extra_ids.shape, -1)
         seq = seq._replace(past_ids=past_ids, past_embeddings=input_embeddings)
         encoded, _ = model(seq)  # [B, N, D]
         outputs = encoded[:, :-1, :]
@@ -202,17 +252,82 @@ def _loss_parts(
             weights = weights * same_seg.to(torch.float32)
         elif "sample_weight" in batch:
             weights = weights * batch["sample_weight"][:, None]
-        return outputs, sup_ids, sup_emb, weights
+        return outputs, sup_ids, sup_emb, weights, extra_emb
+
+    return seq_and_past_ids, encode_for_loss
+
+
+def shared_negatives_loss(
+    sampler: LocalNegativesSampler,
+    temperature: float,
+    outputs: torch.Tensor,  # [B, T, D]
+    sup_ids: torch.Tensor,  # [B, T]
+    sup_emb: torch.Tensor,  # [B, T, D]
+    weights: torch.Tensor,  # [B, T]
+    neg_ids: torch.Tensor,  # [R]
+    neg_emb: torch.Tensor,  # [R, D] normalized
+) -> torch.Tensor:
+    """The sampled softmax with one negative set shared by every position
+    (JAX `loss_fn_shared`, :284-312): the negative logits are one
+    [B, T, D] x [R, D] product (a library matmul, as JAX's einsum sits
+    outside any Pallas kernel), accidental hits compared by id."""
+    hits = sup_ids[..., None].long() == neg_ids.long()  # [B, T, R]
+    pos_emb = sampler.normalize_embeddings(sup_emb)
+    pos_logits = (outputs * pos_emb).sum(-1) / temperature
+    neg_logits = torch.einsum("btd,rd->btr", outputs, neg_emb) / temperature
+    return sampled_softmax_loss(pos_logits, neg_logits, hits, weights)
+
+
+def _loss_parts(
+    model: GenerativeRecommender,
+    cfg: Config,
+    all_item_ids: np.ndarray,
+    packed: bool,
+    generator: Optional[torch.Generator],
+) -> Tuple[Callable[..., torch.Tensor], Callable[..., Tuple[int, ...]],
+           Callable[..., torch.Tensor]]:
+    """(loss_fn, negatives_shape, draw_negatives): `make_loss_fn`'s loss, the
+    shape of a batch's negative offsets ([B, N-1, R]; [R] shared), and the
+    draw the loss makes when no offsets are handed in,
+    draw_negatives(batch, out=None) -> int32 offsets; a graphed step makes
+    it outside its graph, into `out`."""
+    if packed:
+        _check_packable(cfg)
+    sampler = make_sampler(cfg)
+    loss_cfg = cfg.model.loss
+    variant = loss_variant(cfg, len(all_item_ids))
+    max_out = cfg.model.gr_output_length + 1
+    t = loss_cfg.temperature
+    device = next(model.parameters()).device
+    catalog = torch.as_tensor(np.asarray(all_item_ids, dtype=np.int64), device=device)
+    ids_to_offsets = make_ids_to_offsets(all_item_ids, device)
+    _, encode_for_loss = make_encoder(model, cfg, packed)
+
+    def negatives_shape(batch: Dict[str, torch.Tensor]) -> Tuple[int, ...]:
+        """[B, N-1, R]: R draws for each supervised position, N the row
+        (packed) or the history plus max_out; [R] for shared negatives."""
+        if variant == "shared":
+            return (loss_cfg.num_to_sample,)
+        rows, cols = batch["ids"].shape
+        return rows, cols - 1 + (0 if packed else max_out), loss_cfg.num_to_sample
+
+    def draw_negatives(
+        batch: Dict[str, torch.Tensor], out: Optional[torch.Tensor] = None
+    ) -> torch.Tensor:
+        *positions, draws = negatives_shape(batch)
+        return sampler.offsets_only(
+            generator, tuple(positions), draws, len(all_item_ids), device, out=out
+        )
 
     def loss_fn_dense(
         batch: Dict[str, torch.Tensor], neg_offsets: Optional[torch.Tensor] = None
     ) -> torch.Tensor:
-        outputs, sup_ids, sup_emb, weights = encode_for_loss(batch)
+        """The dense-catalog path (ops/dense_negatives.py, JAX :252-282)."""
+        outputs, sup_ids, sup_emb, weights, _ = encode_for_loss(batch)
         norm_catalog = sampler.normalize_embeddings(model.item_embeddings(catalog))
         if neg_offsets is None:
             neg_offsets = draw_negatives(batch)
         sup_offsets = ids_to_offsets(sup_ids)
-        t = loss_cfg.temperature
         pos_emb = sampler.normalize_embeddings(sup_emb)
         pos_logits = (outputs * pos_emb).sum(-1) / t
         neg_lse = sampled_softmax_dense_neg_lse(
@@ -221,7 +336,39 @@ def _loss_parts(
         per_pos = torch.logaddexp(pos_logits, neg_lse) - pos_logits
         return _weighted_mean(per_pos, weights)
 
-    return loss_fn_dense, negatives_shape, draw_negatives
+    def loss_fn(
+        batch: Dict[str, torch.Tensor], neg_offsets: Optional[torch.Tensor] = None
+    ) -> torch.Tensor:
+        """The per-sample gather loss (JAX `loss_fn`, :210-250, sampled
+        softmax): each position's R negatives gathered from the table and
+        normalized, [B, N-1, R, D]; accidental hits compared by offset."""
+        outputs, sup_ids, sup_emb, weights, _ = encode_for_loss(batch)
+        if neg_offsets is None:
+            neg_offsets = draw_negatives(batch)
+        neg_emb = sampler.rows_at(neg_offsets, catalog, model.item_embeddings)
+        hits = ids_to_offsets(sup_ids)[..., None] == neg_offsets
+        pos_emb = sampler.normalize_embeddings(sup_emb)
+        pos_logits = model.score(outputs, pos_emb[..., None, :])[..., 0] / t
+        neg_logits = model.score(outputs, neg_emb) / t
+        return sampled_softmax_loss(pos_logits, neg_logits, hits, weights)
+
+    def loss_fn_shared(
+        batch: Dict[str, torch.Tensor], neg_offsets: Optional[torch.Tensor] = None
+    ) -> torch.Tensor:
+        """One negative set of R catalog items a step, shared by every
+        position (JAX `loss_fn_shared`, :284-312)."""
+        if neg_offsets is None:
+            neg_offsets = draw_negatives(batch)
+        neg_ids = catalog[neg_offsets.long()]  # [R]
+        outputs, sup_ids, sup_emb, weights, neg_rows = encode_for_loss(batch, extra_ids=neg_ids)
+        neg_emb = sampler.normalize_embeddings(neg_rows)
+        return shared_negatives_loss(
+            sampler, t, outputs, sup_ids, sup_emb, weights, neg_ids, neg_emb
+        )
+
+    chosen = {"dense": loss_fn_dense, "gather": loss_fn, "shared": loss_fn_shared}[variant]
+    chosen.variant = variant
+    return chosen, negatives_shape, draw_negatives
 
 
 class DrawnInput(NamedTuple):
@@ -328,14 +475,24 @@ def make_train_step(
     generator: Optional[torch.Generator] = None,
 ) -> Callable[..., torch.Tensor]:
     """`train_step_from_loss` on the retrieval loss, whose negatives' offsets
-    are its drawn input `neg_offsets` ([B, N-1, R] int32; one `torch.randint`
-    on `generator`, the eager step's draw):
+    are its drawn input `neg_offsets` ([B, N-1, R] int32, [R] shared; one
+    `torch.randint` on `generator`, the eager step's draw):
 
     steps=1: train_step(batch, lr1, neg_offsets=None) -> the step's loss.
     steps=k > 1: train_steps(batches, lr1, neg_offsets=None) -> [len(batches)]
-    losses; `neg_offsets` is then a list with one tensor per batch."""
+    losses; `neg_offsets` is then a list with one tensor per batch.
+
+    With `embedding.lazy_update` it is train/lazy_embedding.py's step, whose
+    `optimizer` is that module's `LazyEmbeddingAdamW`."""
     if cfg.model.embedding.lazy_update:
-        raise not_ported("embedding.lazy_update", "Lazy embedding update")
+        # imported here: that module builds on this one's loss parts
+        from mygenerativerecommenders_tpu_torch.train.lazy_embedding import (
+            make_lazy_train_step,
+        )
+
+        return make_lazy_train_step(
+            model, cfg, all_item_ids, optimizer, steps, packed=packed, generator=generator
+        )
     loss_fn, negatives_shape, draw_negatives = _loss_parts(
         model, cfg, all_item_ids, packed, generator
     )
@@ -345,28 +502,31 @@ def make_train_step(
     return train_step_from_loss(model, optimizer, loss_fn, steps, drawn)
 
 
-def _check_index(cfg: Config) -> None:
+def _check_index(cfg: Config) -> bool:
+    """-> whether the index is int8 (index.quantize=int8)."""
     index = cfg.model.index
-    if index.quantize not in ("", "none"):
-        if index.quantize == "int8":
-            raise not_ported("index.quantize=int8", "Index variants")
+    if index.quantize not in ("", "none", "int8"):
         raise ValueError(f"Unknown index.quantize {index.quantize!r}")
     if str(index.sharded).lower() in ("true", "1", "yes", "on"):
         raise not_ported("index.sharded=true", "Distributed")
+    return index.quantize == "int8"
 
 
 def make_candidate_fn(
     model: GenerativeRecommender, cfg: Config, all_item_ids: np.ndarray
-) -> Callable[[], torch.Tensor]:
+) -> Callable[[], Candidates]:
     """candidates() -> [X, D]: the catalog's embeddings, normalized as the
-    sampler normalizes them (sampler.l2_norm, sampler.l2_norm_eps)."""
-    _check_index(cfg)
+    sampler normalizes them (sampler.l2_norm, sampler.l2_norm_eps); with
+    index.quantize=int8 the `QuantizedCatalog` of those rows, the exact ones
+    kept for re-scoring (JAX :489-500)."""
+    quantized = _check_index(cfg)
     sampler = make_sampler(cfg)
     device = next(model.parameters()).device
     catalog = torch.as_tensor(np.asarray(all_item_ids, dtype=np.int64), device=device)
 
-    def candidates() -> torch.Tensor:
-        return sampler.normalize_embeddings(model.item_embeddings(catalog))
+    def candidates() -> Candidates:
+        rows = sampler.normalize_embeddings(model.item_embeddings(catalog))
+        return quantize_catalog(rows, keep_exact=True) if quantized else rows
 
     return candidates
 
@@ -376,24 +536,25 @@ def _eval_many(model: torch.nn.Module, eval_step: Callable, steps: int) -> Calla
     eval_step(batch[, candidates]) stacked over up to `steps` batches,
     [len(batches), ...] (the `lax.map` of JAX :504-625, :627-730). On cuda
     each batch is one replay of a CUDA graph of the eval step (one graph per
-    batch shape, train/graphs.py), and the candidates are copied into the
-    graphs' static buffer only when a call hands in another tensor than the
-    last one: once an epoch. Without candidates (the ranking task's step) the
-    graphs bind nothing. `eval_steps.graphs` holds the graphs; None on the
-    CPU, where the batches run eagerly."""
+    batch shape, train/graphs.py), and the candidates (each tensor of
+    `candidate_inputs`) are copied into the graphs' static buffers only when
+    a call hands in other candidates than the last: once an epoch. Without
+    candidates (the ranking task's step) the graphs bind nothing.
+    `eval_steps.graphs` holds the graphs; None on the CPU, where the batches
+    run eagerly."""
     device = next(model.parameters()).device
     graphs = None
     if device.type == "cuda":
         def body(static: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, ...]:
-            batch = {k: v for k, v in static.items() if k != _CANDIDATES}
-            extra = (static[_CANDIDATES],) if _CANDIDATES in static else ()
+            batch = {k: v for k, v in static.items() if k not in _CANDIDATE_KEYS}
+            extra = (candidates_from(static),) if _CANDIDATES in static else ()
             return tuple(eval_step(batch, *extra))
 
         graphs = StepGraphs(body, "eval")
-    copied: list = [None]  # the candidates tensor last copied into the buffer
+    copied: list = [None]  # the candidates last copied into the buffers
 
     def eval_steps(
-        batches, candidates: Optional[torch.Tensor] = None
+        batches, candidates: Optional[Candidates] = None
     ) -> Tuple[torch.Tensor, ...]:
         if not 0 < len(batches) <= steps:
             raise ValueError(f"{len(batches)} batches for a call of up to {steps}")
@@ -403,11 +564,12 @@ def _eval_many(model: torch.nn.Module, eval_step: Callable, steps: int) -> Calla
             return tuple(torch.stack(parts) for parts in zip(*outs))
         bound = {}
         if candidates is not None:
-            static = graphs.buffer(_CANDIDATES, candidates.shape, candidates.dtype, device)
-            if copied[0] is not candidates:
-                static.copy_(candidates)
-                copied[0] = candidates
-            bound[_CANDIDATES] = static
+            fresh = copied[0] is not candidates
+            for name, t in candidate_inputs(candidates).items():
+                bound[name] = graphs.buffer(name, t.shape, t.dtype, device)
+                if fresh:
+                    bound[name].copy_(t)
+            copied[0] = candidates
         results: Tuple[torch.Tensor, ...] = ()
         for i, batch in enumerate(batches):
             outs = graphs(batch, bound=bound, tag=model.training)
@@ -424,19 +586,43 @@ def _eval_many(model: torch.nn.Module, eval_step: Callable, steps: int) -> Calla
     return eval_steps
 
 
+def _top_k(
+    cfg: Config, catalog: torch.Tensor, max_item_id: int
+) -> Callable[..., Tuple[torch.Tensor, torch.Tensor]]:
+    """top_k(queries [Q, D], candidates, invalid_ids) -> (ids [Q, k], scores
+    [Q, k]): the exact scan, or with index.quantize=int8 the int8 pre-rank
+    and exact re-score of `index.rescore_over_fetch * k` rows (JAX :591-602)."""
+    quantized = _check_index(cfg)
+    index = cfg.model.index
+    k = min(index.k, catalog.shape[0])
+    filter_past = index.filter_past_ids
+    approx_recall = float(index.approx_top_k_recall)
+
+    def top_k(queries, candidates: Candidates, invalid_ids):
+        invalid = invalid_ids if filter_past else None
+        if quantized:
+            return mips_top_k_int8(
+                queries, candidates, catalog, k=k, invalid_ids=invalid,
+                max_item_id=max_item_id, over_fetch=index.rescore_over_fetch,
+            )
+        return mips_top_k(
+            queries, candidates, catalog, k=k, invalid_ids=invalid,
+            max_item_id=max_item_id, approx_recall=approx_recall,
+        )
+
+    return top_k
+
+
 def make_eval_step(
     model: GenerativeRecommender, cfg: Config, all_item_ids: np.ndarray, max_item_id: int,
     steps: int = 1,
-) -> Callable[[Dict[str, torch.Tensor], torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]:
+) -> Callable[[Dict[str, torch.Tensor], Candidates], Tuple[torch.Tensor, torch.Tensor]]:
     """eval_step(batch, candidates) -> (top_k_ids [B, k], top_k_scores [B, k]).
     steps > 1: eval_steps(batches, candidates) over up to `steps` batches,
     each result [len(batches), B, k] (`_eval_many`: graphed on cuda)."""
-    _check_index(cfg)
     device = next(model.parameters()).device
     catalog = torch.as_tensor(np.asarray(all_item_ids, dtype=np.int64), device=device)
-    k = min(cfg.model.index.k, len(all_item_ids))
-    filter_past = cfg.model.index.filter_past_ids
-    approx_recall = float(cfg.model.index.approx_top_k_recall)
+    top_k = _top_k(cfg, catalog, max_item_id)
     max_out = cfg.model.gr_output_length + 1
 
     def eval_step(batch, candidates):
@@ -444,11 +630,7 @@ def make_eval_step(
         seq = seq._replace(past_embeddings=model.item_embeddings(seq.past_ids))
         encoded, lengths = model(seq)
         current = get_current_embeddings(lengths, encoded)  # [B, D]
-        return mips_top_k(
-            current, candidates, catalog, k=k,
-            invalid_ids=seq.past_ids if filter_past else None,
-            max_item_id=max_item_id, approx_recall=approx_recall,
-        )
+        return top_k(current, candidates, seq.past_ids)
 
     return _eval_many(model, eval_step, steps) if steps > 1 else eval_step
 
@@ -456,7 +638,7 @@ def make_eval_step(
 def make_packed_eval_step(
     model: GenerativeRecommender, cfg: Config, all_item_ids: np.ndarray, max_item_id: int,
     steps: int = 1,
-) -> Callable[[Dict[str, torch.Tensor], torch.Tensor], Tuple[torch.Tensor, ...]]:
+) -> Callable[[Dict[str, torch.Tensor], Candidates], Tuple[torch.Tensor, ...]]:
     """eval_step(batch, candidates) -> (ids [S_cap, k], scores [S_cap, k],
     seg_target [S_cap], seg_weight [S_cap]): the packed eval path. steps > 1:
     eval_steps(batches, candidates), each result stacked over the batches.
@@ -471,20 +653,14 @@ def make_packed_eval_step(
     _check_packable(cfg)
     device = next(model.parameters()).device
     catalog = torch.as_tensor(np.asarray(all_item_ids, dtype=np.int64), device=device)
-    k = min(cfg.model.index.k, len(all_item_ids))
-    filter_past = cfg.model.index.filter_past_ids
-    approx_recall = float(cfg.model.index.approx_top_k_recall)
+    top_k = _top_k(cfg, catalog, max_item_id)
 
     def eval_step(batch, candidates):
         seq = packed_seq_features(batch)
         seq = seq._replace(past_embeddings=model.item_embeddings(seq.past_ids))
         encoded, _ = model(seq)  # [P, L, D]
         queries = encoded.flatten(0, 1)[batch["seg_last_flat"].long()]  # [S_cap, D]
-        ids, scores = mips_top_k(
-            queries, candidates, catalog, k=k,
-            invalid_ids=batch["seg_invalid_ids"] if filter_past else None,
-            max_item_id=max_item_id, approx_recall=approx_recall,
-        )
+        ids, scores = top_k(queries, candidates, batch["seg_invalid_ids"])
         return ids, scores, batch["seg_target"], batch["seg_weight"]
 
     return _eval_many(model, eval_step, steps) if steps > 1 else eval_step

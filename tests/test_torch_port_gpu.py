@@ -507,6 +507,13 @@ _GRAPH_CASES = {
     # the ranking step binds no negatives' buffer
     "ranking": ["experiment=synthetic-rank-smoke"],
     "ranking-packed": ["experiment=synthetic-rank-smoke", "data.pack_sequences=true"],
+    # the per-sample gather loss; shared negatives ([R] offsets) with the
+    # lazy table update, whose moments the capture's warm-up must leave as
+    # they were
+    "gather": ["model.loss.dense_catalog_negatives=false"],
+    "lazy": ["model.loss.shared_negatives=true", "model.embedding.lazy_update=true"],
+    "lazy-packed": ["model.loss.shared_negatives=true", "model.embedding.lazy_update=true",
+                    "data.pack_sequences=true"],
 }
 
 
@@ -549,6 +556,9 @@ def test_graphed_steps_follow_the_eager_steps_on_card(tmp_path, case):
             assert sum(made) > 0 and all(m % (graphs.WARMUP_RUNS + 3) == 0 for m in made)
         runs.append((losses.cpu().numpy(), {n: p.detach().cpu() for n, p in
                                            trainer.model.named_parameters()}))
+        if case.startswith("lazy"):
+            runs[-1][1]["mv"] = trainer.optimizer.mv.detach().cpu()
+            runs[-1][1]["count"] = trainer.optimizer.count.cpu()
     (eager, p_eager), (graphed, p_graphed) = runs
     np.testing.assert_allclose(graphed, eager, rtol=1e-5)
     for name, want in p_eager.items():
@@ -665,3 +675,154 @@ def test_refreshed_candidates_reach_the_graphs_on_card(tmp_path):
     for mode, kw in _GENERATE.items():
         got = graphed.generate(seqs, stamps, steps=4, mode=mode, **kw)
         assert got == eager.generate(seqs, stamps, steps=4, mode=mode, **kw), mode
+
+
+# ---------------------------------------------------------------- a 10M-item catalog
+# the gather loss and the lazy update on the card against the CPU (the
+# tolerances of chip_smoke.py's phase 14), the lazy step's untouched rows
+# through a graph, and the int8 scan at X = 100,000
+
+
+def _smoke_cfg(*extra):
+    from mygenerativerecommenders_tpu_torch.cli import train as cli_train
+
+    return cli_train.parse_args(["experiment=synthetic-smoke", *extra])
+
+
+@pytest.mark.gpu
+def test_gather_loss_and_gradients_on_card_match_the_cpu():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA)")
+    from mygenerativerecommenders_tpu_torch.configs import resolve
+    from mygenerativerecommenders_tpu_torch.data.dataset import RecoData
+    from mygenerativerecommenders_tpu_torch.models.model import build_model
+    from mygenerativerecommenders_tpu_torch.train.task_retrieval import make_loss_fn
+
+    cfg = _smoke_cfg("model.loss.dense_catalog_negatives=false")
+    data = RecoData(cfg.data, seed=42)
+    resolve(cfg, data.max_item_id)
+    batch = next(iter(data.loader("train")))
+    n = batch["ids"].shape[1] + cfg.model.gr_output_length
+    offsets = torch.randint(0, len(data.all_item_ids), (batch["ids"].shape[0], n, 16),
+                            generator=torch.Generator().manual_seed(1), dtype=torch.int32)
+    out = {}
+    for device in ("cuda", "cpu"):
+        model = build_model(cfg, device=device, seed=5)
+        loss_fn = make_loss_fn(model, cfg, data.all_item_ids)
+        assert loss_fn.variant == "gather"
+        loss = loss_fn({k: torch.as_tensor(v).to(device) for k, v in batch.items()},
+                       neg_offsets=offsets.to(device))
+        loss.backward()
+        out[device] = loss.item(), {k: p.grad.cpu() for k, p in model.named_parameters()}
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-5)
+    for name, want in out["cpu"][1].items():
+        np.testing.assert_allclose(out["cuda"][1][name].numpy(), want.numpy(), rtol=5e-4,
+                                   atol=1e-6, err_msg=name)
+
+
+@pytest.mark.gpu
+def test_lazy_step_on_card_matches_the_cpu_and_leaves_untouched_rows(tmp_path):
+    """mv, the count and the other parameters card against CPU; the table on
+    each device against the AdamW step of its own moments in float64 (Adam's
+    first step lr * g / (|g| + eps) turns the float32 difference of a
+    gradient near eps into up to lr / 4 of it, so the table is not held card
+    against CPU directly); untouched rows bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA)")
+    from mygenerativerecommenders_tpu_torch.train.lazy_embedding import TABLE_KEY
+
+    out = {}
+    for device in ("cuda", "cpu"):
+        trainer = _card_trainer(tmp_path, "lazy", 1, f"trainer.device={device}")
+        batch = trainer._put(next(iter(trainer.data.loader("train"))))
+        before = trainer.model.state_dict()[TABLE_KEY].detach().cpu().clone()
+        offsets = torch.randint(0, len(trainer.all_item_ids), (16,),
+                                generator=torch.Generator().manual_seed(2), dtype=torch.int32)
+        trainer.train_step(batch, trainer.lr1, neg_offsets=offsets.to(device))
+        state = {k: v.detach().cpu() for k, v in trainer.model.state_dict().items()}
+        state["mv"] = trainer.optimizer.mv.detach().cpu()
+        state["count"] = trainer.optimizer.count.cpu()
+        out[device] = state
+    opt = trainer.cfg.optimizer1
+    touched = torch.zeros(before.shape[0], dtype=torch.bool)
+    touched[batch["ids"].long()] = True
+    touched[batch["target_id"].long()] = True
+    touched[torch.as_tensor(trainer.all_item_ids)[offsets.long()].long()] = True
+    touched[0] = True
+    d = before.shape[1]
+    p0 = before[touched].double()
+    for device in ("cuda", "cpu"):
+        state = out[device]
+        assert torch.equal(state[TABLE_KEY][~touched], before[~touched])
+        assert not state["mv"][~touched].any()
+        mv = state["mv"][touched].double()
+        b1, b2 = opt.betas
+        step = mv[:, :d] / (1 - b1) / (torch.sqrt(mv[:, d:] / (1 - b2)) + opt.eps)
+        want = p0 - opt.lr * (step + opt.weight_decay * p0)
+        np.testing.assert_allclose(state[TABLE_KEY][touched].double().numpy(), want.numpy(),
+                                   rtol=5e-4, atol=1e-6, err_msg=device)
+    for name, want in out["cpu"].items():
+        if name != TABLE_KEY:
+            np.testing.assert_allclose(out["cuda"][name].numpy(), want.numpy(), rtol=5e-4,
+                                       atol=1e-6, err_msg=name)
+
+
+@pytest.mark.gpu
+def test_graphed_lazy_steps_leave_untouched_rows_bit_for_bit(tmp_path):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA)")
+    from mygenerativerecommenders_tpu_torch.train.lazy_embedding import TABLE_KEY
+
+    trainer = _card_trainer(tmp_path, "lazy", 3)
+    trainer.model.train()
+    table = trainer.model.state_dict()[TABLE_KEY]
+    before = table.detach().clone()
+    batches = [trainer._put(b) for _, b in zip(range(3), trainer.data.loader("train"))]
+    offsets = [torch.randint(0, len(trainer.all_item_ids), (16,), dtype=torch.int32,
+                             generator=torch.Generator().manual_seed(i)).cuda() for i in range(3)]
+    trainer.train_steps(batches, trainer.lr1, neg_offsets=offsets)
+    assert int(trainer.optimizer.count) == 3  # the capture's warm-up steps were undone
+    touched = torch.zeros(table.shape[0], dtype=torch.bool, device="cuda")
+    for b, o in zip(batches, offsets):
+        touched[b["ids"].long()] = True
+        touched[b["target_id"].long()] = True
+        touched[torch.as_tensor(trainer.all_item_ids, device="cuda")[o.long()].long()] = True
+    touched[0] = True
+    assert torch.equal(table[~touched], before[~touched])
+    assert not trainer.optimizer.mv[~touched].any()
+    assert (table[touched][1:] != before[touched][1:]).any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("filtered", [False, True])
+def test_int8_scan_on_card_matches_the_cpu(filtered):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA)")
+    from mygenerativerecommenders_tpu_torch.ops.quantized_topk import (
+        mips_top_k_int8,
+        quantize_catalog,
+    )
+
+    rng = np.random.default_rng(0)
+    x, d, b, k = 100_000, 64, 64, 200
+    items = rng.normal(size=(x, d)).astype(np.float32)
+    items /= np.linalg.norm(items, axis=-1, keepdims=True)
+    queries = rng.normal(size=(b, d)).astype(np.float32)
+    queries /= np.linalg.norm(queries, axis=-1, keepdims=True)
+    ids = np.arange(1, x + 1)
+    invalid = rng.integers(1, x + 1, size=(b, 200)) if filtered else None
+    out = {}
+    for device in ("cuda", "cpu"):
+        cat = quantize_catalog(torch.from_numpy(items).to(device))
+        got = mips_top_k_int8(
+            torch.from_numpy(queries).to(device), cat, torch.from_numpy(ids).to(device), k,
+            invalid_ids=None if invalid is None else torch.from_numpy(invalid).to(device),
+            max_item_id=x,
+        )
+        out[device] = cat.q.cpu(), cat.scales.cpu(), got[0].cpu(), got[1].cpu()
+    (q1, s1, i1, v1), (q2, s2, i2, v2) = out["cuda"], out["cpu"]
+    assert torch.equal(q1, q2) and torch.equal(s1, s2)  # the same int8 rows and scales
+    from mygenerativerecommenders_tpu_torch.ops.topk import topk_agree
+
+    problem = topk_agree(i1.numpy(), v1.numpy(), i2.numpy(), v2.numpy(), 1e-5)
+    assert problem is None, problem

@@ -115,7 +115,7 @@ def test_packed_eval_epoch_gives_the_padded_eval_epochs_metrics(tmp_path):
     "override,item",
     [
         ("model.encoder.remat=true", "Training variants"),
-        ("model.embedding.lazy_update=true", "Lazy embedding update"),
+        ("model.sampler.kind=in_batch", "Other model families"),
         ("model.encoder.attn_dropout_rate=0.1", "Training variants"),
     ],
 )

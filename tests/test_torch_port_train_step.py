@@ -174,8 +174,8 @@ def test_ids_to_offsets_maps_catalog_ids_and_marks_the_rest():
 @pytest.mark.parametrize(
     "path,value,item",
     [
-        ("model.loss.dense_catalog_negatives", "false", "Training variants"),
-        ("model.loss.shared_negatives", True, "Other model families"),
+        ("model.encoder.remat", True, "Training variants"),
+        ("optimizer1.kind", "scion", "Muon / Scion"),
         ("model.loss.kind", "bce", "Other model families"),
         ("model.sampler.kind", "in_batch", "Other model families"),
         ("optimizer1.kind", "muon", "Muon / Scion"),
