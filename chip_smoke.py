@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving and training paths (retrieval padded,
 packed and through ring attention; ranking padded and packed; eager and as
-CUDA graphs) on one NVIDIA card and check its kernels.
+CUDA graphs; from interaction files on disk) on one NVIDIA card and check its
+kernels.
 
 Run from the root of a checkout, with no arguments:
 
@@ -40,7 +41,8 @@ Phases, each of which stops the run with a non-zero exit when it fails:
      lengths), and packed at B=48, N=512, L=422 (rows of 256 doubled,
      segment positions doubled to (2p, 2p + 1)), with the checks and
      tolerances above;
-   - the negative count at [26880, 128] into X=3,706 and X=26,744, with
+   - the negative count at [26880, 128] into X=3,706, X=3,883 (the ml-1m
+     catalog read from its files in phase 15) and X=26,744, with
      accidental hits and sentinels, exactly; at [37, 16] and [37, 300] into
      X=1, 15 and 17 (rows narrower than a 16-byte store or just wider); and
      at [26880, 256] into X=3,706 (int32 counts, one bin of 256), with the
@@ -54,7 +56,8 @@ Phases, each of which stops the run with a non-zero exit when it fails:
      sparse plain forward's m_safe and s), the all-hit row's lse -inf and dq
      exactly zero, and lse and dq bit for bit the same in a second call (no
      atomics touch them); the forward's log gives the live logits and the
-     rate at which it read the count; the same
+     rate at which it read the count; the same at [26880, 50] x [3883, 50]
+     (phase 15's ml-1m catalog); the same
      over the ml-20m catalog, at [26880, 50] x [26744, 50] (the step of
      ml-20m-hstu), at [24552, 64] x [26744, 64] (the 1024-token class of a
      packed ml-20m-hstu-long step) and at [4297, 64] x [26744, 64] (its
@@ -219,6 +222,33 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    phase 10's check for (a) and (b): three graphed steps against three
    eager ones on one batch with the same negatives; for (b) the rows no step
    touched are bit for bit unchanged and their moments zero.
+
+15. Files on disk (ml-1m-hstu at its full width and size). A
+   `movielens_ml-1m.zip` in MovieLens 1M's own format (`::`, latin-1:
+   ratings.dat, movies.dat, users.dat) at its published counts: 6,040 users,
+   3,883 listed movies of which 3,706 are rated, ids up to 3,952, titles with
+   commas, latin-1 letters, quotes and none with no year; the ratings are the
+   port's synthetic generator at 6,040 users. `cli.prepare_data` in a
+   process of its own, then the native parser's train and test splits equal,
+   array for array and bit for bit, to the plain parser's and to the
+   in-memory generator's for the same draw (both parse times logged), and
+   the catalog movies.csv's 3,883 ids with max id 3,952. `cli.train` for 30
+   epochs at the preset's width (D=50, 2 blocks, H=1, N=211, batch 128, 128
+   negatives, steps_per_call=8, graphed; min_epochs=30, so early stopping
+   cannot end it sooner): launch counts as in phase 4 (the count and lse
+   kernels at X=3,883), losses finite and falling. `cli.eval` and
+   `cli.predict` from best.pt: one predictions.csv row per user, ids in the
+   catalog, equal to an eager eval step's top-k on the same checkpoint up to
+   near-ties (atol 1e-5). A Lightning-style `.ckpt` written from best.pt
+   (`state_dict` under `model.`, epoch, hyper_parameters), `cli.convert_ckpt`,
+   then `cli.eval` on the converted `.pt` and on the `.ckpt` itself: the
+   metrics of best.pt bit for bit. Then at cut depth, each at its preset's
+   full width: ml-20m-hstu-long from an ml-20m-format zip (phase 6's draw of
+   2,048 users written as ratings.csv with float ratings, a third of them
+   x.5), prepare, one packed graphed epoch; amzn-books from a
+   ratings_Books.csv (string ASINs, power-law popularity, 20,000 users),
+   prepare at min_count 5, one epoch (packing, the lazy update, shared
+   negatives, packed eval); finite losses, and their timings.
 
 It ends with one JSON line of the kernels' numbers and, last, the line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -2468,6 +2498,360 @@ def large_vocab_graphed_against_eager(data) -> None:
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------- phase 15 (files on disk)
+
+REAL_DIR = OUT_DIR / "real"
+SEQ_FIELDS = ("lengths", "ids", "ratings", "timestamps", "target_id", "target_rating",
+              "target_timestamp", "user_ids")
+
+
+def _title(i: int, m: int, year: int) -> str:
+    """MovieLens-style titles: a comma and "The", latin-1 letters, quotes,
+    no year; the rest "Movie <id> (<year>)"."""
+    kind = i % 10
+    if kind == 0:
+        return f"Movie {m}, The ({year})"
+    if kind == 1:
+        return f"Café Señor {m} ({year})"
+    if kind == 2:
+        return f"Untitled {m}"
+    if kind == 3:
+        return f'"Quoted" Movie {m} ({year})'
+    return f"Movie {m} ({year})"
+
+
+def _zip(path: Path, files: dict) -> int:
+    import zipfile
+
+    with zipfile.ZipFile(path, "w") as z:
+        for name, data in files.items():
+            z.writestr(name, data)
+    return path.stat().st_size
+
+
+def _rating_lines(inter, fmt) -> str:
+    users = np.repeat(inter.user_ids, [len(a) for a in inter.item_ids])
+    cols = [np.concatenate(a) for a in (inter.item_ids, inter.ratings, inter.timestamps)]
+    return "".join(fmt(u, i, r, t, j) for j, (u, i, r, t) in enumerate(zip(
+        users.tolist(), *(c.tolist() for c in cols))))
+
+
+def write_movielens_1m(root: Path):
+    """MovieLens 1M's own format at its published counts: 6,040 users, 3,883
+    listed movies of which 3,706 are rated, ids up to 3,952; the ratings the
+    port's synthetic generator draws for 6,040 users (the in-memory
+    synthetic-hstu draw at that size). -> the interactions, the listed ids."""
+    from mygenerativerecommenders_tpu_torch.data.synthetic import synthetic_interactions
+
+    t0 = time.perf_counter()
+    inter = synthetic_interactions(num_users=6040, num_items=3706, max_item_id=3952)
+    unrated = np.setdiff1d(np.arange(1, 3952), inter.catalog)  # 3,952 listed anyway
+    listed = np.union1d(inter.catalog, [3952])
+    extra = np.random.default_rng(15).choice(unrated, size=3883 - len(listed), replace=False)
+    listed = np.union1d(listed, extra)
+    check(len(listed) == 3883 and listed[-1] == 3952, f"{len(listed)} listed movies")
+    ratings = _rating_lines(inter, lambda u, i, r, t, j: f"{u}::{i}::{r}::{t}\n")
+    movies = "".join(f"{m}::{_title(i, m, 1919 + m % 82)}::Drama|Comedy\n"
+                     for i, m in enumerate(listed.tolist()))
+    users = "".join(
+        f"{u}::{'MF'[u % 2]}::{(1, 18, 25, 35, 45, 50, 56)[u % 7]}::{u % 21}::"
+        f"{(u * 7919) % 99999:05d}{'-1234' if u % 50 == 0 else ''}\n" for u in range(1, 6041))
+    size = _zip(root / "movielens_ml-1m.zip", {
+        "ml-1m/ratings.dat": ratings.encode("latin-1"),
+        "ml-1m/movies.dat": movies.encode("latin-1"),
+        "ml-1m/users.dat": users.encode("latin-1"),
+    })
+    log(f"ml-1m fixture: {sum(len(a) for a in inter.item_ids):,} ratings of 6,040 users over "
+        f"3,706 of 3,883 listed movies (max id 3952), movielens_ml-1m.zip {size:,} bytes, "
+        f"written in {time.perf_counter() - t0:.2f} s")
+    return inter, listed
+
+
+def prepare(args: list, what: str) -> float:
+    """`cli.prepare_data` in a subprocess (no card), timed."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "mygenerativerecommenders_tpu_torch.cli.prepare_data", *args],
+        cwd=HERE, capture_output=True, text=True, timeout=600,
+    )
+    seconds = time.perf_counter() - t0
+    check(proc.returncode == 0, f"prepare_data {what} failed:\n{proc.stdout}{proc.stderr}")
+    log(f"  cli.prepare_data {what}: {seconds:.2f} s (a process of its own); "
+        f"{proc.stdout.strip().splitlines()[-1]}")
+    return seconds
+
+
+def check_parsers(csv_path: Path, inter, max_len: int) -> None:
+    """The native parser's splits against the plain parser's and against the
+    in-memory generator's arrays for the same draw, bit for bit."""
+    from mygenerativerecommenders_tpu_torch.data.dataset import SequenceDataset
+
+    for ignore in (1, 0):
+        t0 = time.perf_counter()
+        nat = SequenceDataset.from_csv(str(csv_path), max_len, ignore, parser="native")
+        t1 = time.perf_counter()
+        py = SequenceDataset.from_csv(str(csv_path), max_len, ignore, parser="python")
+        t2 = time.perf_counter()
+        mem = SequenceDataset.from_sequences(
+            zip(inter.item_ids, inter.ratings, inter.timestamps), inter.user_ids, max_len, ignore)
+        for f in SEQ_FIELDS:
+            a, b, c = getattr(nat, f), getattr(py, f), getattr(mem, f)
+            check(a.dtype == b.dtype == c.dtype and np.array_equal(a, b) and np.array_equal(a, c),
+                  f"{f} of the {'train' if ignore else 'test'} split differs between the parsers")
+        log(f"  {'train' if ignore else 'test'} split ({len(nat)} users, L={max_len}): native "
+            f"parser {t1 - t0:.3f} s, plain parser {t2 - t1:.3f} s; every array equal to the "
+            f"other parser's and to the in-memory draw's")
+
+
+def _finite_run(metrics: Path, what: str) -> tuple:
+    rows = [json.loads(line) for line in metrics.read_text().splitlines()]
+    losses = np.asarray([r["train/loss"] for r in rows if "train/loss" in r])
+    test = [r for r in rows if any(k.startswith("test/") for k in r)]
+    check(len(losses) > 0 and bool(np.isfinite(losses).all()), f"{what}: a non-finite loss")
+    check(len(test) == 1, f"{what}: no test row")
+    return losses, test[0]
+
+
+def run_real_data_path(kc: Counts, card: str) -> tuple:
+    """Phase 15: ml-1m-hstu at full width and size from a MovieLens-format zip
+    (prepare, 30 graphed epochs, eval, predict, a Lightning .ckpt), then
+    ml-20m-hstu-long and amzn-books from files at cut depth. -> (the ml-1m
+    runs' launch counts, the other two runs')."""
+    import csv as csv_module
+    import shutil
+
+    from mygenerativerecommenders_tpu_torch.cli import convert_ckpt as cli_convert
+    from mygenerativerecommenders_tpu_torch.cli import eval as cli_eval
+    from mygenerativerecommenders_tpu_torch.cli import predict as cli_predict
+    from mygenerativerecommenders_tpu_torch.cli import train as cli_train
+    from mygenerativerecommenders_tpu_torch.data.dataset import RecoData
+    from mygenerativerecommenders_tpu_torch.ops.topk import topk_agree
+    from mygenerativerecommenders_tpu_torch.train.driver import Trainer
+
+    shutil.rmtree(REAL_DIR, ignore_errors=True)
+    root = REAL_DIR / "ml-1m"
+    root.mkdir(parents=True)
+    inter, listed = write_movielens_1m(root)
+    base = ["experiment=ml-1m-hstu", f"data.data_dir={root}"]
+    prepare(base, "experiment=ml-1m-hstu")
+    check_parsers(root / "processed" / "ml-1m" / "sasrec_format.csv", inter, 200)
+    cfg = cli_train.parse_args(base)
+    t0 = time.perf_counter()
+    data = RecoData(cfg.data, seed=cfg.trainer.seed)
+    for split in ("train", "val", "test"):
+        data.dataset(split)
+    data_s = time.perf_counter() - t0
+    check(data.all_item_ids.tolist() == listed.tolist() and data.max_item_id == 3952,
+          "the catalog is not movies.csv's 3,883 listed ids with max id 3952")
+    check(data.year_of_item is not None and int(data.year_of_item[listed[1]]) > 1900,
+          "no year_of_item")
+
+    epochs, out = 30, REAL_DIR / "out"
+    args = base + [f"trainer.output_dir={out}", f"trainer.max_epochs={epochs}",
+                   f"trainer.min_epochs={epochs}", "trainer.log_every_n_steps=1"]
+    metrics = out / "ml-1m-hstu" / "metrics.jsonl"
+    kc.reset()
+    t0 = time.perf_counter()
+    monitored = cli_train.main(args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, graph_counts = kc.read(), kc.read_graphs()
+    blocks = cfg.model.encoder.num_blocks
+    per_epoch = -(-6040 // cfg.data.batch_size)
+    eval_batches = (epochs + 1) * per_epoch
+    log(f"real-data path: cli.train on {card}, ml-1m-hstu from files, D="
+        f"{cfg.model.item_embedding_dim} blocks={blocks} H={cfg.model.encoder.num_heads} "
+        f"N={cfg.data.max_sequence_length + cfg.model.gr_output_length + 1} "
+        f"batch={cfg.data.batch_size} R={cfg.model.loss.num_to_sample} X={len(listed)}, "
+        f"steps_per_call={cfg.trainer.steps_per_call}: {epochs * per_epoch} optimizer steps, "
+        f"{eval_batches} eval batches in {wall:.2f} s ({epochs * 6040 / wall:.1f} training "
+        f"examples/s end to end); data (RecoData on the processed files, three splits) "
+        f"{data_s:.2f} s; launches {counts}")
+    losses, steps, val, test = read_training_run(metrics, epochs, monitored)
+    check(steps == epochs * per_epoch, f"{steps} optimizer steps, expected {epochs * per_epoch}")
+    log(f"  test on the best checkpoint: ndcg@10 {test['test/ndcg@10']:.5f}, hr@10 "
+        f"{test['test/hr@10']:.5f}, mrr {test['test/mrr']:.5f}, ndcg@100 "
+        f"{test['test/ndcg@100']:.5f} (chance hr@10: {10 / len(listed):.5f})")
+    check(graph_counts.get("train") and graph_counts.get("eval"),
+          "the cli.train run did not replay graphed steps and eval batches")
+    check_step_launches(kc, steps, eval_batches, counts, graph_counts, attn=blocks)
+    ml1m = dict(counts)
+
+    def add(into: dict) -> None:
+        for key, value in kc.read().items():
+            into[key] += value
+
+    best = out / "ml-1m-hstu" / "checkpoints" / "best.pt"
+    with_best = args + [f"trainer.ckpt_path={best}"]
+    kc.reset()
+    t0 = time.perf_counter()
+    from_best = cli_eval.main(with_best)
+    eval_s = time.perf_counter() - t0
+    add(ml1m)
+    kc.reset()
+    t0 = time.perf_counter()
+    predictions = cli_predict.main(with_best)
+    predict_s = time.perf_counter() - t0
+    pred_counts = kc.read()
+    add(ml1m)
+    with open(predictions, newline="", encoding="utf-8") as f:
+        rows = list(csv_module.DictReader(f))
+    check(len(rows) == 6040, f"{len(rows)} prediction rows, expected 6,040")
+    ids = [json.loads(r["top_k_ids"]) for r in rows]
+    scores = [json.loads(r["top_k_scores"]) for r in rows]
+    catalog = set(listed.tolist())
+    check(all(len(x) == cfg.model.index.k and set(x) <= catalog for x in ids),
+          "a prediction row with ids outside the catalog")
+    # the same checkpoint through an in-process eval step, eagerly
+    trainer = Trainer(cli_train.parse_args(with_best))
+    trainer.load_weights(best)
+    trainer.model.eval()
+    want_ids, want_scores = [], []
+    with torch.no_grad():
+        candidates = trainer.candidate_fn()
+        loader = trainer.data.loader("test")
+        for batch, dev in trainer._batches(loader, len(loader)):
+            got_i, got_s = trainer.eval_step(dev, candidates)
+            valid = batch["sample_weight"] > 0
+            want_ids.extend(got_i.cpu().numpy()[valid].tolist())
+            want_scores.extend(got_s.cpu().numpy()[valid].tolist())
+    problem = topk_agree(ids, scores, want_ids, want_scores, atol=1e-5)
+    check(problem is None, f"predictions.csv against the eval step: {problem}")
+    same = sum(a == b for a, b in zip(ids, want_ids))
+    del trainer
+    log(f"  cli.eval from best.pt {eval_s:.2f} s: {from_best}; cli.predict {predict_s:.2f} s "
+        f"(graphed k-batch eval form; launches {pred_counts}): {len(rows)} rows, ids in the "
+        f"catalog; top-{cfg.model.index.k} ids equal to the eager eval step's in {same} of "
+        f"{len(rows)} rows, the rest within near-ties at atol 1e-5")
+
+    # a reference-style Lightning file from best.pt: convert, then evaluate
+    state = torch.load(best, map_location="cpu", weights_only=True)
+    ref = REAL_DIR / "reference.ckpt"
+    torch.save({"state_dict": {f"model.{k}": v for k, v in state["model"].items()},
+                "epoch": state["epoch"], "global_step": state["step"],
+                "hyper_parameters": {"experiment": "ml-1m-hstu", "lr": 1e-3}}, ref)
+    t0 = time.perf_counter()
+    converted = cli_convert.main([str(ref), str(REAL_DIR / "converted.pt"), *base])
+    convert_s = time.perf_counter() - t0
+    kc.reset()
+    from_converted = cli_eval.main(args + [f"trainer.ckpt_path={converted}"])
+    add(ml1m)
+    kc.reset()
+    from_ckpt = cli_eval.main(args + [f"trainer.ckpt_path={ref}"])
+    add(ml1m)
+    check(from_converted == from_best and from_ckpt == from_best,
+          f"the .ckpt round trip moved the metrics: {from_converted} / {from_ckpt} vs {from_best}")
+    log(f"  Lightning .ckpt from best.pt: cli.convert_ckpt {convert_s:.2f} s; cli.eval on the "
+        f"converted .pt and on the .ckpt itself: the metrics of best.pt bit for bit")
+    gc.collect()
+    torch.cuda.empty_cache()
+    others = {key: 0 for key in ml1m}
+    long_cut_depth(kc, card, others)
+    amazon_cut_depth(kc, card, others)
+    return ml1m, others
+
+
+def long_cut_depth(kc: Counts, card: str, into: dict) -> None:
+    """ml-20m-hstu-long from an ml-20m-format zip: phase 6's draw (2,048
+    users, histories up to 1,024) written as ratings.csv with float ratings
+    (some x.5) and movies.csv; prepare, then one packed, graphed epoch."""
+    import csv as csv_module
+    import io
+
+    from mygenerativerecommenders_tpu_torch.cli import train as cli_train
+    from mygenerativerecommenders_tpu_torch.data.synthetic import synthetic_interactions
+
+    root = REAL_DIR / "ml-20m"
+    root.mkdir(parents=True)
+    t0 = time.perf_counter()
+    inter = synthetic_interactions(num_users=2048, num_items=26744, max_item_id=131262,
+                                   max_seq_len=1024)
+    ratings = "userId,movieId,rating,timestamp\n" + _rating_lines(
+        inter, lambda u, i, r, t, j: f"{u},{i},{r - 0.5 if j % 3 == 0 else float(r)},{t}\n")
+    movies = io.StringIO()
+    w = csv_module.writer(movies, lineterminator="\n")
+    w.writerow(["movieId", "title", "genres"])
+    for i, m in enumerate(inter.catalog.tolist()):
+        w.writerow([m, _title(i, m, 1919 + m % 97), "Action|Sci-Fi"])
+    size = _zip(root / "movielens_ml-20m.zip", {
+        "ml-20m/ratings.csv": ratings.encode(), "ml-20m/movies.csv": movies.getvalue().encode()})
+    log(f"ml-20m fixture: {sum(len(a) for a in inter.item_ids):,} ratings (float, a third "
+        f"x.5) of 2,048 users over 26,744 movies (max id 131262), {size:,} bytes, written in "
+        f"{time.perf_counter() - t0:.2f} s")
+    base = ["experiment=ml-20m-hstu-long", f"data.data_dir={root}"]
+    prepare(base, "experiment=ml-20m-hstu-long")
+    out = REAL_DIR / "out"
+    args = base + [f"trainer.output_dir={out}", "trainer.max_epochs=1", "trainer.min_epochs=1",
+                   "trainer.log_every_n_steps=1"]
+    cfg = cli_train.parse_args(args)
+    kc.reset()
+    t0 = time.perf_counter()
+    cli_train.main(args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, graphs_run = kc.read(), kc.read_graphs()
+    for key, value in counts.items():
+        into[key] += value
+    losses, test = _finite_run(out / "ml-20m-hstu-long" / "metrics.jsonl", "ml-20m-hstu-long")
+    check(cfg.data.pack_sequences and graphs_run.get("train"), "not packed and graphed")
+    log(f"  ml-20m-hstu-long from files at cut depth (2,048 users, one epoch): D="
+        f"{cfg.model.item_embedding_dim} blocks={cfg.model.encoder.num_blocks} H="
+        f"{cfg.model.encoder.num_heads} packed {list(cfg.data.pack_capacities)}, graphed: "
+        f"{len(losses)} logged steps in {wall:.2f} s, loss first {losses[0]:.4f} last "
+        f"{losses[-1]:.4f}, test ndcg@10 {test['test/ndcg@10']:.5f}; launches {counts}")
+
+
+def amazon_cut_depth(kc: Counts, card: str, into: dict) -> None:
+    """amzn-books from a ratings_Books.csv: string ASINs (some all digits),
+    power-law popularity, about 20,000 users; prepare (min_count 5), then one
+    epoch: packing, the lazy update, shared negatives, packed eval."""
+    from mygenerativerecommenders_tpu_torch.cli import train as cli_train
+
+    root = REAL_DIR / "amzn"
+    root.mkdir(parents=True)
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(16)
+    num_users, num_items = 20_000, 60_000
+    lengths = np.minimum(2 + rng.geometric(1 / 16, size=num_users), 600)
+    pop = 1.0 / np.arange(1, num_items + 1) ** 0.9
+    cdf = np.cumsum(pop) / pop.sum()
+    items = cdf.searchsorted(rng.random(int(lengths.sum())), side="right")
+    users = np.repeat(np.arange(num_users), lengths)
+    stamps = 1_200_000_000 + rng.integers(0, 10**8, size=len(items))
+    stars = rng.integers(1, 6, size=len(items))
+    asin = [f"{i:010d}" if i % 4 == 0 else f"B{i:09X}" for i in range(num_items)]
+    user = [f"A{(u * 2654435761) % 16**12:012X}" for u in range(num_users)]
+    lines = "".join(f"{user[u]},{asin[i]},{float(r)},{t}\n" for u, i, r, t in zip(
+        users.tolist(), items.tolist(), stars.tolist(), stamps.tolist()))
+    (root / "ratings_Books.csv").write_text(lines)
+    log(f"amzn-books fixture: {len(items):,} ratings of {num_users:,} users over "
+        f"{num_items:,} ASINs (power law 0.9), {len(lines):,} bytes, written in "
+        f"{time.perf_counter() - t0:.2f} s")
+    base = ["experiment=amzn-books", f"data.data_dir={root}"]
+    prepare(base, "experiment=amzn-books")
+    out = REAL_DIR / "out"
+    args = base + [f"trainer.output_dir={out}", "trainer.max_epochs=1", "trainer.min_epochs=1",
+                   "trainer.log_every_n_steps=1"]
+    cfg = cli_train.parse_args(args)
+    check(cfg.data.pack_sequences and cfg.model.embedding.lazy_update
+          and cfg.model.loss.shared_negatives, "not the amzn-books overlay")
+    kc.reset()
+    t0 = time.perf_counter()
+    cli_train.main(args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kc.read()
+    for key, value in counts.items():
+        into[key] += value
+    losses, test = _finite_run(out / "amzn-books" / "metrics.jsonl", "amzn-books")
+    log(f"  amzn-books from files at cut depth (one epoch): D={cfg.model.item_embedding_dim} "
+        f"blocks={cfg.model.encoder.num_blocks} H={cfg.model.encoder.num_heads} "
+        f"R={cfg.model.loss.num_to_sample} shared, lazy update, packed "
+        f"{list(cfg.data.pack_capacities)}: {len(losses)} logged steps in {wall:.2f} s, loss "
+        f"first {losses[0]:.4f} last {losses[-1]:.4f}, test ndcg@10 {test['test/ndcg@10']:.5f}; "
+        f"launches {counts}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on an NVIDIA card",
@@ -2533,6 +2917,12 @@ def main() -> int:
     check_count_edges(count_kern)
     lse_fwd, lse_bwd = check_dense_neg_lse(
         lse_kern, counted.pop("count"), TRAIN_BT, 50, 3706, 0.05
+    )
+    # the ml-1m catalog read from its files (phase 15): movies.csv's 3,883
+    # listed ids, the never-rated ones included
+    counted_ml1m = check_count(count_kern, TRAIN_BT, TRAIN_R, 3883)
+    lse_fwd_ml1m, lse_bwd_ml1m = check_dense_neg_lse(
+        lse_kern, counted_ml1m.pop("count"), TRAIN_BT, 50, 3883, 0.05
     )
     # the ml-20m catalog: the step of ml-20m-hstu (batch 128, D=50), then the
     # 1024-token class of a packed ml-20m-hstu-long step (24 rows, D=64)
@@ -2623,16 +3013,26 @@ def main() -> int:
     large_vocab_card_against_cpu(large_data)
     large_vocab_graphed_against_eager(large_data)
     log(f"phase 13 took {t1 - t0:.1f} s, phase 14 {time.perf_counter() - t1:.1f} s")
+    del large_data
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    real_ml1m, real_others = run_real_data_path(kc, card=kind)
+    log(f"phase 15 took {time.perf_counter() - t0:.1f} s")
 
     # no PyTorch call computes HSTU's silu attention with this bias, its
     # backward, or a count-weighted log-sum-exp over a matrix product that is
     # never materialised: library_ms is null for those
     rows = [
+        # rows 1-2 and the count, lse rows below add phase 15's runs from
+        # files: ml-1m at shape A, ml-20m-hstu-long packed, amzn-books
         dict(name=kern.KERNEL, source=kern.SOURCE, replaces=kern.REPLACES,
-             launches=serving_launches + train_counts[kern.KERNEL] + long_counts[kern.KERNEL],
+             launches=serving_launches + sum(c[kern.KERNEL] for c in (
+                 train_counts, long_counts, real_ml1m, real_others)),
              library_ms=None, **serving),
         dict(name=kern.KERNEL_BWD, source=kern.SOURCE_BWD, replaces=kern.REPLACES_BWD,
-             launches=train_counts[kern.KERNEL_BWD] + long_counts[kern.KERNEL_BWD],
+             launches=sum(c[kern.KERNEL_BWD] for c in (
+                 train_counts, long_counts, real_ml1m, real_others)),
              library_ms=None, **attn_bwd),
         # rows 1-2 at the ranking shape R; their launches are the ranking run's
         dict(name=kern.KERNEL + " (ranking shape R)", source=kern.SOURCE,
@@ -2650,19 +3050,31 @@ def main() -> int:
              replaces=kern.REPLACES_BWD, launches=large_counts[kern.KERNEL_BWD],
              library_ms=None, **large_bwd),
         dict(name=count_kern.KERNEL, source=count_kern.SOURCE, replaces=count_kern.REPLACES,
-             launches=sum(c[count_kern.KERNEL] for c in (train_counts, long_counts, ring_counts)),
+             launches=sum(c[count_kern.KERNEL] for c in (
+                 train_counts, long_counts, ring_counts, real_others)),
              **counted),
         dict(name=lse_kern.KERNEL, source=lse_kern.SOURCE, replaces=lse_kern.REPLACES,
-             launches=sum(c[lse_kern.KERNEL] for c in (train_counts, long_counts, ring_counts)),
+             launches=sum(c[lse_kern.KERNEL] for c in (
+                 train_counts, long_counts, ring_counts, real_others)),
              library_ms=None, **lse_fwd),
         dict(name=lse_kern.KERNEL_BWD, source=lse_kern.SOURCE, replaces=lse_kern.REPLACES_BWD,
              launches=train_counts[lse_kern.KERNEL_BWD], library_ms=None, **lse_bwd),
+        # rows 3-5 at the ml-1m catalog read from files, X = 3,883: their
+        # launches are phase 15's ml-1m runs
+        dict(name=count_kern.KERNEL + " (ml-1m files, X=3883)", source=count_kern.SOURCE,
+             replaces=count_kern.REPLACES, launches=real_ml1m[count_kern.KERNEL], **counted_ml1m),
+        dict(name=lse_kern.KERNEL + " (ml-1m files, X=3883)", source=lse_kern.SOURCE,
+             replaces=lse_kern.REPLACES, launches=real_ml1m[lse_kern.KERNEL], library_ms=None,
+             **lse_fwd_ml1m),
+        dict(name=lse_kern.KERNEL_BWD + " (ml-1m files, X=3883)", source=lse_kern.SOURCE,
+             replaces=lse_kern.REPLACES_BWD, launches=real_ml1m[lse_kern.KERNEL_BWD],
+             library_ms=None, **lse_bwd_ml1m),
         # the same entry point over the ml-20m catalog, wider than one x-block
         # of the TPU kernels: its launches are the long path's, its numbers
         # those of the [26880, 50] x [26744, 50] check
         dict(name=lse_kern.KERNEL_BWD + " (wide catalog)", source=lse_kern.SOURCE,
              replaces=lse_kern.REPLACES_WIDE,
-             launches=long_counts[lse_kern.KERNEL_BWD] + ring_counts[lse_kern.KERNEL_BWD],
+             launches=sum(c[lse_kern.KERNEL_BWD] for c in (long_counts, ring_counts, real_others)),
              library_ms=None, **lse_bwd_wide),
         # rows 7-8: the same entry points with a sup_off pointer; nothing on
         # the paths calls fused_dense_neg_lse (nor does the JAX package)

@@ -14,8 +14,12 @@ Optimizer state is not carried across (optax and torch lay it out
 differently).
 
 `load_checkpoint` reads a `.pt` (`torch.save` of that state_dict, or a
-training checkpoint whose "model" entry holds it) or an `.npz` whose keys are
-"/"-joined flax paths.
+training checkpoint whose "model" entry holds it), a reference Lightning
+`.ckpt` (its "state_dict" entry, the `model.` / `net.` prefixes stripped, read
+with `weights_only=True`) or an `.npz` whose keys are "/"-joined flax paths;
+`load_weights` loads one into a model, raising on a missing or unexpected key
+or a shape that differs (the JAX package's converter fills a missing key
+with its fresh init instead).
 
 `CheckpointManager` is the trainer's: `best` (by the monitored metric) and
 `last`, each one torch file `<dir>/<name>.pt` holding the model's and the
@@ -41,6 +45,8 @@ from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
+
+from mygenerativerecommenders_tpu_torch import not_ported
 
 _ENCODER = "sequence_encoder._hstu._attention_layers"
 _BLOCK_KEYS = {
@@ -88,13 +94,39 @@ def grads_to_state_dict(grads: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     return params_to_state_dict(grads)
 
 
-def load_checkpoint(path: str) -> Dict[str, torch.Tensor]:
-    """A `.pt` state_dict (or training checkpoint) or an `.npz` of flax paths
-    -> the port's state_dict."""
+def strip_reference_prefixes(state: Mapping[str, Any]) -> Dict[str, Any]:
+    """A Lightning module's state_dict keys without the `model.` and `net.`
+    prefixes, stripped in that order as the JAX package strips them
+    (cli/convert_ckpt.py:48-52)."""
+    def strip(key: str) -> str:
+        for prefix in ("model.", "net."):
+            if key.startswith(prefix):
+                key = key[len(prefix):]
+        return key
+
+    return {strip(k): v for k, v in state.items()}
+
+
+def load_checkpoint(path: str, map_location: Any = "cpu") -> Dict[str, torch.Tensor]:
+    """A `.pt` state_dict (or training checkpoint), a reference Lightning
+    `.ckpt` (its `state_dict`, prefixes stripped), or an `.npz` of flax paths
+    -> the port's state_dict. A `.ckpt` is read with `weights_only=True`: one
+    whose pickle holds more than tensors and plain values needs
+    `cli/convert_ckpt.py` first."""
     ext = os.path.splitext(path)[1]
     if ext == ".pt":
-        state = torch.load(path, map_location="cpu", weights_only=True)
+        state = torch.load(path, map_location=map_location, weights_only=True)
         return dict(state["model"] if "model" in state else state)
+    if ext == ".ckpt":
+        try:
+            ckpt = torch.load(path, map_location=map_location, weights_only=True)
+        except Exception as e:  # the unpickler names what it refused
+            raise ValueError(
+                f"checkpoint {path!r} holds more than tensors ({e}); convert it with "
+                "python -m mygenerativerecommenders_tpu_torch.cli.convert_ckpt "
+                f"{path} <out.pt> experiment=<preset>"
+            ) from e
+        return strip_reference_prefixes(ckpt.get("state_dict", ckpt))
     if ext == ".npz":
         tree: Dict[str, Any] = {}
         with np.load(path) as f:
@@ -105,7 +137,38 @@ def load_checkpoint(path: str) -> Dict[str, torch.Tensor]:
                     node = node.setdefault(p, {})
                 node[leaf] = f[name]
         return params_to_state_dict(tree)
-    raise ValueError(f"checkpoint {path!r}: expected a .pt state_dict or an .npz of flax paths")
+    raise ValueError(
+        f"checkpoint {path!r}: expected a .pt state_dict, a Lightning .ckpt or an .npz of "
+        "flax paths"
+    )
+
+
+def check_state_dict(model: torch.nn.Module, state: Mapping[str, Any]) -> None:
+    """Raise unless `state` has exactly the model's keys, each of its shape.
+    The fork's item/year split table has no counterpart here."""
+    want = model.state_dict()
+    if "embeddings._year_emb.weight" in state:
+        raise not_ported("the item/year split embedding table (embedding.kind=item_year)",
+                         "Other model families")
+    missing = [k for k in want if k not in state]
+    extra = [k for k in state if k not in want]
+    if missing or extra:
+        raise ValueError(
+            f"checkpoint keys do not match the model: missing {missing}, unexpected {extra}"
+        )
+    for key, t in want.items():
+        if tuple(state[key].shape) != tuple(t.shape):
+            raise ValueError(
+                f"shape mismatch for {key}: checkpoint {tuple(state[key].shape)} vs model "
+                f"{tuple(t.shape)}"
+            )
+
+
+def load_weights(model: torch.nn.Module, path: str, map_location: Any = "cpu") -> None:
+    """`load_checkpoint(path)` into `model`, every key and shape checked."""
+    state = load_checkpoint(path, map_location)
+    check_state_dict(model, state)
+    model.load_state_dict(state)
 
 
 class CheckpointManager:

@@ -1,6 +1,6 @@
 """Eval entry point: the test metrics of a checkpoint. Port of
 mygenerativerecommenders_tpu/cli/eval.py; `trainer.ckpt_path=<best.pt |
-last.pt | a state_dict .pt>` is required."""
+last.pt | a state_dict .pt | a reference .ckpt | an .npz>` is required."""
 
 from __future__ import annotations
 

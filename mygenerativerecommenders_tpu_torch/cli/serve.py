@@ -4,7 +4,7 @@ checkpoint.
 Port of mygenerativerecommenders_tpu/cli/serve.py. Usage:
 
   python -m mygenerativerecommenders_tpu_torch.cli.serve experiment=<preset> \\
-      trainer.ckpt_path=<model.pt | params.npz> serve.port=8000 serve.batch_size=32
+      trainer.ckpt_path=<model.pt | params.npz | reference.ckpt> serve.port=8000 serve.batch_size=32
 
 Dotted options under `serve.`: host, port, batch_size, and device (default
 cuda, where every engine program is a CUDA graph replay; serve.device=cpu
@@ -17,7 +17,7 @@ import logging
 import sys
 from typing import Optional
 
-from mygenerativerecommenders_tpu_torch.checkpoint import load_checkpoint
+from mygenerativerecommenders_tpu_torch.checkpoint import load_weights
 from mygenerativerecommenders_tpu_torch.cli.train import parse_args
 from mygenerativerecommenders_tpu_torch.configs import resolve
 from mygenerativerecommenders_tpu_torch.data.catalog import load_catalog
@@ -54,7 +54,7 @@ def build_engine(argv: Optional[list[str]] = None) -> tuple[ServingEngine, dict]
     all_item_ids, max_item_id = load_catalog(cfg.data)
     resolve(cfg, max_item_id)
     model = build_model(cfg, device="cpu")
-    model.load_state_dict(load_checkpoint(cfg.trainer.ckpt_path))
+    load_weights(model, cfg.trainer.ckpt_path)
     engine = ServingEngine(
         model, cfg, all_item_ids, max_item_id,
         batch_size=opts["batch_size"], device=opts["device"],

@@ -1,38 +1,67 @@
 """Sequence dataset and batch loader.
 
-Port of `SequenceDataset`, `BatchLoader` (length buckets included) and
-`RecoData` (mygenerativerecommenders_tpu/data/dataset.py:104-177, 180-334,
-337-419) for synthetic data on one process. Each split is a set of dense numpy arrays
-([U, L] ids / ratings / timestamps, [U] lengths and targets) built once, in
-memory, from the generated sequences; a step's loader work is a numpy gather.
-Split semantics are the JAX package's:
+Port of `SequenceDataset` (`from_csv` included), `BatchLoader` (length
+buckets included) and `RecoData` (mygenerativerecommenders_tpu/data/dataset.py:42-178,
+180-334, 337-419) on one process. Each split is a set of dense numpy arrays
+([U, L] ids / ratings / timestamps, [U] lengths and targets) built once; a
+step's loader work is a numpy gather. Split semantics are the JAX package's:
 
   seq (chronological) -> drop the ignore_last_n tail (1 for train) ->
-  target = new last item -> history = the rest, the most recent
-  max_sequence_length of it -> right-pad with 0.
+  with positional_sampling_ratio < 1, keep each event with that chance (the
+  target always; a seeded `default_rng`) -> target = new last item ->
+  history = the rest, the most recent max_sequence_length of it
+  (chronological=false: newest first) -> right-pad with 0.
 
-Every split reads all users, as the JAX package's `RecoData.dataset` does.
-With `data.pack_sequences` the trainer reads the same splits through
-data/packing.py. The data has the shape the configuration states: the
-ml-20m presets on `data.dataset_name=synthetic` give 26,744 catalog items
-spread over ids up to 131,262. The multi-process stride,
-positional subsampling, reverse-chronological histories and real (MovieLens)
-data raise.
+A real dataset (ml-1m, ml-20m, ml-20mx16x32, amzn-*) is read from the
+processed `sasrec_format.csv` under `<data_dir>/processed/<name>/`, which
+data/preprocessor.py writes from the raw files when it is missing: by the
+native parser (native/, C++ built at first use) where the JAX package takes
+its own (no subsampling, no id shift), else by the plain parser here. A
+synthetic dataset is drawn in memory (data/synthetic.py) and goes through
+the plain parser's split. Every split reads all users, as the JAX package's
+`RecoData.dataset` does. With `data.pack_sequences` the trainer reads the same
+splits through data/packing.py. The multi-process stride is not ported.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Dict, Iterator, Optional, Sequence
+import csv
+import os
+from dataclasses import dataclass, field
+from typing import Dict, Iterable, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from mygenerativerecommenders_tpu_torch import not_ported
 from mygenerativerecommenders_tpu_torch.configs import DataConfig
+from mygenerativerecommenders_tpu_torch.data.catalog import item_catalog, synthetic_years
+from mygenerativerecommenders_tpu_torch.data.preprocessor import (
+    SEQUENCE_COLUMNS,
+    DataProcessor,
+    build_processor,
+    typed_column,
+)
 from mygenerativerecommenders_tpu_torch.data.synthetic import (
     SyntheticInteractions,
     synthetic_interactions,
 )
+
+Sequences = Iterable[Tuple[np.ndarray, np.ndarray, np.ndarray]]
+
+
+def _parse_list(text: str, dtype) -> np.ndarray:
+    """A Python-list string "[a, b, ...]" -> int64 values (floats truncated)."""
+    body = text.strip()[1:-1]
+    if not body.strip():
+        return np.zeros(0, dtype=np.int64)
+    return np.asarray(body.split(","), dtype=str).astype(dtype).astype(np.int64)
+
+
+def read_sequence_csv(path: str) -> Tuple[List[str], List[List[str]]]:
+    """The sequence CSV's header and rows, as strings."""
+    with open(path, newline="", encoding="utf-8") as f:
+        rows = list(csv.reader(f))
+    return (rows[0], rows[1:]) if rows else (list(SEQUENCE_COLUMNS), [])
 
 
 @dataclass
@@ -47,15 +76,25 @@ class SequenceDataset:
     target_rating: np.ndarray  # [U] int32
     target_timestamp: np.ndarray  # [U] int32
     user_ids: np.ndarray  # [U] int64
+    additional: Dict[str, np.ndarray] = field(default_factory=dict)  # per-user columns
 
     def __len__(self) -> int:
         return len(self.lengths)
 
     @staticmethod
     def from_sequences(
-        data: SyntheticInteractions, max_sequence_length: int, ignore_last_n: int
+        sequences: Sequences,
+        user_ids: np.ndarray,
+        max_sequence_length: int,
+        ignore_last_n: int,
+        chronological: bool = True,
+        shift_id_by: int = 0,
+        sample_ratio: float = 1.0,
+        seed: int = 42,
     ) -> "SequenceDataset":
-        L, u = max_sequence_length, len(data.user_ids)
+        """Per-user chronological (ids, ratings, timestamps) -> the split (the
+        plain parser's loop, JAX :104-157)."""
+        L, u = max_sequence_length, len(user_ids)
         lengths = np.zeros(u, dtype=np.int32)
         ids = np.zeros((u, L), dtype=np.int32)
         ratings = np.zeros((u, L), dtype=np.int32)
@@ -63,24 +102,80 @@ class SequenceDataset:
         target_id = np.zeros(u, dtype=np.int32)
         target_rating = np.zeros(u, dtype=np.int32)
         target_timestamp = np.zeros(u, dtype=np.int32)
-        for i in range(u):
-            end = len(data.item_ids[i]) - ignore_last_n
-            if end <= 0:
+        rng = np.random.default_rng(seed)
+        for i, (s_ids, s_ratings, s_ts) in enumerate(sequences):
+            if ignore_last_n > 0:
+                s_ids, s_ratings, s_ts = (
+                    a[:-ignore_last_n] for a in (s_ids, s_ratings, s_ts)
+                )
+            if sample_ratio < 1.0:
+                keep = rng.random(len(s_ids)) < sample_ratio
+                keep[-1:] = True  # never drop the target
+                s_ids, s_ratings, s_ts = s_ids[keep], s_ratings[keep], s_ts[keep]
+            if shift_id_by:
+                s_ids = s_ids + shift_id_by
+            if len(s_ids) == 0:
                 continue
-            s_ids, s_ratings, s_ts = (
-                a[i][:end] for a in (data.item_ids, data.ratings, data.timestamps)
-            )
-            target_id[i], target_rating[i], target_timestamp[i] = (
-                s_ids[-1], s_ratings[-1], s_ts[-1]
-            )
-            hist = slice(max(end - 1 - L, 0), end - 1)  # the most recent L
-            n = hist.stop - hist.start
+            target_id[i], target_rating[i], target_timestamp[i] = s_ids[-1], s_ratings[-1], s_ts[-1]
+            hist = (s_ids[:-1], s_ratings[:-1], s_ts[:-1])
+            if chronological:  # the most recent L
+                hist = tuple(a[max(len(a) - L, 0):] for a in hist)
+            else:  # newest first, the newest L (JAX :145-152)
+                hist = tuple(a[::-1][:L] for a in hist)
+            n = len(hist[0])
             lengths[i] = n
-            ids[i, :n], ratings[i, :n], timestamps[i, :n] = s_ids[hist], s_ratings[hist], s_ts[hist]
+            ids[i, :n], ratings[i, :n], timestamps[i, :n] = hist
         return SequenceDataset(
             lengths, ids, ratings, timestamps, target_id, target_rating,
-            target_timestamp, data.user_ids,
+            target_timestamp, np.asarray(user_ids, dtype=np.int64),
         )
+
+    @staticmethod
+    def from_csv(
+        csv_path: str,
+        max_sequence_length: int,
+        ignore_last_n: int,
+        chronological: bool = True,
+        shift_id_by: int = 0,
+        sample_ratio: float = 1.0,
+        seed: int = 42,
+        additional_columns: Optional[Sequence[str]] = None,
+        parser: str = "auto",
+    ) -> "SequenceDataset":
+        """A sequence CSV -> the split. `parser`: "native" (the C++ parser; no
+        subsampling or id shift), "python" (the plain parser), or "auto": the
+        native one where it applies, as in the JAX package (:70-96)."""
+        if parser not in ("auto", "native", "python"):
+            raise ValueError(f"Unknown parser {parser!r}")
+        native_ok = sample_ratio >= 1.0 and shift_id_by == 0
+        if parser == "native" and not native_ok:
+            raise ValueError("the native parser takes no sample_ratio < 1 or shift_id_by")
+        header, rows = None, None
+        if parser == "native" or (parser == "auto" and native_ok):
+            from mygenerativerecommenders_tpu_torch import native
+
+            ds = SequenceDataset(**native.parse_sequences_native(
+                csv_path, max_sequence_length, ignore_last_n, chronological
+            ))
+        else:
+            header, rows = read_sequence_csv(csv_path)
+            at = [header.index(name) for name in SEQUENCE_COLUMNS]
+            ds = SequenceDataset.from_sequences(
+                ((_parse_list(r[at[1]], np.int64), _parse_list(r[at[2]], np.float64),
+                  _parse_list(r[at[3]], np.int64)) for r in rows),
+                np.asarray([int(r[at[0]]) for r in rows], dtype=np.int64),
+                max_sequence_length, ignore_last_n, chronological, shift_id_by,
+                sample_ratio, seed,
+            )
+        if additional_columns:
+            if rows is None:
+                header, rows = read_sequence_csv(csv_path)
+            for name in additional_columns:
+                if name not in header:
+                    raise ValueError(f"Column {name!r} not in the sequence CSV")
+                i = header.index(name)
+                ds.additional[name] = typed_column([r[i] for r in rows]).astype(np.int32)
+        return ds
 
 
 class BatchLoader:
@@ -99,9 +194,10 @@ class BatchLoader:
 
     def __init__(
         self, dataset: SequenceDataset, batch_size: int, shuffle: bool = False, seed: int = 0,
-        buckets: Optional[Sequence[int]] = None,
+        buckets: Optional[Sequence[int]] = None, with_index: bool = False,
     ):
         self.dataset = dataset
+        self.with_index = with_index
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.seed = seed
@@ -126,11 +222,14 @@ class BatchLoader:
         return (len(self.dataset) + bs - 1) // bs
 
     def _emit(self, idx: np.ndarray, cap: Optional[int] = None) -> Dict[str, np.ndarray]:
+        """The batch of dataset rows `idx` (-1: padding); with `with_index`
+        also "example", `idx` itself, which cli/predict.py orders its rows by."""
         ds = self.dataset
         weight = (idx >= 0).astype(np.float32)
+        index = {"example": idx.astype(np.int64)} if self.with_index else {}
         idx = np.maximum(idx, 0)
         cols = slice(None) if cap is None else slice(0, cap)
-        return {
+        return index | {
             "lengths": np.maximum(ds.lengths[idx], 1),
             "ids": ds.ids[idx, cols],
             "ratings": ds.ratings[idx, cols],
@@ -177,41 +276,76 @@ class BatchLoader:
 
 
 class RecoData:
-    """The data module: the generated interactions, the three splits and the
-    item catalog (all_item_ids, max_item_id) the model is built from."""
+    """The data module: the interactions (read from the processed files, or
+    drawn in memory for a synthetic dataset), the three splits, and the item
+    catalog the model is built from: all_item_ids (movies.csv's ids in its
+    order), max_item_id (the dataset's pinned largest id, else the largest
+    listed) and year_of_item ([max_item_id + 1], None without a year
+    column)."""
 
     def __init__(self, cfg: DataConfig, seed: int = 42):
-        if not cfg.dataset_name.startswith("synthetic"):
-            raise not_ported(f"data.dataset_name={cfg.dataset_name} (real data files)", "Real data")
         if cfg.additional_columns or cfg.item_year_feature:
             raise not_ported("data.additional_columns / item_year_feature", "Other model families")
-        if cfg.positional_sampling_ratio < 1.0 or not cfg.chronological:
-            raise not_ported(
-                "data.positional_sampling_ratio < 1 / chronological=false", "Real data"
-            )
         self.cfg = cfg
         self._seed = seed
-        self.interactions = synthetic_interactions(
-            num_users=cfg.synthetic_num_users,
-            num_items=cfg.expected_num_unique_items,
-            max_item_id=cfg.expected_max_item_id,
-            max_seq_len=cfg.synthetic_max_seq_len,
-            rating_by_item_quality=cfg.synthetic_rating_quality,
-        )
-        self.all_item_ids = self.interactions.catalog.astype(np.int32)
-        self.max_item_id = int(cfg.expected_max_item_id)
+        self.processor: Optional[DataProcessor] = None
+        self.interactions: Optional[SyntheticInteractions] = None
+        if cfg.dataset_name.startswith("synthetic"):
+            self.interactions = synthetic_interactions(
+                num_users=cfg.synthetic_num_users,
+                num_items=cfg.expected_num_unique_items,
+                max_item_id=cfg.expected_max_item_id,
+                max_seq_len=cfg.synthetic_max_seq_len,
+                rating_by_item_quality=cfg.synthetic_rating_quality,
+            )
+            self.all_item_ids = self.interactions.catalog.astype(np.int32)
+            self.max_item_id = int(cfg.expected_max_item_id)
+            self.year_of_item = synthetic_years(self.all_item_ids, self.max_item_id)
+        else:
+            self.processor = build_processor(cfg.dataset_name, cfg.data_dir)
+            if not os.path.exists(self.processor.output_format_csv()):
+                self.processor.preprocess_rating()
+            self.all_item_ids, self.max_item_id, self.year_of_item = item_catalog(cfg)
         self._splits: Dict[str, SequenceDataset] = {}
 
     def dataset(self, split: str) -> SequenceDataset:
         if split not in self._splits:
-            self._splits[split] = SequenceDataset.from_sequences(
-                self.interactions,
-                max_sequence_length=self.cfg.max_sequence_length,
+            cfg = self.cfg
+            kwargs = dict(
+                max_sequence_length=cfg.max_sequence_length,
                 ignore_last_n=1 if split == "train" else 0,
+                chronological=cfg.chronological,
+                sample_ratio=cfg.positional_sampling_ratio if split == "train" else 1.0,
+                seed=self._seed,
             )
+            if self.interactions is not None:
+                data = self.interactions
+                self._splits[split] = SequenceDataset.from_sequences(
+                    zip(data.item_ids, data.ratings, data.timestamps), data.user_ids, **kwargs
+                )
+            else:
+                self._splits[split] = SequenceDataset.from_csv(
+                    self.processor.output_format_csv(), **kwargs
+                )
         return self._splits[split]
 
-    def loader(self, split: str, batch_size: Optional[int] = None) -> BatchLoader:
+    def sequence_table(self) -> Tuple[List[str], List[List[str]]]:
+        """The full sequence CSV's header and rows as strings, one row per
+        example of every split, in dataset order (what cli/predict.py writes
+        its top-k beside); a synthetic dataset's rows are formatted as the
+        JAX package writes them, without its drawn user-feature columns."""
+        if self.processor is not None:
+            return read_sequence_csv(self.processor.output_format_csv())
+        data = self.interactions
+        rows = [
+            [str(u), str(a.tolist()), str(b.tolist()), str(c.tolist())]
+            for u, a, b, c in zip(data.user_ids.tolist(), data.item_ids, data.ratings,
+                                  data.timestamps)
+        ]
+        return list(SEQUENCE_COLUMNS), rows
+
+    def loader(self, split: str, batch_size: Optional[int] = None,
+               with_index: bool = False) -> BatchLoader:
         bs = batch_size or (
             self.cfg.batch_size if split == "train" else self.cfg.eval_batch_size
         )
@@ -221,4 +355,5 @@ class RecoData:
             shuffle=(split == "train"),
             seed=self._seed,
             buckets=list(self.cfg.length_buckets) or None,
+            with_index=with_index,
         )

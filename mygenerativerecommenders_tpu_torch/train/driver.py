@@ -1,12 +1,13 @@
 """The trainer: one device.
 
 Port of `Trainer` (mygenerativerecommenders_tpu/train/driver.py:117,
-232-301, 400-478, 492-539, 588-716, 717-830, 832-886, 932-961): model and
+232-301, 400-478, 492-539, 588-716, 717-830, 832-920, 932-961): model and
 optimizer set-up, the epoch loop over the prefetching host loader, one or k
 steps a call, validation (retrieval: candidate refresh -> filtered top-k ->
 ranking metrics; ranking: rating probabilities -> multiclass AUROC, AP,
 precision and recall), plateau LR and early stopping keyed on the
-monitored metric, best/last checkpoints with resume, CSV/JSONL metric logging,
+monitored metric, best/last checkpoints with resume, `predict` (every test
+example's top-k in dataset order), CSV/JSONL metric logging,
 and seeded randomness: the weights come from `trainer.seed`, dropout draws from the
 device's default generator (seeded with `trainer.seed`) and the negatives
 from a generator of their own on the device.
@@ -46,7 +47,7 @@ import numpy as np
 import torch
 
 from mygenerativerecommenders_tpu_torch import not_ported
-from mygenerativerecommenders_tpu_torch.checkpoint import CheckpointManager
+from mygenerativerecommenders_tpu_torch.checkpoint import CheckpointManager, load_weights
 from mygenerativerecommenders_tpu_torch.configs import Config, resolve
 from mygenerativerecommenders_tpu_torch.data.dataset import BatchLoader, RecoData
 from mygenerativerecommenders_tpu_torch.data.packing import PackedBatchLoader
@@ -220,7 +221,10 @@ class Trainer:
         host memory and copied without blocking: `pin_memory()` takes a fresh
         block of torch's pinned-host cache, which hands a block out again only
         once the copy that read it has finished, so no staged batch is
-        overwritten while its copy is in flight."""
+        overwritten while its copy is in flight. A padded batch's "example"
+        (its rows' dataset indices, which `predict` orders by) stays on the
+        host: the eval graphs read the batches of `fit`, which have none."""
+        batch = {k: v for k, v in batch.items() if k != "example"}
         if self.device.type != "cuda":
             return {k: torch.as_tensor(v) for k, v in batch.items()}
         return {
@@ -480,13 +484,58 @@ class Trainer:
                     break
         return last_results
 
+    def load_weights(self, path: str) -> None:
+        """The model's weights from a checkpoint (`checkpoint.load_checkpoint`:
+        a training or state_dict `.pt`, a reference `.ckpt`, an `.npz`)."""
+        load_weights(self.model, str(path), self.device)
+        log.info(f"loaded checkpoint {path}")
+
     def test(self, ckpt_path: Optional[str] = None) -> Dict[str, float]:
         path = ckpt_path or self.ckpt.best_path
         if path and os.path.exists(str(path)):
-            state = CheckpointManager.load(str(path), self.device)
-            self.model.load_state_dict(state["model"] if "model" in state else state)
-            log.info(f"loaded checkpoint {path}")
+            self.load_weights(path)
         return self.eval_epoch(self._loader("test", packed=self._eval_packed), "test")
+
+    @torch.no_grad()
+    def predict(self) -> Dict[str, list]:
+        """The top-k ids and scores of every test example, in dataset order
+        (JAX :888-920): padded, or packed where the eval is packed (its
+        segments regrouped by `seg_example`), k batches a call (graphed on
+        the card) where the trainer evaluates so."""
+        if self.task != "retrieval":
+            raise ValueError("predict() produces top-k lists; retrieval task only")
+        self.model.eval()
+        candidates = self.candidate_fn()
+        if self._eval_packed:
+            loader = self._loader("test", packed=True)
+            many, one = self.packed_eval_steps, self.packed_eval_step
+            weight_key, example_key = "seg_weight", "seg_example"
+        else:
+            loader = self.data.loader("test", with_index=True)
+            many, one = self.eval_steps, self.eval_step
+            weight_key, example_key = "sample_weight", "example"
+        examples, ids, scores = [], [], []
+
+        def collect(out_ids, out_scores, batch) -> None:
+            valid = batch[weight_key] > 0
+            examples.append(batch[example_key][valid])
+            ids.append(out_ids.cpu().numpy()[valid])
+            scores.append(out_scores.cpu().numpy()[valid])
+
+        if many is not None:
+            for hbs, devs, _ in self._stacked_batches(loader, len(loader), self.steps_per_call):
+                out = many(devs, candidates)
+                for i, batch in enumerate(hbs):
+                    collect(out[0][i], out[1][i], batch)
+        else:
+            for batch, dev_batch in self._batches(loader, len(loader)):
+                out = one(dev_batch, candidates)
+                collect(out[0], out[1], batch)
+        order = np.argsort(np.concatenate(examples), kind="stable")
+        return {
+            "top_k_ids": np.concatenate(ids)[order].tolist(),
+            "top_k_scores": np.concatenate(scores)[order].tolist(),
+        }
 
     # ------------------------------------------------------------------
     def _controller_state(self) -> Dict[str, Any]:

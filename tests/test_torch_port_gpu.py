@@ -826,3 +826,51 @@ def test_int8_scan_on_card_matches_the_cpu(filtered):
 
     problem = topk_agree(i1.numpy(), v1.numpy(), i2.numpy(), v2.numpy(), 1e-5)
     assert problem is None, problem
+
+
+@pytest.mark.gpu
+def test_real_files_prepare_train_and_predict_on_card(tmp_path):
+    """A small ml-1m-format zip: cli.prepare_data, two epochs of cli.train on
+    the card (graphed, the kernels launched), then cli.predict from the best
+    checkpoint, whose rows hold catalog ids and agree with a CPU trainer's
+    predict on the same weights."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA)")
+    import csv
+
+    from mygenerativerecommenders_tpu_torch.cli import predict, prepare_data
+    from mygenerativerecommenders_tpu_torch.cli import train as cli_train
+    from mygenerativerecommenders_tpu_torch.ops.topk import topk_agree
+    from mygenerativerecommenders_tpu_torch.train.driver import Trainer
+    # by the directory pytest puts first on sys.path: a package named "tests"
+    # installed on the card's machine would shadow this one
+    from torch_port_real_files import write_ml1m_zip
+
+    write_ml1m_zip(tmp_path, num_users=40)
+    args = [
+        "experiment=ml-1m-hstu", f"data.data_dir={tmp_path}",
+        f"trainer.output_dir={tmp_path / 'out'}", "trainer.max_epochs=2", "trainer.min_epochs=1",
+        "data.max_sequence_length=32", "data.batch_size=16", "model.index.k=20",
+        "model.metrics.at_k_list=[5,10,20]", "trainer.monitor=val/ndcg@10",
+    ]
+    data = prepare_data.main(args)
+    before = (kern.launches, kern.bwd_launches, count_kern.launches, lse_kern.launches,
+              lse_kern.bwd_launches)
+    cli_train.main(args)
+    after = (kern.launches, kern.bwd_launches, count_kern.launches, lse_kern.launches,
+             lse_kern.bwd_launches)
+    assert all(a > b for a, b in zip(after, before)), (before, after)
+    best = tmp_path / "out" / "ml-1m-hstu" / "checkpoints" / "best.pt"
+    out = predict.main(args + [f"trainer.ckpt_path={best}"])
+    with open(out, newline="", encoding="utf-8") as f:
+        rows = list(csv.DictReader(f))
+    assert len(rows) == 40
+    catalog = set(data.all_item_ids.tolist())
+    ids = [eval(r["top_k_ids"]) for r in rows]
+    scores = [eval(r["top_k_scores"]) for r in rows]
+    assert all(len(row) == 20 and set(row) <= catalog for row in ids)
+    cpu = Trainer(cli_train.parse_args(args + ["trainer.device=cpu"]))
+    cpu.load_weights(best)
+    want = cpu.predict()
+    problem = topk_agree(ids, scores, want["top_k_ids"], want["top_k_scores"], atol=1e-4)
+    assert problem is None, problem

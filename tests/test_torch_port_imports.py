@@ -37,3 +37,18 @@ def test_port_modules_import_no_jax_flax_pandas_or_jax_package():
     )
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "[]", proc.stdout
+
+
+def test_real_data_modules_are_walked_and_the_port_holds_no_urllib():
+    """The real-data slice's modules are among those imported above, and no
+    source of the port can fetch anything: nothing downloads."""
+    modules = set(_port_modules())
+    for name in ("data.preprocessor", "data.dataset", "native", "cli.prepare_data",
+                 "cli.predict", "cli.convert_ckpt"):
+        assert f"{port.__name__}.{name}" in modules, name
+    pkg = Path(port.__file__).parent
+    sources = [p for p in pkg.rglob("*") if p.suffix in (".py", ".cpp", ".cu", ".cuh")]
+    assert len(sources) > 20
+    holding = [str(p.relative_to(pkg)) for p in sources if "urllib" in p.read_text()]
+    assert holding == []
+    assert not list((pkg / "native").glob("*.so"))  # built at first use, into _build/

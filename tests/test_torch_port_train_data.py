@@ -34,12 +34,16 @@ def _both(tmp_path, overrides=()):
         # histories longer than max_sequence_length are cut to the most recent
         (("max_sequence_length", 20), ("synthetic_num_users", 37)),
         (("synthetic_rating_quality", True),),
+        # the train split's positional subsample (seeded) and newest-first histories
+        (("positional_sampling_ratio", 0.5),),
+        (("chronological", False), ("max_sequence_length", 20)),
     ],
 )
 def test_catalog_and_splits_match_jax_recodata(tmp_path, overrides):
     jdata, pdata = _both(tmp_path, overrides)
     np.testing.assert_array_equal(pdata.all_item_ids, np.asarray(jdata.all_item_ids))
     assert pdata.max_item_id == jdata.max_item_id
+    np.testing.assert_array_equal(pdata.year_of_item, jdata.year_of_item)
     for split in ("train", "val", "test"):
         want, got = jdata.dataset(split), pdata.dataset(split)
         assert len(got) == len(want)
@@ -84,10 +88,8 @@ def test_user_id_split_threshold_matches_the_jax_split_files(tmp_path):
 @pytest.mark.parametrize(
     "key,value,item",
     [
-        ("dataset_name", "ml-1m", "Real data"),
         ("item_year_feature", True, "Other model families"),
         ("additional_columns", ("sex",), "Other model families"),
-        ("positional_sampling_ratio", 0.5, "Real data"),
     ],
 )
 def test_unported_data_knobs_raise_naming_the_roadmap_item(key, value, item):
