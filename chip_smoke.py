@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving and training paths (retrieval padded,
 packed and through ring attention; ranking padded and packed; eager and as
-CUDA graphs; from interaction files on disk) on one NVIDIA card and check its
-kernels.
+CUDA graphs; from interaction files on disk; with Muon and Scion) on one
+NVIDIA card and check its kernels.
 
 Run from the root of a checkout, with no arguments:
 
@@ -249,6 +249,26 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    ratings_Books.csv (string ASINs, power-law popularity, 20,000 users),
    prepare at min_count 5, one epoch (packing, the lazy update, shared
    negatives, packed eval); finite losses, and their timings.
+
+16. Muon and Scion (the two-optimizer split: AdamW on the embeddings and
+   vectors, Muon or Scion with bfloat16 Newton-Schulz on the encoder's
+   matrices, each learning rate with its plateau controller) at ml-1m-hstu's
+   width on phase 15's files: `cli.train` for 30 graphed epochs of
+   ml-1m-hstu-muon and of ml-1m-hstu-scion (min_epochs=30), launch counts as
+   in phase 4, losses finite and falling, best.pt and last.pt written, test
+   ndcg@10 at least 0.030 (about 80% of the JAX package's 0.0367; its 0.0376
+   and 0.0367 are from a TPU v5e on synthetic ml-1m-shaped data), printed
+   beside phase 15's AdamW run. Then the train step of ml-1m-hstu, -muon and
+   -scion, eager and graphed side by side as in phase 4, with the
+   optimizer's device ms and share; phase 10's check of one graphed step
+   against one eager one for both presets (from the second step on the
+   attention backward's float atomics differ from run to run, and bfloat16
+   NS-5 turns that noise into ulps of the update: two eager runs of three
+   steps are logged side by side to show it); and two steps of each on the
+   card and on the CPU, the same weights, batch and negatives, each
+   optimizer given the CPU's gradients: the AdamW part at phase 5's
+   gradient tolerance, each Muon / Scion matrix within 0.15 of its own
+   movement (the band the CPU tests hold the port to JAX with).
 
 It ends with one JSON line of the kernels' numbers and, last, the line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -1940,19 +1960,20 @@ def card_against_cpu_ranking_step(packed: bool) -> None:
 # ---------------------------------------------------------------- phase 10
 
 
-def graphed_against_eager() -> None:
+def graphed_against_eager(cases=None, steps: int = 3) -> None:
     """The graphed step against the eager step on the card: two trainers of
     one configuration (the same seeds, so the same weights, negatives and
     dropout streams; dropout on), steps_per_call=1 (eager) and 8 (graphed),
-    three optimizer steps each on one batch: the losses at phase 5's rtol and
-    the parameters at its gradients' rtol / atol. A padded synthetic-hstu
-    batch, packed ml-20m-hstu-long batches of class 256 then 1152, a zigzag
-    ring batch, and a padded and a packed synthetic-rank batch (the ranking
-    graph binds no negatives' buffer)."""
+    `steps` optimizer steps each on one batch: the losses at phase 5's rtol and
+    the parameters at its gradients' rtol / atol. By default a padded
+    synthetic-hstu batch, packed ml-20m-hstu-long batches of class 256 then
+    1152, a zigzag ring batch, and a padded and a packed synthetic-rank batch
+    (the ranking graph binds no negatives' buffer); `cases` as
+    [(label, args, [packed class or None])] otherwise."""
     from mygenerativerecommenders_tpu_torch.cli.train import parse_args
     from mygenerativerecommenders_tpu_torch.train.driver import Trainer
 
-    cases = [
+    cases = cases or [
         ("synthetic-hstu, padded", ["experiment=synthetic-hstu"], [None]),
         ("ml-20m-hstu-long, packed", LONG_ARGS[:2] + ["data.synthetic_max_seq_len=1200"],
          [256, 1152]),
@@ -1974,9 +1995,10 @@ def graphed_against_eager() -> None:
             host = next(b for b in loader if cap is None or b["ids"].shape[1] == cap)
             batch = eager._put(host)
             torch.manual_seed(17)
-            want = torch.stack([eager.train_step(batch, eager.lr1) for _ in range(3)]).cpu()
+            want = torch.stack([eager.train_step(batch, eager.lr1, eager.lr2)
+                                for _ in range(steps)]).cpu()
             torch.manual_seed(17)
-            got = graphed.train_steps([batch] * 3, graphed.lr1).cpu()
+            got = graphed.train_steps([batch] * steps, graphed.lr1, graphed.lr2).cpu()
             rel = float(((got - want).abs() / want.abs()).max())
             what = f"{label}" + (f" class {cap}" if cap else "") + f", {host['ids'].shape[0]} rows"
             ok_all, worst, worst_name = True, 0.0, ""
@@ -1988,7 +2010,7 @@ def graphed_against_eager() -> None:
                 if not ok:
                     log(f"  {name}: max_abs_err {err:.3e} outside rtol {STEP_GRAD_RTOL} atol "
                         f"{STEP_GRAD_ATOL}")
-            log(f"graphed vs eager, three steps on one batch, {what}: losses {got.tolist()} vs "
+            log(f"graphed vs eager, {steps} step(s) on one batch, {what}: losses {got.tolist()} vs "
                 f"{want.tolist()}, largest relative difference {rel:.3e} (rtol {STEP_LOSS_RTOL}); "
                 f"parameters within rtol {STEP_GRAD_RTOL} atol {STEP_GRAD_ATOL}: {ok_all}, largest "
                 f"difference {worst:.3e} in {worst_name}; {len(graphed.train_steps.graphs)} graphs")
@@ -2011,8 +2033,10 @@ LAZY = SHARED + ["model.embedding.lazy_update=true"]
 # negatives with dense fused AdamW; (b) the lazy overlay
 LARGE_VARIANTS = {"(a) gather + dense AdamW": [], "(b') shared + dense AdamW": SHARED,
                   "(b) shared + lazy update": LAZY}
-# the optimizer's profiler ranges: torch's, and the lazy one's around it
-OPTIMIZER_RANGES = ("LazyEmbeddingAdamW.step", "Optimizer.step#AdamW.step")
+# the optimizer's profiler ranges, outermost first: the lazy one's and the
+# split one's (AdamW and Muon / Scion) around torch's
+OPTIMIZER_RANGES = ("LazyEmbeddingAdamW.step", "SplitOptimizer.step",
+                    "Optimizer.step#AdamW.step")
 
 
 def gb(nbytes: float) -> str:
@@ -2616,7 +2640,8 @@ def run_real_data_path(kc: Counts, card: str) -> tuple:
     """Phase 15: ml-1m-hstu at full width and size from a MovieLens-format zip
     (prepare, 30 graphed epochs, eval, predict, a Lightning .ckpt), then
     ml-20m-hstu-long and amzn-books from files at cut depth. -> (the ml-1m
-    runs' launch counts, the other two runs')."""
+    runs' launch counts, the other two runs', {"root": the ml-1m data
+    directory, "test": the 30-epoch run's test row})."""
     import csv as csv_module
     import shutil
 
@@ -2748,7 +2773,7 @@ def run_real_data_path(kc: Counts, card: str) -> tuple:
     others = {key: 0 for key in ml1m}
     long_cut_depth(kc, card, others)
     amazon_cut_depth(kc, card, others)
-    return ml1m, others
+    return ml1m, others, {"root": root, "test": test}
 
 
 def long_cut_depth(kc: Counts, card: str, into: dict) -> None:
@@ -2850,6 +2875,206 @@ def amazon_cut_depth(kc: Counts, card: str, into: dict) -> None:
         f"{list(cfg.data.pack_capacities)}: {len(losses)} logged steps in {wall:.2f} s, loss "
         f"first {losses[0]:.4f} last {losses[-1]:.4f}, test ndcg@10 {test['test/ndcg@10']:.5f}; "
         f"launches {counts}")
+
+
+# ---------------------------------------------------------------- phase 16 (Muon and Scion)
+
+SPLIT_PRESETS = ("ml-1m-hstu-muon", "ml-1m-hstu-scion")
+# the JAX package's 30-epoch test ndcg@10 of the two presets (PARITY.md:113-115),
+# from a TPU v5e on synthetic ml-1m-shaped data: not numbers of this card
+JAX_SPLIT_NDCG10 = {"ml-1m-hstu-muon": 0.0376, "ml-1m-hstu-scion": 0.0367}
+MIN_SPLIT_NDCG10 = 0.030  # about 80% of the lower of the two
+# the split step on the card against the CPU on the same gradients: each Muon
+# / Scion matrix within this share of its own movement (NS-5 in bfloat16, the
+# band tests/test_torch_port_optimizers.py holds the port to JAX with), the
+# AdamW part at phase 5's gradient tolerance
+SPLIT_BAND = 0.15
+
+
+def run_split_optimizer_path(kc: Counts, card: str, ml1m: dict) -> dict:
+    """Phase 16: `cli.train` for 30 graphed epochs of ml-1m-hstu-muon and of
+    ml-1m-hstu-scion on phase 15's ml-1m files. -> the launch counts of the
+    two runs."""
+    import shutil
+
+    from mygenerativerecommenders_tpu_torch.cli import train as cli_train
+
+    total = None
+    epochs, out = 30, OUT_DIR / "split"
+    adamw = ml1m["test"]
+    summary = [f"ml-1m-hstu (AdamW, phase 15): ndcg@10 {adamw['test/ndcg@10']:.5f}, hr@10 "
+               f"{adamw['test/hr@10']:.5f}, mrr {adamw['test/mrr']:.5f}"]
+    for preset in SPLIT_PRESETS:
+        args = [f"experiment={preset}", f"data.data_dir={ml1m['root']}",
+                f"trainer.output_dir={out}", f"trainer.max_epochs={epochs}",
+                f"trainer.min_epochs={epochs}", "trainer.log_every_n_steps=1"]
+        run = out / preset
+        shutil.rmtree(run, ignore_errors=True)
+        cfg = cli_train.parse_args(args)
+        check(cfg.optimizer2.enabled and cfg.scheduler2.kind == "plateau",
+              f"{preset}: no matrix optimizer with its plateau controller")
+        kc.reset()
+        t0 = time.perf_counter()
+        monitored = cli_train.main(args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts, graph_counts = kc.read(), kc.read_graphs()
+        blocks = cfg.model.encoder.num_blocks
+        per_epoch = -(-6040 // cfg.data.batch_size)
+        eval_batches = (epochs + 1) * per_epoch
+        log(f"split-optimizer path: cli.train on {card}, {preset} from files (AdamW lr "
+            f"{cfg.optimizer1.lr:g} on the embeddings and vectors, {cfg.optimizer2.kind} lr "
+            f"{cfg.optimizer2.lr:g} on the encoder's matrices), D={cfg.model.item_embedding_dim} "
+            f"blocks={blocks} N={cfg.data.max_sequence_length + cfg.model.gr_output_length + 1} "
+            f"batch={cfg.data.batch_size} R={cfg.model.loss.num_to_sample}: {epochs * per_epoch} "
+            f"optimizer steps, {eval_batches} eval batches in {wall:.2f} s "
+            f"({epochs * 6040 / wall:.1f} training examples/s end to end); launches {counts}")
+        losses, steps, val, test = read_training_run(run / "metrics.jsonl", epochs, monitored)
+        check(steps == epochs * per_epoch, f"{steps} optimizer steps, expected {epochs * per_epoch}")
+        check(graph_counts.get("train") and graph_counts.get("eval"),
+              f"{preset}: the cli.train run did not replay graphed steps and eval batches")
+        check_step_launches(kc, steps, eval_batches, counts, graph_counts, attn=blocks)
+        for name in ("best.pt", "last.pt"):
+            check((run / "checkpoints" / name).exists(), f"{preset}: no {name}")
+        rows = [json.loads(line) for line in (run / "metrics.jsonl").read_text().splitlines()]
+        rates = sorted({(r["lr1"], r["lr2"]) for r in rows if "train/loss" in r})
+        log(f"  (lr1, lr2) over the run: {rates}; test on the best checkpoint: ndcg@10 "
+            f"{test['test/ndcg@10']:.5f}, hr@10 {test['test/hr@10']:.5f}, mrr "
+            f"{test['test/mrr']:.5f}, ndcg@100 {test['test/ndcg@100']:.5f}")
+        summary.append(f"{preset}: ndcg@10 {test['test/ndcg@10']:.5f}, hr@10 "
+                       f"{test['test/hr@10']:.5f}, mrr {test['test/mrr']:.5f} (the JAX "
+                       f"package's {JAX_SPLIT_NDCG10[preset]}: TPU v5e, synthetic ml-1m-shaped "
+                       f"data)")
+        check(test["test/ndcg@10"] >= MIN_SPLIT_NDCG10,
+              f"{preset}: test ndcg@10 {test['test/ndcg@10']} below {MIN_SPLIT_NDCG10}")
+        total = counts if total is None else {k: total[k] + v for k, v in counts.items()}
+    log(f"  test metrics after {epochs} epochs on {card}: " + "; ".join(summary))
+    return total
+
+
+def split_steps_side_by_side(kc: Counts, card: str, root: Path) -> None:
+    """The train step of ml-1m-hstu (AdamW), -muon and -scion on the files,
+    eager and graphed side by side as in phase 4, and the optimizer's device
+    ms and share of the eager step's (`profile_optimizer`)."""
+    from mygenerativerecommenders_tpu_torch.cli import train as cli_train
+    from mygenerativerecommenders_tpu_torch.train.driver import Trainer
+
+    table = []
+    for preset in ("ml-1m-hstu",) + SPLIT_PRESETS:
+        trainer = Trainer(cli_train.parse_args([
+            f"experiment={preset}", f"data.data_dir={root}",
+            f"trainer.output_dir={OUT_DIR / 'split_by_hand'}"]))
+        trainer.model.train()
+        batches = [trainer._put(b) for _, b in zip(range(4), trainer.data.loader("train"))]
+        blocks = trainer.cfg.model.encoder.num_blocks
+        times = eager_and_graphed(kc, {
+            "eager": lambda i: trainer.train_step(batches[i % 4], trainer.lr1, trainer.lr2),
+            "graphed": lambda i: trainer.train_steps([batches[i % 4]], trainer.lr1, trainer.lr2),
+        }, f"{preset} train step", kc.per_step(blocks, 0), trainer.train_steps.graphs, card,
+            reps=40)
+        dev, opt, _ = profile_optimizer(
+            lambda i: trainer.train_step(batches[i % 4], trainer.lr1, trainer.lr2), reps=4)
+        g = times["graphed"]
+        table.append(f"{preset}: graphed p50 {g['p50']:.3f} ms, device {g['device_ms']:.3f} ms "
+                     f"in {g['launches']:.0f} launches; eager step device {dev:.3f} ms, "
+                     f"optimizer {opt:.3f} ms ({100 * opt / dev:.1f}%)")
+        del trainer, batches
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"train steps at ml-1m width on {card}: " + " | ".join(table))
+
+
+def split_eager_twice(root: Path) -> None:
+    """Three eager steps of each split preset on one batch, twice, from the
+    same seeds (dropout on): logs the largest difference a parameter shows
+    between the two runs. The attention backward adds the bias tables'
+    gradients with float atomics, whose order changes from run to run; from
+    the second step on that float noise reaches the matrices' gradients, and
+    NS-5 in bfloat16 turns it into ulps of their updates. It is why phase 16
+    holds the graphed step to the eager one over one step."""
+    from mygenerativerecommenders_tpu_torch.cli.train import parse_args
+    from mygenerativerecommenders_tpu_torch.train.driver import Trainer
+
+    for preset in SPLIT_PRESETS:
+        runs = []
+        for _ in range(2):
+            trainer = Trainer(parse_args([f"experiment={preset}", f"data.data_dir={root}",
+                                          "trainer.steps_per_call=1",
+                                          f"trainer.output_dir={OUT_DIR / 'eager_twice'}"]))
+            trainer.model.train()
+            batch = trainer._put(next(iter(trainer.data.loader("train"))))
+            torch.manual_seed(17)
+            for _ in range(3):
+                trainer.train_step(batch, trainer.lr1, trainer.lr2)
+            runs.append({k: p.detach().cpu() for k, p in trainer.model.named_parameters()})
+            del trainer
+        diffs = {k: float((runs[0][k] - runs[1][k]).abs().max()) for k in runs[0]}
+        log(f"eager against eager, three {preset} steps from the same seeds: largest "
+            f"differences " + ", ".join(f"{k.split('_attention_layers.')[-1]} {d:.3e}"
+                                        for k, d in diffs.items() if d > 0))
+
+
+def split_card_against_cpu(root: Path) -> None:
+    """Two steps of each split optimizer on the card and on the CPU from the
+    same weights, batch and negatives, dropout off, each optimizer given the
+    CPU's gradients: the AdamW-stepped parameters at phase 5's gradient
+    tolerance, each Muon / Scion matrix within SPLIT_BAND of its movement."""
+    from mygenerativerecommenders_tpu_torch.cli.train import parse_args
+    from mygenerativerecommenders_tpu_torch.configs import resolve
+    from mygenerativerecommenders_tpu_torch.data.dataset import RecoData
+    from mygenerativerecommenders_tpu_torch.models.model import build_model
+    from mygenerativerecommenders_tpu_torch.train.optimizers import build_optimizer, param_labels
+    from mygenerativerecommenders_tpu_torch.train.task_retrieval import make_loss_fn
+
+    for preset in SPLIT_PRESETS:
+        cfg = parse_args([f"experiment={preset}", f"data.data_dir={root}"])
+        data = RecoData(cfg.data, seed=cfg.trainer.seed)
+        resolve(cfg, data.max_item_id)
+        batch = next(iter(data.loader("train")))
+        n = batch["ids"].shape[1] + cfg.model.gr_output_length + 1
+        offsets = torch.randint(0, len(data.all_item_ids),
+                                (batch["ids"].shape[0], n - 1, cfg.model.loss.num_to_sample),
+                                generator=torch.Generator().manual_seed(3), dtype=torch.int32)
+        sides = {}
+        for device in ("cuda", "cpu"):
+            model = build_model(cfg, device=device, seed=99)  # eval mode: dropout off
+            opt = build_optimizer(cfg.optimizer1, cfg.optimizer2, model.named_parameters(),
+                                  cfg.optimizer1.lr, cfg.optimizer2.lr, fused=device == "cuda")
+            loss_fn = make_loss_fn(model, cfg, data.all_item_ids)
+            dev_batch = {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
+            sides[device] = (model, opt, loss_fn, dev_batch, offsets.to(device))
+        start = {k: p.detach().cpu().clone() for k, p in sides["cpu"][0].named_parameters()}
+        for _ in range(2):
+            for device in ("cpu", "cuda"):
+                model, opt, loss_fn, dev_batch, offs = sides[device]
+                opt.zero_grad(set_to_none=True)
+                loss_fn(dev_batch, neg_offsets=offs).backward()
+            for p, q in zip(sides["cuda"][0].parameters(), sides["cpu"][0].parameters()):
+                p.grad.copy_(q.grad)  # the same gradients into both optimizers
+            for device in ("cpu", "cuda"):
+                sides[device][1].step()
+        labels = param_labels(sides["cpu"][0].named_parameters())
+        ok_all, lines = True, []
+        for (name, p), q in zip(sides["cuda"][0].named_parameters(), sides["cpu"][0].parameters()):
+            got, want = p.detach().cpu(), q.detach()
+            err = float((got - want).abs().max())
+            if labels[name] == "matrix":
+                moved = float((want - start[name]).abs().max())
+                ok = err <= SPLIT_BAND * moved
+                lines.append(f"{name.split('_attention_layers.')[-1]} {err:.3e} of "
+                             f"{moved:.3e} ({err / moved:.3f})")
+            else:
+                ok, _ = within(got, want, STEP_GRAD_RTOL, STEP_GRAD_ATOL)
+            ok_all = ok_all and ok
+            if not ok:
+                log(f"  {name}: max_abs_err {err:.3e} outside its tolerance")
+        log(f"two {cfg.optimizer2.kind} steps, card against CPU on the same gradients: AdamW "
+            f"part within rtol {STEP_GRAD_RTOL} atol {STEP_GRAD_ATOL}; each matrix's largest "
+            f"difference of its movement (band {SPLIT_BAND}): " + ", ".join(lines))
+        check(ok_all, f"{preset}: the card's split step disagrees with the CPU's")
+        del sides
+        gc.collect()
+        torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -3017,22 +3242,40 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    real_ml1m, real_others = run_real_data_path(kc, card=kind)
+    real_ml1m, real_others, ml1m_run = run_real_data_path(kc, card=kind)
     log(f"phase 15 took {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    split_counts = run_split_optimizer_path(kc, kind, ml1m_run)
+    t1 = time.perf_counter()
+    split_steps_side_by_side(kc, kind, ml1m_run["root"])
+    # one step: from the second on, the attention backward's float atomics
+    # (the bias tables' gradients) differ run to run, eager against eager too,
+    # and bfloat16 NS-5 turns that float noise into bfloat16 ulps of the
+    # matrices' updates
+    graphed_against_eager([(f"{preset}, padded", [f"experiment={preset}",
+                                                  f"data.data_dir={ml1m_run['root']}"], [None])
+                           for preset in SPLIT_PRESETS], steps=1)
+    split_eager_twice(ml1m_run["root"])
+    split_card_against_cpu(ml1m_run["root"])
+    log(f"phase 16 took {time.perf_counter() - t0:.1f} s ({t1 - t0:.1f} s of it the two "
+        f"cli.train runs)")
 
     # no PyTorch call computes HSTU's silu attention with this bias, its
     # backward, or a count-weighted log-sum-exp over a matrix product that is
     # never materialised: library_ms is null for those
     rows = [
         # rows 1-2 and the count, lse rows below add phase 15's runs from
-        # files: ml-1m at shape A, ml-20m-hstu-long packed, amzn-books
+        # files: ml-1m at shape A, ml-20m-hstu-long packed, amzn-books; rows
+        # 1-2 and the X=3,883 rows also phase 16's Muon and Scion runs
         dict(name=kern.KERNEL, source=kern.SOURCE, replaces=kern.REPLACES,
              launches=serving_launches + sum(c[kern.KERNEL] for c in (
-                 train_counts, long_counts, real_ml1m, real_others)),
+                 train_counts, long_counts, real_ml1m, real_others, split_counts)),
              library_ms=None, **serving),
         dict(name=kern.KERNEL_BWD, source=kern.SOURCE_BWD, replaces=kern.REPLACES_BWD,
              launches=sum(c[kern.KERNEL_BWD] for c in (
-                 train_counts, long_counts, real_ml1m, real_others)),
+                 train_counts, long_counts, real_ml1m, real_others, split_counts)),
              library_ms=None, **attn_bwd),
         # rows 1-2 at the ranking shape R; their launches are the ranking run's
         dict(name=kern.KERNEL + " (ranking shape R)", source=kern.SOURCE,
@@ -3060,14 +3303,18 @@ def main() -> int:
         dict(name=lse_kern.KERNEL_BWD, source=lse_kern.SOURCE, replaces=lse_kern.REPLACES_BWD,
              launches=train_counts[lse_kern.KERNEL_BWD], library_ms=None, **lse_bwd),
         # rows 3-5 at the ml-1m catalog read from files, X = 3,883: their
-        # launches are phase 15's ml-1m runs
+        # launches are phase 15's ml-1m runs and phase 16's
         dict(name=count_kern.KERNEL + " (ml-1m files, X=3883)", source=count_kern.SOURCE,
-             replaces=count_kern.REPLACES, launches=real_ml1m[count_kern.KERNEL], **counted_ml1m),
+             replaces=count_kern.REPLACES,
+             launches=real_ml1m[count_kern.KERNEL] + split_counts[count_kern.KERNEL],
+             **counted_ml1m),
         dict(name=lse_kern.KERNEL + " (ml-1m files, X=3883)", source=lse_kern.SOURCE,
-             replaces=lse_kern.REPLACES, launches=real_ml1m[lse_kern.KERNEL], library_ms=None,
-             **lse_fwd_ml1m),
+             replaces=lse_kern.REPLACES,
+             launches=real_ml1m[lse_kern.KERNEL] + split_counts[lse_kern.KERNEL],
+             library_ms=None, **lse_fwd_ml1m),
         dict(name=lse_kern.KERNEL_BWD + " (ml-1m files, X=3883)", source=lse_kern.SOURCE,
-             replaces=lse_kern.REPLACES_BWD, launches=real_ml1m[lse_kern.KERNEL_BWD],
+             replaces=lse_kern.REPLACES_BWD,
+             launches=real_ml1m[lse_kern.KERNEL_BWD] + split_counts[lse_kern.KERNEL_BWD],
              library_ms=None, **lse_bwd_ml1m),
         # the same entry point over the ml-20m catalog, wider than one x-block
         # of the TPU kernels: its launches are the long path's, its numbers

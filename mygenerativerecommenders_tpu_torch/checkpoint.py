@@ -10,8 +10,9 @@ port's `state_dict` into the JAX model unchanged.
 Gradients have the parameters' tree, so the same mapping puts the JAX
 package's gradient tree under the port's `state_dict` keys
 (`grads_to_state_dict`): a test compares every parameter's gradient by name.
-Optimizer state is not carried across (optax and torch lay it out
-differently).
+Of the optimizer state, `train/optimizers.py:load_jax_momentum` carries
+Muon's and Scion's momentum across (`jax_tree_to_state_dict`); the rest of
+optax's state is not carried (optax and torch lay it out differently).
 
 `load_checkpoint` reads a `.pt` (`torch.save` of that state_dict, or a
 training checkpoint whose "model" entry holds it), a reference Lightning
@@ -58,22 +59,41 @@ _BLOCK_KEYS = {
 }
 
 
-def _flatten(tree: Mapping[str, Any], prefix=()) -> Dict[tuple, np.ndarray]:
+def _flatten(tree: Mapping[str, Any], prefix=(), arrays_only: bool = False
+             ) -> Dict[tuple, np.ndarray]:
     flat = {}
     for key, val in tree.items():
         if isinstance(val, Mapping):
-            flat.update(_flatten(val, prefix + (str(key),)))
-        else:
+            flat.update(_flatten(val, prefix + (str(key),), arrays_only))
+        elif not arrays_only or hasattr(val, "shape"):
             flat[prefix + (str(key),)] = np.asarray(val)
     return flat
 
 
+def transposed_from_jax(key: str) -> bool:
+    """Whether the port stores the parameter under `key` as the transpose of
+    its flax leaf (`_o.weight`: torch Linear's [out, in], flax's [in, out])."""
+    return key.endswith("." + _BLOCK_KEYS[("o", "kernel")])
+
+
 def params_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """Flax params ({"params": {...}} or the inner dict) -> the port's state_dict."""
+    return _to_state_dict(params, arrays_only=False)
+
+
+def jax_tree_to_state_dict(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """A tree shaped as the flax params, some of whose leaves are not arrays
+    (optax's placeholders for the parameters another transform of a
+    `multi_transform` owns) -> the arrays under the port's keys, transposed
+    where the weights are; the other leaves are skipped."""
+    return _to_state_dict(tree, arrays_only=True)
+
+
+def _to_state_dict(params: Mapping[str, Any], arrays_only: bool) -> Dict[str, torch.Tensor]:
     if set(params) == {"params"}:
         params = params["params"]
     out = {}
-    for path, arr in _flatten(params).items():
+    for path, arr in _flatten(params, arrays_only=arrays_only).items():
         if path == ("embeddings", "item_emb"):
             key = "embeddings._item_emb.weight"
         elif path in (("preprocessor", "pos_emb"), ("preprocessor", "rating_emb")):

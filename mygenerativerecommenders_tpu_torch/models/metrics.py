@@ -10,7 +10,7 @@ numpy concat in the trainer.
 
 from __future__ import annotations
 
-from typing import Dict, Sequence
+from typing import Dict, Sequence, Tuple
 
 import numpy as np
 
@@ -22,6 +22,15 @@ def compute_ranks(top_k_ids: np.ndarray, target_ids: np.ndarray) -> np.ndarray:
         target_ids = target_ids[:, None]
     hits = np.concatenate([top_k_ids, target_ids], axis=1) == target_ids
     return np.argmax(hits, axis=1) + 1
+
+
+def retrieval_metric_names(at_k_list: Sequence[int]) -> Tuple[str, ...]:
+    """The keys of `retrieval_metrics`, in its order."""
+    return (*(f"ndcg@{k}" for k in at_k_list), *(f"hr@{k}" for k in at_k_list), "mrr")
+
+
+# the keys of `multiclass_metrics`
+MULTICLASS_METRIC_NAMES = ("auroc", "ap", "precision", "recall")
 
 
 def retrieval_metrics(

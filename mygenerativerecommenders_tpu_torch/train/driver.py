@@ -5,8 +5,10 @@ Port of `Trainer` (mygenerativerecommenders_tpu/train/driver.py:117,
 optimizer set-up, the epoch loop over the prefetching host loader, one or k
 steps a call, validation (retrieval: candidate refresh -> filtered top-k ->
 ranking metrics; ranking: rating probabilities -> multiclass AUROC, AP,
-precision and recall), plateau LR and early stopping keyed on the
-monitored metric, best/last checkpoints with resume, `predict` (every test
+precision and recall), plateau LR (one controller a learning rate: lr1
+for optimizer1, lr2 for the matrix optimizer of `optimizer2.enabled`) and
+early stopping keyed on the monitored metric, best/last checkpoints with
+resume, `predict` (every test
 example's top-k in dataset order), CSV/JSONL metric logging,
 and seeded randomness: the weights come from `trainer.seed`, dropout draws from the
 device's default generator (seeded with `trainer.seed`) and the negatives
@@ -29,7 +31,12 @@ JAX trainer's (data, sp) mesh has no counterpart, and packed batches raise
 with it, as there. `model.embedding.lazy_update` trains the item table with
 the lazy row update of train/lazy_embedding.py beside the fused AdamW of the
 other parameters; its moments and count go into the checkpoints.
-`model.task=ranking` (train/task_ranking.py) trains
+`optimizer2.enabled` splits the parameters between two optimizers
+(train/optimizers.py: AdamW on the embeddings and vectors, Muon or Scion on
+the encoder's matrices; `optimizer2.scion_init` re-initialises those
+matrices first, JAX :189-210). A `trainer.monitor` that the eval does not
+compute raises in `fit` (the JAX trainer then silently writes no checkpoint
+and steps no controller). `model.task=ranking` (train/task_ranking.py) trains
 padded or packed, one or k steps a call as retrieval does, and evaluates
 padded rows only: its eval splits are never packed. The mesh
 (`trainer.num_devices` > 1), the multi-process loader and the profiler hooks
@@ -52,7 +59,9 @@ from mygenerativerecommenders_tpu_torch.configs import Config, resolve
 from mygenerativerecommenders_tpu_torch.data.dataset import BatchLoader, RecoData
 from mygenerativerecommenders_tpu_torch.data.packing import PackedBatchLoader
 from mygenerativerecommenders_tpu_torch.models.metrics import (
+    MULTICLASS_METRIC_NAMES,
     multiclass_metrics,
+    retrieval_metric_names,
     retrieval_metrics,
 )
 from mygenerativerecommenders_tpu_torch.models.model import build_model
@@ -61,14 +70,12 @@ from mygenerativerecommenders_tpu_torch.train.controllers import (
     EarlyStopping,
     PlateauLRController,
 )
-from mygenerativerecommenders_tpu_torch.train.lazy_embedding import (
-    LazyEmbeddingAdamW,
-    init_lazy_optimizer,
-)
+from mygenerativerecommenders_tpu_torch.train.lazy_embedding import init_lazy_optimizer
 from mygenerativerecommenders_tpu_torch.train.loggers import MetricsWriter, get_logger
 from mygenerativerecommenders_tpu_torch.train.optimizers import (
     build_optimizer,
     load_optimizer_state,
+    scion_init_params,
 )
 
 log = get_logger(__name__)
@@ -99,12 +106,20 @@ class Trainer:
             raise not_ported("trainer.profiler", "Training variants")
         if t.async_checkpoint:
             raise not_ported("trainer.async_checkpoint", "Training variants")
-        if cfg.scheduler1.kind not in ("plateau", "none"):
-            raise not_ported(f"scheduler1.kind={cfg.scheduler1.kind}", "Training variants")
+        for name, sched in (("scheduler1", cfg.scheduler1), ("scheduler2", cfg.scheduler2)):
+            if sched.kind not in ("plateau", "none"):
+                raise not_ported(f"{name}.kind={sched.kind}", "Training variants")
         self.data = data or RecoData(cfg.data, seed=t.seed)
         resolve(cfg, self.data.max_item_id)
         torch.manual_seed(t.seed)  # dropout: the default generator of every device
         self.model = build_model(cfg, device=self.device)
+        opt2 = cfg.optimizer2
+        if opt2.enabled and opt2.scion_init:
+            if opt2.kind.startswith("scion"):
+                scion_init_params(self.model.named_parameters(), opt2,
+                                  torch.Generator().manual_seed(t.seed))
+            else:  # as in JAX, the re-init is Scion's alone
+                log.warning(f"optimizer2.scion_init ignored: optimizer2.kind={opt2.kind}")
         self.all_item_ids = np.asarray(self.data.all_item_ids, dtype=np.int32)
         self.neg_generator = torch.Generator(device=self.device).manual_seed(t.seed)
 
@@ -116,8 +131,8 @@ class Trainer:
             self.optimizer = init_lazy_optimizer(cfg, self.model, fused=fused)
         else:
             self.optimizer = build_optimizer(
-                cfg.optimizer1, cfg.optimizer2, self.model.parameters(), cfg.optimizer1.lr,
-                fused=fused,
+                cfg.optimizer1, cfg.optimizer2, self.model.named_parameters(),
+                cfg.optimizer1.lr, cfg.optimizer2.lr, fused=fused,
             )
         self._packed = bool(cfg.data.pack_sequences)
         self.steps_per_call = max(int(t.steps_per_call), 1)
@@ -137,6 +152,14 @@ class Trainer:
             threshold=cfg.scheduler1.threshold,
             min_lr=cfg.scheduler1.min_lr,
         ) if cfg.scheduler1.kind == "plateau" else None
+        self.lr2_ctrl = PlateauLRController(
+            lr=cfg.optimizer2.lr,
+            mode=cfg.scheduler2.mode,
+            factor=cfg.scheduler2.factor,
+            patience=cfg.scheduler2.patience,
+            threshold=cfg.scheduler2.threshold,
+            min_lr=cfg.scheduler2.min_lr,
+        ) if cfg.scheduler2.kind == "plateau" and cfg.optimizer2.enabled else None
         self.early_stop = EarlyStopping(mode=t.mode, patience=t.early_stop_patience)
         self.out_dir = os.path.join(t.output_dir, cfg.experiment)
         self.writer = MetricsWriter(
@@ -148,6 +171,7 @@ class Trainer:
         self.global_step = 0
         self.epoch = 0
         self.lr1 = cfg.optimizer1.lr
+        self.lr2 = cfg.optimizer2.lr
         self.epoch_examples = 0  # examples of the last train epoch
         if t.detect_anomaly:
             torch.autograd.set_detect_anomaly(True)
@@ -320,13 +344,13 @@ class Trainer:
         examples = 0
         loss = None
         for batch, dev_batch in self._batches(loader, limit):
-            loss = self.train_step(dev_batch, self.lr1)
+            loss = self.train_step(dev_batch, self.lr1, self.lr2)
             self.global_step += 1
             examples += self._examples(batch)
             if self.global_step % t_cfg.log_every_n_steps == 0:
                 # reading the loss waits for the device: only at the log cadence
                 self.writer.log(
-                    {"train/loss": float(loss), "lr1": self.lr1},
+                    {"train/loss": float(loss), **self._rates()},
                     self.global_step,
                     self.epoch,
                 )
@@ -349,13 +373,13 @@ class Trainer:
         examples = 0
         losses = None
         for host_batches, dev_batches, n_steps in self._stacked_batches(loader, limit, k):
-            losses = self.train_steps(dev_batches, self.lr1)
+            losses = self.train_steps(dev_batches, self.lr1, self.lr2)
             prev = self.global_step
             self.global_step += n_steps
             examples += sum(self._examples(b) for b in host_batches)
             if prev // log_n != self.global_step // log_n:
                 self.writer.log(
-                    {"train/loss": float(losses[-1]), "lr1": self.lr1},
+                    {"train/loss": float(losses[-1]), **self._rates()},
                     self.global_step,
                     self.epoch,
                 )
@@ -448,6 +472,13 @@ class Trainer:
     def fit(self) -> Dict[str, float]:
         t = self.cfg.trainer
         monitor_key = t.monitor.split("/", 1)[1] if "/" in t.monitor else t.monitor
+        computed = self.metric_names()
+        if monitor_key not in computed:
+            raise ValueError(
+                f"trainer.monitor={t.monitor!r} names a metric the eval does not compute "
+                f"(it computes {', '.join(computed)}): no checkpoint would be written and "
+                "no controller stepped"
+            )
         train_loader = self._loader("train", packed=self._packed)
         val_loader = self._loader("val", packed=self._eval_packed)
         if t.ckpt_path:
@@ -471,6 +502,8 @@ class Trainer:
             if metric is not None:
                 if self.lr1_ctrl is not None:
                     self.lr1 = self.lr1_ctrl.step(metric)
+                if self.lr2_ctrl is not None:
+                    self.lr2 = self.lr2_ctrl.step(metric)
                 self.ckpt.save(
                     self.model,
                     self.optimizer,
@@ -537,6 +570,20 @@ class Trainer:
             "top_k_scores": np.concatenate(scores)[order].tolist(),
         }
 
+    def metric_names(self) -> tuple:
+        """The names of the metrics `eval_epoch` computes (without the
+        split's prefix)."""
+        if self.task == "ranking":
+            return MULTICLASS_METRIC_NAMES
+        return retrieval_metric_names(self.cfg.model.metrics.at_k_list)
+
+    def _rates(self) -> Dict[str, float]:
+        """The learning rates a metrics line logs: lr1, and lr2 where there
+        is a matrix optimizer."""
+        if self.cfg.optimizer2.enabled:
+            return {"lr1": self.lr1, "lr2": self.lr2}
+        return {"lr1": self.lr1}
+
     # ------------------------------------------------------------------
     def _controller_state(self) -> Dict[str, Any]:
         rng = {"neg": self.neg_generator.get_state(), "cpu": torch.get_rng_state()}
@@ -544,6 +591,7 @@ class Trainer:
             rng["cuda"] = torch.cuda.get_rng_state(self.device)
         return {
             "lr1": self.lr1_ctrl.state_dict() if self.lr1_ctrl else None,
+            "lr2": self.lr2_ctrl.state_dict() if self.lr2_ctrl else None,
             "early_stop": self.early_stop.state_dict(),
             "rng": rng,
         }
@@ -551,10 +599,8 @@ class Trainer:
     def restore(self, path: str) -> None:
         state = CheckpointManager.load(path, self.device)
         self.model.load_state_dict(state["model"])
-        if isinstance(self.optimizer, LazyEmbeddingAdamW):
-            self.optimizer.load_state_dict(state["optimizer"])  # with mv and the count
-        else:
-            load_optimizer_state(self.optimizer, state["optimizer"])
+        # a split optimizer's parts, the lazy table's mv and count: each its own
+        load_optimizer_state(self.optimizer, state["optimizer"])
         # the optimizer's state tensors are new: the next graphed step
         # captures anew, against them (the weights were copied in place)
         if self.train_steps is not None and self.train_steps.graphs is not None:
@@ -565,6 +611,9 @@ class Trainer:
         if extra.get("lr1") and self.lr1_ctrl:
             self.lr1_ctrl.load_state_dict(extra["lr1"])
             self.lr1 = self.lr1_ctrl.lr
+        if extra.get("lr2") and self.lr2_ctrl:
+            self.lr2_ctrl.load_state_dict(extra["lr2"])
+            self.lr2 = self.lr2_ctrl.lr
         if extra.get("early_stop"):
             self.early_stop.load_state_dict(extra["early_stop"])
         rng = extra.get("rng") or {}

@@ -19,8 +19,9 @@ the step's inputs, and a tag such as the model's mode). Each graph has
 - warm-up runs on a side stream before capture, as `torch.cuda.graph`
   requires; they also build and load the kernels outside the capture. A
   warm-up of a training step is a real step, so `keep` snapshots what it
-  changes (parameters, optimizer state, the lazy table update's moments and
-  count) and the default CUDA generator
+  changes (parameters, optimizer state, both optimizers' under
+  `optimizer2.enabled`, the lazy table update's moments and count) and the
+  default CUDA generator
   (dropout) is put back too: the run's stream stays the eager step's.
 
 A capture that fails raises; nothing falls back to the eager step.
@@ -74,30 +75,34 @@ def _set_counters(values: Sequence[int]) -> None:
 
 def training_state(params: Sequence[torch.Tensor], optimizer: torch.optim.Optimizer) -> Snapshot:
     """A `keep` for a training step: the snapshot clones the parameters, the
-    optimizer's state tensors and any tensors its `state_tensors()` names
-    (the lazy table update's moments and step count,
-    train/lazy_embedding.py); restoring copies them back in place. State
-    that a warm-up created (the optimizer builds it at its first step) goes
-    back to zeros, the value a first step starts from (AdamW's moments and
-    step count; SGD's momentum, whose first update then equals the gradient)."""
+    optimizer's state tensors (both parts' for a split optimizer,
+    train/optimizers.py) and any tensors its `state_tensors()` names (the
+    lazy table update's moments and step count, train/lazy_embedding.py);
+    restoring copies them back in place. State that a warm-up created (the
+    optimizer builds it at its first step) goes back to zeros, the value a
+    first step starts from (AdamW's moments and step count; SGD's, Muon's
+    and Scion's momentum, whose first update then starts from zeros as
+    theirs does)."""
     params = list(params)
     own = list(getattr(optimizer, "state_tensors", lambda: ())())
 
     def snapshot() -> Callable[[], None]:
         saved = [p.detach().clone() for p in params]
         saved_own = [t.clone() for t in own]
+        then = optimizer.state
         state = {
-            p: {k: v.clone() for k, v in optimizer.state[p].items() if isinstance(v, torch.Tensor)}
-            for p in params if p in optimizer.state
+            p: {k: v.clone() for k, v in then[p].items() if isinstance(v, torch.Tensor)}
+            for p in params if p in then
         }
 
         @torch.no_grad()
         def restore() -> None:
             for p, value in zip(params + own, saved + saved_own):
                 p.copy_(value)
+            now = optimizer.state
             for p in params:
                 before = state.get(p, {})
-                for k, v in optimizer.state.get(p, {}).items():
+                for k, v in now.get(p, {}).items():
                     if isinstance(v, torch.Tensor):
                         if k in before:
                             v.copy_(before[k])

@@ -45,6 +45,7 @@ from mygenerativerecommenders_tpu_torch.train import task_retrieval
 from mygenerativerecommenders_tpu_torch.train.optimizers import (
     build_optimizer,
     load_optimizer_state,
+    rate_groups,
 )
 
 TABLE_KEY = "embeddings._item_emb.weight"
@@ -71,7 +72,8 @@ def lazy_applicable(cfg: Config, raise_on_error: bool = True) -> bool:
 
 
 def split_table(model: GenerativeRecommender) -> Tuple[torch.nn.Parameter, list]:
-    """(table, rest): the item table, and every other parameter of the model."""
+    """(table, rest): the item table, and every other parameter of the model
+    as (name, parameter) pairs."""
     named = dict(model.named_parameters())
     extra = [name for name in named if name.startswith("embeddings.") and name != TABLE_KEY]
     if extra:
@@ -80,7 +82,7 @@ def split_table(model: GenerativeRecommender) -> Tuple[torch.nn.Parameter, list]
             "(use embedding.kind=local)"
         )
     table = named.pop(TABLE_KEY)
-    return table, list(named.values())
+    return table, list(named.items())
 
 
 @torch.no_grad()
@@ -129,14 +131,16 @@ def lazy_adamw_update(
 
 class LazyEmbeddingAdamW:
     """The trainer's optimizer under `embedding.lazy_update`: `rest`, the
-    (fused on the card) AdamW over every parameter but the item table, and
-    the lazy update of the table, at `rest`'s learning rate (a tensor on the
-    card, which a CUDA graph reads in place). `rows(ids)` is the loss's one
-    lookup of the table; `step()` updates `rest`, then the rows looked up
-    since `zero_grad()`.
+    (fused on the card) AdamW over every parameter but the item table (with
+    `optimizer2.enabled` the split optimizer, AdamW and the matrix optimizer,
+    as JAX's lazy step builds it), and the lazy update of the table, at
+    optimizer1's learning rate (a tensor on the card, which a CUDA graph
+    reads in place). `rows(ids)` is the loss's one lookup of the table;
+    `step()` updates `rest`, then the rows looked up since `zero_grad()`.
 
-    `param_groups` and `state` are `rest`'s (`set_lr`, and the snapshot of
-    train/graphs.py read them); `state_tensors()` adds the table's state.
+    `param_groups`, `state` and `rate_groups()` are `rest`'s (`set_lr`, and
+    the snapshot of train/graphs.py read them); `state_tensors()` adds the
+    table's state.
     `state_dict()` holds `rest`'s state dict, `mv` [V, 2D] and the count."""
 
     def __init__(self, rest: torch.optim.Optimizer, table: torch.nn.Parameter,
@@ -164,6 +168,9 @@ class LazyEmbeddingAdamW:
     def state(self):
         return self.rest.state
 
+    def rate_groups(self):
+        return rate_groups(self.rest)
+
     def state_tensors(self) -> Sequence[torch.Tensor]:
         return [self._mv, self.count]
 
@@ -186,7 +193,7 @@ class LazyEmbeddingAdamW:
             ids, rows = self._touched
             lazy_adamw_update(
                 self.table.data, self._mv, self.count, ids, rows.grad,
-                self.rest.param_groups[0]["lr"], self.betas, self.eps, self.weight_decay,
+                rate_groups(self.rest)[0][0]["lr"], self.betas, self.eps, self.weight_decay,
             )
         self._touched = None
 
@@ -205,7 +212,8 @@ class LazyEmbeddingAdamW:
 def init_lazy_optimizer(
     cfg: Config, model: GenerativeRecommender, fused: bool = False
 ) -> LazyEmbeddingAdamW:
-    """The JAX package's `init_lazy_opt_state`: AdamW over the non-table
+    """The JAX package's `init_lazy_opt_state`: AdamW (and with
+    `optimizer2.enabled` the matrix optimizer beside it) over the non-table
     parameters and zeroed moments and count for the table."""
     lazy_applicable(cfg)
     table, rest = split_table(model)

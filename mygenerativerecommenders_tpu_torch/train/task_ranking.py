@@ -107,8 +107,8 @@ def make_train_step(
     steps: int = 1,
     packed: bool = False,
 ) -> Callable[..., torch.Tensor]:
-    """steps=1: train_step(batch, lr1) -> the step's loss, eagerly.
-    steps=k > 1: train_steps(batches, lr1) -> [len(batches)] losses, each step
+    """steps=1: train_step(batch, lr1, lr2=None) -> the step's loss, eagerly.
+    steps=k > 1: train_steps(batches, lr1, lr2=None) -> [len(batches)] losses, each step
     a CUDA graph replay on cuda (`train_step_from_loss`)."""
     return train_step_from_loss(model, optimizer, make_loss_fn(model, cfg, packed), steps)
 

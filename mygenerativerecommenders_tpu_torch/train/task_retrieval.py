@@ -393,12 +393,14 @@ def train_step_from_loss(
     """The optimizer step around `loss_fn(batch[, <drawn.name>=...])` (JAX
     :326-379).
 
-    steps=1: train_step(batch, lr1[, <drawn.name>=None]) -> the step's loss
-    (detached). Sets the optimizer's learning rate to lr1, takes one step and
-    updates the model's parameters in place, eagerly; the loss draws the
-    drawn input itself unless the caller hands it in.
+    steps=1: train_step(batch, lr1, lr2=None[, <drawn.name>=None]) -> the
+    step's loss (detached). Sets the learning rates (`set_lr`: lr1 to
+    optimizer1, lr2 to optimizer2 where there is one, as JAX passes both to
+    every step), takes one step and updates the model's parameters in place,
+    eagerly; the loss draws the drawn input itself unless the caller hands it
+    in.
 
-    steps=k > 1: train_steps(batches, lr1[, <drawn.name>=None]) ->
+    steps=k > 1: train_steps(batches, lr1, lr2=None[, <drawn.name>=None]) ->
     [len(batches)] losses for up to k batches, one optimizer step each, in
     order; a drawn input handed in is then a list with one tensor per batch.
     On cuda each step is one replay of a CUDA graph of the whole step
@@ -417,8 +419,8 @@ def train_step_from_loss(
         return loss.detach()
 
     if steps <= 1:
-        def train_step(batch, lr1: float, **inputs):
-            set_lr(optimizer, lr1)
+        def train_step(batch, lr1: float, lr2: Optional[float] = None, **inputs):
+            set_lr(optimizer, lr1, lr2)
             return one_step(batch, **inputs)
 
         return train_step
@@ -435,12 +437,13 @@ def train_step_from_loss(
             body, "train", keep=training_state(list(model.parameters()), optimizer)
         )
 
-    def train_steps(batches, lr1: float, **inputs) -> torch.Tensor:
+    def train_steps(batches, lr1: float, lr2: Optional[float] = None,
+                    **inputs) -> torch.Tensor:
         if not 0 < len(batches) <= steps:
             raise ValueError(f"{len(batches)} batches for a call of up to {steps} steps")
         if set(inputs) - set(names):
             raise TypeError(f"unexpected inputs {sorted(set(inputs) - set(names))}")
-        set_lr(optimizer, lr1)
+        set_lr(optimizer, lr1, lr2)
         given = {k: v for k, v in inputs.items() if v is not None}
         if graphs is None:
             return torch.stack([
@@ -478,8 +481,8 @@ def make_train_step(
     are its drawn input `neg_offsets` ([B, N-1, R] int32, [R] shared; one
     `torch.randint` on `generator`, the eager step's draw):
 
-    steps=1: train_step(batch, lr1, neg_offsets=None) -> the step's loss.
-    steps=k > 1: train_steps(batches, lr1, neg_offsets=None) -> [len(batches)]
+    steps=1: train_step(batch, lr1, lr2=None, neg_offsets=None) -> the step's loss.
+    steps=k > 1: train_steps(batches, lr1, lr2=None, neg_offsets=None) -> [len(batches)]
     losses; `neg_offsets` is then a list with one tensor per batch.
 
     With `embedding.lazy_update` it is train/lazy_embedding.py's step, whose

@@ -493,7 +493,8 @@ def test_fused_dense_neg_lse_with_and_without_sup_off_on_card(bt, d, x, padded):
 # trainer.steps_per_call > 1 replays a CUDA graph of the whole step
 # (train/graphs.py); 1 runs it eagerly. Both use the fused AdamW and draw the
 # negatives from the trainer's generator and dropout from the default one, so
-# the two follow one stream. The kernels sum in the same order in both, but
+# the two follow one stream (Muon and Scion as well: a tensor rate each, no
+# host sync in Newton-Schulz). The kernels sum in the same order in both, but
 # the attention backward adds its bias-table gradients with float atomics:
 # the loss at rtol 1e-5 and the parameters at rtol 5e-4 / atol 1e-6, the
 # tolerances of chip_smoke.py's card-vs-CPU step.
@@ -514,7 +515,26 @@ _GRAPH_CASES = {
     "lazy": ["model.loss.shared_negatives=true", "model.embedding.lazy_update=true"],
     "lazy-packed": ["model.loss.shared_negatives=true", "model.embedding.lazy_update=true",
                     "data.pack_sequences=true"],
+    # the two-optimizer split: AdamW beside Muon / Scion (bfloat16
+    # Newton-Schulz, a tensor rate each), whose momentum the warm-up creates
+    # and the capture's restore zeroes; Muon over every parameter; and the
+    # lazy table update beside the split
+    "muon": ["optimizer2.enabled=true", "optimizer2.kind=muon", "optimizer2.lr=5e-3",
+             "optimizer2.weight_decay=0.0", "scheduler2.kind=plateau"],
+    "scion": ["optimizer2.enabled=true", "optimizer2.kind=scion", "optimizer2.lr=1e-3",
+              "optimizer2.momentum=0.1", "scheduler2.kind=plateau"],
+    "muon-single": ["optimizer1.kind=muon", "optimizer1.lr=5e-3"],
+    "scion-light-single": ["optimizer1.kind=scion_light", "optimizer1.lr=1e-3"],
+    "scion-init": ["optimizer2.enabled=true", "optimizer2.kind=scion", "optimizer2.lr=1e-3",
+                   "optimizer2.scion_init=true"],
+    "lazy-muon": ["model.loss.shared_negatives=true", "model.embedding.lazy_update=true",
+                  "optimizer2.enabled=true", "optimizer2.kind=muon", "optimizer2.lr=5e-3"],
 }
+# one step for the bfloat16 Newton-Schulz cases: from the second step on the
+# bias tables' float atomics (which differ run to run, eager against eager)
+# reach the matrices' gradients, and NS-5 in bfloat16 turns that float noise
+# into bfloat16 ulps of their updates
+_ONE_STEP = {"muon", "scion", "muon-single", "scion-light-single", "scion-init", "lazy-muon"}
 
 
 def _card_trainer(tmp_path, case, k, *extra):
@@ -535,11 +555,12 @@ def test_graphed_steps_follow_the_eager_steps_on_card(tmp_path, case):
     from mygenerativerecommenders_tpu_torch.train import graphs
 
     packed = case.endswith("packed")
+    steps = 1 if case in _ONE_STEP else 3
     runs = []
     for k in (1, 3):
         trainer = _card_trainer(tmp_path, case, k)
         trainer.model.train()  # dropout 0.2 on
-        batches = [trainer._put(b) for _, b in zip(range(3), trainer._loader("train", packed))]
+        batches = [trainer._put(b) for _, b in zip(range(steps), trainer._loader("train", packed))]
         torch.manual_seed(11)
         if k == 1:
             losses = torch.stack([trainer.train_step(b, trainer.lr1) for b in batches])
@@ -550,10 +571,11 @@ def test_graphed_steps_follow_the_eager_steps_on_card(tmp_path, case):
             torch.cuda.synchronize()
             made = [getattr(m, a) - b for (m, a), b in zip(graphs._COUNTERS, before)]
             got = dict(graphs.counts["train"])
-            assert got == {"captures": 1, "warmup_runs": graphs.WARMUP_RUNS, "replays": 3}, got
+            assert got == {"captures": 1, "warmup_runs": graphs.WARMUP_RUNS,
+                           "replays": steps}, got
             # every launch counted: the warm-up runs' own, and each replay's
             # the launches the capture recorded
-            assert sum(made) > 0 and all(m % (graphs.WARMUP_RUNS + 3) == 0 for m in made)
+            assert sum(made) > 0 and all(m % (graphs.WARMUP_RUNS + steps) == 0 for m in made)
         runs.append((losses.cpu().numpy(), {n: p.detach().cpu() for n, p in
                                            trainer.model.named_parameters()}))
         if case.startswith("lazy"):

@@ -175,11 +175,8 @@ def test_ids_to_offsets_maps_catalog_ids_and_marks_the_rest():
     "path,value,item",
     [
         ("model.encoder.remat", True, "Training variants"),
-        ("optimizer1.kind", "scion", "Muon / Scion"),
         ("model.loss.kind", "bce", "Other model families"),
         ("model.sampler.kind", "in_batch", "Other model families"),
-        ("optimizer1.kind", "muon", "Muon / Scion"),
-        ("optimizer2.enabled", True, "Muon / Scion"),
         ("model.encoder.attn_dropout_rate", 0.1, "Training variants"),
     ],
 )
@@ -195,6 +192,34 @@ def test_unported_training_knobs_raise_naming_the_roadmap_item(path, value, item
         model = pt_build_model(cfg, device="cpu")
         opt = pt_build_optimizer(cfg.optimizer1, cfg.optimizer2, model.parameters(), 1e-3)
         pt_task.make_train_step(model, cfg, np.arange(1, 201), opt)
+
+
+@pytest.mark.parametrize(
+    "path,value",
+    [("optimizer1.kind", "scion"), ("optimizer1.kind", "muon"), ("optimizer2.enabled", True),
+     ("optimizer1.kind", "scion_light")],
+)
+def test_muon_and_scion_knobs_build_the_optimizer_and_take_a_step(path, value):
+    """The knobs that raised before Muon and Scion were ported: the optimizer
+    builds (optimizer2: the matrix optimizer beside AdamW) and one step
+    moves every parameter that has a gradient."""
+    cfg = pt_preset("synthetic-smoke")
+    obj = cfg
+    *parents, leaf = path.split(".")
+    for p in parents:
+        obj = getattr(obj, p)
+    setattr(obj, leaf, value)
+    pt_resolve(cfg, 220)
+    model = pt_build_model(cfg, device="cpu")
+    opt = pt_build_optimizer(cfg.optimizer1, cfg.optimizer2, model.named_parameters(), 1e-3)
+    item_ids = RecoData(cfg.data, seed=42).all_item_ids
+    batch = _torch_batch(next(iter(RecoData(cfg.data, seed=42).loader("train"))))
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    loss = pt_task.make_train_step(model, cfg, item_ids, opt)(batch, 1e-3, 1e-3)
+    assert np.isfinite(loss.item())
+    for name, p in model.named_parameters():
+        if p.grad is not None and p.grad.abs().max() > 0:
+            assert not torch.equal(p.detach(), before[name]), name
 
 
 def test_steps_per_call_and_packed_raise_in_make_train_step():
