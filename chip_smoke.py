@@ -270,6 +270,24 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    gradient tolerance, each Muon / Scion matrix within 0.15 of its own
    movement (the band the CPU tests hold the port to JAX with).
 
+17. The aux preprocessor, SASRec, the in-batch sampler and BCE at
+   ml-1m-hstu's width on phase 15's files (users.dat with ml-1m's sexes, age
+   groups, occupations and 3,439 zip strings feeds the aux token):
+   `cli.train` for 30 graphed epochs of ml-1m-hstu-aux, ml-1m-sasrec and
+   ml-1m-hstu with `model.sampler.kind=in_batch`, and one of ml-1m-hstu with
+   `model.loss.kind=bce`; launch counts as in phase 4 (SASRec launches no
+   attention kernel, in-batch and BCE no count or lse: they take the gather
+   loss), losses finite and falling, best.pt and last.pt written, test
+   ndcg@10 at least 0.030 for the three 30-epoch runs, printed beside the
+   JAX package's bars (TPU v5e numbers) and phase 15's ml-1m-hstu. Then the
+   three train steps eager and graphed side by side as in phase 4; phase
+   10's check of three graphed steps against three eager ones for each;
+   phase 5's check of one step on the card against the CPU for each (the
+   same catalog offsets, or the in-batch sampler's uniforms); and
+   `/v1/retrieve` on the 30-epoch SASRec model: the graphed engine's top-k
+   against a CPU engine's on the same weights over a 32-row request and 8
+   single rows, and the engine call's p50, eager and graphed.
+
 It ends with one JSON line of the kernels' numbers and, last, the line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -2564,7 +2582,9 @@ def write_movielens_1m(root: Path):
     """MovieLens 1M's own format at its published counts: 6,040 users, 3,883
     listed movies of which 3,706 are rated, ids up to 3,952; the ratings the
     port's synthetic generator draws for 6,040 users (the in-memory
-    synthetic-hstu draw at that size). -> the interactions, the listed ids."""
+    synthetic-hstu draw at that size); users.dat with ml-1m's sexes, age
+    groups, occupations and 3,439 zip strings. -> the interactions, the
+    listed ids."""
     from mygenerativerecommenders_tpu_torch.data.synthetic import synthetic_interactions
 
     t0 = time.perf_counter()
@@ -2577,9 +2597,14 @@ def write_movielens_1m(root: Path):
     ratings = _rating_lines(inter, lambda u, i, r, t, j: f"{u}::{i}::{r}::{t}\n")
     movies = "".join(f"{m}::{_title(i, m, 1919 + m % 82)}::Drama|Comedy\n"
                      for i, m in enumerate(listed.tolist()))
+    # ml-1m's user columns at its published counts: sex M/F, the 7 age groups,
+    # the 21 occupations and 3,439 distinct zip strings (some ZIP+4), each
+    # string held by one user at least (ml-1m-hstu-aux's table has 3,439 rows)
+    zips = [f"{(z * 7919) % 99999:05d}{'-1234' if z % 50 == 0 else ''}" for z in range(3439)]
     users = "".join(
         f"{u}::{'MF'[u % 2]}::{(1, 18, 25, 35, 45, 50, 56)[u % 7]}::{u % 21}::"
-        f"{(u * 7919) % 99999:05d}{'-1234' if u % 50 == 0 else ''}\n" for u in range(1, 6041))
+        f"{zips[(u - 1) % len(zips)]}\n" for u in range(1, 6041))
+    check(len(set(zips)) == 3439, "the fixture's zip strings are not 3,439 distinct ones")
     size = _zip(root / "movielens_ml-1m.zip", {
         "ml-1m/ratings.dat": ratings.encode("latin-1"),
         "ml-1m/movies.dat": movies.encode("latin-1"),
@@ -3077,6 +3102,199 @@ def split_card_against_cpu(root: Path) -> None:
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------- phase 17 (aux, SASRec, in-batch, BCE)
+
+# (label, preset, overrides, HSTU attention launches a step, count / lse pairs a step)
+FAMILY_RUNS = (
+    ("ml-1m-hstu-aux", "ml-1m-hstu-aux", [], 2, 1),
+    ("ml-1m-sasrec", "ml-1m-sasrec", [], 0, 1),
+    ("ml-1m-hstu in-batch", "ml-1m-hstu", ["model.sampler.kind=in_batch"], 2, 0),
+)
+BCE_RUN = ("ml-1m-hstu bce", "ml-1m-hstu", ["model.loss.kind=bce"], 2, 0)
+# the JAX package's 30-epoch test ndcg@10 of the three recipes (PARITY.md:120-122),
+# from a TPU v5e on synthetic ml-1m-shaped data: not numbers of this card
+JAX_FAMILY_NDCG10 = {"ml-1m-hstu-aux": 0.0385, "ml-1m-sasrec": 0.0388,
+                     "ml-1m-hstu in-batch": 0.0380}
+MIN_FAMILY_NDCG10 = 0.030
+
+
+def family_args(run: tuple, root: Path) -> list:
+    label, preset, extra, _, _ = run
+    return [f"experiment={preset}", f"data.data_dir={root}", *extra]
+
+
+def run_families_path(kc: Counts, card: str, ml1m: dict) -> dict:
+    """Phase 17: `cli.train` for 30 graphed epochs of ml-1m-hstu-aux,
+    ml-1m-sasrec and ml-1m-hstu with the in-batch sampler, and one epoch of
+    ml-1m-hstu with BCE, on phase 15's ml-1m files (users.dat's columns feed
+    the aux token). -> the launch counts of the four runs and the SASRec
+    run's best checkpoint."""
+    import shutil
+
+    from mygenerativerecommenders_tpu_torch.cli import train as cli_train
+
+    total, out = None, OUT_DIR / "families"
+    base = ml1m["test"]
+    summary = [f"ml-1m-hstu (phase 15): ndcg@10 {base['test/ndcg@10']:.5f}, hr@10 "
+               f"{base['test/hr@10']:.5f}, mrr {base['test/mrr']:.5f}"]
+    sasrec_best = None
+    for run, epochs in [(r, 30) for r in FAMILY_RUNS] + [(BCE_RUN, 1)]:
+        label, preset, extra, attn, lse = run
+        args = family_args(run, ml1m["root"]) + [
+            f"trainer.output_dir={out / label.replace(' ', '_')}",
+            f"trainer.max_epochs={epochs}", f"trainer.min_epochs={epochs}",
+            "trainer.log_every_n_steps=1"]
+        rundir = out / label.replace(" ", "_") / preset
+        shutil.rmtree(rundir, ignore_errors=True)
+        cfg = cli_train.parse_args(args)
+        kc.reset()
+        t0 = time.perf_counter()
+        monitored = cli_train.main(args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts, graph_counts = kc.read(), kc.read_graphs()
+        per_epoch = -(-6040 // cfg.data.batch_size)
+        eval_batches = (epochs + 1) * per_epoch
+        m = cfg.model
+        log(f"families path: cli.train on {card}, {label} from files (preprocessor "
+            f"{m.preprocessor.kind}, encoder {m.encoder.kind}, sampler {m.sampler.kind}, loss "
+            f"{m.loss.kind}), D={m.item_embedding_dim} blocks={m.encoder.num_blocks} "
+            f"N={cfg.data.max_sequence_length + m.gr_output_length + 1} "
+            f"batch={cfg.data.batch_size} R={m.loss.num_to_sample if m.loss.kind != 'bce' else 1}: "
+            f"{epochs * per_epoch} optimizer steps, {eval_batches} eval batches in {wall:.2f} s "
+            f"({epochs * 6040 / wall:.1f} training examples/s end to end); launches {counts}")
+        chance = "log 2 = 0.6931" if m.loss.kind == "bce" else f"log 129 = {np.log(129):.4f}"
+        losses, steps, val, test = read_training_run(rundir / "metrics.jsonl", epochs, monitored,
+                                                     chance=chance)
+        check(steps == epochs * per_epoch, f"{steps} optimizer steps, expected {epochs * per_epoch}")
+        check(graph_counts.get("train") and graph_counts.get("eval"),
+              f"{label}: the cli.train run did not replay graphed steps and eval batches")
+        check_step_launches(kc, steps, eval_batches, counts, graph_counts, attn=attn, lse=lse)
+        for name in ("best.pt", "last.pt"):
+            check((rundir / "checkpoints" / name).exists(), f"{label}: no {name}")
+        log(f"  test on the best checkpoint: ndcg@10 {test['test/ndcg@10']:.5f}, hr@10 "
+            f"{test['test/hr@10']:.5f}, mrr {test['test/mrr']:.5f}, ndcg@100 "
+            f"{test['test/ndcg@100']:.5f}")
+        line = (f"{label} ({epochs} epoch{'s' if epochs > 1 else ''}): ndcg@10 "
+                f"{test['test/ndcg@10']:.5f}, hr@10 {test['test/hr@10']:.5f}, mrr "
+                f"{test['test/mrr']:.5f}")
+        if label in JAX_FAMILY_NDCG10:
+            line += (f" (the JAX package's {JAX_FAMILY_NDCG10[label]}: TPU v5e, synthetic "
+                     f"ml-1m-shaped data)")
+            check(test["test/ndcg@10"] >= MIN_FAMILY_NDCG10,
+                  f"{label}: test ndcg@10 {test['test/ndcg@10']} below {MIN_FAMILY_NDCG10}")
+        summary.append(line)
+        if preset == "ml-1m-sasrec":
+            sasrec_best = rundir / "checkpoints" / "best.pt"
+        total = counts if total is None else {k: total[k] + v for k, v in counts.items()}
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"  test metrics on {card}: " + "; ".join(summary))
+    return {"counts": total, "sasrec_best": sasrec_best}
+
+
+def family_steps_side_by_side(kc: Counts, card: str, root: Path) -> None:
+    """The train step of the aux model, SASRec and the in-batch sampler on
+    the files, eager and graphed side by side as in phase 4."""
+    from mygenerativerecommenders_tpu_torch.cli import train as cli_train
+    from mygenerativerecommenders_tpu_torch.train.driver import Trainer
+
+    table = []
+    for run in FAMILY_RUNS:
+        label, _, _, attn, lse = run
+        trainer = Trainer(cli_train.parse_args(family_args(run, root) + [
+            f"trainer.output_dir={OUT_DIR / 'families_by_hand'}"]))
+        trainer.model.train()
+        batches = [trainer._put(b) for _, b in zip(range(4), trainer.data.loader("train"))]
+        times = eager_and_graphed(kc, {
+            "eager": lambda i: trainer.train_step(batches[i % 4], trainer.lr1),
+            "graphed": lambda i: trainer.train_steps([batches[i % 4]], trainer.lr1),
+        }, f"{label} train step", kc.per_step(attn, 0, lse), trainer.train_steps.graphs, card,
+            reps=40)
+        e, g = times["eager"], times["graphed"]
+        table.append(f"{label}: eager p50 {e['p50']:.3f} ms, device {e['device_ms']:.3f} ms, "
+                     f"idle {100 * e['idle']:.1f}% | graphed p50 {g['p50']:.3f} ms, device "
+                     f"{g['device_ms']:.3f} ms, idle {100 * g['idle']:.1f}%, "
+                     f"{g['launches']:.0f} launches")
+        del trainer, batches
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"train steps at ml-1m width on {card}: " + " | ".join(table))
+
+
+def family_card_against_cpu(root: Path) -> None:
+    """One loss and its gradients of each of the three on the card and on
+    the CPU (phase 5's check): the same weights, batch and negatives (the
+    catalog offsets, or the in-batch sampler's uniforms), dropout off."""
+    from mygenerativerecommenders_tpu_torch.cli.train import parse_args
+    from mygenerativerecommenders_tpu_torch.configs import resolve
+    from mygenerativerecommenders_tpu_torch.data.dataset import RecoData
+    from mygenerativerecommenders_tpu_torch.train.task_retrieval import make_loss_fn
+
+    for run in FAMILY_RUNS:
+        cfg = parse_args(family_args(run, root))
+        data = RecoData(cfg.data, seed=cfg.trainer.seed)
+        resolve(cfg, data.max_item_id)
+        batch = next(iter(data.loader("train")))
+        shape = (batch["ids"].shape[0], batch["ids"].shape[1] + cfg.model.gr_output_length,
+                 cfg.model.loss.num_to_sample)
+        gen = torch.Generator().manual_seed(3)
+        if cfg.model.sampler.kind == "in_batch":
+            drawn = {"neg_uniforms": torch.rand(shape, generator=gen)}
+        else:
+            drawn = {"neg_offsets": torch.randint(0, len(data.all_item_ids), shape, generator=gen,
+                                                  dtype=torch.int32)}
+        compare_card_and_cpu(f"{run[0]}, a batch of {shape[0]} rows", cfg, batch,
+                             lambda model, b, device: make_loss_fn(
+                                 model, cfg, data.all_item_ids)(
+                                     b, **{k: v.to(device) for k, v in drawn.items()}))
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def serve_sasrec(card: str, root: Path, ckpt: Path) -> None:
+    """/v1/retrieve on the 30-epoch SASRec model: the graphed engine's top-k
+    against a CPU engine's on the same weights (a 32-row request and 8 single
+    rows), then the engine call's p50, eager and graphed."""
+    from mygenerativerecommenders_tpu_torch.cli.serve import build_engine
+    from mygenerativerecommenders_tpu_torch.ops.topk import topk_agree
+    from mygenerativerecommenders_tpu_torch.serving.service import RecommenderHTTPServer
+    from mygenerativerecommenders_tpu_torch.train import graphs
+
+    argv = ["experiment=ml-1m-sasrec", f"data.data_dir={root}", f"trainer.ckpt_path={ckpt}"]
+    engine, _ = build_engine(argv)
+    cpu_engine, _ = build_engine(argv + ["serve.device=cpu"])
+    check(engine.graphed and engine.device.type == "cuda", "the SASRec engine is not graphed")
+    big, singles = make_requests(engine.all_item_ids, seed=17)
+    catalog_set = set(engine.all_item_ids.tolist())
+    graphs.counts.clear()
+    server = RecommenderHTTPServer(engine, "127.0.0.1", 0).start()
+    try:
+        answers = [(big, http(server.port, "/v1/retrieve", big)[0])]
+        answers += [(req, http(server.port, "/v1/retrieve", req)[0]) for req in singles[:8]]
+    finally:
+        server.stop()
+    worst = 0.0
+    for req, body in answers:
+        check_answer(req, body, catalog_set, engine.max_len, req["k"])
+        want = cpu_engine.retrieve(req["sequences"], req.get("timestamps"), k=req["k"])
+        problem = topk_agree(body["ids"], body["scores"], *want, atol=E2E_ATOL)
+        check(problem is None, f"SASRec, card vs CPU engine: {problem}")
+        worst = max(worst, float(np.abs(np.asarray(body["scores"]) - np.asarray(want[1])).max()))
+    served = dict(graphs.counts["serve"])
+    check(served.get("captures", 0) >= 1 and served.get("replays", 0) >= 1,
+          f"the SASRec engine did not capture and replay its program: {served}")
+    log(f"SASRec /v1/retrieve on {card}: the graphed engine (graphs {served}) and the CPU engine "
+        f"agree on {len(answers)} requests (a 32-row one, 8 single rows): top-k ids equal up to "
+        f"near-ties, largest score difference {worst:.3e} (atol {E2E_ATOL})")
+    engines_side_by_side(
+        "SASRec retrieve, 32 rows", card,
+        {name: (lambda e=e: e.retrieve(big["sequences"], big["timestamps"], k=big["k"]))
+         for name, e in (("eager", eager_twin(engine)), ("graphed", engine))},
+    )
+    del engine, cpu_engine
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on an NVIDIA card",
@@ -3261,6 +3479,19 @@ def main() -> int:
     split_card_against_cpu(ml1m_run["root"])
     log(f"phase 16 took {time.perf_counter() - t0:.1f} s ({t1 - t0:.1f} s of it the two "
         f"cli.train runs)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    families = run_families_path(kc, kind, ml1m_run)
+    family_counts = families["counts"]
+    t1 = time.perf_counter()
+    family_steps_side_by_side(kc, kind, ml1m_run["root"])
+    graphed_against_eager([(run[0] + ", padded", family_args(run, ml1m_run["root"]), [None])
+                           for run in FAMILY_RUNS])
+    family_card_against_cpu(ml1m_run["root"])
+    serve_sasrec(kind, ml1m_run["root"], families["sasrec_best"])
+    log(f"phase 17 took {time.perf_counter() - t0:.1f} s ({t1 - t0:.1f} s of it the four "
+        f"cli.train runs)")
 
     # no PyTorch call computes HSTU's silu attention with this bias, its
     # backward, or a count-weighted log-sum-exp over a matrix product that is
@@ -3268,14 +3499,17 @@ def main() -> int:
     rows = [
         # rows 1-2 and the count, lse rows below add phase 15's runs from
         # files: ml-1m at shape A, ml-20m-hstu-long packed, amzn-books; rows
-        # 1-2 and the X=3,883 rows also phase 16's Muon and Scion runs
+        # 1-2 and the X=3,883 rows also phase 16's Muon and Scion runs and
+        # phase 17's (rows 1-2: aux, in-batch, BCE; X=3,883: aux, SASRec)
         dict(name=kern.KERNEL, source=kern.SOURCE, replaces=kern.REPLACES,
              launches=serving_launches + sum(c[kern.KERNEL] for c in (
-                 train_counts, long_counts, real_ml1m, real_others, split_counts)),
+                 train_counts, long_counts, real_ml1m, real_others, split_counts,
+                 family_counts)),
              library_ms=None, **serving),
         dict(name=kern.KERNEL_BWD, source=kern.SOURCE_BWD, replaces=kern.REPLACES_BWD,
              launches=sum(c[kern.KERNEL_BWD] for c in (
-                 train_counts, long_counts, real_ml1m, real_others, split_counts)),
+                 train_counts, long_counts, real_ml1m, real_others, split_counts,
+                 family_counts)),
              library_ms=None, **attn_bwd),
         # rows 1-2 at the ranking shape R; their launches are the ranking run's
         dict(name=kern.KERNEL + " (ranking shape R)", source=kern.SOURCE,
@@ -3306,15 +3540,15 @@ def main() -> int:
         # launches are phase 15's ml-1m runs and phase 16's
         dict(name=count_kern.KERNEL + " (ml-1m files, X=3883)", source=count_kern.SOURCE,
              replaces=count_kern.REPLACES,
-             launches=real_ml1m[count_kern.KERNEL] + split_counts[count_kern.KERNEL],
+             launches=real_ml1m[count_kern.KERNEL] + split_counts[count_kern.KERNEL] + family_counts[count_kern.KERNEL],
              **counted_ml1m),
         dict(name=lse_kern.KERNEL + " (ml-1m files, X=3883)", source=lse_kern.SOURCE,
              replaces=lse_kern.REPLACES,
-             launches=real_ml1m[lse_kern.KERNEL] + split_counts[lse_kern.KERNEL],
+             launches=real_ml1m[lse_kern.KERNEL] + split_counts[lse_kern.KERNEL] + family_counts[lse_kern.KERNEL],
              library_ms=None, **lse_fwd_ml1m),
         dict(name=lse_kern.KERNEL_BWD + " (ml-1m files, X=3883)", source=lse_kern.SOURCE,
              replaces=lse_kern.REPLACES_BWD,
-             launches=real_ml1m[lse_kern.KERNEL_BWD] + split_counts[lse_kern.KERNEL_BWD],
+             launches=real_ml1m[lse_kern.KERNEL_BWD] + split_counts[lse_kern.KERNEL_BWD] + family_counts[lse_kern.KERNEL_BWD],
              library_ms=None, **lse_bwd_ml1m),
         # the same entry point over the ml-20m catalog, wider than one x-block
         # of the TPU kernels: its launches are the long path's, its numbers

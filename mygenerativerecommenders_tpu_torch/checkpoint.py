@@ -7,6 +7,20 @@ reference checkpoint's (mygenerativerecommenders_tpu/cli/convert_ckpt.py:9-15).
 The other way, that package's `torch_state_dict_to_params` (:34) loads the
 port's `state_dict` into the JAX model unchanged.
 
+The parameters that the JAX converter maps to no reference key (its
+`cli/convert_ckpt.py:63-93` knows the HSTU model's alone) keep their JAX
+leaf's path, "/" read as ".", in flax's layout (models/dense.py):
+
+  preprocessor/aux_projection/{kernel,bias} -> preprocessor.aux_projection.{kernel,bias}
+  preprocessor/aux_emb_<col>                -> preprocessor.aux_emb_<col>
+  encoder/mha_<i>/<proj>/{kernel,bias}      -> sequence_encoder._sasrec.mha_<i>.<proj>.{kernel,bias}
+                                               (<proj>: query, key, value, out)
+  encoder/ffn_<i>/conv<j>/{kernel,bias}     -> sequence_encoder._sasrec.ffn_<i>.conv<j>.{kernel,bias}
+
+and the aux preprocessor's positional table is `preprocessor._pos_emb.weight`
+as the plain one's. So a reference `.ckpt` of such a model, which has no
+such keys, raises naming the first missing one, as any missing key does.
+
 Gradients have the parameters' tree, so the same mapping puts the JAX
 package's gradient tree under the port's `state_dict` keys
 (`grads_to_state_dict`): a test compares every parameter's gradient by name.
@@ -102,6 +116,12 @@ def _to_state_dict(params: Mapping[str, Any], arrays_only: bool) -> Dict[str, to
             key = f"{_ENCODER}.{path[1][len('block_'):]}.{_BLOCK_KEYS[path[2:]]}"
             if path[2:] == ("o", "kernel"):
                 arr = arr.T
+        elif path[0] == "preprocessor" and (
+            path[1] == "aux_projection" or path[1].startswith("aux_emb_")
+        ):
+            key = ".".join(path)
+        elif path[0] == "encoder" and path[1].startswith(("mha_", "ffn_")):
+            key = f"sequence_encoder._sasrec.{'.'.join(path[1:])}"
         else:
             raise ValueError(f"parameter {'/'.join(path)} has no counterpart in the port")
         out[key] = torch.tensor(np.asarray(arr, dtype=np.float32))

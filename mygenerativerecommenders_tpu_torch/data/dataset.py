@@ -19,8 +19,13 @@ native parser (native/, C++ built at first use) where the JAX package takes
 its own (no subsampling, no id shift), else by the plain parser here. A
 synthetic dataset is drawn in memory (data/synthetic.py) and goes through
 the plain parser's split. Every split reads all users, as the JAX package's
-`RecoData.dataset` does. With `data.pack_sequences` the trainer reads the same
-splits through data/packing.py. The multi-process stride is not ported.
+`RecoData.dataset` does. `data.additional_columns` (the users' coded
+features, which the aux preprocessor reads) come from the sequence CSV's
+columns of those names, or from the synthetic draw's user columns, one int32
+value a user; every batch carries each as a [B] array under its name.
+`check_aux_codes` holds them to the aux preprocessor's table sizes once, on
+the host. With `data.pack_sequences` the trainer reads the same splits
+through data/packing.py. The multi-process stride is not ported.
 """
 
 from __future__ import annotations
@@ -33,10 +38,11 @@ from typing import Dict, Iterable, Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 
 from mygenerativerecommenders_tpu_torch import not_ported
-from mygenerativerecommenders_tpu_torch.configs import DataConfig
+from mygenerativerecommenders_tpu_torch.configs import DataConfig, PreprocessorConfig
 from mygenerativerecommenders_tpu_torch.data.catalog import item_catalog, synthetic_years
 from mygenerativerecommenders_tpu_torch.data.preprocessor import (
     SEQUENCE_COLUMNS,
+    USER_FEATURES,
     DataProcessor,
     build_processor,
     typed_column,
@@ -229,7 +235,7 @@ class BatchLoader:
         index = {"example": idx.astype(np.int64)} if self.with_index else {}
         idx = np.maximum(idx, 0)
         cols = slice(None) if cap is None else slice(0, cap)
-        return index | {
+        return index | {col: values[idx] for col, values in ds.additional.items()} | {
             "lengths": np.maximum(ds.lengths[idx], 1),
             "ids": ds.ids[idx, cols],
             "ratings": ds.ratings[idx, cols],
@@ -284,8 +290,8 @@ class RecoData:
     column)."""
 
     def __init__(self, cfg: DataConfig, seed: int = 42):
-        if cfg.additional_columns or cfg.item_year_feature:
-            raise not_ported("data.additional_columns / item_year_feature", "Other model families")
+        if cfg.item_year_feature:
+            raise not_ported("data.item_year_feature", "Other model families")
         self.cfg = cfg
         self._seed = seed
         self.processor: Optional[DataProcessor] = None
@@ -318,14 +324,20 @@ class RecoData:
                 sample_ratio=cfg.positional_sampling_ratio if split == "train" else 1.0,
                 seed=self._seed,
             )
+            columns = list(cfg.additional_columns)
             if self.interactions is not None:
                 data = self.interactions
-                self._splits[split] = SequenceDataset.from_sequences(
+                ds = SequenceDataset.from_sequences(
                     zip(data.item_ids, data.ratings, data.timestamps), data.user_ids, **kwargs
                 )
+                for name in columns:
+                    if name not in data.users:
+                        raise ValueError(f"Column {name!r} not in the sequence CSV")
+                    ds.additional[name] = data.users[name].astype(np.int32)
+                self._splits[split] = ds
             else:
                 self._splits[split] = SequenceDataset.from_csv(
-                    self.processor.output_format_csv(), **kwargs
+                    self.processor.output_format_csv(), additional_columns=columns, **kwargs
                 )
         return self._splits[split]
 
@@ -333,16 +345,18 @@ class RecoData:
         """The full sequence CSV's header and rows as strings, one row per
         example of every split, in dataset order (what cli/predict.py writes
         its top-k beside); a synthetic dataset's rows are formatted as the
-        JAX package writes them, without its drawn user-feature columns."""
+        JAX package writes them, its drawn user-feature columns after the
+        sequences."""
         if self.processor is not None:
             return read_sequence_csv(self.processor.output_format_csv())
         data = self.interactions
+        users = list(zip(*(data.users[c].tolist() for c in USER_FEATURES)))
         rows = [
-            [str(u), str(a.tolist()), str(b.tolist()), str(c.tolist())]
-            for u, a, b, c in zip(data.user_ids.tolist(), data.item_ids, data.ratings,
-                                  data.timestamps)
+            [str(u), str(a.tolist()), str(b.tolist()), str(c.tolist())] + [str(v) for v in f]
+            for u, a, b, c, f in zip(data.user_ids.tolist(), data.item_ids, data.ratings,
+                                     data.timestamps, users)
         ]
-        return list(SEQUENCE_COLUMNS), rows
+        return list(SEQUENCE_COLUMNS) + list(USER_FEATURES), rows
 
     def loader(self, split: str, batch_size: Optional[int] = None,
                with_index: bool = False) -> BatchLoader:
@@ -357,3 +371,28 @@ class RecoData:
             buckets=list(self.cfg.length_buckets) or None,
             with_index=with_index,
         )
+
+
+def check_aux_codes(pre: PreprocessorConfig, dataset: SequenceDataset) -> None:
+    """Raise a ValueError unless every code of each aux column encoded
+    `onehot` or `embed` lies in [0, categorical_dims[i]): on the card a code
+    past the table would stop the step at a device assert (the JAX package
+    gives a NaN row for `embed` and a zero row for `onehot` instead, without
+    an error). `numeric` columns are values, not codes, and are not held."""
+    specs = zip(pre.auxiliary_columns, pre.encoding_types, pre.categorical_dims)
+    for col, enc, size in specs:
+        if enc not in ("onehot", "embed"):
+            continue
+        if col not in dataset.additional:
+            raise ValueError(
+                f"aux column {col!r} is not among data.additional_columns "
+                f"{sorted(dataset.additional)}"
+            )
+        codes = dataset.additional[col]
+        lo, hi = (int(codes.min()), int(codes.max())) if len(codes) else (0, 0)
+        if lo < 0 or hi >= size:
+            raise ValueError(
+                f"aux column {col!r} ({enc}): its codes run from {lo} to {hi} (largest "
+                f"{hi}), but categorical_dims gives its table {size} rows; every code "
+                f"must lie in [0, {size})"
+            )

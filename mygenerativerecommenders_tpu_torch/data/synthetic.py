@@ -12,15 +12,18 @@ packages train on identical sequences. The items of a user are the draw
 cdf of `p` on every such call (`cumsum`, normalise, then `searchsorted` of
 `rng.random(n)`), which at a catalog of 10M items costs minutes over 4,096
 users; here the cdf is built once and each user draws `rng.random(n)`, the
-same stream and the same ids. Nothing is written to disk: the JAX
-package's CSV round trip and its synthetic user-feature columns (drawn after
-everything else) are left out.
+same stream and the same ids. The four user-feature columns that the JAX
+package merges into its sequence CSV (:325-331: sex in [0, 2), age_group in
+[0, 7), occupation in [0, 21), zip_code in [0, 100), ml-1m's coded columns)
+come last from the same stream, after every sequence, so the sequences do
+not depend on them. Nothing is written to disk: the JAX package's CSV round
+trip is left out.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List
+from typing import Dict, List
 
 import numpy as np
 
@@ -28,6 +31,8 @@ from mygenerativerecommenders_tpu_torch.data.catalog import SYNTHETIC_SEED, synt
 
 _BASE_TS = 978_000_000  # ~2001, ml-1m-era timestamps
 _MIN_SEQ_LEN = 5
+# the user-feature columns, each drawn uniform over [0, high)
+_USER_FEATURE_HIGH = (("sex", 2), ("age_group", 7), ("occupation", 21), ("zip_code", 100))
 
 
 @dataclass
@@ -39,6 +44,7 @@ class SyntheticInteractions:
     item_ids: List[np.ndarray]  # U arrays of int64
     ratings: List[np.ndarray]
     timestamps: List[np.ndarray]
+    users: Dict[str, np.ndarray]  # user-feature column -> [U] int64 codes
 
     def train_user_threshold(self) -> int:
         """Users with id <= this are the 90 % train split, the rest the test
@@ -84,10 +90,12 @@ def synthetic_interactions(
         item_ids.append(items.astype(np.int64))
         ratings.append(rated.astype(np.int64))
         timestamps.append(ts.astype(np.int64))
+    users = {col: rng.integers(0, high, size=num_users) for col, high in _USER_FEATURE_HIGH}
     return SyntheticInteractions(
         catalog=catalog,
         user_ids=np.arange(1, num_users + 1, dtype=np.int64),
         item_ids=item_ids,
         ratings=ratings,
         timestamps=timestamps,
+        users=users,
     )

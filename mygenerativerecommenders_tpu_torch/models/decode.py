@@ -67,6 +67,7 @@ def check_decodable(m: ModelConfig) -> None:
     does not compute (it would generate from another model than the forward)."""
     enc = m.encoder
     knobs = [
+        ("model.encoder.kind", enc.kind, "hstu"),
         ("model.preprocessor.kind", m.preprocessor.kind, "learnable_positional"),
         ("model.encoder.concat_ua", enc.concat_ua, False),
         ("model.encoder.linear_activation", enc.linear_activation, "silu"),

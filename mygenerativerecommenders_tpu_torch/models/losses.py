@@ -1,6 +1,6 @@
-"""Autoregressive losses. Port of `sampled_softmax_loss`, `ce_rating_loss` and
-`_weighted_mean` (mygenerativerecommenders_tpu/models/losses.py:19-44, 75-84).
-Every loss runs dense
+"""Autoregressive losses. Port of `sampled_softmax_loss`, `bce_loss`,
+`ce_rating_loss` and `_weighted_mean`
+(mygenerativerecommenders_tpu/models/losses.py:19-61, 75-84). Every loss runs dense
 over [B, T, ...] with a `weights` mask and returns
 `sum(per_pos * weights) / sum(weights)`.
 
@@ -13,6 +13,7 @@ dense-catalog path (ops/dense_negatives.py) to it.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 _ACCIDENTAL_HIT_LOGIT = -5e4
 
@@ -33,6 +34,20 @@ def sampled_softmax_loss(
     neg_lse = torch.logsumexp(negative_logits, dim=-1)
     per_pos = torch.logaddexp(positive_logits, neg_lse) - positive_logits
     return _weighted_mean(per_pos, weights)
+
+
+def bce_loss(
+    positive_logits: torch.Tensor,  # [B, T]
+    negative_logits: torch.Tensor,  # [B, T] (one negative a position)
+    negative_is_accidental: torch.Tensor,  # [B, T] bool
+    weights: torch.Tensor,  # [B, T]
+) -> torch.Tensor:
+    """Binary cross-entropy with one negative a position,
+    0.5 * (softplus(-pos) + softplus(neg)); a position whose negative is the
+    positive itself leaves the numerator and the denominator alike."""
+    loss_weights = weights * (~negative_is_accidental).to(weights.dtype)
+    per_pos = (F.softplus(-positive_logits) + F.softplus(negative_logits)) * 0.5
+    return _weighted_mean(per_pos, loss_weights)
 
 
 def ce_rating_loss(

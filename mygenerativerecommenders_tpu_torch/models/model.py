@@ -2,16 +2,20 @@
 
 Port of mygenerativerecommenders_tpu/models/model.py:59-291 for the
 components the retrieval and ranking tasks run: local embedding -> learnable
-positional preprocessor (plain, rated or combined item-and-rating; with
-dropout) -> HSTU -> aux-mask compaction -> L2 postprocessor, dot-product
-similarity. The encoder's dims follow the preprocessor's layout: the rated
-variant widens D (the postprocessor truncates back to item_embedding_dim),
-the combined one doubles N, and its aux_mask maps the encoder's output back
-to the item slots. Other kinds raise, naming the ROADMAP.md item that ports
-them. Submodule names follow the reference checkpoint's keys, so
-`state_dict()` reads `embeddings._item_emb.weight`,
-`preprocessor._pos_emb.weight`, `preprocessor._rating_emb.weight`,
-`sequence_encoder._hstu._attention_layers.{i}...`.
+positional preprocessor (plain, rated, combined item-and-rating or aux; with
+dropout) -> HSTU or SASRec -> aux-mask compaction -> L2 postprocessor,
+dot-product similarity. The encoder's dims follow the preprocessor's layout:
+the rated variant widens D (the postprocessor truncates back to
+item_embedding_dim), the combined one doubles N, and its aux_mask maps the
+encoder's output back to the item slots (the aux variant's drops its user
+token). Other kinds raise, naming the ROADMAP.md item that ports them.
+Submodule names follow the reference checkpoint's keys, so `state_dict()`
+reads `embeddings._item_emb.weight`, `preprocessor._pos_emb.weight`,
+`preprocessor._rating_emb.weight`, `sequence_encoder._hstu._attention_layers.{i}...`;
+the aux preprocessor's and SASRec's parameters, which the JAX converter maps
+to no reference key, keep the JAX leaves' names
+(`preprocessor.aux_projection.kernel`, `sequence_encoder._sasrec.mha_{i}...`;
+checkpoint.py).
 """
 
 from __future__ import annotations
@@ -28,9 +32,11 @@ from mygenerativerecommenders_tpu_torch.models.hstu import HSTU
 from mygenerativerecommenders_tpu_torch.models.postprocessors import L2NormPostprocessor
 from mygenerativerecommenders_tpu_torch.models.preprocessors import (
     CombinedItemAndRatingPreprocessor,
+    LearnablePositionalEmbeddingAuxPreprocessor,
     LearnablePositionalEmbeddingPreprocessor,
     LearnablePositionalEmbeddingRatedPreprocessor,
 )
+from mygenerativerecommenders_tpu_torch.models.sasrec import SASRec
 from mygenerativerecommenders_tpu_torch.models.similarity import DotProductSimilarity
 from mygenerativerecommenders_tpu_torch.ops.sequence import mask_dense_by_aux_mask
 from mygenerativerecommenders_tpu_torch.utils.features import SequenceBatch
@@ -74,7 +80,10 @@ class GenerativeRecommender(nn.Module):
                 total_seq_len, m.item_embedding_dim, p.num_ratings, generator, p.dropout_rate
             )
         elif p.kind == "learnable_positional_aux":
-            raise not_ported(f"preprocessor.kind={p.kind}", "Other model families")
+            self.preprocessor = LearnablePositionalEmbeddingAuxPreprocessor(
+                total_seq_len, m.item_embedding_dim, p.auxiliary_columns, p.encoding_types,
+                p.categorical_dims, p.categorical_embedding_dims, generator, p.dropout_rate,
+            )
         else:
             raise ValueError(f"Unknown preprocessor kind {p.kind}")
         # the combined variant doubles N, the rated one widens D
@@ -83,8 +92,33 @@ class GenerativeRecommender(nn.Module):
             p.rating_embedding_dim if p.kind == "learnable_positional_rated" else 0
         )
         enc = m.encoder
-        if enc.kind != "hstu":
-            raise not_ported(f"encoder.kind={enc.kind}", "Other model families")
+        if enc.kind == "sasrec":
+            # keyed "_sasrec"; the JAX wiring (:182-192): the linear dropout
+            # rate, ffn_hidden_dim (resolved to D when 0), max_sequence_len unread
+            self.encoder_key = "_sasrec"
+            self.sequence_encoder = nn.ModuleDict({"_sasrec": SASRec(
+                max_sequence_len=seq_mult * total_seq_len,
+                embedding_dim=enc_dim,
+                num_blocks=enc.num_blocks,
+                num_heads=enc.num_heads,
+                ffn_hidden_dim=enc.ffn_hidden_dim or enc_dim,
+                dropout_rate=enc.linear_dropout_rate,
+                generator=generator,
+            )})
+        elif enc.kind == "hstu":
+            self._build_hstu(m, total_seq_len, seq_mult, enc_dim, generator)
+        else:
+            raise ValueError(f"Unknown encoder kind {enc.kind}")
+        if m.postprocessor.kind != "l2_norm":
+            raise not_ported(f"postprocessor.kind={m.postprocessor.kind}", "Other model families")
+        self.postprocessor = L2NormPostprocessor(m.item_embedding_dim, m.postprocessor.eps)
+        if m.similarity.kind != "dot_product":
+            raise not_ported(f"similarity.kind={m.similarity.kind}", "Other model families")
+        self.similarity = DotProductSimilarity()
+
+    def _build_hstu(self, m: ModelConfig, total_seq_len: int, seq_mult: int, enc_dim: int,
+                    generator: Optional[torch.Generator]) -> None:
+        enc = m.encoder
         if str(enc.use_pallas).lower() not in ("auto", "1", "true", "yes", "on"):
             # the port has one attention path: the fused wrapper (the CUDA
             # kernel on the card, its plain version on the CPU)
@@ -94,6 +128,7 @@ class GenerativeRecommender(nn.Module):
             )
         out_len = m.gr_output_length + 1
         # keyed "_hstu" like the reference's sequence_encoder._hstu
+        self.encoder_key = "_hstu"
         self.sequence_encoder = nn.ModuleDict({"_hstu": HSTU(
             max_sequence_len=seq_mult * (total_seq_len - out_len),
             max_output_len=seq_mult * out_len,
@@ -116,12 +151,6 @@ class GenerativeRecommender(nn.Module):
             linear_dropout_rate=enc.linear_dropout_rate,
             attn_dropout_rate=enc.attn_dropout_rate,
         )})
-        if m.postprocessor.kind != "l2_norm":
-            raise not_ported(f"postprocessor.kind={m.postprocessor.kind}", "Other model families")
-        self.postprocessor = L2NormPostprocessor(m.item_embedding_dim, m.postprocessor.eps)
-        if m.similarity.kind != "dot_product":
-            raise not_ported(f"similarity.kind={m.similarity.kind}", "Other model families")
-        self.similarity = DotProductSimilarity()
 
     def item_embeddings(self, ids: torch.Tensor) -> torch.Tensor:
         return self.embeddings(ids)
@@ -147,15 +176,21 @@ class GenerativeRecommender(nn.Module):
         """-> (encoded [B, N, D] postprocessed, lengths [B]); N is past_ids' N
         and lengths are the item positions', also where the preprocessor
         doubled the row. A `kv` list collects each HSTU block's (k, v), the
-        rows of the decode cache (models/decode.py:prefill)."""
+        rows of the decode cache (models/decode.py:prefill); SASRec takes
+        none."""
         past_embeddings = seq.past_embeddings
         if past_embeddings is None:
             past_embeddings = self.embeddings(seq.past_ids)
         lengths, user_embeddings, valid_mask, aux_mask, payloads = self.preprocessor(
             seq.past_lengths, seq.past_ids, past_embeddings, seq.past_payloads
         )
-        encoded = self.sequence_encoder["_hstu"](
-            lengths, user_embeddings.float(), valid_mask, payloads, kv
+        extra = ()
+        if kv is not None:
+            if self.encoder_key != "_hstu":
+                raise ValueError("the decode cache (kv) is built by the HSTU encoder only")
+            extra = (kv,)
+        encoded = self.sequence_encoder[self.encoder_key](
+            lengths, user_embeddings.float(), valid_mask, payloads, *extra
         )
         if aux_mask is not None:
             # back to the kept (item) positions, cropped to past_ids' N: at

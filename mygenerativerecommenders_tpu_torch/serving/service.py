@@ -95,6 +95,14 @@ class ServingEngine:
         if cfg.model.task != "retrieval":
             # the server answers retrieval requests only, as the JAX package's
             raise not_ported(f"serving model.task={cfg.model.task}", "Other model families")
+        if cfg.model.preprocessor.kind == "learnable_positional_aux":
+            # a request carries ids and timestamps only (as the JAX engine
+            # reads them, :104-125), not the user columns the aux token needs
+            raise ValueError(
+                "serving takes no model.preprocessor.kind=learnable_positional_aux: a "
+                "request carries item ids and timestamps, not the user-feature columns "
+                f"{list(cfg.model.preprocessor.auxiliary_columns)} its first token encodes"
+            )
         self.device = torch.device(device)
         self.model = model.to(self.device).eval()
         self.cfg = cfg

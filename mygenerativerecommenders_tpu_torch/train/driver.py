@@ -56,7 +56,11 @@ import torch
 from mygenerativerecommenders_tpu_torch import not_ported
 from mygenerativerecommenders_tpu_torch.checkpoint import CheckpointManager, load_weights
 from mygenerativerecommenders_tpu_torch.configs import Config, resolve
-from mygenerativerecommenders_tpu_torch.data.dataset import BatchLoader, RecoData
+from mygenerativerecommenders_tpu_torch.data.dataset import (
+    BatchLoader,
+    RecoData,
+    check_aux_codes,
+)
 from mygenerativerecommenders_tpu_torch.data.packing import PackedBatchLoader
 from mygenerativerecommenders_tpu_torch.models.metrics import (
     MULTICLASS_METRIC_NAMES,
@@ -111,6 +115,11 @@ class Trainer:
                 raise not_ported(f"{name}.kind={sched.kind}", "Training variants")
         self.data = data or RecoData(cfg.data, seed=t.seed)
         resolve(cfg, self.data.max_item_id)
+        if cfg.model.preprocessor.kind == "learnable_positional_aux":
+            # once, on the host: a code past its table raises here, naming
+            # the column, not at a device assert inside a step
+            for split in ("train", "val", "test"):
+                check_aux_codes(cfg.model.preprocessor, self.data.dataset(split))
         torch.manual_seed(t.seed)  # dropout: the default generator of every device
         self.model = build_model(cfg, device=self.device)
         opt2 = cfg.optimizer2

@@ -44,6 +44,7 @@ from typing import Any, Dict, Iterable, List, Mapping, Optional, Sequence, Tuple
 
 import torch
 
+from mygenerativerecommenders_tpu_torch import not_ported
 from mygenerativerecommenders_tpu_torch.checkpoint import jax_tree_to_state_dict, transposed_from_jax
 from mygenerativerecommenders_tpu_torch.configs import OptimizerConfig
 
@@ -280,6 +281,11 @@ def build_single(cfg: OptimizerConfig, params: Params, lr: float,
     named = _named(params)
     plain = [p for _, p in named]
     if cfg.kind in ("muon", "scion", "scion_light"):
+        deep = [name or tuple(p.shape) for name, p in named if p.ndim > 2]
+        if deep:
+            # SASRec's attention kernels ([D, H, d], [H, d, D] in the JAX layout)
+            raise not_ported(f"optimizer kind {cfg.kind} over parameters of more than two "
+                             f"dimensions ({deep[0]}: a SASRec encoder)", "Other model families")
         # a tensor rate on every device
         rate = torch.tensor([lr], dtype=torch.float32, device=plain[0].device)
         if cfg.kind == "muon":

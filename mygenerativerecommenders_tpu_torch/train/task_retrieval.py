@@ -2,9 +2,10 @@
 candidate matrix.
 
 Port of mygenerativerecommenders_tpu/train/task_retrieval.py: `make_loss_fn`
-with `ids_to_offsets`, `encode_for_loss` (padded and packed) and its three
-sampled-softmax losses, the dense-catalog `loss_fn_dense`, the per-sample
-gather `loss_fn` and `loss_fn_shared` (:65-321), `make_train_step`
+with `make_sampler`, `ids_to_offsets`, `encode_for_loss` (padded and packed)
+and its losses, the dense-catalog `loss_fn_dense`, the per-sample gather
+`loss_fn` (sampled softmax or BCE, the local or the in-batch sampler) and
+`loss_fn_shared` (:54-321), `make_train_step`
 (:315-394) with the optimizer step and its k-step form
 `train_step_from_loss` (:326-379, shared with the ranking task; with
 `embedding.lazy_update` the step of train/lazy_embedding.py),
@@ -18,15 +19,18 @@ position p with the id at p+1, draw R negative catalog offsets per position
 (or R for the whole step, shared), and take the sampled-softmax loss: through
 the dense-catalog path (ops/dense_negatives.py) where the JAX package takes
 it (`loss_variant`: the [B*T, X] count under its 3e9 gate), else by
-gathering each position's negatives from the table. A packed batch
+gathering each position's negatives from the table. The in-batch sampler
+draws each position's R negatives from the batch's own valid ids instead
+(models/negatives.py; its uniforms are the step's drawn input), and
+`loss.kind=bce` takes one negative a position (R = 1) and the binary
+cross-entropy; both take the gather route, as in the JAX package. A packed batch
 (data/packing.py) has its targets inline as each segment's last token:
 nothing is scattered, and position p supervises the id at p+1 only where both
 lie in one segment. With `index.quantize=int8` the candidates are a
 `QuantizedCatalog` (ops/quantized_topk.py): the eval step pre-ranks on the
 int8 rows and re-scores on the exact ones. On cuda the k-step and k-batch
 forms replay CUDA graphs of the whole step (train/graphs.py); one step a call
-stays eager. The in-batch sampler and BCE raise, naming their ROADMAP.md
-item.
+stays eager.
 """
 
 from __future__ import annotations
@@ -40,10 +44,15 @@ from mygenerativerecommenders_tpu_torch import not_ported
 from mygenerativerecommenders_tpu_torch.configs import Config
 from mygenerativerecommenders_tpu_torch.models.losses import (
     _weighted_mean,
+    bce_loss,
     sampled_softmax_loss,
 )
 from mygenerativerecommenders_tpu_torch.models.model import GenerativeRecommender
-from mygenerativerecommenders_tpu_torch.models.negatives import LocalNegativesSampler
+from mygenerativerecommenders_tpu_torch.models.negatives import (
+    InBatchNegativesSampler,
+    LocalNegativesSampler,
+    NegativesSampler,
+)
 from mygenerativerecommenders_tpu_torch.ops.dense_negatives import (
     sampled_softmax_dense_neg_lse,
 )
@@ -67,9 +76,9 @@ from mygenerativerecommenders_tpu_torch.utils.features import (
 
 
 # the static inputs that a graphed step's caller fills itself (train/graphs.py):
-# the negatives' offsets, and the candidates (the exact rows; with an int8
-# index also its int8 rows and scales)
-_OFFSETS, _CANDIDATES = "neg_offsets", "candidates"
+# the negatives' offsets (the in-batch sampler's uniforms), and the candidates
+# (the exact rows; with an int8 index also its int8 rows and scales)
+_OFFSETS, _UNIFORMS, _CANDIDATES = "neg_offsets", "neg_uniforms", "candidates"
 _CANDIDATES_Q, _CANDIDATES_SCALES = "candidates_q", "candidates_scales"
 _CANDIDATE_KEYS = (_CANDIDATES, _CANDIDATES_Q, _CANDIDATES_SCALES)
 
@@ -111,12 +120,14 @@ def _check_packable(cfg: Config) -> None:
         raise ValueError("data.pack_sequences requires: " + ", ".join(problems))
 
 
-def make_sampler(cfg: Config) -> LocalNegativesSampler:
+def make_sampler(cfg: Config) -> NegativesSampler:
     s = cfg.model.sampler
     if s.kind == "local":
         return LocalNegativesSampler(l2_norm=s.l2_norm, l2_norm_eps=s.l2_norm_eps)
     if s.kind == "in_batch":
-        raise not_ported("sampler.kind=in_batch", "Other model families")
+        return InBatchNegativesSampler(
+            l2_norm=s.l2_norm, l2_norm_eps=s.l2_norm_eps, dedup_embeddings=s.dedup_embeddings
+        )
     raise ValueError(f"Unknown sampler kind {s.kind}")
 
 
@@ -147,12 +158,14 @@ def make_loss_fn(
 ) -> Callable[..., torch.Tensor]:
     """Builds loss_fn(batch, neg_offsets=None) -> scalar loss: the
     dense-catalog loss, the per-sample gather loss or the shared-negatives
-    loss, chosen as the JAX package chooses (`loss_variant`).
+    loss, chosen as the JAX package chooses (`loss_variant`); with the
+    in-batch sampler loss_fn(batch, neg_uniforms=None).
 
     The negatives are drawn from `generator` (on the model's device; None:
     the device's default), unless the caller hands in `neg_offsets` itself
-    ([B, N-1, R], or [R] shared), as the parity tests do with the JAX
-    package's draw. packed=True takes PackedBatchLoader batches; the
+    ([B, N-1, R], or [R] shared; R = 1 for BCE), or the in-batch sampler's
+    uniforms `neg_uniforms` ([B, N-1, R] float32), as the parity tests do
+    with the JAX package's draw. packed=True takes PackedBatchLoader batches; the
     supervised (position, target) pairs are those of the padded layout for
     the same examples. `loss_fn.variant` names the loss."""
     return _loss_parts(model, cfg, all_item_ids, packed, generator)[0]
@@ -161,16 +174,19 @@ def make_loss_fn(
 def loss_variant(cfg: Config, num_catalog: int) -> str:
     """"shared" (loss.shared_negatives), "dense" (the dense-catalog path:
     loss.dense_catalog_negatives=true, or auto under the gate) or "gather"
-    (the per-sample gather loss), for a sampled-softmax retrieval loss over
-    a catalog of `num_catalog` items (JAX :97-134, :314-321)."""
+    (the per-sample gather loss), for a retrieval loss over a catalog of
+    `num_catalog` items (JAX :97-134, :314-321). BCE and the in-batch
+    sampler take the gather loss."""
     loss_cfg = cfg.model.loss
-    if loss_cfg.kind == "bce":
-        raise not_ported("loss.kind=bce", "Other model families")
-    if loss_cfg.kind != "sampled_softmax":
+    if loss_cfg.kind not in ("sampled_softmax", "bce"):
         raise ValueError(f"Unknown retrieval loss {loss_cfg.kind}")
     # valid exactly when the negative logits are plain dot products against
-    # normalized catalog rows (make_sampler raises for the in-batch sampler)
-    applicable = cfg.model.similarity.kind == "dot_product"
+    # normalized catalog rows
+    applicable = (
+        loss_cfg.kind == "sampled_softmax"
+        and cfg.model.sampler.kind == "local"
+        and cfg.model.similarity.kind == "dot_product"
+    )
     if loss_cfg.shared_negatives:
         if not applicable:
             raise ValueError(
@@ -294,30 +310,45 @@ def _loss_parts(
     if packed:
         _check_packable(cfg)
     sampler = make_sampler(cfg)
+    in_batch = isinstance(sampler, InBatchNegativesSampler)
     loss_cfg = cfg.model.loss
     variant = loss_variant(cfg, len(all_item_ids))
+    num_neg = loss_cfg.num_to_sample if loss_cfg.kind == "sampled_softmax" else 1
     max_out = cfg.model.gr_output_length + 1
     t = loss_cfg.temperature
     device = next(model.parameters()).device
     catalog = torch.as_tensor(np.asarray(all_item_ids, dtype=np.int64), device=device)
     ids_to_offsets = make_ids_to_offsets(all_item_ids, device)
-    _, encode_for_loss = make_encoder(model, cfg, packed)
+    seq_and_past_ids, encode_for_loss = make_encoder(model, cfg, packed)
 
     def negatives_shape(batch: Dict[str, torch.Tensor]) -> Tuple[int, ...]:
         """[B, N-1, R]: R draws for each supervised position, N the row
         (packed) or the history plus max_out; [R] for shared negatives."""
         if variant == "shared":
-            return (loss_cfg.num_to_sample,)
+            return (num_neg,)
         rows, cols = batch["ids"].shape
-        return rows, cols - 1 + (0 if packed else max_out), loss_cfg.num_to_sample
+        return rows, cols - 1 + (0 if packed else max_out), num_neg
 
     def draw_negatives(
         batch: Dict[str, torch.Tensor], out: Optional[torch.Tensor] = None
     ) -> torch.Tensor:
         *positions, draws = negatives_shape(batch)
+        if in_batch:
+            return sampler.uniforms(generator, tuple(positions), draws, device, out=out)
         return sampler.offsets_only(
             generator, tuple(positions), draws, len(all_item_ids), device, out=out
         )
+
+    def gather_loss(outputs, sup_emb, weights, neg_emb, hits) -> torch.Tensor:
+        """The per-sample loss on each position's gathered negatives
+        [B, N-1, R, D] (JAX `loss_fn`'s scoring, :237-248): the sampled
+        softmax, or BCE on the one negative."""
+        pos_emb = sampler.normalize_embeddings(sup_emb)
+        pos_logits = model.score(outputs, pos_emb[..., None, :])[..., 0] / t
+        neg_logits = model.score(outputs, neg_emb) / t
+        if loss_cfg.kind == "bce":
+            return bce_loss(pos_logits, neg_logits[..., 0], hits[..., 0], weights)
+        return sampled_softmax_loss(pos_logits, neg_logits, hits, weights)
 
     def loss_fn_dense(
         batch: Dict[str, torch.Tensor], neg_offsets: Optional[torch.Tensor] = None
@@ -339,18 +370,36 @@ def _loss_parts(
     def loss_fn(
         batch: Dict[str, torch.Tensor], neg_offsets: Optional[torch.Tensor] = None
     ) -> torch.Tensor:
-        """The per-sample gather loss (JAX `loss_fn`, :210-250, sampled
-        softmax): each position's R negatives gathered from the table and
-        normalized, [B, N-1, R, D]; accidental hits compared by offset."""
+        """The per-sample gather loss (JAX `loss_fn`, :210-250): each
+        position's R negatives gathered from the table and normalized,
+        [B, N-1, R, D]; accidental hits compared by offset."""
         outputs, sup_ids, sup_emb, weights, _ = encode_for_loss(batch)
         if neg_offsets is None:
             neg_offsets = draw_negatives(batch)
         neg_emb = sampler.rows_at(neg_offsets, catalog, model.item_embeddings)
         hits = ids_to_offsets(sup_ids)[..., None] == neg_offsets
-        pos_emb = sampler.normalize_embeddings(sup_emb)
-        pos_logits = model.score(outputs, pos_emb[..., None, :])[..., 0] / t
-        neg_logits = model.score(outputs, neg_emb) / t
-        return sampled_softmax_loss(pos_logits, neg_logits, hits, weights)
+        return gather_loss(outputs, sup_emb, weights, neg_emb, hits)
+
+    def loss_fn_in_batch(
+        batch: Dict[str, torch.Tensor], neg_uniforms: Optional[torch.Tensor] = None
+    ) -> torch.Tensor:
+        """The gather loss on in-batch negatives (JAX `loss_fn`, :216-226):
+        the pool of the batch's valid ids (after the target scatter, rows of
+        sample_weight 0 left out), each position's R ids drawn from it by the
+        uniforms, looked up with the history in one table lookup; accidental
+        hits compared by id."""
+        _, past_ids = seq_and_past_ids(batch)
+        presences = past_ids != 0
+        if "sample_weight" in batch:
+            presences = presences & (batch["sample_weight"][:, None] > 0)
+        pool, count = sampler.process_batch(past_ids, presences)
+        if neg_uniforms is None:
+            neg_uniforms = draw_negatives(batch)
+        neg_ids = pool[sampler.offsets(neg_uniforms, count)]
+        outputs, sup_ids, sup_emb, weights, neg_rows = encode_for_loss(batch, extra_ids=neg_ids)
+        hits = sup_ids[..., None] == neg_ids
+        return gather_loss(outputs, sup_emb, weights,
+                           sampler.normalize_embeddings(neg_rows), hits)
 
     def loss_fn_shared(
         batch: Dict[str, torch.Tensor], neg_offsets: Optional[torch.Tensor] = None
@@ -366,8 +415,11 @@ def _loss_parts(
             sampler, t, outputs, sup_ids, sup_emb, weights, neg_ids, neg_emb
         )
 
-    chosen = {"dense": loss_fn_dense, "gather": loss_fn, "shared": loss_fn_shared}[variant]
+    chosen = loss_fn_in_batch if in_batch else {
+        "dense": loss_fn_dense, "gather": loss_fn, "shared": loss_fn_shared}[variant]
     chosen.variant = variant
+    # the keyword and dtype of the input the step draws (DrawnInput)
+    chosen.drawn = (_UNIFORMS, torch.float32) if in_batch else (_OFFSETS, torch.int32)
     return chosen, negatives_shape, draw_negatives
 
 
@@ -479,7 +531,8 @@ def make_train_step(
 ) -> Callable[..., torch.Tensor]:
     """`train_step_from_loss` on the retrieval loss, whose negatives' offsets
     are its drawn input `neg_offsets` ([B, N-1, R] int32, [R] shared; one
-    `torch.randint` on `generator`, the eager step's draw):
+    `torch.randint` on `generator`, the eager step's draw; with the in-batch
+    sampler its uniforms `neg_uniforms`, [B, N-1, R] float32):
 
     steps=1: train_step(batch, lr1, lr2=None, neg_offsets=None) -> the step's loss.
     steps=k > 1: train_steps(batches, lr1, lr2=None, neg_offsets=None) -> [len(batches)]
@@ -499,8 +552,9 @@ def make_train_step(
     loss_fn, negatives_shape, draw_negatives = _loss_parts(
         model, cfg, all_item_ids, packed, generator
     )
+    name, dtype = loss_fn.drawn
     drawn = DrawnInput(
-        _OFFSETS, negatives_shape, torch.int32, lambda batch, out: draw_negatives(batch, out=out)
+        name, negatives_shape, dtype, lambda batch, out: draw_negatives(batch, out=out)
     )
     return train_step_from_loss(model, optimizer, loss_fn, steps, drawn)
 

@@ -529,6 +529,15 @@ _GRAPH_CASES = {
                    "optimizer2.scion_init=true"],
     "lazy-muon": ["model.loss.shared_negatives=true", "model.embedding.lazy_update=true",
                   "optimizer2.enabled=true", "optimizer2.kind=muon", "optimizer2.lr=5e-3"],
+    # the aux user token, SASRec (its attention dropout one [N, N] mask a
+    # block, from the default generator the capture restores), the in-batch
+    # sampler (its uniforms drawn outside the graph; the pool's count stays
+    # on the card), padded and packed, and BCE
+    "aux": ["experiment=synthetic-aux-smoke"],
+    "sasrec": ["model.encoder.kind=sasrec"],
+    "in-batch": ["model.sampler.kind=in_batch"],
+    "in-batch-packed": ["model.sampler.kind=in_batch", "data.pack_sequences=true"],
+    "bce": ["model.loss.kind=bce"],
 }
 # one step for the bfloat16 Newton-Schulz cases: from the second step on the
 # bias tables' float atomics (which differ run to run, eager against eager)

@@ -163,7 +163,6 @@ def test_model_init_is_seeded_and_padding_row_zero():
 @pytest.mark.parametrize(
     "override,item",
     [
-        ("model.encoder.kind=sasrec", "Other model families"),
         ("model.encoder.normalization=softmax_rel_bias", "Other model families"),
         ("model.encoder.tp_shards=2", "Distributed"),
         ("model.encoder.remat=true", "Training variants"),
@@ -177,6 +176,27 @@ def test_unported_kinds_raise_naming_the_roadmap_item(override, item):
     _, pcfg = _configs([override])
     with pytest.raises(NotImplementedError, match=item):
         pt_build_model(pcfg, device="cpu")
+
+
+@pytest.mark.parametrize("override", ["model.encoder.kind=sasrec"])
+def test_model_kinds_that_raised_before_build_and_take_a_step(override):
+    """The knobs that raised before SASRec was ported: the model builds, and
+    one AdamW step on a loss of its output moves every parameter that has a
+    gradient."""
+    _, pcfg = _configs([override])
+    model = pt_build_model(pcfg, device="cpu")
+    batch = {k: torch.from_numpy(v) for k, v in _batch(0).items()}
+    seq, _, _ = pt_seq_features(batch, pcfg.model.gr_output_length + 1)
+    before = {k: v.clone() for k, v in model.named_parameters()}
+    opt = torch.optim.AdamW(model.parameters(), lr=1e-3)
+    encoded, _ = model(seq._replace(past_embeddings=model.item_embeddings(seq.past_ids)))
+    (encoded * torch.randn(encoded.shape, generator=torch.Generator().manual_seed(0))
+     ).sum().backward()
+    opt.step()
+    assert torch.isfinite(encoded).all()
+    moved = [name for name, p in model.named_parameters() if not torch.equal(p, before[name])]
+    assert moved == [name for name, p in model.named_parameters()
+                     if p.grad is not None and p.grad.abs().max() > 0]
 
 
 def test_use_pallas_false_raises_instead_of_a_second_attention_path():

@@ -7,6 +7,7 @@ import logging
 
 import numpy as np
 import pytest
+import torch
 
 from mygenerativerecommenders_tpu_torch.checkpoint import CheckpointManager
 from mygenerativerecommenders_tpu_torch.cli import eval as cli_eval
@@ -115,10 +116,26 @@ def test_packed_eval_epoch_gives_the_padded_eval_epochs_metrics(tmp_path):
     "override,item",
     [
         ("model.encoder.remat=true", "Training variants"),
-        ("model.sampler.kind=in_batch", "Other model families"),
         ("model.encoder.attn_dropout_rate=0.1", "Training variants"),
     ],
 )
 def test_knobs_beside_packing_still_raise_naming_the_roadmap_item(tmp_path, override, item):
     with pytest.raises(NotImplementedError, match=item):
         Trainer(cli_train.parse_args(_args(tmp_path, override)))
+
+
+@pytest.mark.parametrize("override", ["model.sampler.kind=in_batch"])
+def test_knobs_beside_packing_that_raised_before_take_a_packed_step(tmp_path, override):
+    """The knobs that raised beside packing before they were ported: the
+    trainer builds on packed batches and takes a finite step that moves the
+    encoder."""
+    trainer = Trainer(cli_train.parse_args(_args(tmp_path, override)))
+    batch = next(iter(trainer._loader("train", packed=True)))
+    assert "seg_ids" in batch
+    before = {k: v.clone() for k, v in trainer.model.state_dict().items()}
+    trainer.model.train()
+    loss = trainer.train_step(trainer._put(batch), trainer.lr1)
+    assert np.isfinite(loss.item())
+    after = trainer.model.state_dict()
+    assert not torch.equal(after["sequence_encoder._hstu._attention_layers.0._uvqk"],
+                           before["sequence_encoder._hstu._attention_layers.0._uvqk"])

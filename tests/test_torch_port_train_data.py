@@ -89,7 +89,6 @@ def test_user_id_split_threshold_matches_the_jax_split_files(tmp_path):
     "key,value,item",
     [
         ("item_year_feature", True, "Other model families"),
-        ("additional_columns", ("sex",), "Other model families"),
     ],
 )
 def test_unported_data_knobs_raise_naming_the_roadmap_item(key, value, item):
@@ -107,3 +106,30 @@ def test_trainer_config_differs_from_jax_only_by_the_device_field():
     assert got["trainer"].pop("device") == "cuda"
     want["model"]["encoder"]["use_pallas"] = got["model"]["encoder"]["use_pallas"]
     assert got == want
+
+
+@pytest.mark.parametrize("key,value", [("additional_columns", ("sex",))])
+def test_data_knobs_that_raised_before_feed_a_training_step(tmp_path, key, value):
+    """The data knobs that raised before the aux preprocessor was ported:
+    the batches carry the column as the JAX loader's do, and the aux model
+    that reads it takes a finite step."""
+    from mygenerativerecommenders_tpu_torch.cli import train as cli_train
+    from mygenerativerecommenders_tpu_torch.train.driver import Trainer
+
+    jdata, pdata = _both(tmp_path, [(key, value)])
+    want = next(iter(jdata.loader("train")))
+    got = next(iter(pdata.loader("train")))
+    assert got.keys() == want.keys() and set(value) <= got.keys()
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    trainer = Trainer(cli_train.parse_args([
+        "experiment=synthetic-smoke", "trainer.device=cpu", f"trainer.output_dir={tmp_path}",
+        f"data.{key}={list(value)}".replace("'", '"'),
+        "model.preprocessor.kind=learnable_positional_aux",
+        f"model.preprocessor.auxiliary_columns={list(value)}".replace("'", '"'),
+        'model.preprocessor.encoding_types=["onehot"]', "model.preprocessor.categorical_dims=[2]",
+        "model.preprocessor.categorical_embedding_dims=[0]",
+    ]))
+    batch = next(iter(trainer.data.loader("train")))
+    loss = trainer.train_step(trainer._put(batch), trainer.lr1)
+    assert np.isfinite(loss.item())

@@ -175,8 +175,6 @@ def test_ids_to_offsets_maps_catalog_ids_and_marks_the_rest():
     "path,value,item",
     [
         ("model.encoder.remat", True, "Training variants"),
-        ("model.loss.kind", "bce", "Other model families"),
-        ("model.sampler.kind", "in_batch", "Other model families"),
         ("model.encoder.attn_dropout_rate", 0.1, "Training variants"),
     ],
 )
@@ -192,6 +190,33 @@ def test_unported_training_knobs_raise_naming_the_roadmap_item(path, value, item
         model = pt_build_model(cfg, device="cpu")
         opt = pt_build_optimizer(cfg.optimizer1, cfg.optimizer2, model.parameters(), 1e-3)
         pt_task.make_train_step(model, cfg, np.arange(1, 201), opt)
+
+
+@pytest.mark.parametrize(
+    "path,value", [("model.loss.kind", "bce"), ("model.sampler.kind", "in_batch")]
+)
+def test_training_knobs_that_raised_before_take_a_step(path, value):
+    """The knobs that raised before BCE and the in-batch sampler were
+    ported: the train step builds (the per-sample gather loss) and one step
+    moves every parameter that has a gradient."""
+    cfg = pt_preset("synthetic-smoke")
+    obj = cfg
+    *parents, leaf = path.split(".")
+    for p in parents:
+        obj = getattr(obj, p)
+    setattr(obj, leaf, value)
+    pt_resolve(cfg, 220)
+    model = pt_build_model(cfg, device="cpu")
+    opt = pt_build_optimizer(cfg.optimizer1, cfg.optimizer2, model.parameters(), 1e-3)
+    data = RecoData(cfg.data, seed=42)
+    assert pt_task.make_loss_fn(model, cfg, data.all_item_ids).variant == "gather"
+    batch = _torch_batch(next(iter(data.loader("train"))))
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    loss = pt_task.make_train_step(model, cfg, data.all_item_ids, opt)(batch, 1e-3)
+    assert np.isfinite(loss.item())
+    for name, p in model.named_parameters():
+        if p.grad is not None and p.grad.abs().max() > 0:
+            assert not torch.equal(p.detach(), before[name]), name
 
 
 @pytest.mark.parametrize(
