@@ -288,6 +288,27 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    against a CPU engine's on the same weights over a 32-row request and 8
    single rows, and the engine call's p50, eager and graphed.
 
+18. The other model families at ml-1m-hstu's width on phase 15's files
+   (movies.dat's titles carry the years): `cli.train` for 30 graphed epochs
+   of ml-1m-hstu with `model.embedding.kind=item_year` (the fork's own
+   model: 25 + 25 columns) and with `model.similarity.kind=mol` (P = Q = 4,
+   dd = 16, per-group L2, temperature 0.05; the gather loss), one epoch each
+   of `model.postprocessor.kind=layer_norm`,
+   `model.encoder.normalization=softmax_rel_bias` and ml-1m-sasrec with
+   Muon on its encoder; launch counts as in phase 4 (MoL launches no count
+   or lse, softmax_rel_bias and SASRec no attention kernel), losses finite
+   and falling, best.pt and last.pt written, test ndcg@10 at least 0.030 for
+   the two 30-epoch runs beside phase 15's ml-1m-hstu: the item_year run's
+   from the eval step, the MoL run's with the catalog ranked by MoL itself
+   on its last weights (`mol_scored_test`), printed beside the eval step's
+   dot-product ranking, which is JAX's eval for an MoL model. The item_year run's
+   best weights go into a fork-layout Lightning `.ckpt` (the year table at
+   the fork's num_items + 1 rows and its item -> year buffer), which
+   `cli.eval` reads to the run's own test metrics. Then the item_year and
+   MoL train steps eager and graphed side by side as in phase 4, phase 10's
+   check of three graphed steps against three eager ones, and phase 5's
+   check of one step on the card against the CPU, for both.
+
 It ends with one JSON line of the kernels' numbers and, last, the line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -1615,15 +1636,19 @@ def run_long_path(kc: Counts, card: str) -> dict:
 # ---------------------------------------------------------------- phases 5, 7 and 12
 
 
-def compare_card_and_cpu(what: str, cfg, batch, loss_of) -> None:
+def compare_card_and_cpu(what: str, cfg, batch, loss_of, year_of_item=None,
+                         atol_of_max: float = 0.0) -> None:
     """One loss and its gradients through the port on the card (kernels) and
     on the CPU (plain versions): the same weights (a seeded init) and batch,
-    dropout off. loss_of(model, device_batch, device) -> the loss."""
+    dropout off. loss_of(model, device_batch, device) -> the loss;
+    `year_of_item` for an item_year model; `atol_of_max` raises a gradient's
+    atol to that share of its largest entry."""
     from mygenerativerecommenders_tpu_torch.models.model import build_model
 
     results = {}
     for device in ("cuda", "cpu"):
-        model = build_model(cfg, device=device, seed=99)  # eval mode: dropout off
+        # eval mode: dropout off
+        model = build_model(cfg, device=device, seed=99, year_of_item=year_of_item)
         dev_batch = {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
         loss = loss_of(model, dev_batch, device)
         loss.backward()
@@ -1637,9 +1662,10 @@ def compare_card_and_cpu(what: str, cfg, batch, loss_of) -> None:
     check(rel <= STEP_LOSS_RTOL, "the card's loss disagrees with the CPU's")
     worst = True
     for name, want in grads_cpu.items():
-        ok, err = within(grads_card[name], want, STEP_GRAD_RTOL, STEP_GRAD_ATOL)
+        atol = max(STEP_GRAD_ATOL, atol_of_max * float(want.abs().max()))
+        ok, err = within(grads_card[name], want, STEP_GRAD_RTOL, atol)
         log(f"  grad {name}: max_abs_err {err:.3e}, max |grad| {float(want.abs().max()):.3e}, "
-            f"within rtol {STEP_GRAD_RTOL} atol {STEP_GRAD_ATOL}: {ok}")
+            f"within rtol {STEP_GRAD_RTOL} atol {atol:.3e}: {ok}")
         worst = worst and ok
     check(worst, "a parameter's gradient on the card disagrees with the CPU's")
 
@@ -3123,61 +3149,89 @@ def family_args(run: tuple, root: Path) -> list:
     return [f"experiment={preset}", f"data.data_dir={root}", *extra]
 
 
+def train_family(kc: Counts, card: str, run: tuple, epochs: int, root: Path, out: Path,
+                 what: str) -> tuple:
+    """`cli.train` of one (label, preset, overrides, attention launches,
+    count / lse pairs) run for `epochs` graphed epochs on the files in
+    `root`, checked as in phase 4: launch counts, finite and falling losses,
+    best.pt and last.pt. -> (launch counts, test row, run directory)."""
+    import shutil
+
+    from mygenerativerecommenders_tpu_torch.cli import train as cli_train
+
+    label, preset, extra, attn, lse = run
+    args = family_args(run, root) + [
+        f"trainer.output_dir={out / label.replace(' ', '_')}",
+        f"trainer.max_epochs={epochs}", f"trainer.min_epochs={epochs}",
+        "trainer.log_every_n_steps=1"]
+    rundir = out / label.replace(" ", "_") / preset
+    shutil.rmtree(rundir, ignore_errors=True)
+    cfg = cli_train.parse_args(args)
+    kc.reset()
+    t0 = time.perf_counter()
+    monitored = cli_train.main(args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, graph_counts = kc.read(), kc.read_graphs()
+    per_epoch = -(-6040 // cfg.data.batch_size)
+    eval_batches = (epochs + 1) * per_epoch
+    m = cfg.model
+    log(f"{what}: cli.train on {card}, {label} from files (embedding {m.embedding.kind}, "
+        f"preprocessor {m.preprocessor.kind}, encoder {m.encoder.kind} "
+        f"{m.encoder.normalization}, postprocessor {m.postprocessor.kind}, similarity "
+        f"{m.similarity.kind}, sampler {m.sampler.kind}, loss {m.loss.kind}, optimizer2 "
+        f"{cfg.optimizer2.kind if cfg.optimizer2.enabled else 'off'}), "
+        f"D={m.item_embedding_dim} blocks={m.encoder.num_blocks} "
+        f"N={cfg.data.max_sequence_length + m.gr_output_length + 1} "
+        f"batch={cfg.data.batch_size} R={m.loss.num_to_sample if m.loss.kind != 'bce' else 1}: "
+        f"{epochs * per_epoch} optimizer steps, {eval_batches} eval batches in {wall:.2f} s "
+        f"({epochs * 6040 / wall:.1f} training examples/s end to end); launches {counts}")
+    if m.loss.kind == "bce":
+        chance = "log 2 = 0.6931"
+    elif m.similarity.kind == "mol":
+        chance = "MoL's logits divided by its temperature and the loss's"
+    else:
+        chance = f"log 129 = {np.log(129):.4f}"
+    losses, steps, val, test = read_training_run(rundir / "metrics.jsonl", epochs, monitored,
+                                                 chance=chance)
+    check(steps == epochs * per_epoch, f"{steps} optimizer steps, expected {epochs * per_epoch}")
+    check(graph_counts.get("train") and graph_counts.get("eval"),
+          f"{label}: the cli.train run did not replay graphed steps and eval batches")
+    check_step_launches(kc, steps, eval_batches, counts, graph_counts, attn=attn, lse=lse)
+    for name in ("best.pt", "last.pt"):
+        check((rundir / "checkpoints" / name).exists(), f"{label}: no {name}")
+    log(f"  test on the best checkpoint: ndcg@10 {test['test/ndcg@10']:.5f}, hr@10 "
+        f"{test['test/hr@10']:.5f}, mrr {test['test/mrr']:.5f}, ndcg@100 "
+        f"{test['test/ndcg@100']:.5f}")
+    return counts, test, rundir
+
+
+def test_line(label: str, epochs: int, test: dict) -> str:
+    return (f"{label} ({epochs} epoch{'s' if epochs > 1 else ''}): ndcg@10 "
+            f"{test['test/ndcg@10']:.5f}, hr@10 {test['test/hr@10']:.5f}, mrr "
+            f"{test['test/mrr']:.5f}")
+
+
+def add_counts(total, counts: dict) -> dict:
+    return dict(counts) if total is None else {k: total[k] + v for k, v in counts.items()}
+
+
 def run_families_path(kc: Counts, card: str, ml1m: dict) -> dict:
     """Phase 17: `cli.train` for 30 graphed epochs of ml-1m-hstu-aux,
     ml-1m-sasrec and ml-1m-hstu with the in-batch sampler, and one epoch of
     ml-1m-hstu with BCE, on phase 15's ml-1m files (users.dat's columns feed
     the aux token). -> the launch counts of the four runs and the SASRec
     run's best checkpoint."""
-    import shutil
-
-    from mygenerativerecommenders_tpu_torch.cli import train as cli_train
-
     total, out = None, OUT_DIR / "families"
     base = ml1m["test"]
     summary = [f"ml-1m-hstu (phase 15): ndcg@10 {base['test/ndcg@10']:.5f}, hr@10 "
                f"{base['test/hr@10']:.5f}, mrr {base['test/mrr']:.5f}"]
     sasrec_best = None
     for run, epochs in [(r, 30) for r in FAMILY_RUNS] + [(BCE_RUN, 1)]:
-        label, preset, extra, attn, lse = run
-        args = family_args(run, ml1m["root"]) + [
-            f"trainer.output_dir={out / label.replace(' ', '_')}",
-            f"trainer.max_epochs={epochs}", f"trainer.min_epochs={epochs}",
-            "trainer.log_every_n_steps=1"]
-        rundir = out / label.replace(" ", "_") / preset
-        shutil.rmtree(rundir, ignore_errors=True)
-        cfg = cli_train.parse_args(args)
-        kc.reset()
-        t0 = time.perf_counter()
-        monitored = cli_train.main(args)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        counts, graph_counts = kc.read(), kc.read_graphs()
-        per_epoch = -(-6040 // cfg.data.batch_size)
-        eval_batches = (epochs + 1) * per_epoch
-        m = cfg.model
-        log(f"families path: cli.train on {card}, {label} from files (preprocessor "
-            f"{m.preprocessor.kind}, encoder {m.encoder.kind}, sampler {m.sampler.kind}, loss "
-            f"{m.loss.kind}), D={m.item_embedding_dim} blocks={m.encoder.num_blocks} "
-            f"N={cfg.data.max_sequence_length + m.gr_output_length + 1} "
-            f"batch={cfg.data.batch_size} R={m.loss.num_to_sample if m.loss.kind != 'bce' else 1}: "
-            f"{epochs * per_epoch} optimizer steps, {eval_batches} eval batches in {wall:.2f} s "
-            f"({epochs * 6040 / wall:.1f} training examples/s end to end); launches {counts}")
-        chance = "log 2 = 0.6931" if m.loss.kind == "bce" else f"log 129 = {np.log(129):.4f}"
-        losses, steps, val, test = read_training_run(rundir / "metrics.jsonl", epochs, monitored,
-                                                     chance=chance)
-        check(steps == epochs * per_epoch, f"{steps} optimizer steps, expected {epochs * per_epoch}")
-        check(graph_counts.get("train") and graph_counts.get("eval"),
-              f"{label}: the cli.train run did not replay graphed steps and eval batches")
-        check_step_launches(kc, steps, eval_batches, counts, graph_counts, attn=attn, lse=lse)
-        for name in ("best.pt", "last.pt"):
-            check((rundir / "checkpoints" / name).exists(), f"{label}: no {name}")
-        log(f"  test on the best checkpoint: ndcg@10 {test['test/ndcg@10']:.5f}, hr@10 "
-            f"{test['test/hr@10']:.5f}, mrr {test['test/mrr']:.5f}, ndcg@100 "
-            f"{test['test/ndcg@100']:.5f}")
-        line = (f"{label} ({epochs} epoch{'s' if epochs > 1 else ''}): ndcg@10 "
-                f"{test['test/ndcg@10']:.5f}, hr@10 {test['test/hr@10']:.5f}, mrr "
-                f"{test['test/mrr']:.5f}")
+        label, preset = run[:2]
+        counts, test, rundir = train_family(kc, card, run, epochs, ml1m["root"], out,
+                                            "families path")
+        line = test_line(label, epochs, test)
         if label in JAX_FAMILY_NDCG10:
             line += (f" (the JAX package's {JAX_FAMILY_NDCG10[label]}: TPU v5e, synthetic "
                      f"ml-1m-shaped data)")
@@ -3186,21 +3240,22 @@ def run_families_path(kc: Counts, card: str, ml1m: dict) -> dict:
         summary.append(line)
         if preset == "ml-1m-sasrec":
             sasrec_best = rundir / "checkpoints" / "best.pt"
-        total = counts if total is None else {k: total[k] + v for k, v in counts.items()}
+        total = add_counts(total, counts)
         gc.collect()
         torch.cuda.empty_cache()
     log(f"  test metrics on {card}: " + "; ".join(summary))
     return {"counts": total, "sasrec_best": sasrec_best}
 
 
-def family_steps_side_by_side(kc: Counts, card: str, root: Path) -> None:
-    """The train step of the aux model, SASRec and the in-batch sampler on
-    the files, eager and graphed side by side as in phase 4."""
+def family_steps_side_by_side(kc: Counts, card: str, root: Path, runs=FAMILY_RUNS) -> None:
+    """The train step of each run (by default the aux model, SASRec and the
+    in-batch sampler) on the files, eager and graphed side by side as in
+    phase 4."""
     from mygenerativerecommenders_tpu_torch.cli import train as cli_train
     from mygenerativerecommenders_tpu_torch.train.driver import Trainer
 
     table = []
-    for run in FAMILY_RUNS:
+    for run in runs:
         label, _, _, attn, lse = run
         trainer = Trainer(cli_train.parse_args(family_args(run, root) + [
             f"trainer.output_dir={OUT_DIR / 'families_by_hand'}"]))
@@ -3222,16 +3277,17 @@ def family_steps_side_by_side(kc: Counts, card: str, root: Path) -> None:
     log(f"train steps at ml-1m width on {card}: " + " | ".join(table))
 
 
-def family_card_against_cpu(root: Path) -> None:
-    """One loss and its gradients of each of the three on the card and on
-    the CPU (phase 5's check): the same weights, batch and negatives (the
-    catalog offsets, or the in-batch sampler's uniforms), dropout off."""
+def family_card_against_cpu(root: Path, runs=FAMILY_RUNS) -> None:
+    """One loss and its gradients of each run (by default the aux model,
+    SASRec and the in-batch sampler) on the card and on the CPU (phase 5's
+    check): the same weights, batch and negatives (the catalog offsets, or
+    the in-batch sampler's uniforms), dropout off."""
     from mygenerativerecommenders_tpu_torch.cli.train import parse_args
     from mygenerativerecommenders_tpu_torch.configs import resolve
     from mygenerativerecommenders_tpu_torch.data.dataset import RecoData
     from mygenerativerecommenders_tpu_torch.train.task_retrieval import make_loss_fn
 
-    for run in FAMILY_RUNS:
+    for run in runs:
         cfg = parse_args(family_args(run, root))
         data = RecoData(cfg.data, seed=cfg.trainer.seed)
         resolve(cfg, data.max_item_id)
@@ -3247,7 +3303,9 @@ def family_card_against_cpu(root: Path) -> None:
         compare_card_and_cpu(f"{run[0]}, a batch of {shape[0]} rows", cfg, batch,
                              lambda model, b, device: make_loss_fn(
                                  model, cfg, data.all_item_ids)(
-                                     b, **{k: v.to(device) for k, v in drawn.items()}))
+                                     b, **{k: v.to(device) for k, v in drawn.items()}),
+                             year_of_item=data.year_of_item,
+                             atol_of_max=MOL_GRAD_ATOL_OF_MAX if "mol" in run[0] else 0.0)
         gc.collect()
         torch.cuda.empty_cache()
 
@@ -3293,6 +3351,144 @@ def serve_sasrec(card: str, root: Path, ckpt: Path) -> None:
          for name, e in (("eager", eager_twin(engine)), ("graphed", engine))},
     )
     del engine, cpu_engine
+
+
+# ---------------------------------------------------------------- phase 18 (item_year, MoL, ...)
+
+# (label, preset, overrides, HSTU attention launches a step, count / lse pairs a step)
+ITEM_YEAR_RUN = ("ml-1m-hstu item_year", "ml-1m-hstu", ["model.embedding.kind=item_year"], 2, 1)
+# MoL's negative logits are no dot products: it takes the gather loss (no count, no lse)
+MOL_RUN = ("ml-1m-hstu mol", "ml-1m-hstu", ["model.similarity.kind=mol"], 2, 0)
+# the loss divides MoL's logits by two temperatures (0.05 x 0.05): its gradients
+# reach ~10-30, and an entry sums ~B*T terms of that size, so float32 sums in
+# another order move the small entries by ~1e-6 of the largest (the CPU tests'
+# atol against JAX, tests/test_torch_port_mol.py, is 5e-6 of it too)
+MOL_GRAD_ATOL_OF_MAX = 5e-6
+# ml-1m-hstu-muon's split (AdamW 5e-4, Muon 5e-3 with its plateau controller) over SASRec
+SASREC_MUON = ["optimizer1.lr=0.0005", "optimizer2.enabled=true", "optimizer2.kind=muon",
+               "optimizer2.lr=0.005", "optimizer2.momentum=0.95", "optimizer2.weight_decay=0.0",
+               "scheduler2.kind=plateau"]
+ONE_EPOCH_RUNS = (
+    ("ml-1m-hstu layer_norm", "ml-1m-hstu", ["model.postprocessor.kind=layer_norm"], 2, 1),
+    ("ml-1m-hstu softmax_rel_bias", "ml-1m-hstu",
+     ["model.encoder.normalization=softmax_rel_bias"], 0, 1),
+    ("ml-1m-sasrec muon", "ml-1m-sasrec", SASREC_MUON, 0, 1),
+)
+
+
+def fork_checkpoint(best: Path, year_of_item: np.ndarray, path: Path) -> None:
+    """best.pt's weights as the fork's Lightning file: the reference's key
+    names under `model.`, the year table at the fork's num_items + 1 rows
+    (rows past the model's 2,201 zero: no year reaches them) and the fork's
+    item -> year buffer."""
+    state = dict(torch.load(best, map_location="cpu", weights_only=True)["model"])
+    year = state["embeddings._year_emb.weight"]
+    rows = len(year_of_item)
+    if rows > year.shape[0]:
+        year = torch.cat([year, year.new_zeros((rows - year.shape[0], year.shape[1]))])
+    state["embeddings._year_emb.weight"] = year[:rows]
+    state["embeddings.year_lookup_table"] = torch.as_tensor(year_of_item, dtype=torch.int64)
+    torch.save({"state_dict": {f"model.{k}": v for k, v in state.items()}, "epoch": 0,
+                "global_step": 0, "hyper_parameters": {"item_embedding_dim": 50}}, path)
+
+
+def mol_scored_test(args: list, ckpt: Path) -> dict:
+    """The test metrics of an MoL model's checkpoint with the catalog ranked
+    by the model's own similarity (`model.score`, as its training loss
+    scores), where the eval step ranks by the dot product, as the JAX
+    package's eval does (ROADMAP.md queue 3): each test row's query against
+    every normalized catalog row, its history masked as the eval step masks
+    it. A measurement of what MoL learned; the port's eval stays JAX's."""
+    from mygenerativerecommenders_tpu_torch.cli.train import parse_args
+    from mygenerativerecommenders_tpu_torch.models.metrics import retrieval_metrics
+    from mygenerativerecommenders_tpu_torch.ops.sequence import get_current_embeddings
+    from mygenerativerecommenders_tpu_torch.ops.topk import NEG_INF
+    from mygenerativerecommenders_tpu_torch.train.driver import Trainer
+    from mygenerativerecommenders_tpu_torch.utils.features import seq_features_from_batch
+
+    trainer = Trainer(parse_args(args))
+    trainer.load_weights(ckpt)
+    model, cfg = trainer.model.eval(), trainer.cfg
+    ids = torch.as_tensor(trainer.all_item_ids, dtype=torch.int64, device=trainer.device)
+    max_id, k = int(ids.max()), min(cfg.model.index.k, len(ids))
+    all_topk, all_targets = [], []
+    loader = trainer.data.loader("test")
+    with torch.no_grad():
+        candidates = trainer.candidate_fn()  # [X, D], normalized as the loss's rows
+        for batch, dev in trainer._batches(loader, len(loader)):
+            seq, _, _ = seq_features_from_batch(dev, cfg.model.gr_output_length + 1)
+            encoded, lengths = model(seq._replace(
+                past_embeddings=model.item_embeddings(seq.past_ids)))
+            scores = model.score(get_current_embeddings(lengths, encoded), candidates[None])
+            past = torch.zeros((scores.shape[0], max_id + 1), dtype=torch.bool,
+                               device=scores.device)
+            past.scatter_(1, seq.past_ids.long().clamp(0, max_id), True)
+            past[:, 0] = False
+            scores = torch.where(past[:, ids], NEG_INF, scores)
+            top = ids[torch.topk(scores, k, dim=1).indices].cpu().numpy()
+            valid = batch["sample_weight"] > 0
+            all_topk.append(top[valid])
+            all_targets.append(batch["target_id"][valid])
+    del trainer
+    return retrieval_metrics(np.concatenate(all_topk), np.concatenate(all_targets),
+                             cfg.model.metrics.at_k_list)
+
+
+def run_other_families_path(kc: Counts, card: str, ml1m: dict) -> dict:
+    """Phase 18: `cli.train` for 30 graphed epochs of ml-1m-hstu with the
+    item_year embedding and with MoL, one epoch each of the layer_norm
+    postprocessor, softmax_rel_bias and SASRec with Muon, on phase 15's
+    ml-1m files; the item_year run's weights through a fork-layout `.ckpt`
+    and `cli.eval`. -> the launch counts of the five runs."""
+    from mygenerativerecommenders_tpu_torch.cli import eval as cli_eval
+    from mygenerativerecommenders_tpu_torch.cli.train import parse_args
+    from mygenerativerecommenders_tpu_torch.data.catalog import item_catalog
+
+    total, out, root = None, OUT_DIR / "other_families", ml1m["root"]
+    base = ml1m["test"]
+    summary = [f"ml-1m-hstu (phase 15): ndcg@10 {base['test/ndcg@10']:.5f}, hr@10 "
+               f"{base['test/hr@10']:.5f}, mrr {base['test/mrr']:.5f}"]
+    for run, epochs in [(ITEM_YEAR_RUN, 30), (MOL_RUN, 30)] + [(r, 1) for r in ONE_EPOCH_RUNS]:
+        label = run[0]
+        counts, test, rundir = train_family(kc, card, run, epochs, root, out,
+                                            "other families path")
+        summary.append(test_line(label, epochs, test))
+        total = add_counts(total, counts)
+        if run is MOL_RUN:
+            # the eval step ranks by the dot product (JAX's eval), which an
+            # MoL model is not trained for: its own similarity ranks here,
+            # on the last weights (best.pt is chosen by the dot-product metric)
+            kc.reset()
+            mol = mol_scored_test(family_args(run, root) + [
+                f"trainer.output_dir={out / 'mol_scored'}"], rundir / "checkpoints" / "last.pt")
+            total = add_counts(total, kc.read())
+            summary.append(f"{label}, ranked by MoL (last.pt): ndcg@10 {mol['ndcg@10']:.5f}, "
+                           f"hr@10 {mol['hr@10']:.5f}, mrr {mol['mrr']:.5f}")
+            test = {f"test/{k}": v for k, v in mol.items()}
+        if epochs == 30:
+            check(test["test/ndcg@10"] >= MIN_FAMILY_NDCG10,
+                  f"{label}: test ndcg@10 {test['test/ndcg@10']} below {MIN_FAMILY_NDCG10}")
+        if run is ITEM_YEAR_RUN:
+            # the fork's own checkpoint of this model, read back by cli.eval
+            args = family_args(run, root) + [f"trainer.output_dir={out / 'fork_eval'}"]
+            years = item_catalog(parse_args(args).data)[2]
+            fork = out / "fork.ckpt"
+            fork_checkpoint(rundir / "checkpoints" / "best.pt", years, fork)
+            kc.reset()
+            from_best = cli_eval.main(args + [f"trainer.ckpt_path={rundir / 'checkpoints' / 'best.pt'}"])
+            from_fork = cli_eval.main(args + [f"trainer.ckpt_path={fork}"])
+            total = add_counts(total, kc.read())
+            worst = max(abs(v - test[f"test/{k}"]) for k, v in from_best.items())
+            log(f"  fork-layout .ckpt of best.pt (year table {len(years)} rows, item -> year "
+                f"buffer): cli.eval {from_fork}; equal to best.pt's cli.eval: "
+                f"{from_fork == from_best}; largest difference to the run's own test row "
+                f"{worst:.3e}")
+            check(from_fork == from_best, "the fork .ckpt evaluates to other metrics than best.pt")
+            check(worst <= 1e-6, "cli.eval of best.pt differs from the run's own test row")
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"  test metrics on {card}: " + "; ".join(summary))
+    return total
 
 
 def main() -> int:
@@ -3492,6 +3688,17 @@ def main() -> int:
     serve_sasrec(kind, ml1m_run["root"], families["sasrec_best"])
     log(f"phase 17 took {time.perf_counter() - t0:.1f} s ({t1 - t0:.1f} s of it the four "
         f"cli.train runs)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    other_counts = run_other_families_path(kc, kind, ml1m_run)
+    t1 = time.perf_counter()
+    family_steps_side_by_side(kc, kind, ml1m_run["root"], runs=(ITEM_YEAR_RUN, MOL_RUN))
+    graphed_against_eager([(run[0] + ", padded", family_args(run, ml1m_run["root"]), [None])
+                           for run in (ITEM_YEAR_RUN, MOL_RUN)])
+    family_card_against_cpu(ml1m_run["root"], runs=(ITEM_YEAR_RUN, MOL_RUN))
+    log(f"phase 18 took {time.perf_counter() - t0:.1f} s ({t1 - t0:.1f} s of it the five "
+        f"cli.train runs and the .ckpt read)")
 
     # no PyTorch call computes HSTU's silu attention with this bias, its
     # backward, or a count-weighted log-sum-exp over a matrix product that is
@@ -3499,17 +3706,19 @@ def main() -> int:
     rows = [
         # rows 1-2 and the count, lse rows below add phase 15's runs from
         # files: ml-1m at shape A, ml-20m-hstu-long packed, amzn-books; rows
-        # 1-2 and the X=3,883 rows also phase 16's Muon and Scion runs and
+        # 1-2 and the X=3,883 rows also phase 16's Muon and Scion runs,
         # phase 17's (rows 1-2: aux, in-batch, BCE; X=3,883: aux, SASRec)
+        # and phase 18's (rows 1-2: item_year, MoL, layer_norm; X=3,883:
+        # item_year, layer_norm, softmax_rel_bias, SASRec with Muon)
         dict(name=kern.KERNEL, source=kern.SOURCE, replaces=kern.REPLACES,
              launches=serving_launches + sum(c[kern.KERNEL] for c in (
                  train_counts, long_counts, real_ml1m, real_others, split_counts,
-                 family_counts)),
+                 family_counts, other_counts)),
              library_ms=None, **serving),
         dict(name=kern.KERNEL_BWD, source=kern.SOURCE_BWD, replaces=kern.REPLACES_BWD,
              launches=sum(c[kern.KERNEL_BWD] for c in (
                  train_counts, long_counts, real_ml1m, real_others, split_counts,
-                 family_counts)),
+                 family_counts, other_counts)),
              library_ms=None, **attn_bwd),
         # rows 1-2 at the ranking shape R; their launches are the ranking run's
         dict(name=kern.KERNEL + " (ranking shape R)", source=kern.SOURCE,
@@ -3540,15 +3749,18 @@ def main() -> int:
         # launches are phase 15's ml-1m runs and phase 16's
         dict(name=count_kern.KERNEL + " (ml-1m files, X=3883)", source=count_kern.SOURCE,
              replaces=count_kern.REPLACES,
-             launches=real_ml1m[count_kern.KERNEL] + split_counts[count_kern.KERNEL] + family_counts[count_kern.KERNEL],
+             launches=sum(c[count_kern.KERNEL] for c in (
+                 real_ml1m, split_counts, family_counts, other_counts)),
              **counted_ml1m),
         dict(name=lse_kern.KERNEL + " (ml-1m files, X=3883)", source=lse_kern.SOURCE,
              replaces=lse_kern.REPLACES,
-             launches=real_ml1m[lse_kern.KERNEL] + split_counts[lse_kern.KERNEL] + family_counts[lse_kern.KERNEL],
+             launches=sum(c[lse_kern.KERNEL] for c in (
+                 real_ml1m, split_counts, family_counts, other_counts)),
              library_ms=None, **lse_fwd_ml1m),
         dict(name=lse_kern.KERNEL_BWD + " (ml-1m files, X=3883)", source=lse_kern.SOURCE,
              replaces=lse_kern.REPLACES_BWD,
-             launches=real_ml1m[lse_kern.KERNEL_BWD] + split_counts[lse_kern.KERNEL_BWD] + family_counts[lse_kern.KERNEL_BWD],
+             launches=sum(c[lse_kern.KERNEL_BWD] for c in (
+                 real_ml1m, split_counts, family_counts, other_counts)),
              library_ms=None, **lse_bwd_ml1m),
         # the same entry point over the ml-20m catalog, wider than one x-block
         # of the TPU kernels: its launches are the long path's, its numbers

@@ -16,10 +16,26 @@ leaf's path, "/" read as ".", in flax's layout (models/dense.py):
   encoder/mha_<i>/<proj>/{kernel,bias}      -> sequence_encoder._sasrec.mha_<i>.<proj>.{kernel,bias}
                                                (<proj>: query, key, value, out)
   encoder/ffn_<i>/conv<j>/{kernel,bias}     -> sequence_encoder._sasrec.ffn_<i>.conv<j>.{kernel,bias}
+  similarity/<layer>/<leaf>                 -> similarity.<layer>.<leaf>
+                                               (MoL: context_proj, item_proj, gate_context,
+                                               gate_item, gate_ci, tau_fn; kernel / bias or
+                                               a GLU's w / b)
 
 and the aux preprocessor's positional table is `preprocessor._pos_emb.weight`
 as the plain one's. So a reference `.ckpt` of such a model, which has no
 such keys, raises naming the first missing one, as any missing key does.
+The item_year embedding's tables are the reference's
+`embeddings._item_emb.weight` and `embeddings._year_emb.weight`.
+
+The fork's own `.ckpt` files hold the year table (its `LocalEmbeddingModule`
+always splits D in two), sized by the fork at num_items + 1 rows, and may
+hold its item -> year buffer `embeddings.year_lookup_table`.
+`fit_reference_state` takes such a file as the JAX converter does
+(`cli/convert_ckpt.py:68-82`): the year rows are cut or zero-padded to the
+model's 2,201 (rows past either end are never indexed: year ids are year
+values), and the buffer, which that converter never reads, is dropped (the
+model reads the years from its catalog). A year table given to a `local`
+model raises, naming the key.
 
 Gradients have the parameters' tree, so the same mapping puts the JAX
 package's gradient tree under the port's `state_dict` keys
@@ -55,13 +71,14 @@ outside the graphs. It replaces the JAX package's orbax manager
 
 from __future__ import annotations
 
+import logging
 import os
 from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
 
-from mygenerativerecommenders_tpu_torch import not_ported
+log = logging.getLogger(__name__)
 
 _ENCODER = "sequence_encoder._hstu._attention_layers"
 _BLOCK_KEYS = {
@@ -108,8 +125,8 @@ def _to_state_dict(params: Mapping[str, Any], arrays_only: bool) -> Dict[str, to
         params = params["params"]
     out = {}
     for path, arr in _flatten(params, arrays_only=arrays_only).items():
-        if path == ("embeddings", "item_emb"):
-            key = "embeddings._item_emb.weight"
+        if path in (("embeddings", "item_emb"), ("embeddings", "year_emb")):
+            key = f"embeddings._{path[1]}.weight"
         elif path in (("preprocessor", "pos_emb"), ("preprocessor", "rating_emb")):
             key = f"preprocessor._{path[1]}.weight"
         elif path[0] == "encoder" and path[1].startswith("block_") and path[2:] in _BLOCK_KEYS:
@@ -122,6 +139,8 @@ def _to_state_dict(params: Mapping[str, Any], arrays_only: bool) -> Dict[str, to
             key = ".".join(path)
         elif path[0] == "encoder" and path[1].startswith(("mha_", "ffn_")):
             key = f"sequence_encoder._sasrec.{'.'.join(path[1:])}"
+        elif path[0] == "similarity":
+            key = ".".join(path)
         else:
             raise ValueError(f"parameter {'/'.join(path)} has no counterpart in the port")
         out[key] = torch.tensor(np.asarray(arr, dtype=np.float32))
@@ -183,13 +202,44 @@ def load_checkpoint(path: str, map_location: Any = "cpu") -> Dict[str, torch.Ten
     )
 
 
-def check_state_dict(model: torch.nn.Module, state: Mapping[str, Any]) -> None:
-    """Raise unless `state` has exactly the model's keys, each of its shape.
-    The fork's item/year split table has no counterpart here."""
+YEAR_TABLE, YEAR_BUFFER = "embeddings._year_emb.weight", "embeddings.year_lookup_table"
+
+
+def fit_reference_state(model: torch.nn.Module, state: Mapping[str, Any]) -> Dict[str, Any]:
+    """`state` with the fork's item -> year buffer dropped and its year table
+    cut or zero-padded to the model's rows (the JAX converter's rule); the
+    log line says what was done. A year table for a model without one
+    raises a ValueError naming the key."""
     want = model.state_dict()
-    if "embeddings._year_emb.weight" in state:
-        raise not_ported("the item/year split embedding table (embedding.kind=item_year)",
-                         "Other model families")
+    state = dict(state)
+    notes = []
+    if YEAR_BUFFER in state:
+        del state[YEAR_BUFFER]
+        notes.append(f"dropped {YEAR_BUFFER} (the years come from the data catalog)")
+    if YEAR_TABLE in state:
+        if YEAR_TABLE not in want:
+            raise ValueError(
+                f"checkpoint holds {YEAR_TABLE}, the fork's item/year split table, but the "
+                "model has no year table: build it with model.embedding.kind=item_year"
+            )
+        table = torch.as_tensor(state[YEAR_TABLE])
+        rows = want[YEAR_TABLE].shape[0]
+        if table.shape[0] != rows:
+            notes.append(f"{YEAR_TABLE} rows {table.shape[0]} -> {rows}")
+            if table.shape[0] > rows:
+                table = table[:rows]
+            else:
+                table = torch.cat([table, table.new_zeros((rows - table.shape[0],
+                                                           *table.shape[1:]))])
+        state[YEAR_TABLE] = table
+    if notes:
+        log.info("reference checkpoint: " + "; ".join(notes))
+    return state
+
+
+def check_state_dict(model: torch.nn.Module, state: Mapping[str, Any]) -> None:
+    """Raise unless `state` has exactly the model's keys, each of its shape."""
+    want = model.state_dict()
     missing = [k for k in want if k not in state]
     extra = [k for k in state if k not in want]
     if missing or extra:
@@ -205,8 +255,9 @@ def check_state_dict(model: torch.nn.Module, state: Mapping[str, Any]) -> None:
 
 
 def load_weights(model: torch.nn.Module, path: str, map_location: Any = "cpu") -> None:
-    """`load_checkpoint(path)` into `model`, every key and shape checked."""
-    state = load_checkpoint(path, map_location)
+    """`load_checkpoint(path)` into `model` (a fork's year table fitted by
+    `fit_reference_state`), every key and shape checked."""
+    state = fit_reference_state(model, load_checkpoint(path, map_location))
     check_state_dict(model, state)
     model.load_state_dict(state)
 

@@ -8,7 +8,9 @@ Port of mygenerativerecommenders_tpu/cli/convert_ckpt.py. Usage:
 
 The port's state_dict keys are the reference's, so the map is the identity
 once the `state_dict` entry is taken and the `model.` / `net.` prefixes are
-stripped (`checkpoint.strip_reference_prefixes`). Every key and shape is
+stripped (`checkpoint.strip_reference_prefixes`); the fork's year table is
+fitted to the item_year model's rows and its item -> year buffer dropped
+(`checkpoint.fit_reference_state`). Every key and shape is
 checked against the model the preset builds (its catalog from
 `data.data_dir`, as `cli.train` builds it); a missing or extra key raises
 and names it. The written `.pt` holds tensors only, so `cli.eval`,
@@ -26,10 +28,14 @@ from typing import Optional
 
 import torch
 
-from mygenerativerecommenders_tpu_torch.checkpoint import check_state_dict, strip_reference_prefixes
+from mygenerativerecommenders_tpu_torch.checkpoint import (
+    check_state_dict,
+    fit_reference_state,
+    strip_reference_prefixes,
+)
 from mygenerativerecommenders_tpu_torch.cli.train import parse_args
 from mygenerativerecommenders_tpu_torch.configs import resolve
-from mygenerativerecommenders_tpu_torch.data.catalog import load_catalog
+from mygenerativerecommenders_tpu_torch.data.catalog import item_catalog
 from mygenerativerecommenders_tpu_torch.models.model import build_model
 from mygenerativerecommenders_tpu_torch.train.loggers import get_logger
 
@@ -42,10 +48,11 @@ def main(argv: Optional[list[str]] = None) -> str:
         raise ValueError("usage: convert_ckpt <reference.ckpt> <out.pt> [experiment=...] ...")
     ckpt_path, out_path, rest = argv[0], argv[1], argv[2:]
     cfg = parse_args(rest)
-    resolve(cfg, load_catalog(cfg.data)[1])
-    model = build_model(cfg, device="cpu")
+    _, max_item_id, year_of_item = item_catalog(cfg.data)
+    resolve(cfg, max_item_id)
+    model = build_model(cfg, device="cpu", year_of_item=year_of_item)
     ckpt = torch.load(ckpt_path, map_location="cpu", weights_only=False)
-    state = strip_reference_prefixes(ckpt.get("state_dict", ckpt))
+    state = fit_reference_state(model, strip_reference_prefixes(ckpt.get("state_dict", ckpt)))
     check_state_dict(model, state)
     want = model.state_dict()
     state = {k: torch.as_tensor(state[k]).to(want[k].dtype).contiguous() for k in want}

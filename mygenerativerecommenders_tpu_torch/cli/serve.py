@@ -20,7 +20,7 @@ from typing import Optional
 from mygenerativerecommenders_tpu_torch.checkpoint import load_weights
 from mygenerativerecommenders_tpu_torch.cli.train import parse_args
 from mygenerativerecommenders_tpu_torch.configs import resolve
-from mygenerativerecommenders_tpu_torch.data.catalog import load_catalog
+from mygenerativerecommenders_tpu_torch.data.catalog import item_catalog
 from mygenerativerecommenders_tpu_torch.models.model import build_model
 from mygenerativerecommenders_tpu_torch.serving.service import (
     RecommenderHTTPServer,
@@ -51,9 +51,9 @@ def build_engine(argv: Optional[list[str]] = None) -> tuple[ServingEngine, dict]
     cfg = parse_args(argv)
     if not cfg.trainer.ckpt_path:
         raise ValueError("trainer.ckpt_path=<model.pt | params.npz> is required for serving")
-    all_item_ids, max_item_id = load_catalog(cfg.data)
+    all_item_ids, max_item_id, year_of_item = item_catalog(cfg.data)
     resolve(cfg, max_item_id)
-    model = build_model(cfg, device="cpu")
+    model = build_model(cfg, device="cpu", year_of_item=year_of_item)
     load_weights(model, cfg.trainer.ckpt_path)
     engine = ServingEngine(
         model, cfg, all_item_ids, max_item_id,

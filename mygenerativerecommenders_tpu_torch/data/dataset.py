@@ -37,7 +37,6 @@ from typing import Dict, Iterable, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from mygenerativerecommenders_tpu_torch import not_ported
 from mygenerativerecommenders_tpu_torch.configs import DataConfig, PreprocessorConfig
 from mygenerativerecommenders_tpu_torch.data.catalog import item_catalog, synthetic_years
 from mygenerativerecommenders_tpu_torch.data.preprocessor import (
@@ -291,7 +290,11 @@ class RecoData:
 
     def __init__(self, cfg: DataConfig, seed: int = 42):
         if cfg.item_year_feature:
-            raise not_ported("data.item_year_feature", "Other model families")
+            # JAX declares the field (configs/__init__.py:268) and reads it nowhere
+            raise ValueError(
+                "data.item_year_feature: the reference ignores this field; the item/year "
+                "split is model.embedding.kind=item_year, which reads the catalog's years"
+            )
         self.cfg = cfg
         self._seed = seed
         self.processor: Optional[DataProcessor] = None

@@ -75,6 +75,8 @@ def check_decodable(m: ModelConfig) -> None:
         ("model.encoder.relative_bias_type", enc.relative_bias_type, "time_position"),
         ("model.encoder.num_time_buckets", enc.num_time_buckets, NUM_TIME_BUCKETS),
     ]
+    if enc.normalization not in ("rel_bias", "hstu_rel_bias"):
+        knobs.insert(1, ("model.encoder.normalization", enc.normalization, "rel_bias"))
     for name, value, decoded in knobs:
         if value != decoded:
             raise ValueError(

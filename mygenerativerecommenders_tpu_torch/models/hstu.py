@@ -1,4 +1,5 @@
-"""HSTU sequential encoder, rel_bias path.
+"""HSTU sequential encoder: the pointwise (rel_bias) and the softmax
+(softmax_rel_bias) attention.
 
 Port of mygenerativerecommenders_tpu/models/hstu.py:58-216 (HSTUBlock) and
 :287-414 (HSTU). Everything stays dense [B, N, D] with the invalid rows kept
@@ -22,6 +23,17 @@ device, each through the chunk kernels of ops/kernels/hstu_chunk.py. The
 ring has no `lengths`: rows past a user's length are live there, and the
 block's output is the same only because u is silu(0) = 0 on those zero rows.
 
+`normalization="softmax_rel_bias"` is the JAX block's softmax branch
+(:182-200), in plain torch ops as JAX runs it in jnp ops: q and k keep the
+all-heads-as-one layout [B, N, H*dqk] (one logit per pair, scaled by
+1/sqrt(dqk) with dqk the per-head width), the materialised position (and
+time) bias is added, the softmax runs over all N keys and the non-causal
+weights are zeroed after it, with no renormalisation and no 1/N; then the
+weights multiply v [B, N, H*dv]. `scaled_dot_product_attention` masks
+before its softmax, so it computes another function. It takes no packed
+rows (as JAX) and no ring: JAX's softmax branch is dense and ignores
+`sp_shards`, which raises here.
+
 Parameter names follow the reference checkpoint
 (mygenerativerecommenders_tpu/cli/convert_ckpt.py:9-15): `_uvqk`, `_o`,
 `_rel_attn_bias._pos_w` / `._ts_w`. Init matches the JAX package: uvqk and
@@ -44,6 +56,8 @@ from mygenerativerecommenders_tpu_torch import not_ported
 from mygenerativerecommenders_tpu_torch.ops.hstu_attention import (
     hstu_attention_reference,
     relative_position_bias,
+    relative_position_index,
+    relative_time_index,
 )
 from mygenerativerecommenders_tpu_torch.ops.kernels.hstu_attention import (
     hstu_attention_fused,
@@ -52,6 +66,14 @@ from mygenerativerecommenders_tpu_torch.parallel.ring_attention import ring_hstu
 
 TIMESTAMPS_KEY = "timestamps"
 SEGMENT_IDS_KEY = "seg_ids"
+
+
+def _lookup(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """table[idx] as an embedding lookup: the same values, and a backward
+    that sums each slot's gradient by sort and segments. Indexing's backward
+    serialises the duplicates of a slot, and a [B, N, N] index into a bias
+    table holds ~10^5 of each (`tools/bias_lookup_backward.py` times both)."""
+    return F.embedding(idx, table[:, None])[..., 0]
 
 
 def _normal(shape, std: float, generator: Optional[torch.Generator]) -> nn.Parameter:
@@ -94,10 +116,16 @@ class HSTUBlock(nn.Module):
         super().__init__()
         if attn_dropout_rate != 0.0:
             raise not_ported(f"encoder.attn_dropout_rate={attn_dropout_rate}", "Training variants")
-        if normalization not in ("rel_bias", "hstu_rel_bias"):
-            if normalization == "softmax_rel_bias":
-                raise not_ported("encoder.normalization=softmax_rel_bias", "Other model families")
+        if normalization not in ("rel_bias", "hstu_rel_bias", "softmax_rel_bias"):
             raise ValueError(f"Unknown normalization {normalization}")
+        if normalization == "softmax_rel_bias" and sp_shards > 1:
+            # JAX's softmax branch is dense: it ignores sp_shards without a word
+            raise ValueError(
+                f"encoder.sp_shards={sp_shards} with encoder.normalization=softmax_rel_bias: "
+                "the reference's softmax attention has no ring and ignores sp_shards; set "
+                "encoder.sp_shards=1"
+            )
+        self.softmax = normalization == "softmax_rel_bias"
         if linear_activation not in ("silu", "none"):
             raise ValueError(f"Unknown linear_activation {linear_activation}")
         self.num_heads, self.linear_dim, self.attention_dim = num_heads, linear_dim, attention_dim
@@ -147,7 +175,14 @@ class HSTUBlock(nn.Module):
             pos_w = self._rel_attn_bias._pos_w
             if timestamps is not None:
                 ts_w = self._rel_attn_bias._ts_w
-        if self.sp_shards > 1:
+        if self.softmax:
+            if seg_pos is not None:
+                raise ValueError(
+                    "packed rows (seg_ids) are not supported with "
+                    "normalization='softmax_rel_bias'"
+                )
+            attn_out = self._softmax_attention(q, k, v, timestamps, pos_w, ts_w)
+        elif self.sp_shards > 1:
             if ts_w is None:
                 raise ValueError(
                     "sp_shards > 1 requires relative_bias_type='time_position' (ring "
@@ -158,9 +193,9 @@ class HSTUBlock(nn.Module):
                     "packed rows are not supported with ring attention (sp_shards > 1) "
                     "— packing already removes the padding the ring would shard"
                 )
-            attn = self._ring_attention(qh, kh, vh, timestamps, pos_w, ts_w)
+            attn_out = self._ring_attention(qh, kh, vh, timestamps, pos_w, ts_w)
         elif ts_w is not None:
-            attn = hstu_attention_fused(
+            attn_out = hstu_attention_fused(
                 qh, kh, vh, timestamps, pos_w, ts_w,
                 max_len=self.max_attn_len, num_buckets=self.num_time_buckets,
                 lengths=lengths, seg_positions=seg_pos,
@@ -174,13 +209,30 @@ class HSTUBlock(nn.Module):
             seg_equiv = None
             if seg_pos is not None:
                 seg_equiv = torch.arange(n, device=x.device)[None, :] - seg_pos
-            attn = hstu_attention_reference(
+            attn_out = hstu_attention_reference(
                 qh, kh, vh, bias, max_len=self.max_attn_len, causal=True, seg_ids=seg_equiv
             )
-        attn_out = attn.reshape(b, n, h * dv)
+        attn_out = attn_out.reshape(b, n, h * dv)
         a = F.layer_norm(attn_out, (h * dv,), eps=self.eps)
         o_input = torch.cat([u, a, u * a], dim=-1) if self.concat_ua else u * a
         return self._o(self._dropout(o_input)) + x
+
+    def _softmax_attention(self, q, k, v, timestamps, pos_w, ts_w) -> torch.Tensor:
+        """The softmax branch on q, k [B, N, H*dqk] and v [B, N, H*dv]
+        (JAX :182-200): softmax((q k^T + bias) / sqrt(dqk)) over all keys,
+        the non-causal weights zeroed after it, times v."""
+        n = q.shape[1]
+        logits = torch.einsum("bnd,bmd->bnm", q.float(), k.float())
+        if pos_w is not None:
+            bias = _lookup(pos_w, relative_position_index(n, self.max_attn_len, q.device))[None]
+            if ts_w is not None:
+                bias = bias + _lookup(ts_w, relative_time_index(timestamps,
+                                                                self.num_time_buckets))
+            logits = logits + bias
+        probs = torch.softmax(logits / self.attention_dim**0.5, dim=-1)
+        causal = torch.ones((n, n), dtype=torch.bool, device=q.device).tril()
+        probs = torch.where(causal[None], probs, 0.0)
+        return torch.einsum("bnm,bmd->bnd", probs, v.to(probs.dtype)).to(v.dtype)
 
     def _ring_attention(self, qh, kh, vh, timestamps, pos_w, ts_w) -> torch.Tensor:
         """Sequence-parallel attention on one device (exact: HSTU attention is

@@ -1,35 +1,45 @@
 """The composed generative-recommender model.
 
 Port of mygenerativerecommenders_tpu/models/model.py:59-291 for the
-components the retrieval and ranking tasks run: local embedding -> learnable
-positional preprocessor (plain, rated, combined item-and-rating or aux; with
-dropout) -> HSTU or SASRec -> aux-mask compaction -> L2 postprocessor,
-dot-product similarity. The encoder's dims follow the preprocessor's layout:
+components the retrieval and ranking tasks run: local or item/year embedding
+-> learnable positional preprocessor (plain, rated, combined
+item-and-rating or aux; with dropout) -> HSTU (pointwise or softmax
+attention) or SASRec -> aux-mask compaction -> L2 or LayerNorm
+postprocessor, dot-product or MoL similarity. The encoder's dims follow the preprocessor's layout:
 the rated variant widens D (the postprocessor truncates back to
 item_embedding_dim), the combined one doubles N, and its aux_mask maps the
 encoder's output back to the item slots (the aux variant's drops its user
 token). Other kinds raise, naming the ROADMAP.md item that ports them.
 Submodule names follow the reference checkpoint's keys, so `state_dict()`
-reads `embeddings._item_emb.weight`, `preprocessor._pos_emb.weight`,
+reads `embeddings._item_emb.weight` (and `embeddings._year_emb.weight`),
+`preprocessor._pos_emb.weight`,
 `preprocessor._rating_emb.weight`, `sequence_encoder._hstu._attention_layers.{i}...`;
-the aux preprocessor's and SASRec's parameters, which the JAX converter maps
-to no reference key, keep the JAX leaves' names
-(`preprocessor.aux_projection.kernel`, `sequence_encoder._sasrec.mha_{i}...`;
-checkpoint.py).
+the aux preprocessor's, SASRec's and MoL's parameters, which the JAX
+converter maps to no reference key, keep the JAX leaves' names
+(`preprocessor.aux_projection.kernel`, `sequence_encoder._sasrec.mha_{i}...`,
+`similarity.gate_ci.bias`; checkpoint.py).
+
+Only the training loss scores through `score` (MoL or the dot product), as
+in the JAX package: its eval, candidate index, serving and decode rank by
+the dot product with the catalog rows whatever `similarity.kind` says
+(ROADMAP.md queue 3).
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple, Union
+from typing import List, Optional, Sequence, Tuple, Union
 
 import torch
 from torch import nn
 
 from mygenerativerecommenders_tpu_torch import not_ported
 from mygenerativerecommenders_tpu_torch.configs import Config, ModelConfig, max_seq_len
-from mygenerativerecommenders_tpu_torch.models.embeddings import LocalEmbedding
+from mygenerativerecommenders_tpu_torch.models.embeddings import ItemYearEmbedding, LocalEmbedding
 from mygenerativerecommenders_tpu_torch.models.hstu import HSTU
-from mygenerativerecommenders_tpu_torch.models.postprocessors import L2NormPostprocessor
+from mygenerativerecommenders_tpu_torch.models.postprocessors import (
+    L2NormPostprocessor,
+    LayerNormPostprocessor,
+)
 from mygenerativerecommenders_tpu_torch.models.preprocessors import (
     CombinedItemAndRatingPreprocessor,
     LearnablePositionalEmbeddingAuxPreprocessor,
@@ -38,6 +48,7 @@ from mygenerativerecommenders_tpu_torch.models.preprocessors import (
 )
 from mygenerativerecommenders_tpu_torch.models.sasrec import SASRec
 from mygenerativerecommenders_tpu_torch.models.similarity import DotProductSimilarity
+from mygenerativerecommenders_tpu_torch.models.similarity_mol import MoLSimilarity
 from mygenerativerecommenders_tpu_torch.ops.sequence import mask_dense_by_aux_mask
 from mygenerativerecommenders_tpu_torch.utils.features import SequenceBatch
 
@@ -50,21 +61,31 @@ class GenerativeRecommender(nn.Module):
         cfg: ModelConfig,
         total_seq_len: int,  # data.max_sequence_length + gr_output_length + 1
         generator: Optional[torch.Generator] = None,
+        year_of_item: Optional[Sequence[int]] = None,  # item id -> year, for item_year
     ):
         super().__init__()
         m = cfg
         self.cfg = m
         if m.compute_dtype != "float32":
             raise not_ported(f"model.compute_dtype={m.compute_dtype}", "Mixed precision")
-        if m.embedding.kind == "item_year":
-            raise not_ported("embedding.kind=item_year", "Other model families")
         if m.embedding.kind.startswith("sharded"):
             raise not_ported(f"embedding.kind={m.embedding.kind}", "Distributed")
-        if m.embedding.kind != "local":
+        if m.embedding.kind == "local":
+            self.embeddings = LocalEmbedding(
+                m.embedding.num_items, m.item_embedding_dim, m.embedding.init_std, generator
+            )
+        elif m.embedding.kind == "item_year":
+            if year_of_item is None or len(year_of_item) == 0:
+                raise ValueError(
+                    "item_year embedding requires year_of_item (pass the "
+                    "data catalog's item->year table to build_model)"
+                )
+            self.embeddings = ItemYearEmbedding(
+                m.embedding.num_items, m.item_embedding_dim, year_of_item,
+                m.embedding.init_std, generator,
+            )
+        else:
             raise ValueError(f"Unknown embedding kind {m.embedding.kind}")
-        self.embeddings = LocalEmbedding(
-            m.embedding.num_items, m.item_embedding_dim, m.embedding.init_std, generator
-        )
         p = m.preprocessor
         if p.kind == "learnable_positional":
             self.preprocessor = LearnablePositionalEmbeddingPreprocessor(
@@ -109,12 +130,34 @@ class GenerativeRecommender(nn.Module):
             self._build_hstu(m, total_seq_len, seq_mult, enc_dim, generator)
         else:
             raise ValueError(f"Unknown encoder kind {enc.kind}")
-        if m.postprocessor.kind != "l2_norm":
-            raise not_ported(f"postprocessor.kind={m.postprocessor.kind}", "Other model families")
-        self.postprocessor = L2NormPostprocessor(m.item_embedding_dim, m.postprocessor.eps)
-        if m.similarity.kind != "dot_product":
-            raise not_ported(f"similarity.kind={m.similarity.kind}", "Other model families")
-        self.similarity = DotProductSimilarity()
+        if m.postprocessor.kind == "l2_norm":
+            self.postprocessor = L2NormPostprocessor(m.item_embedding_dim, m.postprocessor.eps)
+        elif m.postprocessor.kind == "layer_norm":
+            self.postprocessor = LayerNormPostprocessor(m.item_embedding_dim, m.postprocessor.eps)
+        else:
+            raise ValueError(f"Unknown postprocessor kind {m.postprocessor.kind}")
+        sim = m.similarity
+        if sim.kind == "dot_product":
+            self.similarity = DotProductSimilarity()
+        elif sim.kind == "mol":
+            if sim.gating_combination_type != "glu_silu":
+                # JAX builds MoLSimilarity without it (model.py:212-219)
+                raise ValueError(
+                    f"similarity.gating_combination_type={sim.gating_combination_type}: the "
+                    "reference ignores this field and builds every MoL model as glu_silu "
+                    "with linear gates; leave it at glu_silu"
+                )
+            self.similarity = MoLSimilarity(
+                m.item_embedding_dim,
+                query_dot_product_groups=sim.query_dot_product_groups,
+                item_dot_product_groups=sim.item_dot_product_groups,
+                dot_product_dimension=sim.dot_product_dimension,
+                dot_product_l2_norm=sim.dot_product_l2_norm,
+                temperature=sim.temperature,
+                generator=generator,
+            )
+        else:
+            raise ValueError(f"Unknown similarity kind {sim.kind}")
 
     def _build_hstu(self, m: ModelConfig, total_seq_len: int, seq_mult: int, enc_dim: int,
                     generator: Optional[torch.Generator]) -> None:
@@ -165,9 +208,10 @@ class GenerativeRecommender(nn.Module):
         return self.preprocessor.ratings_emb()
 
     def score(
-        self, input_embeddings: torch.Tensor, item_embeddings: torch.Tensor
+        self, input_embeddings: torch.Tensor, item_embeddings: torch.Tensor,
+        item_ids: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
-        return self.similarity(input_embeddings, item_embeddings)
+        return self.similarity(input_embeddings, item_embeddings, item_ids)
 
     def forward(
         self, seq: SequenceBatch,
@@ -201,10 +245,16 @@ class GenerativeRecommender(nn.Module):
 
 
 def build_model(
-    cfg: Config, device: Union[str, torch.device] = "cuda", seed: Optional[int] = None
+    cfg: Config, device: Union[str, torch.device] = "cuda", seed: Optional[int] = None,
+    year_of_item: Optional[Sequence[int]] = None,
 ) -> GenerativeRecommender:
     """A model with weights drawn from `seed` (default trainer.seed) on the
-    CPU, then moved to `device` in eval mode; `resolve(cfg, ...)` first."""
+    CPU, then moved to `device` in eval mode; `resolve(cfg, ...)` first.
+    `year_of_item` (the catalog's item -> year table) is read by the
+    item_year embedding only."""
     g = torch.Generator().manual_seed(cfg.trainer.seed if seed is None else seed)
-    model = GenerativeRecommender(cfg.model, max_seq_len(cfg), generator=g)
+    if cfg.model.embedding.kind != "item_year":
+        year_of_item = None
+    model = GenerativeRecommender(cfg.model, max_seq_len(cfg), generator=g,
+                                  year_of_item=year_of_item)
     return model.to(device).eval()

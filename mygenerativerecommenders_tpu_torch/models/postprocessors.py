@@ -1,8 +1,11 @@
-"""Output postprocessors. Port of mygenerativerecommenders_tpu/models/postprocessors.py:14-40."""
+"""Output postprocessors. Port of mygenerativerecommenders_tpu/models/postprocessors.py:14-49:
+truncate to `embedding_dim`, then normalise by the L2 norm or by a LayerNorm
+without scale or bias."""
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 
@@ -20,3 +23,14 @@ class L2NormPostprocessor(nn.Module):
 
     def forward(self, output_embeddings: torch.Tensor) -> torch.Tensor:
         return l2_normalize(output_embeddings[..., : self.embedding_dim], self.eps)
+
+
+class LayerNormPostprocessor(nn.Module):
+    def __init__(self, embedding_dim: int, eps: float = 1e-6):
+        super().__init__()
+        self.embedding_dim = embedding_dim
+        self.eps = eps
+
+    def forward(self, output_embeddings: torch.Tensor) -> torch.Tensor:
+        x = output_embeddings[..., : self.embedding_dim]
+        return F.layer_norm(x, (x.shape[-1],), eps=self.eps)

@@ -34,20 +34,23 @@ def bucketize_timedelta(delta: torch.Tensor, num_buckets: int) -> torch.Tensor:
     return torch.clamp(x.to(torch.int32), 0, num_buckets)
 
 
-def relative_position_bias(
-    pos_w: torch.Tensor, n: int, max_len: Optional[int] = None
-) -> torch.Tensor:
-    """[2*max_len-1] table -> [N, N] bias, bias[i, j] = pos_w[j - i + max_len - 1].
+def relative_position_index(n: int, max_len: int, device: torch.device) -> torch.Tensor:
+    """[N, N] slots of the position table, j - i + max_len - 1.
 
     A packed row may be wider than the table reaches (n > max_len). Pairs
     further apart than max_len - 1 are always in different segments and the
     caller masks them, so they read the table's nearest end: the index is
     clamped, because torch raises above the table and wraps silently below 0."""
-    if max_len is None:
-        max_len = n
-    idx = torch.arange(n, device=pos_w.device)
+    idx = torch.arange(n, device=device)
     offset = (idx[None, :] - idx[:, None]) + (max_len - 1)
-    return pos_w[offset.clamp(0, 2 * max_len - 2)]
+    return offset.clamp(0, 2 * max_len - 2)
+
+
+def relative_position_bias(
+    pos_w: torch.Tensor, n: int, max_len: Optional[int] = None
+) -> torch.Tensor:
+    """[2*max_len-1] table -> [N, N] bias, bias[i, j] = pos_w[j - i + max_len - 1]."""
+    return pos_w[relative_position_index(n, n if max_len is None else max_len, pos_w.device)]
 
 
 def next_timestamps(timestamps: torch.Tensor) -> torch.Tensor:
@@ -55,13 +58,18 @@ def next_timestamps(timestamps: torch.Tensor) -> torch.Tensor:
     return torch.cat([timestamps[:, 1:], timestamps[:, -1:]], dim=1)
 
 
+def relative_time_index(timestamps: torch.Tensor, num_buckets: int) -> torch.Tensor:
+    """[B, N] timestamps -> [B, N, N] slots of the time table, bucket(ts[b,n+1] - ts[b,m])."""
+    ts = timestamps.to(torch.int32)
+    delta = next_timestamps(ts)[:, :, None] - ts[:, None, :]
+    return bucketize_timedelta(delta, num_buckets).long()
+
+
 def relative_time_bias(
     ts_w: torch.Tensor, timestamps: torch.Tensor, num_buckets: int
 ) -> torch.Tensor:
     """[B, N] timestamps -> [B, N, N], bias[b, n, m] = ts_w[bucket(ts[b,n+1] - ts[b,m])]."""
-    ts = timestamps.to(torch.int32)
-    delta = next_timestamps(ts)[:, :, None] - ts[:, None, :]
-    return ts_w[bucketize_timedelta(delta, num_buckets).long()]
+    return ts_w[relative_time_index(timestamps, num_buckets)]
 
 
 def hstu_attention_reference(

@@ -121,7 +121,7 @@ class Trainer:
             for split in ("train", "val", "test"):
                 check_aux_codes(cfg.model.preprocessor, self.data.dataset(split))
         torch.manual_seed(t.seed)  # dropout: the default generator of every device
-        self.model = build_model(cfg, device=self.device)
+        self.model = build_model(cfg, device=self.device, year_of_item=self.data.year_of_item)
         opt2 = cfg.optimizer2
         if opt2.enabled and opt2.scion_init:
             if opt2.kind.startswith("scion"):

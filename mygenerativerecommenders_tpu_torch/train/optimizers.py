@@ -17,7 +17,11 @@ mygenerativerecommenders_tpu/train/optimizers.py: `zeropower_via_newtonschulz5`
   JAX layout: a parameter the port stores transposed (`_o.weight`, torch
   Linear's [out, in] against flax's [in, out] kernel;
   `checkpoint.transposed_from_jax`) is handed over as its transpose and the
-  result written back transposed. `torch.optim.Muon` would scale by the
+  result written back transposed. A parameter of more than two dimensions
+  (SASRec's attention kernels, [D, H, d] and [H, d, D] in flax's layout,
+  models/dense.py) is flattened to [shape[0], prod(shape[1:])] for NS-5,
+  the scales and the orthogonal init, as JAX flattens it, and reshaped
+  back. `torch.optim.Muon` would scale by the
   torch layout, takes 2-D parameters only and normalises with
   clamp(min=eps) instead of + 1e-7.
 - With `optimizer2.enabled`, `build_optimizer` returns a `SplitOptimizer`:
@@ -44,7 +48,6 @@ from typing import Any, Dict, Iterable, List, Mapping, Optional, Sequence, Tuple
 
 import torch
 
-from mygenerativerecommenders_tpu_torch import not_ported
 from mygenerativerecommenders_tpu_torch.checkpoint import jax_tree_to_state_dict, transposed_from_jax
 from mygenerativerecommenders_tpu_torch.configs import OptimizerConfig
 
@@ -281,11 +284,6 @@ def build_single(cfg: OptimizerConfig, params: Params, lr: float,
     named = _named(params)
     plain = [p for _, p in named]
     if cfg.kind in ("muon", "scion", "scion_light"):
-        deep = [name or tuple(p.shape) for name, p in named if p.ndim > 2]
-        if deep:
-            # SASRec's attention kernels ([D, H, d], [H, d, D] in the JAX layout)
-            raise not_ported(f"optimizer kind {cfg.kind} over parameters of more than two "
-                             f"dimensions ({deep[0]}: a SASRec encoder)", "Other model families")
         # a tensor rate on every device
         rate = torch.tensor([lr], dtype=torch.float32, device=plain[0].device)
         if cfg.kind == "muon":

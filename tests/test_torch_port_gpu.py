@@ -538,12 +538,23 @@ _GRAPH_CASES = {
     "in-batch": ["model.sampler.kind=in_batch"],
     "in-batch-packed": ["model.sampler.kind=in_batch", "data.pack_sequences=true"],
     "bce": ["model.loss.kind=bce"],
+    # the item/year split table, MoL on the gather loss (padded and packed),
+    # the softmax attention, the LayerNorm postprocessor, and Muon on SASRec's
+    # 3-D kernels
+    "item-year": ["model.embedding.kind=item_year"],
+    "mol": ["model.similarity.kind=mol"],
+    "mol-packed": ["model.similarity.kind=mol", "data.pack_sequences=true"],
+    "softmax-rel-bias": ["model.encoder.normalization=softmax_rel_bias"],
+    "layer-norm": ["model.postprocessor.kind=layer_norm"],
+    "sasrec-muon": ["model.encoder.kind=sasrec", "optimizer2.enabled=true",
+                    "optimizer2.kind=muon", "optimizer2.lr=5e-3"],
 }
 # one step for the bfloat16 Newton-Schulz cases: from the second step on the
 # bias tables' float atomics (which differ run to run, eager against eager)
 # reach the matrices' gradients, and NS-5 in bfloat16 turns that float noise
 # into bfloat16 ulps of their updates
-_ONE_STEP = {"muon", "scion", "muon-single", "scion-light-single", "scion-init", "lazy-muon"}
+_ONE_STEP = {"muon", "scion", "muon-single", "scion-light-single", "scion-init", "lazy-muon",
+             "sasrec-muon"}
 
 
 def _card_trainer(tmp_path, case, k, *extra):

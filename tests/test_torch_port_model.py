@@ -163,13 +163,13 @@ def test_model_init_is_seeded_and_padding_row_zero():
 @pytest.mark.parametrize(
     "override,item",
     [
-        ("model.encoder.normalization=softmax_rel_bias", "Other model families"),
+        ("model.encoder.attn_dropout_rate=0.1", "Training variants"),
         ("model.encoder.tp_shards=2", "Distributed"),
         ("model.encoder.remat=true", "Training variants"),
         ("model.embedding.kind=sharded_a2a", "Distributed"),
         ("model.compute_dtype=bfloat16", "Mixed precision"),
-        ("model.postprocessor.kind=layer_norm", "Other model families"),
-        ("model.similarity.kind=mol", "Other model families"),
+        ("model.embedding.kind=sharded_local", "Distributed"),
+        ("model.embedding.kind=sharded_2d", "Distributed"),
     ],
 )
 def test_unported_kinds_raise_naming_the_roadmap_item(override, item):
@@ -178,11 +178,17 @@ def test_unported_kinds_raise_naming_the_roadmap_item(override, item):
         pt_build_model(pcfg, device="cpu")
 
 
-@pytest.mark.parametrize("override", ["model.encoder.kind=sasrec"])
+@pytest.mark.parametrize("override", [
+    "model.encoder.kind=sasrec",
+    "model.encoder.normalization=softmax_rel_bias",
+    "model.postprocessor.kind=layer_norm",
+    "model.similarity.kind=mol",
+])
 def test_model_kinds_that_raised_before_build_and_take_a_step(override):
-    """The knobs that raised before SASRec was ported: the model builds, and
-    one AdamW step on a loss of its output moves every parameter that has a
-    gradient."""
+    """The knobs that raised before SASRec, softmax_rel_bias, the layer_norm
+    postprocessor and MoL were ported: the model builds, and one AdamW step
+    on a loss of its output moves every parameter that has a gradient (MoL's
+    are the loss's, not the forward's)."""
     _, pcfg = _configs([override])
     model = pt_build_model(pcfg, device="cpu")
     batch = {k: torch.from_numpy(v) for k, v in _batch(0).items()}

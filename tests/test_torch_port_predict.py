@@ -183,7 +183,7 @@ def test_missing_extra_or_misshapen_keys_raise_naming_the_key(tmp_path):
         "extra": ({**good, "loss.scale": torch.ones(1)}, ValueError, "loss.scale"),
         "shape": ({**good, victim: torch.zeros(3)}, ValueError, victim),
         "year table": ({**good, "embeddings._year_emb.weight": torch.zeros(4, 16)},
-                       NotImplementedError, "Other model families"),
+                       ValueError, "embedding.kind=item_year"),
     }
     for name, (state, error, words) in cases.items():
         path = tmp_path / f"{name.replace(' ', '_')}.ckpt"

@@ -86,15 +86,16 @@ def test_user_id_split_threshold_matches_the_jax_split_files(tmp_path):
 
 
 @pytest.mark.parametrize(
-    "key,value,item",
+    "key,value,words",
     [
-        ("item_year_feature", True, "Other model families"),
+        # the reference declares the field and reads it nowhere
+        ("item_year_feature", True, "reference ignores"),
     ],
 )
-def test_unported_data_knobs_raise_naming_the_roadmap_item(key, value, item):
+def test_unported_data_knobs_raise_naming_the_roadmap_item(key, value, words):
     cfg = pt_preset("synthetic-smoke")
     setattr(cfg.data, key, value)
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(ValueError, match=f"{key}.*{words}"):
         RecoData(cfg.data)
 
 

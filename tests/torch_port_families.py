@@ -1,5 +1,7 @@
-"""Shared set-up of the tests that hold the aux preprocessor, SASRec, the
-in-batch sampler and BCE of the PyTorch port to the JAX package, on the CPU.
+"""Shared set-up of the tests that hold the model families of the PyTorch
+port (the aux preprocessor, SASRec, the in-batch sampler, BCE, the
+item_year embedding, MoL, softmax_rel_bias, the layer_norm postprocessor)
+to the JAX package, on the CPU.
 
 `setup` builds both packages' model on one preset with dotted overrides,
 dropout off (torch cannot replay `jax.random`), the JAX weights carried into
@@ -8,7 +10,11 @@ loader (held to the JAX loader's in tests/test_torch_port_aux.py and
 tests/test_torch_port_train_data.py). The JAX model runs its jnp path
 (`encoder.use_pallas=false`); the port runs its kernels' plain versions.
 
-`shared` caches a set-up for the tests that leave its weights as they are.
+Both models get the catalog's item -> year table (read by the item_year
+embedding only). `packed_setup` is `setup` over packed batches
+(tests/test_torch_port_packing_model.py's loader). `shared` caches a set-up
+for the tests that leave its weights as they are. `compare_eval_topk` holds
+the port's eval step to JAX's on a set-up's batches.
 `jax_draw` is the JAX step's own draw for its negatives at a step (the
 trainer's `fold_in(rng, step)`, `split`, then `randint` for catalog offsets
 or `uniform` for the in-batch sampler), which the port is handed.
@@ -29,6 +35,7 @@ from mygenerativerecommenders_tpu.models.model import build_model as jax_build_m
 from mygenerativerecommenders_tpu.train import task_retrieval as jax_task
 from mygenerativerecommenders_tpu.train.optimizers import build_optimizer as jax_build_optimizer
 from mygenerativerecommenders_tpu.train.optimizers import param_labels as jax_param_labels
+from mygenerativerecommenders_tpu.utils.features import packed_seq_features as jax_packed_features
 from mygenerativerecommenders_tpu.utils.features import seq_features_from_batch as jax_features
 from mygenerativerecommenders_tpu_torch.checkpoint import (
     grads_to_state_dict,
@@ -37,7 +44,9 @@ from mygenerativerecommenders_tpu_torch.checkpoint import (
 from mygenerativerecommenders_tpu_torch.configs import resolve as pt_resolve
 from mygenerativerecommenders_tpu_torch.configs.presets import get_preset as pt_preset
 from mygenerativerecommenders_tpu_torch.data.dataset import RecoData
+from mygenerativerecommenders_tpu_torch.data.packing import PackedBatchLoader
 from mygenerativerecommenders_tpu_torch.models.model import build_model as pt_build_model
+from mygenerativerecommenders_tpu_torch.ops.topk import topk_agree
 from mygenerativerecommenders_tpu_torch.train import task_retrieval as pt_task
 from mygenerativerecommenders_tpu_torch.train.optimizers import build_optimizer as pt_build_optimizer
 from mygenerativerecommenders_tpu_torch.train.optimizers import param_labels as pt_param_labels
@@ -48,6 +57,10 @@ from mygenerativerecommenders_tpu_torch.train.optimizers import param_labels as 
 LOSS_RTOL, GRAD_RTOL, GRAD_ATOL, STEP_ATOL = 1e-5, 2e-4, 2e-6, 2e-5
 # a gathered table row sums up to B*T*R terms (tests/test_torch_port_gather_loss.py)
 GATHER_GRAD_RTOL, GATHER_GRAD_ATOL = 5e-4, 1e-6
+# top-k scores (tests/test_torch_port_serving.py's)
+TOPK_ATOL = 1e-5
+# packed rows (tests/test_torch_port_packing_model.py's)
+CAPACITIES = (16, 32, 48)
 
 
 class Setup(NamedTuple):
@@ -76,8 +89,7 @@ def torch_batch(batch):
     return {k: torch.from_numpy(v) for k, v in batch.items()}
 
 
-def setup(preset: str = "synthetic-smoke", overrides: Sequence[Tuple[str, Any]] = (),
-          heads: int = 1, num_batches: int = 2) -> Setup:
+def _configs(preset: str, overrides: Sequence[Tuple[str, Any]], heads: int):
     jcfg, pcfg = jax_preset(preset), pt_preset(preset)
     jcfg.model.encoder.use_pallas = "false"
     for cfg in (jcfg, pcfg):
@@ -89,17 +101,50 @@ def setup(preset: str = "synthetic-smoke", overrides: Sequence[Tuple[str, Any]] 
         if cfg.model.encoder.kind == "hstu":
             dim = cfg.model.item_embedding_dim // heads
             cfg.model.encoder.attention_dim = cfg.model.encoder.linear_dim = dim
-    data = RecoData(pcfg.data, seed=42)
+    return jcfg, pcfg
+
+
+def _both_models(jcfg, pcfg, data, seq) -> Tuple[Any, Any, torch.nn.Module]:
+    """(JAX model, its params initialised on `seq`, the port's model with
+    those weights), both given the catalog's item -> year table."""
     jax_resolve(jcfg, data.max_item_id)
     pt_resolve(pcfg, data.max_item_id)
-    batches = [b for _, b in zip(range(num_batches), data.loader("train"))]
-    jmodel = jax_build_model(jcfg)
-    seq, _, _ = jax_features(batches[0], jcfg.model.gr_output_length + 1)
+    jmodel = jax_build_model(jcfg, year_of_item=data.year_of_item)
     key = jax.random.PRNGKey(0)
     params = jmodel.init({"params": key, "dropout": key}, seq, method=jmodel.init_all)
-    pmodel = pt_build_model(pcfg, device="cpu")
+    pmodel = pt_build_model(pcfg, device="cpu", year_of_item=data.year_of_item)
     pmodel.load_state_dict(params_to_state_dict(np_tree(params)))
+    return jmodel, params, pmodel
+
+
+def setup(preset: str = "synthetic-smoke", overrides: Sequence[Tuple[str, Any]] = (),
+          heads: int = 1, num_batches: int = 2) -> Setup:
+    jcfg, pcfg = _configs(preset, overrides, heads)
+    data = RecoData(pcfg.data, seed=42)
+    batches = [b for _, b in zip(range(num_batches), data.loader("train"))]
+    seq, _, _ = jax_features(batches[0], jcfg.model.gr_output_length + 1)
+    jmodel, params, pmodel = _both_models(jcfg, pcfg, data, seq)
     return Setup(jcfg, pcfg, jmodel, params, pmodel, data.all_item_ids, batches)
+
+
+def packed_setup(overrides: Sequence[Tuple[str, Any]] = (), heads: int = 2) -> Setup:
+    """`setup` over packed train batches: synthetic-smoke data with histories
+    up to 36 (L = 47), rows of 16-48 tokens (capacities CAPACITIES, up to 8
+    segments a batch); `batches` is the packed train loader's whole epoch."""
+    jcfg, pcfg = _configs("synthetic-smoke", overrides, heads)
+    for cfg in (jcfg, pcfg):
+        cfg.data.max_sequence_length = 36
+        cfg.data.synthetic_max_seq_len = 45
+        cfg.data.pack_sequences = True
+        cfg.data.pack_capacities = CAPACITIES
+    data = RecoData(pcfg.data, seed=42)
+    train = list(PackedBatchLoader(
+        data.dataset("train"), rows_per_batch=1, row_capacity=max(CAPACITIES),
+        capacities=CAPACITIES, segments_per_batch=8, shuffle=True, seed=42,
+        include_target=True,
+    ))
+    jmodel, params, pmodel = _both_models(jcfg, pcfg, data, jax_packed_features(train[0]))
+    return Setup(jcfg, pcfg, jmodel, params, pmodel, data.all_item_ids, train)
 
 
 @functools.lru_cache(maxsize=None)
@@ -131,9 +176,11 @@ def drawn_name(pcfg) -> str:
 
 def compare_loss_and_grads(s: Setup, batch, key, packed: bool = False,
                            grad_rtol: float = GRAD_RTOL, grad_atol: float = GRAD_ATOL,
-                           expect: str = "") -> float:
+                           expect: str = "", grad_atol_of_max: float = 0.0) -> float:
     """The JAX loss and every gradient at `key` against the port's loss on
-    the JAX draw; -> the loss."""
+    the JAX draw; -> the loss. `grad_atol_of_max` raises a gradient's atol
+    to that share of its largest entry (MoL's logits are divided by two
+    temperatures, and its gradients reach ~100)."""
     jloss = jax_task.make_loss_fn(s.jmodel, s.jcfg, s.item_ids, packed=packed)
     if expect:
         assert jloss.__name__ == expect
@@ -151,9 +198,28 @@ def compare_loss_and_grads(s: Setup, batch, key, packed: bool = False,
     assert named.keys() == want_grads.keys()
     for name, p in named.items():
         assert p.grad is not None, name
-        np.testing.assert_allclose(p.grad.numpy(), want_grads[name].numpy(), rtol=grad_rtol,
-                                   atol=grad_atol, err_msg=name)
+        want = want_grads[name].numpy()
+        atol = max(grad_atol, grad_atol_of_max * float(np.abs(want).max()))
+        np.testing.assert_allclose(p.grad.numpy(), want, rtol=grad_rtol, atol=atol, err_msg=name)
     return loss.item()
+
+
+def compare_eval_topk(s: Setup, atol: float = TOPK_ATOL) -> None:
+    """The port's eval step (top-k ids and scores of each row's last
+    position against the catalog) equal to JAX's on each batch, up to
+    near-ties (`topk_agree`)."""
+    max_id = int(s.pcfg.model.embedding.num_items)
+    jcands = jax_task.make_candidate_fn(s.jmodel, s.jcfg, s.item_ids)(s.params)
+    jstep = jax_task.make_eval_step(s.jmodel, s.jcfg, s.item_ids, max_id)
+    cands = pt_task.make_candidate_fn(s.pmodel, s.pcfg, s.item_ids)()
+    pstep = pt_task.make_eval_step(s.pmodel, s.pcfg, s.item_ids, max_id)
+    for batch in s.batches:
+        with torch.no_grad():
+            ids, scores = pstep(torch_batch(batch), cands)
+        want = jstep(s.params, {k: jnp.asarray(v) for k, v in batch.items()}, jcands)
+        problem = topk_agree(ids.numpy(), scores.numpy(), np.asarray(want[0]),
+                             np.asarray(want[1]), atol)
+        assert problem is None, problem
 
 
 def check_param_labels(s: Setup) -> dict:
