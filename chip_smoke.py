@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving and training paths (retrieval padded,
 packed and through ring attention; ranking padded and packed; eager and as
-CUDA graphs; from interaction files on disk; with Muon and Scion) on one
-NVIDIA card and check its kernels.
+CUDA graphs; from interaction files on disk; with Muon and Scion; with
+remat, async checkpoints, the profiler and the loggers) on one NVIDIA card
+and check its kernels.
 
 Run from the root of a checkout, with no arguments:
 
@@ -309,6 +310,33 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    check of three graphed steps against three eager ones, and phase 5's
    check of one step on the card against the CPU, for both.
 
+19. The training variants. Per-block remat at the full width of
+   ml-20m-hstu-long (phase 6's hand-stepped configuration: D=64, 8 blocks,
+   H=2, L=1035, packed classes 256-1152, dropout 0.2): for each class a
+   trainer without and one with `model.encoder.remat=true` (the same seed)
+   take their first graphed step on the same batch from one dropout seed,
+   and the remat step's loss and every gradient must equal the other's at
+   rtol 1e-5 / atol 1e-6 (the largest difference logged), with the peak
+   memory allocated over that first call (the warm-up runs and the
+   capture: a replay allocates nothing); then each class's graphed step,
+   remat off against on: p50, device ms and launches (remat runs 16
+   attention forwards a step, 8 without). The same check on one zigzag ring
+   step (sp_shards=4, 1,024 users; 576 chunk forwards a step with remat).
+   Then `cli.train` of ml-1m-hstu on phase 15's files for 30 graphed epochs
+   with remat (launch counts as in phase 4, the forwards doubled; test
+   ndcg@10 within the JAX package's band 0.037-0.039) and without it at
+   `trainer.seed` 1 and 2 (at least 0.030), printed beside phase 15's run.
+   At 10M items (phase 13's one-card lazy overlay, after two graphed steps):
+   a synchronous save and two async ones of the same state, the seconds the
+   caller is blocked and until each file has landed, both files read back
+   and equal tensor for tensor. Last, ml-1m-hstu for one epoch each with
+   `trainer.profiler=true` (the trace must name the attention, count and
+   lse kernels), with `trainer.mlflow_dir` (its metric files hold every row
+   of metrics.jsonl) and `trainer.tensorboard=true` (its scalars written,
+   or the named ValueError where neither package imports; the log says
+   which), and a 2-point `cli.sweep` over optimizer1.lr (its
+   sweep_results.csv printed).
+
 It ends with one JSON line of the kernels' numbers and, last, the line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -317,6 +345,7 @@ from __future__ import annotations
 
 import gc
 import json
+import shutil
 import subprocess
 import sys
 import threading
@@ -1399,11 +1428,13 @@ def read_training_run(metrics: Path, epochs: int, monitored: float, key: str = "
 
 
 def check_step_launches(kc: Counts, steps: int, eval_batches: int, counts: dict,
-                        graph_counts: dict, attn: int = 0, chunk: int = 0, lse: int = 1) -> None:
+                        graph_counts: dict, attn: int = 0, chunk: int = 0, lse: int = 1,
+                        remat: bool = False) -> None:
     """Per optimizer step `attn` attention forwards and backwards (one per
     block) or `chunk` chunk forwards and backwards (the ring's, per block
     times chunk calls), `lse` counts and lse forwards and backwards; per eval
-    batch the forwards alone. With graphs (`graph_counts`, read with
+    batch the forwards alone. With `remat` a step runs each forward twice
+    (the recompute in the backward). With graphs (`graph_counts`, read with
     `counts`), every step and eval batch must be a replay, and each replay
     counts the launches its capture recorded; a capture's warm-up runs are
     steps too, and add theirs."""
@@ -1415,9 +1446,10 @@ def check_step_launches(kc: Counts, steps: int, eval_batches: int, counts: dict,
             n += g["warmup_runs"]
         runs[name] = n
     tr, ev = runs["train"], runs["eval"]
+    fwd = (2 if remat else 1) * tr
     per = kc.per_step(attn, chunk, lse)
     want = dict(zip(kc.read(), (
-        per[0] * (tr + ev), per[1] * tr, lse * tr, lse * tr, lse * tr, per[5] * (tr + ev),
+        per[0] * (fwd + ev), per[1] * tr, lse * tr, lse * tr, lse * tr, per[5] * (fwd + ev),
         per[6] * tr,
     )))
     check(counts == want, f"launches {counts} != expected {want}")
@@ -1427,31 +1459,38 @@ def check_step_launches(kc: Counts, steps: int, eval_batches: int, counts: dict,
         "  no graphs: every step eager")
 
 
+def step_numbers(kc: Counts, fn, what: str, per_step: list, reps: int = 8, warm: int = 2,
+                 top: int = 6) -> dict:
+    """One form of a step (fn(i) taking batch i): the p50 of `reps` calls
+    synced each call after `warm` calls (a graphed form captures there), each
+    call's launches checked against `per_step` (a replay adds the launches
+    its capture recorded), device ms and idle share from torch.profiler.
+    -> {"p50", "device_ms", "idle", "launches"}"""
+    for i in range(warm):
+        fn(i)
+    torch.cuda.synchronize()
+    times = []
+    for i in range(reps):
+        before = kc.read()
+        t0 = time.perf_counter()
+        fn(i)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+        after = kc.read()
+        delta = [after[key] - before[key] for key in after]
+        check(delta == per_step, f"{what}: launches of one call {delta}, expected {per_step}")
+    p50 = float(np.percentile(times, 50))
+    dev, launches = profile_device(fn, reps=4, what=what, wall_ms=p50, top=top)
+    return dict(p50=p50, device_ms=dev, idle=max(0.0, 1 - dev / p50), launches=launches)
+
+
 def eager_and_graphed(kc: Counts, fns: dict, what: str, per_step: list, graphs, card: str,
                       reps: int = 8, warm: int = 2) -> dict:
     """The eager and the graphed form of one step ({"eager": fn, "graphed":
-    fn}, fn(i) taking batch i) side by side: the p50 of `reps` calls synced
-    each call, each call's launches (`per_step`; a replay adds the launches
-    its capture recorded), device ms and idle share from torch.profiler, and
-    the graphs captured. -> {mode: {"p50", "device_ms", "idle", "launches"}}"""
-    out = {}
-    for mode, fn in fns.items():
-        for i in range(warm):  # the graphed form captures each shape here
-            fn(i)
-        torch.cuda.synchronize()
-        times = []
-        for i in range(reps):
-            before = kc.read()
-            t0 = time.perf_counter()
-            fn(i)
-            torch.cuda.synchronize()
-            times.append(1e3 * (time.perf_counter() - t0))
-            after = kc.read()
-            delta = [after[key] - before[key] for key in after]
-            check(delta == per_step, f"{what}, {mode}: launches of one call {delta}")
-        p50 = float(np.percentile(times, 50))
-        dev, launches = profile_device(fn, reps=4, what=f"{what}, {mode}", wall_ms=p50, top=6)
-        out[mode] = dict(p50=p50, device_ms=dev, idle=max(0.0, 1 - dev / p50), launches=launches)
+    fn}) side by side (`step_numbers`), and the graphs captured.
+    -> {mode: {"p50", "device_ms", "idle", "launches"}}"""
+    out = {mode: step_numbers(kc, fn, f"{what}, {mode}", per_step, reps, warm)
+           for mode, fn in fns.items()}
     e, g = out["eager"], out["graphed"]
     log(f"{what}, eager | graphed, synced each call: p50 {e['p50']:.3f} | {g['p50']:.3f} ms; "
         f"device {e['device_ms']:.3f} | {g['device_ms']:.3f} ms in {e['launches']:.0f} | "
@@ -3197,7 +3236,8 @@ def train_family(kc: Counts, card: str, run: tuple, epochs: int, root: Path, out
     check(steps == epochs * per_epoch, f"{steps} optimizer steps, expected {epochs * per_epoch}")
     check(graph_counts.get("train") and graph_counts.get("eval"),
           f"{label}: the cli.train run did not replay graphed steps and eval batches")
-    check_step_launches(kc, steps, eval_batches, counts, graph_counts, attn=attn, lse=lse)
+    check_step_launches(kc, steps, eval_batches, counts, graph_counts, attn=attn, lse=lse,
+                        remat=cfg.model.encoder.remat)
     for name in ("best.pt", "last.pt"):
         check((rundir / "checkpoints" / name).exists(), f"{label}: no {name}")
     log(f"  test on the best checkpoint: ndcg@10 {test['test/ndcg@10']:.5f}, hr@10 "
@@ -3491,6 +3531,346 @@ def run_other_families_path(kc: Counts, card: str, ml1m: dict) -> dict:
     return total
 
 
+# ---------------------------------------------------------------- phase 19 (training variants)
+
+# remat reruns the same arithmetic: JAX tests/test_remat.py:52's tolerance
+REMAT_RTOL, REMAT_ATOL = 1e-5, 1e-6
+# the JAX package's 30-epoch test ndcg@10 band of ml-1m-hstu (PARITY.md, "Recipe
+# validation"), from a TPU v5e on synthetic ml-1m-shaped data: not this card's
+JAX_NDCG10_BAND = (0.037, 0.039)
+SEED_RUNS = (1, 2)  # trainer.seed of the two more ml-1m-hstu runs (the preset's is 42)
+REMAT_RUN = ("ml-1m-hstu remat", "ml-1m-hstu", ["model.encoder.remat=true"], 2, 1)
+# the kernels a profiled ml-1m-hstu step must show in its trace, by the
+# substrings of their names
+TRACED_KERNELS = ("hstu_attention_fwd_kernel", "hstu_attention_bwd_kernel",
+                  "count_offsets_kernel", "dense_neg_lse_fwd_kernel", "dense_neg_lse_bwd_kernel")
+
+
+def remat_pair(args: list, data=None) -> dict:
+    """Two trainers of `args`, without and with `encoder.remat` (the same
+    seed: the same weights, negatives and dropout streams), on one data."""
+    from mygenerativerecommenders_tpu_torch.cli import train as cli_train
+    from mygenerativerecommenders_tpu_torch.train.driver import Trainer
+
+    pair = {}
+    for mode in ("off", "on"):
+        trainer = Trainer(cli_train.parse_args(args + [
+            f"model.encoder.remat={mode == 'on'}", f"trainer.output_dir={OUT_DIR / 'remat'}"]),
+            data=data)
+        data = trainer.data
+        trainer.model.train()
+        pair[mode] = trainer
+    return pair
+
+
+def remat_against_plain(what: str, pair: dict, batch: dict, card: str) -> dict:
+    """The first graphed step of each trainer of the pair on `batch`'s shape
+    (two warm-up runs, the capture, one replay) from one dropout seed
+    (dropout 0.2), then each put back as it was (weights and optimizer
+    state: `training_state`): the loss and every gradient of the remat step
+    against the step without it at REMAT_RTOL / REMAT_ATOL. -> {mode: (peak
+    memory allocated over the call, the part of it over what was held
+    before)}: a replay allocates nothing, so the step's activations show
+    in its first call alone."""
+    from mygenerativerecommenders_tpu_torch.train.graphs import training_state
+
+    out, peaks = {}, {}
+    for mode, trainer in pair.items():
+        restore = training_state(list(trainer.model.parameters()), trainer.optimizer)()
+        torch.manual_seed(19)
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        loss = trainer.train_steps([batch], trainer.lr1)
+        torch.cuda.synchronize()
+        top = torch.cuda.max_memory_allocated()
+        peaks[mode] = (top, top - held)
+        out[mode] = (loss.clone(), {n: p.grad.detach().clone()
+                                    for n, p in trainer.model.named_parameters()})
+        restore()
+    (want_loss, want), (got_loss, got) = out["off"], out["on"]
+    ok, loss_err = within(got_loss, want_loss, REMAT_RTOL, 0.0)
+    check(ok, f"{what}: the remat step's loss {got_loss.item()} against {want_loss.item()}")
+    worst, worst_name, worst_rel = 0.0, "", 0.0
+    for name, g in want.items():
+        ok, err = within(got[name], g, REMAT_RTOL, REMAT_ATOL)
+        check(ok, f"{what}: the remat gradient of {name} differs by up to {err:.3e}")
+        if err > worst:
+            worst, worst_name = err, name
+            worst_rel = err / max(float(g.abs().max()), 1e-30)
+    log(f"{what}: remat against no remat, one graphed step, dropout "
+        f"{pair['on'].cfg.model.encoder.linear_dropout_rate}: loss {got_loss.item():.6f} | "
+        f"{want_loss.item():.6f} (|diff| {loss_err:.3e}); every gradient within rtol "
+        f"{REMAT_RTOL} / atol {REMAT_ATOL}, the largest |diff| {worst:.3e} ({worst_name}, "
+        f"{worst_rel:.3e} of its largest entry) on {card}")
+    return peaks
+
+
+def remat_long_classes(kc: Counts, card: str) -> None:
+    """ml-20m-hstu-long's packed classes, remat off against on: each class's
+    gradients (one graphed step each from the same state), then its graphed
+    step's p50, device ms, launches and peak memory."""
+    t0 = time.perf_counter()
+    pair = remat_pair(LONG_ARGS[:2] + ["data.synthetic_max_seq_len=1200",
+                                       "trainer.steps_per_call=8"])
+    trainer = pair["off"]
+    cfg = trainer.cfg
+    blocks = cfg.model.encoder.num_blocks
+    by_cap = {}
+    for batch in trainer._loader("train", packed=True):
+        by_cap.setdefault(batch["ids"].shape[1], []).append(batch)
+    check(sorted(by_cap) == sorted(cfg.data.pack_capacities), f"classes {sorted(by_cap)}")
+    log(f"remat on ml-20m-hstu-long: two trainers (encoder.remat false | true) built in "
+        f"{time.perf_counter() - t0:.2f} s: D={cfg.model.item_embedding_dim} blocks={blocks} "
+        f"H={cfg.model.encoder.num_heads}, classes {sorted(by_cap)}")
+    batches = {cap: [trainer._put(b) for b in host[:4]] for cap, host in by_cap.items()}
+    peaks = {cap: remat_against_plain(f"class {cap}", pair, batches[cap][0], card)
+             for cap in sorted(batches)}
+    rows = []
+    for cap in sorted(batches):
+        got = {}
+        for mode, t in pair.items():
+            per = kc.per_step(blocks, 0)
+            if mode == "on":
+                per[0] = 2 * blocks  # the recompute's forwards
+            bs = batches[cap]
+            got[mode] = step_numbers(
+                kc, lambda i, t=t, bs=bs: t.train_steps([bs[i % len(bs)]], t.lr1),
+                f"graphed train step, class {cap}, remat {mode} on {card}", per, top=4)
+            got[mode]["peak"], got[mode]["over"] = peaks[cap][mode]
+        off, on = got["off"], got["on"]
+        rows.append(
+            f"class {cap} ({by_cap[cap][0]['ids'].shape[0]} x {cap}): p50 {off['p50']:.3f} | "
+            f"{on['p50']:.3f} ms; device {off['device_ms']:.3f} | {on['device_ms']:.3f} ms "
+            f"(+{100 * (on['device_ms'] / off['device_ms'] - 1):.1f}%); launches "
+            f"{off['launches']:.0f} | {on['launches']:.0f}; peak {gb(off['peak'])} | "
+            f"{gb(on['peak'])} over its first call ({gb(off['over'])} | {gb(on['over'])} over "
+            f"what was held)")
+    log(f"remat off | on, graphed, on {card}:\n  " + "\n  ".join(rows))
+    del pair, batches, trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def remat_ring_step(kc: Counts, card: str) -> None:
+    """One zigzag ring step (sp_shards=4) at ml-20m-hstu-long's width, remat
+    off against on, held as the classes are."""
+    pair = remat_pair(RING_ARGS + [f"data.synthetic_num_users={RING_USERS}",
+                                   "trainer.steps_per_call=8"])
+    trainer = pair["off"]
+    block = trainer.model.sequence_encoder["_hstu"]._attention_layers[0]
+    check(block.sp_shards == 4 and block.sp_zigzag, "not the zigzag ring")
+    batch = trainer._put(next(iter(trainer.data.loader("train"))))
+    calls = kc.chunk.launches
+    peaks = remat_against_plain("zigzag ring step (sp_shards=4)", pair, batch, card)
+    blocks = trainer.cfg.model.encoder.num_blocks
+    per = blocks * ring_chunk_calls(4, True)
+    # each trainer's first call: two warm-up runs and the replay (the
+    # capture launches nothing); with remat every forward runs twice
+    want = (kc.graphs.WARMUP_RUNS + 1) * (per + 2 * per)
+    check(kc.chunk.launches - calls == want,
+          f"chunk forwards {kc.chunk.launches - calls}, expected {want}")
+    log(f"  zigzag ring step: {per} | {2 * per} chunk forwards a step, remat off | on; peak "
+        f"over its first graphed call {gb(peaks['off'][0])} | {gb(peaks['on'][0])} "
+        f"({gb(peaks['off'][1])} | {gb(peaks['on'][1])} over what was held) on {card}")
+    del pair, batch, trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def ml1m_remat_and_seeds(kc: Counts, card: str, ml1m: dict) -> dict:
+    """ml-1m-hstu from phase 15's files for 30 graphed epochs with
+    `encoder.remat=true`, and without it at two more seeds. -> launch counts."""
+    total, out = None, OUT_DIR / "variants"
+    base = ml1m["test"]["test/ndcg@10"]
+    counts, remat, _ = train_family(kc, card, REMAT_RUN, 30, ml1m["root"], out, "remat path")
+    total = add_counts(total, counts)
+    seeds = {}
+    for seed in SEED_RUNS:
+        run = (f"ml-1m-hstu seed {seed}", "ml-1m-hstu", [f"trainer.seed={seed}"], 2, 1)
+        counts, test, _ = train_family(kc, card, run, 30, ml1m["root"], out, "seeds")
+        seeds[seed] = test["test/ndcg@10"]
+        total = add_counts(total, counts)
+        check(test["test/ndcg@10"] >= MIN_FAMILY_NDCG10,
+              f"seed {seed}: test ndcg@10 {test['test/ndcg@10']} below {MIN_FAMILY_NDCG10}")
+    got = remat["test/ndcg@10"]
+    log(f"ml-1m-hstu, 30 graphed epochs on {card}, test ndcg@10: encoder.remat=true {got:.5f} "
+        f"beside no remat {base:.5f} (phase 15, seed 42); seeds "
+        + ", ".join(f"{s}: {v:.5f}" for s, v in seeds.items())
+        + f"; three seeds {np.mean([base, *seeds.values()]):.5f} +- "
+        f"{np.std([base, *seeds.values()]):.5f} (the JAX package's band "
+        f"{JAX_NDCG10_BAND[0]}-{JAX_NDCG10_BAND[1]}: TPU v5e, synthetic ml-1m-shaped data)")
+    check(JAX_NDCG10_BAND[0] <= got <= JAX_NDCG10_BAND[1],
+          f"the remat run's test ndcg@10 {got} is outside the band {JAX_NDCG10_BAND}")
+    return total
+
+
+def async_checkpoint_at_10m(card: str, data) -> None:
+    """synthetic-large-vocab's lazy overlay after two graphed steps: a
+    synchronous save and two async saves of the same state, timed (the
+    seconds the caller is blocked, and until the file has landed), then
+    both files read back and compared, tensor for tensor."""
+    import shutil
+    import tempfile
+
+    from mygenerativerecommenders_tpu_torch.checkpoint import CheckpointManager
+    from mygenerativerecommenders_tpu_torch.cli import train as cli_train
+    from mygenerativerecommenders_tpu_torch.train.driver import Trainer
+
+    trainer = Trainer(cli_train.parse_args(LARGE_ARGS + LAZY + [
+        "trainer.steps_per_call=8", f"trainer.output_dir={OUT_DIR / 'large_async'}"]), data=data)
+    trainer.model.train()
+    batches = [trainer._put(b) for _, b in zip(range(2), trainer.data.loader("train"))]
+    trainer.train_steps(batches, trainer.lr1)
+    torch.cuda.synchronize()
+    tmp = Path(tempfile.mkdtemp(prefix="large_async_", dir=OUT_DIR))
+    try:
+        state = dict(step=2, epoch=0, metric_value=0.0, extra=trainer._controller_state())
+        managers = {"sync": CheckpointManager(str(tmp / "sync")),
+                    "async": CheckpointManager(str(tmp / "async"), async_save=True)}
+        lines = []
+        for label, ckpt in [("sync", managers["sync"]), ("async, first", managers["async"]),
+                            ("async, second", managers["async"])]:
+            t0 = time.perf_counter()
+            ckpt.save(trainer.model, trainer.optimizer, **state)
+            blocked = time.perf_counter() - t0
+            ckpt.flush()
+            landed = time.perf_counter() - t0
+            lines.append(f"{label}: the loop blocked {blocked:.3f} s, the file landed after "
+                         f"{landed:.3f} s")
+        size = (tmp / "async" / "last.pt").stat().st_size
+        t0 = time.perf_counter()
+        sync = CheckpointManager.load(str(tmp / "sync" / "last.pt"))
+        got = CheckpointManager.load(str(tmp / "async" / "last.pt"))
+        compared = [0]
+
+        def same(a, b, where):
+            if isinstance(a, torch.Tensor):
+                check(a.dtype == b.dtype and torch.equal(a, b), f"async checkpoint: {where}")
+                compared[0] += a.numel() * a.element_size()
+            elif isinstance(a, dict):
+                check(a.keys() == b.keys(), f"async checkpoint: the keys of {where}")
+                for k in a:
+                    same(a[k], b[k], f"{where}.{k}")
+            elif isinstance(a, (list, tuple)):
+                check(len(a) == len(b), f"async checkpoint: {where}")
+                for i, (x, y) in enumerate(zip(a, b)):
+                    same(x, y, f"{where}[{i}]")
+            else:
+                check(a == b, f"async checkpoint: {where}: {a} != {b}")
+
+        same(sync, got, "state")
+        log(f"async checkpoint at 10M items on {card} ({gb(size)} a file: the table, mv, "
+            f"the AdamW state): " + "; ".join(lines) + f"; both files read back and equal, "
+            f"{gb(compared[0])} of tensors bit for bit, in {time.perf_counter() - t0:.2f} s")
+        del sync, got
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del trainer, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def one_epoch_knobs(kc: Counts, card: str, ml1m: dict) -> dict:
+    """ml-1m-hstu, one epoch each on phase 15's files: with the profiler
+    (the trace must name the port's kernels), with MLflow (its files must
+    hold every logged row) and TensorBoard (its scalars written, or the
+    named ValueError where neither package imports), and a 2-point
+    `cli.sweep` over optimizer1.lr. -> their launch counts."""
+    from mygenerativerecommenders_tpu_torch.cli import sweep as cli_sweep
+    from mygenerativerecommenders_tpu_torch.cli import train as cli_train
+
+    out = OUT_DIR / "knobs"
+    shutil.rmtree(out, ignore_errors=True)
+    base = ["experiment=ml-1m-hstu", f"data.data_dir={ml1m['root']}", "trainer.max_epochs=1",
+            "trainer.min_epochs=1"]
+    total = None
+
+    kc.reset()
+    t0 = time.perf_counter()
+    cli_train.main(base + [f"trainer.output_dir={out / 'profiler'}", "trainer.profiler=true"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    total = add_counts(total, kc.read())
+    trace = out / "profiler" / "ml-1m-hstu" / "profile" / "trace_epoch0.json"
+    check(trace.exists(), f"no profiler trace at {trace}")
+    events = json.loads(trace.read_text())["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    found = {k: sum(k in e.get("name", "") for e in kernels) for k in TRACED_KERNELS}
+    log(f"profiler run on {card}: cli.train, one epoch with trainer.profiler=true (one step "
+        f"a call) in {wall:.2f} s; {trace.name}: {len(events)} events, {len(kernels)} device "
+        f"kernels over steps 2-4, the port's by name: {found}")
+    check(all(found.values()), f"the trace does not name every kernel: {found}")
+
+    kc.reset()
+    args = base + [f"trainer.output_dir={out / 'loggers'}", f"trainer.mlflow_dir={out / 'mlruns'}",
+                   "trainer.log_every_n_steps=1"]
+    try:
+        cli_train.main(args + ["trainer.tensorboard=true"])
+        tb_dir = out / "loggers" / "ml-1m-hstu" / "tb"
+        records = sum(tfrecord_count(f) for f in tb_dir.iterdir())
+        tb = f"scalars written: {records} event records under {tb_dir.name}/"
+        check(records > 1, "no TensorBoard scalars")
+    except ValueError as error:
+        check("tensorboardX" in str(error), f"an unexpected ValueError: {error}")
+        tb = f"raised the named ValueError: {error}"
+        cli_train.main(args)
+    total = add_counts(total, kc.read())
+    rows = [json.loads(line) for line in
+            (out / "loggers" / "ml-1m-hstu" / "metrics.jsonl").read_text().splitlines()]
+    (run_dir,) = [d for d in (out / "mlruns" / "0").iterdir() if d.is_dir()]
+    logged = 0
+    for key in ("train/loss", "lr1", "val/ndcg@10", "test/ndcg@10"):
+        want = [(r["step"], r[key]) for r in rows if key in r]
+        lines = (run_dir / "metrics" / key.replace("/", ".")).read_text().splitlines()
+        got = [(int(s), float(v)) for _, v, s in (line.split() for line in lines)]
+        check(want and got == want, f"MLflow's {key} rows differ from metrics.jsonl's")
+        logged += len(got)
+    params = len(list((run_dir / "params").iterdir()))
+    log(f"loggers run on {card}: MLflow {params} params and {logged} metric lines of "
+        f"train/loss, lr1, val/ndcg@10 and test/ndcg@10, every row of metrics.jsonl; "
+        f"TensorBoard {tb}")
+
+    kc.reset()
+    t0 = time.perf_counter()
+    best = cli_sweep.main(base + ["sweep.optimizer1.lr=1e-3,5e-4",
+                                  f"trainer.output_dir={out / 'sweep'}"])
+    total = add_counts(total, kc.read())
+    table = (out / "sweep" / "sweep_results.csv").read_text().strip()
+    log(f"cli.sweep on {card}, 2 points of one epoch in {time.perf_counter() - t0:.2f} s; "
+        f"sweep_results.csv:\n  " + table.replace("\n", "\n  ") + f"\n  best: {best}")
+    check(len(table.splitlines()) == 3, "sweep_results.csv does not hold two runs")
+    return total
+
+
+def tfrecord_count(path: Path) -> int:
+    """The records of a TFRecord file (an 8-byte length, its CRC, the
+    record, its CRC), counted without a protobuf reader."""
+    data, i, n = path.read_bytes(), 0, 0
+    while i + 12 <= len(data):
+        (length,) = np.frombuffer(data[i:i + 8], dtype="<u8")
+        i += 12 + int(length) + 4
+        n += 1
+    return n
+
+
+def run_training_variants_path(kc: Counts, card: str, ml1m: dict, large_data) -> dict:
+    """Phase 19. -> the launch counts of its ml-1m runs."""
+    t0 = time.perf_counter()
+    remat_long_classes(kc, card)
+    remat_ring_step(kc, card)
+    t1 = time.perf_counter()
+    counts = ml1m_remat_and_seeds(kc, card, ml1m)
+    t2 = time.perf_counter()
+    async_checkpoint_at_10m(card, large_data)
+    t3 = time.perf_counter()
+    counts = add_counts(counts, one_epoch_knobs(kc, card, ml1m))
+    log(f"phase 19 took {time.perf_counter() - t0:.1f} s: remat on ml-20m-hstu-long "
+        f"{t1 - t0:.1f} s, the three 30-epoch ml-1m runs {t2 - t1:.1f} s, async checkpoints "
+        f"{t3 - t2:.1f} s, the one-epoch runs {time.perf_counter() - t3:.1f} s")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on an NVIDIA card",
@@ -3652,7 +4032,6 @@ def main() -> int:
     large_vocab_card_against_cpu(large_data)
     large_vocab_graphed_against_eager(large_data)
     log(f"phase 13 took {t1 - t0:.1f} s, phase 14 {time.perf_counter() - t1:.1f} s")
-    del large_data
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -3699,6 +4078,10 @@ def main() -> int:
     family_card_against_cpu(ml1m_run["root"], runs=(ITEM_YEAR_RUN, MOL_RUN))
     log(f"phase 18 took {time.perf_counter() - t0:.1f} s ({t1 - t0:.1f} s of it the five "
         f"cli.train runs and the .ckpt read)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    variant_counts = run_training_variants_path(kc, kind, ml1m_run, large_data)
+    del large_data
 
     # no PyTorch call computes HSTU's silu attention with this bias, its
     # backward, or a count-weighted log-sum-exp over a matrix product that is
@@ -3709,16 +4092,18 @@ def main() -> int:
         # 1-2 and the X=3,883 rows also phase 16's Muon and Scion runs,
         # phase 17's (rows 1-2: aux, in-batch, BCE; X=3,883: aux, SASRec)
         # and phase 18's (rows 1-2: item_year, MoL, layer_norm; X=3,883:
-        # item_year, layer_norm, softmax_rel_bias, SASRec with Muon)
+        # item_year, layer_norm, softmax_rel_bias, SASRec with Muon) and
+        # phase 19's (rows 1-5 at X=3,883: ml-1m-hstu with remat, at two
+        # more seeds, with the profiler, the loggers, the sweep's two runs)
         dict(name=kern.KERNEL, source=kern.SOURCE, replaces=kern.REPLACES,
              launches=serving_launches + sum(c[kern.KERNEL] for c in (
                  train_counts, long_counts, real_ml1m, real_others, split_counts,
-                 family_counts, other_counts)),
+                 family_counts, other_counts, variant_counts)),
              library_ms=None, **serving),
         dict(name=kern.KERNEL_BWD, source=kern.SOURCE_BWD, replaces=kern.REPLACES_BWD,
              launches=sum(c[kern.KERNEL_BWD] for c in (
                  train_counts, long_counts, real_ml1m, real_others, split_counts,
-                 family_counts, other_counts)),
+                 family_counts, other_counts, variant_counts)),
              library_ms=None, **attn_bwd),
         # rows 1-2 at the ranking shape R; their launches are the ranking run's
         dict(name=kern.KERNEL + " (ranking shape R)", source=kern.SOURCE,
@@ -3750,17 +4135,17 @@ def main() -> int:
         dict(name=count_kern.KERNEL + " (ml-1m files, X=3883)", source=count_kern.SOURCE,
              replaces=count_kern.REPLACES,
              launches=sum(c[count_kern.KERNEL] for c in (
-                 real_ml1m, split_counts, family_counts, other_counts)),
+                 real_ml1m, split_counts, family_counts, other_counts, variant_counts)),
              **counted_ml1m),
         dict(name=lse_kern.KERNEL + " (ml-1m files, X=3883)", source=lse_kern.SOURCE,
              replaces=lse_kern.REPLACES,
              launches=sum(c[lse_kern.KERNEL] for c in (
-                 real_ml1m, split_counts, family_counts, other_counts)),
+                 real_ml1m, split_counts, family_counts, other_counts, variant_counts)),
              library_ms=None, **lse_fwd_ml1m),
         dict(name=lse_kern.KERNEL_BWD + " (ml-1m files, X=3883)", source=lse_kern.SOURCE,
              replaces=lse_kern.REPLACES_BWD,
              launches=sum(c[lse_kern.KERNEL_BWD] for c in (
-                 real_ml1m, split_counts, family_counts, other_counts)),
+                 real_ml1m, split_counts, family_counts, other_counts, variant_counts)),
              library_ms=None, **lse_bwd_ml1m),
         # the same entry point over the ml-20m catalog, wider than one x-block
         # of the TPU kernels: its launches are the long path's, its numbers

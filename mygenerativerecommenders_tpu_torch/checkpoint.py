@@ -67,13 +67,26 @@ last step, graph replays included: each replay advances the default CUDA
 generator (dropout) by the captured step's draws, and the negatives are drawn
 outside the graphs. It replaces the JAX package's orbax manager
 (train/checkpoint.py).
+
+With `async_save` (`trainer.async_checkpoint`, JAX train/checkpoint.py:22-131)
+a save copies the whole state to host memory before it returns (into pinned
+buffers kept from one save to the next, a non-blocking copy from the card
+and one wait on it), then a background thread writes that copy with
+`torch.save`, renames it over `last.pt` and links `best.pt`, as the
+synchronous save does. The thread reads only the host copy, never a live
+parameter or optimizer tensor (graph replays update those in place), and a
+crash before its rename leaves the previous file whole. `flush` waits for
+the write in flight (raising what it raised): each save calls it, and the
+trainer calls it before it reads a checkpoint (resume, `test`, `cli.eval`)
+and at the end of `fit`.
 """
 
 from __future__ import annotations
 
 import logging
 import os
-from typing import Any, Dict, Mapping, Optional
+import threading
+from typing import Any, Dict, List, Mapping, Optional
 
 import numpy as np
 import torch
@@ -264,9 +277,10 @@ def load_weights(model: torch.nn.Module, path: str, map_location: Any = "cpu") -
 
 class CheckpointManager:
     """Writes `last.pt` at every save and `best.pt` when the monitored metric
-    improves."""
+    improves; with `async_save` the writing runs in a background thread."""
 
-    def __init__(self, ckpt_dir: str, monitor: str = "val/ndcg@100", mode: str = "max"):
+    def __init__(self, ckpt_dir: str, monitor: str = "val/ndcg@100", mode: str = "max",
+                 async_save: bool = False):
         self.ckpt_dir = os.path.abspath(ckpt_dir)
         os.makedirs(self.ckpt_dir, exist_ok=True)
         self.monitor = monitor
@@ -274,6 +288,10 @@ class CheckpointManager:
         self.best_value: Optional[float] = None
         self.best_path: Optional[str] = None
         self.last_path = os.path.join(self.ckpt_dir, "last.pt")
+        self.async_save = async_save
+        self._host: List[torch.Tensor] = []  # the host copies' buffers, in walk order
+        self._writer: Optional[threading.Thread] = None
+        self._error: Optional[Exception] = None
 
     def _is_better(self, value: float) -> bool:
         if self.best_value is None:
@@ -290,6 +308,7 @@ class CheckpointManager:
         metric_value: Optional[float] = None,
         extra: Optional[Dict[str, Any]] = None,
     ) -> None:
+        self.flush()
         state = {
             "model": model.state_dict(),
             "optimizer": optimizer.state_dict(),
@@ -299,12 +318,71 @@ class CheckpointManager:
             "metric_value": metric_value,
             "extra": extra or {},
         }
+        best = metric_value is not None and self._is_better(metric_value)
+        if best:
+            self.best_value = metric_value
+            self.best_path = os.path.join(self.ckpt_dir, "best.pt")
+        if not self.async_save:
+            self._write(state, best)
+            return
+        state = self._host_copy(state)
+        self._writer = threading.Thread(target=self._write_in_background, args=(state, best),
+                                        name="checkpoint-writer")
+        self._writer.start()
+
+    def flush(self) -> None:
+        """Wait for the save in flight, if any; raise what its write raised."""
+        if self._writer is not None:
+            self._writer.join()
+            self._writer = None
+        if self._error is not None:
+            error, self._error = self._error, None
+            raise RuntimeError(f"the background checkpoint write to {self.last_path} "
+                               "failed") from error
+
+    def _host_copy(self, state: Dict[str, Any]) -> Dict[str, Any]:
+        """`state` with every tensor copied into a host buffer of its own
+        (pinned where the tensor is on the card), waited for before it
+        returns. The buffers are reused from save to save: the state's
+        structure does not change within a run, and `flush` has ended the
+        last write before they are written again."""
+        buffers = iter(self._host)
+        made: List[torch.Tensor] = []
+        copied_from_card = False
+
+        def walk(obj: Any) -> Any:
+            nonlocal copied_from_card
+            if isinstance(obj, torch.Tensor):
+                buf = next(buffers, None)
+                if buf is None or buf.shape != obj.shape or buf.dtype != obj.dtype:
+                    buf = torch.empty(obj.shape, dtype=obj.dtype,
+                                      pin_memory=obj.device.type == "cuda")
+                made.append(buf)
+                copied_from_card |= obj.device.type == "cuda"
+                return buf.copy_(obj.detach(), non_blocking=obj.device.type == "cuda")
+            if isinstance(obj, dict):
+                return {k: walk(v) for k, v in obj.items()}
+            if isinstance(obj, (list, tuple)):
+                return type(obj)(walk(v) for v in obj)
+            return obj
+
+        state = walk(state)
+        self._host = made
+        if copied_from_card:
+            torch.cuda.synchronize()
+        return state
+
+    def _write_in_background(self, state: Dict[str, Any], best: bool) -> None:
+        try:
+            self._write(state, best)
+        except Exception as error:  # handed to the trainer's thread by flush
+            self._error = error
+
+    def _write(self, state: Dict[str, Any], best: bool) -> None:
         tmp = self.last_path + ".tmp"
         torch.save(state, tmp)
         os.replace(tmp, self.last_path)  # a reader never sees half a file
-        if metric_value is not None and self._is_better(metric_value):
-            self.best_value = metric_value
-            self.best_path = os.path.join(self.ckpt_dir, "best.pt")
+        if best:
             try:
                 # the next save replaces `last` by another file: this one stays `best`
                 os.link(self.last_path, tmp)

@@ -47,6 +47,7 @@ def main(argv: Optional[list[str]] = None) -> float:
     trainer = Trainer(cfg)
     results = trainer.fit()
     test_results = trainer.test()
+    trainer.writer.close()
     log.info(f"test: {test_results}")
     monitor_key = cfg.trainer.monitor.split("/", 1)[-1]
     return results.get(monitor_key, 0.0)

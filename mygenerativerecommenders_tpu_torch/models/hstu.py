@@ -40,8 +40,22 @@ Parameter names follow the reference checkpoint
 the bias tables ~ N(0, 0.02), the output projection Xavier-uniform with a
 zero bias. Under `model.train()` the block drops out the output
 projection's input at `linear_dropout_rate` (`nn.Dropout`, drawn from the
-device's generator); attention dropout is 0.0 in every preset and a
-non-zero rate raises.
+device's generator).
+
+`remat=True` (JAX :383-388, `nn.remat` of each block) runs each block under
+`torch.utils.checkpoint` (non-reentrant) wherever grad is enabled: the
+block's activations are dropped after its forward and recomputed inside its
+backward, where the attention's autograd Function (rows 1-2 or, on the ring,
+9-10) runs its forward kernel a second time. Checkpoint stashes the device's
+RNG state before the block and puts it back for the recompute, so the
+recompute draws the first forward's dropout mask, and the stream after it is
+the one without remat: the same masks, the same gradients. On torch 2.11
+this holds inside a CUDA graph capture too (a captured step's recompute drew
+its forward's masks in every replay, PERF.md PR 19). The fused attention
+saves only q, k and v, never the [B*H, N, N] scores that JAX's remat exists
+to drop: here remat drops the O(N*D) activations of each block (its
+LayerNorm, the uvqk projection and its silu, the attention output, its
+LayerNorm, u * LN, the dropout mask).
 """
 
 from __future__ import annotations
@@ -50,6 +64,7 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from mygenerativerecommenders_tpu_torch import not_ported
@@ -109,13 +124,10 @@ class HSTUBlock(nn.Module):
         eps: float = 1e-6,
         generator: Optional[torch.Generator] = None,
         dropout_rate: float = 0.0,
-        attn_dropout_rate: float = 0.0,
         sp_shards: int = 1,
         sp_zigzag: bool = False,
     ):
         super().__init__()
-        if attn_dropout_rate != 0.0:
-            raise not_ported(f"encoder.attn_dropout_rate={attn_dropout_rate}", "Training variants")
         if normalization not in ("rel_bias", "hstu_rel_bias", "softmax_rel_bias"):
             raise ValueError(f"Unknown normalization {normalization}")
         if normalization == "softmax_rel_bias" and sp_shards > 1:
@@ -283,13 +295,11 @@ class HSTU(nn.Module):
         sp_zigzag: bool = False,
         generator: Optional[torch.Generator] = None,
         linear_dropout_rate: float = 0.0,
-        attn_dropout_rate: float = 0.0,
     ):
         super().__init__()
         if tp_shards > 1:
             raise not_ported("encoder.tp_shards > 1", "Distributed")
-        if remat:
-            raise not_ported("encoder.remat", "Training variants")
+        self.remat = remat
         n_total = max_sequence_len + max_output_len
         self._attention_layers = nn.ModuleList(
             HSTUBlock(
@@ -306,7 +316,6 @@ class HSTU(nn.Module):
                 concat_ua=concat_ua,
                 generator=generator,
                 dropout_rate=linear_dropout_rate,
-                attn_dropout_rate=attn_dropout_rate,
                 sp_shards=sp_shards,
                 sp_zigzag=sp_zigzag,
             )
@@ -338,7 +347,15 @@ class HSTU(nn.Module):
         n = x.shape[1]
         pos1 = torch.arange(1, n + 1, dtype=torch.int32, device=x.device)
         kernel_lengths = (valid_mask[:, :, 0].to(torch.int32) * pos1).amax(dim=1)
+        remat = self.remat and kv is None and torch.is_grad_enabled()
         for block in self._attention_layers:
             x = x * mask  # padded rows stay exactly zero
-            x = block(x, timestamps, kernel_lengths, seg_pos, kv)
+            if remat:
+                # preserve_rng_state: the recompute draws the forward's mask
+                x = torch.utils.checkpoint.checkpoint(
+                    block, x, timestamps, kernel_lengths, seg_pos,
+                    use_reentrant=False, preserve_rng_state=True,
+                )
+            else:
+                x = block(x, timestamps, kernel_lengths, seg_pos, kv)
         return x * mask

@@ -113,6 +113,19 @@ class GenerativeRecommender(nn.Module):
             p.rating_embedding_dim if p.kind == "learnable_positional_rated" else 0
         )
         enc = m.encoder
+        if enc.attn_dropout_rate != 0.0:
+            # JAX's HSTU takes the field and never reads it; its SASRec is
+            # not given it (model.py:169, :183-190)
+            raise ValueError(
+                f"encoder.attn_dropout_rate={enc.attn_dropout_rate}: the reference ignores "
+                "this field (neither of its encoders applies attention dropout); set it to 0.0"
+            )
+        if enc.kind == "sasrec" and enc.remat:
+            # JAX passes remat to the HSTU encoder only (model.py:180)
+            raise ValueError(
+                "encoder.remat=true with encoder.kind=sasrec: the reference ignores remat "
+                "for SASRec (only its HSTU encoder rematerialises); set encoder.remat=false"
+            )
         if enc.kind == "sasrec":
             # keyed "_sasrec"; the JAX wiring (:182-192): the linear dropout
             # rate, ffn_hidden_dim (resolved to D when 0), max_sequence_len unread
@@ -192,7 +205,6 @@ class GenerativeRecommender(nn.Module):
             sp_zigzag=enc.sp_zigzag,
             generator=generator,
             linear_dropout_rate=enc.linear_dropout_rate,
-            attn_dropout_rate=enc.attn_dropout_rate,
         )})
 
     def item_embeddings(self, ids: torch.Tensor) -> torch.Tensor:

@@ -38,9 +38,17 @@ matrices first, JAX :189-210). A `trainer.monitor` that the eval does not
 compute raises in `fit` (the JAX trainer then silently writes no checkpoint
 and steps no controller). `model.task=ranking` (train/task_ranking.py) trains
 padded or packed, one or k steps a call as retrieval does, and evaluates
-padded rows only: its eval splits are never packed. The mesh
-(`trainer.num_devices` > 1), the multi-process loader and the profiler hooks
-raise.
+padded rows only: its eval splits are never packed.
+`trainer.async_checkpoint` writes the checkpoints in a background thread
+after a synchronous copy to host memory (checkpoint.py), waited for before
+the next save, before a checkpoint is read and at the end of `fit`.
+`trainer.profiler` (JAX :599-628) runs the train steps one a call and traces
+steps 2-4 of epoch 0 with torch.profiler (CPU and, on the card, CUDA
+activity) into a Chrome trace under `<out_dir>/profile/`.
+`trainer.mlflow_dir` logs the flattened config as MLflow params (JAX
+:332-344) beside every metrics row (train/loggers.py). A scheduler kind that
+JAX ignores (`cosine`: JAX steps only a plateau controller) raises. The mesh
+(`trainer.num_devices` > 1) and the multi-process loader raise.
 """
 
 from __future__ import annotations
@@ -55,7 +63,7 @@ import torch
 
 from mygenerativerecommenders_tpu_torch import not_ported
 from mygenerativerecommenders_tpu_torch.checkpoint import CheckpointManager, load_weights
-from mygenerativerecommenders_tpu_torch.configs import Config, resolve
+from mygenerativerecommenders_tpu_torch.configs import Config, resolve, to_dict
 from mygenerativerecommenders_tpu_torch.data.dataset import (
     BatchLoader,
     RecoData,
@@ -87,6 +95,18 @@ log = get_logger(__name__)
 Loader = Union[BatchLoader, PackedBatchLoader]
 
 
+def _flatten(tree: Dict[str, Any], prefix: str = "") -> Dict[str, Any]:
+    """{"a": {"b": 1}} -> {"a.b": 1}."""
+    flat: Dict[str, Any] = {}
+    for k, v in tree.items():
+        key = f"{prefix}.{k}" if prefix else k
+        if isinstance(v, dict):
+            flat.update(_flatten(v, key))
+        else:
+            flat[key] = v
+    return flat
+
+
 def resolve_device(name: str) -> torch.device:
     device = torch.device(name)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -106,13 +126,15 @@ class Trainer:
         self.device = resolve_device(t.device)
         if t.distributed or t.num_devices > 1:
             raise not_ported("trainer.distributed / num_devices > 1", "Distributed")
-        if t.profiler:
-            raise not_ported("trainer.profiler", "Training variants")
-        if t.async_checkpoint:
-            raise not_ported("trainer.async_checkpoint", "Training variants")
         for name, sched in (("scheduler1", cfg.scheduler1), ("scheduler2", cfg.scheduler2)):
             if sched.kind not in ("plateau", "none"):
-                raise not_ported(f"{name}.kind={sched.kind}", "Training variants")
+                # JAX builds a controller for plateau alone (driver.py:304-323)
+                # and keeps every other kind's rate constant, without a word
+                raise ValueError(
+                    f"{name}.kind={sched.kind}: the reference ignores this kind (it steps a "
+                    "plateau controller only and otherwise keeps the rate constant); set "
+                    f"{name}.kind to plateau or none"
+                )
         self.data = data or RecoData(cfg.data, seed=t.seed)
         resolve(cfg, self.data.max_item_id)
         if cfg.model.preprocessor.kind == "learnable_positional_aux":
@@ -172,10 +194,14 @@ class Trainer:
         self.early_stop = EarlyStopping(mode=t.mode, patience=t.early_stop_patience)
         self.out_dir = os.path.join(t.output_dir, cfg.experiment)
         self.writer = MetricsWriter(
-            self.out_dir, enable_tensorboard=t.tensorboard, mlflow_dir=t.mlflow_dir
+            self.out_dir, enable_tensorboard=t.tensorboard, mlflow_dir=t.mlflow_dir,
+            experiment=cfg.experiment,
         )
+        if self.writer.mlflow is not None:
+            self.writer.mlflow.log_params(_flatten(to_dict(cfg)))
         self.ckpt = CheckpointManager(
-            os.path.join(self.out_dir, "checkpoints"), monitor=t.monitor, mode=t.mode
+            os.path.join(self.out_dir, "checkpoints"), monitor=t.monitor, mode=t.mode,
+            async_save=t.async_checkpoint,
         )
         self.global_step = 0
         self.epoch = 0
@@ -347,13 +373,22 @@ class Trainer:
             limit = max(1, int(len(loader) * t_cfg.limit_train_batches))
 
         self.model.train()
-        if self.train_steps is not None:
+        # the profiler's trace needs a step a call (JAX :600-601)
+        if self.train_steps is not None and not t_cfg.profiler:
             return self._train_epoch_multi(loader, limit, self.steps_per_call)
         start = time.time()
         examples = 0
         loss = None
-        for batch, dev_batch in self._batches(loader, limit):
+        profiler = None
+        for i, (batch, dev_batch) in enumerate(self._batches(loader, limit)):
+            # steps 2-4 of epoch 0 (the reference's debug=profiler Lightning
+            # profile, configs/debug/profiler.yaml)
+            if t_cfg.profiler and self.epoch == 0 and i == 2:
+                profiler = self._start_profiler()
             loss = self.train_step(dev_batch, self.lr1, self.lr2)
+            if profiler is not None and i == 4:
+                self._stop_profiler(profiler)
+                profiler = None
             self.global_step += 1
             examples += self._examples(batch)
             if self.global_step % t_cfg.log_every_n_steps == 0:
@@ -363,6 +398,8 @@ class Trainer:
                     self.global_step,
                     self.epoch,
                 )
+        if profiler is not None:  # an epoch of fewer than five steps
+            self._stop_profiler(profiler)
         final = float(loss)  # one more read per epoch, for the summary
         dt = time.time() - start
         self.epoch_examples = examples
@@ -371,6 +408,26 @@ class Trainer:
             f"({examples / max(dt, 1e-9):.0f} ex/s)"
         )
         return final
+
+    def _start_profiler(self) -> torch.profiler.profile:
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        profiler = torch.profiler.profile(activities=activities)
+        profiler.start()
+        return profiler
+
+    def _stop_profiler(self, profiler: torch.profiler.profile) -> None:
+        """Stop after the traced steps have finished on the device, and
+        write the Chrome trace."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        profiler.stop()
+        profile_dir = os.path.join(self.out_dir, "profile")
+        os.makedirs(profile_dir, exist_ok=True)
+        path = os.path.join(profile_dir, f"trace_epoch{self.epoch}.json")
+        profiler.export_chrome_trace(path)
+        log.info(f"wrote profiler trace to {path}")
 
     def _train_epoch_multi(self, loader: Loader, limit: int, k: int) -> float:
         """The epoch in calls of k steps (the shape changes and the epoch's
@@ -524,6 +581,7 @@ class Trainer:
                 if self.epoch + 1 >= t.min_epochs and self.early_stop.step(metric):
                     log.info(f"early stopping at epoch {self.epoch}")
                     break
+        self.ckpt.flush()  # the last save has landed when fit returns
         return last_results
 
     def load_weights(self, path: str) -> None:
@@ -533,6 +591,7 @@ class Trainer:
         log.info(f"loaded checkpoint {path}")
 
     def test(self, ckpt_path: Optional[str] = None) -> Dict[str, float]:
+        self.ckpt.flush()  # best.pt may be in flight
         path = ckpt_path or self.ckpt.best_path
         if path and os.path.exists(str(path)):
             self.load_weights(path)
@@ -606,6 +665,7 @@ class Trainer:
         }
 
     def restore(self, path: str) -> None:
+        self.ckpt.flush()
         state = CheckpointManager.load(path, self.device)
         self.model.load_state_dict(state["model"])
         # a split optimizer's parts, the lazy table's mv and count: each its own

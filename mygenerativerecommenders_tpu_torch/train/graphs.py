@@ -26,6 +26,12 @@ the step's inputs, and a tag such as the model's mode). Each graph has
 
 A capture that fails raises; nothing falls back to the eager step.
 
+A remat model (`encoder.remat`, models/hstu.py) is captured the same way: each
+block's recompute runs inside the backward, so it is part of the graph, and a
+replay launches each block's attention forward twice (the capture's counts
+record both). Checkpoint's stash of the default generator's state under
+capture gives the recompute the masks its replay's forward drew.
+
 The kernel wrappers count their launches in Python (`launches += 1`), which a
 replay does not run. The counts taken while capturing are given back (a
 capture launches nothing) and added again at every replay. `counts` keeps the

@@ -42,7 +42,10 @@ from mygenerativerecommenders_tpu_torch.serving.service import ServingEngine
 from mygenerativerecommenders_tpu_torch.train.driver import Trainer
 from mygenerativerecommenders_tpu_torch.utils.features import seq_features_from_batch
 from tests import torch_port_families as fam
-from tests.torch_port_families import one_torch_thread  # noqa: F401  (a fixture)
+from tests.torch_port_threads import one_torch_thread  # noqa: F401  (a fixture)
+
+# every test's torch ops on one thread (tests/torch_port_threads.py)
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 COLUMNS = ("sex", "age_group", "occupation", "zip_code")
 

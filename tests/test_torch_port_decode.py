@@ -48,6 +48,10 @@ from mygenerativerecommenders_tpu_torch.serving.service import (
 from mygenerativerecommenders_tpu_torch.utils.features import (
     seq_features_from_batch as pt_seq_features,
 )
+from tests.torch_port_threads import one_torch_thread  # noqa: F401  (a fixture)
+
+# every test's torch ops on one thread (tests/torch_port_threads.py)
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 RTOL, ATOL = 2e-4, 2e-5
 MAX_ID = 80  # catalog ids 1..80

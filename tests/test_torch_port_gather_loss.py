@@ -26,6 +26,10 @@ from mygenerativerecommenders_tpu_torch.train import task_retrieval as pt_task
 from tests.test_torch_port_packing_model import _setup as _packed_setup
 from tests.test_torch_port_packing_model import _widest
 from tests.test_torch_port_train_step import _np_tree, _setup, _torch_batch
+from tests.torch_port_threads import one_torch_thread  # noqa: F401  (a fixture)
+
+# every test's torch ops on one thread (tests/torch_port_threads.py)
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 LOSS_RTOL, GRAD_RTOL, GRAD_ATOL = 1e-5, 5e-4, 1e-6
 

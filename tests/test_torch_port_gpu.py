@@ -548,6 +548,14 @@ _GRAPH_CASES = {
     "layer-norm": ["model.postprocessor.kind=layer_norm"],
     "sasrec-muon": ["model.encoder.kind=sasrec", "optimizer2.enabled=true",
                     "optimizer2.kind=muon", "optimizer2.lr=5e-3"],
+    # per-block remat: each block's recompute (with its forward's dropout
+    # mask, checkpoint's stashed RNG state) inside the one replay; padded,
+    # packed, and both ring layouts through the chunk kernels
+    "remat": ["model.encoder.remat=true"],
+    "remat-packed": ["model.encoder.remat=true", "data.pack_sequences=true"],
+    "remat-ring": ["model.encoder.remat=true", "model.encoder.sp_shards=4",
+                   "model.encoder.sp_zigzag=true"],
+    "remat-ring-contiguous": ["model.encoder.remat=true", "model.encoder.sp_shards=4"],
 }
 # one step for the bfloat16 Newton-Schulz cases: from the second step on the
 # bias tables' float atomics (which differ run to run, eager against eager)
@@ -606,6 +614,83 @@ def test_graphed_steps_follow_the_eager_steps_on_card(tmp_path, case):
     for name, want in p_eager.items():
         np.testing.assert_allclose(p_graphed[name].numpy(), want.numpy(), rtol=5e-4, atol=1e-6,
                                    err_msg=name)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["padded", "packed", "ring"])
+def test_graphed_remat_step_gives_the_graphed_gradients_without_remat_on_card(tmp_path, case):
+    """One graphed step with and without remat from the same weights, batch,
+    negatives and dropout seed (0.2): the loss and every gradient at rtol
+    1e-5 / atol 1e-6 (JAX tests/test_remat.py:52); the remat step launches
+    the attention forward twice a block."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA)")
+    from mygenerativerecommenders_tpu_torch.train import graphs
+
+    runs = []
+    for remat in ("false", "true"):
+        trainer = _card_trainer(tmp_path / remat, case, 2, f"model.encoder.remat={remat}")
+        trainer.model.train()
+        batch = trainer._put(next(iter(trainer._loader("train", case == "packed"))))
+        torch.manual_seed(11)
+        graphs.counts.clear()
+        before = (kern.launches, chunk_kern.launches)
+        loss = trainer.train_steps([batch], trainer.lr1)
+        torch.cuda.synchronize()
+        forwards = (kern.launches - before[0]) + (chunk_kern.launches - before[1])
+        # the capture's warm-up runs and the replay
+        forwards //= graphs.WARMUP_RUNS + 1
+        runs.append((loss.cpu().numpy(), forwards,
+                     {n: p.grad.detach().cpu() for n, p in trainer.model.named_parameters()}))
+    (want_loss, want_fwd, want), (got_loss, got_fwd, got) = runs
+    assert got_fwd == 2 * want_fwd > 0
+    np.testing.assert_allclose(got_loss, want_loss, rtol=1e-5)
+    for name, g in want.items():
+        np.testing.assert_allclose(got[name].numpy(), g.numpy(), rtol=1e-5, atol=1e-6,
+                                   err_msg=name)
+
+
+@pytest.mark.gpu
+def test_async_save_under_graph_replays_writes_the_state_of_its_call_on_card(tmp_path,
+                                                                              monkeypatch):
+    """An async save between graphed steps: the replays that follow update the
+    parameters and moments in place while the write waits, and the file holds
+    the state of the save's call, bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA)")
+    import threading
+
+    from mygenerativerecommenders_tpu_torch.checkpoint import CheckpointManager
+
+    gate = threading.Event()
+    save = torch.save
+
+    def held(obj, f, *args, **kwargs):
+        if threading.current_thread().name == "checkpoint-writer":
+            assert gate.wait(60)
+        save(obj, f, *args, **kwargs)
+
+    monkeypatch.setattr(torch, "save", held)
+    trainer = _card_trainer(tmp_path, "remat", 2, "trainer.async_checkpoint=true")
+    trainer.model.train()
+    batches = [trainer._put(b) for _, b in zip(range(4), trainer._loader("train"))]
+    trainer.train_steps(batches[:2], trainer.lr1)
+    want_model = {k: v.detach().cpu().clone() for k, v in trainer.model.state_dict().items()}
+    want_moments = [trainer.optimizer.state[p]["exp_avg"].cpu().clone()
+                    for p in trainer.model.parameters()]
+    trainer.ckpt.save(trainer.model, trainer.optimizer, step=2, epoch=0, metric_value=0.0)
+    trainer.train_steps(batches[2:], trainer.lr1)  # replays while the write waits
+    torch.cuda.synchronize()
+    gate.set()
+    trainer.ckpt.flush()
+    saved = CheckpointManager.load(trainer.ckpt.last_path)
+    moved = False
+    for key, want in want_model.items():
+        assert torch.equal(saved["model"][key], want), key
+        moved |= not torch.equal(trainer.model.state_dict()[key].cpu(), want)
+    assert moved
+    for i, want in enumerate(want_moments):
+        assert torch.equal(saved["optimizer"]["state"][i]["exp_avg"], want)
 
 
 @pytest.mark.gpu

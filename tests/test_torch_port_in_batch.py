@@ -32,6 +32,10 @@ from mygenerativerecommenders_tpu_torch.train import task_retrieval as pt_task
 from tests import torch_port_families as fam
 from tests.test_torch_port_packing_model import _setup as _packed_setup
 from tests.test_torch_port_packing_model import _widest
+from tests.torch_port_threads import one_torch_thread  # noqa: F401  (a fixture)
+
+# every test's torch ops on one thread (tests/torch_port_threads.py)
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 IN_BATCH = (("model.sampler.kind", "in_batch"),)
 GATHER = dict(grad_rtol=fam.GATHER_GRAD_RTOL, grad_atol=fam.GATHER_GRAD_ATOL)

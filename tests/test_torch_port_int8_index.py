@@ -35,6 +35,10 @@ from mygenerativerecommenders_tpu_torch.ops.topk import NEG_INF, mips_top_k, top
 from mygenerativerecommenders_tpu_torch.serving.service import ServingEngine
 from mygenerativerecommenders_tpu_torch.train import task_retrieval as pt_task
 from tests.test_torch_port_train_step import _np_tree, _setup, _torch_batch
+from tests.torch_port_threads import one_torch_thread  # noqa: F401  (a fixture)
+
+# every test's torch ops on one thread (tests/torch_port_threads.py)
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 ATOL = 1e-5
 

@@ -42,6 +42,10 @@ from mygenerativerecommenders_tpu_torch.data.dataset import RecoData
 from mygenerativerecommenders_tpu_torch.models.embeddings import NUM_YEARS, ItemYearEmbedding
 from mygenerativerecommenders_tpu_torch.models.model import build_model as pt_build_model
 from tests import torch_port_families as fam
+from tests.torch_port_threads import one_torch_thread  # noqa: F401  (a fixture)
+
+# every test's torch ops on one thread (tests/torch_port_threads.py)
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 ITEM_YEAR = (("model.embedding.kind", "item_year"),)
 

@@ -24,6 +24,10 @@ from mygenerativerecommenders_tpu_torch.serving.service import ServingEngine
 from mygenerativerecommenders_tpu_torch.train.driver import Trainer
 from mygenerativerecommenders_tpu_torch.train.lazy_embedding import LazyEmbeddingAdamW
 from mygenerativerecommenders_tpu_torch.train.task_retrieval import loss_variant
+from tests.torch_port_threads import one_torch_thread  # noqa: F401  (a fixture)
+
+# every test's torch ops on one thread (tests/torch_port_threads.py)
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def _choice_draw(num_users, num_items, max_item_id, max_seq_len):

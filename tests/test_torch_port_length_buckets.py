@@ -33,6 +33,10 @@ from mygenerativerecommenders_tpu_torch.data.dataset import BatchLoader, RecoDat
 from mygenerativerecommenders_tpu_torch.models.model import build_model as pt_build_model
 from mygenerativerecommenders_tpu_torch.train import task_retrieval as pt_task
 from mygenerativerecommenders_tpu_torch.train.driver import Trainer
+from tests.torch_port_threads import one_torch_thread  # noqa: F401  (a fixture)
+
+# every test's torch ops on one thread (tests/torch_port_threads.py)
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 BUCKETS = (8, 16, 32)  # synthetic-smoke: histories of up to 32
 

@@ -28,6 +28,10 @@ from mygenerativerecommenders_tpu.ops.dense_negatives import (
 from mygenerativerecommenders_tpu.ops.pallas import dense_softmax as jax_dense_softmax
 from mygenerativerecommenders_tpu_torch.ops.kernels import count_offsets as count_mod
 from mygenerativerecommenders_tpu_torch.ops.kernels import dense_neg_lse as lse_mod
+from tests.torch_port_threads import one_torch_thread  # noqa: F401  (a fixture)
+
+# every test's torch ops on one thread (tests/torch_port_threads.py)
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 TAU = 0.05
 LSE_TOL = dict(rtol=2e-4, atol=2e-5)

@@ -33,6 +33,10 @@ from mygenerativerecommenders_tpu_torch.models.model import build_model as pt_bu
 from mygenerativerecommenders_tpu_torch.utils.features import (
     seq_features_from_batch as pt_seq_features,
 )
+from tests.torch_port_threads import one_torch_thread  # noqa: F401  (a fixture)
+
+# every test's torch ops on one thread (tests/torch_port_threads.py)
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 RTOL, ATOL = 1e-4, 1e-5
 MAX_ID = 50
@@ -173,9 +177,25 @@ def test_model_init_is_seeded_and_padding_row_zero():
     ],
 )
 def test_unported_kinds_raise_naming_the_roadmap_item(override, item):
+    """The knobs that no ported code reads raise, naming the ROADMAP.md item
+    that ports them; those of the training variants, ported since, build
+    (remat) or raise a ValueError naming the knob (attention dropout, which
+    the reference ignores)."""
     _, pcfg = _configs([override])
-    with pytest.raises(NotImplementedError, match=item):
-        pt_build_model(pcfg, device="cpu")
+    if override == "model.encoder.remat=true":
+        model = pt_build_model(pcfg, device="cpu")
+        assert model.sequence_encoder["_hstu"].remat
+        batch = {k: torch.from_numpy(v) for k, v in _batch(0).items()}
+        seq, _, _ = pt_seq_features(batch, pcfg.model.gr_output_length + 1)
+        encoded, _ = model(seq._replace(past_embeddings=model.item_embeddings(seq.past_ids)))
+        encoded.sum().backward()
+        assert all(p.grad is not None for p in model.sequence_encoder.parameters())
+    elif override == "model.encoder.attn_dropout_rate=0.1":
+        with pytest.raises(ValueError, match="encoder.attn_dropout_rate=0.1: the reference"):
+            pt_build_model(pcfg, device="cpu")
+    else:
+        with pytest.raises(NotImplementedError, match=item):
+            pt_build_model(pcfg, device="cpu")
 
 
 @pytest.mark.parametrize("override", [

@@ -48,6 +48,10 @@ from mygenerativerecommenders_tpu_torch.train import task_ranking as pt_ranking
 from mygenerativerecommenders_tpu_torch.train import task_retrieval as pt_task
 from mygenerativerecommenders_tpu_torch.train.lazy_embedding import lazy_applicable
 from tests import torch_port_families as fam
+from tests.torch_port_threads import one_torch_thread  # noqa: F401  (a fixture)
+
+# every test's torch ops on one thread (tests/torch_port_threads.py)
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 MOL = (("model.similarity.kind", "mol"),)
 # a model gradient entry sums ~B*T terms up to its tensor's largest entry

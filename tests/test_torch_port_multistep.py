@@ -47,6 +47,10 @@ from mygenerativerecommenders_tpu_torch.train.optimizers import (
     load_optimizer_state,
     set_lr,
 )
+from tests.torch_port_threads import one_torch_thread  # noqa: F401  (a fixture)
+
+# every test's torch ops on one thread (tests/torch_port_threads.py)
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def _args(tmp_path, *extra):

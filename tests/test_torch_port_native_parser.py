@@ -19,6 +19,10 @@ from mygenerativerecommenders_tpu_torch.data import preprocessor as pt_pre
 from mygenerativerecommenders_tpu_torch.data.dataset import SequenceDataset
 from tests.test_torch_port_real_data import FIELDS
 from tests.torch_port_real_files import write_ml1m_zip
+from tests.torch_port_threads import one_torch_thread  # noqa: F401  (a fixture)
+
+# every test's torch ops on one thread (tests/torch_port_threads.py)
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 L = 16  # shorter than most fixture histories (3-30 events)
 

@@ -39,6 +39,10 @@ from mygenerativerecommenders_tpu_torch.ops.kernels import count_offsets as coun
 from mygenerativerecommenders_tpu_torch.ops.kernels import dense_neg_lse as lse_mod
 from mygenerativerecommenders_tpu_torch.train import task_retrieval as pt_task
 from mygenerativerecommenders_tpu_torch.train.optimizers import build_optimizer as pt_build_optimizer
+from tests.torch_port_threads import one_torch_thread  # noqa: F401  (a fixture)
+
+# every test's torch ops on one thread (tests/torch_port_threads.py)
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def _wide_inputs(seed, bt, d, x, r):

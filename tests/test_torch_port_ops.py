@@ -23,6 +23,10 @@ from mygenerativerecommenders_tpu_torch.ops import hstu_attention as pt_attn
 from mygenerativerecommenders_tpu_torch.ops import sequence as pt_seq
 from mygenerativerecommenders_tpu_torch.ops import topk as pt_topk
 from mygenerativerecommenders_tpu_torch.ops.kernels import hstu_attention as pt_kernel
+from tests.torch_port_threads import one_torch_thread  # noqa: F401  (a fixture)
+
+# every test's torch ops on one thread (tests/torch_port_threads.py)
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 RTOL, ATOL = 2e-4, 2e-5
 

@@ -51,6 +51,10 @@ from mygenerativerecommenders_tpu_torch.train import task_retrieval as pt_task
 from mygenerativerecommenders_tpu_torch.train.driver import Trainer
 from tests.test_torch_port_lazy_embedding import _offsets_of
 from tests.test_torch_port_train_step import _jax_neg_offsets, _np_tree, _torch_batch
+from tests.torch_port_threads import one_torch_thread  # noqa: F401  (a fixture)
+
+# every test's torch ops on one thread (tests/torch_port_threads.py)
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 ALGEBRA_RTOL, ALGEBRA_ATOL = 2e-4, 2e-6
 STEP_ATOL = 2e-5

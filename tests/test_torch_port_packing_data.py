@@ -21,6 +21,10 @@ from mygenerativerecommenders_tpu_torch.data.dataset import RecoData, SequenceDa
 from mygenerativerecommenders_tpu_torch.train import task_retrieval as pt_task
 from mygenerativerecommenders_tpu_torch.train.driver import Trainer
 from mygenerativerecommenders_tpu_torch.utils.features import packed_seq_features
+from tests.torch_port_threads import one_torch_thread  # noqa: F401  (a fixture)
+
+# every test's torch ops on one thread (tests/torch_port_threads.py)
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def _arrays(seed, users=40, l_max=47, num_items=300):

@@ -14,6 +14,10 @@ from mygenerativerecommenders_tpu_torch.cli import eval as cli_eval
 from mygenerativerecommenders_tpu_torch.cli import train as cli_train
 from mygenerativerecommenders_tpu_torch.data.packing import PackedBatchLoader
 from mygenerativerecommenders_tpu_torch.train.driver import Trainer
+from tests.torch_port_threads import one_torch_thread  # noqa: F401  (a fixture)
+
+# every test's torch ops on one thread (tests/torch_port_threads.py)
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 LOGGER = "mygenerativerecommenders_tpu_torch.train.driver"
 
@@ -120,8 +124,21 @@ def test_packed_eval_epoch_gives_the_padded_eval_epochs_metrics(tmp_path):
     ],
 )
 def test_knobs_beside_packing_still_raise_naming_the_roadmap_item(tmp_path, override, item):
-    with pytest.raises(NotImplementedError, match=item):
-        Trainer(cli_train.parse_args(_args(tmp_path, override)))
+    """The training variants beside packing, ported since: remat trains a
+    packed step (finite, the encoder moved), attention dropout, which the
+    reference ignores, raises a ValueError naming it."""
+    if override == "model.encoder.attn_dropout_rate=0.1":
+        with pytest.raises(ValueError, match="encoder.attn_dropout_rate=0.1: the reference"):
+            Trainer(cli_train.parse_args(_args(tmp_path, override)))
+        return
+    trainer = Trainer(cli_train.parse_args(_args(tmp_path, override)))
+    assert trainer.model.sequence_encoder["_hstu"].remat
+    batch = next(iter(trainer._loader("train", packed=True)))
+    before = trainer.model.state_dict()["sequence_encoder._hstu._attention_layers.0._uvqk"].clone()
+    trainer.model.train()
+    assert np.isfinite(trainer.train_step(trainer._put(batch), trainer.lr1).item())
+    assert not torch.equal(
+        trainer.model.state_dict()["sequence_encoder._hstu._attention_layers.0._uvqk"], before)
 
 
 @pytest.mark.parametrize("override", ["model.sampler.kind=in_batch"])

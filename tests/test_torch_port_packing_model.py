@@ -49,6 +49,10 @@ from mygenerativerecommenders_tpu_torch.ops.kernels import hstu_attention as pt_
 from mygenerativerecommenders_tpu_torch.ops.topk import topk_agree
 from mygenerativerecommenders_tpu_torch.train import task_retrieval as pt_task
 from mygenerativerecommenders_tpu_torch.utils.features import packed_seq_features
+from tests.torch_port_threads import one_torch_thread  # noqa: F401  (a fixture)
+
+# every test's torch ops on one thread (tests/torch_port_threads.py)
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 CAPACITIES = (16, 32, 48)
 

@@ -38,6 +38,10 @@ from mygenerativerecommenders_tpu_torch.train.driver import Trainer
 from mygenerativerecommenders_tpu_torch.utils.features import seq_features_from_batch
 from tests.test_torch_port_model import _batch, _configs, _jax_model
 from tests.torch_port_real_files import write_ml1m_zip
+from tests.torch_port_threads import one_torch_thread  # noqa: F401  (a fixture)
+
+# every test's torch ops on one thread (tests/torch_port_threads.py)
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 RTOL, ATOL = 2e-4, 2e-5
 SMALL = [

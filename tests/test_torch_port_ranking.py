@@ -66,6 +66,10 @@ from mygenerativerecommenders_tpu_torch.train import task_ranking as pt_task
 from mygenerativerecommenders_tpu_torch.train.driver import Trainer
 from mygenerativerecommenders_tpu_torch.utils.features import packed_seq_features
 from mygenerativerecommenders_tpu_torch.utils.features import seq_features_from_batch
+from tests.torch_port_threads import one_torch_thread  # noqa: F401  (a fixture)
+
+# every test's torch ops on one thread (tests/torch_port_threads.py)
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 L = 16  # data.max_sequence_length: 27 input positions, 54 encoder tokens
 CAPACITIES = (16, 32)

@@ -33,6 +33,10 @@ from tests.torch_port_real_files import (
     write_ml20m_zip,
     write_npz_shards,
 )
+from tests.torch_port_threads import one_torch_thread  # noqa: F401  (a fixture)
+
+# every test's torch ops on one thread (tests/torch_port_threads.py)
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 FIELDS = (
     "lengths", "ids", "ratings", "timestamps", "target_id", "target_rating",

@@ -63,6 +63,10 @@ from mygenerativerecommenders_tpu_torch.parallel import ring_attention as ring
 from mygenerativerecommenders_tpu_torch.train import task_retrieval as pt_task
 from mygenerativerecommenders_tpu_torch.train.driver import Trainer
 from mygenerativerecommenders_tpu_torch.utils.features import seq_features_from_batch
+from tests.torch_port_threads import one_torch_thread  # noqa: F401  (a fixture)
+
+# every test's torch ops on one thread (tests/torch_port_threads.py)
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 RTOL, ATOL, TABLE_RTOL = 2e-4, 2e-5, 5e-4
 NUM_BUCKETS = 128

@@ -54,8 +54,11 @@ from mygenerativerecommenders_tpu_torch.train import optimizers as pt_opt
 from mygenerativerecommenders_tpu_torch.train import task_retrieval as pt_task
 from tests import torch_port_families as fam
 from tests.test_torch_port_optimizers import ns_f32  # noqa: F401  (a fixture)
-from tests.torch_port_families import one_torch_thread  # noqa: F401  (a fixture)
+from tests.torch_port_threads import one_torch_thread  # noqa: F401  (a fixture)
 from tests.torch_port_real_files import write_ml1m_zip
+
+# every test's torch ops on one thread (tests/torch_port_threads.py)
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 SASREC = (("model.encoder.kind", "sasrec"),)
 

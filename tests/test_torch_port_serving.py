@@ -39,6 +39,10 @@ from mygenerativerecommenders_tpu_torch.serving.service import (
     RecommenderHTTPServer,
     ServingEngine,
 )
+from tests.torch_port_threads import one_torch_thread  # noqa: F401  (a fixture)
+
+# every test's torch ops on one thread (tests/torch_port_threads.py)
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 MAX_ID = 60
 ATOL = 1e-5

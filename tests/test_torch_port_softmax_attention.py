@@ -34,6 +34,10 @@ from mygenerativerecommenders_tpu_torch.models.postprocessors import LayerNormPo
 from mygenerativerecommenders_tpu_torch.train import task_retrieval as pt_task
 from mygenerativerecommenders_tpu_torch.utils.features import seq_features_from_batch
 from tests import torch_port_families as fam
+from tests.torch_port_threads import one_torch_thread  # noqa: F401  (a fixture)
+
+# every test's torch ops on one thread (tests/torch_port_threads.py)
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 SOFTMAX = (("model.encoder.normalization", "softmax_rel_bias"),)
 LAYER_NORM = (("model.postprocessor.kind", "layer_norm"),)

@@ -11,6 +11,10 @@ from mygenerativerecommenders_tpu.data.dataset import RecoData as JaxRecoData
 from mygenerativerecommenders_tpu_torch import configs as pt_configs
 from mygenerativerecommenders_tpu_torch.configs.presets import get_preset as pt_preset
 from mygenerativerecommenders_tpu_torch.data.dataset import RecoData
+from tests.torch_port_threads import one_torch_thread  # noqa: F401  (a fixture)
+
+# every test's torch ops on one thread (tests/torch_port_threads.py)
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 FIELDS = (
     "lengths", "ids", "ratings", "timestamps", "target_id", "target_rating",

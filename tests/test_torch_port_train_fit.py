@@ -17,6 +17,10 @@ from mygenerativerecommenders_tpu_torch.models.metrics import retrieval_metrics
 from mygenerativerecommenders_tpu_torch.train.controllers import EarlyStopping, PlateauLRController
 from mygenerativerecommenders_tpu_torch.train.driver import Trainer
 from mygenerativerecommenders_tpu_torch.train.loggers import MetricsWriter
+from tests.torch_port_threads import one_torch_thread  # noqa: F401  (a fixture)
+
+# every test's torch ops on one thread (tests/torch_port_threads.py)
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 LOGGER = "mygenerativerecommenders_tpu_torch.train.driver"
 
@@ -132,9 +136,28 @@ def test_debug_limits_cut_the_epoch(tmp_path):
         ("scheduler1.kind=cosine", "Training variants"),
     ],
 )
-def test_unported_trainer_knobs_raise_naming_the_roadmap_item(tmp_path, override, item):
-    with pytest.raises(NotImplementedError, match=item):
-        Trainer(cli_train.parse_args(_args(tmp_path, override)))
+def test_unported_trainer_knobs_raise_naming_the_roadmap_item(tmp_path, monkeypatch, override,
+                                                             item):
+    """`trainer.distributed` raises, naming its ROADMAP.md item; the training
+    variants, ported since, build the trainer (the profiler, TensorBoard and
+    MLflow; tests/test_torch_port_training_variants.py runs them), and the
+    cosine scheduler, which the reference ignores, raises a ValueError
+    naming it."""
+    monkeypatch.chdir(tmp_path)  # trainer.mlflow_dir=mlruns is relative
+    args = cli_train.parse_args(_args(tmp_path, override))
+    if item != "Training variants":
+        with pytest.raises(NotImplementedError, match=item):
+            Trainer(args)
+    elif override == "scheduler1.kind=cosine":
+        with pytest.raises(ValueError, match="scheduler1.kind=cosine: the reference ignores"):
+            Trainer(args)
+    else:
+        trainer = Trainer(args)
+        on = {"trainer.profiler=true": trainer.cfg.trainer.profiler,
+              "trainer.tensorboard=true": trainer.writer._tb is not None,
+              "trainer.mlflow_dir=mlruns": trainer.writer.mlflow is not None}
+        assert on[override]
+        trainer.writer.close()
 
 
 def test_plateau_controller_cuts_the_rate_and_early_stopping_stops():

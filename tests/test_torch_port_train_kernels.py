@@ -34,6 +34,10 @@ from mygenerativerecommenders_tpu_torch.ops.dense_negatives import (
 from mygenerativerecommenders_tpu_torch.ops.kernels import count_offsets as count_mod
 from mygenerativerecommenders_tpu_torch.ops.kernels import dense_neg_lse as lse_mod
 from mygenerativerecommenders_tpu_torch.ops.kernels.hstu_attention import hstu_attention_fused
+from tests.torch_port_threads import one_torch_thread  # noqa: F401  (a fixture)
+
+# every test's torch ops on one thread (tests/torch_port_threads.py)
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def _attention_inputs(seed, b, n, h, dqk, dv):

@@ -41,6 +41,10 @@ from mygenerativerecommenders_tpu_torch.data.dataset import RecoData
 from mygenerativerecommenders_tpu_torch.models.model import build_model as pt_build_model
 from mygenerativerecommenders_tpu_torch.train import task_retrieval as pt_task
 from mygenerativerecommenders_tpu_torch.train.optimizers import build_optimizer as pt_build_optimizer
+from tests.torch_port_threads import one_torch_thread  # noqa: F401  (a fixture)
+
+# every test's torch ops on one thread (tests/torch_port_threads.py)
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def _np_tree(tree):
@@ -186,10 +190,16 @@ def test_unported_training_knobs_raise_naming_the_roadmap_item(path, value, item
         obj = getattr(obj, p)
     setattr(obj, leaf, value)
     pt_resolve(cfg, 220)
-    with pytest.raises(NotImplementedError, match=item):
-        model = pt_build_model(cfg, device="cpu")
-        opt = pt_build_optimizer(cfg.optimizer1, cfg.optimizer2, model.parameters(), 1e-3)
-        pt_task.make_train_step(model, cfg, np.arange(1, 201), opt)
+    # ported since: remat builds the train step, attention dropout (which the
+    # reference ignores) raises a ValueError naming it
+    if path == "model.encoder.attn_dropout_rate":
+        with pytest.raises(ValueError, match="encoder.attn_dropout_rate=0.1: the reference"):
+            pt_build_model(cfg, device="cpu")
+        return
+    model = pt_build_model(cfg, device="cpu")
+    opt = pt_build_optimizer(cfg.optimizer1, cfg.optimizer2, model.parameters(), 1e-3)
+    step = pt_task.make_train_step(model, cfg, np.arange(1, 201), opt)
+    assert model.sequence_encoder["_hstu"].remat and callable(step)
 
 
 @pytest.mark.parametrize(

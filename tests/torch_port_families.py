@@ -26,7 +26,6 @@ from typing import Any, NamedTuple, Sequence, Tuple
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 import torch
 
 from mygenerativerecommenders_tpu.configs import resolve as jax_resolve
@@ -271,14 +270,3 @@ def compare_three_adamw_steps(s: Setup, seed: int = 11, undetermined: Sequence[s
                                    err_msg=name)
         moved = max(moved, float((p - before[name]).abs().max()))
     assert moved > 1e-3  # the steps did move the parameters
-
-
-@pytest.fixture
-def one_torch_thread():
-    """torch on one CPU thread for the test: the suite runs several
-    workers on the machine's cores, and torch's thread pool in each, spinning
-    over small ops, multiplies a CLI run's time many times over."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
