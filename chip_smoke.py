@@ -336,6 +336,25 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    or the named ValueError where neither package imports; the log says
    which), and a 2-point `cli.sweep` over optimizer1.lr (its
    sweep_results.csv printed).
+20. The last one-card gaps, on phase 15's ml-1m files. First the wide
+   kernels' registers (-Xptxas -v) and shared memory at widths 130, 192 and
+   256, and rows 1, 2, 4 and 5 at width 256 (rows 4-5 also at 192) against
+   their plain versions with the phase 2 checks, timed beside their bounds.
+   (a) `cli.train` of ml-1m-hstu with `model.compute_dtype=bfloat16` for 30
+   graphed epochs (launch counts as in phase 4; test ndcg@10 at least 0.030,
+   printed beside phase 15's float32 run), its train step eager and graphed
+   side by side, and phase 5's check of one step on the card against the
+   CPU (bfloat16 flips counted, BF16_FLIP_SHARE). (b) ml-1m-hstu with
+   `model.item_embedding_dim=256` (one 256-wide head): `cli.train` for one
+   graphed epoch with its eval pass and test (launch counts as in phase 4,
+   rows 1, 2, 4 and 5 launched at width 256), the step eager and graphed
+   side by side, phase 10's and phase 5's checks, and `/v1/retrieve` from
+   its best.pt against the CPU engine. (c) `/v1/retrieve` on phase 3's
+   weights with `index.approx_top_k_recall=0.95`: ids and scores equal to
+   the exact engine's. (d) a competition-style CSV (user_id,
+   sequence_item_ids, sequence_timestamps, sequence_ratings) written from
+   phase 15's draw, through `DynamicSequenceDataset` into two epochs of
+   graphed ml-1m-hstu steps: losses finite and falling.
 
 It ends with one JSON line of the kernels' numbers and, last, the line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -370,6 +389,11 @@ TRAIN_BT, TRAIN_R = 128 * 210, 128  # supervision rows and negatives of syntheti
 # 30 epochs of synthetic-hstu: the JAX package lands at test ndcg@10
 # 0.037-0.039; chance is 10 / 3706 = 0.0027. Below this the training is broken
 MIN_TEST_NDCG10 = 0.03
+# model.compute_dtype=bfloat16: two runs whose float32 sums differ in their
+# last bits can round a bfloat16 cotangent to neighbouring values; a gradient
+# element that took such a flip is off by up to 2^-8 of its tensor's largest
+# entry, and at most this share of them may (tests/test_torch_port_mixed_precision.py)
+BF16_FLIP_SHARE = 1e-3
 # card vs CPU engine: L2-normalized fp32 scores (|s| <= 1) through two blocks,
 # summed in different orders on the two devices
 E2E_ATOL = 1e-4
@@ -395,13 +419,15 @@ def card_line() -> str:
     return out[0]
 
 
-def build_kernels(_build, names):
+def build_kernels(_build, names) -> dict:
+    """Builds the sources; -> nvcc's output of each."""
     built = _build.build(names)
     for name, res in built.items():
         log(f"built {name} in {res.seconds:.2f} s -> {res.path.name}")
         for line in res.log.splitlines():
             if "ptxas" in line or "reused" in line:
                 log(f"  {line.strip()}")
+    return {name: res.log for name, res in built.items()}
 
 
 # ---------------------------------------------------------------- phase 2
@@ -1681,7 +1707,8 @@ def compare_card_and_cpu(what: str, cfg, batch, loss_of, year_of_item=None,
     on the CPU (plain versions): the same weights (a seeded init) and batch,
     dropout off. loss_of(model, device_batch, device) -> the loss;
     `year_of_item` for an item_year model; `atol_of_max` raises a gradient's
-    atol to that share of its largest entry."""
+    atol to that share of its largest entry. At model.compute_dtype=bfloat16
+    the gradients may also hold flips (BF16_FLIP_SHARE)."""
     from mygenerativerecommenders_tpu_torch.models.model import build_model
 
     results = {}
@@ -1699,14 +1726,33 @@ def compare_card_and_cpu(what: str, cfg, batch, loss_of, year_of_item=None,
     log(f"one step of {what}, card (kernels) vs CPU (plain versions): loss {loss_card:.6f} vs "
         f"{loss_cpu:.6f}, relative difference {rel:.3e} (rtol {STEP_LOSS_RTOL})")
     check(rel <= STEP_LOSS_RTOL, "the card's loss disagrees with the CPU's")
-    worst = True
+    worst, flips, total = True, 0, 0
+    bf16 = cfg.model.compute_dtype == "bfloat16"
     for name, want in grads_cpu.items():
         atol = max(STEP_GRAD_ATOL, atol_of_max * float(want.abs().max()))
         ok, err = within(grads_card[name], want, STEP_GRAD_RTOL, atol)
+        if not ok and bf16:
+            n, far = flips_of(grads_card[name], want, STEP_GRAD_RTOL, atol)
+            flips, ok = flips + n, far <= 2.0**-8
+        total += want.numel()
         log(f"  grad {name}: max_abs_err {err:.3e}, max |grad| {float(want.abs().max()):.3e}, "
             f"within rtol {STEP_GRAD_RTOL} atol {atol:.3e}: {ok}")
         worst = worst and ok
+    if bf16:
+        log(f"  bfloat16 flips (elements one of whose bfloat16 cotangents rounded the other "
+            f"way, each within 2^-8 of its tensor's largest entry): {flips} of {total} "
+            f"(at most {BF16_FLIP_SHARE:.1%})")
+        worst = worst and flips <= BF16_FLIP_SHARE * total
     check(worst, "a parameter's gradient on the card disagrees with the CPU's")
+
+
+def flips_of(got, want, rtol: float, atol: float) -> tuple:
+    """(elements outside rtol / atol, the largest distance of one over the
+    tensor's largest |want|)."""
+    diff = (got - want).abs()
+    bad = diff > atol + rtol * want.abs()
+    scale = float(want.abs().max()) or 1.0
+    return int(bad.sum()), float(diff[bad].max()) / scale if bool(bad.any()) else 0.0
 
 
 def card_against_cpu_step(args, packed_capacity=None) -> None:
@@ -3351,7 +3397,13 @@ def family_card_against_cpu(root: Path, runs=FAMILY_RUNS) -> None:
 
 
 def serve_sasrec(card: str, root: Path, ckpt: Path) -> None:
-    """/v1/retrieve on the 30-epoch SASRec model: the graphed engine's top-k
+    """/v1/retrieve on the 30-epoch SASRec model (`serve_against_cpu`)."""
+    serve_against_cpu(card, "SASRec", ["experiment=ml-1m-sasrec", f"data.data_dir={root}",
+                                       f"trainer.ckpt_path={ckpt}"])
+
+
+def serve_against_cpu(card: str, label: str, argv: list) -> None:
+    """/v1/retrieve on the model `argv` names: the graphed engine's top-k
     against a CPU engine's on the same weights (a 32-row request and 8 single
     rows), then the engine call's p50, eager and graphed."""
     from mygenerativerecommenders_tpu_torch.cli.serve import build_engine
@@ -3359,10 +3411,9 @@ def serve_sasrec(card: str, root: Path, ckpt: Path) -> None:
     from mygenerativerecommenders_tpu_torch.serving.service import RecommenderHTTPServer
     from mygenerativerecommenders_tpu_torch.train import graphs
 
-    argv = ["experiment=ml-1m-sasrec", f"data.data_dir={root}", f"trainer.ckpt_path={ckpt}"]
     engine, _ = build_engine(argv)
     cpu_engine, _ = build_engine(argv + ["serve.device=cpu"])
-    check(engine.graphed and engine.device.type == "cuda", "the SASRec engine is not graphed")
+    check(engine.graphed and engine.device.type == "cuda", f"the {label} engine is not graphed")
     big, singles = make_requests(engine.all_item_ids, seed=17)
     catalog_set = set(engine.all_item_ids.tolist())
     graphs.counts.clear()
@@ -3377,16 +3428,16 @@ def serve_sasrec(card: str, root: Path, ckpt: Path) -> None:
         check_answer(req, body, catalog_set, engine.max_len, req["k"])
         want = cpu_engine.retrieve(req["sequences"], req.get("timestamps"), k=req["k"])
         problem = topk_agree(body["ids"], body["scores"], *want, atol=E2E_ATOL)
-        check(problem is None, f"SASRec, card vs CPU engine: {problem}")
+        check(problem is None, f"{label}, card vs CPU engine: {problem}")
         worst = max(worst, float(np.abs(np.asarray(body["scores"]) - np.asarray(want[1])).max()))
     served = dict(graphs.counts["serve"])
     check(served.get("captures", 0) >= 1 and served.get("replays", 0) >= 1,
-          f"the SASRec engine did not capture and replay its program: {served}")
-    log(f"SASRec /v1/retrieve on {card}: the graphed engine (graphs {served}) and the CPU engine "
+          f"the {label} engine did not capture and replay its program: {served}")
+    log(f"{label} /v1/retrieve on {card}: the graphed engine (graphs {served}) and the CPU engine "
         f"agree on {len(answers)} requests (a 32-row one, 8 single rows): top-k ids equal up to "
         f"near-ties, largest score difference {worst:.3e} (atol {E2E_ATOL})")
     engines_side_by_side(
-        "SASRec retrieve, 32 rows", card,
+        f"{label} retrieve, 32 rows", card,
         {name: (lambda e=e: e.retrieve(big["sequences"], big["timestamps"], k=big["k"]))
          for name, e in (("eager", eager_twin(engine)), ("graphed", engine))},
     )
@@ -3870,6 +3921,172 @@ def run_training_variants_path(kc: Counts, card: str, ml1m: dict, large_data) ->
         f"{t3 - t2:.1f} s, the one-epoch runs {time.perf_counter() - t3:.1f} s")
     return counts
 
+# ---------------------------------------------------------------- phase 20 (the last one-card gaps)
+
+# (label, preset, overrides, HSTU attention launches a step, count / lse pairs a step)
+BF16_RUN = ("ml-1m-hstu bfloat16", "ml-1m-hstu", ["model.compute_dtype=bfloat16"], 2, 1)
+# item_embedding_dim=256 alone: attention_dim and linear_dim follow it (one
+# 256-wide head), and the lse runs at D=256
+WIDE_RUN = ("ml-1m-hstu D=256", "ml-1m-hstu", ["model.item_embedding_dim=256"], 2, 1)
+WIDE = 256
+
+
+def wide_kernel_resources(kern, build_logs: dict) -> None:
+    """Registers (nvcc -Xptxas -v, phase 1's build) and dynamic shared memory
+    a block of the wide kernels uses: the attention pair's wide kernels and
+    the lse pair's 256-column-slice instantiations (kSliced)."""
+    import re
+
+    for name, text in build_logs.items():
+        lines = text.splitlines()
+        for i, line in enumerate(lines):
+            entry = re.search(r"Compiling entry function '(\S+)'", line)
+            if not entry or not re.search(r"wide_kernel|ILi\dELi32ELi\dELb1E", entry.group(1)):
+                continue
+            used = next((x.strip() for x in lines[i + 1 : i + 4] if "Used" in x), "")
+            spill = next((x.strip() for x in lines[i + 1 : i + 4] if "spill" in x), "")
+            short = re.sub(r"^_ZN\d+_GLOBAL__N__\w+?_\d+_", "", entry.group(1))[:90]
+            log(f"  {name}: {short}: {used} {spill}")
+    fwd, bwd = kern._kernel_lib(), kern._kernel_lib_bwd()
+    for d in (130, 192, WIDE):
+        log(f"  width {d}: attention forward {fwd.hstu_attention_fwd_smem_bytes(d, d, 128)} "
+            f"bytes of dynamic shared memory a block, backward (N=L=211) "
+            f"{bwd.hstu_attention_bwd_smem_bytes(211, d, d, 211, 128)}; the lse pair none "
+            f"(its 4 KB lists are static)")
+
+
+def check_wide_kernels(kern, count_kern, lse_kern) -> dict:
+    """Rows 1, 2, 4 and 5 at width 256 against their plain versions, timed
+    beside their bounds as phase 2 does: the attention pair at the padded
+    ml-1m training shape (B=128, N=L=211, one 256-wide head, ragged), the lse
+    pair at [26880, 256] x [3883, 256] (the ml-1m catalog) and at D=192."""
+    ragged = np.random.default_rng(2).integers(2, 211, size=126).tolist()
+    lengths = [1, 211] + ragged
+    rows = {"fwd": check_attention(kern, kern.KERNEL, 80, 128, 211, 1, WIDE, lengths),
+            "bwd": check_attention_bwd(kern, 81, 128, 211, 1, WIDE, lengths)}
+    offsets, positive = negative_draws(3883, TRAIN_BT, TRAIN_R, 3883)
+    count = count_kern.count_offsets(offsets, positive, 3883)
+    rows["lse_fwd"], rows["lse_bwd"] = check_dense_neg_lse(lse_kern, count, TRAIN_BT, WIDE, 3883,
+                                                           0.05)
+    check_dense_neg_lse(lse_kern, count, TRAIN_BT, 192, 3883, 0.05)
+    return rows
+
+
+def approx_against_exact(card: str) -> None:
+    """/v1/retrieve on phase 3's synthetic-hstu model with
+    index.approx_top_k_recall=0.95, graphed: ids and scores equal to the
+    exact engine's, a 32-row request and 8 single rows (ops/topk.py: the knob
+    selects exactly off the TPU, as jax.lax.approx_max_k does)."""
+    from mygenerativerecommenders_tpu_torch.cli.serve import build_engine
+    from mygenerativerecommenders_tpu_torch.serving.service import RecommenderHTTPServer
+
+    argv = ["experiment=synthetic-hstu", f"data.data_dir={OUT_DIR / 'data'}",
+            f"trainer.ckpt_path={OUT_DIR / 'synthetic-hstu.pt'}"]
+    exact, _ = build_engine(argv)
+    approx, _ = build_engine(argv + ["model.index.approx_top_k_recall=0.95"])
+    check(approx.graphed and approx.cfg.model.index.approx_top_k_recall == 0.95,
+          "the approx engine is not graphed or lost its recall target")
+    big, singles = make_requests(exact.all_item_ids, seed=7)
+    catalog_set = set(exact.all_item_ids.tolist())
+    server = RecommenderHTTPServer(approx, "127.0.0.1", 0).start()
+    try:
+        answers = [(req, http(server.port, "/v1/retrieve", req)[0]) for req in [big] + singles[:8]]
+    finally:
+        server.stop()
+    for req, body in answers:
+        check_answer(req, body, catalog_set, approx.max_len, req["k"])
+        want = exact.retrieve(req["sequences"], req.get("timestamps"), k=req["k"])
+        check(body["ids"] == want[0] and body["scores"] == want[1],
+              "index.approx_top_k_recall=0.95 answered otherwise than the exact engine")
+    log(f"/v1/retrieve with index.approx_top_k_recall=0.95 on {card} (phase 3's "
+        f"synthetic-hstu weights): ids and scores equal to the exact engine's on "
+        f"{len(answers)} requests (a 32-row one, 8 single rows)")
+    del exact, approx
+
+
+def csv_front_end(card: str, root: Path) -> None:
+    """A competition-style CSV (user_id, sequence_item_ids,
+    sequence_timestamps, sequence_ratings) written from phase 15's ml-1m
+    draw, through DynamicSequenceDataset into two epochs of graphed
+    ml-1m-hstu train steps on the card: losses finite and falling."""
+    import csv as csv_module
+
+    from mygenerativerecommenders_tpu_torch.cli.train import parse_args
+    from mygenerativerecommenders_tpu_torch.data.dynamic_dataset import DynamicSequenceDataset
+    from mygenerativerecommenders_tpu_torch.train.driver import Trainer
+
+    src = root / "processed" / "ml-1m" / "sasrec_format.csv"
+    dst = OUT_DIR / "competition.csv"
+    cols = ["user_id", "sequence_item_ids", "sequence_timestamps", "sequence_ratings"]
+    with open(src, newline="") as f, open(dst, "w", newline="") as g:
+        writer = csv_module.writer(g)
+        writer.writerow(cols)
+        for row in csv_module.DictReader(f):
+            writer.writerow([row[c] for c in cols])
+    t0 = time.perf_counter()
+    ds = DynamicSequenceDataset.from_csv(str(dst), max_sequence_length=200)
+    parse_s = time.perf_counter() - t0
+    check(ds.item_column == "item_ids" and len(ds) == 6040 and int(ds.lengths.min()) >= 1,
+          f"the CSV gave {len(ds)} users, item column {ds.item_column}")
+    trainer = Trainer(parse_args(["experiment=ml-1m-hstu", f"data.data_dir={root}",
+                                  f"trainer.output_dir={OUT_DIR / 'csv_front_end'}"]))
+    trainer.model.train()
+    k = trainer.cfg.trainer.steps_per_call
+    losses = []
+    t0 = time.perf_counter()
+    for epoch in range(2):
+        batches = [trainer._put(b) for b in ds.batches(128, shuffle=True, seed=epoch)]
+        for i in range(0, len(batches), k):
+            losses += trainer.train_steps(batches[i : i + k], trainer.lr1).cpu().tolist()
+    torch.cuda.synchronize()
+    losses = np.asarray(losses)
+    log(f"CSV front end on {card}: {dst.name} ({len(ds)} users, columns {cols}) parsed in "
+        f"{parse_s:.2f} s by DynamicSequenceDataset; {len(losses)} graphed ml-1m-hstu steps in "
+        f"{time.perf_counter() - t0:.2f} s: loss first eight mean {losses[:8].mean():.4f}, last "
+        f"eight mean {losses[-8:].mean():.4f}")
+    check(bool(np.isfinite(losses).all()), "a non-finite loss on the CSV's batches")
+    check(losses[-8:].mean() < losses[:8].mean(), "the loss on the CSV's batches did not fall")
+    del trainer
+
+
+def run_last_gaps_path(kc: Counts, card: str, ml1m: dict, kern, count_kern, lse_kern,
+                       build_logs: dict) -> dict:
+    """Phase 20. -> {"bf16_counts": the bfloat16 run's launches,
+    "wide_counts": the D=256 run's, "wide": rows 1, 2, 4, 5 at width 256}."""
+    t0 = time.perf_counter()
+    root, out = ml1m["root"], OUT_DIR / "last_gaps"
+    wide_kernel_resources(kern, build_logs)
+    wide = check_wide_kernels(kern, count_kern, lse_kern)
+    # (a) compute_dtype=bfloat16: the rounding points of models/precision.py
+    counts, test, _ = train_family(kc, card, BF16_RUN, 30, root, out, "bfloat16 path")
+    base = ml1m["test"]
+    log(f"  test metrics on {card}: {test_line(BF16_RUN[0], 30, test)} beside ml-1m-hstu at "
+        f"float32 (phase 15): ndcg@10 {base['test/ndcg@10']:.5f}, hr@10 "
+        f"{base['test/hr@10']:.5f}, mrr {base['test/mrr']:.5f}")
+    check(test["test/ndcg@10"] >= MIN_FAMILY_NDCG10,
+          f"bfloat16: test ndcg@10 {test['test/ndcg@10']} below {MIN_FAMILY_NDCG10}")
+    family_steps_side_by_side(kc, card, root, runs=(BF16_RUN,))
+    family_card_against_cpu(root, runs=(BF16_RUN,))
+    # (b) item_embedding_dim=256: rows 1, 2, 4 and 5 take their wide paths
+    wide_counts, test, rundir = train_family(kc, card, WIDE_RUN, 1, root, out, "wide path")
+    log(f"  {test_line(WIDE_RUN[0], 1, test)}; launched at width {WIDE}: "
+        f"{kern.KERNEL} {wide_counts[kern.KERNEL]}, {kern.KERNEL_BWD} "
+        f"{wide_counts[kern.KERNEL_BWD]}, {lse_kern.KERNEL} {wide_counts[lse_kern.KERNEL]}, "
+        f"{lse_kern.KERNEL_BWD} {wide_counts[lse_kern.KERNEL_BWD]}")
+    check(all(wide_counts[name] > 0 for name in (kern.KERNEL, kern.KERNEL_BWD, lse_kern.KERNEL,
+                                                 lse_kern.KERNEL_BWD)),
+          "a wide kernel was not launched on the D=256 run")
+    family_steps_side_by_side(kc, card, root, runs=(WIDE_RUN,))
+    graphed_against_eager([(WIDE_RUN[0] + ", padded", family_args(WIDE_RUN, root), [None])])
+    family_card_against_cpu(root, runs=(WIDE_RUN,))
+    serve_against_cpu(card, WIDE_RUN[0], family_args(WIDE_RUN, root) + [
+        f"trainer.ckpt_path={rundir / 'checkpoints' / 'best.pt'}"])
+    # (c) index.approx_top_k_recall and (d) the CSV front end
+    approx_against_exact(card)
+    csv_front_end(card, root)
+    log(f"phase 20 took {time.perf_counter() - t0:.1f} s")
+    return {"bf16_counts": counts, "wide_counts": wide_counts, "wide": wide}
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -3892,8 +4109,8 @@ def main() -> int:
     kind, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {count} x {kind}")
 
-    build_kernels(_build, [kern.KERNEL, kern.KERNEL_BWD, count_kern.KERNEL, lse_kern.LIBRARY,
-                           chunk_kern.KERNEL, chunk_kern.KERNEL_BWD])
+    build_logs = build_kernels(_build, [kern.KERNEL, kern.KERNEL_BWD, count_kern.KERNEL,
+                                        lse_kern.LIBRARY, chunk_kern.KERNEL, chunk_kern.KERNEL_BWD])
 
     ragged = np.random.default_rng(2).integers(2, 211, size=126).tolist()
     serving = check_attention(kern, kern.KERNEL, 1, 32, 211, 1, 50, [1, 211] + ragged[:30])
@@ -4082,6 +4299,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     variant_counts = run_training_variants_path(kc, kind, ml1m_run, large_data)
     del large_data
+    gc.collect()
+    torch.cuda.empty_cache()
+    last = run_last_gaps_path(kc, kind, ml1m_run, kern, count_kern, lse_kern, build_logs)
+    bf16_counts = last["bf16_counts"]
 
     # no PyTorch call computes HSTU's silu attention with this bias, its
     # backward, or a count-weighted log-sum-exp over a matrix product that is
@@ -4098,12 +4319,12 @@ def main() -> int:
         dict(name=kern.KERNEL, source=kern.SOURCE, replaces=kern.REPLACES,
              launches=serving_launches + sum(c[kern.KERNEL] for c in (
                  train_counts, long_counts, real_ml1m, real_others, split_counts,
-                 family_counts, other_counts, variant_counts)),
+                 family_counts, other_counts, variant_counts, bf16_counts)),
              library_ms=None, **serving),
         dict(name=kern.KERNEL_BWD, source=kern.SOURCE_BWD, replaces=kern.REPLACES_BWD,
              launches=sum(c[kern.KERNEL_BWD] for c in (
                  train_counts, long_counts, real_ml1m, real_others, split_counts,
-                 family_counts, other_counts, variant_counts)),
+                 family_counts, other_counts, variant_counts, bf16_counts)),
              library_ms=None, **attn_bwd),
         # rows 1-2 at the ranking shape R; their launches are the ranking run's
         dict(name=kern.KERNEL + " (ranking shape R)", source=kern.SOURCE,
@@ -4131,21 +4352,25 @@ def main() -> int:
         dict(name=lse_kern.KERNEL_BWD, source=lse_kern.SOURCE, replaces=lse_kern.REPLACES_BWD,
              launches=train_counts[lse_kern.KERNEL_BWD], library_ms=None, **lse_bwd),
         # rows 3-5 at the ml-1m catalog read from files, X = 3,883: their
-        # launches are phase 15's ml-1m runs and phase 16's
+        # launches are phase 15's ml-1m runs and phases 16-20's (the count's
+        # also phase 20's D=256 run; its lse launches are the width-256 rows)
         dict(name=count_kern.KERNEL + " (ml-1m files, X=3883)", source=count_kern.SOURCE,
              replaces=count_kern.REPLACES,
              launches=sum(c[count_kern.KERNEL] for c in (
-                 real_ml1m, split_counts, family_counts, other_counts, variant_counts)),
+                 real_ml1m, split_counts, family_counts, other_counts, variant_counts,
+                 bf16_counts, last["wide_counts"])),
              **counted_ml1m),
         dict(name=lse_kern.KERNEL + " (ml-1m files, X=3883)", source=lse_kern.SOURCE,
              replaces=lse_kern.REPLACES,
              launches=sum(c[lse_kern.KERNEL] for c in (
-                 real_ml1m, split_counts, family_counts, other_counts, variant_counts)),
+                 real_ml1m, split_counts, family_counts, other_counts, variant_counts,
+                 bf16_counts)),
              library_ms=None, **lse_fwd_ml1m),
         dict(name=lse_kern.KERNEL_BWD + " (ml-1m files, X=3883)", source=lse_kern.SOURCE,
              replaces=lse_kern.REPLACES_BWD,
              launches=sum(c[lse_kern.KERNEL_BWD] for c in (
-                 real_ml1m, split_counts, family_counts, other_counts, variant_counts)),
+                 real_ml1m, split_counts, family_counts, other_counts, variant_counts,
+                 bf16_counts)),
              library_ms=None, **lse_bwd_ml1m),
         # the same entry point over the ml-20m catalog, wider than one x-block
         # of the TPU kernels: its launches are the long path's, its numbers
@@ -4162,6 +4387,21 @@ def main() -> int:
         dict(name=lse_kern.KERNEL_BWD + " (fused_dense_neg_lse, sup_off)", source=lse_kern.SOURCE,
              replaces=lse_kern.REPLACES_FUSED_BWD, launches=fused_on_paths[1],
              library_ms=None, **fused_bwd),
+        # rows 1, 2, 4, 5 at width 256 (phase 20): their wide kernels, launched
+        # by the D=256 run (its count launches are in the X=3,883 row above)
+        dict(name=kern.KERNEL + f" (width {WIDE}, wide kernel)", source=kern.SOURCE,
+             replaces=kern.REPLACES, launches=last["wide_counts"][kern.KERNEL],
+             library_ms=None, **last["wide"]["fwd"]),
+        dict(name=kern.KERNEL_BWD + f" (width {WIDE}, wide kernel)", source=kern.SOURCE_BWD,
+             replaces=kern.REPLACES_BWD, launches=last["wide_counts"][kern.KERNEL_BWD],
+             library_ms=None, **last["wide"]["bwd"]),
+        dict(name=lse_kern.KERNEL + f" (width {WIDE}, 256-column slices)", source=lse_kern.SOURCE,
+             replaces=lse_kern.REPLACES, launches=last["wide_counts"][lse_kern.KERNEL],
+             library_ms=None, **last["wide"]["lse_fwd"]),
+        dict(name=lse_kern.KERNEL_BWD + f" (width {WIDE}, 256-column slices)",
+             source=lse_kern.SOURCE, replaces=lse_kern.REPLACES_BWD,
+             launches=last["wide_counts"][lse_kern.KERNEL_BWD], library_ms=None,
+             **last["wide"]["lse_bwd"]),
         # rows 9-10: numbers of the fully live 130 x 130 chunk, the zigzag
         # ring's most common call (28 of 36 a block)
         dict(name=chunk_kern.KERNEL, source=chunk_kern.SOURCE, replaces=chunk_kern.REPLACES,

@@ -5,7 +5,7 @@ same fields, defaults and override grammar, so one command line configures
 either package. Knobs the port does not implement yet raise where they are
 read (see ROADMAP.md, queue 1).
 
-The TPU-native replacement for the reference's Hydra tree (configs/*.yaml
+The JAX package's replacement for the reference's Hydra tree (configs/*.yaml
 + utils/instantiators.py): nested frozen-less dataclasses, named
 experiment presets (configs/presets.py), `key.path=value` overrides with
 dataclass-driven type coercion, and derived-dim resolution
@@ -53,7 +53,8 @@ class EmbeddingConfig:
     # table rows a step touches (B*T positives + R shared negatives) —
     # untouched rows get no momentum motion and no weight decay. Kills
     # the dense [V, D] gradient + p/m/v optimizer passes that dominate
-    # at production vocab scales (~7 full-table HBM passes/step).
+    # at production vocab scales (~7 full-table passes over device memory
+    # a step).
     # Requires loss.shared_negatives + local sampler + dot_product +
     # embedding.kind=local + optimizer1.kind=adamw
     # (train/lazy_embedding.py).
@@ -154,10 +155,11 @@ class LossConfig:
     num_to_sample: int = 128
     temperature: float = 0.05
     # Dense-catalog evaluation of the sampled-softmax negatives (local
-    # sampler only): one q@catalog^T MXU matmul + a Kronecker one-hot
-    # multiplicity matrix replace the per-sample [B,T,R,D] gather/scatter
-    # (the step's dominant cost). Mathematically identical loss/grads —
-    # see ops/dense_negatives.py. auto -> on when applicable.
+    # sampler only): the negatives' multiplicities over the catalog (the
+    # count kernel) and a log-sum-exp over the live q.catalog logits (the
+    # lse kernels) replace the per-sample [B,T,R,D] gather/scatter.
+    # Mathematically identical loss/grads — see ops/dense_negatives.py.
+    # auto -> on when applicable.
     dense_catalog_negatives: str = "auto"  # auto | true | false
     # Opt-in ALGORITHM CHANGE (off the reference-parity path): draw ONE
     # set of num_to_sample negatives per optimizer step, shared by every
@@ -176,9 +178,9 @@ class IndexConfig:
     k: int = 200
     filter_past_ids: bool = True
     # "int8": store the candidate matrix as symmetric per-row int8 and
-    # pre-rank with an int8 MXU matmul (4x less catalog HBM traffic),
-    # then re-score rescore_over_fetch*k candidates against the exact
-    # f32 rows (ops/quantized_topk.py). "none" = reference-exact scan.
+    # pre-rank on the int8 rows (a quarter of the float32 catalog's
+    # bytes), then re-score rescore_over_fetch*k candidates against the
+    # exact f32 rows (ops/quantized_topk.py). "none" = reference-exact scan.
     # NOTE: the eval step is shared between serving and the training
     # driver, so enabling int8 also makes val/test metrics, plateau-LR
     # scheduling, and best-checkpoint selection run on the approximate
@@ -188,13 +190,11 @@ class IndexConfig:
     # checkpoint selection must be exact.
     quantize: str = "none"  # none | int8
     rescore_over_fetch: int = 4
-    # > 0: route the (non-sharded, non-int8) top-k selection through the
-    # TPU's hardware partial-reduce top-k (jax.lax.approx_max_k) with
-    # this per-element recall target — XLA's full-sort lax.top_k is the
-    # dominant cost of a large-catalog scan (11.6 -> 3.4 ms/call at
-    # X=131k, recall 0.99). Opt-in and approximate: like quantize=int8,
-    # enabling it makes val/test metrics and checkpoint selection run on
-    # the approximate scan; intended for serving. 0.0 = exact.
+    # > 0: the JAX package routes the (non-sharded, non-int8) top-k
+    # selection through jax.lax.approx_max_k with this per-element recall
+    # target, which is approximate on the TPU only and exact on every
+    # other backend. The port takes the exact selection for it, on the
+    # CPU and the card (ops/topk.py). 0.0 = exact.
     approx_top_k_recall: float = 0.0
     # SHARDED candidate index: keep the [X, D] candidate matrix row-
     # sharded over the "model" axis and evaluate top-k as local-topk +
@@ -306,12 +306,9 @@ class DataConfig:
     # segment (max_sequence_length + 1).
     pack_capacities: Tuple[int, ...] = ()
     # EVAL packing policy when pack_sequences is on (train packing never
-    # depends on this). "auto" picks the measured-faster path per shape
-    # class (benchmarks/eval_bench.py run_long_eval, v5e): packed eval
-    # wins 4.5x at ml-20m-long shapes (9.2k vs 2.1k q/s at N=1024) but
-    # loses ~25% at ml-1m shapes (75.8k vs 100.2k q/s at N=200, where
-    # the unpacked batched dispatch is already device-bound) — auto
-    # packs eval iff max_sequence_length >= 512. "true"/"false" force.
+    # depends on this). "auto" packs eval iff max_sequence_length >= 512:
+    # the JAX package's threshold, kept for parity (the port has not
+    # timed packed against padded eval). "true"/"false" force.
     pack_eval: str = "auto"
 
 
@@ -372,9 +369,8 @@ class TrainerConfig:
     # copy stays synchronous); the meta.json sidecar is written at the
     # next save / restore / teardown flush
     async_checkpoint: bool = False
-    # persistent XLA compilation cache directory ("" = off): first-compile
-    # of the train step costs 20-90s on TPU; cached executables load in
-    # ~100ms on later runs (keyed by HLO + backend, safe across edits)
+    # the JAX package's persistent XLA compilation cache directory ("" =
+    # off); the port compiles nothing with XLA and reads it nowhere
     jax_cache_dir: str = "~/.cache/mygenerativerecommenders_tpu/xla"
 
 

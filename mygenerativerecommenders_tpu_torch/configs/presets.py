@@ -46,9 +46,9 @@ def ml_1m_hstu() -> Config:
     cfg.data.batch_size = 128
     cfg.trainer.max_epochs = 500
     cfg.trainer.min_epochs = 10
-    # 8 optimizer steps per device dispatch (lax.scan): the ml-1m step is
-    # ~10 ms on a v5e chip, where per-call host overhead would otherwise
-    # cost ~15%
+    # 8 optimizer steps per call: the JAX package's setting, kept for
+    # parity; the port runs them as replays of one CUDA graph of the step
+    # (train/graphs.py)
     cfg.trainer.steps_per_call = 8
     return cfg
 
@@ -57,9 +57,8 @@ def ml_1m_hstu() -> Config:
 def ml_1m_hstu_packed() -> Config:
     """The ml-1m parity recipe with SEQUENCE PACKING (r3): best-fit
     packs ~2.3 mean-111 segments per 256-token row, so a 128-example
-    step runs on ~56 rows instead of 128 padded ones — measured 24.3k
-    ex/s/chip vs 12.9k padded on v5e, convergence band equal
-    (PARITY.md packed row). The plain ml-1m-hstu preset keeps the
+    step runs on ~56 rows instead of 128 padded ones, convergence band
+    equal (PARITY.md packed row). The plain ml-1m-hstu preset keeps the
     exact-RNG-parity padded path."""
     cfg = ml_1m_hstu()
     cfg.data.pack_sequences = True
@@ -308,15 +307,15 @@ def synthetic_large_vocab_100m() -> Config:
       table slice        100e6*64*4 / 16 = 1.6 GB
       AdamW m+v          2x table slice  = 3.2 GB
       int8 index slice   100e6*64*1 / 16 = 0.4 GB (+ f32 scales 0.025 GB)
-      total              ~5.2 GB of a v5e's 16 GB HBM, leaving ~10 GB for
-                         activations + the dense model.
+      total              ~5.2 GB a table device, beside the activations
+                         and the dense model.
     Scale knobs: embedding.num_shards x embedding.col_shards must divide
     the mesh (model x col axes); halve the per-device slice by doubling
     either. Lookup traffic per device per step is
     B*N*D*4/num_shards bytes each way (a2a) — independent of vocab.
     Tested at reduced vocab on the 8-device CPU mesh
-    (tests/test_sharded_a2a_model.py); single-chip v5e runs the 10M
-    variant (synthetic-large-vocab, PERFORMANCE.md lazy_update row).
+    (tests/test_sharded_a2a_model.py); one card runs the 10M variant
+    (synthetic-large-vocab) with the one-card overlay (PERF.md section 4).
     """
     cfg = synthetic_large_vocab()
     cfg.data.expected_num_unique_items = 100_000_000

@@ -88,6 +88,16 @@
 //     vectors: a group's lanes take neighbouring columns, so one atomic
 //     instruction covers 128 or 256 contiguous bytes of the accumulator.
 //
+// Rows wider than 128 (D > 128, the JAX kernels take any D): the lanes above
+// hold at most 128 columns of q (32 lanes of 4 floats). Wider rows take 8
+// floats a lane, a 256-column slice (kSliced, by_layout); past 256 the logit
+// sums the row's slices in order, the lanes' own slice from registers and the
+// rest from q's row in memory, so both kernels still form one al. The
+// backward keeps dq and dcat's float64 terms for one 256-column slice a block
+// (blockIdx.y) and scans the row once a slice; dcat's sums, their float64
+// accumulator and the rounding kernel are unchanged. Rows up to 128 wide keep
+// the instantiations above, unsliced.
+//
 // The TPU kernels' b-major [BT, HI, 128] count layout, their radix-256
 // unpacking and their one-x-block restriction exist for Mosaic and are not
 // carried over: count is plain [BT, X] and the catalog may be any width, so
@@ -159,35 +169,53 @@ __device__ __forceinline__ void store_vec(float* dst, const float (&v)[kVec]) {
 // A warp's row: its list of live pairs and its lanes' layout. The lanes form
 // 32 / kLanes groups, each taking one pair at a time; lane l of a group holds
 // columns (r kLanes + l) kVec .. + kVec of q[i], for r < kReps.
-template <int kVec, int kLanes, int kReps>
+//
+// kSliced (D > 128, by_layout): the lanes' columns are one slice of kWidth =
+// 256 columns, from `first()`, and the row has `slices` of them. The logit
+// sums the slices in order, the lanes' own slice from registers and the
+// others from q's row in memory (L1); the backward's dq and dcat take the
+// lanes' slice only, one slice a block (blockIdx.y).
+template <int kVec, int kLanes, int kReps, bool kSliced = false>
 struct RowPairs {
   static constexpr int kGroups = 32 / kLanes;
+  static constexpr int kWidth = kLanes * kVec * kReps;  // columns of the lanes' slice
   const float* cat;
+  const float* q_row;  // kSliced: the other slices' columns
   int2* pairs;  // the warp's list: (x, count as float bits)
   int n;        // pairs listed
   int d, g, lg, col;  // lg: the lane in its group
+  int c0, slices;     // kSliced: the first column of the lanes' slice, slices a row
   float inv_tau;
   float qv[kReps][kVec];
 
   __device__ __forceinline__ int column(int r) const { return col + r * kLanes * kVec; }
 
-  __device__ __forceinline__ void start(const float* __restrict__ q_row,
+  // the first column of the lanes' slice (0 without slices)
+  __device__ __forceinline__ int first() const {
+    if constexpr (kSliced) return c0;
+    else return 0;
+  }
+
+  __device__ __forceinline__ void start(const float* __restrict__ q_row_,
                                         const float* __restrict__ cat_, int2* list, int d_,
-                                        float inv_tau_) {
+                                        float inv_tau_, int c0_ = 0) {
     const int lane = threadIdx.x & 31;
     cat = cat_;
+    q_row = q_row_;
     pairs = list;
     n = 0;
     d = d_;
     g = lane / kLanes;
     lg = lane % kLanes;
     col = lg * kVec;
+    c0 = c0_;
+    slices = (d_ + kWidth - 1) / kWidth;
     inv_tau = inv_tau_;
 #pragma unroll
     for (int r = 0; r < kReps; ++r) {
 #pragma unroll
       for (int v = 0; v < kVec; ++v) qv[r][v] = 0.f;
-      if (column(r) < d) load_vec(qv[r], q_row + column(r));
+      if (first() + column(r) < d) load_vec(qv[r], q_row_ + first() + column(r));
     }
   }
 
@@ -202,6 +230,10 @@ struct RowPairs {
                                          float (&cnt)[kPairUnroll],
                                          float (&cv)[kPairUnroll][kReps][kVec],
                                          float (&al)[kPairUnroll]) const {
+    if constexpr (kSliced) {
+      sliced_logits(jb, xs, cnt, cv, al);
+      return;
+    }
 #pragma unroll
     for (int u = 0; u < kPairUnroll; ++u) {
       const int j = jb + u * kGroups + g;
@@ -225,6 +257,64 @@ struct RowPairs {
 #pragma unroll
       for (int off = kLanes / 2; off > 0; off >>= 1) dot += __shfl_xor_sync(kAll, dot, off);
       al[u] = __fmul_rn(dot, inv_tau);
+    }
+  }
+
+  // logits with kSliced: each lane's partial dot runs over the slices in
+  // order (its columns of slice s, then of s + 1), and cv keeps cat[x]'s
+  // columns of the lanes' own slice for the backward's dq.
+  __device__ __forceinline__ void sliced_logits(int jb, int (&xs)[kPairUnroll],
+                                                float (&cnt)[kPairUnroll],
+                                                float (&cv)[kPairUnroll][kReps][kVec],
+                                                float (&al)[kPairUnroll]) const {
+    float dot[kPairUnroll];
+#pragma unroll
+    for (int u = 0; u < kPairUnroll; ++u) {
+      const int j = jb + u * kGroups + g;
+      const int2 p = j < n ? pairs[j] : make_int2(-1, 0);
+      xs[u] = p.x;
+      cnt[u] = __int_as_float(p.y);
+      dot[u] = 0.f;
+#pragma unroll
+      for (int r = 0; r < kReps; ++r)
+#pragma unroll
+        for (int v = 0; v < kVec; ++v) cv[u][r][v] = 0.f;
+    }
+    for (int s = 0; s < slices; ++s) {
+      const int e0 = s * kWidth;
+      const bool own = e0 == c0;
+      float qs[kReps][kVec];
+#pragma unroll
+      for (int r = 0; r < kReps; ++r) {
+#pragma unroll
+        for (int v = 0; v < kVec; ++v) qs[r][v] = own ? qv[r][v] : 0.f;
+        if (!own && e0 + column(r) < d) load_vec(qs[r], q_row + e0 + column(r));
+      }
+#pragma unroll
+      for (int u = 0; u < kPairUnroll; ++u) {
+        float cs[kReps][kVec];
+#pragma unroll
+        for (int r = 0; r < kReps; ++r) {
+#pragma unroll
+          for (int v = 0; v < kVec; ++v) cs[r][v] = 0.f;
+          if (xs[u] >= 0 && e0 + column(r) < d)
+            load_vec(cs[r], cat + (int64_t)xs[u] * d + e0 + column(r));
+        }
+#pragma unroll
+        for (int r = 0; r < kReps; ++r)
+#pragma unroll
+          for (int v = 0; v < kVec; ++v) {
+            dot[u] = fmaf(qs[r][v], cs[r][v], dot[u]);
+            if (own) cv[u][r][v] = cs[r][v];
+          }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kPairUnroll; ++u) {
+      float t = dot[u];
+#pragma unroll
+      for (int off = kLanes / 2; off > 0; off >>= 1) t += __shfl_xor_sync(kAll, t, off);
+      al[u] = __fmul_rn(t, inv_tau);
     }
   }
 
@@ -320,9 +410,9 @@ __device__ __forceinline__ const C* count_row(const C* __restrict__ count, int r
 // ---------------------------------------------------------------- forward
 
 // One warp's row of the forward: each group's running (m, s) over its pairs.
-template <int kVec, int kLanes, int kReps>
+template <int kVec, int kLanes, int kReps, bool kSliced>
 struct RowLse {
-  RowPairs<kVec, kLanes, kReps> p;
+  RowPairs<kVec, kLanes, kReps, kSliced> p;
   float m = kNoLogit;  // the group's largest al so far
   float s = 0.f;       // its sum of count exp(al - m)
 
@@ -363,7 +453,7 @@ struct RowLse {
   }
 };
 
-template <int kVec, int kLanes, int kReps, bool kMasked, typename C>
+template <int kVec, int kLanes, int kReps, bool kSliced, bool kMasked, typename C>
 __global__ void __launch_bounds__(kWarps * 32) dense_neg_lse_fwd_kernel(
     const float* __restrict__ q, const float* __restrict__ cat,
     const C* __restrict__ count, const int* __restrict__ sup_off,
@@ -374,7 +464,7 @@ __global__ void __launch_bounds__(kWarps * 32) dense_neg_lse_fwd_kernel(
   const int row = blockIdx.x * kWarps + warp;
   if (row >= bt) return;  // the whole warp
 
-  RowLse<kVec, kLanes, kReps> w;
+  RowLse<kVec, kLanes, kReps, kSliced> w;
   w.p.start(q + (int64_t)row * d, cat, pairs_s[warp], d, inv_tau);
   scan_row<kMasked>(w.p, count_row<kMasked>(count, row, x, count_ld), x,
                     kMasked ? sup_off[row] : -1, [&] { w.step(); });
@@ -397,10 +487,10 @@ __global__ void round_dcat_kernel(const double* __restrict__ acc, float* __restr
     dcat[e] = __double2float_rn(acc[e]);
 }
 
-template <int kVec, int kLanes, int kReps>
+template <int kVec, int kLanes, int kReps, bool kSliced>
 struct RowWalk {
   static constexpr int kT = kReps * kVec;
-  RowPairs<kVec, kLanes, kReps> p;
+  RowPairs<kVec, kLanes, kReps, kSliced> p;
   double* dcat;  // the float64 accumulator
   float mi, coef;
   float acc[kReps][kVec], qt[kT];
@@ -412,7 +502,7 @@ struct RowWalk {
       for (int v = 0; v < kVec; ++v) acc[r][v] = 0.f;
 #pragma unroll
     for (int t = 0; t < kT; ++t) {
-      const int c = p.lg + t * kLanes;
+      const int c = p.first() + p.lg + t * kLanes;
       qt[t] = c < p.d ? __ldg(q_row + c) : 0.f;
     }
   }
@@ -422,7 +512,7 @@ struct RowWalk {
   __device__ __forceinline__ void add_dcat(double* __restrict__ dcat, int64_t at, float dal) const {
 #pragma unroll
     for (int t = 0; t < kT; ++t) {
-      const int c = p.lg + t * kLanes;
+      const int c = p.first() + p.lg + t * kLanes;
       if (c < p.d) atomicAdd(dcat + at + c, (double)dal * (double)qt[t]);
     }
   }
@@ -440,7 +530,7 @@ struct RowWalk {
         if (dal[u] == 0.f) continue;
 #pragma unroll
         for (int r = 0; r < kReps; ++r) {
-          if (p.column(r) >= p.d) continue;
+          if (p.first() + p.column(r) >= p.d) continue;
 #pragma unroll
           for (int v = 0; v < kVec; ++v) acc[r][v] = fmaf(dal[u], cv[u][r][v], acc[r][v]);
         }
@@ -460,11 +550,11 @@ struct RowWalk {
     if (p.g != 0) return;
 #pragma unroll
     for (int r = 0; r < kReps; ++r)
-      if (p.column(r) < p.d) store_vec(dq_row + p.column(r), acc[r]);
+      if (p.first() + p.column(r) < p.d) store_vec(dq_row + p.first() + p.column(r), acc[r]);
   }
 };
 
-template <int kVec, int kLanes, int kReps, bool kMasked, typename C>
+template <int kVec, int kLanes, int kReps, bool kSliced, bool kMasked, typename C>
 __global__ void __launch_bounds__(kWarps * 32, 4) dense_neg_lse_bwd_kernel(
     const float* __restrict__ q, const float* __restrict__ cat,
     const C* __restrict__ count, const int* __restrict__ sup_off,
@@ -476,9 +566,11 @@ __global__ void __launch_bounds__(kWarps * 32, 4) dense_neg_lse_bwd_kernel(
   const int row = blockIdx.x * kWarps + warp;
   if (row >= bt) return;  // the whole warp
 
-  RowWalk<kVec, kLanes, kReps> w;
+  RowWalk<kVec, kLanes, kReps, kSliced> w;
   const float* q_row = q + (int64_t)row * d;
-  w.p.start(q_row, cat, pairs_s[warp], d, inv_tau);
+  // kSliced: dq's and dcat's columns of slice blockIdx.y
+  w.p.start(q_row, cat, pairs_s[warp], d, inv_tau,
+            kSliced ? (int)blockIdx.y * RowPairs<kVec, kLanes, kReps, kSliced>::kWidth : 0);
   w.load_q(q_row);
   w.dcat = dcat;
   const float si = s_in[row];
@@ -494,28 +586,36 @@ __global__ void __launch_bounds__(kWarps * 32, 4) dense_neg_lse_bwd_kernel(
 
 // ---------------------------------------------------------------- launch
 
-// Calls K<kVec, kLanes, kReps>::run(args...) with the widest vector of floats
-// that d and the float operands' addresses `addr` allow, 16 lanes a pair where
-// they hold a row (two pairs a warp at once), and as few vectors a lane as
-// hold it: one at D=50 and D=64. Both kernels are given the addresses of q
-// and cat (the backward also those of dq, which the wrapper allocates as
-// aligned as any tensor), so they take one layout and form the same al.
-template <template <int, int, int> class K, typename... Args>
+// Calls K<kVec, kLanes, kReps, kSliced>::run(args...) with the widest vector
+// of floats that d and the float operands' addresses `addr` allow, 16 lanes a
+// pair where they hold a row (two pairs a warp at once), and as few vectors a
+// lane as hold it: one at D=50 and D=64. Both kernels are given the addresses
+// of q and cat (the backward also those of dq, which the wrapper allocates as
+// aligned as any tensor), so they take one layout and form the same al. Rows
+// wider than 128 take 256-column slices (8 floats a lane: D up to 256 in one
+// slice, wider rows in several).
+template <template <int, int, int, bool> class K, typename... Args>
 int by_layout(int d, uintptr_t addr, Args... args) {
   const int vec = d % 4 == 0 && addr % 16 == 0 ? 4 : d % 2 == 0 && addr % 8 == 0 ? 2 : 1;
   const int chunks = (d + vec - 1) / vec;
+  if (d > 128) {
+    return vec == 4   ? K<4, 32, 2, true>::run(args...)
+           : vec == 2 ? K<2, 32, 4, true>::run(args...)
+                      : K<1, 32, 8, true>::run(args...);
+  }
   if (chunks <= 16) {
-    return vec == 4   ? K<4, 16, 1>::run(args...)
-           : vec == 2 ? K<2, 16, 1>::run(args...)
-                      : K<1, 16, 1>::run(args...);
+    return vec == 4   ? K<4, 16, 1, false>::run(args...)
+           : vec == 2 ? K<2, 16, 1, false>::run(args...)
+                      : K<1, 16, 1, false>::run(args...);
   }
   if (chunks <= 32) {
-    return vec == 4   ? K<4, 32, 1>::run(args...)
-           : vec == 2 ? K<2, 32, 1>::run(args...)
-                      : K<1, 32, 1>::run(args...);
+    return vec == 4   ? K<4, 32, 1, false>::run(args...)
+           : vec == 2 ? K<2, 32, 1, false>::run(args...)
+                      : K<1, 32, 1, false>::run(args...);
   }
-  return vec == 2 ? K<2, 32, 2>::run(args...)
-                  : chunks <= 64 ? K<1, 32, 2>::run(args...) : K<1, 32, 4>::run(args...);
+  return vec == 2 ? K<2, 32, 2, false>::run(args...)
+                  : chunks <= 64 ? K<1, 32, 2, false>::run(args...)
+                                 : K<1, 32, 4, false>::run(args...);
 }
 
 uintptr_t addr_of(const void* a, const void* b, const void* c = nullptr) {
@@ -527,12 +627,12 @@ int blocks_for(int bt) { return (bt + kWarps - 1) / kWarps; }
 
 template <bool kMasked, typename C>
 struct Fwd {
-  template <int kVec, int kLanes, int kReps>
+  template <int kVec, int kLanes, int kReps, bool kSliced>
   struct As {
     static int run(const float* q, const float* cat, const C* count, const int* sup_off,
                    float* lse, float* m_safe, float* s, int bt, int d, int x, int64_t count_ld,
                    float inv_tau, cudaStream_t stream) {
-      dense_neg_lse_fwd_kernel<kVec, kLanes, kReps, kMasked, C>
+      dense_neg_lse_fwd_kernel<kVec, kLanes, kReps, kSliced, kMasked, C>
           <<<blocks_for(bt), kWarps * 32, 0, stream>>>(q, cat, count, sup_off, lse, m_safe, s,
                                                         bt, d, x, count_ld, inv_tau);
       return (int)cudaGetLastError();
@@ -542,16 +642,17 @@ struct Fwd {
 
 template <bool kMasked, typename C>
 struct Bwd {
-  template <int kVec, int kLanes, int kReps>
+  template <int kVec, int kLanes, int kReps, bool kSliced>
   struct As {
     static int run(const float* q, const float* cat, const C* count, const int* sup_off,
                    const float* m_safe, const float* s, const float* gl, float* dq,
                    double* dcat_acc, float* dcat, int bt, int d, int x, int64_t count_ld,
                    float inv_tau, cudaStream_t stream) {
-      dense_neg_lse_bwd_kernel<kVec, kLanes, kReps, kMasked, C>
-          <<<blocks_for(bt), kWarps * 32, 0, stream>>>(q, cat, count, sup_off, m_safe, s, gl,
-                                                        dq, dcat_acc, bt, d, x, count_ld,
-                                                        inv_tau);
+      constexpr int kWidth = RowPairs<kVec, kLanes, kReps, kSliced>::kWidth;
+      const dim3 grid(blocks_for(bt), kSliced ? (d + kWidth - 1) / kWidth : 1);
+      dense_neg_lse_bwd_kernel<kVec, kLanes, kReps, kSliced, kMasked, C>
+          <<<grid, kWarps * 32, 0, stream>>>(q, cat, count, sup_off, m_safe, s, gl, dq,
+                                             dcat_acc, bt, d, x, count_ld, inv_tau);
       const cudaError_t err = cudaGetLastError();
       if (err != cudaSuccess) return (int)err;
       const int64_t n = (int64_t)x * d;
@@ -588,9 +689,6 @@ int launch_bwd(const float* q, const float* cat, const C* count, const int* sup_
 }  // namespace
 
 extern "C" {
-
-// Widest depth the kernels take (32 lanes of 4 floats a row).
-int dense_neg_lse_max_depth() { return 128; }
 
 // q [bt, d], cat [x, d] float32 contiguous, count [bt, >= x] uint8 (int32 if
 // `wide`) with row stride count_ld, sup_off [bt] int32 or null -> lse,

@@ -90,7 +90,8 @@ constexpr int kThreads = 32 * kWarps;
 using hstu::kHalf;
 using hstu::kLdW;
 constexpr int kT = 2 * kHalf;   // rows of a tile, resident or streamed
-constexpr int kMaxDepth = 128;  // widest head the 4 x 8-column output tiles reach
+constexpr int kMaxDepth = 128;  // widest head the 4 x 8-column output tiles reach;
+                                // wider ones take the wide kernel (below)
 
 using hstu::accumulate_rows;
 using hstu::dot_tile;
@@ -446,22 +447,355 @@ int launch(const Args& a, long long smem, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// ------------------------------------------------------------ wide heads
+//
+// Heads wider than kMaxDepth (dqk or dv above 128): the passes above keep a
+// resident and two streamed stages as wide as the head and 4 x 8 columns of
+// each output a lane, which reach 128. Here the same two passes, the same
+// walks and the same live-pair tests, with depth in slices of kSliceW = 128:
+//  - the scores: for each streamed tile, q.k is summed over the dqk slices
+//    and g.v over the dv slices, one slice of the resident and the streamed
+//    rows staged in shared memory at a time, the lane's partial sums in
+//    registers. dP = g.v sums over all of dv before the silu derivative, so
+//    dz exists only after the last dv slice;
+//  - the outputs: one 128-column slice of them a block, on the grid
+//    (blockIdx.y = c): pass Q writes dq[:, c], pass K dk[:, c] and dv[:, c]
+//    (each where the head has that slice). The streamed rows of slice c (k,
+//    or q and g) are staged once a tile beside the score slices. Each slice's
+//    block recomputes z and dz for the walk: no block keeps a tile's dz for
+//    another, and a lane's 4 x 8-column tiles are what its registers hold.
+//  - dq, dk and dv keep the two-pass order: every sum in registers in walk
+//    order, the two streamed halves added in a fixed order, each row written
+//    once (bit-identical from call to call). The table gradients are added by
+//    the blocks of slice 0 of pass Q only, as the pass above adds them.
+// Stages are single (copy, wait, barrier, compute). Shared memory is
+// wide_smem_floats (~80 KB at L = 211, ~84 KB at 1,035): the same at every
+// width. The simple form of the wide path, not a fast one.
+
+long long wide_smem_floats(int max_len, int num_buckets, int n_tiles) {
+  const long long rows = 4LL * kT * hstu::kLdSlice;  // two score slices, two output slices
+  const long long w = 2LL * kWarps * kHalf * kLdW;
+  const long long tables = 2LL * (num_buckets + 1) + max_len;
+  const long long ints = 4LL * kT + n_tiles + 1;
+  return rows + w + tables + ints;
+}
+
+template <bool kPassK>
+__device__ __forceinline__ void run_wide_pass(const Args& a, float* smem, int tile, int b,
+                                              int hh, int c) {
+  constexpr int kU = 4;
+  constexpr int ld = hstu::kLdSlice;
+  constexpr int kW = hstu::kSliceW;
+  const int n_qk = (a.dqk + kW - 1) / kW, n_v = (a.dvh + kW - 1) / kW;
+  const bool out1 = c < n_qk;           // dq (pass Q) or dk (pass K) has slice c
+  const bool out2 = kPassK && c < n_v;  // dv has slice c
+  if (!out1 && !out2) return;           // the whole block
+  const bool tables = !kPassK && c == 0;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wr = warp >> 1, ws = warp & 1;
+  const int lr = lane >> 3, ls = lane & 7;
+  const int n = a.n, L = a.max_len, nb1 = a.num_buckets + 1;
+  const int seq_len = min(a.lengths[b], n);
+  const int r0 = tile * kT;
+  const int hv = a.h * a.dvh;
+  const int c1 = c * kW;
+  const int w1c = out1 ? min(kW, a.dqk - c1) : 0, w2c = out2 ? min(kW, a.dvh - c1) : 0;
+
+  const float* qb = a.q + b * a.q_sb + hh * a.dqk;
+  const float* kb = a.k + b * a.k_sb + hh * a.dqk;
+  const float* vb = a.v + b * a.v_sb + hh * a.dvh;
+  const float* gb = a.g + (int64_t)b * n * hv + hh * a.dvh;
+  const float* res1_src = kPassK ? kb : qb;
+  const float* res2_src = kPassK ? vb : gb;
+  const int64_t res1_sn = kPassK ? a.k_sn : a.q_sn;
+  const int64_t res2_sn = kPassK ? a.v_sn : hv;
+  const float* str1_src = kPassK ? qb : kb;
+  const float* str2_src = kPassK ? gb : vb;
+  const int64_t str1_sn = kPassK ? a.q_sn : a.k_sn;
+  const int64_t str2_sn = kPassK ? hv : a.v_sn;
+  const int* tsb = a.ts + b * a.ts_sb;
+  const int* segb = a.seg_pos ? a.seg_pos + b * a.seg_sb : nullptr;
+
+  float* res_s = smem;                              // [kT][ld] resident slice
+  float* str_s = res_s + kT * ld;                   // [kT][ld] streamed slice
+  float* o1_s = str_s + kT * ld;                    // [kT][ld] streamed side 1, slice c
+  float* o2_s = o1_s + kT * ld;                     // [kT][ld] streamed side 2, slice c
+  float* w1 = o2_s + kT * ld;                       // [kWarps][kHalf][kLdW] dz
+  float* w2 = w1 + kWarps * kHalf * kLdW;           // [kWarps][kHalf][kLdW] p (pass K)
+  float* tsw_s = w2 + kWarps * kHalf * kLdW;        // [nb1]
+  float* hist_s = tsw_s + nb1;                      // [nb1]
+  float* diag_s = hist_s + nb1;                     // [L]
+  int* res_ts = reinterpret_cast<int*>(diag_s + L);  // [kT]
+  int* res_start = res_ts + kT;                     // [kT]
+  int* str_ts = res_start + kT;                     // [kT]
+  int* str_seg = str_ts + kT;                       // [kT]
+  int* tiles_s = str_seg + kT;                      // [n_tiles + 1]
+
+  const int ng1 = (w1c + 3) / 4, ng2 = (w2c + 3) / 4;
+  int g1[kU], g2[kU];
+#pragma unroll
+  for (int u = 0; u < kU; ++u) {
+    g1[u] = ls + 8 * u;
+    g2[u] = ls + 8 * u;
+  }
+  const int row_lane = 16 * wr + 4 * lr;
+  const int64_t out1_base = ((int64_t)b * n * a.h + hh) * a.dqk + c1;
+  const int64_t out2_base = ((int64_t)b * n * a.h + hh) * a.dvh + c1;
+  const int64_t out1_sn = (int64_t)a.h * a.dqk, out2_sn = (int64_t)hv;
+
+  if (r0 >= seq_len) {
+    float4 zero[4][kU];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int u = 0; u < kU; ++u) zero[i][u] = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (ws == 0) {
+      if (out1)
+        hstu::store_rows_at<kU>(kPassK ? a.dk : a.dq, zero, out1_base, r0 + row_lane, n,
+                                out1_sn, w1c, g1, ng1);
+      if (out2)
+        hstu::store_rows_at<kU>(a.dv, zero, out2_base, r0 + row_lane, n, out2_sn, w2c, g2, ng2);
+    }
+    return;
+  }
+
+  if (tid < kT) {
+    const int row = r0 + tid;
+    res_ts[tid] = tsb[kPassK ? min(row, n - 1) : min(row + 1, n - 1)];
+    if (!kPassK) res_start[tid] = hstu::segment_start(a.seg_pos, b * a.seg_sb, row, seq_len);
+  }
+  for (int e = tid; e < nb1; e += kThreads) {
+    tsw_s[e] = a.ts_w[e];
+    hist_s[e] = 0.f;
+  }
+  const int diag_hi = min(L, r0 + kT);
+  if (tables)
+    for (int e = tid; e < diag_hi; e += kThreads) diag_s[e] = 0.f;
+
+  // the walk, as run_pass takes it
+  const int res_last = min(r0 + kT, seq_len) - 1;
+  int t_lo, t_hi;
+  if (kPassK) {
+    t_lo = r0 / kT;
+    t_hi = min(seq_len - 1, res_last + L - 1) / kT;
+  } else {
+    __syncthreads();  // res_start
+    const int first = max(hstu::first_key_row(res_start, kT), max(r0 - L + 1, 0));
+    t_lo = first / kT;
+    t_hi = res_last / kT;
+  }
+  for (int t = t_lo + warp; t <= t_hi; t += kWarps) {
+    bool live = true;
+    if (kPassK && segb != nullptr) {
+      const int m = t * kT + lane;
+      const int start = m < seq_len ? m - segb[m] : INT_MAX;
+      live = __reduce_min_sync(0xffffffffu, (unsigned int)max(start, 0)) <= (unsigned int)res_last;
+    }
+    if (lane == 0) tiles_s[t - t_lo] = live ? t : -1;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    int cnt = 0;
+    for (int t = 0; t <= t_hi - t_lo; ++t)
+      if (tiles_s[t] >= 0) tiles_s[cnt++] = tiles_s[t];
+    tiles_s[a.n_tiles] = cnt;
+  }
+  __syncthreads();
+  const int cnt = tiles_s[a.n_tiles];
+
+  float4 acc1[4][kU], acc2[4][kU];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      acc1[i][u] = make_float4(0.f, 0.f, 0.f, 0.f);
+      acc2[i][u] = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  int run_bucket = -1;
+  float run_sum = 0.f;
+#pragma unroll
+  for (int u = 0; u < kU; ++u) {
+    g1[u] = min(g1[u], max(ng1, 1) - 1);
+    g2[u] = min(g2[u], max(ng2, 1) - 1);
+  }
+  float* w1_warp = w1 + warp * kHalf * kLdW;
+  float* w2_warp = w2 + warp * kHalf * kLdW;
+  const float* res_lane = res_s + row_lane * ld;
+  const float* str_lane = str_s + (kHalf * ws + ls) * ld;
+
+  for (int it = 0; it < cnt; ++it) {
+    const int s0 = tiles_s[it] * kT;
+    float x[4][2] = {}, y[4][2] = {};
+    // x = q.k over the dqk slices; the slice-c rows of the streamed side
+    // come with the first
+    for (int s = 0; s < n_qk; ++s) {
+      const int e0 = s * kW, we = min(kW, a.dqk - e0);
+      __syncthreads();  // every warp is done with what the buffers hold
+      hstu::copy_rows_async<kThreads>(res_s, ld, res1_src + r0 * res1_sn + e0, res1_sn, kT, we,
+                                      seq_len - r0);
+      hstu::copy_rows_async<kThreads>(str_s, ld, str1_src + s0 * str1_sn + e0, str1_sn, kT, we,
+                                      seq_len - s0);
+      if (s == 0) {
+        if (out1)
+          hstu::copy_rows_async<kThreads>(o1_s, ld, str1_src + s0 * str1_sn + c1, str1_sn, kT,
+                                          w1c, seq_len - s0);
+        if (out2)
+          hstu::copy_rows_async<kThreads>(o2_s, ld, str2_src + s0 * str2_sn + c1, str2_sn, kT,
+                                          w2c, seq_len - s0);
+        if (tid < kT) {
+          const int row = s0 + tid;
+          str_ts[tid] = tsb[kPassK ? min(row + 1, n - 1) : min(row, n - 1)];
+          if (kPassK && segb != nullptr) str_seg[tid] = segb[min(row, n - 1)];
+        }
+      }
+      hstu::cp_async_commit();
+      hstu::cp_async_wait_all();
+      __syncthreads();
+      dot_tile(x, res_lane, ld, str_lane, ld, 4 * ((we + 3) / 4));
+    }
+    // y = g.v over the dv slices
+    for (int s = 0; s < n_v; ++s) {
+      const int e0 = s * kW, we = min(kW, a.dvh - e0);
+      __syncthreads();
+      hstu::copy_rows_async<kThreads>(res_s, ld, res2_src + r0 * res2_sn + e0, res2_sn, kT, we,
+                                      seq_len - r0);
+      hstu::copy_rows_async<kThreads>(str_s, ld, str2_src + s0 * str2_sn + e0, str2_sn, kT, we,
+                                      seq_len - s0);
+      hstu::cp_async_commit();
+      hstu::cp_async_wait_all();
+      __syncthreads();
+      dot_tile(y, res_lane, ld, str_lane, ld, 4 * ((we + 3) / 4));
+    }
+
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int sl = kHalf * ws + ls + 8 * j;
+      const int srow = s0 + sl;
+      const int s_ts = str_ts[sl];
+      int s_start = 0;
+      if (kPassK && segb != nullptr) s_start = srow < seq_len ? srow - str_seg[sl] : INT_MAX;
+      float dz[4], pz[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int rrow = r0 + row_lane + i;
+        const int m = kPassK ? srow : rrow;
+        const int key = kPassK ? rrow : srow;
+        const int start = kPassK ? s_start : res_start[row_lane + i];
+        const bool live = key <= m && m < seq_len && m - key < L && key >= start;
+        dz[i] = 0.f;
+        pz[i] = 0.f;
+        if (live) {
+          const int ts_m = kPassK ? s_ts : res_ts[row_lane + i];
+          const int ts_k = kPassK ? res_ts[row_lane + i] : s_ts;
+          const int bucket =
+              hstu::bucketize((int)((unsigned int)ts_m - (unsigned int)ts_k), a.num_buckets);
+          const float z = x[i][j] + (__ldg(a.pos_w + key - m + L - 1) + tsw_s[bucket]);
+          const float sig = 1.f / (1.f + expf(-z));
+          pz[i] = z * sig * a.inv_n;
+          dz[i] = y[i][j] * (sig + z * sig * (1.f - sig)) * a.inv_n;
+          if (tables) {
+            atomicAdd(&diag_s[m - key], dz[i]);
+            if (bucket != run_bucket) {
+              if (run_bucket >= 0) atomicAdd(&hist_s[run_bucket], run_sum);
+              run_bucket = bucket;
+              run_sum = 0.f;
+            }
+            run_sum += dz[i];
+          }
+        }
+      }
+      *reinterpret_cast<float4*>(w1_warp + (ls + 8 * j) * kLdW + 4 * lr) =
+          make_float4(dz[0], dz[1], dz[2], dz[3]);
+      if (kPassK)
+        *reinterpret_cast<float4*>(w2_warp + (ls + 8 * j) * kLdW + 4 * lr) =
+            make_float4(pz[0], pz[1], pz[2], pz[3]);
+    }
+    __syncwarp();
+    // pass Q: dq[:, c] += dz k[:, c]; pass K: dk[:, c] += dz^T q[:, c], dv[:, c] += p^T g[:, c]
+    if (out1) accumulate_rows<kU>(acc1, w1_warp + 4 * lr, o1_s + kHalf * ws * ld, ld, g1);
+    if (out2) accumulate_rows<kU>(acc2, w2_warp + 4 * lr, o2_s + kHalf * ws * ld, ld, g2);
+    __syncwarp();
+  }
+  if (tables && run_bucket >= 0) atomicAdd(&hist_s[run_bucket], run_sum);
+
+  hstu::cp_async_wait_all();
+  __syncthreads();
+#pragma unroll
+  for (int u = 0; u < kU; ++u) {
+    g1[u] = ls + 8 * u;
+    g2[u] = ls + 8 * u;
+  }
+  // the two streamed halves of each resident row, half 1 added to half 0
+  hstu::sum_slices<kU, 2>(acc1, res_s, ld, row_lane, ws, g1, ng1);
+  if (kPassK) hstu::sum_slices<kU, 2>(acc2, str_s, ld, row_lane, ws, g2, ng2);
+  if (ws == 0) {
+    if (out1)
+      hstu::store_rows_at<kU>(kPassK ? a.dk : a.dq, acc1, out1_base, r0 + row_lane, n, out1_sn,
+                              w1c, g1, ng1);
+    if (out2)
+      hstu::store_rows_at<kU>(a.dv, acc2, out2_base, r0 + row_lane, n, out2_sn, w2c, g2, ng2);
+  }
+  if (tables) {
+    for (int e = tid; e < diag_hi; e += kThreads) {
+      const float v = diag_s[e];
+      if (v != 0.f) atomicAdd(&a.dpw[L - 1 - e], v);
+    }
+    for (int e = tid; e < nb1; e += kThreads) {
+      const float v = hist_s[e];
+      if (v != 0.f) atomicAdd(&a.dtw[e], v);
+    }
+  }
+}
+
+// Block (i, c): as hstu_attention_bwd_kernel's block i, for output slice c.
+__global__ void __launch_bounds__(kThreads, 2)
+    hstu_attention_bwd_wide_kernel(const __grid_constant__ Args a) {
+  extern __shared__ __align__(16) float smem[];
+  int idx = blockIdx.x;
+  const bool pass_k = idx & 1;
+  idx >>= 1;
+  const int hh = idx % a.h;
+  idx /= a.h;
+  const int b = idx % a.b;
+  const int rank = idx / a.b;
+  if (pass_k)
+    run_wide_pass<true>(a, smem, rank, b, hh, blockIdx.y);
+  else
+    run_wide_pass<false>(a, smem, a.n_tiles - 1 - rank, b, hh, blockIdx.y);
+}
+
+int launch_wide(const Args& a, long long smem, cudaStream_t stream) {
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        hstu_attention_bwd_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int kW = hstu::kSliceW;
+  const int slices = (max(a.dqk, a.dvh) + kW - 1) / kW;
+  const long long blocks = 2LL * a.n_tiles * a.b * a.h;
+  const dim3 grid((unsigned int)blocks, (unsigned int)slices);
+  hstu_attention_bwd_wide_kernel<<<grid, kThreads, (size_t)smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+bool is_wide(int dqk, int dv) { return dqk > kMaxDepth || dv > kMaxDepth; }
+
 }  // namespace
 
 extern "C" {
 
-// Widest head (dqk and dv) the kernel takes.
-int hstu_attention_bwd_max_depth() { return kMaxDepth; }
-
-// Dynamic shared memory one block needs, in bytes.
+// Dynamic shared memory one block needs, in bytes (the wide kernel's above
+// 128 columns).
 long long hstu_attention_bwd_smem_bytes(int n, int dqk, int dv, int max_len,
                                         int num_buckets) {
+  if (is_wide(dqk, dv)) return 4 * wide_smem_floats(max_len, num_buckets, (n + kT - 1) / kT);
   return 4 * smem_floats(shared_ld(dqk), shared_ld(dv), max_len, num_buckets,
                          (n + kT - 1) / kT);
 }
 
 // dpw and dtw must arrive zeroed; dq, dk and dv are written whole. `seg_pos`
-// is [b, n] int32 with row stride seg_sb, or null for unpacked rows.
+// is [b, n] int32 with row stride seg_sb, or null for unpacked rows. Heads
+// up to 128 wide take the kernel above, wider ones the wide kernel.
 // Launches on `stream` without synchronising; returns cudaGetLastError().
 int hstu_attention_bwd(const float* q, const float* k, const float* v,
                        const float* g, const int* ts, const int* lengths,
@@ -472,7 +806,7 @@ int hstu_attention_bwd(const float* q, const float* k, const float* v,
                        long long k_sn, long long v_sb, long long v_sn,
                        long long ts_sb, long long seg_sb, int max_len,
                        int num_buckets, void* stream) {
-  if (dqk > kMaxDepth || dvh > kMaxDepth) return (int)cudaErrorInvalidValue;
+  if (dqk <= 0 || dvh <= 0) return (int)cudaErrorInvalidValue;
   if ((long long)b * n * h == 0) return (int)cudaSuccess;
   Args a;
   a.q = q;
@@ -510,6 +844,7 @@ int hstu_attention_bwd(const float* q, const float* k, const float* v,
   a.n_tiles = (n + kT - 1) / kT;
   const long long smem = hstu_attention_bwd_smem_bytes(n, dqk, dvh, max_len, num_buckets);
   const cudaStream_t st = (cudaStream_t)stream;
+  if (is_wide(dqk, dvh)) return launch_wide(a, smem, st);
   const int groups = ((dqk > dvh ? dqk : dvh) + 3) / 4;
   return groups <= 16 ? launch<2>(a, smem, st) : launch<4>(a, smem, st);
 }

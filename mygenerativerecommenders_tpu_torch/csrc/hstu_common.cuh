@@ -257,4 +257,77 @@ __device__ __forceinline__ void store_slices(float* out, float4 (&acc)[4][kU], f
   }
 }
 
+// ------------------------------------------------------------ wide heads
+//
+// The kernels for heads wider than 128 (dqk or dv) stage depth in slices of
+// kSliceW columns, rows kLdSlice floats apart, and keep one kSliceW-column
+// slice of each output a block (4 x 8-column groups a lane, as kU = 4).
+constexpr int kSliceW = 128;
+constexpr int kLdSlice = 132;  // shared_ld(128)
+
+// The first half of store_slices: afterwards the lanes of slice 0 (ws 0)
+// hold each resident row's sum over the kSlices streamed slices, added in
+// slice order. Every thread of the block calls it.
+template <int kU, int kSlices>
+__device__ __forceinline__ void sum_slices(float4 (&acc)[4][kU], float* red, int ld,
+                                           int row_lane, int ws, const int (&groups)[kU],
+                                           int n_groups) {
+  if (ws > 0) {
+    float* mine = red + (ws - 1) * 2 * kHalf * ld;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int u = 0; u < kU; ++u)
+        if (groups[u] < n_groups)
+          *reinterpret_cast<float4*>(mine + (row_lane + i) * ld + 4 * groups[u]) = acc[i][u];
+  }
+  __syncthreads();
+  if (ws == 0) {
+#pragma unroll
+    for (int s = 0; s < kSlices - 1; ++s)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int u = 0; u < kU; ++u) {
+          if (groups[u] >= n_groups) continue;
+          const float4 o = *reinterpret_cast<const float4*>(
+              red + (s * 2 * kHalf + row_lane + i) * ld + 4 * groups[u]);
+          acc[i][u].x += o.x;
+          acc[i][u].y += o.y;
+          acc[i][u].z += o.z;
+          acc[i][u].w += o.w;
+        }
+  }
+}
+
+// store_rows for a column slice: the lane's 4 rows x kU column groups of a
+// slice `width` columns wide, at out[base + row * row_stride + 4 group];
+// rows at or past n are not written.
+template <int kU>
+__device__ __forceinline__ void store_rows_at(float* out, const float4 (&acc)[4][kU],
+                                              int64_t base, int row0, int n,
+                                              int64_t row_stride, int width,
+                                              const int (&groups)[kU], int n_groups) {
+  const bool vec = (row_stride & 3) == 0 && (base & 3) == 0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = row0 + i;
+    if (row >= n) continue;
+    float* o = out + base + (int64_t)row * row_stride;
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      if (groups[u] >= n_groups) continue;
+      const int c = 4 * groups[u];
+      const float x[4] = {acc[i][u].x, acc[i][u].y, acc[i][u].z, acc[i][u].w};
+      if (vec && c + 4 <= width) {
+        *reinterpret_cast<float4*>(o + c) = acc[i][u];
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (c + e < width) o[c + e] = x[e];
+      }
+    }
+  }
+}
+
 }  // namespace hstu

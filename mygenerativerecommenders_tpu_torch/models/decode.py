@@ -74,6 +74,9 @@ def check_decodable(m: ModelConfig) -> None:
         ("model.encoder.enable_relative_attention_bias", enc.enable_relative_attention_bias, True),
         ("model.encoder.relative_bias_type", enc.relative_bias_type, "time_position"),
         ("model.encoder.num_time_buckets", enc.num_time_buckets, NUM_TIME_BUCKETS),
+        # JAX's decode step reads no compute_dtype: it decodes the float32
+        # model whatever the forward rounds (ROADMAP.md queue 3)
+        ("model.compute_dtype", m.compute_dtype, "float32"),
     ]
     if enc.normalization not in ("rel_bias", "hstu_rel_bias"):
         knobs.insert(1, ("model.encoder.normalization", enc.normalization, "rel_bias"))

@@ -56,6 +56,12 @@ saves only q, k and v, never the [B*H, N, N] scores that JAX's remat exists
 to drop: here remat drops the O(N*D) activations of each block (its
 LayerNorm, the uvqk projection and its silu, the attention output, its
 LayerNorm, u * LN, the dropout mask).
+
+At `model.compute_dtype=bfloat16` the stack's input arrives in bfloat16, and
+the stack rounds where JAX's does (models/precision.py): the mask, block 0's
+first LayerNorm output (and, in the softmax branch, block 0's attention
+output and its LayerNorm); block 0's residual adds the rounded input in
+float32, and every block after it runs in float32.
 """
 
 from __future__ import annotations
@@ -68,6 +74,7 @@ import torch.utils.checkpoint
 from torch import nn
 
 from mygenerativerecommenders_tpu_torch import not_ported
+from mygenerativerecommenders_tpu_torch.models import precision
 from mygenerativerecommenders_tpu_torch.ops.hstu_attention import (
     hstu_attention_reference,
     relative_position_bias,
@@ -173,7 +180,15 @@ class HSTUBlock(nn.Module):
         and v [B, N, H*Dv] are appended to it (the decode cache's rows)."""
         h, dv, dqk = self.num_heads, self.linear_dim, self.attention_dim
         b, n, d = x.shape
-        proj = F.layer_norm(x, (d,), eps=self.eps) @ self._uvqk
+        low = x.dtype  # bfloat16 in block 0 at compute_dtype=bfloat16
+        if low == torch.float32:
+            normed = F.layer_norm(x, (d,), eps=self.eps)
+        else:
+            # x's three uses, the LayerNorm's statistics and normalisation and
+            # the residual, each promoted to float32 as in JAX
+            stats, norm, x = precision.uses(x, 3)
+            normed = precision.layer_norm(stats, norm, self.eps, low).float()
+        proj = normed @ self._uvqk
         if self.linear_activation == "silu":
             proj = F.silu(proj)
         u, v, q, k = torch.split(proj, [dv * h, dv * h, dqk * h, dqk * h], dim=-1)
@@ -193,7 +208,8 @@ class HSTUBlock(nn.Module):
                     "packed rows (seg_ids) are not supported with "
                     "normalization='softmax_rel_bias'"
                 )
-            attn_out = self._softmax_attention(q, k, v, timestamps, pos_w, ts_w)
+            # JAX casts the branch's output to the block input's dtype
+            attn_out = self._softmax_attention(q, k, v, timestamps, pos_w, ts_w).to(low)
         elif self.sp_shards > 1:
             if ts_w is None:
                 raise ValueError(
@@ -225,7 +241,10 @@ class HSTUBlock(nn.Module):
                 qh, kh, vh, bias, max_len=self.max_attn_len, causal=True, seg_ids=seg_equiv
             )
         attn_out = attn_out.reshape(b, n, h * dv)
-        a = F.layer_norm(attn_out, (h * dv,), eps=self.eps)
+        if attn_out.dtype == torch.float32:
+            a = F.layer_norm(attn_out, (h * dv,), eps=self.eps)
+        else:
+            a = precision.layer_norm(*precision.uses(attn_out, 2), self.eps, attn_out.dtype).float()
         o_input = torch.cat([u, a, u * a], dim=-1) if self.concat_ua else u * a
         return self._o(self._dropout(o_input)) + x
 

@@ -23,6 +23,12 @@ Only the training loss scores through `score` (MoL or the dot product), as
 in the JAX package: its eval, candidate index, serving and decode rank by
 the dot product with the catalog rows whatever `similarity.kind` says
 (ROADMAP.md queue 3).
+
+`model.compute_dtype=bfloat16` casts the encoder's input to bfloat16 and its
+output to float32, as JAX's `__call__` does (:275-282); the encoders round
+at JAX's points and nowhere else. The list of those points, taken from
+`jax.make_jaxpr` of JAX's forward, is in models/precision.py. Parameters stay
+float32.
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ from torch import nn
 from mygenerativerecommenders_tpu_torch import not_ported
 from mygenerativerecommenders_tpu_torch.configs import Config, ModelConfig, max_seq_len
 from mygenerativerecommenders_tpu_torch.models.embeddings import ItemYearEmbedding, LocalEmbedding
+from mygenerativerecommenders_tpu_torch.models import precision
 from mygenerativerecommenders_tpu_torch.models.hstu import HSTU
 from mygenerativerecommenders_tpu_torch.models.postprocessors import (
     L2NormPostprocessor,
@@ -66,8 +73,9 @@ class GenerativeRecommender(nn.Module):
         super().__init__()
         m = cfg
         self.cfg = m
-        if m.compute_dtype != "float32":
-            raise not_ported(f"model.compute_dtype={m.compute_dtype}", "Mixed precision")
+        # the encoder's input dtype; the encoder rounds where JAX's does
+        # (models/precision.py) and returns float32
+        self.compute_dtype = precision.compute_dtype(m.compute_dtype)
         if m.embedding.kind.startswith("sharded"):
             raise not_ported(f"embedding.kind={m.embedding.kind}", "Distributed")
         if m.embedding.kind == "local":
@@ -246,8 +254,8 @@ class GenerativeRecommender(nn.Module):
                 raise ValueError("the decode cache (kv) is built by the HSTU encoder only")
             extra = (kv,)
         encoded = self.sequence_encoder[self.encoder_key](
-            lengths, user_embeddings.float(), valid_mask, payloads, *extra
-        )
+            lengths, user_embeddings.to(self.compute_dtype), valid_mask, payloads, *extra
+        ).float()
         if aux_mask is not None:
             # back to the kept (item) positions, cropped to past_ids' N: at
             # most `lengths` <= N positions survive

@@ -18,6 +18,10 @@ bias. The JAX package runs it as plain XLA ops, not as a Pallas kernel, and
 so does the port: matmuls and a masked softmax. `scaled_dot_product_attention`
 is not used: its dropout draws every element on its own.
 
+At `model.compute_dtype=bfloat16` the input, the mask and block 0's first
+LayerNorm output are rounded to bfloat16, as in JAX (models/precision.py);
+the projections promote them to float32 and the rest runs in float32.
+
 Parameters keep the JAX leaves' names and flax's layout (models/dense.py):
 `mha_{i}.{query,key,value}.kernel` [D, H, D/H] with `.bias` [H, D/H],
 `mha_{i}.out.kernel` [H, D/H, D] with `.bias` [D], `ffn_{i}.conv1.kernel`
@@ -34,6 +38,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from mygenerativerecommenders_tpu_torch.models import precision
 from mygenerativerecommenders_tpu_torch.models.dense import Dense
 
 _LN_EPS = 1e-8
@@ -60,10 +65,14 @@ class MultiHeadAttention(nn.Module):
         self.value = Dense((embedding_dim,), (num_heads, head_dim), generator)
         self.out = Dense((num_heads, head_dim), (embedding_dim,), generator)
 
-    def forward(self, inputs_q: torch.Tensor, inputs_kv: torch.Tensor) -> torch.Tensor:
+    def forward(self, inputs_q: torch.Tensor, inputs_kv: torch.Tensor,
+                inputs_v: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """`inputs_v` (default `inputs_kv`): the value projection's own copy
+        of the keys' input (models/precision.py)."""
         n = inputs_q.shape[1]
         q = self.query(inputs_q) / self.head_dim**0.5  # [B, N, H, d]
-        k, v = self.key(inputs_kv), self.value(inputs_kv)
+        k = self.key(inputs_kv)
+        v = self.value(inputs_kv if inputs_v is None else inputs_v)
         logits = torch.einsum("bqhd,bkhd->bhqk", q, k)
         causal = torch.ones(n, n, dtype=torch.bool, device=q.device).tril()
         logits = logits.masked_fill(~causal, torch.finfo(logits.dtype).min)
@@ -129,7 +138,17 @@ class SASRec(nn.Module):
         x = user_embeddings
         mask = valid_mask.to(x.dtype)
         for i in range(self.num_blocks):
-            q = _layer_norm(x)
-            h = _layer_norm(q + getattr(self, f"mha_{i}")(q, x))
+            mha = getattr(self, f"mha_{i}")
+            if x.dtype == torch.float32:
+                q = _layer_norm(x)
+                h = _layer_norm(q + mha(q, x))
+            else:
+                # block 0 at compute_dtype=bfloat16 (models/precision.py): x's
+                # uses (the LayerNorm's two, key, value) and q's (query, the
+                # residual) each promoted to float32 as in JAX
+                stats, norm, x_key, x_value = precision.uses(x, 4)
+                q = precision.layer_norm(stats, norm, _LN_EPS, x.dtype)
+                q_query, q_res = precision.uses(q, 2)
+                h = _layer_norm(q_res + mha(q_query, x_key, x_value))
             x = getattr(self, f"ffn_{i}")(h) * mask
         return x

@@ -207,8 +207,6 @@ def _kernel_lib() -> ctypes.CDLL:
         lib.dense_neg_lse_fwd.restype = i
         lib.dense_neg_lse_bwd.argtypes = [p] * 10 + [i, i, i, ll, f, i, p]
         lib.dense_neg_lse_bwd.restype = i
-        lib.dense_neg_lse_max_depth.argtypes = []
-        lib.dense_neg_lse_max_depth.restype = i
         lib.cuda_error_string.argtypes = [i]
         lib.cuda_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -238,8 +236,6 @@ def _forward(q, cat, count, sup_off, inv_tau):
     lib = _kernel_lib()
     bt, d = q.shape
     x = cat.shape[0]
-    if d > lib.dense_neg_lse_max_depth():
-        raise ValueError(f"D={d} is wider than the kernels take")
     if q.dtype != torch.float32 or cat.dtype != torch.float32:
         raise TypeError(f"q and cat must be float32, got {q.dtype} and {cat.dtype}")
     q, cat = q.detach().contiguous(), cat.detach().contiguous()

@@ -18,7 +18,10 @@ from run to run), and saves only its inputs (nothing [N, N]-shaped, as
 `_fused_fwd` of the JAX package, :818); the backward launches
 csrc/hstu_attention_bwd.cu, which recomputes the scores and returns dq, dk,
 dv (bit-identical from run to run: no atomics touch them), d_pos_w and
-d_ts_w. Both are built by nvcc at first use; a failed build or launch
+d_ts_w. Heads up to 128 wide take each source's register-tiled kernel; wider
+ones (any dqk and dv, as the JAX kernels) its wide kernel, which stages depth
+in 128-column slices and writes one 128-column slice of each output a block,
+through the same entry point and launch count. Both are built by nvcc at first use; a failed build or launch
 raises. On a CPU tensor it computes `hstu_attention_fused_plain`,
 the same function in plain PyTorch, and autograd differentiates that.
 """
@@ -116,8 +119,6 @@ def _kernel_lib() -> ctypes.CDLL:
         lib.hstu_attention_fwd.restype = i
         lib.hstu_attention_fwd_smem_bytes.argtypes = [i, i, i]
         lib.hstu_attention_fwd_smem_bytes.restype = ll
-        lib.hstu_attention_fwd_max_depth.argtypes = []
-        lib.hstu_attention_fwd_max_depth.restype = i
         lib.hstu_cuda_error_string.argtypes = [i]
         lib.hstu_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -133,8 +134,6 @@ def _kernel_lib_bwd() -> ctypes.CDLL:
         lib.hstu_attention_bwd.restype = i
         lib.hstu_attention_bwd_smem_bytes.argtypes = [i] * 5
         lib.hstu_attention_bwd_smem_bytes.restype = ll
-        lib.hstu_attention_bwd_max_depth.argtypes = []
-        lib.hstu_attention_bwd_max_depth.restype = i
         lib.hstu_bwd_cuda_error_string.argtypes = [i]
         lib.hstu_bwd_cuda_error_string.restype = ctypes.c_char_p
         _lib_bwd = lib
@@ -175,9 +174,6 @@ def _launch(q, k, v, ts, lens, seg, pos_w, ts_w, max_len, num_buckets):
     b, n, h, dqk = q.shape
     dv = v.shape[-1]
     lib = _kernel_lib()
-    widest = lib.hstu_attention_fwd_max_depth()
-    if max(dqk, dv) > widest:
-        raise ValueError(f"dqk={dqk}, dv={dv}: the forward kernel takes heads up to {widest} wide")
     smem = lib.hstu_attention_fwd_smem_bytes(dqk, dv, num_buckets)
     if smem > _build.MAX_SMEM_BYTES:
         raise ValueError(
@@ -207,9 +203,6 @@ def _launch_bwd(q, k, v, g, ts, lens, seg, pos_w, ts_w, max_len, num_buckets):
     b, n, h, dqk = q.shape
     dv = v.shape[-1]
     lib = _kernel_lib_bwd()
-    widest = lib.hstu_attention_bwd_max_depth()
-    if max(dqk, dv) > widest:
-        raise ValueError(f"dqk={dqk}, dv={dv}: the backward kernel takes heads up to {widest} wide")
     smem = lib.hstu_attention_bwd_smem_bytes(n, dqk, dv, max_len, num_buckets)
     if smem > _build.MAX_SMEM_BYTES:
         raise ValueError(

@@ -168,7 +168,11 @@ def _launch(q, k, v, tsq, tsk, pos_w, ts_w, off_delta, inv_n, max_len, num_bucke
     lib = _kernel_lib()
     widest = lib.hstu_chunk_fwd_max_depth()
     if max(dqk, dv) > widest:
-        raise ValueError(f"dqk={dqk}, dv={dv}: the forward kernel takes heads up to {widest} wide")
+        raise ValueError(
+            f"dqk={dqk}, dv={dv}: the ring's chunk forward kernel takes heads up to "
+            f"{widest} wide (wider heads on the ring: ROADMAP.md queue 2 item 1, queued "
+            "beside queue 1 item 6's ring over a process group)"
+        )
     smem = lib.hstu_chunk_fwd_smem_bytes(dqk, dv, num_buckets)
     if smem > _build.MAX_SMEM_BYTES:
         raise ValueError(
@@ -198,7 +202,11 @@ def _launch_bwd(q, k, v, g, tsq, tsk, pos_w, ts_w, off_delta, inv_n, max_len, nu
     lib = _kernel_lib_bwd()
     widest = lib.hstu_chunk_bwd_max_depth()
     if max(dqk, dv) > widest:
-        raise ValueError(f"dqk={dqk}, dv={dv}: the backward kernel takes heads up to {widest} wide")
+        raise ValueError(
+            f"dqk={dqk}, dv={dv}: the ring's chunk backward kernel takes heads up to "
+            f"{widest} wide (wider heads on the ring: ROADMAP.md queue 2 item 1, queued "
+            "beside queue 1 item 6's ring over a process group)"
+        )
     smem = lib.hstu_chunk_bwd_smem_bytes(dqk, dv, max_len, num_buckets)
     if smem > _build.MAX_SMEM_BYTES:
         raise ValueError(

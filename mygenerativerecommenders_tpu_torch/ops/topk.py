@@ -5,6 +5,16 @@ ids are masked to NEG_INF in the [B, X] score matrix, then one exact
 `torch.topk`, the counterpart of XLA's `lax.top_k`. The two may order
 near-equal scores differently; `topk_agree` compares two results with that
 in mind.
+
+`approx_recall > 0` (`index.approx_top_k_recall`) takes the same exact
+selection. JAX routes it through `jax.lax.approx_max_k`, whose own source
+says "This package only optimizes the TPU backend. For other device types
+it fallbacks to sort and slice" (jax/_src/lax/ann.py:17-18; the JAX
+package's tests/test_topk.py:48-52: "on CPU the lowering is exact"). So off
+the TPU the knob selects exactly what `lax.top_k` does, and the exact
+selection is the port's counterpart on the CPU and the card. An
+approximate selection that is faster on the card is speed work (ROADMAP.md
+queue 2).
 """
 
 from __future__ import annotations
@@ -13,8 +23,6 @@ from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
-
-from mygenerativerecommenders_tpu_torch import not_ported
 
 NEG_INF = -1e30
 
@@ -51,9 +59,12 @@ def mips_top_k(
     max_item_id: Optional[int] = None,
     approx_recall: float = 0.0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """-> (top_k_ids [B, k], top_k_scores [B, k]), sorted descending."""
-    if approx_recall > 0.0:
-        raise not_ported("index.approx_top_k_recall > 0", "Index variants")
+    """-> (top_k_ids [B, k], top_k_scores [B, k]), sorted descending.
+    `approx_recall` (0 = exact) selects exactly too (see the module
+    docstring)."""
+    if approx_recall > 1.0:
+        # jax.lax.approx_max_k refuses such a target too
+        raise ValueError(f"approx_recall={approx_recall}: a recall target is at most 1")
     scores = masked_mips_scores(
         query_embeddings, item_embeddings, item_ids, invalid_ids, max_item_id
     )

@@ -145,13 +145,16 @@ def _check_lse_backward(q, cat, count, lse, gl, got, sup_off=None, stats_count=N
 @pytest.mark.gpu
 @pytest.mark.parametrize(
     "bt,d,x,r", [(70, 12, 150, 16), (1000, 50, 3706, 16), (130, 128, 700, 16),
-                 (1000, 50, 3706, 256), (130, 64, 700, 300), (1000, 64, 150, 255)]
+                 (1000, 50, 3706, 256), (130, 64, 700, 300), (1000, 64, 150, 255),
+                 (1000, 130, 3883, 128), (1000, 192, 3883, 128), (1000, 256, 3883, 128),
+                 (300, 520, 3883, 128), (300, 256, 3883, 300)]
 )
 def test_dense_neg_lse_kernels_match_plain_on_card(bt, d, x, r):
     """r > 255 draws a row: int32 counts, some of them above 255. 255 draws
     into 150 columns: rows with more live logits than the kernels list at
-    once. The forward's m_safe and s against the sparse plain forward; lse
-    and dq take no atomics: the same bits in a second call."""
+    once. D above 128: the 256-column slices (one slice at 130, 192 and 256,
+    three at 520). The forward's m_safe and s against the sparse plain
+    forward; lse and dq take no atomics: the same bits in a second call."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card (CUDA)")
     rng = np.random.default_rng(3)
@@ -293,6 +296,59 @@ def test_packed_attention_kernels_match_plain_on_card(b, n, h, d, max_len):
         np.testing.assert_allclose(
             null.detach().cpu().numpy(), plain.detach().cpu().numpy(), rtol=2e-4, atol=2e-5
         )
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("dqk,dv", [(130, 130), (192, 192), (256, 256), (64, 192), (300, 72)])
+def test_wide_attention_kernels_match_plain_on_card(dqk, dv, packed):
+    """Heads wider than 128 (the wide kernels of csrc/hstu_attention_fwd.cu
+    and _bwd.cu: depth in 128-column slices, one 128-column slice of each
+    output a block), padded (B=16, N=L=211, ragged, an empty row) and packed
+    (B=8, N=256, L=211): output and gradients against the plain version, one
+    launch each, rows past the length zero, the output and dq, dk, dv the
+    same bits in a second call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA)")
+    rng = np.random.default_rng(dqk + dv)
+    b, n, max_len, h = (8, 256, 211, 1) if packed else (16, 211, 211, 1)
+    if packed:
+        pos, lengths = _packed_layout(rng, b, n, max_len)
+        seg = torch.tensor(pos).cuda()
+    else:
+        lengths = np.linspace(1, n, b).astype(np.int32)
+        lengths[2] = 0
+        seg = None
+    proj = torch.tensor(rng.normal(size=(b, n, 2 * h * (dqk + dv))), dtype=torch.float32).cuda()
+    proj.requires_grad_()
+    ts = np.sort(978_000_000 + rng.integers(0, 3 * 365 * 86400, size=(b, n)), axis=1)
+    ts = torch.tensor(ts, dtype=torch.int32).cuda()
+    pw = torch.tensor(rng.normal(size=(2 * max_len - 1,)) * 0.02, dtype=torch.float32).cuda()
+    tw = torch.tensor(rng.normal(size=(129,)) * 0.02, dtype=torch.float32).cuda()
+    pw.requires_grad_(), tw.requires_grad_()
+    lens = torch.tensor(lengths).cuda()
+    g = torch.tensor(rng.normal(size=(b, n, h, dv)), dtype=torch.float32).cuda()
+
+    def run(fn):
+        _, v, q, k = torch.split(proj, [h * dv, h * dv, h * dqk, h * dqk], dim=-1)
+        out = fn(q.unflatten(-1, (h, dqk)), k.unflatten(-1, (h, dqk)), v.unflatten(-1, (h, dv)),
+                 ts, pw, tw, max_len, 128, lens, seg)
+        return out, torch.autograd.grad(out, [proj, pw, tw], g)
+
+    before = (kern.launches, kern.bwd_launches)
+    got, got_grads = run(kern.hstu_attention_fused)
+    torch.cuda.synchronize()
+    assert (kern.launches, kern.bwd_launches) == (before[0] + 1, before[1] + 1)
+    want, want_grads = run(kern.hstu_attention_fused_plain)
+    np.testing.assert_allclose(got.detach().cpu().numpy(), want.detach().cpu().numpy(),
+                               rtol=2e-4, atol=2e-5)
+    for i, (a, w) in enumerate(zip(got_grads, want_grads)):
+        np.testing.assert_allclose(a.cpu().numpy(), w.cpu().numpy(), rtol=2e-4 if i == 0 else 5e-4,
+                                   atol=2e-5)
+    for r, length in enumerate(lengths.tolist()):
+        assert not got[r, length:].any() and not got_grads[0][r, length:].any()
+    out_again, grads_again = run(kern.hstu_attention_fused)
+    assert torch.equal(out_again, got) and torch.equal(grads_again[0], got_grads[0])
 
 
 @pytest.mark.gpu
@@ -556,13 +612,19 @@ _GRAPH_CASES = {
     "remat-ring": ["model.encoder.remat=true", "model.encoder.sp_shards=4",
                    "model.encoder.sp_zigzag=true"],
     "remat-ring-contiguous": ["model.encoder.remat=true", "model.encoder.sp_shards=4"],
+    # compute_dtype=bfloat16 (its rounding points and their backward inside
+    # the replay), padded and packed; a 256-wide head and lse (the wide kernels)
+    "bfloat16": ["model.compute_dtype=bfloat16"],
+    "bfloat16-packed": ["model.compute_dtype=bfloat16", "data.pack_sequences=true"],
+    "wide-256": ["model.item_embedding_dim=256"],
 }
 # one step for the bfloat16 Newton-Schulz cases: from the second step on the
 # bias tables' float atomics (which differ run to run, eager against eager)
 # reach the matrices' gradients, and NS-5 in bfloat16 turns that float noise
-# into bfloat16 ulps of their updates
+# into bfloat16 ulps of their updates; so do the bfloat16 rounding points of
+# compute_dtype=bfloat16
 _ONE_STEP = {"muon", "scion", "muon-single", "scion-light-single", "scion-init", "lazy-muon",
-             "sasrec-muon"}
+             "sasrec-muon", "bfloat16", "bfloat16-packed"}
 
 
 def _card_trainer(tmp_path, case, k, *extra):

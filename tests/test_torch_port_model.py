@@ -178,11 +178,25 @@ def test_model_init_is_seeded_and_padding_row_zero():
 )
 def test_unported_kinds_raise_naming_the_roadmap_item(override, item):
     """The knobs that no ported code reads raise, naming the ROADMAP.md item
-    that ports them; those of the training variants, ported since, build
-    (remat) or raise a ValueError naming the knob (attention dropout, which
-    the reference ignores)."""
+    that ports them; those ported since build and take a step (remat, and
+    compute_dtype=bfloat16 with its parameters and output in float32) or
+    raise a ValueError naming the knob (attention dropout, which the
+    reference ignores)."""
     _, pcfg = _configs([override])
-    if override == "model.encoder.remat=true":
+    if override == "model.compute_dtype=bfloat16":
+        model = pt_build_model(pcfg, device="cpu")
+        before = {k: v.clone() for k, v in model.named_parameters()}
+        opt = torch.optim.AdamW(model.parameters(), lr=1e-3)
+        batch = {k: torch.from_numpy(v) for k, v in _batch(0).items()}
+        seq, _, _ = pt_seq_features(batch, pcfg.model.gr_output_length + 1)
+        encoded, _ = model(seq._replace(past_embeddings=model.item_embeddings(seq.past_ids)))
+        assert encoded.dtype == torch.float32
+        encoded.square().sum().backward()
+        opt.step()
+        for name, p in model.named_parameters():
+            assert p.dtype == torch.float32, name
+            assert not torch.equal(p, before[name]), name
+    elif override == "model.encoder.remat=true":
         model = pt_build_model(pcfg, device="cpu")
         assert model.sequence_encoder["_hstu"].remat
         batch = {k: torch.from_numpy(v) for k, v in _batch(0).items()}
