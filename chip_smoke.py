@@ -292,14 +292,15 @@ Phases, each of which stops the run with a non-zero exit when it fails:
 18. The other model families at ml-1m-hstu's width on phase 15's files
    (movies.dat's titles carry the years): `cli.train` for 30 graphed epochs
    of ml-1m-hstu with `model.embedding.kind=item_year` (the fork's own
-   model: 25 + 25 columns) and with `model.similarity.kind=mol` (P = Q = 4,
+   model: 25 + 25 columns) and for 15 (MOL_EPOCHS: cut from 30 in PR 21 for
+   the script's time limit) with `model.similarity.kind=mol` (P = Q = 4,
    dd = 16, per-group L2, temperature 0.05; the gather loss), one epoch each
    of `model.postprocessor.kind=layer_norm`,
    `model.encoder.normalization=softmax_rel_bias` and ml-1m-sasrec with
    Muon on its encoder; launch counts as in phase 4 (MoL launches no count
    or lse, softmax_rel_bias and SASRec no attention kernel), losses finite
    and falling, best.pt and last.pt written, test ndcg@10 at least 0.030 for
-   the two 30-epoch runs beside phase 15's ml-1m-hstu: the item_year run's
+   those two runs beside phase 15's ml-1m-hstu: the item_year run's
    from the eval step, the MoL run's with the catalog ranked by MoL itself
    on its last weights (`mol_scored_test`), printed beside the eval step's
    dot-product ranking, which is JAX's eval for an MoL model. The item_year run's
@@ -355,6 +356,28 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    sequence_item_ids, sequence_timestamps, sequence_ratings) written from
    phase 15's draw, through `DynamicSequenceDataset` into two epochs of
    graphed ml-1m-hstu steps: losses finite and falling.
+21. The ring's wide chunk kernels and the sharded embedding kinds (their
+   shards run in turn on the card), after phase 20. (a) The wide chunk
+   kernels' registers and shared memory at widths 130, 192 and 256, rows
+   9-10 at width 256 against their plain versions (phase 2's checks) on the
+   live 130 x 130 chunk and the 259 x 259 fully live one, timed beside their
+   bounds. (b) ml-20m-hstu-long's ring at two 256-wide heads, zigzag and
+   contiguous: one step on the card against the CPU on 2 rows, one graphed
+   step against one eager one, the step eager and graphed side by side.
+   (c) On phase 15's ml-1m files: `cli.train` of sharded_a2a (8 shards) for
+   30 graphed epochs with its eval on the sharded top-k (test ndcg@10 in
+   JAX's band 0.037-0.039, beside phase 15's local run); sharded_local,
+   sharded_a2a, sharded_2d (8 x 2) and sharded_column (2) each: the step
+   eager and graphed beside the local table's, phase 10's and phase 5's
+   checks. (d) synthetic-large-vocab as shipped (sharded_a2a, 8 shards, the
+   sharded int8 index): `cli.train` for one graphed epoch, `/v1/retrieve`
+   from its best.pt (the run cut to 2,048 users), the exact sharded top-k
+   against `mips_top_k`, the int8
+   sharded recall (at least 0.95, beside phase 13's), the step's peak memory
+   and device ms beside phase 13's overlay. (e) synthetic-large-vocab-100m's
+   2-D table at 10M items (cut from 100M): two graphed steps, and one step on
+   the card against the CPU (16 rows); amzn-books-sharded on phase
+   15's amzn-books files for one graphed epoch, beside phase 15's run.
 
 It ends with one JSON line of the kernels' numbers and, last, the line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -1709,12 +1732,15 @@ def compare_card_and_cpu(what: str, cfg, batch, loss_of, year_of_item=None,
     `year_of_item` for an item_year model; `atol_of_max` raises a gradient's
     atol to that share of its largest entry. At model.compute_dtype=bfloat16
     the gradients may also hold flips (BF16_FLIP_SHARE)."""
+    import copy
+
     from mygenerativerecommenders_tpu_torch.models.model import build_model
 
     results = {}
+    # one seeded build (eval mode: dropout off), the card's a copy of it
+    cpu_model = build_model(cfg, device="cpu", seed=99, year_of_item=year_of_item)
     for device in ("cuda", "cpu"):
-        # eval mode: dropout off
-        model = build_model(cfg, device=device, seed=99, year_of_item=year_of_item)
+        model = copy.deepcopy(cpu_model).to(device) if device == "cuda" else cpu_model
         dev_batch = {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
         loss = loss_of(model, dev_batch, device)
         loss.backward()
@@ -2089,7 +2115,7 @@ def card_against_cpu_ranking_step(packed: bool) -> None:
 # ---------------------------------------------------------------- phase 10
 
 
-def graphed_against_eager(cases=None, steps: int = 3) -> None:
+def graphed_against_eager(cases=None, steps: int = 3, data=None) -> None:
     """The graphed step against the eager step on the card: two trainers of
     one configuration (the same seeds, so the same weights, negatives and
     dropout streams; dropout on), steps_per_call=1 (eager) and 8 (graphed),
@@ -2098,7 +2124,8 @@ def graphed_against_eager(cases=None, steps: int = 3) -> None:
     synthetic-hstu batch, packed ml-20m-hstu-long batches of class 256 then
     1152, a zigzag ring batch, and a padded and a packed synthetic-rank batch
     (the ranking graph binds no negatives' buffer); `cases` as
-    [(label, args, [packed class or None])] otherwise."""
+    [(label, args, [packed class or None])] otherwise, `data` their RecoData
+    when the caller has built it."""
     from mygenerativerecommenders_tpu_torch.cli.train import parse_args
     from mygenerativerecommenders_tpu_torch.train.driver import Trainer
 
@@ -2114,7 +2141,8 @@ def graphed_against_eager(cases=None, steps: int = 3) -> None:
     for label, args, classes in cases:
         eager, graphed = (
             Trainer(parse_args(args + [f"trainer.steps_per_call={k}",
-                                       f"trainer.output_dir={OUT_DIR / 'graphed_vs_eager'}"]))
+                                       f"trainer.output_dir={OUT_DIR / 'graphed_vs_eager'}"]),
+                    data=data)
             for k in (1, 8)
         )
         for t in (eager, graphed):
@@ -2166,6 +2194,11 @@ LARGE_VARIANTS = {"(a) gather + dense AdamW": [], "(b') shared + dense AdamW": S
 # split one's (AdamW and Muon / Scion) around torch's
 OPTIMIZER_RANGES = ("LazyEmbeddingAdamW.step", "SplitOptimizer.step",
                     "Optimizer.step#AdamW.step")
+
+
+# phase 13's one-card overlay: the int8 recall and each hand-stepped
+# variant's peak memory and graphed device ms, printed beside phase 21's
+PHASE13: dict = {}
 
 
 def gb(nbytes: float) -> str:
@@ -2386,6 +2419,7 @@ def serve_large_vocab(kc: Counts, card: str, ckpt: Path, data) -> dict:
         f"device {int8_ms:.3f} ms int8 vs {exact_ms:.3f} ms exact a call on {card}")
     check(recall >= 0.95, f"int8 recall {recall} below 0.95")
     check(rel <= 1e-5, "the re-scored scores are not the exact inner products")
+    PHASE13.update(recall=recall)
     del engine, eager
     return counts
 
@@ -2427,6 +2461,8 @@ def step_large_vocab_by_hand(kc: Counts, card: str, data) -> None:
                      f"traffic, {traffic / PEAK_BYTES_PER_S * 1e3:.3f} ms at the peak rate "
                      f"({traffic / (adam / 1e3) / 1e9:.0f} GB/s reached)")
         log(line + f"; graphed p50 {times['graphed']['p50']:.3f} ms on {card}")
+        PHASE13[label] = dict(peak=peak(), device_ms=times["graphed"]["device_ms"],
+                              p50=times["graphed"]["p50"])
         del trainer, batches, table  # the table holds its dense gradient too
         gc.collect()
         torch.cuda.empty_cache()
@@ -2962,6 +2998,9 @@ def long_cut_depth(kc: Counts, card: str, into: dict) -> None:
         f"{losses[-1]:.4f}, test ndcg@10 {test['test/ndcg@10']:.5f}; launches {counts}")
 
 
+PHASE15_AMZN: dict = {}  # phase 15's amzn-books run, printed beside phase 21's sharded one
+
+
 def amazon_cut_depth(kc: Counts, card: str, into: dict) -> None:
     """amzn-books from a ratings_Books.csv: string ASINs (some all digits),
     power-law popularity, about 20,000 users; prepare (min_count 5), then one
@@ -3005,6 +3044,8 @@ def amazon_cut_depth(kc: Counts, card: str, into: dict) -> None:
     for key, value in counts.items():
         into[key] += value
     losses, test = _finite_run(out / "amzn-books" / "metrics.jsonl", "amzn-books")
+    PHASE15_AMZN.update(wall=wall, steps=len(losses), loss=float(losses[-1]),
+                        ndcg10=test["test/ndcg@10"])
     log(f"  amzn-books from files at cut depth (one epoch): D={cfg.model.item_embedding_dim} "
         f"blocks={cfg.model.encoder.num_blocks} H={cfg.model.encoder.num_heads} "
         f"R={cfg.model.loss.num_to_sample} shared, lazy update, packed "
@@ -3450,6 +3491,9 @@ def serve_against_cpu(card: str, label: str, argv: list) -> None:
 ITEM_YEAR_RUN = ("ml-1m-hstu item_year", "ml-1m-hstu", ["model.embedding.kind=item_year"], 2, 1)
 # MoL's negative logits are no dot products: it takes the gather loss (no count, no lse)
 MOL_RUN = ("ml-1m-hstu mol", "ml-1m-hstu", ["model.similarity.kind=mol"], 2, 0)
+# the MoL run's depth cut (PR 21, the script's time limit): 15 of the recipe's
+# 30 epochs (~40 ms a step; PR 18 measured its 30-epoch numbers)
+MOL_EPOCHS = 15
 # the loss divides MoL's logits by two temperatures (0.05 x 0.05): its gradients
 # reach ~10-30, and an entry sums ~B*T terms of that size, so float32 sums in
 # another order move the small entries by ~1e-6 of the largest (the CPU tests'
@@ -3539,7 +3583,8 @@ def run_other_families_path(kc: Counts, card: str, ml1m: dict) -> dict:
     base = ml1m["test"]
     summary = [f"ml-1m-hstu (phase 15): ndcg@10 {base['test/ndcg@10']:.5f}, hr@10 "
                f"{base['test/hr@10']:.5f}, mrr {base['test/mrr']:.5f}"]
-    for run, epochs in [(ITEM_YEAR_RUN, 30), (MOL_RUN, 30)] + [(r, 1) for r in ONE_EPOCH_RUNS]:
+    for run, epochs in ([(ITEM_YEAR_RUN, 30), (MOL_RUN, MOL_EPOCHS)]
+                        + [(r, 1) for r in ONE_EPOCH_RUNS]):
         label = run[0]
         counts, test, rundir = train_family(kc, card, run, epochs, root, out,
                                             "other families path")
@@ -3556,7 +3601,7 @@ def run_other_families_path(kc: Counts, card: str, ml1m: dict) -> dict:
             summary.append(f"{label}, ranked by MoL (last.pt): ndcg@10 {mol['ndcg@10']:.5f}, "
                            f"hr@10 {mol['hr@10']:.5f}, mrr {mol['mrr']:.5f}")
             test = {f"test/{k}": v for k, v in mol.items()}
-        if epochs == 30:
+        if epochs > 1:
             check(test["test/ndcg@10"] >= MIN_FAMILY_NDCG10,
                   f"{label}: test ndcg@10 {test['test/ndcg@10']} below {MIN_FAMILY_NDCG10}")
         if run is ITEM_YEAR_RUN:
@@ -4088,6 +4133,425 @@ def run_last_gaps_path(kc: Counts, card: str, ml1m: dict, kern, count_kern, lse_
     return {"bf16_counts": counts, "wide_counts": wide_counts, "wide": wide}
 
 
+# ---------------------------------------------------------------- phase 21
+
+# (b) ml-20m-hstu-long's ring at two 256-wide heads (attention_dim and
+# linear_dim follow item_embedding_dim: dqk = dv = 256, H = 2)
+WIDE_RING_ARGS = RING_ARGS + ["model.item_embedding_dim=256",
+                              f"data.synthetic_num_users={RING_USERS}"]
+WIDE_RING_ROWS = 2  # rows of the card-against-CPU batch: the CPU side's depth cut
+# (c) the four kinds at ml-1m width (D=50, which 2 column shards divide)
+LOCAL_RUN = ("ml-1m-hstu local", "ml-1m-hstu", [], 2, 1)
+A2A_RUN = ("ml-1m-hstu sharded_a2a", "ml-1m-hstu",
+           ["model.embedding.kind=sharded_a2a", "model.embedding.num_shards=8"], 2, 1)
+SHARDED_RUNS = (
+    ("ml-1m-hstu sharded_local", "ml-1m-hstu",
+     ["model.embedding.kind=sharded_local", "model.embedding.num_shards=8"], 2, 1),
+    A2A_RUN,
+    ("ml-1m-hstu sharded_2d", "ml-1m-hstu",
+     ["model.embedding.kind=sharded_2d", "model.embedding.num_shards=8",
+      "model.embedding.col_shards=2"], 2, 1),
+    ("ml-1m-hstu sharded_column", "ml-1m-hstu",
+     ["model.embedding.kind=sharded_column", "model.embedding.num_shards=2"], 2, 1),
+)
+A2A_BAND = (0.037, 0.039)  # JAX's band of test ndcg@10 after 30 epochs (PARITY.md)
+# (d) synthetic-large-vocab as shipped: sharded_a2a, 8 shards, int8 index,
+# index.sharded=auto; (e) the 100M preset's 2-D layout at 10M items
+SHIPPED_ARGS = ["experiment=synthetic-large-vocab"]
+SHIPPED_USERS = 2048  # the shipped cli.train's depth cut: users (the preset's 4,096)
+TWO_D_CPU_ROWS = 16  # rows of the 2-D card-against-CPU batch: the CPU side's depth cut
+TWO_D_ARGS = ["experiment=synthetic-large-vocab-100m", "data.expected_max_item_id=10000000",
+              "data.expected_num_unique_items=10000000"]
+
+
+def wide_chunk_kernels(chunk_kern, build_logs: dict) -> dict:
+    """(a) The wide chunk kernels' registers (-Xptxas -v, phase 1's build)
+    and dynamic shared memory at widths 130, 192 and 256; rows 9-10 at width
+    256 against their plain versions with phase 2's checks, timed beside
+    their bounds, on the live 130 x 130 chunk and the 259 x 259 fully live
+    one (B=32, H=2, L=1035). -> {"fwd", "bwd"} of the 130 x 130 chunk."""
+    import re
+
+    for name in (chunk_kern.KERNEL, chunk_kern.KERNEL_BWD):
+        lines = build_logs.get(name, "").splitlines()
+        for i, line in enumerate(lines):
+            entry = re.search(r"Compiling entry function '(\S+)'", line)
+            if not entry or "wide_kernel" not in entry.group(1):
+                continue
+            used = next((x.strip() for x in lines[i + 1 : i + 4] if "Used" in x), "")
+            spill = next((x.strip() for x in lines[i + 1 : i + 4] if "spill" in x), "")
+            log(f"  {name}: {entry.group(1)[:90]}: {used} {spill}")
+    fwd, bwd = chunk_kern._kernel_lib(), chunk_kern._kernel_lib_bwd()
+    for d in (130, 192, WIDE):
+        log(f"  width {d}: chunk forward {fwd.hstu_chunk_fwd_smem_bytes(d, d, 128)} bytes of "
+            f"dynamic shared memory a block, backward (L=1035) "
+            f"{bwd.hstu_chunk_bwd_smem_bytes(d, d, 1035, 128)}")
+    fwd_row, bwd_row = check_chunk(chunk_kern, 57, 32, 130, 130, 2, WIDE, -130, 1035, timed=True)
+    check_chunk(chunk_kern, 58, 32, 130, 130, 2, WIDE, 0, 1035)
+    check_chunk(chunk_kern, 59, 32, 259, 259, 2, WIDE, -518, 1035, timed=True)
+    check_chunk(chunk_kern, 60, 32, 130, 130, 2, WIDE, -910, 1035)
+    return {"fwd": fwd_row, "bwd": bwd_row}
+
+
+def wide_ring(kc: Counts, card: str) -> dict:
+    """(b) The ring at two 256-wide heads, zigzag then contiguous: phase 5's
+    check of one step on the card against the CPU (WIDE_RING_ROWS rows),
+    phase 10's check of one graphed step against one eager one, and the step
+    eager and graphed side by side. -> the launch counts of it all,
+    every count set to 0 just before."""
+    from mygenerativerecommenders_tpu_torch.cli.train import parse_args
+    from mygenerativerecommenders_tpu_torch.configs import resolve
+    from mygenerativerecommenders_tpu_torch.data.dataset import RecoData
+    from mygenerativerecommenders_tpu_torch.train.driver import Trainer
+    from mygenerativerecommenders_tpu_torch.train.task_retrieval import make_loss_fn
+
+    kc.reset()
+    for zigzag in (True, False):
+        layout = "zigzag" if zigzag else "contiguous"
+        args = WIDE_RING_ARGS + [f"model.encoder.sp_zigzag={zigzag}"]
+        cfg = parse_args(args)
+        enc = cfg.model.encoder
+        data = RecoData(cfg.data, seed=cfg.trainer.seed)
+        resolve(cfg, data.max_item_id)
+        check((enc.attention_dim, enc.linear_dim, enc.num_heads, enc.sp_shards) == (WIDE, WIDE,
+                                                                                     2, 4),
+              f"not two {WIDE}-wide heads on the ring: {enc}")
+        batch = {k: v[:WIDE_RING_ROWS] for k, v in next(iter(data.loader("train"))).items()}
+        n = batch["ids"].shape[1] + cfg.model.gr_output_length + 1
+        offsets = torch.randint(0, len(data.all_item_ids),
+                                (WIDE_RING_ROWS, n - 1, cfg.model.loss.num_to_sample),
+                                generator=torch.Generator().manual_seed(3), dtype=torch.int32)
+        t0 = time.perf_counter()
+        compare_card_and_cpu(
+            f"{cfg.experiment}, {layout} ring at two {WIDE}-wide heads, {WIDE_RING_ROWS} rows",
+            cfg, batch, lambda model, b, device: make_loss_fn(model, cfg, data.all_item_ids)(
+                b, neg_offsets=offsets.to(device)))
+        log(f"  the card-against-CPU step took {time.perf_counter() - t0:.1f} s")
+        # one step, as phase 16 holds NS-5: from the second on the chunk
+        # backward's float atomics (the bias tables' gradients) differ run to
+        # run, eager against eager too, and Adam turns that noise into steps
+        # of near-zero gradients (3 steps, contiguous: one _uvqk element of
+        # block 7 1.9e-6 and 2.8e-6 apart, against atol 1e-6, in two of five
+        # runs; the losses equal to the bit)
+        graphed_against_eager([(f"{cfg.experiment}, {layout} ring, D={WIDE}", args, [None])],
+                              steps=1, data=data)
+        trainer = Trainer(parse_args(args + ["trainer.steps_per_call=8",
+                                             f"trainer.output_dir={OUT_DIR / 'wide_ring'}"]),
+                          data=data)
+        trainer.model.train()
+        batches = [trainer._put(b) for _, b in zip(range(2), trainer.data.loader("train"))]
+        calls = enc.num_blocks * ring_chunk_calls(enc.sp_shards, zigzag)
+        times = eager_and_graphed(kc, {
+            "eager": lambda i: trainer.train_step(batches[i % 2], trainer.lr1),
+            "graphed": lambda i: trainer.train_steps([batches[i % 2]], trainer.lr1),
+        }, f"ring train step, {layout}, D={WIDE}, H=2, batch {cfg.data.batch_size}",
+            kc.per_step(0, calls), trainer.train_steps.graphs, card, reps=3)
+        log(f"  chunk forwards and backwards a step: {calls} and {calls}; examples/s eager "
+            f"{1e3 * cfg.data.batch_size / times['eager']['p50']:.1f}, graphed "
+            f"{1e3 * cfg.data.batch_size / times['graphed']['p50']:.1f}")
+        del trainer, batches
+        gc.collect()
+        torch.cuda.empty_cache()
+    counts = kc.read()
+    check(counts[kc.chunk.KERNEL] > 0 and counts[kc.chunk.KERNEL_BWD] > 0,
+          f"the wide ring launched no chunk kernel: {counts}")
+    return counts
+
+
+def sharded_kinds(kc: Counts, card: str, ml1m: dict) -> dict:
+    """(c) The four kinds at ml-1m width on phase 15's files: `cli.train` of
+    sharded_a2a for 30 graphed epochs, its eval on the sharded top-k (test
+    ndcg@10 in A2A_BAND, beside phase 15's local run); each kind's step
+    eager and graphed beside the local table's, phase 10's and phase 5's
+    checks. -> the 30-epoch run's launch counts."""
+    root, out = ml1m["root"], OUT_DIR / "sharded"
+    counts, test, _ = train_family(kc, card, A2A_RUN, 30, root, out, "sharded_a2a path")
+    base = ml1m["test"]
+    log(f"  test metrics on {card}: {test_line(A2A_RUN[0], 30, test)} (the sharded index: 8 "
+        f"shards of the catalog padded to 3,888 rows) beside ml-1m-hstu's local table (phase "
+        f"15): ndcg@10 {base['test/ndcg@10']:.5f}, hr@10 {base['test/hr@10']:.5f}, mrr "
+        f"{base['test/mrr']:.5f}; JAX's band {A2A_BAND[0]}-{A2A_BAND[1]}")
+    check(A2A_BAND[0] <= test["test/ndcg@10"] <= A2A_BAND[1],
+          f"sharded_a2a: test ndcg@10 {test['test/ndcg@10']} outside {A2A_BAND}")
+    family_steps_side_by_side(kc, card, root, runs=(LOCAL_RUN,) + SHARDED_RUNS)
+    graphed_against_eager([(run[0] + ", padded", family_args(run, root), [None])
+                           for run in SHARDED_RUNS])
+    family_card_against_cpu(root, runs=SHARDED_RUNS)
+    return counts
+
+
+def shipped_large_vocab(kc: Counts, card: str, data) -> dict:
+    """(d) synthetic-large-vocab as shipped: `cli.train` for one graphed
+    epoch (its eval on the sharded int8 top-k), `/v1/retrieve` from its
+    best.pt; on the engine's queries the exact sharded top-k against
+    `mips_top_k` and the int8 sharded recall against the exact scan; the
+    step's peak memory and device ms beside phase 13's one-card overlay.
+    -> the launch counts of the run and the engine calls."""
+    import shutil
+    import tempfile
+
+    from mygenerativerecommenders_tpu_torch.cli import train as cli_train
+    from mygenerativerecommenders_tpu_torch.cli.serve import build_engine
+    from mygenerativerecommenders_tpu_torch.ops.sequence import get_current_embeddings
+    from mygenerativerecommenders_tpu_torch.ops.topk import mips_top_k, topk_agree
+    from mygenerativerecommenders_tpu_torch.parallel.topk_sharded import (
+        sharded_mips_top_k,
+        sharded_mips_top_k_int8,
+    )
+    from mygenerativerecommenders_tpu_torch.serving.service import RecommenderHTTPServer
+    from mygenerativerecommenders_tpu_torch.train import task_retrieval
+    from mygenerativerecommenders_tpu_torch.train.driver import Trainer
+    from mygenerativerecommenders_tpu_torch.utils.features import seq_features_from_batch
+
+    cfg = cli_train.parse_args(SHIPPED_ARGS)
+    e = cfg.model.embedding
+    check((e.kind, e.num_shards, cfg.model.index.quantize, cfg.model.index.sharded)
+          == ("sharded_a2a", 8, "int8", "auto") and task_retrieval.index_sharded_on(cfg),
+          "synthetic-large-vocab is not shipped as sharded_a2a with the sharded int8 index")
+    tmp = Path(tempfile.mkdtemp(prefix="shipped_", dir=OUT_DIR))
+    # graphed (the preset's trainer takes one step a call), four steps a call:
+    # eight logged losses over the cut epoch
+    args = SHIPPED_ARGS + [f"trainer.output_dir={tmp}", "trainer.max_epochs=1",
+                           "trainer.min_epochs=1", "trainer.log_every_n_steps=1",
+                           "trainer.steps_per_call=4", f"data.synthetic_num_users={SHIPPED_USERS}"]
+    made = []  # the run's trainer, kept to time its step afterwards
+    init = Trainer.__init__
+
+    def keep(self, *a, **k):
+        init(self, *a, **k)
+        made.append(self)
+
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        kc.reset()
+        t0 = time.perf_counter()
+        Trainer.__init__ = keep
+        try:
+            monitored = cli_train.main(args)
+        finally:
+            Trainer.__init__ = init
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts, graph_counts = kc.read(), kc.read_graphs()
+        per_epoch = -(-SHIPPED_USERS // cfg.data.batch_size)
+        run_peak = peak()
+        log(f"synthetic-large-vocab as shipped: cli.train on {card}, {e.kind} with "
+            f"{e.num_shards} shards of {-(-10_000_001 // 8):,} rows, the gather loss, the "
+            f"sharded int8 index, {SHIPPED_USERS} users (cut from 4,096): {per_epoch} optimizer "
+            f"steps and {2 * per_epoch} eval batches in {wall:.2f} s; peak memory {run_peak}; "
+            f"launches {counts}")
+        losses, steps, _, test = read_training_run(
+            tmp / "synthetic-large-vocab" / "metrics.jsonl", 1, monitored,
+            chance=f"log 513 = {np.log(513):.4f}")
+        check(steps == per_epoch, f"{steps} optimizer steps, expected {per_epoch}")
+        check(graph_counts.get("train") and graph_counts.get("eval"),
+              "the shipped run did not replay graphed steps and eval batches")
+        check_step_launches(kc, steps, 2 * per_epoch, counts, graph_counts,
+                            attn=cfg.model.encoder.num_blocks, lse=0)
+        log(f"  test ndcg@10 {test['test/ndcg@10']:.5f}, hr@200 {test['test/hr@200']:.5f} after "
+            f"one epoch")
+
+        engine, _ = build_engine(SHIPPED_ARGS + [
+            f"trainer.ckpt_path={tmp / 'synthetic-large-vocab' / 'checkpoints' / 'best.pt'}"])
+        check(engine.graphed and engine.candidates.exact.shape[0] % 8 == 0,
+              "the shipped engine is not graphed on the sharded index")
+        catalog = np.asarray(data.all_item_ids)
+        rng = np.random.default_rng(21)
+        rows = [rng.choice(catalog, size=int(m)).tolist()
+                for m in np.concatenate([[1, 200], rng.integers(2, 200, size=30)])]
+        req = {"sequences": rows}
+        server = RecommenderHTTPServer(engine, "127.0.0.1", 0).start()
+        try:
+            http(server.port, "/v1/retrieve", req)  # the capture
+            kc.reset()
+            ms = [1e3 * http(server.port, "/v1/retrieve", req)[1] for _ in range(5)]
+            body = http(server.port, "/v1/retrieve", req)[0]
+            serve_counts = kc.read()
+        finally:
+            server.stop()
+        k = engine.cfg.model.index.k
+        for hist, ids in zip(rows, body["ids"]):
+            check(len(ids) == k and not set(hist) & set(ids) and 0 not in ids,
+                  "a shipped /v1/retrieve answer holds a history id, id 0 or too few ids")
+        log(f"  /v1/retrieve from its best.pt, 32 rows, k={k}: p50 {np.percentile(ms, 50):.3f} "
+            f"ms over 5 requests on the sharded int8 index; launches {serve_counts}")
+
+        # the engine's own queries through the three top-k's
+        batch, _ = engine._pack(rows, None)
+        with torch.no_grad():
+            dev = {key: torch.from_numpy(v).cuda() for key, v in batch.items()}
+            seq, _, _ = seq_features_from_batch(dev, engine.cfg.model.gr_output_length + 1)
+            seq = seq._replace(past_embeddings=engine.model.item_embeddings(seq.past_ids))
+            encoded, lengths = engine.model(seq)
+            queries = get_current_embeddings(lengths, encoded)
+            cands = engine.candidates
+            group = task_retrieval.index_shards(engine.cfg)
+            padded = torch.as_tensor(task_retrieval.padded_catalog(catalog, group), device="cuda")
+            cat_t = torch.as_tensor(catalog.astype(np.int64), device="cuda")
+            s_ids, s_scores = sharded_mips_top_k(group, queries, cands.exact, padded, k,
+                                                 invalid_ids=seq.past_ids)
+            e_ids, e_scores = mips_top_k(queries, cands.exact[: len(catalog)], cat_t, k,
+                                         invalid_ids=seq.past_ids, max_item_id=data.max_item_id)
+            q_ids, _ = sharded_mips_top_k_int8(group, queries, cands.q, cands.scales, cands.exact,
+                                               padded, k, invalid_ids=seq.past_ids,
+                                               over_fetch=engine.cfg.model.index.rescore_over_fetch)
+            sharded_ms = device_ms(lambda: sharded_mips_top_k(
+                group, queries, cands.exact, padded, k, invalid_ids=seq.past_ids), 3)
+            int8_ms = device_ms(lambda: sharded_mips_top_k_int8(
+                group, queries, cands.q, cands.scales, cands.exact, padded, k,
+                invalid_ids=seq.past_ids), 3)
+        agree = topk_agree(s_ids.cpu().numpy(), s_scores.cpu().numpy(), e_ids.cpu().numpy(),
+                           e_scores.cpu().numpy(), 1e-5)
+        q_np, e_np = q_ids.cpu().numpy(), e_ids.cpu().numpy()
+        recall = float(np.mean([len(set(a) & set(b)) / k for a, b in zip(q_np, e_np)]))
+        log(f"  the exact sharded top-k against mips_top_k, 32 queries, k={k}, X="
+            f"{len(catalog):,}: {'agree' if agree is None else agree}; the int8 sharded top-k's "
+            f"recall against the exact scan {recall:.4f} beside the replicated int8 path's "
+            f"{PHASE13.get('recall', float('nan')):.4f} (phase 13; JAX's bar 0.95); device "
+            f"{sharded_ms:.3f} ms exact sharded, {int8_ms:.3f} ms int8 sharded a call")
+        check(agree is None, f"the exact sharded top-k disagrees with mips_top_k: {agree}")
+        check(recall >= 0.95, f"int8 sharded recall {recall} below 0.95")
+        del engine
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the run's graphed step by hand (its trainer, after the epoch), beside
+    # phase 13's one-card overlay (a); graphed only: the eager step's
+    # activations do not fit beside the run's graph pools
+    trainer = made[0]
+    trainer.model.train()
+    batches = [trainer._put(b) for _, b in zip(range(2), trainer.data.loader("train"))]
+    times = {"graphed": step_numbers(
+        kc, lambda i: trainer.train_steps([batches[i % 2]], trainer.lr1),
+        "synthetic-large-vocab step as shipped (sharded_a2a), graphed",
+        kc.per_step(trainer.cfg.model.encoder.num_blocks, 0, lse=0), reps=4)}
+    overlay = PHASE13.get("(a) gather + dense AdamW", {})
+    log(f"  as shipped: peak memory {run_peak} (the cli.train run), graphed device "
+        f"{times['graphed']['device_ms']:.3f} "
+        f"ms, p50 {times['graphed']['p50']:.3f} ms | phase 13's one-card overlay (local table, "
+        f"the same gather loss): peak {overlay.get('peak')}, graphed device "
+        f"{overlay.get('device_ms', float('nan')):.3f} ms, p50 "
+        f"{overlay.get('p50', float('nan')):.3f} ms on {card}")
+    del trainer, batches, made
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {key: counts[key] + serve_counts[key] for key in counts}
+
+
+def two_d_and_amazon(kc: Counts, card: str, data) -> None:
+    """(e) synthetic-large-vocab-100m's 2-D layout (8 row x 2 column shards)
+    at a 10M vocabulary: two graphed steps, and phase 5's check (the CPU
+    holds the 10M table, as in phase 14's check of the local one; the same
+    weights, batch and negatives); then amzn-books-sharded on phase 15's
+    amzn-books files for one graphed epoch, beside phase 15's amzn-books
+    run."""
+    from mygenerativerecommenders_tpu_torch.cli import train as cli_train
+    from mygenerativerecommenders_tpu_torch.train.driver import Trainer
+    from mygenerativerecommenders_tpu_torch.train.task_retrieval import loss_variant, make_loss_fn
+
+    torch.cuda.reset_peak_memory_stats()
+    cfg = cli_train.parse_args(TWO_D_ARGS + ["trainer.steps_per_call=8",
+                                             f"trainer.output_dir={OUT_DIR / 'two_d'}"])
+    e = cfg.model.embedding
+    check((e.kind, e.num_shards, e.col_shards) == ("sharded_2d", 8, 2), "not the 2-D layout")
+    trainer = Trainer(cfg, data=data)
+    batches = [trainer._put(b) for _, b in zip(range(2), trainer.data.loader("train"))]
+    trainer.model.train()
+    kc.reset()
+    t0 = time.perf_counter()
+    losses = trainer.train_steps(batches, trainer.lr1).cpu().numpy()
+    torch.cuda.synchronize()
+    counts, graphs_made = kc.read(), kc.read_graphs()
+    check(bool(np.isfinite(losses).all()) and graphs_made["train"]["replays"] == 2,
+          f"the 2-D steps: losses {losses}, graphs {graphs_made}")
+    walls = []
+    for i in range(3):
+        t1 = time.perf_counter()
+        trainer.train_steps([batches[i % 2]], trainer.lr1)
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t1))
+    dev = profile_device(lambda i: trainer.train_steps([batches[i % 2]], trainer.lr1), reps=2,
+                         what="the 2-D step, graphed", wall_ms=float(np.median(walls)), top=4)[0]
+    log(f"synthetic-large-vocab-100m's 2-D table at 10,000,000 items (cut from 100M: the table, "
+        f"AdamW's moments and the dense gradient would take 102 GB), {e.num_shards} x "
+        f"{e.col_shards} shards: two graphed steps (their capture and warm-up runs included) in "
+        f"{time.perf_counter() - t0:.2f} s, losses {losses.tolist()}, graphed p50 "
+        f"{np.median(walls):.3f} ms and device {dev:.3f} ms a step, peak memory {peak()}; "
+        f"launches of the two steps {counts} on {card}")
+    del trainer, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    check(loss_variant(cfg, len(data.all_item_ids)) == "gather",
+          "the 2-D step is not the gather loss")
+    batch = {k: v[:TWO_D_CPU_ROWS] for k, v in next(iter(data.loader("train"))).items()}
+    n = batch["ids"].shape[1] + cfg.model.gr_output_length + 1
+    offsets = torch.randint(0, len(data.all_item_ids),
+                            (batch["ids"].shape[0], n - 1, cfg.model.loss.num_to_sample),
+                            generator=torch.Generator().manual_seed(3), dtype=torch.int32)
+    t0 = time.perf_counter()
+    compare_card_and_cpu(
+        f"synthetic-large-vocab-100m's 2-D table at 10,000,000 items, a batch of "
+        f"{batch['ids'].shape[0]} rows (the gather loss)", cfg, batch,
+        lambda model, b, device: make_loss_fn(model, cfg, data.all_item_ids)(
+            b, neg_offsets=offsets.to(device)))
+    log(f"  the card and CPU step with both models built: {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    root = REAL_DIR / "amzn"
+    out = OUT_DIR / "amzn_sharded"
+    args = ["experiment=amzn-books-sharded", f"data.data_dir={root}",
+            f"trainer.output_dir={out}", "trainer.max_epochs=1", "trainer.min_epochs=1",
+            "trainer.log_every_n_steps=1"]
+    acfg = cli_train.parse_args(args)
+    check(acfg.model.embedding.kind == "sharded_a2a" and not acfg.model.embedding.lazy_update,
+          "not amzn-books-sharded")
+    kc.reset()
+    t0 = time.perf_counter()
+    cli_train.main(args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kc.read()
+    check(counts[kc.attn.KERNEL] > 0, "amzn-books-sharded launched no attention kernel")
+    losses, test = _finite_run(out / "amzn-books-sharded" / "metrics.jsonl", "amzn-books-sharded")
+    base = PHASE15_AMZN
+    log(f"amzn-books-sharded on phase 15's amzn-books files, one graphed epoch (packed, "
+        f"sharded_a2a over 8 shards, dense AdamW, packed eval on the sharded index): "
+        f"{len(losses)} logged steps in {wall:.2f} s, last loss {losses[-1]:.4f}, test ndcg@10 "
+        f"{test['test/ndcg@10']:.5f} | phase 15's amzn-books (local table, lazy update): "
+        f"{base.get('steps')} logged steps in {base.get('wall', float('nan')):.2f} s, last loss "
+        f"{base.get('loss', float('nan')):.4f}, test ndcg@10 "
+        f"{base.get('ndcg10', float('nan')):.5f}; launches {counts} on {card}")
+
+
+def run_sharded_path(kc: Counts, card: str, ml1m: dict, chunk_kern, build_logs: dict,
+                     large_data) -> dict:
+    """Phase 21. -> {"wide_chunk": rows 9-10 at width 256, "ring_counts": the
+    wide ring's launches, "kinds_counts": the 30-epoch sharded_a2a run's,
+    "shipped_counts": the shipped synthetic-large-vocab run's}."""
+    t0 = time.perf_counter()
+    wide_chunk = wide_chunk_kernels(chunk_kern, build_logs)
+    t1 = time.perf_counter()
+    ring_counts = wide_ring(kc, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t2 = time.perf_counter()
+    kinds_counts = sharded_kinds(kc, card, ml1m)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t3 = time.perf_counter()
+    shipped_counts = shipped_large_vocab(kc, card, large_data)
+    t4 = time.perf_counter()
+    two_d_and_amazon(kc, card, large_data)
+    log(f"phase 21 took {time.perf_counter() - t0:.1f} s: (a) {t1 - t0:.1f}, (b) {t2 - t1:.1f}, "
+        f"(c) {t3 - t2:.1f}, (d) {t4 - t3:.1f}, (e) {time.perf_counter() - t4:.1f}")
+    return {"wide_chunk": wide_chunk, "ring_counts": ring_counts, "kinds_counts": kinds_counts,
+            "shipped_counts": shipped_counts}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on an NVIDIA card",
@@ -4298,11 +4762,14 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     variant_counts = run_training_variants_path(kc, kind, ml1m_run, large_data)
-    del large_data
     gc.collect()
     torch.cuda.empty_cache()
     last = run_last_gaps_path(kc, kind, ml1m_run, kern, count_kern, lse_kern, build_logs)
     bf16_counts = last["bf16_counts"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    sharded = run_sharded_path(kc, kind, ml1m_run, chunk_kern, build_logs, large_data)
+    del large_data
 
     # no PyTorch call computes HSTU's silu attention with this bias, its
     # backward, or a count-weighted log-sum-exp over a matrix product that is
@@ -4319,12 +4786,14 @@ def main() -> int:
         dict(name=kern.KERNEL, source=kern.SOURCE, replaces=kern.REPLACES,
              launches=serving_launches + sum(c[kern.KERNEL] for c in (
                  train_counts, long_counts, real_ml1m, real_others, split_counts,
-                 family_counts, other_counts, variant_counts, bf16_counts)),
+                 family_counts, other_counts, variant_counts, bf16_counts,
+                 sharded["kinds_counts"])),
              library_ms=None, **serving),
         dict(name=kern.KERNEL_BWD, source=kern.SOURCE_BWD, replaces=kern.REPLACES_BWD,
              launches=sum(c[kern.KERNEL_BWD] for c in (
                  train_counts, long_counts, real_ml1m, real_others, split_counts,
-                 family_counts, other_counts, variant_counts, bf16_counts)),
+                 family_counts, other_counts, variant_counts, bf16_counts,
+                 sharded["kinds_counts"])),
              library_ms=None, **attn_bwd),
         # rows 1-2 at the ranking shape R; their launches are the ranking run's
         dict(name=kern.KERNEL + " (ranking shape R)", source=kern.SOURCE,
@@ -4336,10 +4805,12 @@ def main() -> int:
         # rows 1-2 at synthetic-large-vocab's shape V; their launches are
         # phase 13's (cli.train and the engine calls)
         dict(name=kern.KERNEL + " (large-vocab shape V)", source=kern.SOURCE,
-             replaces=kern.REPLACES, launches=large_counts[kern.KERNEL], library_ms=None,
-             **large_fwd),
+             replaces=kern.REPLACES,
+             launches=large_counts[kern.KERNEL] + sharded["shipped_counts"][kern.KERNEL],
+             library_ms=None, **large_fwd),
         dict(name=kern.KERNEL_BWD + " (large-vocab shape V)", source=kern.SOURCE_BWD,
-             replaces=kern.REPLACES_BWD, launches=large_counts[kern.KERNEL_BWD],
+             replaces=kern.REPLACES_BWD,
+             launches=large_counts[kern.KERNEL_BWD] + sharded["shipped_counts"][kern.KERNEL_BWD],
              library_ms=None, **large_bwd),
         dict(name=count_kern.KERNEL, source=count_kern.SOURCE, replaces=count_kern.REPLACES,
              launches=sum(c[count_kern.KERNEL] for c in (
@@ -4358,19 +4829,19 @@ def main() -> int:
              replaces=count_kern.REPLACES,
              launches=sum(c[count_kern.KERNEL] for c in (
                  real_ml1m, split_counts, family_counts, other_counts, variant_counts,
-                 bf16_counts, last["wide_counts"])),
+                 bf16_counts, last["wide_counts"], sharded["kinds_counts"])),
              **counted_ml1m),
         dict(name=lse_kern.KERNEL + " (ml-1m files, X=3883)", source=lse_kern.SOURCE,
              replaces=lse_kern.REPLACES,
              launches=sum(c[lse_kern.KERNEL] for c in (
                  real_ml1m, split_counts, family_counts, other_counts, variant_counts,
-                 bf16_counts)),
+                 bf16_counts, sharded["kinds_counts"])),
              library_ms=None, **lse_fwd_ml1m),
         dict(name=lse_kern.KERNEL_BWD + " (ml-1m files, X=3883)", source=lse_kern.SOURCE,
              replaces=lse_kern.REPLACES_BWD,
              launches=sum(c[lse_kern.KERNEL_BWD] for c in (
                  real_ml1m, split_counts, family_counts, other_counts, variant_counts,
-                 bf16_counts)),
+                 bf16_counts, sharded["kinds_counts"])),
              library_ms=None, **lse_bwd_ml1m),
         # the same entry point over the ml-20m catalog, wider than one x-block
         # of the TPU kernels: its launches are the long path's, its numbers
@@ -4409,6 +4880,16 @@ def main() -> int:
         dict(name=chunk_kern.KERNEL_BWD, source=chunk_kern.SOURCE_BWD,
              replaces=chunk_kern.REPLACES_BWD, launches=ring_counts[chunk_kern.KERNEL_BWD],
              library_ms=None, **chunk_bwd),
+        # rows 9-10 at width 256 (phase 21): the wide kernels on the live
+        # 130 x 130 chunk; their launches are the D=256 ring's (both layouts)
+        dict(name=chunk_kern.KERNEL + f" (width {WIDE}, wide kernel)", source=chunk_kern.SOURCE,
+             replaces=chunk_kern.REPLACES,
+             launches=sharded["ring_counts"][chunk_kern.KERNEL], library_ms=None,
+             **sharded["wide_chunk"]["fwd"]),
+        dict(name=chunk_kern.KERNEL_BWD + f" (width {WIDE}, wide kernel)",
+             source=chunk_kern.SOURCE_BWD, replaces=chunk_kern.REPLACES_BWD,
+             launches=sharded["ring_counts"][chunk_kern.KERNEL_BWD], library_ms=None,
+             **sharded["wide_chunk"]["bwd"]),
     ]
     for row in rows:
         row["route"] = "cuda"

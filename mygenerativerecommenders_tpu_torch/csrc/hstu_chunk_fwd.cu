@@ -54,6 +54,9 @@
 //  6. Exact fp32 as before: no TF32, no --use_fast_math, the time bucket
 //     through hstu::bucketize and expf in silu.
 //
+// Heads wider than 128 (dqk or dv) take the wide kernel at the end of this
+// file, which stages depth in 128-column slices (see there).
+//
 // The TPU kernel's 128-row pad and Toeplitz position stripe exist for Mosaic
 // and are not carried over. q, k and v are read through their batch and row
 // strides (chunk slices of the uvqk projection need no copy), as are the two
@@ -73,7 +76,8 @@ constexpr int kWarps = 2 * kSlices;  // two 16-query halves x the slices
 constexpr int kThreads = 32 * kWarps;
 constexpr int kT = 2 * kHalf;        // query rows of a block
 constexpr int kS = kSlices * kHalf;  // key rows of a streamed tile
-constexpr int kMaxDepth = 128;       // widest head the 4 x 8-column output tiles reach
+constexpr int kMaxDepth = 128;       // widest head the 4 x 8-column output tiles reach;
+                                     // wider ones take the wide kernel (below)
 
 struct Args {
   const float* q;
@@ -213,22 +217,182 @@ int launch(const Args& a, long long smem, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// ------------------------------------------------------------ wide heads
+//
+// Heads wider than kMaxDepth (dqk or dv above 128). The kernel above holds a
+// q tile and two stages of k and v as wide as the head, and a lane's 4 x 8
+// output columns reach 128: at dqk = dv = 256 that is ~100 KB of rows, and
+// the output tile no longer fits a lane's registers. This kernel keeps the
+// block above (four warps: two 16-query halves x two 16-key slices of a
+// 32-key tile, 4 x 2 pairs a lane), its walk and its live-pair tests, and
+// walks depth in slices of kSliceW = 128 columns, as the full-sequence
+// forward's wide kernel (csrc/hstu_attention_fwd.cu) does:
+//  - dqk: for each key tile the q and k columns of one slice at a time are
+//    staged in shared memory, and the lane's partial q.k sums stay in
+//    registers until the last slice; then silu gives p;
+//  - dv: one 128-column slice of the output a block, on the grid
+//    (blockIdx.y). Each slice's block recomputes the score tile (dqk / 128
+//    staged slices a key tile), where one block would have to keep every
+//    key tile's p, or all of dv in registers.
+// Stages are single (copy, wait, barrier, compute). Shared memory is the
+// same at every width (wide_smem_floats: ~57 KB at 128 buckets). The two
+// key slices of a row meet once in shared memory in a fixed order and each
+// row is written once, as above: no atomics, the same bits from call to call.
+// It is the simple form of the wide path, not a fast one; widths up to 128
+// never reach it.
+
+long long wide_smem_floats(int num_buckets) {
+  const long long rows = (kT + 2LL * kS) * hstu::kLdSlice;  // q, k and v slices
+  return rows + kWarps * kHalf * kLdW + (num_buckets + 1) + kT + kS;
+}
+
+__global__ void __launch_bounds__(kThreads, 2)
+    hstu_chunk_fwd_wide_kernel(const __grid_constant__ Args a) {
+  constexpr int kU = 4;
+  constexpr int ld = hstu::kLdSlice;
+  constexpr int kW = hstu::kSliceW;
+  extern __shared__ __align__(16) float smem[];
+  int idx = blockIdx.x;
+  const int hh = idx % a.h;
+  idx /= a.h;
+  const int b = idx % a.b;
+  const int r0 = (a.nq_tiles - 1 - idx / a.b) * kT;  // first query row
+  const int c0 = blockIdx.y * kW;                    // the block's output columns
+  const int wv = min(kW, a.dv - c0);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wr = warp & 1, ws = warp >> 1;  // query half and key slice of the warp
+  const int lr = lane >> 3, ls = lane & 7;
+  const int nq = a.nq, nc = a.nc, offd = a.offd, L = a.max_len, nb1 = a.num_buckets + 1;
+  const int n_ks = (a.dqk + kW - 1) / kW;  // depth slices of q.k
+
+  float* qs = smem;                          // [kT][ld] q slice
+  float* ks = qs + kT * ld;                  // [kS][ld] k slice
+  float* vs = ks + kS * ld;                  // [kS][ld] v, the block's output columns
+  float* w = vs + kS * ld;                   // [kWarps][kHalf][kLdW] p
+  float* tsw_s = w + kWarps * kHalf * kLdW;  // [nb1]
+  int* res_ts = reinterpret_cast<int*>(tsw_s + nb1);  // [kT]
+  int* str_ts = res_ts + kT;                 // [kS]
+
+  const int ngv = (wv + 3) / 4;
+  int g[kU];
+#pragma unroll
+  for (int u = 0; u < kU; ++u) g[u] = min(ls + 8 * u, ngv - 1);
+  const int row_lane = kHalf * wr + 4 * lr;
+
+  // the walk, as the kernel above takes it
+  const int q_end = min(r0 + kT, nq);
+  const int keys = min(nc, q_end - offd);
+  const int cnt = keys > 0 ? (keys - 1) / kS + 1 : 0;
+
+  float4 acc[4][kU];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int u = 0; u < kU; ++u) acc[i][u] = make_float4(0.f, 0.f, 0.f, 0.f);
+
+  if (cnt > 0) {
+    const float* qb = a.q + b * a.q_sb + hh * a.dqk + r0 * a.q_sn;
+    const float* kb = a.k + b * a.k_sb + hh * a.dqk;
+    const float* vb = a.v + b * a.v_sb + hh * a.dv + c0;
+    const int* tsqb = a.tsq + b * a.tsq_sb;
+    const int* tskb = a.tsk + b * a.tsk_sb;
+    if (tid < kT) res_ts[tid] = tsqb[min(r0 + tid, nq - 1)];
+    for (int e = tid; e < nb1; e += kThreads) tsw_s[e] = a.ts_w[e];
+
+    const float* q_lane = qs + row_lane * ld;
+    float* w_warp = w + warp * kHalf * kLdW;
+    for (int it = 0; it < cnt; ++it) {
+      const int s0 = it * kS;
+      const int n_lo = r0 + kHalf * wr, m_lo = s0 + kHalf * ws;  // the warp's first pair
+      // the warp's 16 x 16 pairs hold a live one (the test above)
+      const bool live =
+          !(n_lo >= nq || m_lo >= nc || min(n_lo + kHalf - 1, nq - 1) - m_lo < offd);
+      float x[4][2] = {};
+      for (int s = 0; s < n_ks; ++s) {
+        const int e0 = s * kW, we = min(kW, a.dqk - e0);
+        __syncthreads();  // every warp is done with what the buffers hold
+        if (n_ks > 1 || it == 0)  // one slice of q stays for the whole walk
+          hstu::copy_rows_async<kThreads>(qs, ld, qb + e0, a.q_sn, kT, we, nq - r0);
+        hstu::copy_rows_async<kThreads>(ks, ld, kb + s0 * a.k_sn + e0, a.k_sn, kS, we, nc - s0);
+        if (s == 0) {
+          hstu::copy_rows_async<kThreads>(vs, ld, vb + s0 * a.v_sn, a.v_sn, kS, wv, nc - s0);
+          if (tid < kS) str_ts[tid] = tskb[min(s0 + tid, nc - 1)];
+        }
+        hstu::cp_async_commit();
+        hstu::cp_async_wait_all();
+        __syncthreads();
+        if (live)
+          hstu::dot_tile(x, q_lane, ld, ks + (kHalf * ws + ls) * ld, ld, 4 * ((we + 3) / 4));
+      }
+      if (!live) continue;
+      // p of the lane's pairs into the warp's array, then out += p v
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        float p[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int n = r0 + row_lane + i, m = m_lo + ls + 8 * j;
+          p[i] = 0.f;
+          if (n - m >= offd && n < nq && m < nc) {
+            const int bucket = hstu::bucketize(
+                (int)((unsigned int)res_ts[row_lane + i] -
+                      (unsigned int)str_ts[kHalf * ws + ls + 8 * j]),
+                a.num_buckets);
+            // live: m - n + offd <= 0, so only the lower clip can bind
+            const float z =
+                x[i][j] + (__ldg(a.pos_w + max(m - n + offd + L - 1, 0)) + tsw_s[bucket]);
+            p[i] = z / (1.f + expf(-z)) * a.inv_n;
+          }
+        }
+        *reinterpret_cast<float4*>(w_warp + (ls + 8 * j) * kLdW + 4 * lr) =
+            make_float4(p[0], p[1], p[2], p[3]);
+      }
+      __syncwarp();
+      hstu::accumulate_rows<kU>(acc, w_warp + 4 * lr, vs + kHalf * ws * ld, ld, g);
+      __syncwarp();
+    }
+  }
+
+  hstu::cp_async_wait_all();
+  __syncthreads();  // the k slice (32 rows) takes key slice 1's sums
+#pragma unroll
+  for (int u = 0; u < kU; ++u) g[u] = ls + 8 * u;
+  hstu::sum_slices<kU, kSlices>(acc, ks, ld, row_lane, ws, g, ngv);
+  if (ws == 0)
+    hstu::store_rows_at<kU>(a.out, acc, ((int64_t)b * nq * a.h + hh) * a.dv + c0,
+                            r0 + row_lane, nq, (int64_t)a.h * a.dv, wv, g, ngv);
+}
+
+int launch_wide(const Args& a, long long smem, cudaStream_t stream) {
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        hstu_chunk_fwd_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const long long blocks = (long long)a.nq_tiles * a.b * a.h;
+  const dim3 grid((unsigned int)blocks, (unsigned int)((a.dv + hstu::kSliceW - 1) / hstu::kSliceW));
+  hstu_chunk_fwd_wide_kernel<<<grid, kThreads, (size_t)smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+bool is_wide(int dqk, int dv) { return dqk > kMaxDepth || dv > kMaxDepth; }
+
 }  // namespace
 
 extern "C" {
 
-// Widest head (dqk and dv) the kernel takes.
-int hstu_chunk_fwd_max_depth() { return kMaxDepth; }
-
-// Dynamic shared memory one block needs, in bytes.
+// Dynamic shared memory one block needs, in bytes (the wide kernel's above
+// 128 columns).
 long long hstu_chunk_fwd_smem_bytes(int dqk, int dv, int num_buckets) {
+  if (is_wide(dqk, dv)) return 4 * wide_smem_floats(num_buckets);
   return 4 * smem_floats(hstu::shared_ld(dqk), hstu::shared_ld(dv), num_buckets);
 }
 
 // q [b, nq, h, dqk], k [b, nc, h, dqk], v [b, nc, h, dv] float32 with heads
 // contiguous in a row (batch and row strides given); tsq [b, nq] and tsk
 // [b, nc] int32 with the row strides given; out [b, nq, h, dv] contiguous,
-// written whole. Launches on `stream` without synchronising; returns
+// written whole. Heads up to 128 wide take the kernel above, wider ones the
+// wide kernel. Launches on `stream` without synchronising; returns
 // cudaGetLastError().
 int hstu_chunk_fwd(const float* q, const float* k, const float* v,
                    const int* tsq, const int* tsk, const float* pos_w,
@@ -238,7 +402,7 @@ int hstu_chunk_fwd(const float* q, const float* k, const float* v,
                    long long v_sn, long long tsq_sb, long long tsk_sb,
                    int offd, int max_len, int num_buckets, float inv_n,
                    void* stream) {
-  if (dqk > kMaxDepth || dv > kMaxDepth) return (int)cudaErrorInvalidValue;
+  if (dqk <= 0 || dv <= 0) return (int)cudaErrorInvalidValue;
   if ((long long)b * nq * h == 0) return (int)cudaSuccess;
   Args a;
   a.q = q;
@@ -272,6 +436,7 @@ int hstu_chunk_fwd(const float* q, const float* k, const float* v,
   a.nq_tiles = (nq + kT - 1) / kT;
   const long long smem = hstu_chunk_fwd_smem_bytes(dqk, dv, num_buckets);
   const cudaStream_t st = (cudaStream_t)stream;
+  if (is_wide(dqk, dv)) return launch_wide(a, smem, st);
   return (dv + 3) / 4 <= 16 ? launch<2>(a, smem, st) : launch<4>(a, smem, st);
 }
 

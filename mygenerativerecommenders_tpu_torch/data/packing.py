@@ -108,7 +108,8 @@ class PackedBatchLoader:
         include_target: bool = True,
     ):
         if process_count > 1 or process_index != 0:
-            raise not_ported("the multi-process packed loader stride", "Distributed")
+            raise not_ported("the multi-process packed loader stride",
+                             "Distributed, part (b): the multi-process loader stride")
         self.dataset = dataset
         self.rows_per_batch = rows_per_batch
         self.row_capacity = row_capacity

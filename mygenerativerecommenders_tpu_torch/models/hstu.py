@@ -317,7 +317,7 @@ class HSTU(nn.Module):
     ):
         super().__init__()
         if tp_shards > 1:
-            raise not_ported("encoder.tp_shards > 1", "Distributed")
+            raise not_ported("encoder.tp_shards > 1", "Distributed, part (c): tensor parallelism")
         self.remat = remat
         n_total = max_sequence_len + max_output_len
         self._attention_layers = nn.ModuleList(

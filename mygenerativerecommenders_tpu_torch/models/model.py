@@ -1,8 +1,9 @@
 """The composed generative-recommender model.
 
 Port of mygenerativerecommenders_tpu/models/model.py:59-291 for the
-components the retrieval and ranking tasks run: local or item/year embedding
--> learnable positional preprocessor (plain, rated, combined
+components the retrieval and ranking tasks run: local, item/year or sharded
+embedding (the four `sharded_*` kinds, their shards run in turn on this
+device: models/embeddings.py) -> learnable positional preprocessor (plain, rated, combined
 item-and-rating or aux; with dropout) -> HSTU (pointwise or softmax
 attention) or SASRec -> aux-mask compaction -> L2 or LayerNorm
 postprocessor, dot-product or MoL similarity. The encoder's dims follow the preprocessor's layout:
@@ -38,9 +39,15 @@ from typing import List, Optional, Sequence, Tuple, Union
 import torch
 from torch import nn
 
-from mygenerativerecommenders_tpu_torch import not_ported
 from mygenerativerecommenders_tpu_torch.configs import Config, ModelConfig, max_seq_len
-from mygenerativerecommenders_tpu_torch.models.embeddings import ItemYearEmbedding, LocalEmbedding
+from mygenerativerecommenders_tpu_torch.models.embeddings import (
+    ColumnShardedLocalEmbedding,
+    ItemYearEmbedding,
+    LocalEmbedding,
+    Sharded2DEmbedding,
+    ShardedA2AEmbedding,
+    ShardedLocalEmbedding,
+)
 from mygenerativerecommenders_tpu_torch.models import precision
 from mygenerativerecommenders_tpu_torch.models.hstu import HSTU
 from mygenerativerecommenders_tpu_torch.models.postprocessors import (
@@ -76,24 +83,48 @@ class GenerativeRecommender(nn.Module):
         # the encoder's input dtype; the encoder rounds where JAX's does
         # (models/precision.py) and returns float32
         self.compute_dtype = precision.compute_dtype(m.compute_dtype)
-        if m.embedding.kind.startswith("sharded"):
-            raise not_ported(f"embedding.kind={m.embedding.kind}", "Distributed")
-        if m.embedding.kind == "local":
-            self.embeddings = LocalEmbedding(
-                m.embedding.num_items, m.item_embedding_dim, m.embedding.init_std, generator
+        e = m.embedding
+        emb_shards = e.num_shards if e.kind.startswith("sharded") else 1
+        tp_shards = m.encoder.tp_shards if m.encoder.kind == "hstu" else 1
+        if emb_shards > 1 and tp_shards > 1 and emb_shards != tp_shards:
+            # the JAX trainer's check (train/driver.py:125-147)
+            raise ValueError(
+                "embedding.num_shards and encoder.tp_shards both use the "
+                f"'model' mesh axis and must match ({emb_shards} vs {tp_shards})"
             )
-        elif m.embedding.kind == "item_year":
+        if e.kind == "local":
+            self.embeddings = LocalEmbedding(
+                e.num_items, m.item_embedding_dim, e.init_std, generator
+            )
+        elif e.kind == "sharded_local":
+            self.embeddings = ShardedLocalEmbedding(
+                e.num_items, m.item_embedding_dim, e.num_shards, e.init_std, generator
+            )
+        elif e.kind == "sharded_a2a":
+            self.embeddings = ShardedA2AEmbedding(
+                e.num_items, m.item_embedding_dim, e.num_shards, e.a2a_capacity_factor,
+                e.init_std, generator,
+            )
+        elif e.kind == "sharded_column":
+            self.embeddings = ColumnShardedLocalEmbedding(
+                e.num_items, m.item_embedding_dim, e.num_shards, e.init_std, generator
+            )
+        elif e.kind == "sharded_2d":
+            self.embeddings = Sharded2DEmbedding(
+                e.num_items, m.item_embedding_dim, e.num_shards, e.col_shards,
+                e.a2a_capacity_factor, e.init_std, generator,
+            )
+        elif e.kind == "item_year":
             if year_of_item is None or len(year_of_item) == 0:
                 raise ValueError(
                     "item_year embedding requires year_of_item (pass the "
                     "data catalog's item->year table to build_model)"
                 )
             self.embeddings = ItemYearEmbedding(
-                m.embedding.num_items, m.item_embedding_dim, year_of_item,
-                m.embedding.init_std, generator,
+                e.num_items, m.item_embedding_dim, year_of_item, e.init_std, generator,
             )
         else:
-            raise ValueError(f"Unknown embedding kind {m.embedding.kind}")
+            raise ValueError(f"Unknown embedding kind {e.kind}")
         p = m.preprocessor
         if p.kind == "learnable_positional":
             self.preprocessor = LearnablePositionalEmbeddingPreprocessor(

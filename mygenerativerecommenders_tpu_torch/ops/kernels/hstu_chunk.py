@@ -24,7 +24,10 @@ dv, d_pos_w and d_ts_w (adding a clipped pair's gradient into the slot it
 read). The output, dq, dk and dv take no atomics and are bit-identical from
 call to call; only the two table gradients are summed with float atomics. A
 chunk with off_delta >= Nq has no live pair: both kernels then write zeros,
-as does the backward for key rows no live pair reaches.
+as does the backward for key rows no live pair reaches. Heads of any width:
+above 128 columns (dqk or dv) both sources launch their wide kernel, which
+stages depth in 128-column slices and puts one 128-column output slice a
+block on the grid, with the same shared memory at every width.
 On a CPU tensor it computes `hstu_chunk_attention_plain`, the port's copy of
 the JAX ring's jnp chunk body (`parallel/ring_attention.py:_chunk_contribution`
 with use_pallas=False, :85-101), and autograd differentiates that.
@@ -109,8 +112,6 @@ def _kernel_lib() -> ctypes.CDLL:
         lib.hstu_chunk_fwd.restype = i
         lib.hstu_chunk_fwd_smem_bytes.argtypes = [i, i, i]
         lib.hstu_chunk_fwd_smem_bytes.restype = ll
-        lib.hstu_chunk_fwd_max_depth.argtypes = []
-        lib.hstu_chunk_fwd_max_depth.restype = i
         lib.hstu_chunk_cuda_error_string.argtypes = [i]
         lib.hstu_chunk_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -126,8 +127,6 @@ def _kernel_lib_bwd() -> ctypes.CDLL:
         lib.hstu_chunk_bwd.restype = i
         lib.hstu_chunk_bwd_smem_bytes.argtypes = [i] * 4
         lib.hstu_chunk_bwd_smem_bytes.restype = ll
-        lib.hstu_chunk_bwd_max_depth.argtypes = []
-        lib.hstu_chunk_bwd_max_depth.restype = i
         lib.hstu_chunk_bwd_cuda_error_string.argtypes = [i]
         lib.hstu_chunk_bwd_cuda_error_string.restype = ctypes.c_char_p
         _lib_bwd = lib
@@ -166,13 +165,6 @@ def _launch(q, k, v, tsq, tsk, pos_w, ts_w, off_delta, inv_n, max_len, num_bucke
     b, nq, h, dqk = q.shape
     nc, dv = k.shape[1], v.shape[-1]
     lib = _kernel_lib()
-    widest = lib.hstu_chunk_fwd_max_depth()
-    if max(dqk, dv) > widest:
-        raise ValueError(
-            f"dqk={dqk}, dv={dv}: the ring's chunk forward kernel takes heads up to "
-            f"{widest} wide (wider heads on the ring: ROADMAP.md queue 2 item 1, queued "
-            "beside queue 1 item 6's ring over a process group)"
-        )
     smem = lib.hstu_chunk_fwd_smem_bytes(dqk, dv, num_buckets)
     if smem > _build.MAX_SMEM_BYTES:
         raise ValueError(
@@ -200,13 +192,6 @@ def _launch_bwd(q, k, v, g, tsq, tsk, pos_w, ts_w, off_delta, inv_n, max_len, nu
     b, nq, h, dqk = q.shape
     nc, dv = k.shape[1], v.shape[-1]
     lib = _kernel_lib_bwd()
-    widest = lib.hstu_chunk_bwd_max_depth()
-    if max(dqk, dv) > widest:
-        raise ValueError(
-            f"dqk={dqk}, dv={dv}: the ring's chunk backward kernel takes heads up to "
-            f"{widest} wide (wider heads on the ring: ROADMAP.md queue 2 item 1, queued "
-            "beside queue 1 item 6's ring over a process group)"
-        )
     smem = lib.hstu_chunk_bwd_smem_bytes(dqk, dv, max_len, num_buckets)
     if smem > _build.MAX_SMEM_BYTES:
         raise ValueError(

@@ -1,0 +1,245 @@
+"""Sharded item tables, their R shards run in turn on one device.
+
+Port of mygenerativerecommenders_tpu/parallel/embedding_sharding.py: the
+owner-routed all-to-all exchange (`owner_routed_lookup_body`,
+`owner_routed_lookup_sliced`, `a2a_capacity`, :54-248) and the standalone
+`ShardedEmbedding` (row shards: the psum lookup and the owner-routed one) and
+`ColumnShardedEmbedding` (column shards: local gathers and one all_gather).
+
+The bodies compute for every shard what the JAX bodies compute inside
+`shard_map` on one device of the "model" (or "col") axis, and reach the other
+shards only through a shard group, whose methods stand for JAX's
+collectives. `OneDeviceShards` holds every shard's operand on a leading axis
+of R, `[R, ...]`, shard r's operand at index r, so each collective is a
+transpose or a concatenation of that axis, and the psum of the shards'
+masked gathers is one gather from the owner: a lookup is a fixed
+handful of launches whatever R is, and it runs inside a CUDA graph of the
+step. A group over a process group would supply the same methods with
+collectives (ROADMAP.md queue 1 item 6(b)).
+
+The lookups are exact, as in JAX: a row is either gathered by its owner and
+shipped back, or (an id past its bucket's static capacity) taken by the
+residual, where exactly one shard contributes a non-zero row. JAX gates the
+residual with a `lax.cond` on "any overflow"; here it is computed every time
+and is all zero when nothing overflowed, so the values are JAX's and no step
+reads a flag back to the host. Every table here is a view of one [V, D]
+tensor: the gradient of a lookup is the scatter-add of its cotangent rows
+into the rows (or columns) each shard owns, as the transposes of JAX's
+gathers and collectives give it.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+import torch
+
+
+def round_up(x: int, m: int) -> int:
+    """x rounded up to a multiple of m: a row-sharded table's vocabulary
+    (num_items + 1) or the sharded index's catalog length."""
+    return -(-x // m) * m
+
+
+def _bcast(mask: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """`mask` with trailing unit dims up to `like`'s rank."""
+    return mask.view(*mask.shape, *([1] * (like.dim() - mask.dim())))
+
+
+def _rows(stacked: torch.Tensor, shard: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
+    """stacked[shard, index] (stacked [R, M, ...]; shard and index broadcast)
+    through `F.embedding` on the [R * M, ...] rows: its backward sums a row's
+    duplicate cotangents in parallel, where the backward of advanced indexing
+    (`index_put_` with accumulate) sums each run of duplicates serially on the
+    card, and the masked slots of a lookup all read one row."""
+    r, m = stacked.shape[:2]
+    rest = stacked.shape[2:]
+    flat = torch.nn.functional.embedding(shard * m + index, stacked.reshape(r * m, -1))
+    return flat.reshape(*flat.shape[:-1], *rest)
+
+
+class OneDeviceShards:
+    """The R shards of one mesh axis on one device. A stacked operand is
+    [R, ...]; a replicated one (the same on every shard) is held once."""
+
+    def __init__(self, size: int):
+        if size < 1:
+            raise ValueError(f"a shard group needs at least one shard, got {size}")
+        self.size = int(size)
+
+    def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
+        """`lax.all_to_all(split_axis=0, concat_axis=0, tiled=False)`: shard
+        s's block d goes to shard d as its block s. x [R (src), R (dst), ...]
+        -> [R (dst), R (src), ...]."""
+        return x.transpose(0, 1)
+
+    def all_gather(self, x: torch.Tensor, dim: int, stack_dim: int = 0) -> torch.Tensor:
+        """`lax.all_gather(axis=dim, tiled=True)`: every shard's operand
+        (along `stack_dim` of x) concatenated in shard order along the
+        operand's `dim`; the replicated result, held once."""
+        return x.movedim(stack_dim, dim).flatten(dim, dim + 1)
+
+    def gather_psum(self, tables: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+        """The psum lookup: each shard gathers the rows of `ids` it owns
+        (tables [R, rows_per_shard, ...], shard s owning ids [s * rps, (s +
+        1) * rps)), zeros for the others, and one psum adds the shards. ids
+        [n] -> [n, ...] replicated; ids outside [0, R * rps), -1 included,
+        give zero rows. At most one shard owns an id, so the sum is its row
+        plus zeros, which is the row to the bit: held once on one device, it
+        is one gather from the owner, without the [R, n, ...] of masked rows."""
+        rps = tables.shape[1]
+        ids = ids.long()
+        owner = torch.div(ids, rps, rounding_mode="floor")
+        valid = (ids >= 0) & (owner < self.size)
+        owner = owner.clamp(0, self.size - 1)
+        local = (ids - owner * rps).clamp(0, rps - 1)
+        rows = _rows(tables, owner, local)
+        return torch.where(_bcast(valid, rows), rows, torch.zeros((), dtype=rows.dtype,
+                                                                  device=rows.device))
+
+
+def a2a_capacity(n: int, num_shards: int, capacity_factor: float) -> int:
+    """Static per-owner bucket capacity of the owner-routed exchange."""
+    cap = int(np.ceil(n / num_shards * capacity_factor))
+    return max(1, min(cap, n))
+
+
+def _exchange(
+    group: OneDeviceShards, tables: torch.Tensor, my_ids: torch.Tensor, cap: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The owner-routed exchange of every shard's request list my_ids [R, c]
+    (shard r's at r): bucket by owner (a stable sort, as `jnp.argsort` is
+    stable), ship each bucket of `cap` ids (empty slots -1) to its owner,
+    gather there, ship the rows back and un-bucket. -> (routed [R, c, ...],
+    zero where an id overflowed its bucket; fits [R, c])."""
+    r = group.size
+    rps = tables.shape[1]
+    dev = my_ids.device
+    c = my_ids.shape[1]
+    my_ids = my_ids.long()
+    owner = torch.div(my_ids, rps, rounding_mode="floor").clamp(0, r - 1)
+    # rank of each id within its owner group
+    sorted_owner, order = torch.sort(owner, dim=1, stable=True)
+    shard_ids = torch.arange(r, device=dev)
+    group_start = torch.searchsorted(sorted_owner, shard_ids.expand(r, r).contiguous(),
+                                     side="left")
+    rank_sorted = torch.arange(c, device=dev) - torch.gather(group_start, 1, sorted_owner)
+    rank = torch.empty_like(rank_sorted).scatter_(1, order, rank_sorted)
+    fits = rank < cap
+
+    # [R, R, C] send buckets of ids; the slot past the end takes the overflow
+    slot = torch.where(fits, owner * cap + rank, r * cap)
+    send = torch.full((r, r * cap + 1), -1, dtype=torch.long, device=dev)
+    send = send.scatter(1, slot, my_ids)[:, :-1].reshape(r, r, cap)
+    recv = group.all_to_all(send)  # [R (owner), R (source), C]
+    local = recv - (shard_ids * rps)[:, None, None]
+    ok = (local >= 0) & (local < rps)
+    safe = local.clamp(0, rps - 1).reshape(r, r * cap)
+    rows = _rows(tables, shard_ids[:, None], safe)  # [R (owner), R * C, ...]
+    zero = torch.zeros((), dtype=rows.dtype, device=dev)
+    rows = torch.where(_bcast(ok.reshape(r, r * cap), rows), rows, zero)
+    back = group.all_to_all(rows.reshape(r, r, cap, *rows.shape[2:]))  # [R (source), R, C, ...]
+    back = back.reshape(r, r * cap, *rows.shape[2:])
+    safe_slot = torch.where(fits, slot, 0)
+    routed = _rows(back, shard_ids[:, None], safe_slot)  # [R, c, ...]
+    return torch.where(_bcast(fits, routed), routed, zero), fits
+
+
+def owner_routed_lookup_body(
+    group: OneDeviceShards, tables: torch.Tensor, flat_ids: torch.Tensor, *, cap: int,
+) -> torch.Tensor:
+    """The exchange with the request list `flat_ids` [n] replicated over the
+    shards (JAX :54-151): every shard buckets and ships the whole list.
+    tables [R, rows_per_shard, ...]. -> [n, ...] replicated. Ids past their
+    bucket take the residual: each shard's rows of them, psummed."""
+    n = flat_ids.shape[0]
+    routed, fits = _exchange(group, tables, flat_ids.long().expand(group.size, n), cap)
+    # every shard routed the same list, so its routed rows are shard 0's
+    over = torch.where(fits[0], -1, flat_ids.long())
+    return routed[0] + group.gather_psum(tables, over)
+
+
+def owner_routed_lookup_sliced(
+    group: OneDeviceShards, tables: torch.Tensor, my_ids: torch.Tensor, *, cap: int,
+) -> torch.Tensor:
+    """The exchange where shard r routes its own slice my_ids[r] of the
+    request list (JAX :160-248), [R, chunk] -> [R, chunk, ...] rows. The
+    residual: the overflowed ids all-gathered to every shard, each shard's
+    rows of them psummed, each shard taking back its own chunk."""
+    r, chunk = my_ids.shape
+    routed, fits = _exchange(group, tables, my_ids, cap)
+    over = group.all_gather(torch.where(fits, -1, my_ids.long()), dim=0)  # [R * chunk]
+    allrows = group.gather_psum(tables, over)  # [R * chunk, ...]
+    return routed + allrows.reshape(r, chunk, *allrows.shape[1:])
+
+
+class ShardedEmbedding:
+    """Row-sharded [V, D] table over a shard group: shard s owns rows [s *
+    V/R, (s + 1) * V/R), V = num_items + 1 padded to a multiple of R. The
+    table is one [V, D] tensor; shard s's rows are a view of it."""
+
+    def __init__(self, group: OneDeviceShards, num_items: int, embedding_dim: int):
+        self.group = group
+        self.num_shards = group.size
+        self.vocab = round_up(num_items + 1, self.num_shards)
+        self.rows_per_shard = self.vocab // self.num_shards
+        self.embedding_dim = embedding_dim
+
+    def _tables(self, table: torch.Tensor) -> torch.Tensor:
+        return table.view(self.num_shards, self.rows_per_shard, self.embedding_dim)
+
+    def lookup(self, table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+        """The psum lookup: ids [...] -> [..., D]."""
+        out = self.group.gather_psum(self._tables(table), ids.reshape(-1))
+        return out.reshape(*ids.shape, self.embedding_dim)
+
+    def lookup_all_to_all(self, table: torch.Tensor, ids: torch.Tensor,
+                          capacity_factor: float = 2.0) -> torch.Tensor:
+        """The owner-routed lookup of a replicated request list: ids [...]
+        -> [..., D], equal to `lookup` to the bit under any overflow."""
+        flat = ids.reshape(-1)
+        cap = a2a_capacity(flat.shape[0], self.num_shards, capacity_factor)
+        out = owner_routed_lookup_body(self.group, self._tables(table), flat, cap=cap)
+        return out.reshape(*ids.shape, self.embedding_dim)
+
+    def full_table(self, table: torch.Tensor) -> torch.Tensor:
+        """Every shard's rows in order (JAX's all-gather of the table): on
+        one device, the table itself."""
+        return table
+
+
+class ColumnShardedEmbedding:
+    """Column-sharded [V, D] table: shard s owns columns [s * D/R, (s + 1) *
+    D/R) of all V = num_items + 1 rows; a lookup is a local gather on every
+    shard and one tiled all_gather of the columns."""
+
+    def __init__(self, group: OneDeviceShards, num_items: int, embedding_dim: int):
+        self.group = group
+        self.num_shards = group.size
+        if embedding_dim % self.num_shards:
+            raise ValueError(
+                f"embedding_dim {embedding_dim} not divisible by "
+                f"{self.num_shards} column shards"
+            )
+        self.vocab = num_items + 1
+        self.embedding_dim = embedding_dim
+
+    def lookup(self, table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+        out = column_lookup(self.group, table, ids.reshape(-1))
+        return out.reshape(*ids.shape, self.embedding_dim)
+
+    def full_table(self, table: torch.Tensor) -> torch.Tensor:
+        return table
+
+
+def column_lookup(group: OneDeviceShards, table: torch.Tensor, flat_ids: torch.Tensor
+                  ) -> torch.Tensor:
+    """Shard s gathers its [n, D/R] columns of the rows at flat_ids; one
+    tiled all_gather on the feature axis gives [n, D]. Every shard gathers
+    the same rows, so the shards' gathers are the column blocks of one
+    `F.embedding` of the table (its backward sums duplicate ids in parallel)."""
+    n, (v, d) = flat_ids.shape[0], table.shape
+    rows = torch.nn.functional.embedding(flat_ids.long(), table)
+    cols = rows.view(n, group.size, d // group.size).transpose(0, 1)  # [R, n, D/R]
+    return group.all_gather(cols, dim=1)

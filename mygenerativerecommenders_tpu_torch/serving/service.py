@@ -7,8 +7,13 @@ the most recent items) and keeps the candidate matrix resident on its
 device. Its programs are the retrieval eval step and one generation program
 per (mode, steps, num_beams) (models/decode.py). With index.quantize=int8
 retrieval pre-ranks on the int8 rows and re-scores on the exact ones, and
-generation decodes against the exact rows, as the JAX engine does. On the card each program is
-one CUDA graph, captured at its first call and replayed after
+generation decodes against the exact rows, as the JAX engine does. A
+sharded model (`embedding.kind=sharded_*`) is served with the sharded index
+(`index.sharded`, train/task_retrieval.py), as the JAX engine serves it when
+given a mesh; it generates where the padded catalog is the catalog (X a
+multiple of the shards) and raises where the JAX engine cannot decode. On
+the card each program is one CUDA graph, captured at its first call and
+replayed after
 (train/graphs.py, one graph per static shape: the counterpart of the JAX
 engine's `jax.jit`); on the CPU, or with `graphs=False`, it runs eagerly. A
 coalescer groups concurrent single-row retrieve requests into one engine
@@ -94,7 +99,8 @@ class ServingEngine:
     ):
         if cfg.model.task != "retrieval":
             # the server answers retrieval requests only, as the JAX package's
-            raise not_ported(f"serving model.task={cfg.model.task}", "Other model families")
+            raise not_ported(f"serving model.task={cfg.model.task}",
+                             "Other model families: serving a ranking model")
         if cfg.model.preprocessor.kind == "learnable_positional_aux":
             # a request carries ids and timestamps only (as the JAX engine
             # reads them, :104-125), not the user columns the aux token needs
@@ -289,6 +295,18 @@ class ServingEngine:
                 f"unknown generation mode {mode!r}; expected greedy | sample | beam"
             )
         decode.check_decodable(self.cfg.model)
+        rows = candidate_inputs(self.candidates)[_CANDIDATES].shape[0]
+        if rows != len(self.all_item_ids):
+            # the sharded index pads the catalog to a multiple of the shards;
+            # the JAX engine decodes against those rows with the catalog's
+            # own ids, whose shapes then disagree (ROADMAP.md queue 3)
+            raise ValueError(
+                f"generation with model.index.sharded on: the sharded index holds {rows} "
+                f"rows for {len(self.all_item_ids)} catalog ids (not a multiple of "
+                f"model.embedding.num_shards={self.cfg.model.embedding.num_shards}), which "
+                "the reference cannot decode against; set model.index.sharded=false to "
+                "generate"
+            )
         batch, n_real = self._pack(sequences, timestamps)
         noise = None
         if mode == "sample":

@@ -47,8 +47,13 @@ steps 2-4 of epoch 0 with torch.profiler (CPU and, on the card, CUDA
 activity) into a Chrome trace under `<out_dir>/profile/`.
 `trainer.mlflow_dir` logs the flattened config as MLflow params (JAX
 :332-344) beside every metrics row (train/loggers.py). A scheduler kind that
-JAX ignores (`cosine`: JAX steps only a plateau controller) raises. The mesh
-(`trainer.num_devices` > 1) and the multi-process loader raise.
+JAX ignores (`cosine`: JAX steps only a plateau controller) raises. With a
+sharded embedding kind (`embedding.kind=sharded_*`) the table's shards run in
+turn on this device, and with `index.sharded` on the candidates and the eval
+steps, eager and graphed, are built over the index's shard group
+(`task_retrieval.index_shards`, the JAX trainer's "model" mesh axis): no mesh
+to hold. The mesh (`trainer.num_devices` > 1) and the multi-process loader
+raise.
 """
 
 from __future__ import annotations
@@ -125,7 +130,11 @@ class Trainer:
         t = cfg.trainer
         self.device = resolve_device(t.device)
         if t.distributed or t.num_devices > 1:
-            raise not_ported("trainer.distributed / num_devices > 1", "Distributed")
+            if cfg.model.encoder.sp_shards > 1:
+                raise not_ported("trainer.distributed / num_devices > 1 with encoder.sp_shards > 1",
+                                 "Distributed, part (d): the ring over a process group")
+            raise not_ported("trainer.distributed / num_devices > 1",
+                             "Distributed, part (b): DDP data parallel")
         for name, sched in (("scheduler1", cfg.scheduler1), ("scheduler2", cfg.scheduler2)):
             if sched.kind not in ("plateau", "none"):
                 # JAX builds a controller for plateau alone (driver.py:304-323)

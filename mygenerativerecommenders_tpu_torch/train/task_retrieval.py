@@ -9,9 +9,10 @@ and its losses, the dense-catalog `loss_fn_dense`, the per-sample gather
 (:315-394) with the optimizer step and its k-step form
 `train_step_from_loss` (:326-379, shared with the ranking task; with
 `embedding.lazy_update` the step of train/lazy_embedding.py),
-`make_candidate_fn` (:423-501, replicated path, exact or int8),
-`make_eval_step` (:504-625) and `make_packed_eval_step` (:627-730), each with
-its k-batch form. Serving and the trainer's eval share the eval step.
+`index_sharded_on` (:400-420), `make_candidate_fn` (:423-501, replicated
+or row-sharded, exact or int8), `make_eval_step` (:504-625) and
+`make_packed_eval_step` (:627-730), each with its k-batch form. Serving and
+the trainer's eval share the eval step.
 
 The training step is: scatter the target into the history at position
 `length`, embed, forward (dropout on under `model.train()`), supervise
@@ -28,7 +29,10 @@ cross-entropy; both take the gather route, as in the JAX package. A packed batch
 nothing is scattered, and position p supervises the id at p+1 only where both
 lie in one segment. With `index.quantize=int8` the candidates are a
 `QuantizedCatalog` (ops/quantized_topk.py): the eval step pre-ranks on the
-int8 rows and re-scores on the exact ones. On cuda the k-step and k-batch
+int8 rows and re-scores on the exact ones. With `index.sharded` on (a
+sharded embedding kind) the candidates are the padded catalog's rows,
+row-sharded over the shards of the table, and the eval step takes the
+sharded top-k (parallel/topk_sharded.py). On cuda the k-step and k-batch
 forms replay CUDA graphs of the whole step (train/graphs.py); one step a call
 stays eager.
 """
@@ -40,7 +44,6 @@ from typing import Callable, Dict, NamedTuple, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from mygenerativerecommenders_tpu_torch import not_ported
 from mygenerativerecommenders_tpu_torch.configs import Config
 from mygenerativerecommenders_tpu_torch.models.losses import (
     _weighted_mean,
@@ -66,6 +69,14 @@ from mygenerativerecommenders_tpu_torch.ops.quantized_topk import (
     quantize_catalog,
 )
 from mygenerativerecommenders_tpu_torch.ops.topk import mips_top_k
+from mygenerativerecommenders_tpu_torch.parallel.embedding_sharding import (
+    OneDeviceShards,
+    round_up,
+)
+from mygenerativerecommenders_tpu_torch.parallel.topk_sharded import (
+    sharded_mips_top_k,
+    sharded_mips_top_k_int8,
+)
 from mygenerativerecommenders_tpu_torch.train.graphs import StepGraphs, training_state
 from mygenerativerecommenders_tpu_torch.train.optimizers import set_lr
 from mygenerativerecommenders_tpu_torch.utils.features import (
@@ -559,13 +570,52 @@ def make_train_step(
     return train_step_from_loss(model, optimizer, loss_fn, steps, drawn)
 
 
+SHARDED_KINDS = ("sharded_local", "sharded_a2a", "sharded_column", "sharded_2d")
+
+
+def index_sharded_on(cfg: Config) -> bool:
+    """Resolve index.sharded (JAX :400-420): the sharded candidate index
+    engages for a sharded embedding kind with num_shards > 1."""
+    s = str(cfg.model.index.sharded).lower()
+    if s in ("false", "0", "no", "off"):
+        return False
+    applicable = (
+        cfg.model.embedding.kind in SHARDED_KINDS and cfg.model.embedding.num_shards > 1
+    )
+    if s == "auto":
+        return applicable
+    if s in ("true", "1", "yes", "on"):
+        if not applicable:
+            raise ValueError(
+                "index.sharded=true requires a sharded embedding kind with "
+                "num_shards > 1"
+            )
+        return True
+    raise ValueError(f"Unknown index.sharded {cfg.model.index.sharded!r}")
+
+
+def index_shards(cfg: Config) -> Optional[OneDeviceShards]:
+    """The shard group the candidate index is row-sharded over (the JAX
+    trainer's "model" mesh axis; its shards run in turn on this device), or
+    None for the replicated index."""
+    return OneDeviceShards(cfg.model.embedding.num_shards) if index_sharded_on(cfg) else None
+
+
+def padded_catalog(all_item_ids: np.ndarray, shards: OneDeviceShards) -> np.ndarray:
+    """The catalog's ids padded with 0 to a multiple of the shards (JAX
+    :442-446): the sharded index's row ids."""
+    catalog = np.asarray(all_item_ids, dtype=np.int64)
+    padded = np.zeros(round_up(len(catalog), shards.size), dtype=np.int64)
+    padded[: len(catalog)] = catalog  # pad rows carry id 0
+    return padded
+
+
 def _check_index(cfg: Config) -> bool:
     """-> whether the index is int8 (index.quantize=int8)."""
     index = cfg.model.index
     if index.quantize not in ("", "none", "int8"):
         raise ValueError(f"Unknown index.quantize {index.quantize!r}")
-    if str(index.sharded).lower() in ("true", "1", "yes", "on"):
-        raise not_ported("index.sharded=true", "Distributed")
+    index_sharded_on(cfg)  # an unknown value, or true on a local kind, raises
     return index.quantize == "int8"
 
 
@@ -575,14 +625,20 @@ def make_candidate_fn(
     """candidates() -> [X, D]: the catalog's embeddings, normalized as the
     sampler normalizes them (sampler.l2_norm, sampler.l2_norm_eps); with
     index.quantize=int8 the `QuantizedCatalog` of those rows, the exact ones
-    kept for re-scoring (JAX :489-500)."""
+    kept for re-scoring (JAX :489-500). With index.sharded on (JAX :439-482)
+    the rows of the padded catalog, row-sharded over `index_shards(cfg)`:
+    [X_pad, D], the pad rows zero (and in the int8 index zero rows of scale 1)."""
     quantized = _check_index(cfg)
     sampler = make_sampler(cfg)
     device = next(model.parameters()).device
-    catalog = torch.as_tensor(np.asarray(all_item_ids, dtype=np.int64), device=device)
+    shards = index_shards(cfg)
+    ids = all_item_ids if shards is None else padded_catalog(all_item_ids, shards)
+    catalog = torch.as_tensor(np.asarray(ids, dtype=np.int64), device=device)
 
     def candidates() -> Candidates:
         rows = sampler.normalize_embeddings(model.item_embeddings(catalog))
+        if shards is not None:
+            rows = torch.where(catalog[:, None] > 0, rows, 0.0)
         return quantize_catalog(rows, keep_exact=True) if quantized else rows
 
     return candidates
@@ -644,19 +700,34 @@ def _eval_many(model: torch.nn.Module, eval_step: Callable, steps: int) -> Calla
 
 
 def _top_k(
-    cfg: Config, catalog: torch.Tensor, max_item_id: int
+    cfg: Config, all_item_ids: np.ndarray, max_item_id: int, device: torch.device
 ) -> Callable[..., Tuple[torch.Tensor, torch.Tensor]]:
     """top_k(queries [Q, D], candidates, invalid_ids) -> (ids [Q, k], scores
     [Q, k]): the exact scan, or with index.quantize=int8 the int8 pre-rank
-    and exact re-score of `index.rescore_over_fetch * k` rows (JAX :591-602)."""
+    and exact re-score of `index.rescore_over_fetch * k` rows (JAX :591-602).
+    With index.sharded on, the sharded top-k over the padded catalog's
+    shards, exact or int8 (parallel/topk_sharded.py, JAX :529-578)."""
     quantized = _check_index(cfg)
     index = cfg.model.index
-    k = min(index.k, catalog.shape[0])
+    k = min(index.k, len(all_item_ids))
     filter_past = index.filter_past_ids
     approx_recall = float(index.approx_top_k_recall)
+    shards = index_shards(cfg)
+    ids = all_item_ids if shards is None else padded_catalog(all_item_ids, shards)
+    catalog = torch.as_tensor(np.asarray(ids, dtype=np.int64), device=device)
 
     def top_k(queries, candidates: Candidates, invalid_ids):
         invalid = invalid_ids if filter_past else None
+        if shards is not None:
+            if quantized:
+                return sharded_mips_top_k_int8(
+                    shards, queries, candidates.q, candidates.scales, candidates.exact,
+                    catalog, k=k, invalid_ids=invalid, over_fetch=index.rescore_over_fetch,
+                )
+            return sharded_mips_top_k(
+                shards, queries, candidates, catalog, k=k, invalid_ids=invalid,
+                approx_recall=approx_recall,
+            )
         if quantized:
             return mips_top_k_int8(
                 queries, candidates, catalog, k=k, invalid_ids=invalid,
@@ -677,9 +748,7 @@ def make_eval_step(
     """eval_step(batch, candidates) -> (top_k_ids [B, k], top_k_scores [B, k]).
     steps > 1: eval_steps(batches, candidates) over up to `steps` batches,
     each result [len(batches), B, k] (`_eval_many`: graphed on cuda)."""
-    device = next(model.parameters()).device
-    catalog = torch.as_tensor(np.asarray(all_item_ids, dtype=np.int64), device=device)
-    top_k = _top_k(cfg, catalog, max_item_id)
+    top_k = _top_k(cfg, all_item_ids, max_item_id, next(model.parameters()).device)
     max_out = cfg.model.gr_output_length + 1
 
     def eval_step(batch, candidates):
@@ -706,11 +775,8 @@ def make_packed_eval_step(
     own ids alone (`seg_invalid_ids`): a packed row must not filter by its
     neighbours' histories. A padding slot (seg_weight 0) answers like any
     query; the caller drops it."""
-    _check_index(cfg)
     _check_packable(cfg)
-    device = next(model.parameters()).device
-    catalog = torch.as_tensor(np.asarray(all_item_ids, dtype=np.int64), device=device)
-    top_k = _top_k(cfg, catalog, max_item_id)
+    top_k = _top_k(cfg, all_item_ids, max_item_id, next(model.parameters()).device)
 
     def eval_step(batch, candidates):
         seq = packed_seq_features(batch)

@@ -441,8 +441,13 @@ def test_dense_neg_lse_kernels_match_plain_on_a_wide_catalog_on_card(bt, d, x):
         (2, 130, 130, 2, 64, -910, 1035),  # padded rows past the table: clipped slot
         (4, 259, 259, 2, 64, -259, 1035),  # the contiguous ring's fully live chunk
         (3, 45, 70, 2, 64, 10, 100),  # Nq off the 32-row tile, Nq != Nc, partial
+        # heads wider than 128: the wide kernels (128-column depth slices)
+        (2, 130, 130, 2, 256, 0, 1035),  # the diagonal chunk at width 256
+        (2, 259, 259, 2, 256, -259, 1035),  # the fully live chunk at width 256
+        (3, 45, 70, 1, 192, -80, 100),  # width 192, Nq != Nc, clipped slot
     ],
-    ids=["negative", "zero", "partial", "dead", "off-table", "full-259", "ragged-partial"],
+    ids=["negative", "zero", "partial", "dead", "off-table", "full-259", "ragged-partial",
+         "wide-256-zero", "wide-256-full-259", "wide-192-off-table"],
 )
 def test_chunk_kernels_match_plain_on_card(b, nq, nc, h, d, offd, max_len):
     """Chunk forward and backward against autograd of the plain version, q, k,
@@ -617,6 +622,8 @@ _GRAPH_CASES = {
     "bfloat16": ["model.compute_dtype=bfloat16"],
     "bfloat16-packed": ["model.compute_dtype=bfloat16", "data.pack_sequences=true"],
     "wide-256": ["model.item_embedding_dim=256"],
+    # the owner-routed sharded table, its 8 shards in turn inside the replay
+    "sharded-a2a": ["model.embedding.kind=sharded_a2a", "model.embedding.num_shards=8"],
 }
 # one step for the bfloat16 Newton-Schulz cases: from the second step on the
 # bias tables' float atomics (which differ run to run, eager against eager)

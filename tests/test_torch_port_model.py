@@ -178,12 +178,32 @@ def test_model_init_is_seeded_and_padding_row_zero():
 )
 def test_unported_kinds_raise_naming_the_roadmap_item(override, item):
     """The knobs that no ported code reads raise, naming the ROADMAP.md item
-    that ports them; those ported since build and take a step (remat, and
-    compute_dtype=bfloat16 with its parameters and output in float32) or
-    raise a ValueError naming the knob (attention dropout, which the
-    reference ignores)."""
+    that ports them; those ported since build and take a step (remat,
+    compute_dtype=bfloat16 with its parameters and output in float32, and
+    the sharded embedding kinds, whose table keeps its key and JAX's padded
+    shape) or raise a ValueError naming the knob (attention dropout, which
+    the reference ignores)."""
     _, pcfg = _configs([override])
-    if override == "model.compute_dtype=bfloat16":
+    if override.startswith("model.embedding.kind=sharded"):
+        pcfg.model.embedding.num_shards = 8
+        pcfg.model.embedding.col_shards = 2
+        model = pt_build_model(pcfg, device="cpu")
+        table = model.embeddings._item_emb.weight
+        assert tuple(table.shape) == (-(-(pcfg.model.embedding.num_items + 1) // 8) * 8,
+                                      pcfg.model.item_embedding_dim)
+        before = table.detach().clone()
+        opt = torch.optim.AdamW(model.parameters(), lr=1e-3)
+        batch = {k: torch.from_numpy(v) for k, v in _batch(0).items()}
+        seq, _, _ = pt_seq_features(batch, pcfg.model.gr_output_length + 1)
+        ids = seq.past_ids.long()
+        embedded = model.item_embeddings(ids)
+        assert torch.equal(embedded, table[ids])
+        encoded, _ = model(seq._replace(past_embeddings=embedded))
+        encoded.square().sum().backward()
+        opt.step()
+        moved = (table.detach() != before).any(-1)
+        assert moved[ids.unique()[1:]].all() and not moved[0]
+    elif override == "model.compute_dtype=bfloat16":
         model = pt_build_model(pcfg, device="cpu")
         before = {k: v.clone() for k, v in model.named_parameters()}
         opt = torch.optim.AdamW(model.parameters(), lr=1e-3)
