@@ -254,8 +254,9 @@ Phases, each of which stops the run with a non-zero exit when it fails:
 16. Muon and Scion (the two-optimizer split: AdamW on the embeddings and
    vectors, Muon or Scion with bfloat16 Newton-Schulz on the encoder's
    matrices, each learning rate with its plateau controller) at ml-1m-hstu's
-   width on phase 15's files: `cli.train` for 30 graphed epochs of
-   ml-1m-hstu-muon and of ml-1m-hstu-scion (min_epochs=30), launch counts as
+   width on phase 15's files: `cli.train` for 10 graphed epochs (SPLIT_EPOCHS:
+   cut from 30 for phase 22) of ml-1m-hstu-muon and of
+   ml-1m-hstu-scion (min_epochs=10), launch counts as
    in phase 4, losses finite and falling, best.pt and last.pt written, test
    ndcg@10 at least 0.030 (about 80% of the JAX package's 0.0367; its 0.0376
    and 0.0367 are from a TPU v5e on synthetic ml-1m-shaped data), printed
@@ -274,12 +275,13 @@ Phases, each of which stops the run with a non-zero exit when it fails:
 17. The aux preprocessor, SASRec, the in-batch sampler and BCE at
    ml-1m-hstu's width on phase 15's files (users.dat with ml-1m's sexes, age
    groups, occupations and 3,439 zip strings feeds the aux token):
-   `cli.train` for 30 graphed epochs of ml-1m-hstu-aux, ml-1m-sasrec and
-   ml-1m-hstu with `model.sampler.kind=in_batch`, and one of ml-1m-hstu with
+   `cli.train` for 10 graphed epochs (CUT_EPOCHS: cut from 30 for
+   phase 22) of ml-1m-hstu-aux, ml-1m-sasrec and ml-1m-hstu with
+   `model.sampler.kind=in_batch`, and one of ml-1m-hstu with
    `model.loss.kind=bce`; launch counts as in phase 4 (SASRec launches no
    attention kernel, in-batch and BCE no count or lse: they take the gather
    loss), losses finite and falling, best.pt and last.pt written, test
-   ndcg@10 at least 0.030 for the three 30-epoch runs, printed beside the
+   ndcg@10 at least 0.030 for the three longer runs, printed beside the
    JAX package's bars (TPU v5e numbers) and phase 15's ml-1m-hstu. Then the
    three train steps eager and graphed side by side as in phase 4; phase
    10's check of three graphed steps against three eager ones for each;
@@ -290,8 +292,9 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    single rows, and the engine call's p50, eager and graphed.
 
 18. The other model families at ml-1m-hstu's width on phase 15's files
-   (movies.dat's titles carry the years): `cli.train` for 30 graphed epochs
-   of ml-1m-hstu with `model.embedding.kind=item_year` (the fork's own
+   (movies.dat's titles carry the years): `cli.train` for 10 graphed epochs
+   (CUT_EPOCHS: cut from 30 for phase 22) of ml-1m-hstu with
+   `model.embedding.kind=item_year` (the fork's own
    model: 25 + 25 columns) and for 15 (MOL_EPOCHS: cut from 30 in PR 21 for
    the script's time limit) with `model.similarity.kind=mol` (P = Q = 4,
    dd = 16, per-group L2, temperature 0.05; the gather loss), one epoch each
@@ -326,7 +329,8 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    Then `cli.train` of ml-1m-hstu on phase 15's files for 30 graphed epochs
    with remat (launch counts as in phase 4, the forwards doubled; test
    ndcg@10 within the JAX package's band 0.037-0.039) and without it at
-   `trainer.seed` 1 and 2 (at least 0.030), printed beside phase 15's run.
+   `trainer.seed` 1 and 2 for 10 epochs each (CUT_EPOCHS: cut from 30 in PR
+   22 for phase 22; at least 0.030), printed beside phase 15's run.
    At 10M items (phase 13's one-card lazy overlay, after two graphed steps):
    a synchronous save and two async ones of the same state, the seconds the
    caller is blocked and until each file has landed, both files read back
@@ -341,8 +345,9 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    kernels' registers (-Xptxas -v) and shared memory at widths 130, 192 and
    256, and rows 1, 2, 4 and 5 at width 256 (rows 4-5 also at 192) against
    their plain versions with the phase 2 checks, timed beside their bounds.
-   (a) `cli.train` of ml-1m-hstu with `model.compute_dtype=bfloat16` for 30
-   graphed epochs (launch counts as in phase 4; test ndcg@10 at least 0.030,
+   (a) `cli.train` of ml-1m-hstu with `model.compute_dtype=bfloat16` for 10
+   graphed epochs (CUT_EPOCHS: cut from 30 for phase 22; launch
+   counts as in phase 4; test ndcg@10 at least 0.030,
    printed beside phase 15's float32 run), its train step eager and graphed
    side by side, and phase 5's check of one step on the card against the
    CPU (bfloat16 flips counted, BF16_FLIP_SHARE). (b) ml-1m-hstu with
@@ -378,6 +383,37 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    2-D table at 10M items (cut from 100M): two graphed steps, and one step on
    the card against the CPU (16 rows); amzn-books-sharded on phase
    15's amzn-books files for one graphed epoch, beside phase 15's run.
+
+22. Data parallel over processes (`trainer.distributed`,
+   parallel/process_group.py), after phase 21. The card's machine has one
+   card, so no number here is a multi-card time. (a) The production form in
+   this process: NCCL at world size 1, the step's two all-reduces (the
+   global weight sum, and the flat gradient buffer with the loss) captured
+   in its CUDA graph; for synthetic-hstu and for ml-20m-hstu-long's
+   class-1152 packed step, 8 graphed steps with the trainer against the same
+   steps of two one-process trainers from the same seed and batches. Checked:
+   the first step's gradients and the parameters after it within rtol 1e-6 /
+   atol 0 of the first one-process run's (one rank's sum is an identity),
+   but for the bias tables, whose float atomics add in an order that changes
+   from run to run (their gradients at rtol 5e-4); the losses of the 8 steps
+   at rtol 1e-5; the two all-reduces issued while the step's graph was being
+   captured (on the weight sum and on the flat gradient buffer, seen at
+   torch.distributed's call), none issued from the host in a profiled
+   replay, and the port's count of 2 a step; and an out-of-place NCCL
+   all-gather captured in a graph of its own, whose replay must copy.
+   Logged, not checked: the parameters after the 8 steps beside the gap of
+   the two one-process runs (the bias tables' atomics part both pairs from
+   the first step on). At world size 1 NCCL issues nothing for the step's
+   in-place sums, so a capture of NCCL over more than one rank is not
+   shown. The graphed step's p50, device ms, launches and idle share beside
+   the one-process trainer's. (b) Two processes of this
+   script (`--dp-rank`) share cuda:0 over gloo, eagerly, on synthetic-hstu
+   (2,001 users, padded) and ml-1m-hstu-packed (synthetic): one step over a
+   global batch whose halves have different tails, dropout off, the
+   offsets handed in, equal to the one-process step over that batch (loss at
+   rtol 1e-5, every gradient and parameter at rtol 2e-4 / atol 2e-5); then
+   two epochs of `fit` on each rank: finite losses, and both ranks' val
+   metrics and losses equal to the bit. A rank that fails fails the phase.
 
 It ends with one JSON line of the kernels' numbers and, last, the line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -3061,6 +3097,9 @@ SPLIT_PRESETS = ("ml-1m-hstu-muon", "ml-1m-hstu-scion")
 # from a TPU v5e on synthetic ml-1m-shaped data: not numbers of this card
 JAX_SPLIT_NDCG10 = {"ml-1m-hstu-muon": 0.0376, "ml-1m-hstu-scion": 0.0367}
 MIN_SPLIT_NDCG10 = 0.030  # about 80% of the lower of the two
+# cut from 30 (time for phase 22; the 30-epoch numbers are in
+# PERF.md section 5)
+SPLIT_EPOCHS = 10
 # the split step on the card against the CPU on the same gradients: each Muon
 # / Scion matrix within this share of its own movement (NS-5 in bfloat16, the
 # band tests/test_torch_port_optimizers.py holds the port to JAX with), the
@@ -3077,7 +3116,7 @@ def run_split_optimizer_path(kc: Counts, card: str, ml1m: dict) -> dict:
     from mygenerativerecommenders_tpu_torch.cli import train as cli_train
 
     total = None
-    epochs, out = 30, OUT_DIR / "split"
+    epochs, out = SPLIT_EPOCHS, OUT_DIR / "split"
     adamw = ml1m["test"]
     summary = [f"ml-1m-hstu (AdamW, phase 15): ndcg@10 {adamw['test/ndcg@10']:.5f}, hr@10 "
                f"{adamw['test/hr@10']:.5f}, mrr {adamw['test/mrr']:.5f}"]
@@ -3268,6 +3307,10 @@ BCE_RUN = ("ml-1m-hstu bce", "ml-1m-hstu", ["model.loss.kind=bce"], 2, 0)
 JAX_FAMILY_NDCG10 = {"ml-1m-hstu-aux": 0.0385, "ml-1m-sasrec": 0.0388,
                      "ml-1m-hstu in-batch": 0.0380}
 MIN_FAMILY_NDCG10 = 0.030
+# the families' runs' epochs (aux, SASRec, in-batch; phase 18's item_year and
+# phase 20's bfloat16 run, phase 19's two seeds): cut from 30 for
+# phase 22's time; their 30-epoch numbers are in PERF.md section 5
+CUT_EPOCHS = 10
 
 
 def family_args(run: tuple, root: Path) -> list:
@@ -3354,7 +3397,7 @@ def run_families_path(kc: Counts, card: str, ml1m: dict) -> dict:
     summary = [f"ml-1m-hstu (phase 15): ndcg@10 {base['test/ndcg@10']:.5f}, hr@10 "
                f"{base['test/hr@10']:.5f}, mrr {base['test/mrr']:.5f}"]
     sasrec_best = None
-    for run, epochs in [(r, 30) for r in FAMILY_RUNS] + [(BCE_RUN, 1)]:
+    for run, epochs in [(r, CUT_EPOCHS) for r in FAMILY_RUNS] + [(BCE_RUN, 1)]:
         label, preset = run[:2]
         counts, test, rundir = train_family(kc, card, run, epochs, ml1m["root"], out,
                                             "families path")
@@ -3583,7 +3626,7 @@ def run_other_families_path(kc: Counts, card: str, ml1m: dict) -> dict:
     base = ml1m["test"]
     summary = [f"ml-1m-hstu (phase 15): ndcg@10 {base['test/ndcg@10']:.5f}, hr@10 "
                f"{base['test/hr@10']:.5f}, mrr {base['test/mrr']:.5f}"]
-    for run, epochs in ([(ITEM_YEAR_RUN, 30), (MOL_RUN, MOL_EPOCHS)]
+    for run, epochs in ([(ITEM_YEAR_RUN, CUT_EPOCHS), (MOL_RUN, MOL_EPOCHS)]
                         + [(r, 1) for r in ONE_EPOCH_RUNS]):
         label = run[0]
         counts, test, rundir = train_family(kc, card, run, epochs, root, out,
@@ -3784,14 +3827,14 @@ def ml1m_remat_and_seeds(kc: Counts, card: str, ml1m: dict) -> dict:
     seeds = {}
     for seed in SEED_RUNS:
         run = (f"ml-1m-hstu seed {seed}", "ml-1m-hstu", [f"trainer.seed={seed}"], 2, 1)
-        counts, test, _ = train_family(kc, card, run, 30, ml1m["root"], out, "seeds")
+        counts, test, _ = train_family(kc, card, run, CUT_EPOCHS, ml1m["root"], out, "seeds")
         seeds[seed] = test["test/ndcg@10"]
         total = add_counts(total, counts)
         check(test["test/ndcg@10"] >= MIN_FAMILY_NDCG10,
               f"seed {seed}: test ndcg@10 {test['test/ndcg@10']} below {MIN_FAMILY_NDCG10}")
     got = remat["test/ndcg@10"]
     log(f"ml-1m-hstu, 30 graphed epochs on {card}, test ndcg@10: encoder.remat=true {got:.5f} "
-        f"beside no remat {base:.5f} (phase 15, seed 42); seeds "
+        f"beside no remat {base:.5f} (phase 15, seed 42); seeds ({CUT_EPOCHS} epochs) "
         + ", ".join(f"{s}: {v:.5f}" for s, v in seeds.items())
         + f"; three seeds {np.mean([base, *seeds.values()]):.5f} +- "
         f"{np.std([base, *seeds.values()]):.5f} (the JAX package's band "
@@ -3962,7 +4005,7 @@ def run_training_variants_path(kc: Counts, card: str, ml1m: dict, large_data) ->
     t3 = time.perf_counter()
     counts = add_counts(counts, one_epoch_knobs(kc, card, ml1m))
     log(f"phase 19 took {time.perf_counter() - t0:.1f} s: remat on ml-20m-hstu-long "
-        f"{t1 - t0:.1f} s, the three 30-epoch ml-1m runs {t2 - t1:.1f} s, async checkpoints "
+        f"{t1 - t0:.1f} s, the ml-1m remat and seed runs {t2 - t1:.1f} s, async checkpoints "
         f"{t3 - t2:.1f} s, the one-epoch runs {time.perf_counter() - t3:.1f} s")
     return counts
 
@@ -4103,9 +4146,9 @@ def run_last_gaps_path(kc: Counts, card: str, ml1m: dict, kern, count_kern, lse_
     wide_kernel_resources(kern, build_logs)
     wide = check_wide_kernels(kern, count_kern, lse_kern)
     # (a) compute_dtype=bfloat16: the rounding points of models/precision.py
-    counts, test, _ = train_family(kc, card, BF16_RUN, 30, root, out, "bfloat16 path")
+    counts, test, _ = train_family(kc, card, BF16_RUN, CUT_EPOCHS, root, out, "bfloat16 path")
     base = ml1m["test"]
-    log(f"  test metrics on {card}: {test_line(BF16_RUN[0], 30, test)} beside ml-1m-hstu at "
+    log(f"  test metrics on {card}: {test_line(BF16_RUN[0], CUT_EPOCHS, test)} beside ml-1m-hstu at "
         f"float32 (phase 15): ndcg@10 {base['test/ndcg@10']:.5f}, hr@10 "
         f"{base['test/hr@10']:.5f}, mrr {base['test/mrr']:.5f}")
     check(test["test/ndcg@10"] >= MIN_FAMILY_NDCG10,
@@ -4552,12 +4595,419 @@ def run_sharded_path(kc: Counts, card: str, ml1m: dict, chunk_kern, build_logs: 
             "shipped_counts": shipped_counts}
 
 
+# ---------------------------------------------------------------- phase 22
+
+DP_STEPS = 8  # phase 22 (a): one call of the presets' steps_per_call
+DP_RTOL = 1e-6  # (a): one rank's all-reduce is an identity; atol 0
+DP_DROPOUT_OFF = ["model.preprocessor.dropout_rate=0.0", "model.encoder.linear_dropout_rate=0.0"]
+# (b): two processes on the one card over gloo, eagerly; each rank's batch is
+# half the preset's global one
+DP_TWO_PROCESS = {
+    # 2,001 users: the ranks' last batches hold 41 and 40 rows of 64
+    "synthetic-hstu, padded": ["experiment=synthetic-hstu", "data.synthetic_num_users=2001"],
+    "ml-1m-hstu-packed": ["experiment=ml-1m-hstu-packed", "data.dataset_name=synthetic"],
+}
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def params_gap(got: dict, want: dict, names=None) -> tuple:
+    """(the largest |got - want| / |want| of any element of the tensors
+    `names` (default all), its tensor, whether they are all equal bit for
+    bit); an element where want is 0 and got is not counts as inf."""
+    worst, where, bits = 0.0, "", True
+    for name, w in want.items():
+        if names is not None and name not in names:
+            continue
+        g = got[name]
+        bits &= torch.equal(g, w)
+        diff = (g.double() - w.double()).abs()
+        rel = torch.where(w != 0, diff / w.double().abs(), torch.where(diff > 0, np.inf, 0.0))
+        if float(rel.max()) > worst:
+            worst, where = float(rel.max()), name
+    return worst, where, bits
+
+
+def nccl_world_one(kc: Counts, card: str, label: str, args: list, batches_of) -> dict:
+    """Phase 22 (a) on one recipe: DP_STEPS graphed steps of a trainer with
+    `trainer.distributed=true` (NCCL, world size 1, the all-reduces inside
+    the step's graph) against the same steps of two trainers without it,
+    from the same seed and batches. The first step's gradients, which the
+    all-reduce sums, and the parameters after it within rtol DP_RTOL / atol
+    0 of the one-process trainer's but for the bias tables (the attention
+    backward adds theirs with float atomics, in an order that changes from
+    run to run: their gradients held at BIAS_RTOL); the two all-reduces of
+    the step issued while its graph was captured; the losses of the DP_STEPS
+    steps at rtol 1e-5; the parameters after them logged (not checked)
+    beside the gap of two one-process runs. Then the graphed step of each
+    timed, a profiled replay's NCCL kernels and host calls, and an NCCL
+    all-gather captured and replayed. -> (the timings, the launch
+    counts of the data-parallel trainer's DP_STEPS steps: this slice's path)."""
+    import os
+
+    import torch.distributed as dist
+
+    from mygenerativerecommenders_tpu_torch.cli import train as cli_train
+    from mygenerativerecommenders_tpu_torch.data.dataset import RecoData
+    from mygenerativerecommenders_tpu_torch.parallel import process_group
+    from mygenerativerecommenders_tpu_torch.train.driver import Trainer
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    all_reduce, calls = dist.all_reduce, []
+
+    def observed(t, *a, **k):  # torch's all_reduce, noting whether a capture is on
+        calls.append((torch.cuda.is_current_stream_capturing(), t.numel()))
+        return all_reduce(t, *a, **k)
+
+    cfg = cli_train.parse_args(args)
+    data = RecoData(cfg.data, seed=cfg.trainer.seed)
+    blocks = cfg.model.encoder.num_blocks
+    runs, times = {}, {}
+    for name, extra in (("one process", []), ("one process, again", []),
+                        ("trainer.distributed, NCCL world size 1", ["trainer.distributed=true"])):
+        os.environ["MASTER_PORT"] = str(free_port())
+        trainer = Trainer(cli_train.parse_args(
+            args + extra + [f"trainer.output_dir={OUT_DIR / 'dp'}"]), data=data)
+        check(trainer.steps_per_call == DP_STEPS, f"{label}: steps_per_call {trainer.steps_per_call}")
+        distributed = trainer.dp is not None
+        check(not distributed or (trainer.dp.backend, trainer.dp.size) == ("nccl", 1),
+              f"{label}: not NCCL at world size 1")
+        trainer.model.train()
+        batches = batches_of(trainer)
+        kc.reset()
+        process_group.all_reduces = process_group.all_gathers = 0
+        calls.clear()
+        dist.all_reduce = observed
+        try:
+            first = trainer.train_steps(batches[:1], trainer.lr1)  # the capture, one replay
+        finally:
+            dist.all_reduce = all_reduce
+        torch.cuda.synchronize()
+        grads = {n: p.grad.detach().cpu().clone() for n, p in trainer.model.named_parameters()}
+        stepped = {n: p.detach().cpu().clone() for n, p in trainer.model.named_parameters()}
+        if distributed:
+            # the warm-ups' sums eagerly, then the capture's: the weight sum
+            # and the flat buffer of every gradient and the loss
+            flat = sum(p.numel() for grp in trainer.optimizer.param_groups for p in grp["params"]
+                       if p.requires_grad) + 1
+            check([n for c, n in calls if c] == [1, flat]
+                  and sum(not c for c, _ in calls) == 2 * kc.graphs.WARMUP_RUNS,
+                  f"{label}: the all-reduces seen (capturing, size): {calls}")
+        losses = torch.cat([first, trainer.train_steps(batches[1:], trainer.lr1)])
+        torch.cuda.synchronize()
+        if distributed:
+            path_counts = kc.read()
+        g = kc.read_graphs()["train"]
+        check(g == {"captures": 1, "warmup_runs": 2, "replays": DP_STEPS}, f"{label}: graphs {g}")
+        steps_run = g["warmup_runs"] + g["replays"]
+        per_step = process_group.all_reduces / steps_run
+        check(per_step == (2 if distributed else 0) and process_group.all_gathers == 0,
+              f"{label}, {name}: {process_group.all_reduces} all-reduces in {steps_run} steps")
+        runs[name] = (losses.cpu(), grads, stepped, {n: p.detach().cpu().clone()
+                                                     for n, p in trainer.model.named_parameters()})
+        if name != "one process, again":
+            n = len(batches)
+            times[name] = step_numbers(
+                kc, lambda i: trainer.train_steps([batches[i % n]], trainer.lr1),
+                f"phase 22 (a) {label}, {name}, graphed", kc.per_step(blocks, 0), reps=20)
+            times[name]["all_reduces_a_step"] = per_step
+        if distributed:
+            # the all-reduces are nodes of the replayed graph: NCCL kernels
+            # in the trace of one replay, nothing issued from the host
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                trainer.train_steps([batches[0]], trainer.lr1)
+                torch.cuda.synchronize()
+            nccl = [e for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA and "nccl" in e.key.lower()]
+            host_calls = [e for e in prof.key_averages()
+                          if "allreduce" in e.key.lower().replace("_", "")]
+            log(f"  {label}: one profiled replay's NCCL kernels: " + "; ".join(
+                f"x{e.count} {e.self_device_time_total / 1e3:.4f} ms {e.key[:70]}" for e in nccl)
+                + f"; host-side all_reduce calls in it: {sum(e.count for e in host_calls)}")
+            check(not host_calls, f"{label}: an all_reduce issued from the host during a replay")
+            nccl_gather_in_a_graph(trainer.device, label)
+            process_group.shutdown()
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+    (l1, g1, s1, p1), (l2, g2, _, p2), (l3, g3, s3, p3) = runs.values()
+    tables = {n for n in g1 if "_rel_attn_bias" in n}
+    rest = set(g1) - tables
+    gap, where, bits = params_gap(g3, g1, rest)
+    check(gap <= DP_RTOL, f"{label}: the first step's gradient of {where} is {gap:.3e} from the "
+          f"one-process step's, past rtol {DP_RTOL} / atol 0")
+    sgap, swhere, sbits = params_gap(s3, s1, rest)
+    check(sgap <= DP_RTOL, f"{label}: {swhere} after the first step is {sgap:.3e} from the "
+          f"one-process step's, past rtol {DP_RTOL} / atol 0")
+    for name in tables:
+        ok, err = within(g3[name], g1[name], BIAS_RTOL, STEP_GRAD_ATOL)
+        check(ok, f"{label}: the first step's gradient of {name} off by {err:.3e}")
+    tgap, twhere, _ = params_gap(g3, g1, tables)
+    again, _, again_bits = params_gap(g2, g1, rest)
+    np.testing.assert_allclose(l3.numpy(), l1.numpy(), rtol=1e-5)
+    after, after_where, after_bits = params_gap(p3, p1)
+    floor, floor_where, _ = params_gap(p2, p1)
+    log(f"phase 22 (a) {label} on {card}: the first graphed step's gradients but the bias "
+        f"tables' {'bit-equal to' if bits else f'within {gap:.3e} of'} the one-process step's "
+        f"(a second one-process run: {'bit-equal' if again_bits else f'{again:.3e}'}); the "
+        f"bias tables' within {tgap:.3e} ({twhere}: float atomics); the parameters after the "
+        f"first step but the bias tables' {'bit-equal' if sbits else f'within {sgap:.3e}'}; "
+        f"losses of the {DP_STEPS} steps {'equal' if torch.equal(l3, l1) else 'within rtol 1e-5'}"
+        f", last {float(l3[-1]):.6f}; logged, not checked: the parameters after them "
+        f"{'bit-equal' if after_bits else 'not bit-equal'} (largest relative gap {after:.3e}, "
+        f"in {after_where}), as two one-process runs are not ({floor:.3e}, in {floor_where}): "
+        f"the bias tables' float atomics part them from the first step on, and Adam turns that "
+        f"noise in gradients near zero into steps of up to the learning rate")
+    one, dp = times["one process"], times["trainer.distributed, NCCL world size 1"]
+    log(f"phase 22 (a) {label}, graphed step on {card} (one card, world size 1; no multi-card "
+        f"time): one process | distributed: p50 {one['p50']:.3f} | {dp['p50']:.3f} ms, device "
+        f"{one['device_ms']:.3f} | {dp['device_ms']:.3f} ms in {one['launches']:.0f} | "
+        f"{dp['launches']:.0f} profiled launches, idle {100 * one['idle']:.1f}% | "
+        f"{100 * dp['idle']:.1f}%, all-reduces a step 0 | {dp['all_reduces_a_step']:.0f}")
+    return times, path_counts
+
+
+def nccl_gather_in_a_graph(device, label: str) -> None:
+    """An out-of-place NCCL all-gather at world size 1, captured in a CUDA
+    graph: NCCL copies even for one rank, so each replay must fill `out`
+    with what `src` holds then (the step's in-place sums issue nothing at
+    world size 1, so they cannot show this)."""
+    import torch.distributed as dist
+
+    src = torch.arange(1 << 20, dtype=torch.float32, device=device)
+    out = torch.zeros_like(src)
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):  # the warm-up, as a captured step has
+        dist.all_gather_into_tensor(out, src)
+    torch.cuda.current_stream(device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        dist.all_gather_into_tensor(out, src)
+    for bump in (1.0, 2.0):
+        src.add_(bump)
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        check(torch.equal(out, src), f"{label}: a replayed NCCL all-gather did not copy")
+    log(f"  {label}: an NCCL all-gather (world size 1) captured in a CUDA graph copied its "
+        f"{src.numel():,} values at each of 2 replays")
+
+
+def dp_padded_batches(trainer) -> list:
+    return [trainer._put(b) for _, b in zip(range(DP_STEPS), trainer._loader("train"))]
+
+
+def dp_class_1152_batches(trainer) -> list:
+    host = [b for b in trainer._loader("train", packed=True) if b["ids"].shape[1] == 1152]
+    check(bool(host), "no batch of the 1152 class")
+    return [trainer._put(host[i % len(host)]) for i in range(DP_STEPS)]
+
+
+def rank_loader(trainer, rank: int, packed: bool):
+    """The train loader rank `rank` of two builds (its rows of global batches
+    of the trainer's batch size), from a one-process trainer."""
+    data_cfg, full = trainer.cfg.data, trainer.cfg.data.batch_size
+    trainer._loader_sharding = lambda: (rank, 2)
+    data_cfg.batch_size = full // 2
+    try:
+        return trainer._loader("train", packed=packed)
+    finally:
+        del trainer._loader_sharding
+        data_cfg.batch_size = full
+
+
+def two_process_job(label: str, base: list, job_dir: Path) -> tuple:
+    """The one-process step over a global batch whose halves have different
+    tails, dropout off, with drawn offsets; -> (the ranks' job, what the
+    ranks must give: the loss, gradients and parameters after the step)."""
+    from mygenerativerecommenders_tpu_torch.cli import train as cli_train
+    from mygenerativerecommenders_tpu_torch.train.driver import Trainer
+
+    trainer = Trainer(cli_train.parse_args(
+        base + DP_DROPOUT_OFF + [f"trainer.output_dir={job_dir / 'one'}"]))
+    packed = trainer._packed
+    pairs = list(zip(*(rank_loader(trainer, r, packed) for r in (0, 1))))
+    if packed:
+        halves = max(pairs, key=lambda p: abs(int(p[0]["num_segments"].sum())
+                                              - int(p[1]["num_segments"].sum())))
+        tails = [int(h["num_segments"].sum()) for h in halves]
+    else:
+        halves = pairs[-1]
+        tails = [int(h["sample_weight"].sum()) for h in halves]
+    check(tails[0] != tails[1], f"{label}: the halves' tails are alike {tails}")
+    whole = {k: np.concatenate([h[k] for h in halves]) for k in halves[0]}
+    rows, cols = whole["ids"].shape
+    cols += -1 if packed else trainer.cfg.model.gr_output_length
+    r = trainer.cfg.model.loss.num_to_sample
+    offsets = torch.randint(0, len(trainer.all_item_ids), (rows, cols, r), dtype=torch.int32,
+                            generator=torch.Generator().manual_seed(22))
+    trainer.model.train()
+    loss = trainer.train_step(trainer._put(whole), trainer.lr1,
+                              neg_offsets=offsets.to(trainer.device))
+    want = {"loss": float(loss),
+            "grads": {n: p.grad.detach().cpu().clone() for n, p in trainer.model.named_parameters()},
+            "params": {n: p.detach().cpu().clone() for n, p in trainer.model.named_parameters()}}
+    half = len(halves[0]["ids"])
+    job = {"base": base, "batches": list(halves), "offsets": [offsets[:half], offsets[half:]],
+           "tails": tails}
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return job, want
+
+
+def dp_rank_main(job_path: str) -> int:
+    """One rank of phase 22 (b), launched by the phase with torchrun's
+    environment: the step of each job on its half of the global batch, then
+    two epochs of `fit` with the val eval, both over gloo on cuda:0; the
+    results into `<job>.rank<r>.pt`. A collective that gloo refuses on a
+    CUDA tensor fails the rank, and so the phase."""
+    from mygenerativerecommenders_tpu_torch.cli import train as cli_train
+    from mygenerativerecommenders_tpu_torch.parallel import process_group
+    from mygenerativerecommenders_tpu_torch.train.driver import Trainer
+
+    rank = int(__import__("os").environ["RANK"])
+    jobs = torch.load(job_path, weights_only=False)
+    results = {}
+    for label, job in jobs.items():
+        rank_args = [f"data.batch_size={cli_train.parse_args(job['base']).data.batch_size // 2}",
+                     "trainer.device=cuda:0", "trainer.distributed=true",
+                     f"trainer.output_dir={OUT_DIR / 'dp2' / label.replace(' ', '_')}"]
+        trainer = Trainer(cli_train.parse_args(job["base"] + DP_DROPOUT_OFF + rank_args),
+                          backend="gloo")
+        trainer.model.train()
+        batch = trainer._put(job["batches"][rank])
+        loss = trainer.train_step(batch, trainer.lr1,
+                                  neg_offsets=job["offsets"][rank].to(trainer.device))
+        step = {"loss": float(loss),
+                "grads": {n: p.grad.detach().cpu().clone()
+                          for n, p in trainer.model.named_parameters()},
+                "params": {n: p.detach().cpu().clone() for n, p in trainer.model.named_parameters()}}
+        del trainer
+        trainer = Trainer(cli_train.parse_args(job["base"] + rank_args + [
+            "trainer.max_epochs=2", "trainer.min_epochs=1"]), backend="gloo")
+        losses = []
+        train_epoch = trainer.train_epoch
+        trainer.train_epoch = lambda loader: losses.append(train_epoch(loader)) or losses[-1]
+        t0 = time.perf_counter()
+        val = trainer.fit()
+        results[label] = {"step": step, "val": val, "losses": losses,
+                          "fit_s": time.perf_counter() - t0}
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+    process_group.shutdown()
+    torch.save(results, f"{job_path}.rank{rank}.pt")
+    return 0
+
+
+def two_processes_on_the_card(card: str) -> None:
+    """Phase 22 (b): two processes of this script share cuda:0 over gloo,
+    eagerly; each job's step equals the one-process step over the global
+    batch (gradients and parameters at the kernel tolerances), then both
+    ranks' val metrics after two epochs are equal to the bit."""
+    import os
+
+    job_dir = OUT_DIR / "dp2"
+    shutil.rmtree(job_dir, ignore_errors=True)
+    job_dir.mkdir(parents=True)
+    jobs, wants = {}, {}
+    for label, base in DP_TWO_PROCESS.items():
+        jobs[label], wants[label] = two_process_job(label, base, job_dir)
+    job_path = job_dir / "job.pt"
+    torch.save(jobs, job_path)
+    port = str(free_port())
+    procs = []
+    for rank in (0, 1):
+        env = dict(os.environ, RANK=str(rank), WORLD_SIZE="2", LOCAL_RANK=str(rank),
+                   MASTER_ADDR="localhost", MASTER_PORT=port, PYTHONPATH=str(HERE))
+        with open(job_dir / f"rank{rank}.log", "w") as out:
+            procs.append(subprocess.Popen(
+                [sys.executable, str(HERE / "chip_smoke.py"), "--dp-rank", str(job_path)],
+                cwd=str(HERE), env=env, stdout=out, stderr=subprocess.STDOUT))
+    try:
+        for p in procs:
+            p.wait(timeout=600)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for rank, p in enumerate(procs):
+        text = (job_dir / f"rank{rank}.log").read_text()
+        check(p.returncode == 0, f"phase 22 (b): rank {rank} failed:\n{text[-3000:]}")
+    ranks = [torch.load(f"{job_path}.rank{r}.pt", weights_only=False) for r in (0, 1)]
+    for label, want in wants.items():
+        worst = {}
+        for rank in (0, 1):
+            got = ranks[rank][label]["step"]
+            check(abs(got["loss"] - want["loss"]) <= 1e-5 * abs(want["loss"]),
+                  f"{label}: rank {rank}'s loss {got['loss']} vs {want['loss']}")
+            for part in ("grads", "params"):
+                for name, w in want[part].items():
+                    ok, err = within(got[part][name], w, RTOL, ATOL)
+                    check(ok, f"{label}: rank {rank}'s {part[:-1]} {name} off by {err:.3e}")
+                    worst[part] = max(worst.get(part, 0.0), err)
+        a, b = (ranks[r][label] for r in (0, 1))
+        check(a["val"] == b["val"] and bool(a["val"]), f"{label}: the ranks' val metrics differ")
+        check(a["losses"] == b["losses"] and bool(np.all(np.isfinite(a["losses"]))),
+              f"{label}: the ranks' losses {a['losses']} {b['losses']}")
+        log(f"phase 22 (b) {label} on {card} (two processes sharing one card over gloo, eager; "
+            f"no multi-card time): halves' tails {jobs[label]['tails']}; the two-rank step "
+            f"against the one-process step: loss {a['step']['loss']:.6f} vs {want['loss']:.6f}, "
+            f"largest gradient gap {worst['grads']:.3e}, parameters {worst['params']:.3e} "
+            f"(rtol {RTOL} / atol {ATOL}); two epochs in {a['fit_s']:.1f} s, losses "
+            f"{[round(x, 5) for x in a['losses']]}, val on both ranks "
+            + ", ".join(f"{k}={v:.5f}" for k, v in list(a["val"].items())[:4]))
+
+
+LONG_1152 = LONG_ARGS[:2] + ["data.synthetic_max_seq_len=1200", "trainer.steps_per_call=8"]
+
+
+def run_data_parallel_path(kc: Counts, card: str) -> dict:
+    """Phase 22: (a) NCCL at world size 1 in this process, graphed; (b) two
+    processes on the card over gloo. -> {label: (a)'s launch counts}; (b)'s
+    launches are the ranks' own, not counted here."""
+    import os
+
+    from mygenerativerecommenders_tpu_torch.parallel import process_group
+
+    t0 = time.perf_counter()
+    # torchrun's environment for one rank; each run sets its MASTER_PORT
+    os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="localhost")
+    try:
+        counts = {
+            "synthetic-hstu": nccl_world_one(kc, card, "synthetic-hstu",
+                                             ["experiment=synthetic-hstu"], dp_padded_batches)[1],
+            "long": nccl_world_one(kc, card, "ml-20m-hstu-long class 1152", LONG_1152,
+                                   dp_class_1152_batches)[1],
+        }
+    finally:
+        process_group.shutdown()
+        for name in process_group.ENV:
+            os.environ.pop(name, None)
+    t1 = time.perf_counter()
+    two_processes_on_the_card(card)
+    log(f"phase 22 took {time.perf_counter() - t0:.1f} s: (a) {t1 - t0:.1f}, (b) "
+        f"{time.perf_counter() - t1:.1f}")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on an NVIDIA card",
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(HERE))
+    if sys.argv[1:2] == ["--dp-rank"]:  # a rank of phase 22 (b), started by the phase
+        return dp_rank_main(sys.argv[2])
     import mygenerativerecommenders_tpu_torch as port
     from mygenerativerecommenders_tpu_torch.ops.kernels import _build
     from mygenerativerecommenders_tpu_torch.ops.kernels import count_offsets as count_kern
@@ -4770,6 +5220,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     sharded = run_sharded_path(kc, kind, ml1m_run, chunk_kern, build_logs, large_data)
     del large_data
+    gc.collect()
+    torch.cuda.empty_cache()
+    dp = run_data_parallel_path(kc, kind)
+    dp_both = (dp["synthetic-hstu"], dp["long"])
 
     # no PyTorch call computes HSTU's silu attention with this bias, its
     # backward, or a count-weighted log-sum-exp over a matrix product that is
@@ -4782,18 +5236,21 @@ def main() -> int:
         # and phase 18's (rows 1-2: item_year, MoL, layer_norm; X=3,883:
         # item_year, layer_norm, softmax_rel_bias, SASRec with Muon) and
         # phase 19's (rows 1-5 at X=3,883: ml-1m-hstu with remat, at two
-        # more seeds, with the profiler, the loggers, the sweep's two runs)
+        # more seeds, with the profiler, the loggers, the sweep's two runs);
+        # rows 1-5 also phase 22 (a)'s data-parallel steps (synthetic-hstu at
+        # shape A, class 1152 of ml-20m-hstu-long: rows 1-2, the count, the
+        # lse forward and the wide-catalog backward)
         dict(name=kern.KERNEL, source=kern.SOURCE, replaces=kern.REPLACES,
              launches=serving_launches + sum(c[kern.KERNEL] for c in (
                  train_counts, long_counts, real_ml1m, real_others, split_counts,
                  family_counts, other_counts, variant_counts, bf16_counts,
-                 sharded["kinds_counts"])),
+                 sharded["kinds_counts"], *dp_both)),
              library_ms=None, **serving),
         dict(name=kern.KERNEL_BWD, source=kern.SOURCE_BWD, replaces=kern.REPLACES_BWD,
              launches=sum(c[kern.KERNEL_BWD] for c in (
                  train_counts, long_counts, real_ml1m, real_others, split_counts,
                  family_counts, other_counts, variant_counts, bf16_counts,
-                 sharded["kinds_counts"])),
+                 sharded["kinds_counts"], *dp_both)),
              library_ms=None, **attn_bwd),
         # rows 1-2 at the ranking shape R; their launches are the ranking run's
         dict(name=kern.KERNEL + " (ranking shape R)", source=kern.SOURCE,
@@ -4814,14 +5271,15 @@ def main() -> int:
              library_ms=None, **large_bwd),
         dict(name=count_kern.KERNEL, source=count_kern.SOURCE, replaces=count_kern.REPLACES,
              launches=sum(c[count_kern.KERNEL] for c in (
-                 train_counts, long_counts, ring_counts, real_others)),
+                 train_counts, long_counts, ring_counts, real_others, *dp_both)),
              **counted),
         dict(name=lse_kern.KERNEL, source=lse_kern.SOURCE, replaces=lse_kern.REPLACES,
              launches=sum(c[lse_kern.KERNEL] for c in (
-                 train_counts, long_counts, ring_counts, real_others)),
+                 train_counts, long_counts, ring_counts, real_others, *dp_both)),
              library_ms=None, **lse_fwd),
         dict(name=lse_kern.KERNEL_BWD, source=lse_kern.SOURCE, replaces=lse_kern.REPLACES_BWD,
-             launches=train_counts[lse_kern.KERNEL_BWD], library_ms=None, **lse_bwd),
+             launches=train_counts[lse_kern.KERNEL_BWD] + dp["synthetic-hstu"][lse_kern.KERNEL_BWD],
+             library_ms=None, **lse_bwd),
         # rows 3-5 at the ml-1m catalog read from files, X = 3,883: their
         # launches are phase 15's ml-1m runs and phases 16-20's (the count's
         # also phase 20's D=256 run; its lse launches are the width-256 rows)
@@ -4848,7 +5306,8 @@ def main() -> int:
         # those of the [26880, 50] x [26744, 50] check
         dict(name=lse_kern.KERNEL_BWD + " (wide catalog)", source=lse_kern.SOURCE,
              replaces=lse_kern.REPLACES_WIDE,
-             launches=sum(c[lse_kern.KERNEL_BWD] for c in (long_counts, ring_counts, real_others)),
+             launches=sum(c[lse_kern.KERNEL_BWD] for c in (
+                 long_counts, ring_counts, real_others, dp["long"])),
              library_ms=None, **lse_bwd_wide),
         # rows 7-8: the same entry points with a sup_off pointer; nothing on
         # the paths calls fused_dense_neg_lse (nor does the JAX package)

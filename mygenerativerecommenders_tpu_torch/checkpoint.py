@@ -277,10 +277,12 @@ def load_weights(model: torch.nn.Module, path: str, map_location: Any = "cpu") -
 
 class CheckpointManager:
     """Writes `last.pt` at every save and `best.pt` when the monitored metric
-    improves; with `async_save` the writing runs in a background thread."""
+    improves; with `async_save` the writing runs in a background thread.
+    `write=False` (a data-parallel rank but 0) keeps the best metric and
+    path as the writing rank does and writes nothing."""
 
     def __init__(self, ckpt_dir: str, monitor: str = "val/ndcg@100", mode: str = "max",
-                 async_save: bool = False):
+                 async_save: bool = False, write: bool = True):
         self.ckpt_dir = os.path.abspath(ckpt_dir)
         os.makedirs(self.ckpt_dir, exist_ok=True)
         self.monitor = monitor
@@ -289,6 +291,7 @@ class CheckpointManager:
         self.best_path: Optional[str] = None
         self.last_path = os.path.join(self.ckpt_dir, "last.pt")
         self.async_save = async_save
+        self.write = write
         self._host: List[torch.Tensor] = []  # the host copies' buffers, in walk order
         self._writer: Optional[threading.Thread] = None
         self._error: Optional[Exception] = None
@@ -322,6 +325,8 @@ class CheckpointManager:
         if best:
             self.best_value = metric_value
             self.best_path = os.path.join(self.ckpt_dir, "best.pt")
+        if not self.write:
+            return
         if not self.async_save:
             self._write(state, best)
             return

@@ -9,7 +9,13 @@ Port of mygenerativerecommenders_tpu/cli/train.py. Usage:
 The first `experiment=<preset>` picks the preset (default ml-1m-hstu) and the
 remaining dotted overrides are applied on top. Training runs on the card
 unless `trainer.device=cpu` is passed; without a card and without that
-override it raises.
+override it raises. Data parallel over processes, one card each:
+
+  torchrun --nproc_per_node=N -m mygenerativerecommenders_tpu_torch.cli.train \
+      experiment=synthetic-hstu trainer.distributed=true
+
+(parallel/process_group.py; with `trainer.device=cpu` the ranks run on the
+CPU over gloo).
 """
 
 from __future__ import annotations
@@ -38,6 +44,7 @@ def parse_args(argv: list[str]) -> Config:
 def main(argv: Optional[list[str]] = None) -> float:
     # imported here: cli/serve.py takes parse_args from this module and
     # needs none of the trainer
+    from mygenerativerecommenders_tpu_torch.parallel.process_group import shutdown
     from mygenerativerecommenders_tpu_torch.train.driver import Trainer
     from mygenerativerecommenders_tpu_torch.train.loggers import get_logger
 
@@ -49,6 +56,8 @@ def main(argv: Optional[list[str]] = None) -> float:
     test_results = trainer.test()
     trainer.writer.close()
     log.info(f"test: {test_results}")
+    if trainer.dp is not None:
+        shutdown()
     monitor_key = cfg.trainer.monitor.split("/", 1)[-1]
     return results.get(monitor_key, 0.0)
 

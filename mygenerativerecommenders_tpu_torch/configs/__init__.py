@@ -343,17 +343,19 @@ class TrainerConfig:
     # the real MLflow UI reads, with no mlflow dependency
     mlflow_dir: str = ""
 
-    # mesh: number of data-parallel shards; 0 -> all visible devices
+    # data-parallel ranks: 0 -> the world size; any other value must equal
+    # it (one card a process, so more than 1 needs `distributed`)
     num_devices: int = 0
-    # multi-host: call jax.distributed.initialize() at startup (one
-    # process per host; env-based coordinator discovery) and shard the
-    # data pipeline by jax.process_index()
+    # data parallel over processes launched by torchrun: start the default
+    # process group from torchrun's environment (RANK, WORLD_SIZE,
+    # LOCAL_RANK, MASTER_ADDR, MASTER_PORT; NCCL on cuda, gloo on the CPU)
+    # and give each rank its data coordinate, the rank, of the data size,
+    # the world size: its strided rows of every global batch
+    # (parallel/process_group.py)
     distributed: bool = False
-    # mesh layout: False (default) keeps model/sp collective groups on
-    # consecutive devices (intra-host ICI; the data-axis psum crosses
-    # hosts); True makes the data axis innermost so model/sp groups span
-    # hosts — use when a table/TP/ring axis must cross slices (and in the
-    # real-2-process sharded tests, which stress exactly that path)
+    # the layout of the ranks over the JAX mesh's axes: the port has the
+    # data axis alone (one card a process), so a rank loads its strided
+    # rows either way and the flag changes nothing
     mesh_data_innermost: bool = False
     # host->device pipeline depth: batches resident on device ahead of
     # the step consuming them (2 = classic double buffering; 0/1 = off)

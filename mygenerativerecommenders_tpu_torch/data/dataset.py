@@ -195,17 +195,29 @@ class BatchLoader:
     Each bucket's last batch is padded as above. The epoch's permutation
     orders the examples inside each bucket; the order of the buckets is
     shuffled from the same generator, with the batches of one capacity kept
-    adjacent, so that the trainer's k-step calls find runs of one shape."""
+    adjacent, so that the trainer's k-step calls find runs of one shape.
+
+    Over processes (`process_index` of `process_count`; JAX :241-246,
+    :279-326): every process draws the same permutation and takes its
+    strided slice of it, padded with -1 rows to the largest share, so that
+    every process runs the same number of batches of `batch_size` rows (the
+    global batch over process_count). With buckets the partition and the
+    batch boundaries come from the global permutation, in global batches of
+    `batch_size * process_count` rows, and each process takes its strided
+    rows of each."""
 
     def __init__(
         self, dataset: SequenceDataset, batch_size: int, shuffle: bool = False, seed: int = 0,
         buckets: Optional[Sequence[int]] = None, with_index: bool = False,
+        process_index: int = 0, process_count: int = 1,
     ):
         self.dataset = dataset
         self.with_index = with_index
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.seed = seed
+        self.process_index = process_index
+        self.process_count = process_count
         self.epoch = 0
         self.buckets = sorted(buckets) if buckets else None
         if self.buckets:
@@ -219,12 +231,17 @@ class BatchLoader:
                 np.asarray(self.buckets), np.maximum(dataset.lengths, 1)
             )
 
+    def _local_count(self) -> int:
+        """The largest process's share of the examples."""
+        return -(-len(self.dataset) // self.process_count)
+
     def __len__(self) -> int:
         bs = self.batch_size
         if self.buckets:
+            gbs = bs * self.process_count
             sizes = np.bincount(self._bucket_of, minlength=len(self.buckets))
-            return int(sum(-(-int(c) // bs) for c in sizes))
-        return (len(self.dataset) + bs - 1) // bs
+            return int(sum(-(-int(c) // gbs) for c in sizes))
+        return -(-self._local_count() // bs)
 
     def _emit(self, idx: np.ndarray, cap: Optional[int] = None) -> Dict[str, np.ndarray]:
         """The batch of dataset rows `idx` (-1: padding); with `with_index`
@@ -245,25 +262,27 @@ class BatchLoader:
             "sample_weight": weight,
         }
 
-    def _pad(self, idx: np.ndarray) -> np.ndarray:
-        """A short batch's indices padded with -1 (rows of sample_weight 0)."""
-        short = self.batch_size - len(idx)
-        return np.concatenate([idx, np.full(short, -1, dtype=idx.dtype)]) if short else idx
+    @staticmethod
+    def _pad(idx: np.ndarray, size: int) -> np.ndarray:
+        """Indices padded with -1 (rows of sample_weight 0) to `size`."""
+        short = size - len(idx)
+        return np.concatenate([idx, np.full(short, -1, dtype=idx.dtype)]) if short > 0 else idx
 
     def _iter_bucketed(self, order: np.ndarray, rng) -> Iterator[Dict[str, np.ndarray]]:
-        bs = self.batch_size
+        pi, pc = self.process_index, self.process_count
+        gbs = self.batch_size * pc
         bucket_of = self._bucket_of[order]
-        batches = []  # (capacity, example indices)
+        batches = []  # (capacity, the global batch's example indices)
         for bi, cap in enumerate(self.buckets):
             members = order[bucket_of == bi]
-            for start in range(0, len(members), bs):
-                batches.append((cap, self._pad(members[start : start + bs])))
+            for start in range(0, len(members), gbs):
+                batches.append((cap, self._pad(members[start : start + gbs], gbs)))
         if rng is not None:
             # shuffle the order of the buckets, keep same-capacity batches adjacent
             cap_rank = {c: i for i, c in enumerate(rng.permutation(self.buckets))}
             batches.sort(key=lambda t: cap_rank[t[0]])
         for cap, idx in batches:
-            yield self._emit(idx, cap)
+            yield self._emit(idx[pi::pc], cap)
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         order = np.arange(len(self.dataset))
@@ -275,9 +294,13 @@ class BatchLoader:
         if self.buckets:
             yield from self._iter_bucketed(order, rng)
             return
+        if self.process_count > 1:
+            # this process's strided share, padded to the largest share
+            order = self._pad(order[self.process_index :: self.process_count],
+                              self._local_count())
         bs = self.batch_size
         for b in range(len(self)):
-            yield self._emit(self._pad(order[b * bs : (b + 1) * bs]))
+            yield self._emit(self._pad(order[b * bs : (b + 1) * bs], bs))
 
 
 class RecoData:
@@ -362,7 +385,10 @@ class RecoData:
         return list(SEQUENCE_COLUMNS) + list(USER_FEATURES), rows
 
     def loader(self, split: str, batch_size: Optional[int] = None,
-               with_index: bool = False) -> BatchLoader:
+               with_index: bool = False, process_index: int = 0,
+               process_count: int = 1) -> BatchLoader:
+        """The split's loader; over processes, this process's strided rows
+        (`BatchLoader`), `batch_size` of them a batch."""
         bs = batch_size or (
             self.cfg.batch_size if split == "train" else self.cfg.eval_batch_size
         )
@@ -373,6 +399,8 @@ class RecoData:
             seed=self._seed,
             buckets=list(self.cfg.length_buckets) or None,
             with_index=with_index,
+            process_index=process_index,
+            process_count=process_count,
         )
 
 

@@ -14,8 +14,14 @@ the positional embedding reads the same payload (models/preprocessors.py) and
 the supervision weights are zero across segment boundaries
 (train/task_retrieval.py).
 
-The multi-process row stride of the JAX loader is not ported:
-`process_count > 1` raises.
+Over processes (`process_index` of `process_count`, JAX :96-104) the plan is
+made on the global stream, in global batches of `rows_of[cap] *
+process_count` rows, and each process takes the rows `row % process_count
+== process_index` of each; a tail batch that leaves a process no row gives
+it an empty batch of the same shape. The eval's segment slots per class come
+from the global plan, the most that any process's share of a batch holds.
+A rank evaluates its own rows, so `seg_last_flat` addresses them (JAX's
+addresses the stitched global batch, :322-330).
 """
 
 from __future__ import annotations
@@ -25,7 +31,6 @@ from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from mygenerativerecommenders_tpu_torch import not_ported
 from mygenerativerecommenders_tpu_torch.data.dataset import SequenceDataset
 
 
@@ -107,9 +112,6 @@ class PackedBatchLoader:
         segments_per_batch: Optional[int] = None,  # target examples per batch
         include_target: bool = True,
     ):
-        if process_count > 1 or process_index != 0:
-            raise not_ported("the multi-process packed loader stride",
-                             "Distributed, part (b): the multi-process loader stride")
         self.dataset = dataset
         self.rows_per_batch = rows_per_batch
         self.row_capacity = row_capacity
@@ -117,6 +119,8 @@ class PackedBatchLoader:
         m = max(1, row_multiple)
         self.shuffle = shuffle
         self.seed = seed
+        self.process_index = process_index
+        self.process_count = process_count
         self.include_target = include_target
         self.epoch = 0
 
@@ -161,13 +165,15 @@ class PackedBatchLoader:
         if not include_target:
             self.seg_cap: Dict[int, int] = {}
             for cap, bp in self._plan(0):
-                self.seg_cap[cap] = max(self.seg_cap.get(cap, 1), len(bp))
+                # the most segments any process's rows of the batch hold
+                shares = np.bincount(bp[:, 1] % process_count, minlength=process_count)
+                self.seg_cap[cap] = max(self.seg_cap.get(cap, 1), int(shares.max(initial=1)))
             for cap in self.seg_cap:
                 self.seg_cap[cap] = -(-self.seg_cap[cap] // m) * m
 
     def _plan(self, epoch: int) -> List[Tuple[int, np.ndarray]]:
-        """The epoch's batches: (capacity, [S, 2] array of (example index, row
-        within the batch))."""
+        """The epoch's global batches: (capacity, [S, 2] array of (example
+        index, row within the global batch))."""
         if epoch in self._plans:
             return self._plans[epoch]
         rng = np.random.default_rng(self.seed + epoch) if self.shuffle else None
@@ -180,7 +186,7 @@ class PackedBatchLoader:
             if len(members) == 0:
                 continue
             rows = pack_rows_best_fit(self.seg_lens[members], cap)
-            per_batch = self.rows_of[cap]
+            per_batch = self.rows_of[cap] * self.process_count  # the global batch's rows
             for b in range(int(rows.max() // per_batch + 1)):
                 sel = (rows >= b * per_batch) & (rows < (b + 1) * per_batch)
                 batches.append((cap, np.stack([members[sel], rows[sel] - b * per_batch], axis=1)))
@@ -197,6 +203,12 @@ class PackedBatchLoader:
     def _emit(self, cap: int, plan: np.ndarray) -> Dict[str, np.ndarray]:
         p, l_cap = self.rows_of[cap], cap
         examples, grow = plan[:, 0], plan[:, 1]
+        pc, pi = self.process_count, self.process_index
+        if pc > 1:
+            mine = grow % pc == pi
+            examples, grow = examples[mine], grow[mine] // pc
+        if len(examples) == 0:  # a tail batch with no rows for this process
+            return self._empty(cap)
         # best-fit rows are not in stream order: group the entries by row
         # (stable, so arrival order inside a row is kept)
         order = np.argsort(grow, kind="stable")
@@ -260,6 +272,25 @@ class PackedBatchLoader:
                 seg_weight=seg_weight,
                 seg_example=seg_example,
                 seg_invalid_ids=seg_invalid.reshape(s_cap, l_cap),
+            )
+        return batch
+
+    def _empty(self, cap: int) -> Dict[str, np.ndarray]:
+        """A batch of the class's shape without a segment."""
+        p = self.rows_of[cap]
+        batch = {key: np.zeros((p, cap), dtype=np.int32)
+                 for key in ("ids", "ratings", "timestamps", "positions")}
+        batch.update(seg_ids=np.full((p, cap), -1, dtype=np.int32),
+                     lengths=np.zeros(p, dtype=np.int32),
+                     num_segments=np.zeros(p, dtype=np.int32))
+        if not self.include_target:
+            s_cap = self.seg_cap[cap]
+            batch.update(
+                seg_last_flat=np.zeros(s_cap, dtype=np.int32),
+                seg_target=np.zeros(s_cap, dtype=np.int32),
+                seg_weight=np.zeros(s_cap, dtype=np.float32),
+                seg_example=np.full(s_cap, -1, dtype=np.int32),
+                seg_invalid_ids=np.zeros((s_cap, cap), dtype=np.int32),
             )
         return batch
 

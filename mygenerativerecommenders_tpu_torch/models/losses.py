@@ -2,7 +2,11 @@
 `ce_rating_loss` and `_weighted_mean`
 (mygenerativerecommenders_tpu/models/losses.py:19-61, 75-84). Every loss runs dense
 over [B, T, ...] with a `weights` mask and returns
-`sum(per_pos * weights) / sum(weights)`.
+`sum(per_pos * weights) / sum(weights)`. Within a data-parallel step
+(parallel/process_group.py) the divisor is the weight sum of the global
+batch, all-reduced in the step, as JAX's mean over the sharded batch sums
+`w` over the data axis: each rank's loss is its part of the global mean,
+and the gradients are summed over the ranks.
 
 `sampled_softmax_loss` is the per-sample form: the training step takes it
 for the per-sample gather loss and the shared-negatives loss
@@ -15,12 +19,14 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from mygenerativerecommenders_tpu_torch.parallel.process_group import global_sum
+
 _ACCIDENTAL_HIT_LOGIT = -5e4
 
 
 def _weighted_mean(per_pos: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     w = weights.to(per_pos.dtype)
-    return (per_pos * w).sum() / torch.clamp(w.sum(), min=1e-12)
+    return (per_pos * w).sum() / torch.clamp(global_sum(w.sum()), min=1e-12)
 
 
 def sampled_softmax_loss(

@@ -1,4 +1,4 @@
-"""The trainer: one device.
+"""The trainer: one device, or one card a process over a data-parallel group.
 
 Port of `Trainer` (mygenerativerecommenders_tpu/train/driver.py:117,
 232-301, 400-478, 492-539, 588-716, 717-830, 832-920, 932-961): model and
@@ -52,8 +52,24 @@ sharded embedding kind (`embedding.kind=sharded_*`) the table's shards run in
 turn on this device, and with `index.sharded` on the candidates and the eval
 steps, eager and graphed, are built over the index's shard group
 (`task_retrieval.index_shards`, the JAX trainer's "model" mesh axis): no mesh
-to hold. The mesh (`trainer.num_devices` > 1) and the multi-process loader
-raise.
+to hold.
+
+`trainer.distributed` trains over processes, one card each, launched by
+torchrun (parallel/process_group.py; JAX's "data" mesh axis, :48-93,
+:149-152): every rank builds the same weights from `trainer.seed` (checked
+once at start) and loads its strided rows of each global batch (the
+loaders' process stride, `_loader`, JAX :479-539); the loss divides by the
+global batch's weight sum and one all-reduce a step sums the gradients
+(inside the step's CUDA graph under NCCL); the lazy table update, the
+in-batch pool and the shared negatives are the global batch's. The eval
+rows are gathered over the ranks in rank order (`_gather_rows`, JAX
+:562-586), so every rank computes the same metrics and takes the same
+plateau, checkpoint and early-stop steps. Rank 0 alone writes the metrics
+and the checkpoints; the others wait for a checkpoint at a barrier before
+they read it. Each rank's own draws (the negatives, dropout) come from
+`process_group.rank_seed`; the shared negatives from `trainer.seed` on every
+rank, as JAX draws them once. The data axis is the only one: a sharded
+table over processes, TP and the ring over processes raise.
 """
 
 from __future__ import annotations
@@ -82,6 +98,12 @@ from mygenerativerecommenders_tpu_torch.models.metrics import (
     retrieval_metrics,
 )
 from mygenerativerecommenders_tpu_torch.models.model import build_model
+from mygenerativerecommenders_tpu_torch.parallel.process_group import (
+    check_num_devices,
+    init_data_parallel,
+    rank_seed,
+    started,
+)
 from mygenerativerecommenders_tpu_torch.train import task_ranking, task_retrieval
 from mygenerativerecommenders_tpu_torch.train.controllers import (
     EarlyStopping,
@@ -124,17 +146,46 @@ def resolve_device(name: str) -> torch.device:
     return device
 
 
+def check_data_axis_only(cfg: Config) -> None:
+    """Raise `not_ported` for what `trainer.distributed` does not run yet:
+    every axis of the JAX mesh but "data" (`index.sharded` needs a sharded
+    kind, so the first check covers it)."""
+    m = cfg.model
+    if m.embedding.kind in task_retrieval.SHARDED_KINDS and m.embedding.num_shards > 1:
+        raise not_ported(f"trainer.distributed with embedding.kind={m.embedding.kind} "
+                         f"(num_shards={m.embedding.num_shards})",
+                         "Distributed: the sharded table over a process group")
+    if m.encoder.tp_shards > 1:
+        raise not_ported("trainer.distributed with encoder.tp_shards > 1",
+                         "Distributed, part (c): TP")
+    if m.encoder.sp_shards > 1:
+        raise not_ported("trainer.distributed with encoder.sp_shards > 1",
+                         "Distributed, part (d): the ring over a process group")
+
+
 class Trainer:
-    def __init__(self, cfg: Config, data: Optional[RecoData] = None):
+    def __init__(self, cfg: Config, data: Optional[RecoData] = None,
+                 backend: Optional[str] = None):
+        """`backend` (trainer.distributed only): the default group's, None
+        for NCCL on cuda and gloo on the CPU."""
         self.cfg = cfg
         t = cfg.trainer
-        self.device = resolve_device(t.device)
-        if t.distributed or t.num_devices > 1:
-            if cfg.model.encoder.sp_shards > 1:
-                raise not_ported("trainer.distributed / num_devices > 1 with encoder.sp_shards > 1",
-                                 "Distributed, part (d): the ring over a process group")
-            raise not_ported("trainer.distributed / num_devices > 1",
-                             "Distributed, part (b): DDP data parallel")
+        self.dp = None  # the data-parallel group (trainer.distributed)
+        if t.distributed:
+            check_data_axis_only(cfg)
+            self.dp = init_data_parallel(t, backend)  # checks num_devices against it
+            self.device = self.dp.device
+        else:
+            check_num_devices(int(t.num_devices), False, 1)
+            if started() is not None:
+                # the steps would run over the group, the loaders not stride
+                raise ValueError(
+                    "this process has started a data-parallel group, so its steps run over "
+                    "the ranks: set trainer.distributed=true, or close the group first "
+                    "(parallel/process_group.py: shutdown)"
+                )
+            self.device = resolve_device(t.device)
+        rank = self.dp.rank if self.dp else 0
         for name, sched in (("scheduler1", cfg.scheduler1), ("scheduler2", cfg.scheduler2)):
             if sched.kind not in ("plateau", "none"):
                 # JAX builds a controller for plateau alone (driver.py:304-323)
@@ -151,7 +202,8 @@ class Trainer:
             # the column, not at a device assert inside a step
             for split in ("train", "val", "test"):
                 check_aux_codes(cfg.model.preprocessor, self.data.dataset(split))
-        torch.manual_seed(t.seed)  # dropout: the default generator of every device
+        # dropout: the default generator of every device, a rank's own
+        torch.manual_seed(rank_seed(t.seed, rank))
         self.model = build_model(cfg, device=self.device, year_of_item=self.data.year_of_item)
         opt2 = cfg.optimizer2
         if opt2.enabled and opt2.scion_init:
@@ -161,7 +213,11 @@ class Trainer:
             else:  # as in JAX, the re-init is Scion's alone
                 log.warning(f"optimizer2.scion_init ignored: optimizer2.kind={opt2.kind}")
         self.all_item_ids = np.asarray(self.data.all_item_ids, dtype=np.int32)
-        self.neg_generator = torch.Generator(device=self.device).manual_seed(t.seed)
+        # a rank's own negatives; the shared ones are the same on every rank
+        neg_seed = t.seed if cfg.model.loss.shared_negatives else rank_seed(t.seed, rank)
+        self.neg_generator = torch.Generator(device=self.device).manual_seed(neg_seed)
+        if self.dp is not None:
+            self.dp.check_replicas(self.model.named_parameters())
 
         # the fused kernels on the card, for eager and graphed steps alike;
         # with embedding.lazy_update the item table is updated lazily beside
@@ -204,13 +260,13 @@ class Trainer:
         self.out_dir = os.path.join(t.output_dir, cfg.experiment)
         self.writer = MetricsWriter(
             self.out_dir, enable_tensorboard=t.tensorboard, mlflow_dir=t.mlflow_dir,
-            experiment=cfg.experiment,
+            experiment=cfg.experiment, enabled=rank == 0,
         )
         if self.writer.mlflow is not None:
             self.writer.mlflow.log_params(_flatten(to_dict(cfg)))
         self.ckpt = CheckpointManager(
             os.path.join(self.out_dir, "checkpoints"), monitor=t.monitor, mode=t.mode,
-            async_save=t.async_checkpoint,
+            async_save=t.async_checkpoint, write=rank == 0,
         )
         self.global_step = 0
         self.epoch = 0
@@ -302,12 +358,24 @@ class Trainer:
             for k, v in batch.items()
         }
 
-    def _loader(self, split: str, packed: bool = False) -> Loader:
-        """The split's loader. packed=True gives the PackedBatchLoader: train
-        batches carry their targets inline, eval splits pack history-only
-        segments with per-segment query, target and filter fields."""
+    def _loader_sharding(self) -> tuple:
+        """(process_index, process_count) of this rank's rows: its data
+        coordinate and the data size. The data axis is the only one, so
+        `trainer.mesh_data_innermost` changes nothing: a rank loads its
+        strided rows either way (JAX :479-490 then loads the full batch on
+        every process, ROADMAP queue 3)."""
+        return (self.dp.rank, self.dp.size) if self.dp else (0, 1)
+
+    def _loader(self, split: str, packed: bool = False, with_index: bool = False) -> Loader:
+        """The split's loader: this rank's rows of it. packed=True gives the
+        PackedBatchLoader: train batches carry their targets inline, eval
+        splits pack history-only segments with per-segment query, target and
+        filter fields; its rows a batch are rounded up to a multiple of the
+        data size (JAX :520-521, :531)."""
+        index, count = self._loader_sharding()
         if not packed:
-            return self.data.loader(split)
+            return self.data.loader(split, with_index=with_index, process_index=index,
+                                    process_count=count)
         d = self.cfg.data
         # one capacity: the longest segment rounded up to 128 tokens
         cap = d.pack_row_capacity or (d.max_sequence_length + 1 + 127) // 128 * 128
@@ -319,13 +387,17 @@ class Trainer:
         if not rows:
             mean_seg = float(np.mean(ds.lengths) + 1.0) if len(ds) else 1.0
             rows = max(1, int(round(d.batch_size * mean_seg / cap)))
+        rows = -(-rows // count) * count
         return PackedBatchLoader(
             ds,
             rows_per_batch=rows,
             row_capacity=cap,
             shuffle=(split == "train"),
             seed=self.cfg.trainer.seed,
+            process_index=index,
+            process_count=count,
             capacities=caps,
+            row_multiple=count,
             # every class emits batches of about batch_size examples, as the
             # padded recipe's steps hold
             segments_per_batch=(0 if d.pack_rows else d.batch_size),
@@ -506,8 +578,8 @@ class Trainer:
             for batch, dev_batch in self._batches(loader, limit):
                 collect(self.eval_step(dev_batch).cpu().numpy(), batch)
         return multiclass_metrics(
-            np.concatenate(all_probs, axis=0),
-            np.concatenate(all_targets, axis=0),
+            self._gather_rows(np.concatenate(all_probs, axis=0)),
+            self._gather_rows(np.concatenate(all_targets, axis=0)),
             num_classes=self.cfg.model.preprocessor.num_ratings,
         )
 
@@ -538,10 +610,15 @@ class Trainer:
                 all_topk.append(top_ids.cpu().numpy()[valid])
                 all_targets.append(batch[target_key][valid])
         return retrieval_metrics(
-            np.concatenate(all_topk, axis=0),
-            np.concatenate(all_targets, axis=0)[:, None],
+            self._gather_rows(np.concatenate(all_topk, axis=0)),
+            self._gather_rows(np.concatenate(all_targets, axis=0))[:, None],
             self.cfg.model.metrics.at_k_list,
         )
+
+    def _gather_rows(self, rows: np.ndarray) -> np.ndarray:
+        """Every rank's eval rows in rank order (JAX `_gather_rows`,
+        :562-586); one process: `rows` itself."""
+        return rows if self.dp is None else self.dp.gather_rows(rows)
 
     # ------------------------------------------------------------------
     def fit(self) -> Dict[str, float]:
@@ -587,6 +664,7 @@ class Trainer:
                     metric_value=metric,
                     extra=self._controller_state(),
                 )
+                self._barrier()  # rank 0's save is issued
                 if self.epoch + 1 >= t.min_epochs and self.early_stop.step(metric):
                     log.info(f"early stopping at epoch {self.epoch}")
                     break
@@ -599,8 +677,13 @@ class Trainer:
         load_weights(self.model, str(path), self.device)
         log.info(f"loaded checkpoint {path}")
 
+    def _barrier(self) -> None:
+        if self.dp is not None:
+            self.dp.barrier()
+
     def test(self, ckpt_path: Optional[str] = None) -> Dict[str, float]:
         self.ckpt.flush()  # best.pt may be in flight
+        self._barrier()  # rank 0's write has landed
         path = ckpt_path or self.ckpt.best_path
         if path and os.path.exists(str(path)):
             self.load_weights(path)
@@ -621,7 +704,7 @@ class Trainer:
             many, one = self.packed_eval_steps, self.packed_eval_step
             weight_key, example_key = "seg_weight", "seg_example"
         else:
-            loader = self.data.loader("test", with_index=True)
+            loader = self._loader("test", with_index=True)
             many, one = self.eval_steps, self.eval_step
             weight_key, example_key = "sample_weight", "example"
         examples, ids, scores = [], [], []
@@ -641,11 +724,10 @@ class Trainer:
             for batch, dev_batch in self._batches(loader, len(loader)):
                 out = one(dev_batch, candidates)
                 collect(out[0], out[1], batch)
-        order = np.argsort(np.concatenate(examples), kind="stable")
-        return {
-            "top_k_ids": np.concatenate(ids)[order].tolist(),
-            "top_k_scores": np.concatenate(scores)[order].tolist(),
-        }
+        examples, ids, scores = (self._gather_rows(np.concatenate(parts))
+                                 for parts in (examples, ids, scores))
+        order = np.argsort(examples, kind="stable")
+        return {"top_k_ids": ids[order].tolist(), "top_k_scores": scores[order].tolist()}
 
     def metric_names(self) -> tuple:
         """The names of the metrics `eval_epoch` computes (without the
@@ -675,6 +757,7 @@ class Trainer:
 
     def restore(self, path: str) -> None:
         self.ckpt.flush()
+        self._barrier()  # rank 0's write has landed
         state = CheckpointManager.load(path, self.device)
         self.model.load_state_dict(state["model"])
         # a split optimizer's parts, the lazy table's mv and count: each its own
@@ -695,6 +778,16 @@ class Trainer:
         if extra.get("early_stop"):
             self.early_stop.load_state_dict(extra["early_stop"])
         rng = extra.get("rng") or {}
+        if self.dp is not None and self.dp.rank > 0:
+            # the checkpoint holds rank 0's streams: a rank's own go on from
+            # its seed and the step (the shared negatives' is every rank's)
+            seed = rank_seed(self.cfg.trainer.seed + self.global_step, self.dp.rank)
+            torch.manual_seed(seed)
+            if self.cfg.model.loss.shared_negatives and "neg" in rng:
+                self.neg_generator.set_state(rng["neg"].cpu())
+            else:
+                self.neg_generator.manual_seed(seed)
+            rng = {}
         if "neg" in rng:
             self.neg_generator.set_state(rng["neg"].cpu())
             torch.set_rng_state(rng["cpu"].cpu())

@@ -32,9 +32,10 @@ replay launches each block's attention forward twice (the capture's counts
 record both). Checkpoint's stash of the default generator's state under
 capture gives the recompute the masks its replay's forward drew.
 
-The kernel wrappers count their launches in Python (`launches += 1`), which a
-replay does not run. The counts taken while capturing are given back (a
-capture launches nothing) and added again at every replay. `counts` keeps the
+The kernel wrappers count their launches in Python (`launches += 1`), and
+parallel/process_group.py its collectives, which a replay does not run. The
+counts taken while capturing are given back (a capture launches nothing) and
+added again at every replay. `counts` keeps the
 captures, warm-up runs and replays of every `StepGraphs` by name, as the
 wrappers keep their launches: callers that count (chip_smoke.py) reset it.
 """
@@ -53,6 +54,7 @@ from mygenerativerecommenders_tpu_torch.ops.kernels import (
     hstu_attention,
     hstu_chunk,
 )
+from mygenerativerecommenders_tpu_torch.parallel import process_group
 
 # every kernel wrapper's launch counter, as (module, attribute)
 _COUNTERS = (
@@ -62,6 +64,8 @@ _COUNTERS = (
     (dense_neg_lse, "fused_launches"), (dense_neg_lse, "fused_bwd_launches"),
     (hstu_chunk, "launches"), (hstu_chunk, "bwd_launches"),
 )
+# and the data-parallel step's collectives, which a capture records like kernels
+_TALLIES = _COUNTERS + ((process_group, "all_reduces"), (process_group, "all_gathers"))
 WARMUP_RUNS = 2  # the second runs with the optimizer state the first made
 
 # captures, warm-up runs and replays by StepGraphs name ("train", "eval")
@@ -71,11 +75,11 @@ Snapshot = Callable[[], Callable[[], None]]
 
 
 def _read_counters() -> List[int]:
-    return [getattr(module, name) for module, name in _COUNTERS]
+    return [getattr(module, name) for module, name in _TALLIES]
 
 
 def _set_counters(values: Sequence[int]) -> None:
-    for (module, name), value in zip(_COUNTERS, values):
+    for (module, name), value in zip(_TALLIES, values):
         setattr(module, name, value)
 
 

@@ -41,6 +41,7 @@ import torch
 
 from mygenerativerecommenders_tpu_torch.configs import Config, OptimizerConfig
 from mygenerativerecommenders_tpu_torch.models.model import GenerativeRecommender
+from mygenerativerecommenders_tpu_torch.parallel.process_group import gather_rows_of
 from mygenerativerecommenders_tpu_torch.train import task_retrieval
 from mygenerativerecommenders_tpu_torch.train.optimizers import (
     build_optimizer,
@@ -190,9 +191,12 @@ class LazyEmbeddingAdamW:
         # a profiler range, as torch.optim's step has one ("Optimizer.step#...")
         with torch.profiler.record_function("LazyEmbeddingAdamW.step"):
             self.rest.step()
-            ids, rows = self._touched
+            ids, grads = self._touched[0], self._touched[1].grad
+            # within a data-parallel step: every rank's touched rows, the
+            # global batch's K = world * (B*N + R) that JAX's update dedups
+            ids, grads = gather_rows_of(ids), gather_rows_of(grads)
             lazy_adamw_update(
-                self.table.data, self._mv, self.count, ids, rows.grad,
+                self.table.data, self._mv, self.count, ids, grads,
                 rate_groups(self.rest)[0][0]["lr"], self.betas, self.eps, self.weight_decay,
             )
         self._touched = None
@@ -286,7 +290,8 @@ def make_lazy_train_step(
     """task_retrieval.make_train_step's step with the item table updated
     lazily, under the same signatures: steps=1 eager, steps=k > 1 one CUDA
     graph replay a step on the card. The shared negatives' [R] offsets are
-    the drawn input `neg_offsets`."""
+    the drawn input `neg_offsets`. Over a data-parallel group every rank
+    applies the update of the global batch's touched rows (`step`)."""
     if not isinstance(optimizer, LazyEmbeddingAdamW):
         raise ValueError(
             "embedding.lazy_update trains with the optimizer of init_lazy_optimizer, "

@@ -88,14 +88,20 @@ def tensorboard_writer(log_dir: str):
 
 class MetricsWriter:
     """Appends metric dicts to metrics.csv and metrics.jsonl under out_dir,
-    and to the TensorBoard and MLflow channels where they are on."""
+    and to the TensorBoard and MLflow channels where they are on.
+    `enabled=False` (a data-parallel rank but 0, as JAX's `is_main_process`
+    gate, :113) writes nothing."""
 
     def __init__(self, out_dir: str, enable_tensorboard: bool = False, mlflow_dir: str = "",
-                 experiment: str = "default"):
+                 experiment: str = "default", enabled: bool = True):
         self.out_dir = out_dir
+        self.enabled = enabled
         self._csv_path = os.path.join(out_dir, "metrics.csv")
         self._jsonl_path = os.path.join(out_dir, "metrics.jsonl")
         self._csv_fields: Optional[list] = None
+        self._tb = self.mlflow = None
+        if not enabled:
+            return
         os.makedirs(out_dir, exist_ok=True)
         self._tb = tensorboard_writer(os.path.join(out_dir, "tb")) if enable_tensorboard else None
         self.mlflow = MlflowFileWriter(
@@ -103,6 +109,8 @@ class MetricsWriter:
         ) if mlflow_dir else None
 
     def log(self, metrics: Dict[str, float], step: int, epoch: int) -> None:
+        if not self.enabled:
+            return
         row = {"step": step, "epoch": epoch, "time": time.time(), **metrics}
         with open(self._jsonl_path, "a") as f:
             f.write(json.dumps(row) + "\n")
@@ -130,13 +138,22 @@ class MetricsWriter:
             self._tb = None
 
 
+def _rank_zero(record: logging.LogRecord) -> bool:
+    """Drop a record on every data-parallel rank but 0."""
+    import torch.distributed as dist
+
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 def get_logger(name: str) -> logging.Logger:
     """A console logger writing `[time][LEVEL] message` lines to stdout, as
-    the JAX package's `RankedLogger` does (one process: no rank prefix)."""
+    the JAX package's `RankedLogger` does: on rank 0 alone under a
+    process group (JAX :21-45; one process: no rank prefix)."""
     logger = logging.getLogger(name)
     if not logger.handlers:
         handler = logging.StreamHandler(sys.stdout)
         handler.setFormatter(logging.Formatter("[%(asctime)s][%(levelname)s] %(message)s"))
+        handler.addFilter(_rank_zero)
         logger.addHandler(handler)
         logger.propagate = False
     logger.setLevel(logging.INFO)

@@ -73,6 +73,11 @@ from mygenerativerecommenders_tpu_torch.parallel.embedding_sharding import (
     OneDeviceShards,
     round_up,
 )
+from mygenerativerecommenders_tpu_torch.parallel.process_group import (
+    GradBuffer,
+    gather_rows_of,
+    started,
+)
 from mygenerativerecommenders_tpu_torch.parallel.topk_sharded import (
     sharded_mips_top_k,
     sharded_mips_top_k_int8,
@@ -396,14 +401,17 @@ def _loss_parts(
     ) -> torch.Tensor:
         """The gather loss on in-batch negatives (JAX `loss_fn`, :216-226):
         the pool of the batch's valid ids (after the target scatter, rows of
-        sample_weight 0 left out), each position's R ids drawn from it by the
-        uniforms, looked up with the history in one table lookup; accidental
-        hits compared by id."""
+        sample_weight 0 left out; the global batch's under data parallel),
+        each position's R ids drawn from it by the uniforms, looked up with
+        the history in one table lookup; accidental hits compared by id."""
         _, past_ids = seq_and_past_ids(batch)
         presences = past_ids != 0
         if "sample_weight" in batch:
             presences = presences & (batch["sample_weight"][:, None] > 0)
-        pool, count = sampler.process_batch(past_ids, presences)
+        # within a data-parallel step the pool is the global batch's (JAX's
+        # process_batch sees the global past_ids): one gather, absent ids as -1
+        marked = gather_rows_of(torch.where(presences, past_ids, -1))
+        pool, count = sampler.process_batch(marked.clamp(min=0), marked >= 0)
         if neg_uniforms is None:
             neg_uniforms = draw_negatives(batch)
         neg_ids = pool[sampler.offsets(neg_uniforms, count)]
@@ -456,6 +464,14 @@ def train_step_from_loss(
     """The optimizer step around `loss_fn(batch[, <drawn.name>=...])` (JAX
     :326-379).
 
+    In a process that has started its data-parallel group
+    (parallel/process_group.py: `started()`) the loss divides by the global
+    weight sum, and between the backward and the optimizer step one
+    all-reduce sums the gradients, views of one flat buffer, and the loss
+    over the ranks: the psum of the JAX step over "data". The returned loss
+    is that sum, the global batch's. Under NCCL on cuda the all-reduce is
+    captured in the step's graph.
+
     steps=1: train_step(batch, lr1, lr2=None[, <drawn.name>=None]) -> the
     step's loss (detached). Sets the learning rates (`set_lr`: lr1 to
     optimizer1, lr2 to optimizer2 where there is one, as JAX passes both to
@@ -476,10 +492,17 @@ def train_step_from_loss(
 
     def one_step(batch, **inputs):
         optimizer.zero_grad(set_to_none=True)
+        if group is not None:
+            grads.prepare()
         loss = loss_fn(batch, **inputs)
         loss.backward()
+        loss = loss.detach() if group is None else grads.all_reduce(group, loss)
         optimizer.step()
-        return loss.detach()
+        return loss
+
+    group, grads = started(), None
+    if group is not None:
+        grads = GradBuffer([p for g in optimizer.param_groups for p in g["params"]])
 
     if steps <= 1:
         def train_step(batch, lr1: float, lr2: Optional[float] = None, **inputs):
@@ -491,7 +514,8 @@ def train_step_from_loss(
     device = next(model.parameters()).device
     names = () if drawn is None else (drawn.name,)
     graphs = None
-    if device.type == "cuda":
+    # gloo's collectives cannot be captured: a gloo group on a card runs eagerly
+    if device.type == "cuda" and (group is None or group.backend == "nccl"):
         def body(static: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor]:
             batch = {k: v for k, v in static.items() if k not in names}
             return (one_step(batch, **{k: static[k] for k in names}),)

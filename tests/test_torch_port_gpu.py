@@ -1070,3 +1070,68 @@ def test_real_files_prepare_train_and_predict_on_card(tmp_path):
     want = cpu.predict()
     problem = topk_agree(ids, scores, want["top_k_ids"], want["top_k_scores"], atol=1e-4)
     assert problem is None, problem
+
+
+# ---------------------------------------------------------------- data parallel
+# chip_smoke.py phase 22 (a) at the smoke preset's size: trainer.distributed
+# over NCCL at world size 1 (the card's machine has one card), its step's two
+# all-reduces captured in the CUDA graph, against the same graphed steps of
+# one-process trainers from the same seed and batches
+
+
+@pytest.mark.gpu
+def test_graphed_nccl_step_at_world_size_one_follows_the_one_process_step_on_card(
+        tmp_path, monkeypatch):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA)")
+    import socket
+
+    from mygenerativerecommenders_tpu_torch.cli import train as cli_train
+    from mygenerativerecommenders_tpu_torch.parallel import process_group
+    from mygenerativerecommenders_tpu_torch.train import graphs
+    from mygenerativerecommenders_tpu_torch.train.driver import Trainer
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    for name, value in dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="localhost",
+                            MASTER_PORT=str(port)).items():
+        monkeypatch.setenv(name, value)
+    steps, runs = 3, []
+    try:
+        for extra in ([], ["trainer.distributed=true"]):
+            trainer = Trainer(cli_train.parse_args([
+                "experiment=synthetic-smoke", "trainer.steps_per_call=3",
+                f"trainer.output_dir={tmp_path}", *extra]))
+            trainer.model.train()
+            batches = [trainer._put(b) for _, b in zip(range(steps), trainer._loader("train"))]
+            graphs.counts.clear()
+            process_group.all_reduces = 0
+            first = trainer.train_steps(batches[:1], trainer.lr1)  # the capture, one replay
+            grads = {n: p.grad.detach().cpu().clone() for n, p in trainer.model.named_parameters()}
+            stepped = {n: p.detach().cpu().clone() for n, p in trainer.model.named_parameters()}
+            losses = torch.cat([first, trainer.train_steps(batches[1:], trainer.lr1)])
+            torch.cuda.synchronize()
+            g = dict(graphs.counts["train"])
+            assert g == {"captures": 1, "warmup_runs": graphs.WARMUP_RUNS, "replays": steps}, g
+            per_step = process_group.all_reduces / (graphs.WARMUP_RUNS + steps)
+            assert per_step == (2 if extra else 0)
+            runs.append((losses.cpu(), grads, stepped))
+    finally:
+        process_group.shutdown()
+
+    (losses, one, one_stepped), (dp_losses, dp, dp_stepped) = runs
+    # one rank's all-reduce is an identity: the first step's gradients, and
+    # the parameters after it, within rtol 1e-6 / atol 0 of the one-process
+    # step's, but for the bias tables, whose float atomics add in an order
+    # that changes from run to run
+    for name, want in one.items():
+        if "_rel_attn_bias" in name:
+            np.testing.assert_allclose(dp[name].numpy(), want.numpy(), rtol=5e-4, atol=1e-6,
+                                       err_msg=name)
+        else:
+            np.testing.assert_allclose(dp[name].numpy(), want.numpy(), rtol=1e-6, atol=0,
+                                       err_msg=name)
+            np.testing.assert_allclose(dp_stepped[name].numpy(), one_stepped[name].numpy(),
+                                       rtol=1e-6, atol=0, err_msg=name)
+    np.testing.assert_allclose(dp_losses.numpy(), losses.numpy(), rtol=1e-5)

@@ -116,9 +116,17 @@ def test_packed_loader_emits_every_example_once_with_its_target_last():
 
 
 def test_packed_loader_refuses_a_second_process_and_a_segment_longer_than_a_row():
-    _, pds = _both_datasets(3)
-    with pytest.raises(NotImplementedError, match="Distributed"):
-        pt_packing.PackedBatchLoader(pds, rows_per_batch=4, row_capacity=64, process_count=2)
+    """A second process, refused before the loaders' process stride was
+    ported, now takes its rows of every global batch, JAX's for that process
+    (tests/test_torch_port_distributed_loaders.py holds every field); a
+    segment longer than the widest row is still refused."""
+    jds, pds = _both_datasets(3)
+    common = dict(rows_per_batch=4, row_capacity=64, process_index=1, process_count=2)
+    got = list(pt_packing.PackedBatchLoader(pds, **common))
+    want = list(jax_packing.PackedBatchLoader(jds, **common))
+    assert len(got) == len(want) > 0
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g["ids"], w["ids"])
     with pytest.raises(ValueError, match="longest segment"):
         pt_packing.PackedBatchLoader(pds, rows_per_batch=4, row_capacity=40)
 

@@ -138,14 +138,20 @@ def test_debug_limits_cut_the_epoch(tmp_path):
 )
 def test_unported_trainer_knobs_raise_naming_the_roadmap_item(tmp_path, monkeypatch, override,
                                                              item):
-    """`trainer.distributed` raises, naming its ROADMAP.md item; the training
-    variants, ported since, build the trainer (the profiler, TensorBoard and
-    MLflow; tests/test_torch_port_training_variants.py runs them), and the
-    cosine scheduler, which the reference ignores, raises a ValueError
-    naming it."""
+    """`trainer.distributed`, ported since (tests/test_torch_port_distributed.py
+    trains with it), needs torchrun's environment and raises a ValueError
+    naming it without; the training variants, ported since, build the
+    trainer (the profiler, TensorBoard and MLflow;
+    tests/test_torch_port_training_variants.py runs them), and the cosine
+    scheduler, which the reference ignores, raises a ValueError naming it."""
     monkeypatch.chdir(tmp_path)  # trainer.mlflow_dir=mlruns is relative
     args = cli_train.parse_args(_args(tmp_path, override))
-    if item != "Training variants":
+    if override == "trainer.distributed=true":
+        for name in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
+            monkeypatch.delenv(name, raising=False)
+        with pytest.raises(ValueError, match="torchrun"):
+            Trainer(args)
+    elif item != "Training variants":
         with pytest.raises(NotImplementedError, match=item):
             Trainer(args)
     elif override == "scheduler1.kind=cosine":
