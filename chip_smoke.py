@@ -254,9 +254,9 @@ Phases, each of which stops the run with a non-zero exit when it fails:
 16. Muon and Scion (the two-optimizer split: AdamW on the embeddings and
    vectors, Muon or Scion with bfloat16 Newton-Schulz on the encoder's
    matrices, each learning rate with its plateau controller) at ml-1m-hstu's
-   width on phase 15's files: `cli.train` for 10 graphed epochs (SPLIT_EPOCHS:
-   cut from 30 for phase 22) of ml-1m-hstu-muon and of
-   ml-1m-hstu-scion (min_epochs=10), launch counts as
+   width on phase 15's files: `cli.train` for 3 graphed epochs (SPLIT_EPOCHS:
+   cut from 30 to 10 for phase 22, to 3 for phase 23) of ml-1m-hstu-muon and
+   of ml-1m-hstu-scion (min_epochs=3), launch counts as
    in phase 4, losses finite and falling, best.pt and last.pt written, test
    ndcg@10 at least 0.030 (about 80% of the JAX package's 0.0367; its 0.0376
    and 0.0367 are from a TPU v5e on synthetic ml-1m-shaped data), printed
@@ -275,8 +275,8 @@ Phases, each of which stops the run with a non-zero exit when it fails:
 17. The aux preprocessor, SASRec, the in-batch sampler and BCE at
    ml-1m-hstu's width on phase 15's files (users.dat with ml-1m's sexes, age
    groups, occupations and 3,439 zip strings feeds the aux token):
-   `cli.train` for 10 graphed epochs (CUT_EPOCHS: cut from 30 for
-   phase 22) of ml-1m-hstu-aux, ml-1m-sasrec and ml-1m-hstu with
+   `cli.train` for 3 graphed epochs (CUT_EPOCHS: cut from 30 to 10 for
+   phase 22, to 3 for phase 23) of ml-1m-hstu-aux, ml-1m-sasrec and ml-1m-hstu with
    `model.sampler.kind=in_batch`, and one of ml-1m-hstu with
    `model.loss.kind=bce`; launch counts as in phase 4 (SASRec launches no
    attention kernel, in-batch and BCE no count or lse: they take the gather
@@ -292,11 +292,11 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    single rows, and the engine call's p50, eager and graphed.
 
 18. The other model families at ml-1m-hstu's width on phase 15's files
-   (movies.dat's titles carry the years): `cli.train` for 10 graphed epochs
-   (CUT_EPOCHS: cut from 30 for phase 22) of ml-1m-hstu with
+   (movies.dat's titles carry the years): `cli.train` for 3 graphed epochs
+   (CUT_EPOCHS) of ml-1m-hstu with
    `model.embedding.kind=item_year` (the fork's own
-   model: 25 + 25 columns) and for 15 (MOL_EPOCHS: cut from 30 in PR 21 for
-   the script's time limit) with `model.similarity.kind=mol` (P = Q = 4,
+   model: 25 + 25 columns) and for 10 (MOL_EPOCHS: cut from 30 to 15, then
+   to 10 for phase 23) with `model.similarity.kind=mol` (P = Q = 4,
    dd = 16, per-group L2, temperature 0.05; the gather loss), one epoch each
    of `model.postprocessor.kind=layer_norm`,
    `model.encoder.normalization=softmax_rel_bias` and ml-1m-sasrec with
@@ -329,8 +329,8 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    Then `cli.train` of ml-1m-hstu on phase 15's files for 30 graphed epochs
    with remat (launch counts as in phase 4, the forwards doubled; test
    ndcg@10 within the JAX package's band 0.037-0.039) and without it at
-   `trainer.seed` 1 and 2 for 10 epochs each (CUT_EPOCHS: cut from 30 in PR
-   22 for phase 22; at least 0.030), printed beside phase 15's run.
+   `trainer.seed` 1 for 3 epochs (CUT_EPOCHS; seed 2's run cut for phase
+   23; at least 0.030), printed beside phase 15's run.
    At 10M items (phase 13's one-card lazy overlay, after two graphed steps):
    a synchronous save and two async ones of the same state, the seconds the
    caller is blocked and until each file has landed, both files read back
@@ -345,8 +345,8 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    kernels' registers (-Xptxas -v) and shared memory at widths 130, 192 and
    256, and rows 1, 2, 4 and 5 at width 256 (rows 4-5 also at 192) against
    their plain versions with the phase 2 checks, timed beside their bounds.
-   (a) `cli.train` of ml-1m-hstu with `model.compute_dtype=bfloat16` for 10
-   graphed epochs (CUT_EPOCHS: cut from 30 for phase 22; launch
+   (a) `cli.train` of ml-1m-hstu with `model.compute_dtype=bfloat16` for 3
+   graphed epochs (CUT_EPOCHS; launch
    counts as in phase 4; test ndcg@10 at least 0.030,
    printed beside phase 15's float32 run), its train step eager and graphed
    side by side, and phase 5's check of one step on the card against the
@@ -414,6 +414,31 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    rtol 1e-5, every gradient and parameter at rtol 2e-4 / atol 2e-5); then
    two epochs of `fit` on each rank: finite losses, and both ranks' val
    metrics and losses equal to the bit. A rank that fails fails the phase.
+23. The "model" axis (parallel/tensor_parallel.py, `ProcessGroupShards`),
+   after phase 22, on synthetic-large-vocab's model at full width with
+   sharded_a2a over 2 shards and `encoder.tp_shards=2`, the catalog cut to
+   1M items and the users to 512 (`MP_ARGS`). (a) The one-card TP form in
+   this process: phase 5's check (the eager loss and every gradient on the
+   card against the CPU, 16 rows), phase 10's check (three graphed steps
+   against three eager ones), and the step eager and graphed side by side
+   (launches as in phase 4: 4 attention forwards and backwards, no count or
+   lse: the gather loss). (b) Two processes of this script (`--mp-rank`)
+   share cuda:0 over gloo, eagerly, as one model group (gloo stages every
+   collective through host memory: a step at 64 rows takes ~8 s): the step
+   over the group on the last batch of 500 users (52 of its 64 rows with a
+   target), dropout off, the offsets handed in, against the one-process
+   step on the same weights (loss at rtol 1e-5; every gradient and
+   parameter in the one-process layout at rtol 2e-4 / atol 2e-5, the bias
+   tables' gradients at 5e-4), its time (one timed step, the first of a
+   fresh process; gloo, two processes on one card, not a multi-card time);
+   one epoch of `fit` on 32 users (cut from 512) in batches of 16 with the
+   int8 sharded index: both ranks' val metrics and
+   losses equal to the bit, the replicated leaves bit-equal across the
+   ranks, and the checkpoint (the one-process layout) loaded in this
+   process giving the same val metrics within 1e-6; and JAX's
+   packed_sharded recipe on ml-1m-hstu-packed (synthetic, 512 users) for
+   two epochs: both ranks equal, the packed eval equal to the unpacked one
+   within 1e-6. A rank that fails fails the phase.
 
 It ends with one JSON line of the kernels' numbers and, last, the line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -421,6 +446,7 @@ It ends with one JSON line of the kernels' numbers and, last, the line
 
 from __future__ import annotations
 
+import collections
 import gc
 import json
 import shutil
@@ -3097,9 +3123,10 @@ SPLIT_PRESETS = ("ml-1m-hstu-muon", "ml-1m-hstu-scion")
 # from a TPU v5e on synthetic ml-1m-shaped data: not numbers of this card
 JAX_SPLIT_NDCG10 = {"ml-1m-hstu-muon": 0.0376, "ml-1m-hstu-scion": 0.0367}
 MIN_SPLIT_NDCG10 = 0.030  # about 80% of the lower of the two
-# cut from 30 (time for phase 22; the 30-epoch numbers are in
-# PERF.md section 5)
-SPLIT_EPOCHS = 10
+# cut from 30 to 10 for phase 22's time and to 3 for phase 23's (the 30-epoch
+# numbers are in PERF.md section 5; at 3 epochs on an H100 at 700 W, test
+# ndcg@10 0.0372 (Scion) and 0.0391 (Muon), PERF.md section 4)
+SPLIT_EPOCHS = 3
 # the split step on the card against the CPU on the same gradients: each Muon
 # / Scion matrix within this share of its own movement (NS-5 in bfloat16, the
 # band tests/test_torch_port_optimizers.py holds the port to JAX with), the
@@ -3308,9 +3335,11 @@ JAX_FAMILY_NDCG10 = {"ml-1m-hstu-aux": 0.0385, "ml-1m-sasrec": 0.0388,
                      "ml-1m-hstu in-batch": 0.0380}
 MIN_FAMILY_NDCG10 = 0.030
 # the families' runs' epochs (aux, SASRec, in-batch; phase 18's item_year and
-# phase 20's bfloat16 run, phase 19's two seeds): cut from 30 for
-# phase 22's time; their 30-epoch numbers are in PERF.md section 5
-CUT_EPOCHS = 10
+# phase 20's bfloat16 run, phase 19's seed run): cut from 30 to 10 for phase
+# 22's time and to 3 for phase 23's; their 30-epoch numbers are in PERF.md
+# section 5 (at 3 epochs on an H100 at 700 W, test ndcg@10 0.0363-0.0393,
+# PERF.md section 4)
+CUT_EPOCHS = 3
 
 
 def family_args(run: tuple, root: Path) -> list:
@@ -3534,9 +3563,11 @@ def serve_against_cpu(card: str, label: str, argv: list) -> None:
 ITEM_YEAR_RUN = ("ml-1m-hstu item_year", "ml-1m-hstu", ["model.embedding.kind=item_year"], 2, 1)
 # MoL's negative logits are no dot products: it takes the gather loss (no count, no lse)
 MOL_RUN = ("ml-1m-hstu mol", "ml-1m-hstu", ["model.similarity.kind=mol"], 2, 0)
-# the MoL run's depth cut (PR 21, the script's time limit): 15 of the recipe's
-# 30 epochs (~40 ms a step; PR 18 measured its 30-epoch numbers)
-MOL_EPOCHS = 15
+# the MoL run's depth cut (the script's time limit): 10 of the recipe's 30
+# epochs (~40 ms a step; its 30-epoch numbers are in PERF.md section 5; ranked
+# by MoL, test ndcg@10 0.03895 at 15 epochs and 0.03712 at 10 on an H100 at
+# 700 W, PERF.md section 4)
+MOL_EPOCHS = 10
 # the loss divides MoL's logits by two temperatures (0.05 x 0.05): its gradients
 # reach ~10-30, and an entry sums ~B*T terms of that size, so float32 sums in
 # another order move the small entries by ~1e-6 of the largest (the CPU tests'
@@ -3677,7 +3708,9 @@ REMAT_RTOL, REMAT_ATOL = 1e-5, 1e-6
 # the JAX package's 30-epoch test ndcg@10 band of ml-1m-hstu (PARITY.md, "Recipe
 # validation"), from a TPU v5e on synthetic ml-1m-shaped data: not this card's
 JAX_NDCG10_BAND = (0.037, 0.039)
-SEED_RUNS = (1, 2)  # trainer.seed of the two more ml-1m-hstu runs (the preset's is 42)
+# trainer.seed of one more ml-1m-hstu run (the preset's is 42); cut from two
+# seeds (1, 2) for phase 23
+SEED_RUNS = (1,)
 REMAT_RUN = ("ml-1m-hstu remat", "ml-1m-hstu", ["model.encoder.remat=true"], 2, 1)
 # the kernels a profiled ml-1m-hstu step must show in its trace, by the
 # substrings of their names
@@ -3819,7 +3852,7 @@ def remat_ring_step(kc: Counts, card: str) -> None:
 
 def ml1m_remat_and_seeds(kc: Counts, card: str, ml1m: dict) -> dict:
     """ml-1m-hstu from phase 15's files for 30 graphed epochs with
-    `encoder.remat=true`, and without it at two more seeds. -> launch counts."""
+    `encoder.remat=true`, and without it at one more seed. -> launch counts."""
     total, out = None, OUT_DIR / "variants"
     base = ml1m["test"]["test/ndcg@10"]
     counts, remat, _ = train_family(kc, card, REMAT_RUN, 30, ml1m["root"], out, "remat path")
@@ -3836,7 +3869,7 @@ def ml1m_remat_and_seeds(kc: Counts, card: str, ml1m: dict) -> dict:
     log(f"ml-1m-hstu, 30 graphed epochs on {card}, test ndcg@10: encoder.remat=true {got:.5f} "
         f"beside no remat {base:.5f} (phase 15, seed 42); seeds ({CUT_EPOCHS} epochs) "
         + ", ".join(f"{s}: {v:.5f}" for s, v in seeds.items())
-        + f"; three seeds {np.mean([base, *seeds.values()]):.5f} +- "
+        + f"; {1 + len(seeds)} seeds {np.mean([base, *seeds.values()]):.5f} +- "
         f"{np.std([base, *seeds.values()]):.5f} (the JAX package's band "
         f"{JAX_NDCG10_BAND[0]}-{JAX_NDCG10_BAND[1]}: TPU v5e, synthetic ml-1m-shaped data)")
     check(JAX_NDCG10_BAND[0] <= got <= JAX_NDCG10_BAND[1],
@@ -4634,6 +4667,63 @@ def params_gap(got: dict, want: dict, names=None) -> tuple:
     return worst, where, bits
 
 
+def port_counts() -> Counts:
+    """The launch counters of the port's kernel wrappers and its graphs."""
+    from mygenerativerecommenders_tpu_torch.ops.kernels import (
+        count_offsets,
+        dense_neg_lse,
+        hstu_attention,
+        hstu_chunk,
+    )
+    from mygenerativerecommenders_tpu_torch.train import graphs
+
+    return Counts(hstu_attention, count_offsets, dense_neg_lse, hstu_chunk, graphs)
+
+
+def launch_ranks(phase: str, flag: str, job_path: Path, world: int = 2,
+                 timeout: float = 600) -> list:
+    """`world` processes of this script (`flag` and the job's path), each
+    with torchrun's environment, sharing cuda:0; wait for them (killed past
+    `timeout`); a rank that fails fails the phase. -> each rank's results
+    (`<job>.rank<r>.pt`)."""
+    import os
+
+    port, procs = str(free_port()), []
+    for rank in range(world):
+        env = dict(os.environ, RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
+                   MASTER_ADDR="localhost", MASTER_PORT=port, PYTHONPATH=str(HERE))
+        with open(job_path.parent / f"rank{rank}.log", "w") as out:
+            procs.append(subprocess.Popen(
+                [sys.executable, str(HERE / "chip_smoke.py"), flag, str(job_path)],
+                cwd=str(HERE), env=env, stdout=out, stderr=subprocess.STDOUT))
+    try:
+        for p in procs:
+            p.wait(timeout=timeout)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for rank, p in enumerate(procs):
+        text = (job_path.parent / f"rank{rank}.log").read_text()
+        check(p.returncode == 0, f"{phase}: rank {rank} failed:\n{text[-3000:]}")
+    return [torch.load(f"{job_path}.rank{r}.pt", weights_only=False) for r in range(world)]
+
+
+def compare_step(label: str, rank: int, got: dict, want: dict, bias_rtol: float = RTOL) -> dict:
+    """Hold a rank's step to the one-process step: the loss at rtol 1e-5,
+    every gradient and parameter at RTOL / ATOL (a bias table's gradient at
+    `bias_rtol`). -> {(part, name): the largest gap}."""
+    check(abs(got["loss"] - want["loss"]) <= 1e-5 * abs(want["loss"]),
+          f"{label}: rank {rank}'s loss {got['loss']} vs {want['loss']}")
+    gaps = {}
+    for part in ("grads", "params"):
+        for name, w in want[part].items():
+            rtol = bias_rtol if part == "grads" and "_rel_attn_bias" in name else RTOL
+            ok, gaps[part, name] = within(got[part][name], w, rtol, ATOL)
+            check(ok, f"{label}: rank {rank}'s {part[:-1]} {name} off by {gaps[part, name]:.3e}")
+    return gaps
+
+
 def nccl_world_one(kc: Counts, card: str, label: str, args: list, batches_of) -> dict:
     """Phase 22 (a) on one recipe: DP_STEPS graphed steps of a trainer with
     `trainer.distributed=true` (NCCL, world size 1, the all-reduces inside
@@ -4914,8 +5004,6 @@ def two_processes_on_the_card(card: str) -> None:
     eagerly; each job's step equals the one-process step over the global
     batch (gradients and parameters at the kernel tolerances), then both
     ranks' val metrics after two epochs are equal to the bit."""
-    import os
-
     job_dir = OUT_DIR / "dp2"
     shutil.rmtree(job_dir, ignore_errors=True)
     job_dir.mkdir(parents=True)
@@ -4924,37 +5012,13 @@ def two_processes_on_the_card(card: str) -> None:
         jobs[label], wants[label] = two_process_job(label, base, job_dir)
     job_path = job_dir / "job.pt"
     torch.save(jobs, job_path)
-    port = str(free_port())
-    procs = []
-    for rank in (0, 1):
-        env = dict(os.environ, RANK=str(rank), WORLD_SIZE="2", LOCAL_RANK=str(rank),
-                   MASTER_ADDR="localhost", MASTER_PORT=port, PYTHONPATH=str(HERE))
-        with open(job_dir / f"rank{rank}.log", "w") as out:
-            procs.append(subprocess.Popen(
-                [sys.executable, str(HERE / "chip_smoke.py"), "--dp-rank", str(job_path)],
-                cwd=str(HERE), env=env, stdout=out, stderr=subprocess.STDOUT))
-    try:
-        for p in procs:
-            p.wait(timeout=600)
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-    for rank, p in enumerate(procs):
-        text = (job_dir / f"rank{rank}.log").read_text()
-        check(p.returncode == 0, f"phase 22 (b): rank {rank} failed:\n{text[-3000:]}")
-    ranks = [torch.load(f"{job_path}.rank{r}.pt", weights_only=False) for r in (0, 1)]
+    ranks = launch_ranks("phase 22 (b)", "--dp-rank", job_path)
     for label, want in wants.items():
         worst = {}
         for rank in (0, 1):
-            got = ranks[rank][label]["step"]
-            check(abs(got["loss"] - want["loss"]) <= 1e-5 * abs(want["loss"]),
-                  f"{label}: rank {rank}'s loss {got['loss']} vs {want['loss']}")
-            for part in ("grads", "params"):
-                for name, w in want[part].items():
-                    ok, err = within(got[part][name], w, RTOL, ATOL)
-                    check(ok, f"{label}: rank {rank}'s {part[:-1]} {name} off by {err:.3e}")
-                    worst[part] = max(worst.get(part, 0.0), err)
+            for (part, _), err in compare_step(label, rank, ranks[rank][label]["step"],
+                                               want).items():
+                worst[part] = max(worst.get(part, 0.0), err)
         a, b = (ranks[r][label] for r in (0, 1))
         check(a["val"] == b["val"] and bool(a["val"]), f"{label}: the ranks' val metrics differ")
         check(a["losses"] == b["losses"] and bool(np.all(np.isfinite(a["losses"]))),
@@ -5000,6 +5064,270 @@ def run_data_parallel_path(kc: Counts, card: str) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------- phase 23
+
+# synthetic-large-vocab's model at full width with its table over 2 shards and
+# TP over 2, the catalog cut to 1M items and the users to 512
+MP_ARGS = ["experiment=synthetic-large-vocab", "model.embedding.num_shards=2",
+           "model.encoder.tp_shards=2", "data.expected_max_item_id=1000000",
+           "data.expected_num_unique_items=1000000", "data.synthetic_num_users=512"]
+# (b) over gloo, whose every collective is staged through host memory (a
+# step at batch 64 took 8.2 s: its gather loss's 6.9M rows cross the
+# exchange): the step on 500 users' last batch (52 of its 64 rows with a
+# target; at 16 rows AdamW's first step turned the float noise of the
+# gradients near zero into parameter gaps past atol 2e-5), timed (one step,
+# the first of a fresh process); one epoch of `fit` on 32 users in batches of
+# 16 (cut from 512 users: at ~3 s a 16-row step over gloo, 32 steps)
+MP_CPU_ROWS = 16  # rows of (a)'s card-against-CPU batch: the CPU side's depth cut
+MP_STEP_ARGS = MP_ARGS + ["data.synthetic_num_users=500"]
+MP_FIT_ARGS = MP_ARGS + ["data.batch_size=16", "data.synthetic_num_users=32",
+                         "trainer.max_epochs=1", "trainer.min_epochs=1"]
+# JAX's packed_sharded recipe (tests/distributed_worker.py) on ml-1m-hstu-packed
+MP_PACKED = ["experiment=ml-1m-hstu-packed", "data.dataset_name=synthetic",
+             "data.pack_eval=true", "model.embedding.kind=sharded_a2a",
+             "model.embedding.num_shards=2", "model.index.sharded=true",
+             "trainer.steps_per_call=2", "trainer.mesh_data_innermost=true",
+             "data.synthetic_num_users=512", "trainer.max_epochs=2", "trainer.min_epochs=1"]
+
+
+def placed_grads(model) -> dict:
+    """Every parameter's gradient in the one-process layout (a placed block's
+    gathered over the mesh)."""
+    from mygenerativerecommenders_tpu_torch.parallel.tensor_parallel import (
+        full_tensor,
+        mesh_groups,
+    )
+
+    placements = getattr(model, "placements", {})
+    groups = mesh_groups() if placements else None
+    return {n: (full_tensor(p.grad, placements[n], groups) if n in placements else p.grad)
+            .detach().cpu().clone() for n, p in model.named_parameters()}
+
+
+def one_device_tp(kc: Counts, card: str, data) -> tuple:
+    """Phase 23 (a): the one-device TP form (no group) on the card: phase 5's
+    check of the loss and gradients against the CPU on 16 rows, phase 10's
+    check of three graphed steps against three eager ones, and the step
+    eager and graphed side by side; then the one-process step on (b)'s
+    batch that (b)'s ranks are held to. -> (the side-by-side's
+    launches, that step, its job, the side-by-side's numbers)."""
+    from mygenerativerecommenders_tpu_torch.cli import train as cli_train
+    from mygenerativerecommenders_tpu_torch.train.driver import Trainer
+    from mygenerativerecommenders_tpu_torch.train.task_retrieval import loss_variant, make_loss_fn
+
+    cfg = cli_train.parse_args(MP_ARGS)
+    check(cfg.model.encoder.tp_shards == 2 and cfg.model.embedding.kind == "sharded_a2a",
+          "not the TP layout")
+    from mygenerativerecommenders_tpu_torch.configs import resolve
+    resolve(cfg, data.max_item_id)
+    check(loss_variant(cfg, len(data.all_item_ids)) == "gather", "not the gather loss")
+    batch = {k: v[:MP_CPU_ROWS] for k, v in next(iter(data.loader("train"))).items()}
+    n = batch["ids"].shape[1] + cfg.model.gr_output_length
+    offsets = torch.randint(0, len(data.all_item_ids),
+                            (batch["ids"].shape[0], n, cfg.model.loss.num_to_sample),
+                            generator=torch.Generator().manual_seed(3), dtype=torch.int32)
+    compare_card_and_cpu(
+        f"synthetic-large-vocab with tp_shards=2 on one device and sharded_a2a over 2 shards "
+        f"at {len(data.all_item_ids):,} items, {batch['ids'].shape[0]} rows", cfg, batch,
+        lambda model, b, device: make_loss_fn(model, cfg, data.all_item_ids)(
+            b, neg_offsets=offsets.to(device)))
+    graphed_against_eager([("synthetic-large-vocab tp_shards=2 on one device", MP_ARGS,
+                            [None])], data=data)
+
+    trainer = Trainer(cli_train.parse_args(MP_ARGS + ["trainer.steps_per_call=8",
+                                                      f"trainer.output_dir={OUT_DIR / 'mp1'}"]),
+                      data=data)
+    trainer.model.train()
+    batches = [trainer._put(b) for _, b in zip(range(4), data.loader("train"))]
+    blocks = trainer.cfg.model.encoder.num_blocks
+    kc.reset()
+    eager_and_graphed(kc, {
+        "eager": lambda i: trainer.train_step(batches[i % 4], trainer.lr1),
+        "graphed": lambda i: trainer.train_steps([batches[i % 4]], trainer.lr1),
+    }, "synthetic-large-vocab tp_shards=2, sharded_a2a over 2 shards, one device, train step",
+        kc.per_step(blocks, 0, lse=0), trainer.train_steps.graphs, card, reps=3)
+    counts = kc.read()
+    check(counts[kc.attn.KERNEL] > 0 and counts[kc.attn.KERNEL_BWD] > 0,
+          "the one-device TP step launched no attention kernel")
+    del trainer, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the one-process step (b)'s two ranks are held to: the epoch's last
+    # batch (its tail of rows without a target), dropout off, drawn offsets;
+    # every parameter's largest gap logged
+    one = Trainer(cli_train.parse_args(MP_STEP_ARGS + DP_DROPOUT_OFF + [
+        f"trainer.output_dir={OUT_DIR / 'mp1'}"]))
+    host = list(one.data.loader("train"))[-1]
+    check(0 < int(host["sample_weight"].sum()) < len(host["ids"]), "the last batch has no tail")
+    cols = host["ids"].shape[1] + one.cfg.model.gr_output_length
+    offsets = torch.randint(0, len(one.all_item_ids),
+                            (host["ids"].shape[0], cols, one.cfg.model.loss.num_to_sample),
+                            generator=torch.Generator().manual_seed(23), dtype=torch.int32)
+    one.model.train()
+    loss = one.train_step(one._put(host), one.lr1, neg_offsets=offsets.cuda())
+    want = {"loss": float(loss), "grads": placed_grads(one.model),
+            "params": {n: p.detach().cpu().clone() for n, p in one.model.named_parameters()}}
+    job = {"batch": host, "offsets": offsets, "rows": int(host["sample_weight"].sum()),
+           "of": len(host["ids"])}
+    del one
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, want, job
+
+
+def mp_rank_main(job_path: str) -> int:
+    """One rank of phase 23 (b), launched by the phase with torchrun's
+    environment, sharing cuda:0 over gloo, eagerly: the step over the model
+    group (2 shards, TP over 2) on the job's batch and offsets, timed;
+    then one epoch of `fit` with the int8 sharded index, and two of JAX's
+    packed_sharded recipe; each run's kernel launches, counted from 0 just
+    before it. The results into `<job>.rank<r>.pt`."""
+    import os
+
+    from mygenerativerecommenders_tpu_torch.cli import train as cli_train
+    from mygenerativerecommenders_tpu_torch.parallel import process_group
+    from mygenerativerecommenders_tpu_torch.parallel.tensor_parallel import full_state_dict
+    from mygenerativerecommenders_tpu_torch.train.driver import Trainer
+
+    rank = int(os.environ["RANK"])
+    job = torch.load(job_path, weights_only=False)
+    ports = iter(job["ports"])
+    rank_args = ["trainer.device=cuda:0", "trainer.distributed=true"]
+    kc, out = port_counts(), {}
+
+    os.environ["MASTER_PORT"] = str(next(ports))
+    trainer = Trainer(cli_train.parse_args(MP_STEP_ARGS + DP_DROPOUT_OFF + rank_args + [
+        f"trainer.output_dir={OUT_DIR / 'mp2' / 'step'}"]), backend="gloo")
+    check(trainer.dp.model_size == 2 and trainer.dp.size == 1, "not a model group of 2")
+    trainer.model.train()
+    batch = trainer._put(job["batch"])
+    offsets = job["offsets"].cuda()
+    # the groups' connections made before the timed step
+    trainer.dp.model.psum(torch.zeros(1, 1, device=offsets.device))
+    kc.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss = trainer.train_step(batch, trainer.lr1, neg_offsets=offsets)
+    torch.cuda.synchronize()
+    # one timed step, the checked one: the first of this process
+    out["step_ms"], out["step_counts"] = 1e3 * (time.perf_counter() - t0), kc.read()
+    out["step"] = {"loss": float(loss), "grads": placed_grads(trainer.model),
+                   "params": {k: v.cpu() for k, v in full_state_dict(trainer.model).items()}}
+    del trainer
+    process_group.shutdown()
+
+    for label, args in (("fit", MP_FIT_ARGS), ("packed", MP_PACKED)):
+        os.environ["MASTER_PORT"] = str(next(ports))
+        trainer = Trainer(cli_train.parse_args(args + rank_args + [
+            f"trainer.output_dir={OUT_DIR / 'mp2' / label}"]), backend="gloo")
+        losses = []
+        train_epoch = trainer.train_epoch
+        trainer.train_epoch = lambda loader: losses.append(train_epoch(loader)) or losses[-1]
+        kc.reset()
+        t0 = time.perf_counter()
+        val = trainer.fit()
+        res = {"val": val, "losses": losses, "s": time.perf_counter() - t0,
+               "counts": kc.read()}
+        trainer.dp.check_replicas(trainer.model.named_parameters())
+        if trainer._eval_packed:
+            res["val_unpacked"] = trainer.eval_epoch(trainer._loader("val"), "val")
+        out[label] = res
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+        process_group.shutdown()
+    torch.save(out, f"{job_path}.rank{rank}.pt")
+    return 0
+
+
+def model_axis_on_the_card(card: str, want: dict, job: dict) -> dict:
+    """Phase 23 (b): two processes of this script share cuda:0 over gloo,
+    eagerly, a model group of 2. -> the ranks' kernel launches."""
+    from mygenerativerecommenders_tpu_torch.cli import train as cli_train
+    from mygenerativerecommenders_tpu_torch.train.driver import Trainer
+
+    job_dir = OUT_DIR / "mp2"
+    shutil.rmtree(job_dir, ignore_errors=True)
+    job_dir.mkdir(parents=True)
+    ports = set()
+    while len(ports) < 3:
+        ports.add(free_port())
+    job_path = job_dir / "job.pt"
+    torch.save(dict(job, ports=sorted(ports)), job_path)
+    ranks = launch_ranks("phase 23 (b)", "--mp-rank", job_path)
+    worst = {}
+    for rank in (0, 1):
+        gaps = compare_step("phase 23 (b)", rank, ranks[rank]["step"], want, BIAS_RTOL)
+        for (part, _), err in gaps.items():
+            worst[part] = max(worst.get(part, 0.0), err)
+        log(f"  rank {rank}'s largest gaps to the one-process step: " + ", ".join(
+            f"{part[:-1]} {name.split('_attention_layers.')[-1]} {err:.2e}"
+            for (part, name), err in gaps.items()))
+    a, b = ranks
+    for label in ("fit", "packed"):
+        check(bool(a[label]["val"]) and a[label]["val"] == b[label]["val"],
+              f"phase 23 (b) {label}: the ranks' val metrics differ")
+        check(a[label]["losses"] == b[label]["losses"]
+              and bool(np.all(np.isfinite(a[label]["losses"]))),
+              f"phase 23 (b) {label}: the ranks' losses {a[label]['losses']} {b[label]['losses']}")
+    for key, value in a["packed"]["val_unpacked"].items():
+        check(abs(a["packed"]["val"][key] - value) < 1e-6,
+              f"phase 23 (b): the packed eval's {key} {a['packed']['val'][key]} vs the "
+              f"unpacked {value}")
+    # the two-rank checkpoint in one process: the val metrics of its weights
+    one = Trainer(cli_train.parse_args(MP_FIT_ARGS + [f"trainer.output_dir={OUT_DIR / 'mp1'}"]))
+    one.load_weights(job_dir / "fit" / "synthetic-large-vocab" / "checkpoints" / "last.pt")
+    val_one = one.eval_epoch(one._loader("val"), "val")
+    del one
+    gc.collect()
+    torch.cuda.empty_cache()
+    gap = max(abs(val_one[k] - v) for k, v in a["fit"]["val"].items())
+    check(val_one.keys() == a["fit"]["val"].keys() and gap <= 1e-6,
+          f"phase 23 (b): the checkpoint's val metrics in one process {val_one} vs the ranks' "
+          f"{a['fit']['val']}")
+    log(f"phase 23 (b) on {card} (gloo, two processes on one card, not a multi-card time): "
+        f"the model-group step (2 shards, TP over 2) on a batch of {job['of']} rows "
+        f"({job['rows']} with a target) against the one-process step: loss "
+        f"{a['step']['loss']:.6f} vs {want['loss']:.6f}, largest gradient gap "
+        f"{worst['grads']:.3e}, parameters {worst['params']:.3e} (rtol {RTOL} / atol {ATOL}, "
+        f"bias tables {BIAS_RTOL}); one timed step (the first of a fresh process) "
+        f"{a['step_ms']:.2f} | {b['step_ms']:.2f} ms (rank 0 | 1; gloo, two processes on one "
+        f"card, not a multi-card time); "
+        f"one epoch on 32 users with the int8 sharded index in {a['fit']['s']:.1f} s, val on both ranks "
+        + ", ".join(f"{k}={v:.5f}" for k, v in a["fit"]["val"].items())
+        + f", the checkpoint in one process within {gap:.1e}; packed_sharded on "
+        f"ml-1m-hstu-packed (synthetic, 512 users), two epochs in {a['packed']['s']:.1f} s, "
+        f"losses {[round(x, 5) for x in a['packed']['losses']]}, packed eval = unpacked within "
+        f"1e-6; launches rank 0: step {a['step_counts']}, fit {a['fit']['counts']}, packed "
+        f"{a['packed']['counts']}")
+    totals = collections.Counter()
+    for r in ranks:
+        for shape, counts in (("large", r["step_counts"]), ("large", r["fit"]["counts"]),
+                              ("packed", r["packed"]["counts"])):
+            totals.update({(shape, k): v for k, v in counts.items()})
+    return dict(totals)
+
+
+def run_model_axis_path(kc: Counts, card: str) -> dict:
+    """Phase 23: (a) the one-device TP form in this process; (b) two processes
+    on the card over gloo, a model group of 2. -> {"one_device": (a)'s
+    launches, "ranks": (b)'s, by ("large" | "packed", kernel)}."""
+    from mygenerativerecommenders_tpu_torch.cli import train as cli_train
+    from mygenerativerecommenders_tpu_torch.data.dataset import RecoData
+
+    t0 = time.perf_counter()
+    cfg = cli_train.parse_args(MP_ARGS)
+    data = RecoData(cfg.data, seed=cfg.trainer.seed)
+    counts, want, job = one_device_tp(kc, card, data)
+    del data
+    t1 = time.perf_counter()
+    ranks = model_axis_on_the_card(card, want, job)
+    log(f"phase 23 took {time.perf_counter() - t0:.1f} s: (a) {t1 - t0:.1f}, (b) "
+        f"{time.perf_counter() - t1:.1f}")
+    return {"one_device": counts, "ranks": ranks}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on an NVIDIA card",
@@ -5008,6 +5336,8 @@ def main() -> int:
     sys.path.insert(0, str(HERE))
     if sys.argv[1:2] == ["--dp-rank"]:  # a rank of phase 22 (b), started by the phase
         return dp_rank_main(sys.argv[2])
+    if sys.argv[1:2] == ["--mp-rank"]:  # a rank of phase 23 (b), started by the phase
+        return mp_rank_main(sys.argv[2])
     import mygenerativerecommenders_tpu_torch as port
     from mygenerativerecommenders_tpu_torch.ops.kernels import _build
     from mygenerativerecommenders_tpu_torch.ops.kernels import count_offsets as count_kern
@@ -5224,6 +5554,17 @@ def main() -> int:
     torch.cuda.empty_cache()
     dp = run_data_parallel_path(kc, kind)
     dp_both = (dp["synthetic-hstu"], dp["long"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    mp = run_model_axis_path(kc, kind)
+    # phase 23: (a)'s one-device steps and (b)'s ranks at shape V; (b)'s
+    # packed_sharded ranks at ml-1m width (rows 1-4 and 6)
+    mp_v = {k: mp["one_device"].get(k, 0) + mp["ranks"].get(("large", k), 0)
+            for k in (kern.KERNEL, kern.KERNEL_BWD)}
+    mp_packed = {k: mp["ranks"].get(("packed", k), 0) for k in (
+        kern.KERNEL, kern.KERNEL_BWD, count_kern.KERNEL, lse_kern.KERNEL, lse_kern.KERNEL_BWD)}
+    check(all(mp_packed.values()) and all(mp_v.values()),
+          f"phase 23 launched a kernel of its path no time: {mp_v} {mp_packed}")
 
     # no PyTorch call computes HSTU's silu attention with this bias, its
     # backward, or a count-weighted log-sum-exp over a matrix product that is
@@ -5244,13 +5585,13 @@ def main() -> int:
              launches=serving_launches + sum(c[kern.KERNEL] for c in (
                  train_counts, long_counts, real_ml1m, real_others, split_counts,
                  family_counts, other_counts, variant_counts, bf16_counts,
-                 sharded["kinds_counts"], *dp_both)),
+                 sharded["kinds_counts"], *dp_both)) + mp_packed[kern.KERNEL],
              library_ms=None, **serving),
         dict(name=kern.KERNEL_BWD, source=kern.SOURCE_BWD, replaces=kern.REPLACES_BWD,
              launches=sum(c[kern.KERNEL_BWD] for c in (
                  train_counts, long_counts, real_ml1m, real_others, split_counts,
                  family_counts, other_counts, variant_counts, bf16_counts,
-                 sharded["kinds_counts"], *dp_both)),
+                 sharded["kinds_counts"], *dp_both)) + mp_packed[kern.KERNEL_BWD],
              library_ms=None, **attn_bwd),
         # rows 1-2 at the ranking shape R; their launches are the ranking run's
         dict(name=kern.KERNEL + " (ranking shape R)", source=kern.SOURCE,
@@ -5263,20 +5604,20 @@ def main() -> int:
         # phase 13's (cli.train and the engine calls)
         dict(name=kern.KERNEL + " (large-vocab shape V)", source=kern.SOURCE,
              replaces=kern.REPLACES,
-             launches=large_counts[kern.KERNEL] + sharded["shipped_counts"][kern.KERNEL],
-             library_ms=None, **large_fwd),
+             launches=large_counts[kern.KERNEL] + sharded["shipped_counts"][kern.KERNEL]
+             + mp_v[kern.KERNEL], library_ms=None, **large_fwd),
         dict(name=kern.KERNEL_BWD + " (large-vocab shape V)", source=kern.SOURCE_BWD,
              replaces=kern.REPLACES_BWD,
-             launches=large_counts[kern.KERNEL_BWD] + sharded["shipped_counts"][kern.KERNEL_BWD],
-             library_ms=None, **large_bwd),
+             launches=large_counts[kern.KERNEL_BWD] + sharded["shipped_counts"][kern.KERNEL_BWD]
+             + mp_v[kern.KERNEL_BWD], library_ms=None, **large_bwd),
         dict(name=count_kern.KERNEL, source=count_kern.SOURCE, replaces=count_kern.REPLACES,
              launches=sum(c[count_kern.KERNEL] for c in (
-                 train_counts, long_counts, ring_counts, real_others, *dp_both)),
-             **counted),
+                 train_counts, long_counts, ring_counts, real_others, *dp_both))
+             + mp_packed[count_kern.KERNEL], **counted),
         dict(name=lse_kern.KERNEL, source=lse_kern.SOURCE, replaces=lse_kern.REPLACES,
              launches=sum(c[lse_kern.KERNEL] for c in (
-                 train_counts, long_counts, ring_counts, real_others, *dp_both)),
-             library_ms=None, **lse_fwd),
+                 train_counts, long_counts, ring_counts, real_others, *dp_both))
+             + mp_packed[lse_kern.KERNEL], library_ms=None, **lse_fwd),
         dict(name=lse_kern.KERNEL_BWD, source=lse_kern.SOURCE, replaces=lse_kern.REPLACES_BWD,
              launches=train_counts[lse_kern.KERNEL_BWD] + dp["synthetic-hstu"][lse_kern.KERNEL_BWD],
              library_ms=None, **lse_bwd),
@@ -5307,8 +5648,8 @@ def main() -> int:
         dict(name=lse_kern.KERNEL_BWD + " (wide catalog)", source=lse_kern.SOURCE,
              replaces=lse_kern.REPLACES_WIDE,
              launches=sum(c[lse_kern.KERNEL_BWD] for c in (
-                 long_counts, ring_counts, real_others, dp["long"])),
-             library_ms=None, **lse_bwd_wide),
+                 long_counts, ring_counts, real_others, dp["long"]))
+             + mp_packed[lse_kern.KERNEL_BWD], library_ms=None, **lse_bwd_wide),
         # rows 7-8: the same entry points with a sup_off pointer; nothing on
         # the paths calls fused_dense_neg_lse (nor does the JAX package)
         dict(name=lse_kern.KERNEL + " (fused_dense_neg_lse, sup_off)", source=lse_kern.SOURCE,

@@ -269,8 +269,11 @@ def check_state_dict(model: torch.nn.Module, state: Mapping[str, Any]) -> None:
 
 def load_weights(model: torch.nn.Module, path: str, map_location: Any = "cpu") -> None:
     """`load_checkpoint(path)` into `model` (a fork's year table fitted by
-    `fit_reference_state`), every key and shape checked."""
-    state = fit_reference_state(model, load_checkpoint(path, map_location))
+    `fit_reference_state`; a model placed over a process group takes its
+    blocks of it, parallel/tensor_parallel.py), every key and shape checked."""
+    from mygenerativerecommenders_tpu_torch.parallel.tensor_parallel import local_state_dict
+
+    state = local_state_dict(model, fit_reference_state(model, load_checkpoint(path, map_location)))
     check_state_dict(model, state)
     model.load_state_dict(state)
 
@@ -310,11 +313,17 @@ class CheckpointManager:
         epoch: int,
         metric_value: Optional[float] = None,
         extra: Optional[Dict[str, Any]] = None,
+        model_state: Optional[Dict[str, Any]] = None,
+        optimizer_state: Optional[Dict[str, Any]] = None,
     ) -> None:
+        """`model_state` and `optimizer_state`, where given, are written in
+        place of the model's and the optimizer's own `state_dict()` (a
+        placed model's gathered into the one-process layout,
+        parallel/tensor_parallel.py)."""
         self.flush()
         state = {
-            "model": model.state_dict(),
-            "optimizer": optimizer.state_dict(),
+            "model": model.state_dict() if model_state is None else model_state,
+            "optimizer": optimizer.state_dict() if optimizer_state is None else optimizer_state,
             "step": step,
             "epoch": epoch,
             "monitor": self.monitor,

@@ -36,7 +36,7 @@ def main(argv: Optional[list[str]] = None) -> str:
         raise ValueError(
             f"{len(predictions['top_k_ids'])} predictions for {len(rows)} sequence rows"
         )
-    if trainer.dp is not None and trainer.dp.rank != 0:
+    if trainer.dp is not None and trainer.dp.world_rank != 0:
         return ""  # every rank gathered the same rows; rank 0 writes them
     columns = list(predictions)
     for row, *values in zip(rows, *(predictions[c] for c in columns)):

@@ -15,7 +15,11 @@ override it raises. Data parallel over processes, one card each:
       experiment=synthetic-hstu trainer.distributed=true
 
 (parallel/process_group.py; with `trainer.device=cpu` the ranks run on the
-CPU over gloo).
+CPU over gloo). The world is data x model x col: a sharded kind's
+`model.embedding.num_shards` or `model.encoder.tp_shards` sizes the model
+axis and sharded_2d's `col_shards` the col axis, so N must be a multiple of
+their product (4 processes of `num_shards=2 tp_shards=2` train 2 data
+indices of a 2-rank model group each).
 """
 
 from __future__ import annotations

@@ -4,12 +4,16 @@
 the fork's split: half an item table, half a table indexed by each item's
 release year. Row 0 of each table is the padding row and starts at zero.
 
-The sharded kinds (`embedding.kind=sharded_*`) hold one `nn.Parameter` at
-JAX's full table shape under the same key, `_item_emb.weight`, and look up
-through the shard bodies of parallel/embedding_sharding.py, their shards run
-in turn on this one device; each shard's table is a view of the parameter
-(rows: `weight.view(R, V/R, D)`, columns: a column slice), so fused AdamW,
-the step's CUDA graph and the checkpoints see one tensor:
+The sharded kinds (`embedding.kind=sharded_*`) hold one `nn.Parameter`
+under the same key, `_item_emb.weight`, and look up through the shard bodies
+of parallel/embedding_sharding.py over a shard group. On one device the
+group is `OneDeviceShards`, the parameter has JAX's full table shape and
+each shard's table is a view of it (rows: `weight.view(R, V/R, D)`, columns:
+a column slice), so fused AdamW, the step's CUDA graph and the checkpoints
+see one tensor. Over a process group (`place`, from
+parallel/tensor_parallel.py:place_model) the parameter is the rank's own
+block of the table, its rows (columns, or row x column block), and the
+group a `ProcessGroupShards` of the model (and col) axis:
 
 - `ShardedLocalEmbedding`: row shards, the psum lookup;
 - `ShardedA2AEmbedding`: row shards, the owner-routed exchange of each
@@ -138,9 +142,13 @@ class ShardedLocalEmbedding(nn.Module):
         self._item_emb = _padded_table(vocab, item_embedding_dim, init_std, generator,
                                        drawn=num_items + 1)
 
+    def place(self, shards, cols=None) -> None:
+        """Run over `shards` (and `cols`), the parameter already the rank's block."""
+        self.shards = shards
+
     def tables(self) -> torch.Tensor:
-        r = self.shards.size
-        return self._item_emb.weight.view(r, -1, self.item_embedding_dim)
+        """[local, V/R, D]: the held shards' rows."""
+        return self._item_emb.weight.view(self.shards.local, -1, self.item_embedding_dim)
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
         out = self.shards.gather_psum(self.tables(), ids.reshape(-1))
@@ -166,7 +174,8 @@ class ShardedA2AEmbedding(ShardedLocalEmbedding):
         flat = torch.nn.functional.pad(flat, (0, -n % r))
         chunk = flat.shape[0] // r
         cap = a2a_capacity(chunk, r, self.capacity_factor)
-        rows = owner_routed_lookup_sliced(self.shards, tables, flat.view(r, chunk), cap=cap)
+        mine = self.shards.own(flat.view(r, chunk))  # the held shards' slices
+        rows = owner_routed_lookup_sliced(self.shards, tables, mine, cap=cap)
         return self.shards.all_gather(rows, dim=0)[:n]
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
@@ -188,6 +197,9 @@ class ColumnShardedLocalEmbedding(nn.Module):
         self.item_embedding_dim = item_embedding_dim
         self.shards = OneDeviceShards(num_shards)
         self._item_emb = _padded_table(num_items + 1, item_embedding_dim, init_std, generator)
+
+    def place(self, shards, cols=None) -> None:
+        self.shards = shards
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
         out = column_lookup(self.shards, self._item_emb.weight, ids.reshape(-1))
@@ -213,9 +225,13 @@ class Sharded2DEmbedding(ShardedA2AEmbedding):
                          init_std, generator)
         self.cols = OneDeviceShards(col_shards)
 
+    def place(self, shards, cols=None) -> None:
+        self.shards, self.cols = shards, cols
+
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
-        r, c = self.shards.size, self.cols.size
-        tables = self._item_emb.weight.view(r, -1, c, self.item_embedding_dim // c)
+        weight = self._item_emb.weight
+        c = self.cols.local
+        tables = weight.view(self.shards.local, -1, c, weight.shape[1] // c)
         rows = self._route(tables, ids)  # [n, C, D/C]
         out = self.cols.all_gather(rows, dim=1, stack_dim=1)
         return out.reshape(*ids.shape, self.item_embedding_dim)

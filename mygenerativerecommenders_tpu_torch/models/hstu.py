@@ -34,6 +34,14 @@ before its softmax, so it computes another function. It takes no packed
 rows (as JAX) and no ring: JAX's softmax branch is dense and ignores
 `sp_shards`, which raises here.
 
+`tp_shards` > 1 changes nothing on one device: the one matmul of each
+projection holds its K column blocks side by side. Over a process group
+(parallel/tensor_parallel.py:place_model; `HSTUBlock.place_tp`) a rank
+holds column block r of `_uvqk` and of `_o.weight` (JAX's contiguous
+`P(None, "model")` and `P("model", None)` blocks), gathers the projection,
+runs the attention replicated, and sums its share of the output projection
+over the model group before the bias and the residual.
+
 Parameter names follow the reference checkpoint
 (mygenerativerecommenders_tpu/cli/convert_ckpt.py:9-15): `_uvqk`, `_o`,
 `_rel_attn_bias._pos_w` / `._ts_w`. Init matches the JAX package: uvqk and
@@ -73,7 +81,6 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
-from mygenerativerecommenders_tpu_torch import not_ported
 from mygenerativerecommenders_tpu_torch.models import precision
 from mygenerativerecommenders_tpu_torch.ops.hstu_attention import (
     hstu_attention_reference,
@@ -167,6 +174,25 @@ class HSTUBlock(nn.Module):
         with torch.no_grad():
             nn.init.xavier_uniform_(self._o.weight, generator=generator)
             self._o.bias.zero_()
+        self.tp = None  # the TP group over processes (`place_tp`)
+
+    def place_tp(self, group) -> None:
+        """Run tensor-parallel over `group` (a `ProcessGroupShards` of the
+        model axis), whose rank holds column block r of `_uvqk` and of
+        `_o.weight` (parallel/tensor_parallel.py places them): the block
+        computes its columns of LN(x) @ _uvqk and all-gathers the projection,
+        runs the attention replicated over the group, multiplies its columns
+        of the output projection's input by its `_o` block, sums over the
+        group, then adds the bias and the residual. Not split by heads:
+        JAX's contiguous blocks of the fused [u|v|q|k] columns are not
+        head-aligned, and the LayerNorm of the attention output spans all
+        h*dv features."""
+        widths = {"_uvqk": self._uvqk.shape[1], "_o": self._o.weight.shape[1]}
+        for name, width in widths.items():
+            if width % group.size:
+                raise ValueError(f"encoder.tp_shards={group.size}: the blocks' {name} width "
+                                 f"{width} does not divide by it")
+        self.tp = group
 
     def forward(
         self,
@@ -188,7 +214,10 @@ class HSTUBlock(nn.Module):
             # the residual, each promoted to float32 as in JAX
             stats, norm, x = precision.uses(x, 3)
             normed = precision.layer_norm(stats, norm, self.eps, low).float()
-        proj = normed @ self._uvqk
+        if self.tp is None:
+            proj = normed @ self._uvqk
+        else:  # column-parallel: the rank's columns, gathered
+            proj = self.tp.all_gather((self.tp.enter(normed) @ self._uvqk)[None], dim=2)
         if self.linear_activation == "silu":
             proj = F.silu(proj)
         u, v, q, k = torch.split(proj, [dv * h, dv * h, dqk * h, dqk * h], dim=-1)
@@ -245,8 +274,12 @@ class HSTUBlock(nn.Module):
             a = F.layer_norm(attn_out, (h * dv,), eps=self.eps)
         else:
             a = precision.layer_norm(*precision.uses(attn_out, 2), self.eps, attn_out.dtype).float()
-        o_input = torch.cat([u, a, u * a], dim=-1) if self.concat_ua else u * a
-        return self._o(self._dropout(o_input)) + x
+        o_input = self._dropout(torch.cat([u, a, u * a], dim=-1) if self.concat_ua else u * a)
+        if self.tp is None:
+            return self._o(o_input) + x
+        # row-parallel: the rank's columns of the input by its block, summed
+        part = F.linear(self.tp.own(o_input, dim=2), self._o.weight)
+        return self.tp.psum(part[None]) + self._o.bias + x
 
     def _softmax_attention(self, q, k, v, timestamps, pos_w, ts_w) -> torch.Tensor:
         """The softmax branch on q, k [B, N, H*dqk] and v [B, N, H*dv]
@@ -316,8 +349,9 @@ class HSTU(nn.Module):
         linear_dropout_rate: float = 0.0,
     ):
         super().__init__()
-        if tp_shards > 1:
-            raise not_ported("encoder.tp_shards > 1", "Distributed, part (c): tensor parallelism")
+        # tp_shards > 1 changes nothing on one device (the K column blocks of
+        # every projection are one matmul); over a process group the blocks
+        # are placed by parallel/tensor_parallel.py:place_model
         self.remat = remat
         n_total = max_sequence_len + max_output_len
         self._attention_layers = nn.ModuleList(

@@ -3,7 +3,8 @@
 Port of mygenerativerecommenders_tpu/models/model.py:59-291 for the
 components the retrieval and ranking tasks run: local, item/year or sharded
 embedding (the four `sharded_*` kinds, their shards run in turn on this
-device: models/embeddings.py) -> learnable positional preprocessor (plain, rated, combined
+device, or one a rank once parallel/tensor_parallel.py:place_model has
+placed the model on a mesh: models/embeddings.py) -> learnable positional preprocessor (plain, rated, combined
 item-and-rating or aux; with dropout) -> HSTU (pointwise or softmax
 attention) or SASRec -> aux-mask compaction -> L2 or LayerNorm
 postprocessor, dot-product or MoL similarity. The encoder's dims follow the preprocessor's layout:

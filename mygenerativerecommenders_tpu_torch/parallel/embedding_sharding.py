@@ -1,4 +1,5 @@
-"""Sharded item tables, their R shards run in turn on one device.
+"""Sharded item tables over a shard group: their R shards run in turn on one
+device, or one a rank over a process group.
 
 Port of mygenerativerecommenders_tpu/parallel/embedding_sharding.py: the
 owner-routed all-to-all exchange (`owner_routed_lookup_body`,
@@ -9,13 +10,27 @@ owner-routed all-to-all exchange (`owner_routed_lookup_body`,
 The bodies compute for every shard what the JAX bodies compute inside
 `shard_map` on one device of the "model" (or "col") axis, and reach the other
 shards only through a shard group, whose methods stand for JAX's
-collectives. `OneDeviceShards` holds every shard's operand on a leading axis
-of R, `[R, ...]`, shard r's operand at index r, so each collective is a
-transpose or a concatenation of that axis, and the psum of the shards'
-masked gathers is one gather from the owner: a lookup is a fixed
-handful of launches whatever R is, and it runs inside a CUDA graph of the
-step. A group over a process group would supply the same methods with
-collectives (ROADMAP.md queue 1 item 6(b)).
+collectives. A group holds `local` shards' operands on a leading axis,
+`[local, ...]`, and names them (`shard_ids`):
+
+- `OneDeviceShards` holds all R, shard r's operand at index r, so each
+  collective is a transpose or a concatenation of that axis, and the psum
+  of the shards' masked gathers is one gather from the owner: a lookup is a
+  fixed handful of launches whatever R is, and it runs inside a CUDA graph
+  of the step.
+- `ProcessGroupShards` holds its rank's one, `[1, ...]`, and its methods are
+  collectives over a `torch.distributed` group (the model or col group of
+  parallel/process_group.py). Each is an autograd Function whose backward
+  is the transpose that JAX's `shard_map` gives under a loss that every
+  rank of the group computes whole (a replicated loss): the all_to_all's
+  is the reverse all_to_all; an all_gather or a psum that yields a
+  replicated value takes back the rank's own slice of the cotangent, or
+  the cotangent itself; a rank's own slice of a replicated value gives
+  back the all_gather of the slices' cotangents; and `enter` (a replicated
+  value fed to rank-varying work, as TP's column-parallel matmul is) sums
+  the ranks' partial cotangents. `torch.distributed.nn`'s functions assume
+  a loss summed over the ranks instead and would count a replicated
+  loss's gradient R times.
 
 The lookups are exact, as in JAX: a row is either gathered by its owner and
 shipped back, or (an id past its bucket's static capacity) taken by the
@@ -30,10 +45,16 @@ gathers and collectives give it.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Any, List, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+# collectives made over a process group's shards (`ProcessGroupShards`),
+# counted where they are made, as the kernel wrappers count their launches;
+# a CUDA graph replay adds those its capture recorded (train/graphs.py)
+collectives = 0
 
 
 def round_up(x: int, m: int) -> int:
@@ -67,6 +88,16 @@ class OneDeviceShards:
         if size < 1:
             raise ValueError(f"a shard group needs at least one shard, got {size}")
         self.size = int(size)
+        self.local = self.size  # the shards held here
+
+    def shard_ids(self, device: Any) -> torch.Tensor:
+        """[local]: the shards whose operands this group holds, in order."""
+        return torch.arange(self.size, device=device)
+
+    def own(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """The held shards' blocks of a replicated x, split into R blocks
+        along `dim`: all of x."""
+        return x
 
     def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
         """`lax.all_to_all(split_axis=0, concat_axis=0, tiled=False)`: shard
@@ -99,6 +130,154 @@ class OneDeviceShards:
                                                                   device=rows.device))
 
 
+def _count() -> None:
+    global collectives
+    collectives += 1
+
+
+def _gather_list(x: torch.Tensor, group: Any, size: int) -> List[torch.Tensor]:
+    _count()
+    parts = [torch.empty_like(x) for _ in range(size)]
+    dist.all_gather(parts, x.contiguous(), group=group)
+    return parts
+
+
+class _Stack(torch.autograd.Function):
+    """Every rank's x stacked along `dim` (a size-1 axis of x) -> size R;
+    backward: the rank's own slice of the (replicated) cotangent."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group, rank, size):
+        ctx.dim, ctx.rank = dim, rank
+        return torch.cat(_gather_list(x, group, size), dim=dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.narrow(ctx.dim, ctx.rank, 1).contiguous(), None, None, None, None
+
+
+class _Own(torch.autograd.Function):
+    """The rank's block of a replicated x along `dim`; backward: every
+    rank's block's cotangent, concatenated (a replicated cotangent)."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group, rank, size):
+        ctx.dim, ctx.group, ctx.size = dim, group, size
+        block = x.shape[dim] // size
+        return x.narrow(dim, rank * block, block).contiguous()
+
+    @staticmethod
+    def backward(ctx, grad):
+        return torch.cat(_gather_list(grad, ctx.group, ctx.size), dim=ctx.dim), None, None, \
+            None, None
+
+
+class _Psum(torch.autograd.Function):
+    """The sum over the ranks, a replicated value; backward: the cotangent."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        _count()
+        out = x.contiguous().clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _Enter(torch.autograd.Function):
+    """A replicated value fed to rank-varying work; backward: the sum of
+    the ranks' partial cotangents."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        _count()
+        out = grad.contiguous().clone()
+        dist.all_reduce(out, group=ctx.group)
+        return out, None
+
+
+def _all_to_all(x: torch.Tensor, group: Any) -> torch.Tensor:
+    _count()
+    out = torch.empty_like(x)
+    dist.all_to_all_single(out, x.contiguous(), group=group)
+    return out
+
+
+class _AllToAll(torch.autograd.Function):
+    """`all_to_all_single` over dim 0 (block d of rank s goes to rank d as
+    its block s); backward: the same exchange of the cotangent's blocks."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_to_all(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _all_to_all(grad, ctx.group), None
+
+
+class ProcessGroupShards:
+    """The R shards of one mesh axis, one a rank of a `torch.distributed`
+    group (`rank` its index there): a stacked operand is the rank's own,
+    `[1, ...]`. The methods are `OneDeviceShards`' on that operand, each a
+    collective over the group, with the backward of a replicated loss;
+    `enter` and `psum` serve TP's blocks (models/hstu.py), which run on one
+    device without a group."""
+
+    local = 1
+
+    def __init__(self, group: Any, rank: int, size: int):
+        self.group, self.rank, self.size = group, int(rank), int(size)
+
+    def shard_ids(self, device: Any) -> torch.Tensor:
+        return torch.tensor([self.rank], device=device)
+
+    def own(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """The rank's block of a replicated x, split into R blocks along `dim`."""
+        return _Own.apply(x, dim, self.group, self.rank, self.size)
+
+    def enter(self, x: torch.Tensor) -> torch.Tensor:
+        """A replicated x fed to rank-varying work (TP's column-parallel
+        matmul): x, whose gradient is summed over the group."""
+        return _Enter.apply(x, self.group)
+
+    def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
+        """x [1 (src), R (dst), ...] -> [1 (dst), R (src), ...]."""
+        return _AllToAll.apply(x[0], self.group)[None]
+
+    def all_gather(self, x: torch.Tensor, dim: int, stack_dim: int = 0) -> torch.Tensor:
+        stacked = _Stack.apply(x, stack_dim, self.group, self.rank, self.size)
+        return stacked.movedim(stack_dim, dim).flatten(dim, dim + 1)
+
+    def psum(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum over the ranks of x [1, ...]: replicated (TP's row-parallel
+        output projection)."""
+        return _Psum.apply(x[0], self.group)
+
+    def gather_psum(self, tables: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+        """`OneDeviceShards.gather_psum` on the rank's rows tables [1, rps,
+        ...]: its masked gather of the ids it owns, psummed over the group."""
+        rps = tables.shape[1]
+        ids = ids.long()
+        local = ids - self.rank * rps
+        mine = (ids >= 0) & (local >= 0) & (local < rps)
+        rows = torch.nn.functional.embedding(local.clamp(0, rps - 1),
+                                             tables[0].reshape(rps, -1))
+        rows = rows.reshape(*rows.shape[:-1], *tables.shape[2:])
+        rows = torch.where(_bcast(mine, rows), rows, torch.zeros((), dtype=rows.dtype,
+                                                                 device=rows.device))
+        return _Psum.apply(rows, self.group)
+
+
 def a2a_capacity(n: int, num_shards: int, capacity_factor: float) -> int:
     """Static per-owner bucket capacity of the owner-routed exchange."""
     cap = int(np.ceil(n / num_shards * capacity_factor))
@@ -108,12 +287,13 @@ def a2a_capacity(n: int, num_shards: int, capacity_factor: float) -> int:
 def _exchange(
     group: OneDeviceShards, tables: torch.Tensor, my_ids: torch.Tensor, cap: int
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The owner-routed exchange of every shard's request list my_ids [R, c]
-    (shard r's at r): bucket by owner (a stable sort, as `jnp.argsort` is
-    stable), ship each bucket of `cap` ids (empty slots -1) to its owner,
-    gather there, ship the rows back and un-bucket. -> (routed [R, c, ...],
-    zero where an id overflowed its bucket; fits [R, c])."""
-    r = group.size
+    """The owner-routed exchange of every held shard's request list my_ids
+    [local, c] (bucket by owner: a stable sort, as `jnp.argsort` is stable;
+    ship each bucket of `cap` ids (empty slots -1) to its owner, gather
+    there, ship the rows back and un-bucket). tables [local, rps, ...] ->
+    (routed [local, c, ...], zero where an id overflowed its bucket; fits
+    [local, c])."""
+    r, held = group.size, my_ids.shape[0]
     rps = tables.shape[1]
     dev = my_ids.device
     c = my_ids.shape[1]
@@ -121,28 +301,29 @@ def _exchange(
     owner = torch.div(my_ids, rps, rounding_mode="floor").clamp(0, r - 1)
     # rank of each id within its owner group
     sorted_owner, order = torch.sort(owner, dim=1, stable=True)
-    shard_ids = torch.arange(r, device=dev)
-    group_start = torch.searchsorted(sorted_owner, shard_ids.expand(r, r).contiguous(),
+    owners = torch.arange(r, device=dev)
+    group_start = torch.searchsorted(sorted_owner, owners.expand(held, r).contiguous(),
                                      side="left")
     rank_sorted = torch.arange(c, device=dev) - torch.gather(group_start, 1, sorted_owner)
     rank = torch.empty_like(rank_sorted).scatter_(1, order, rank_sorted)
     fits = rank < cap
 
-    # [R, R, C] send buckets of ids; the slot past the end takes the overflow
+    # [local, R, C] send buckets of ids; the slot past the end takes the overflow
     slot = torch.where(fits, owner * cap + rank, r * cap)
-    send = torch.full((r, r * cap + 1), -1, dtype=torch.long, device=dev)
-    send = send.scatter(1, slot, my_ids)[:, :-1].reshape(r, r, cap)
-    recv = group.all_to_all(send)  # [R (owner), R (source), C]
-    local = recv - (shard_ids * rps)[:, None, None]
+    send = torch.full((held, r * cap + 1), -1, dtype=torch.long, device=dev)
+    send = send.scatter(1, slot, my_ids)[:, :-1].reshape(held, r, cap)
+    recv = group.all_to_all(send)  # [local (owner), R (source), C]
+    local = recv - (group.shard_ids(dev) * rps)[:, None, None]
     ok = (local >= 0) & (local < rps)
-    safe = local.clamp(0, rps - 1).reshape(r, r * cap)
-    rows = _rows(tables, shard_ids[:, None], safe)  # [R (owner), R * C, ...]
+    safe = local.clamp(0, rps - 1).reshape(held, r * cap)
+    index = torch.arange(held, device=dev)[:, None]
+    rows = _rows(tables, index, safe)  # [local (owner), R * C, ...]
     zero = torch.zeros((), dtype=rows.dtype, device=dev)
-    rows = torch.where(_bcast(ok.reshape(r, r * cap), rows), rows, zero)
-    back = group.all_to_all(rows.reshape(r, r, cap, *rows.shape[2:]))  # [R (source), R, C, ...]
-    back = back.reshape(r, r * cap, *rows.shape[2:])
+    rows = torch.where(_bcast(ok.reshape(held, r * cap), rows), rows, zero)
+    back = group.all_to_all(rows.reshape(held, r, cap, *rows.shape[2:]))  # [local (source), R, C, ...]
+    back = back.reshape(held, r * cap, *rows.shape[2:])
     safe_slot = torch.where(fits, slot, 0)
-    routed = _rows(back, shard_ids[:, None], safe_slot)  # [R, c, ...]
+    routed = _rows(back, index, safe_slot)  # [local, c, ...]
     return torch.where(_bcast(fits, routed), routed, zero), fits
 
 
@@ -151,11 +332,14 @@ def owner_routed_lookup_body(
 ) -> torch.Tensor:
     """The exchange with the request list `flat_ids` [n] replicated over the
     shards (JAX :54-151): every shard buckets and ships the whole list.
-    tables [R, rows_per_shard, ...]. -> [n, ...] replicated. Ids past their
-    bucket take the residual: each shard's rows of them, psummed."""
+    tables [local, rows_per_shard, ...]. -> [n, ...] replicated. Ids past
+    their bucket take the residual: each shard's rows of them, psummed.
+    (Every shard routes the same rows, so over a process group the values
+    are right but the table's gradient would come R times: the kinds route
+    each shard's own slice, `owner_routed_lookup_sliced`.)"""
     n = flat_ids.shape[0]
-    routed, fits = _exchange(group, tables, flat_ids.long().expand(group.size, n), cap)
-    # every shard routed the same list, so its routed rows are shard 0's
+    routed, fits = _exchange(group, tables, flat_ids.long().expand(group.local, n), cap)
+    # every shard routed the same list, so its routed rows are the first's
     over = torch.where(fits[0], -1, flat_ids.long())
     return routed[0] + group.gather_psum(tables, over)
 
@@ -164,14 +348,14 @@ def owner_routed_lookup_sliced(
     group: OneDeviceShards, tables: torch.Tensor, my_ids: torch.Tensor, *, cap: int,
 ) -> torch.Tensor:
     """The exchange where shard r routes its own slice my_ids[r] of the
-    request list (JAX :160-248), [R, chunk] -> [R, chunk, ...] rows. The
-    residual: the overflowed ids all-gathered to every shard, each shard's
-    rows of them psummed, each shard taking back its own chunk."""
-    r, chunk = my_ids.shape
+    request list (JAX :160-248), [local, chunk] -> [local, chunk, ...] rows.
+    The residual: the overflowed ids all-gathered to every shard, each
+    shard's rows of them psummed, each shard taking back its own chunk."""
+    r, chunk = group.size, my_ids.shape[1]
     routed, fits = _exchange(group, tables, my_ids, cap)
     over = group.all_gather(torch.where(fits, -1, my_ids.long()), dim=0)  # [R * chunk]
     allrows = group.gather_psum(tables, over)  # [R * chunk, ...]
-    return routed + allrows.reshape(r, chunk, *allrows.shape[1:])
+    return routed + group.own(allrows.reshape(r, chunk, *allrows.shape[1:]))
 
 
 class ShardedEmbedding:
@@ -236,10 +420,11 @@ class ColumnShardedEmbedding:
 def column_lookup(group: OneDeviceShards, table: torch.Tensor, flat_ids: torch.Tensor
                   ) -> torch.Tensor:
     """Shard s gathers its [n, D/R] columns of the rows at flat_ids; one
-    tiled all_gather on the feature axis gives [n, D]. Every shard gathers
-    the same rows, so the shards' gathers are the column blocks of one
-    `F.embedding` of the table (its backward sums duplicate ids in parallel)."""
+    tiled all_gather on the feature axis gives [n, D]. `table` holds the
+    group's held columns, [V, local * D/R]; every shard gathers the same
+    rows, so the held shards' gathers are the column blocks of one
+    `F.embedding` of it (its backward sums duplicate ids in parallel)."""
     n, (v, d) = flat_ids.shape[0], table.shape
     rows = torch.nn.functional.embedding(flat_ids.long(), table)
-    cols = rows.view(n, group.size, d // group.size).transpose(0, 1)  # [R, n, D/R]
+    cols = rows.view(n, group.local, d // group.local).transpose(0, 1)  # [local, n, D/R]
     return group.all_gather(cols, dim=1)

@@ -1,25 +1,46 @@
-"""Data parallel over processes: one process a card, launched by torchrun.
+"""The mesh over processes: one process a card, launched by torchrun.
 
-Port of the data axis of the JAX trainer's mesh (`make_mesh`,
-mygenerativerecommenders_tpu/train/driver.py:48-93, built at :149-152) and of
-`jax.distributed.initialize` (tests/distributed_worker.py:80-86). Each
-process holds one replica of the weights and trains on its rows of the
-global batch: its data index is its rank and the data size the world size.
+Port of the JAX trainer's mesh (`make_mesh`,
+mygenerativerecommenders_tpu/train/driver.py:48-93, sized at :124-153) and of
+`jax.distributed.initialize` (tests/distributed_worker.py:80-86). The world's
+ranks are laid out on a (data, model, col) grid, world = data x model x col:
+"model" = max(`embedding.num_shards` of a sharded kind, `encoder.tp_shards`),
+"col" = `embedding.col_shards` of sharded_2d, "data" the rest. The rank order
+is JAX's device order: [data, model, col] with col innermost, or with
+`trainer.mesh_data_innermost` the data index innermost, so a model group
+spans ranks that are `data` apart.
 
-- `init_data_parallel(trainer_cfg)` reads torchrun's environment (`RANK`,
-  `WORLD_SIZE`, `LOCAL_RANK`, `MASTER_ADDR`, `MASTER_PORT`) and starts the
-  default group: NCCL for a cuda device, gloo for the CPU, or the backend
-  its caller names (two processes sharing one card run gloo). A failed NCCL
-  start raises; nothing falls back to gloo. Beside it a gloo group carries
-  the host arrays (eval rows, checksums), as JAX's `process_allgather` does.
-- Once the process has started its group (`started()`), the losses divide
-  by the global weight sum (`global_sum`, an all-reduce inside the step:
-  models/losses.py), the in-batch sampler draws from the global batch's
-  pool (`gather_rows_of`), the lazy table update takes every rank's touched
-  rows, and the step sums the gradients over the ranks in one flat buffer
-  (`GradBuffer`, train/task_retrieval.py:train_step_from_loss): what XLA's
-  sums over the "data" axis give the JAX step. On cuda under NCCL the
-  step's all-reduces are captured in its CUDA graph.
+- `init_data_parallel(trainer_cfg, backend, model=1, col=1)` reads torchrun's
+  environment (`RANK`, `WORLD_SIZE`, `LOCAL_RANK`, `MASTER_ADDR`,
+  `MASTER_PORT`) and starts the default group: NCCL for a cuda device, gloo
+  for the CPU, or the backend its caller names (two processes sharing one
+  card run gloo). A failed NCCL start raises; nothing falls back to gloo.
+  Beside the default group it makes the data group of each (model, col)
+  coordinate, the model group of each (data, col) one and the col group of
+  each (data, model) one (`dist.new_group`, every rank making every group in
+  one order), and a gloo twin of the data group and of the world for host
+  arrays (eval rows, checksums), as JAX's `process_allgather` does. The
+  model and col groups are `ProcessGroupShards`
+  (parallel/embedding_sharding.py): the shard groups of the sharded tables,
+  the sharded index and tensor parallelism (parallel/tensor_parallel.py).
+- The ranks of one model (and col) group hold the same rows of the global
+  batch: the loaders stride over the data coordinate, the losses divide by
+  the global weight sum (`global_sum`, an all-reduce over the data group
+  inside the step: models/losses.py), the in-batch pool and the lazy table
+  update take the data group's rows (`gather_rows_of`), and a rank's own
+  draws (negatives, dropout) are keyed by its data coordinate
+  (`rank_seed`), so the ranks of a model group draw alike for what is one
+  replicated computation.
+- The step sums the gradients in flat buffers (`GradBuffer`,
+  train/task_retrieval.py:train_step_from_loss), one a kind of leaf: a leaf
+  sharded over the model (and col) axis is summed over the ranks that hold
+  the same shard, the data group; a replicated leaf is summed over the
+  world and divided by its replica count, the mean over the model group
+  of the data group's sum, which keeps the replicas bit-equal (the
+  attention backward's bias-table gradients come from float atomics, so
+  two ranks' "same" gradient differs in its last bits). Without a model
+  axis this is one flat all-reduce over the world. On cuda under
+  NCCL the step's collectives are captured in its CUDA graph.
 
 No module of the port opens a group unless `trainer.distributed` asks for
 it; without one none of these functions does anything but return its input.
@@ -29,53 +50,88 @@ from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Any, Iterable, List, Optional, Sequence, Tuple
+from typing import Any, Dict, FrozenSet, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
+from mygenerativerecommenders_tpu_torch.parallel.embedding_sharding import ProcessGroupShards
+
 ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
 
-# the step's collectives, counted where they are issued as the kernel wrappers
-# count their launches (a CUDA graph replay adds those its capture recorded,
-# train/graphs.py); callers that count reset them
+# the step's collectives over the data group and the world, counted where
+# they are made, as the kernel wrappers count their launches (a CUDA graph
+# replay adds those its capture recorded, train/graphs.py); callers that
+# count reset them. The model and col groups' are counted by
+# parallel/embedding_sharding.py
 all_reduces = 0
 all_gathers = 0
 
 
+def mesh_ranks(data: int, model: int, col: int, data_innermost: bool) -> np.ndarray:
+    """[data, model, col] world ranks in JAX's device order (`make_mesh`):
+    col innermost, or with `data_innermost` the data index innermost."""
+    n = data * model * col
+    if data_innermost:
+        return np.moveaxis(np.arange(n).reshape(model, col, data), -1, 0)
+    return np.arange(n).reshape(data, model, col)
+
+
 @dataclasses.dataclass
 class DataGroup:
-    """This process's coordinates on the data axis and its groups: the
-    default one (NCCL on the card, gloo on the CPU) for the step's
-    collectives, `host` (gloo) for host arrays."""
+    """This process's coordinates on the mesh and its groups: `rank` and
+    `size` on the data axis, the data group (`data_pg`; the default group
+    where the world is the data axis) for the step's sums, `host` (gloo) for
+    host arrays over the data group and `world_host` over the world, and
+    the shard groups `model` and `col` (None where that axis is 1)."""
 
     rank: int  # the data index
     size: int  # the data size
     device: torch.device
     backend: str
-    host: Any  # the gloo group of host arrays
+    host: Any  # the gloo group of host arrays over the data group
+    world_rank: int = 0
+    world_size: int = 1
+    data_pg: Any = None  # the data group (None: the default group)
+    world_host: Any = None  # the gloo group over the world (None: `host`)
+    model: Optional[ProcessGroupShards] = None
+    col: Optional[ProcessGroupShards] = None
+    # the group a leaf sharded over these axes is summed over, and the
+    # number of its ranks that hold one data index's copy
+    replica_groups: Dict[FrozenSet[str], Tuple[Any, int]] = dataclasses.field(
+        default_factory=dict)
+    grid: Optional[np.ndarray] = None  # [data, model, col] world ranks (`mesh_ranks`)
 
-    def all_reduce_(self, t: torch.Tensor) -> torch.Tensor:
-        """The sum over the ranks, in place."""
+    @property
+    def model_size(self) -> int:
+        return self.model.size if self.model is not None else 1
+
+    @property
+    def col_size(self) -> int:
+        return self.col.size if self.col is not None else 1
+
+    def all_reduce_(self, t: torch.Tensor, group: Any = None) -> torch.Tensor:
+        """The sum over the data group (or `group`), in place."""
         global all_reduces
         all_reduces += 1
-        dist.all_reduce(t)
+        dist.all_reduce(t, group=group if group is not None else self.data_pg)
         return t
 
     def all_gather(self, t: torch.Tensor) -> torch.Tensor:
-        """Every rank's `t`, concatenated along dim 0 in rank order."""
+        """Every data rank's `t`, concatenated along dim 0 in data order."""
         global all_gathers
         all_gathers += 1
         parts = [torch.empty_like(t) for _ in range(self.size)]
-        dist.all_gather(parts, t.contiguous())
+        dist.all_gather(parts, t.contiguous(), group=self.data_pg)
         return torch.cat(parts)
 
     def gather_rows(self, arr: np.ndarray) -> np.ndarray:
-        """Every rank's host rows, concatenated in rank order (JAX
+        """Every data rank's host rows, concatenated in data order (JAX
         `_gather_rows`, driver.py:562-586): the row counts first, each rank's
         rows padded to the largest count for the fixed-shape gather, the
-        padding dropped after it."""
+        padding dropped after it. The ranks of a model group hold the same
+        rows, so the data group's are the global batch's."""
         counts = [torch.zeros(1, dtype=torch.int64) for _ in range(self.size)]
         dist.all_gather(counts, torch.tensor([arr.shape[0]], dtype=torch.int64), group=self.host)
         counts = [int(c) for c in counts]
@@ -87,39 +143,68 @@ class DataGroup:
         return np.concatenate([p.numpy()[:n] for p, n in zip(parts, counts)], axis=0)
 
     def barrier(self) -> None:
-        dist.barrier(group=self.host)
+        dist.barrier(group=self.world_host or self.host)
 
     def check_replicas(self, named: Iterable[Tuple[str, torch.Tensor]]) -> None:
-        """Raise unless every rank holds the same tensors, bit for bit: a
+        """Raise unless every rank holds the same tensors, bit for bit, where
+        it should: a replicated tensor on every rank, a shard (`shard_axes`,
+        parallel/tensor_parallel.py) on the ranks of its coordinate. A
         checksum of each tensor's bits (exact, in int64, whatever the order
-        of the sum) gathered over the host group."""
-        names, sums = [], []
+        of the sum) gathered over the world's host group."""
+        from mygenerativerecommenders_tpu_torch.parallel.tensor_parallel import shard_axes
+
+        names, sums, axes = [], [], []
         for name, t in named:
             names.append(name)
             sums.append(_bit_checksum(t))
+            axes.append(shard_axes(t))
         local = torch.stack(sums).cpu()
-        every = [torch.empty_like(local) for _ in range(self.size)]
-        dist.all_gather(every, local, group=self.host)
+        every = [torch.empty_like(local) for _ in range(self.world_size)]
+        dist.all_gather(every, local, group=self.world_host or self.host)
+        coords = self.coords()
         for rank, theirs in enumerate(every):
-            differs = (theirs != local).any(dim=1).nonzero()
-            if len(differs):
-                raise RuntimeError(
-                    f"rank {rank}'s {names[int(differs[0])]} differs from rank {self.rank}'s: "
-                    "every rank must build its weights from the same trainer.seed"
-                )
+            theirs_at = self.coords(rank)
+            for i in (theirs != local).any(dim=1).nonzero()[:, 0].tolist():
+                if all(coords[a] == theirs_at[a] for a in axes[i]):
+                    raise RuntimeError(
+                        f"rank {rank}'s {names[i]} differs from rank {self.world_rank}'s: "
+                        "every rank must build its weights from the same trainer.seed"
+                    )
+
+    def coords(self, world_rank: Optional[int] = None) -> Dict[str, int]:
+        """{"data", "model", "col"} of a world rank (default this one)."""
+        r = self.world_rank if world_rank is None else world_rank
+        d, m, c = (int(x[0]) for x in np.nonzero(self.grid == r))
+        return {"data": d, "model": m, "col": c}
+
+    def sum_grads_(self, flat: torch.Tensor, axes: FrozenSet[str]) -> None:
+        """A flat buffer of leaves sharded over `axes` (empty: replicated),
+        summed over the ranks that hold their shard and divided by the
+        replicas of one data index: the mean over the model group of the
+        data group's sum. One all-reduce, also over a group of one rank (an
+        identity, which a graph of the step captures all the same)."""
+        group, replicas = self.replica_groups[frozenset(axes)]
+        self.all_reduce_(flat, group)
+        if replicas > 1:
+            flat.div_(replicas)
 
 
 _GROUP: Optional[DataGroup] = None  # the process's group, once started
 
 
 def started() -> Optional[DataGroup]:
-    """The process's data-parallel group, None before `init_data_parallel`:
-    the one place the steps and losses learn whether they run over ranks."""
+    """The process's mesh, None before `init_data_parallel`: the one place
+    the steps, losses and shard groups learn whether they run over ranks."""
     return _GROUP
 
 
+def model_shards() -> Optional[ProcessGroupShards]:
+    """The started mesh's model group where its model axis spans ranks."""
+    return None if _GROUP is None else _GROUP.model
+
+
 def global_sum(x: torch.Tensor) -> torch.Tensor:
-    """x summed over the ranks of the started group (a detached copy,
+    """x summed over the data group of the started mesh (a detached copy,
     all-reduced in the step); x itself without one. A loss's weight sum: the
     weights are masks, so no gradient flows through it."""
     if _GROUP is None:
@@ -128,14 +213,25 @@ def global_sum(x: torch.Tensor) -> torch.Tensor:
 
 
 def gather_rows_of(t: torch.Tensor) -> torch.Tensor:
-    """Every rank's rows of `t` in rank order under the started group (the
-    global batch's); `t` itself without one."""
+    """Every data rank's rows of `t` in data order under the started mesh
+    (the global batch's); `t` itself without one."""
     return t if _GROUP is None else _GROUP.all_gather(t)
 
 
+def model_mean_(t: torch.Tensor) -> torch.Tensor:
+    """t (a replicated leaf's gradient rows) averaged over the model group of
+    the started mesh, in place: the replicas update alike."""
+    if _GROUP is not None and _GROUP.model is not None:
+        _GROUP.all_reduce_(t, _GROUP.model.group)
+        t.div_(_GROUP.model.size)
+    return t
+
+
 def rank_seed(seed: int, rank: int) -> int:
-    """The seed of a rank's own draws (negatives, dropout): `seed` itself at
-    rank 0, so one process draws as a run without the group does."""
+    """The seed of a data index's own draws (negatives, dropout): `seed`
+    itself at data index 0, so one process draws as a run without the group
+    does. Keyed by the data coordinate, not the rank: the ranks of a model
+    group draw alike."""
     return seed + (rank << 32)
 
 
@@ -155,36 +251,51 @@ def _bit_checksum(t: torch.Tensor) -> torch.Tensor:
 
 
 class GradBuffer:
-    """One flat buffer that holds every parameter's gradient as a view, and
-    one slot more for the step's loss: a single all-reduce sums both over
-    the ranks. `prepare()` zeroes it and points each `.grad` at its view
-    (autograd then adds into it in place); nothing is allocated a step, so
-    a CUDA graph replays against the same memory."""
+    """Flat buffers that hold every parameter's gradient as a view, one a
+    kind of leaf (the axes it is sharded over, `shard_axes`), and one slot
+    more for the step's loss in the replicated leaves' buffer: one
+    all-reduce a buffer sums them (`DataGroup.sum_grads_`). `prepare()`
+    zeroes them and points each `.grad` at its view (autograd then adds
+    into it in place); nothing is allocated a step, so a CUDA graph replays
+    against the same memory."""
 
     def __init__(self, params: Sequence[torch.Tensor]):
+        from mygenerativerecommenders_tpu_torch.parallel.tensor_parallel import shard_axes
+
         self.params = [p for p in params if p.requires_grad]
-        sizes = [p.numel() for p in self.params]
+        kinds: Dict[FrozenSet[str], List[torch.Tensor]] = {frozenset(): []}
+        for p in self.params:
+            kinds.setdefault(frozenset(shard_axes(p)), []).append(p)
         first = self.params[0]
-        self.flat = torch.zeros(sum(sizes) + 1, dtype=first.dtype, device=first.device)
-        self.views: List[torch.Tensor] = []
-        start = 0
-        for p, n in zip(self.params, sizes):
-            self.views.append(self.flat[start : start + n].view_as(p))
-            start += n
-        self.loss = self.flat[start]
+        self.flats: List[Tuple[FrozenSet[str], torch.Tensor]] = []
+        self.views: Dict[torch.Tensor, torch.Tensor] = {}
+        for axes, params in kinds.items():
+            extra = 1 if not axes else 0  # the loss slot
+            flat = torch.zeros(sum(p.numel() for p in params) + extra, dtype=first.dtype,
+                               device=first.device)
+            start = 0
+            for p in params:
+                self.views[p] = flat[start : start + p.numel()].view_as(p)
+                start += p.numel()
+            if not axes:
+                self.loss = flat[start]
+            self.flats.append((axes, flat))
 
     def prepare(self) -> None:
-        self.flat.zero_()
-        for p, view in zip(self.params, self.views):
-            p.grad = view
+        for _, flat in self.flats:
+            flat.zero_()
+        for p in self.params:
+            p.grad = self.views[p]
 
     def all_reduce(self, group: DataGroup, loss: torch.Tensor) -> torch.Tensor:
         """Sum the gradients and `loss` over the ranks; -> the summed loss."""
-        for p, view in zip(self.params, self.views):
-            if p.grad is not view:
+        for p in self.params:
+            if p.grad is not self.views[p]:
                 raise RuntimeError("a gradient left its view of the flat buffer")
         self.loss.copy_(loss.detach())
-        group.all_reduce_(self.flat)
+        for axes, flat in self.flats:
+            if flat.numel():
+                group.sum_grads_(flat, axes)
         return self.loss.clone()
 
 
@@ -233,33 +344,80 @@ def check_num_devices(num_devices: int, distributed: bool, world_size: int) -> N
         )
 
 
-def init_data_parallel(trainer_cfg: Any, backend: Optional[str] = None) -> DataGroup:
+def _new_groups(grid: np.ndarray, axes: Tuple[int, ...], backend: Optional[str],
+                world_rank: int) -> Any:
+    """One group for each coordinate of the grid's other axes, over the ranks
+    along `axes` (every rank makes every group, in one order); -> this
+    rank's. A group of the whole world is the default group."""
+    if grid.size == int(np.prod([grid.shape[a] for a in axes])) and backend is None:
+        return dist.group.WORLD
+    keep = [a for a in range(grid.ndim) if a not in axes]
+    moved = np.moveaxis(grid, keep, list(range(len(keep))))
+    lines = moved.reshape(int(np.prod(moved.shape[: len(keep)])), -1)
+    mine = None
+    for ranks in lines:
+        pg = dist.new_group(ranks=[int(r) for r in ranks], backend=backend)
+        if world_rank in ranks:
+            mine = pg
+    return mine
+
+
+def init_data_parallel(trainer_cfg: Any, backend: Optional[str] = None, model: int = 1,
+                       col: int = 1) -> DataGroup:
     """This process's `DataGroup`: the default group started from torchrun's
-    environment (or the one already started in this process), its device and
-    its gloo group for host arrays. `backend`: None picks NCCL for a cuda
-    device and gloo for the CPU."""
+    environment (or the one already started in this process), its device,
+    and the groups of a (data, model, col) mesh with `model` x `col`
+    dividing the world. `backend`: None picks NCCL for a cuda device and
+    gloo for the CPU."""
     global _GROUP
     rank, size, local_rank, addr, port = _env()
     check_num_devices(int(trainer_cfg.num_devices), True, size)
+    if size % (model * col):
+        raise ValueError(
+            f"the world size {size} does not divide by the model axis {model} x the col axis "
+            f"{col} (embedding.num_shards / encoder.tp_shards, embedding.col_shards): launch "
+            f"a multiple of {model * col} processes"
+        )
     device = _device(trainer_cfg.device, local_rank)
     backend = backend or ("nccl" if device.type == "cuda" else "gloo")
+    innermost = bool(getattr(trainer_cfg, "mesh_data_innermost", False))
     if device.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(
                 f"trainer.device={trainer_cfg.device} but no CUDA device is available")
         torch.cuda.set_device(device)
     if _GROUP is not None:
-        if (_GROUP.rank, _GROUP.size, _GROUP.device, _GROUP.backend) != (rank, size, device,
-                                                                          backend):
+        same = (_GROUP.world_rank, _GROUP.world_size, _GROUP.device, _GROUP.backend,
+                _GROUP.model_size, _GROUP.col_size) == (rank, size, device, backend, model, col)
+        if not same or (model * col > 1 and not np.array_equal(
+                _GROUP.grid, mesh_ranks(size // (model * col), model, col, innermost))):
             raise ValueError(
-                f"the process group is already started as rank {_GROUP.rank} of "
-                f"{_GROUP.size} on {_GROUP.device} over {_GROUP.backend}")
+                f"the process group is already started as rank {_GROUP.world_rank} of "
+                f"{_GROUP.world_size} on {_GROUP.device} over {_GROUP.backend} with a model "
+                f"axis of {_GROUP.model_size} and a col axis of {_GROUP.col_size}")
         return _GROUP
     kwargs = {"device_id": device} if backend == "nccl" else {}
     dist.init_process_group(backend, init_method=f"tcp://{addr}:{port}", rank=rank,
                             world_size=size, **kwargs)
-    host = dist.new_group(backend="gloo") if backend != "gloo" else dist.group.WORLD
-    _GROUP = DataGroup(rank, size, device, backend, host)
+    grid = mesh_ranks(size // (model * col), model, col, innermost)
+    world_host = dist.new_group(backend="gloo") if backend != "gloo" else dist.group.WORLD
+    data_pg = _new_groups(grid, (0,), None, rank)
+    host = world_host if data_pg is dist.group.WORLD else (
+        data_pg if backend == "gloo" else _new_groups(grid, (0,), "gloo", rank))
+    d, m, c = (int(x[0]) for x in np.nonzero(grid == rank))
+    shards = {}
+    for axis, (name, n, coord) in enumerate((("model", model, m), ("col", col, c)), start=1):
+        if n > 1:
+            shards[name] = ProcessGroupShards(_new_groups(grid, (axis,), None, rank), coord, n)
+    # the leaves: replicated, the 2-D table's blocks, and TP's blocks and the
+    # other kinds' (sharded over "model" alone: copied over "col")
+    replicas = {frozenset(): (dist.group.WORLD, model * col),
+                frozenset({"model", "col"}): (data_pg, 1), frozenset({"model"}): (data_pg, 1)}
+    if model > 1 and col > 1:
+        replicas[frozenset({"model"})] = (_new_groups(grid, (0, 2), None, rank), col)
+    _GROUP = DataGroup(d, size // (model * col), device, backend, host, rank, size,
+                       data_pg, world_host, shards.get("model"), shards.get("col"), replicas,
+                       grid)
     return _GROUP
 
 

@@ -48,7 +48,6 @@ from typing import Callable, Dict, Hashable, List, Optional, Sequence, Tuple, Un
 import numpy as np
 import torch
 
-from mygenerativerecommenders_tpu_torch import not_ported
 from mygenerativerecommenders_tpu_torch.configs import Config
 from mygenerativerecommenders_tpu_torch.models import decode
 from mygenerativerecommenders_tpu_torch.models.model import GenerativeRecommender
@@ -98,9 +97,13 @@ class ServingEngine:
         graphs: bool = True,
     ):
         if cfg.model.task != "retrieval":
-            # the server answers retrieval requests only, as the JAX package's
-            raise not_ported(f"serving model.task={cfg.model.task}",
-                             "Other model families: serving a ranking model")
+            # the JAX engine checks no task: it answers a ranking model's
+            # requests with the retrieval eval step's top-k over the item
+            # table, which is not what such a model was trained to give
+            raise ValueError(
+                f"serving takes model.task=retrieval, got model.task={cfg.model.task}: the "
+                "server answers retrieval requests (top-k item ids), and a ranking model "
+                "scores ratings, which no endpoint serves")
         if cfg.model.preprocessor.kind == "learnable_positional_aux":
             # a request carries ids and timestamps only (as the JAX engine
             # reads them, :104-125), not the user columns the aux token needs

@@ -1,4 +1,4 @@
-"""The trainer: one device, or one card a process over a data-parallel group.
+"""The trainer: one device, or one card a process over a mesh of processes.
 
 Port of `Trainer` (mygenerativerecommenders_tpu/train/driver.py:117,
 232-301, 400-478, 492-539, 588-716, 717-830, 832-920, 932-961): model and
@@ -68,8 +68,17 @@ plateau, checkpoint and early-stop steps. Rank 0 alone writes the metrics
 and the checkpoints; the others wait for a checkpoint at a barrier before
 they read it. Each rank's own draws (the negatives, dropout) come from
 `process_group.rank_seed`; the shared negatives from `trainer.seed` on every
-rank, as JAX draws them once. The data axis is the only one: a sharded
-table over processes, TP and the ring over processes raise.
+rank, as JAX draws them once. The JAX mesh's "model" and "col" axes run too
+(`mesh_axes`: model = the sharded kind's num_shards or encoder.tp_shards,
+col = sharded_2d's col_shards; the world is data x model x col ranks in
+JAX's device order): every rank builds the whole model, then keeps its
+blocks of the sharded table and of TP's matrices
+(parallel/tensor_parallel.py:place_model); the ranks of a model group load
+the same rows and draw alike (keyed by the data index), so their replicated
+work is one computation, and the checkpoints are written and read in the
+one-process layout (the blocks gathered before a save, each rank's cut
+from a loaded state). The ring over processes (`encoder.sp_shards > 1`)
+raises `not_ported`.
 """
 
 from __future__ import annotations
@@ -77,7 +86,7 @@ from __future__ import annotations
 import collections
 import os
 import time
-from typing import Any, Dict, Optional, Union
+from typing import Any, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -103,6 +112,13 @@ from mygenerativerecommenders_tpu_torch.parallel.process_group import (
     init_data_parallel,
     rank_seed,
     started,
+)
+from mygenerativerecommenders_tpu_torch.parallel.tensor_parallel import (
+    full_optimizer_state,
+    full_state_dict,
+    local_optimizer_state,
+    local_state_dict,
+    place_model,
 )
 from mygenerativerecommenders_tpu_torch.train import task_ranking, task_retrieval
 from mygenerativerecommenders_tpu_torch.train.controllers import (
@@ -146,21 +162,25 @@ def resolve_device(name: str) -> torch.device:
     return device
 
 
-def check_data_axis_only(cfg: Config) -> None:
-    """Raise `not_ported` for what `trainer.distributed` does not run yet:
-    every axis of the JAX mesh but "data" (`index.sharded` needs a sharded
-    kind, so the first check covers it)."""
+def mesh_axes(cfg: Config) -> Tuple[int, int]:
+    """(model, col): the sizes of the JAX trainer's "model" and "col" mesh
+    axes (driver.py:124-147): model = max(the sharded kind's num_shards,
+    encoder.tp_shards), which must match where both are above 1; col = the
+    2-D kind's col_shards. Raise `not_ported` for the axis that
+    `trainer.distributed` does not run yet, "sp"."""
     m = cfg.model
-    if m.embedding.kind in task_retrieval.SHARDED_KINDS and m.embedding.num_shards > 1:
-        raise not_ported(f"trainer.distributed with embedding.kind={m.embedding.kind} "
-                         f"(num_shards={m.embedding.num_shards})",
-                         "Distributed: the sharded table over a process group")
-    if m.encoder.tp_shards > 1:
-        raise not_ported("trainer.distributed with encoder.tp_shards > 1",
-                         "Distributed, part (c): TP")
-    if m.encoder.sp_shards > 1:
+    emb = m.embedding.num_shards if m.embedding.kind in task_retrieval.SHARDED_KINDS else 1
+    tp = m.encoder.tp_shards if m.encoder.kind == "hstu" else 1
+    if emb > 1 and tp > 1 and emb != tp:
+        raise ValueError(
+            "embedding.num_shards and encoder.tp_shards both use the "
+            f"'model' mesh axis and must match ({emb} vs {tp})"
+        )
+    if m.encoder.kind == "hstu" and m.encoder.sp_shards > 1:
         raise not_ported("trainer.distributed with encoder.sp_shards > 1",
                          "Distributed, part (d): the ring over a process group")
+    col = m.embedding.col_shards if m.embedding.kind == "sharded_2d" and emb > 1 else 1
+    return max(emb, tp), col
 
 
 class Trainer:
@@ -170,10 +190,10 @@ class Trainer:
         for NCCL on cuda and gloo on the CPU."""
         self.cfg = cfg
         t = cfg.trainer
-        self.dp = None  # the data-parallel group (trainer.distributed)
+        self.dp = None  # the mesh's groups (trainer.distributed)
         if t.distributed:
-            check_data_axis_only(cfg)
-            self.dp = init_data_parallel(t, backend)  # checks num_devices against it
+            # checks num_devices against the world size
+            self.dp = init_data_parallel(t, backend, *mesh_axes(cfg))
             self.device = self.dp.device
         else:
             check_num_devices(int(t.num_devices), False, 1)
@@ -185,7 +205,8 @@ class Trainer:
                     "(parallel/process_group.py: shutdown)"
                 )
             self.device = resolve_device(t.device)
-        rank = self.dp.rank if self.dp else 0
+        rank = self.dp.rank if self.dp else 0  # the data index keys the draws
+        writes = self.dp is None or self.dp.world_rank == 0
         for name, sched in (("scheduler1", cfg.scheduler1), ("scheduler2", cfg.scheduler2)):
             if sched.kind not in ("plateau", "none"):
                 # JAX builds a controller for plateau alone (driver.py:304-323)
@@ -218,6 +239,8 @@ class Trainer:
         self.neg_generator = torch.Generator(device=self.device).manual_seed(neg_seed)
         if self.dp is not None:
             self.dp.check_replicas(self.model.named_parameters())
+            # the sharded tables' and TP's blocks of this rank, over the mesh
+            place_model(self.model, self.dp)
 
         # the fused kernels on the card, for eager and graphed steps alike;
         # with embedding.lazy_update the item table is updated lazily beside
@@ -260,13 +283,13 @@ class Trainer:
         self.out_dir = os.path.join(t.output_dir, cfg.experiment)
         self.writer = MetricsWriter(
             self.out_dir, enable_tensorboard=t.tensorboard, mlflow_dir=t.mlflow_dir,
-            experiment=cfg.experiment, enabled=rank == 0,
+            experiment=cfg.experiment, enabled=writes,
         )
         if self.writer.mlflow is not None:
             self.writer.mlflow.log_params(_flatten(to_dict(cfg)))
         self.ckpt = CheckpointManager(
             os.path.join(self.out_dir, "checkpoints"), monitor=t.monitor, mode=t.mode,
-            async_save=t.async_checkpoint, write=rank == 0,
+            async_save=t.async_checkpoint, write=writes,
         )
         self.global_step = 0
         self.epoch = 0
@@ -360,10 +383,11 @@ class Trainer:
 
     def _loader_sharding(self) -> tuple:
         """(process_index, process_count) of this rank's rows: its data
-        coordinate and the data size. The data axis is the only one, so
-        `trainer.mesh_data_innermost` changes nothing: a rank loads its
-        strided rows either way (JAX :479-490 then loads the full batch on
-        every process, ROADMAP queue 3)."""
+        coordinate and the data size, so the ranks of a model group load the
+        same rows. `trainer.mesh_data_innermost` changes only which ranks
+        form a group: a rank loads its data index's strided rows either way
+        (JAX :479-490 then loads the full batch on every process, ROADMAP
+        queue 3)."""
         return (self.dp.rank, self.dp.size) if self.dp else (0, 1)
 
     def _loader(self, split: str, packed: bool = False, with_index: bool = False) -> Loader:
@@ -659,6 +683,10 @@ class Trainer:
                 self.ckpt.save(
                     self.model,
                     self.optimizer,
+                    # the one-process layout: the placed blocks gathered, on
+                    # every rank (rank 0 writes)
+                    model_state=full_state_dict(self.model),
+                    optimizer_state=full_optimizer_state(self.optimizer),
                     step=self.global_step,
                     epoch=self.epoch,
                     metric_value=metric,
@@ -759,9 +787,11 @@ class Trainer:
         self.ckpt.flush()
         self._barrier()  # rank 0's write has landed
         state = CheckpointManager.load(path, self.device)
-        self.model.load_state_dict(state["model"])
+        # the one-process layout, cut to this rank's blocks where it is placed
+        self.model.load_state_dict(local_state_dict(self.model, state["model"]))
         # a split optimizer's parts, the lazy table's mv and count: each its own
-        load_optimizer_state(self.optimizer, state["optimizer"])
+        load_optimizer_state(self.optimizer,
+                             local_optimizer_state(self.optimizer, state["optimizer"]))
         # the optimizer's state tensors are new: the next graphed step
         # captures anew, against them (the weights were copied in place)
         if self.train_steps is not None and self.train_steps.graphs is not None:

@@ -54,7 +54,7 @@ from mygenerativerecommenders_tpu_torch.ops.kernels import (
     hstu_attention,
     hstu_chunk,
 )
-from mygenerativerecommenders_tpu_torch.parallel import process_group
+from mygenerativerecommenders_tpu_torch.parallel import embedding_sharding, process_group
 
 # every kernel wrapper's launch counter, as (module, attribute)
 _COUNTERS = (
@@ -64,8 +64,10 @@ _COUNTERS = (
     (dense_neg_lse, "fused_launches"), (dense_neg_lse, "fused_bwd_launches"),
     (hstu_chunk, "launches"), (hstu_chunk, "bwd_launches"),
 )
-# and the data-parallel step's collectives, which a capture records like kernels
-_TALLIES = _COUNTERS + ((process_group, "all_reduces"), (process_group, "all_gathers"))
+# and the step's collectives over the mesh (the data group's, the model and
+# col groups'), which a capture records like kernels
+_TALLIES = _COUNTERS + ((process_group, "all_reduces"), (process_group, "all_gathers"),
+                        (embedding_sharding, "collectives"))
 WARMUP_RUNS = 2  # the second runs with the optimizer state the first made
 
 # captures, warm-up runs and replays by StepGraphs name ("train", "eval")

@@ -23,7 +23,11 @@ mygenerativerecommenders_tpu/train/optimizers.py: `zeropower_via_newtonschulz5`
   the scales and the orthogonal init, as JAX flattens it, and reshaped
   back. `torch.optim.Muon` would scale by the
   torch layout, takes 2-D parameters only and normalises with
-  clamp(min=eps) instead of + 1e-7.
+  clamp(min=eps) instead of + 1e-7. A parameter placed over a process group
+  (a TP block or a table's shard, parallel/tensor_parallel.py) is
+  orthogonalised whole, as GSPMD gives JAX: the update's blocks are
+  all-gathered, NS-5 (or Scion's LMO) runs on the whole matrix, and the
+  rank keeps its block. Everything else in both is elementwise.
 - With `optimizer2.enabled`, `build_optimizer` returns a `SplitOptimizer`:
   optimizer1 over the parameters `param_labels` calls "primary" (the
   embeddings and every parameter of fewer than two dimensions), optimizer2
@@ -85,6 +89,19 @@ def zeropower_via_newtonschulz5(g: torch.Tensor, steps: int = 5) -> torch.Tensor
 def _in_jax_layout(t: torch.Tensor, transposed: bool, fn) -> torch.Tensor:
     """fn on `t` as JAX lays the parameter out, the result in the port's layout."""
     return fn(t.t()).t() if transposed else fn(t)
+
+
+def _on_whole(p: torch.Tensor, t: torch.Tensor, fn) -> torch.Tensor:
+    """fn on the whole matrix of `t`, a tensor of p's shape: where p is a
+    placed block (parallel/tensor_parallel.py), the blocks of t gathered
+    over the mesh, fn, and this rank's block of the result."""
+    placement = getattr(p, "placement", None)
+    if placement is None:
+        return fn(t)
+    from mygenerativerecommenders_tpu_torch.parallel import tensor_parallel as tp
+
+    groups = tp.mesh_groups()
+    return tp.local_block(fn(tp.full_tensor(t, placement, groups)), placement, groups)
 
 
 def _muon_orthogonalize(upd: torch.Tensor, ns_steps: int) -> torch.Tensor:
@@ -154,10 +171,10 @@ class Muon(torch.optim.Optimizer):
                 buf.copy_(buf + (1.0 - m) * (g - buf))
                 upd = g + m * (buf - g) if group["nesterov"] else buf
                 if upd.ndim >= 2:
-                    upd = _in_jax_layout(
-                        upd, group["transposed"],
+                    upd = _on_whole(p, upd, lambda whole: _in_jax_layout(
+                        whole, group["transposed"],
                         lambda u: _muon_orthogonalize(u, group["ns_steps"]),
-                    ).to(g.dtype)
+                    )).to(g.dtype)
                 if wd:
                     upd = upd + wd * p
                 p.add_(upd * -lr)
@@ -189,10 +206,10 @@ class Scion(torch.optim.Optimizer):
                 if m != 1.0:
                     buf = state["momentum_buffer"]
                     buf.copy_((1.0 - m) * buf + m * g)
-                lmo = _in_jax_layout(
-                    buf, group["transposed"] and buf.ndim == 2,
+                lmo = _on_whole(p, buf, lambda whole: _in_jax_layout(
+                    whole, group["transposed"] and whole.ndim == 2,
                     lambda b: scion_lmo(b, group["norm"], group["ns_steps"]),
-                )
+                ))
                 upd = -lr * group["scale"] * lmo
                 if not group["unconstrained"]:
                     upd = upd - lr * p

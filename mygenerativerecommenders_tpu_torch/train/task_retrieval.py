@@ -76,6 +76,7 @@ from mygenerativerecommenders_tpu_torch.parallel.embedding_sharding import (
 from mygenerativerecommenders_tpu_torch.parallel.process_group import (
     GradBuffer,
     gather_rows_of,
+    model_shards,
     started,
 )
 from mygenerativerecommenders_tpu_torch.parallel.topk_sharded import (
@@ -620,9 +621,24 @@ def index_sharded_on(cfg: Config) -> bool:
 
 def index_shards(cfg: Config) -> Optional[OneDeviceShards]:
     """The shard group the candidate index is row-sharded over (the JAX
-    trainer's "model" mesh axis; its shards run in turn on this device), or
+    trainer's "model" mesh axis): the started mesh's model group
+    (parallel/process_group.py), else the shards run in turn on this device;
     None for the replicated index."""
-    return OneDeviceShards(cfg.model.embedding.num_shards) if index_sharded_on(cfg) else None
+    if not index_sharded_on(cfg):
+        return None
+    return model_shards() or OneDeviceShards(cfg.model.embedding.num_shards)
+
+
+def _held_catalog(all_item_ids: np.ndarray, shards: Optional[OneDeviceShards],
+                  device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(the ids the candidates are looked up by, the ids of the index's
+    rows held here): the catalog twice for the replicated index; the padded
+    catalog and the held shards' rows of it for the sharded one."""
+    ids = all_item_ids if shards is None else padded_catalog(all_item_ids, shards)
+    catalog = torch.as_tensor(np.asarray(ids, dtype=np.int64), device=device)
+    if shards is None:
+        return catalog, catalog
+    return catalog, shards.own(catalog.view(shards.size, -1)).reshape(-1)
 
 
 def padded_catalog(all_item_ids: np.ndarray, shards: OneDeviceShards) -> np.ndarray:
@@ -651,18 +667,22 @@ def make_candidate_fn(
     index.quantize=int8 the `QuantizedCatalog` of those rows, the exact ones
     kept for re-scoring (JAX :489-500). With index.sharded on (JAX :439-482)
     the rows of the padded catalog, row-sharded over `index_shards(cfg)`:
-    [X_pad, D], the pad rows zero (and in the int8 index zero rows of scale 1)."""
+    the group's held rows, [X_pad, D] on one device and the rank's [X_pad /
+    R, D] over a process group, the pad rows zero (and in the int8 index
+    zero rows of scale 1)."""
     quantized = _check_index(cfg)
     sampler = make_sampler(cfg)
     device = next(model.parameters()).device
     shards = index_shards(cfg)
-    ids = all_item_ids if shards is None else padded_catalog(all_item_ids, shards)
-    catalog = torch.as_tensor(np.asarray(ids, dtype=np.int64), device=device)
+    catalog, held = _held_catalog(all_item_ids, shards, device)
 
     def candidates() -> Candidates:
         rows = sampler.normalize_embeddings(model.item_embeddings(catalog))
         if shards is not None:
-            rows = torch.where(catalog[:, None] > 0, rows, 0.0)
+            # over a process group every rank looks up the whole catalog (a
+            # collective of the sharded kinds) and keeps its shard's rows
+            rows = shards.own(rows.view(shards.size, -1, rows.shape[-1])).flatten(0, 1)
+            rows = torch.where(held[:, None] > 0, rows, 0.0)
         return quantize_catalog(rows, keep_exact=True) if quantized else rows
 
     return candidates
@@ -681,7 +701,9 @@ def _eval_many(model: torch.nn.Module, eval_step: Callable, steps: int) -> Calla
     run eagerly."""
     device = next(model.parameters()).device
     graphs = None
-    if device.type == "cuda":
+    group = started()
+    # gloo's collectives (the sharded index's merge, TP's) cannot be captured
+    if device.type == "cuda" and (group is None or group.backend == "nccl"):
         def body(static: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, ...]:
             batch = {k: v for k, v in static.items() if k not in _CANDIDATE_KEYS}
             extra = (candidates_from(static),) if _CANDIDATES in static else ()
@@ -737,8 +759,7 @@ def _top_k(
     filter_past = index.filter_past_ids
     approx_recall = float(index.approx_top_k_recall)
     shards = index_shards(cfg)
-    ids = all_item_ids if shards is None else padded_catalog(all_item_ids, shards)
-    catalog = torch.as_tensor(np.asarray(ids, dtype=np.int64), device=device)
+    catalog = _held_catalog(all_item_ids, shards, device)[1]
 
     def top_k(queries, candidates: Candidates, invalid_ids):
         invalid = invalid_ids if filter_past else None

@@ -1,6 +1,6 @@
 """The port's data parallel over two processes (gloo on the CPU) against the
-JAX package's one-process step and eval, and the raises of what it does not
-run yet.
+JAX package's one-process step and eval, and the raise of what it does not
+run yet (the ring over processes).
 
 A module fixture launches two ranks of `tests/torch_port_distributed.py`
 once (torchrun's environment, gloo), which take:
@@ -21,7 +21,10 @@ once (torchrun's environment, gloo), which take:
   two epochs, and the padded run resumed from its checkpoint: both
   ranks' gathered val metrics, `predict` and `test` are equal to the bit,
   the losses finite, a rank's rows the same under `mesh_data_innermost`, and
-  the padded run's val metrics equal JAX's `eval_epoch` on its weights.
+  the padded run's val metrics equal JAX's `eval_epoch` on its weights;
+- after those, a Trainer of a sharded kind and one with TP, which raised
+  before the model axis was ported, built on a mesh of their own: a model
+  group of 2 and a data group of 1.
 """
 
 import os
@@ -203,7 +206,12 @@ def ranks(tmp_path_factory):
                              "trainer.ckpt_path=" + str(
                                  tmp / "padded" / "synthetic-smoke" / "checkpoints" / "last.pt")),
     }
-    torch.save({"steps": steps, "fits": fits}, tmp / "job.pt")
+    builds = {override: _build_args(tmp / "builds", override) for override in BUILDS}
+    build_ports = set()
+    while len(build_ports) < len(builds):
+        build_ports.add(_free_port())
+    torch.save({"steps": steps, "fits": fits, "builds": builds,
+                "build_ports": sorted(build_ports)}, tmp / "job.pt")
     port = str(_free_port())
     procs = []
     for rank in (0, 1):
@@ -300,19 +308,43 @@ def one_rank_env(monkeypatch):
         monkeypatch.setenv(name, value)
 
 
+# the knobs that once raised under trainer.distributed and now build over two
+# ranks (the module's launch): a model group of 2
+BUILDS = ("model.embedding.kind=sharded_a2a", "model.encoder.tp_shards=2")
+
+
+def _build_args(out, override):
+    return ["experiment=synthetic-smoke", "trainer.device=cpu", "trainer.distributed=true",
+            f"trainer.output_dir={out}", "model.embedding.num_shards=2", override]
+
+
+# the ids the cases had while all four raised
 @pytest.mark.parametrize("override,error,words", [
-    ("trainer.num_devices=2", ValueError, "trainer.num_devices=2 but the world size is 1"),
-    ("model.embedding.kind=sharded_a2a", NotImplementedError,
-     "the sharded table over a process group"),
-    ("model.encoder.tp_shards=2", NotImplementedError, r"part \(c\): TP"),
-    ("model.encoder.sp_shards=2", NotImplementedError, r"part \(d\): the ring over a process group"),
+    pytest.param("trainer.num_devices=2", ValueError,
+                 "trainer.num_devices=2 but the world size is 1",
+                 id="trainer.num_devices=2-ValueError-trainer.num_devices=2 but the world size "
+                    "is 1"),
+    pytest.param(BUILDS[0], None, None, id="model.embedding.kind=sharded_a2a-NotImplementedError"
+                                           "-the sharded table over a process group"),
+    pytest.param(BUILDS[1], None, None,
+                 id="model.encoder.tp_shards=2-NotImplementedError-part \\(c\\): TP"),
+    pytest.param("model.encoder.sp_shards=2", NotImplementedError,
+                 r"part \(d\): the ring over a process group",
+                 id="model.encoder.sp_shards=2-NotImplementedError-part \\(d\\): the ring "
+                    "over a process group"),
 ])
 def test_what_the_data_axis_does_not_run_raises_naming_the_knob_and_part(
-        tmp_path, one_rank_env, override, error, words):
-    args = ["experiment=synthetic-smoke", "trainer.device=cpu", "trainer.distributed=true",
-            f"trainer.output_dir={tmp_path}", "model.embedding.num_shards=2", override]
+        tmp_path, one_rank_env, override, error, words, request):
+    """The ring over processes (sp_shards > 1) raises `not_ported`; a sharded
+    kind and TP, which raised before the model axis was ported, build over
+    two ranks with a model group of 2 and a data group of 1."""
+    if error is None:
+        results = request.getfixturevalue("ranks")[0]
+        for rank in (0, 1):
+            assert results[rank]["builds"][override] == {"data": 1, "model": 2, "col": 1}
+        return
     with pytest.raises(error, match=words):
-        Trainer(cli_train.parse_args(args))
+        Trainer(cli_train.parse_args(_build_args(tmp_path, override)))
 
 
 def test_more_devices_than_one_without_distributed_raise_naming_torchrun(tmp_path):

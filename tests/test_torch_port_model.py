@@ -181,8 +181,9 @@ def test_unported_kinds_raise_naming_the_roadmap_item(override, item):
     that ports them; those ported since build and take a step (remat,
     compute_dtype=bfloat16 with its parameters and output in float32, and
     the sharded embedding kinds, whose table keeps its key and JAX's padded
-    shape) or raise a ValueError naming the knob (attention dropout, which
-    the reference ignores)."""
+    shape), build as the plain model (tp_shards on one device) or raise a
+    ValueError naming the knob (attention dropout, which the reference
+    ignores)."""
     _, pcfg = _configs([override])
     if override.startswith("model.embedding.kind=sharded"):
         pcfg.model.embedding.num_shards = 8
@@ -227,6 +228,18 @@ def test_unported_kinds_raise_naming_the_roadmap_item(override, item):
     elif override == "model.encoder.attn_dropout_rate=0.1":
         with pytest.raises(ValueError, match="encoder.attn_dropout_rate=0.1: the reference"):
             pt_build_model(pcfg, device="cpu")
+    elif override == "model.encoder.tp_shards=2":
+        # on one device the block is the plain one (its matmuls hold the K
+        # column blocks): the same weights and outputs
+        _, plain_cfg = _configs([])
+        model, plain = pt_build_model(pcfg, device="cpu"), pt_build_model(plain_cfg, device="cpu")
+        batch = {k: torch.from_numpy(v) for k, v in _batch(0).items()}
+        seq, _, _ = pt_seq_features(batch, pcfg.model.gr_output_length + 1)
+        outs = []
+        for m in (model, plain):
+            assert all(block.tp is None for block in m.sequence_encoder["_hstu"]._attention_layers)
+            outs.append(m(seq._replace(past_embeddings=m.item_embeddings(seq.past_ids)))[0])
+        assert torch.equal(*outs)
     else:
         with pytest.raises(NotImplementedError, match=item):
             pt_build_model(pcfg, device="cpu")

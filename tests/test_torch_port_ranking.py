@@ -370,7 +370,7 @@ def test_serving_a_ranking_model_raises_naming_the_roadmap_item():
     _, pcfg = _configs()
     pt_resolve(pcfg, 220)
     model = pt_build_model(pcfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="Other model families"):
+    with pytest.raises(ValueError, match="model.task=retrieval, got model.task=ranking"):
         ServingEngine(model, pcfg, np.arange(1, 221), 220, device="cpu")
 
 

@@ -321,13 +321,18 @@ def test_packed_rows_with_the_ring_raise(tmp_path):
 
 
 def test_ring_builds_and_tensor_parallel_still_raises():
+    """The ring builds; with tp_shards=2 beside it the model on one device
+    is the same plain model, weights and parameters."""
     cfg = pt_preset("synthetic-smoke")
     cfg.model.encoder.sp_shards = 2
     pt_resolve(cfg, 220)
-    assert pt_build_model(cfg, device="cpu") is not None
+    ring = pt_build_model(cfg, device="cpu")
     cfg.model.encoder.tp_shards = 2
-    with pytest.raises(NotImplementedError, match="Distributed"):
-        pt_build_model(cfg, device="cpu")
+    both = pt_build_model(cfg, device="cpu")
+    assert ring.state_dict().keys() == both.state_dict().keys()
+    for key, value in ring.state_dict().items():
+        assert torch.equal(value, both.state_dict()[key]), key
+    assert all(block.tp is None for block in both.sequence_encoder["_hstu"]._attention_layers)
 
 
 def _lse_inputs(seed, bt, d, x, r, padded):

@@ -16,6 +16,9 @@
   trains them (`fit`); the rank keeps the val metrics, each epoch's loss,
   whether its train rows are the same under `trainer.mesh_data_innermost`
   on and off, the weights, `predict` and `test`.
+- "builds": {name: CLI overrides} with their "build_ports": after the
+  above, `Trainer(...)` with `trainer.distributed` is built on a mesh of
+  its own (a new port each); the rank keeps the mesh's sizes.
 
 The rank writes `<out_dir>/rank<r>.pt`. No JAX is imported here.
 """
@@ -35,6 +38,13 @@ from mygenerativerecommenders_tpu_torch.models.model import build_model
 from mygenerativerecommenders_tpu_torch.parallel.process_group import (
     init_data_parallel,
     shutdown,
+    started,
+)
+from mygenerativerecommenders_tpu_torch.parallel.tensor_parallel import (
+    full_state_dict,
+    full_tensor,
+    mesh_groups,
+    place_model,
 )
 from mygenerativerecommenders_tpu_torch.train import task_ranking, task_retrieval
 from mygenerativerecommenders_tpu_torch.train.driver import Trainer
@@ -43,13 +53,16 @@ from mygenerativerecommenders_tpu_torch.train.optimizers import build_optimizer
 
 
 def take_step(case: dict, rank: int) -> dict:
-    """One step on the rank's batch: over the process's group where one is
-    started, else on one process."""
+    """One step on the batch of data index `rank`: over the process's mesh
+    where one is started (the model placed on it, the sharded leaves'
+    gradients and weights gathered back into the one-process layout), else
+    on one process."""
     cfg = case["cfg"]
     data = RecoData(cfg.data, seed=cfg.trainer.seed)
     resolve(cfg, data.max_item_id)
     model = build_model(cfg, device="cpu")
     model.load_state_dict(case["state"])
+    place_model(model, started())
     model.train()
     lr = case["lr"]
     if cfg.model.embedding.lazy_update:
@@ -68,8 +81,13 @@ def take_step(case: dict, rank: int) -> dict:
         inputs[name] = case["drawn"][rank]
     loss = step(batch, lr, lr, **inputs)
     grads = {k: p.grad.clone() for k, p in model.named_parameters() if p.grad is not None}
+    placements = getattr(model, "placements", {})
+    if placements:
+        groups = mesh_groups()
+        grads = {k: full_tensor(g, placements[k], groups) if k in placements else g
+                 for k, g in grads.items()}
     return {"loss": float(loss), "grads": grads,
-            "params": {k: v.clone() for k, v in model.state_dict().items()}}
+            "params": {k: v.clone() for k, v in full_state_dict(model).items()}}
 
 
 def run_fit(args: list) -> dict:
@@ -102,6 +120,13 @@ def main(job_path: str, out_dir: str) -> None:
             results["steps"][name] = take_step(case, rank)
         for name, args in job["fits"].items():
             results["fits"][name] = run_fit(args)
+        results["builds"] = {}
+        for (name, args), port in zip(job.get("builds", {}).items(), job.get("build_ports", ())):
+            shutdown()
+            os.environ["MASTER_PORT"] = str(port)
+            mesh = Trainer(parse_args(args)).dp
+            results["builds"][name] = {"data": mesh.size, "model": mesh.model_size,
+                                       "col": mesh.col_size}
     finally:
         shutdown()
     torch.save(results, os.path.join(out_dir, f"rank{rank}.pt"))
