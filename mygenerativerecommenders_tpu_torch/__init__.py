@@ -14,10 +14,3 @@ import torch
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
-
-def not_ported(what: str, item: str) -> NotImplementedError:
-    """The error for a knob the port does not implement yet; `item` names
-    the entry of ROADMAP.md's queue 1 that brings it."""
-    return NotImplementedError(
-        f"{what} is not ported to PyTorch yet: ROADMAP.md queue 1, item {item!r}"
-    )

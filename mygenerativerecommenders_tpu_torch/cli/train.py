@@ -15,11 +15,13 @@ override it raises. Data parallel over processes, one card each:
       experiment=synthetic-hstu trainer.distributed=true
 
 (parallel/process_group.py; with `trainer.device=cpu` the ranks run on the
-CPU over gloo). The world is data x model x col: a sharded kind's
+CPU over gloo). The world is data x model x col x sp: a sharded kind's
 `model.embedding.num_shards` or `model.encoder.tp_shards` sizes the model
-axis and sharded_2d's `col_shards` the col axis, so N must be a multiple of
-their product (4 processes of `num_shards=2 tp_shards=2` train 2 data
-indices of a 2-rank model group each).
+axis, sharded_2d's `col_shards` the col axis and `model.encoder.sp_shards`
+the sp axis (the ring's sequence shards, one a rank), so N must be a
+multiple of their product (4 processes of `num_shards=2 tp_shards=2` train 2
+data indices of a 2-rank model group each; 2 processes of
+`model.encoder.sp_shards=2` run one ring over both).
 """
 
 from __future__ import annotations

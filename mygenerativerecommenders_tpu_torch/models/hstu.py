@@ -19,9 +19,13 @@ With `sp_shards` > 1 the attention is the ring of
 parallel/ring_attention.py (`_ring_attention`, the counterpart of the JAX
 block's :218-284): the sequence is padded to a multiple of the shard count
 (twice that in the zigzag layout) and its P shards run in turn on the one
-device, each through the chunk kernels of ops/kernels/hstu_chunk.py. The
-ring has no `lengths`: rows past a user's length are live there, and the
-block's output is the same only because u is silu(0) = 0 on those zero rows.
+device, or, once the block is placed on an sp group of ranks (`place_sp`,
+from parallel/tensor_parallel.py:place_model), one a rank, the K/V chunks
+rotating between the processes; every shard's chunks go through the chunk
+kernels of ops/kernels/hstu_chunk.py. The rest of the block runs replicated
+over the sp group. The ring has no `lengths`: rows past a user's length are
+live there, and the block's output is the same only because u is silu(0) = 0
+on those zero rows.
 
 `normalization="softmax_rel_bias"` is the JAX block's softmax branch
 (:182-200), in plain torch ops as JAX runs it in jnp ops: q and k keep the
@@ -40,7 +44,11 @@ projection holds its K column blocks side by side. Over a process group
 holds column block r of `_uvqk` and of `_o.weight` (JAX's contiguous
 `P(None, "model")` and `P("model", None)` blocks), gathers the projection,
 runs the attention replicated, and sums its share of the output projection
-over the model group before the bias and the residual.
+over the model group before the bias and the residual. With the ring too,
+each rank of a model group runs the ring over its own sp group with every
+head, which gives the values of JAX's ring with its heads sharded over
+"model" (train/driver.py:mesh_axes raises JAX's error where the heads do
+not divide).
 
 Parameter names follow the reference checkpoint
 (mygenerativerecommenders_tpu/cli/convert_ckpt.py:9-15): `_uvqk`, `_o`,
@@ -91,7 +99,10 @@ from mygenerativerecommenders_tpu_torch.ops.hstu_attention import (
 from mygenerativerecommenders_tpu_torch.ops.kernels.hstu_attention import (
     hstu_attention_fused,
 )
-from mygenerativerecommenders_tpu_torch.parallel.ring_attention import ring_hstu_attention
+from mygenerativerecommenders_tpu_torch.parallel.ring_attention import (
+    ring_hstu_attention,
+    ring_hstu_attention_group,
+)
 
 TIMESTAMPS_KEY = "timestamps"
 SEGMENT_IDS_KEY = "seg_ids"
@@ -175,6 +186,7 @@ class HSTUBlock(nn.Module):
             nn.init.xavier_uniform_(self._o.weight, generator=generator)
             self._o.bias.zero_()
         self.tp = None  # the TP group over processes (`place_tp`)
+        self.sp = None  # the ring's sp group over processes (`place_sp`)
 
     def place_tp(self, group) -> None:
         """Run tensor-parallel over `group` (a `ProcessGroupShards` of the
@@ -193,6 +205,14 @@ class HSTUBlock(nn.Module):
                 raise ValueError(f"encoder.tp_shards={group.size}: the blocks' {name} width "
                                  f"{width} does not divide by it")
         self.tp = group
+
+    def place_sp(self, group) -> None:
+        """Run the ring over `group` (a `ProcessGroupShards` of the sp axis),
+        one shard a rank (parallel/ring_attention.py:ring_hstu_attention_group)."""
+        if group.size != self.sp_shards:
+            raise ValueError(f"encoder.sp_shards={self.sp_shards} on an sp group of "
+                             f"{group.size} ranks")
+        self.sp = group
 
     def forward(
         self,
@@ -299,8 +319,9 @@ class HSTUBlock(nn.Module):
         return torch.einsum("bnm,bmd->bnd", probs, v.to(probs.dtype)).to(v.dtype)
 
     def _ring_attention(self, qh, kh, vh, timestamps, pos_w, ts_w) -> torch.Tensor:
-        """Sequence-parallel attention on one device (exact: HSTU attention is
-        a plain sum over keys). N is padded up to a multiple of sp_shards (of
+        """Sequence-parallel attention on one device, or over the sp group
+        once one is placed (exact: HSTU attention is a plain sum over keys).
+        N is padded up to a multiple of sp_shards (of
         2 * sp_shards in the zigzag layout); padded keys contribute nothing
         (their v rows are zero) and padded query rows are sliced off. The
         timestamps pad by repeating the last column, so the last real row's
@@ -313,13 +334,16 @@ class HSTUBlock(nn.Module):
             timestamps = torch.cat(
                 [timestamps, timestamps[:, -1:].expand(-1, pad)], dim=1
             )
-        out = ring_hstu_attention(
-            qh, kh, vh, timestamps, pos_w, ts_w,
-            num_shards=self.sp_shards, zigzag=self.sp_zigzag,
-            # the 1/n normaliser and the table centre use the UNPADDED n
-            # (= max_attn_len in every real configuration)
-            max_len=self.max_attn_len, num_buckets=self.num_time_buckets,
-        )
+        # the 1/n normaliser and the table centre use the UNPADDED n
+        # (= max_attn_len in every real configuration)
+        common = dict(zigzag=self.sp_zigzag, max_len=self.max_attn_len,
+                      num_buckets=self.num_time_buckets)
+        if self.sp is not None:
+            out = ring_hstu_attention_group(qh, kh, vh, timestamps, pos_w, ts_w, group=self.sp,
+                                            **common)
+        else:
+            out = ring_hstu_attention(qh, kh, vh, timestamps, pos_w, ts_w,
+                                      num_shards=self.sp_shards, **common)
         return out[:, :n]
 
 

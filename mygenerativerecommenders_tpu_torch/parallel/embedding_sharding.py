@@ -19,8 +19,8 @@ collectives. A group holds `local` shards' operands on a leading axis,
   fixed handful of launches whatever R is, and it runs inside a CUDA graph
   of the step.
 - `ProcessGroupShards` holds its rank's one, `[1, ...]`, and its methods are
-  collectives over a `torch.distributed` group (the model or col group of
-  parallel/process_group.py). Each is an autograd Function whose backward
+  collectives over a `torch.distributed` group (the model, col or sp group
+  of parallel/process_group.py). Each is an autograd Function whose backward
   is the transpose that JAX's `shard_map` gives under a loss that every
   rank of the group computes whole (a replicated loss): the all_to_all's
   is the reverse all_to_all; an all_gather or a psum that yields a
@@ -231,7 +231,8 @@ class ProcessGroupShards:
     `[1, ...]`. The methods are `OneDeviceShards`' on that operand, each a
     collective over the group, with the backward of a replicated loss;
     `enter` and `psum` serve TP's blocks (models/hstu.py), which run on one
-    device without a group."""
+    device without a group; `own`, `enter`, `all_gather` and `rotate` serve
+    the ring over an sp group (parallel/ring_attention.py)."""
 
     local = 1
 
@@ -253,6 +254,20 @@ class ProcessGroupShards:
     def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
         """x [1 (src), R (dst), ...] -> [1 (dst), R (src), ...]."""
         return _AllToAll.apply(x[0], self.group)[None]
+
+    def rotate(self, x: torch.Tensor, shift: int) -> torch.Tensor:
+        """x sent `shift` ranks forward around the group; -> the x of the rank
+        `shift` behind (the ring's step, JAX's ppermute; no autograd). One
+        `all_to_all_single` whose splits along dim 0 name one peer each way,
+        which gloo and NCCL both take (gloo on CUDA tensors too)."""
+        _count()
+        n = x.shape[0]
+        to, frm = (self.rank + shift) % self.size, (self.rank - shift) % self.size
+        out = torch.empty_like(x)
+        dist.all_to_all_single(out, x.contiguous(),
+                               [n if r == frm else 0 for r in range(self.size)],
+                               [n if r == to else 0 for r in range(self.size)], group=self.group)
+        return out
 
     def all_gather(self, x: torch.Tensor, dim: int, stack_dim: int = 0) -> torch.Tensor:
         stacked = _Stack.apply(x, stack_dim, self.group, self.rank, self.size)

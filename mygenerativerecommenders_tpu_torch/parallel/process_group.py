@@ -3,44 +3,49 @@
 Port of the JAX trainer's mesh (`make_mesh`,
 mygenerativerecommenders_tpu/train/driver.py:48-93, sized at :124-153) and of
 `jax.distributed.initialize` (tests/distributed_worker.py:80-86). The world's
-ranks are laid out on a (data, model, col) grid, world = data x model x col:
-"model" = max(`embedding.num_shards` of a sharded kind, `encoder.tp_shards`),
-"col" = `embedding.col_shards` of sharded_2d, "data" the rest. The rank order
-is JAX's device order: [data, model, col] with col innermost, or with
-`trainer.mesh_data_innermost` the data index innermost, so a model group
-spans ranks that are `data` apart.
+ranks are laid out on a (data, model, col, sp) grid, world = data x model x
+col x sp: "model" = max(`embedding.num_shards` of a sharded kind,
+`encoder.tp_shards`), "col" = `embedding.col_shards` of sharded_2d, "sp" =
+`encoder.sp_shards` (the ring's sequence shards), "data" the rest. The rank
+order is JAX's device order: [data, model, col, sp] with sp innermost, or
+with `trainer.mesh_data_innermost` the data index innermost, so a model or
+sp group spans ranks that are `data` apart.
 
-- `init_data_parallel(trainer_cfg, backend, model=1, col=1)` reads torchrun's
-  environment (`RANK`, `WORLD_SIZE`, `LOCAL_RANK`, `MASTER_ADDR`,
-  `MASTER_PORT`) and starts the default group: NCCL for a cuda device, gloo
-  for the CPU, or the backend its caller names (two processes sharing one
-  card run gloo). A failed NCCL start raises; nothing falls back to gloo.
-  Beside the default group it makes the data group of each (model, col)
-  coordinate, the model group of each (data, col) one and the col group of
-  each (data, model) one (`dist.new_group`, every rank making every group in
-  one order), and a gloo twin of the data group and of the world for host
-  arrays (eval rows, checksums), as JAX's `process_allgather` does. The
-  model and col groups are `ProcessGroupShards`
+- `init_data_parallel(trainer_cfg, backend, model=1, col=1, sp=1)` reads
+  torchrun's environment (`RANK`, `WORLD_SIZE`, `LOCAL_RANK`,
+  `MASTER_ADDR`, `MASTER_PORT`) and starts the default group: NCCL for a
+  cuda device, gloo for the CPU, or the backend its caller names (two
+  processes sharing one card run gloo). A failed NCCL start raises; nothing
+  falls back to gloo. Beside the default group it makes the data group of
+  each (model, col, sp) coordinate and the model, col and sp group of each
+  coordinate of the other axes (`dist.new_group`, every rank making every
+  group in one order), and a gloo twin of the data group and of the world
+  for host arrays (eval rows, checksums), as JAX's `process_allgather`
+  does. The model, col and sp groups are `ProcessGroupShards`
   (parallel/embedding_sharding.py): the shard groups of the sharded tables,
-  the sharded index and tensor parallelism (parallel/tensor_parallel.py).
-- The ranks of one model (and col) group hold the same rows of the global
+  the sharded index and tensor parallelism (parallel/tensor_parallel.py),
+  and the ring's sequence shards (parallel/ring_attention.py:
+  `ProcessGroupRing`).
+- The ranks of one model, col or sp group hold the same rows of the global
   batch: the loaders stride over the data coordinate, the losses divide by
   the global weight sum (`global_sum`, an all-reduce over the data group
   inside the step: models/losses.py), the in-batch pool and the lazy table
   update take the data group's rows (`gather_rows_of`), and a rank's own
   draws (negatives, dropout) are keyed by its data coordinate
-  (`rank_seed`), so the ranks of a model group draw alike for what is one
+  (`rank_seed`), so the ranks of such a group draw alike for what is one
   replicated computation.
 - The step sums the gradients in flat buffers (`GradBuffer`,
   train/task_retrieval.py:train_step_from_loss), one a kind of leaf: a leaf
   sharded over the model (and col) axis is summed over the ranks that hold
-  the same shard, the data group; a replicated leaf is summed over the
-  world and divided by its replica count, the mean over the model group
-  of the data group's sum, which keeps the replicas bit-equal (the
-  attention backward's bias-table gradients come from float atomics, so
-  two ranks' "same" gradient differs in its last bits). Without a model
-  axis this is one flat all-reduce over the world. On cuda under
-  NCCL the step's collectives are captured in its CUDA graph.
+  the same shard and divided by their copies of one data index (the sp
+  ranks, and the col ranks of a leaf sharded over model alone); a
+  replicated leaf is summed over the world and divided by its replica
+  count (model x col x sp), the mean over those ranks of the data group's
+  sum, which keeps the replicas bit-equal (the attention backward's
+  bias-table gradients come from float atomics, so two ranks' "same"
+  gradient differs in its last bits). No leaf is sharded over sp. Without
+  a model or sp axis this is one flat all-reduce over the world. On cuda
+  under NCCL the step's collectives are captured in its CUDA graph.
 
 No module of the port opens a group unless `trainer.distributed` asks for
 it; without one none of these functions does anything but return its input.
@@ -69,13 +74,17 @@ all_reduces = 0
 all_gathers = 0
 
 
-def mesh_ranks(data: int, model: int, col: int, data_innermost: bool) -> np.ndarray:
-    """[data, model, col] world ranks in JAX's device order (`make_mesh`):
-    col innermost, or with `data_innermost` the data index innermost."""
-    n = data * model * col
+AXES = ("data", "model", "col", "sp")
+
+
+def mesh_ranks(data: int, model: int, col: int, sp: int, data_innermost: bool) -> np.ndarray:
+    """[data, model, col, sp] world ranks in JAX's device order
+    (`make_mesh`): sp innermost, or with `data_innermost` the data index
+    innermost."""
+    n = data * model * col * sp
     if data_innermost:
-        return np.moveaxis(np.arange(n).reshape(model, col, data), -1, 0)
-    return np.arange(n).reshape(data, model, col)
+        return np.moveaxis(np.arange(n).reshape(model, col, sp, data), -1, 0)
+    return np.arange(n).reshape(data, model, col, sp)
 
 
 @dataclasses.dataclass
@@ -84,7 +93,7 @@ class DataGroup:
     `size` on the data axis, the data group (`data_pg`; the default group
     where the world is the data axis) for the step's sums, `host` (gloo) for
     host arrays over the data group and `world_host` over the world, and
-    the shard groups `model` and `col` (None where that axis is 1)."""
+    the shard groups `model`, `col` and `sp` (None where that axis is 1)."""
 
     rank: int  # the data index
     size: int  # the data size
@@ -97,11 +106,15 @@ class DataGroup:
     world_host: Any = None  # the gloo group over the world (None: `host`)
     model: Optional[ProcessGroupShards] = None
     col: Optional[ProcessGroupShards] = None
+    sp: Optional[ProcessGroupShards] = None
     # the group a leaf sharded over these axes is summed over, and the
     # number of its ranks that hold one data index's copy
     replica_groups: Dict[FrozenSet[str], Tuple[Any, int]] = dataclasses.field(
         default_factory=dict)
-    grid: Optional[np.ndarray] = None  # [data, model, col] world ranks (`mesh_ranks`)
+    grid: Optional[np.ndarray] = None  # [data, model, col, sp] world ranks (`mesh_ranks`)
+    # the group of the ranks that share this data index and their count,
+    # None where there is one (`replica_mean_`)
+    replica_pg: Optional[Tuple[Any, int]] = None
 
     @property
     def model_size(self) -> int:
@@ -110,6 +123,10 @@ class DataGroup:
     @property
     def col_size(self) -> int:
         return self.col.size if self.col is not None else 1
+
+    @property
+    def sp_size(self) -> int:
+        return self.sp.size if self.sp is not None else 1
 
     def all_reduce_(self, t: torch.Tensor, group: Any = None) -> torch.Tensor:
         """The sum over the data group (or `group`), in place."""
@@ -130,8 +147,8 @@ class DataGroup:
         """Every data rank's host rows, concatenated in data order (JAX
         `_gather_rows`, driver.py:562-586): the row counts first, each rank's
         rows padded to the largest count for the fixed-shape gather, the
-        padding dropped after it. The ranks of a model group hold the same
-        rows, so the data group's are the global batch's."""
+        padding dropped after it. The ranks of a model, col or sp group hold
+        the same rows, so the data group's are the global batch's."""
         counts = [torch.zeros(1, dtype=torch.int64) for _ in range(self.size)]
         dist.all_gather(counts, torch.tensor([arr.shape[0]], dtype=torch.int64), group=self.host)
         counts = [int(c) for c in counts]
@@ -172,16 +189,15 @@ class DataGroup:
                     )
 
     def coords(self, world_rank: Optional[int] = None) -> Dict[str, int]:
-        """{"data", "model", "col"} of a world rank (default this one)."""
+        """{"data", "model", "col", "sp"} of a world rank (default this one)."""
         r = self.world_rank if world_rank is None else world_rank
-        d, m, c = (int(x[0]) for x in np.nonzero(self.grid == r))
-        return {"data": d, "model": m, "col": c}
+        return {axis: int(x[0]) for axis, x in zip(AXES, np.nonzero(self.grid == r))}
 
     def sum_grads_(self, flat: torch.Tensor, axes: FrozenSet[str]) -> None:
         """A flat buffer of leaves sharded over `axes` (empty: replicated),
         summed over the ranks that hold their shard and divided by the
-        replicas of one data index: the mean over the model group of the
-        data group's sum. One all-reduce, also over a group of one rank (an
+        copies of one data index among them: the mean over those copies of
+        the data group's sum. One all-reduce, also over a group of one rank (an
         identity, which a graph of the step captures all the same)."""
         group, replicas = self.replica_groups[frozenset(axes)]
         self.all_reduce_(flat, group)
@@ -218,12 +234,14 @@ def gather_rows_of(t: torch.Tensor) -> torch.Tensor:
     return t if _GROUP is None else _GROUP.all_gather(t)
 
 
-def model_mean_(t: torch.Tensor) -> torch.Tensor:
-    """t (a replicated leaf's gradient rows) averaged over the model group of
-    the started mesh, in place: the replicas update alike."""
-    if _GROUP is not None and _GROUP.model is not None:
-        _GROUP.all_reduce_(t, _GROUP.model.group)
-        t.div_(_GROUP.model.size)
+def replica_mean_(t: torch.Tensor) -> torch.Tensor:
+    """t (a replicated leaf's gradient rows) averaged over the ranks of the
+    started mesh that share its data index (its model, col and sp groups),
+    in place: the replicas update alike."""
+    if _GROUP is not None and _GROUP.replica_pg is not None:
+        group, copies = _GROUP.replica_pg
+        _GROUP.all_reduce_(t, group)
+        t.div_(copies)
     return t
 
 
@@ -362,21 +380,37 @@ def _new_groups(grid: np.ndarray, axes: Tuple[int, ...], backend: Optional[str],
     return mine
 
 
+def _axis_group(grid: np.ndarray, axes: Tuple[int, ...], data_pg: Any, rank: int,
+                made: Dict[Tuple[int, ...], Any]) -> Tuple[Any, int]:
+    """(the group over the ranks along `axes` of the grid, 0 among them; its
+    ranks that share a data index): `data_pg` where the other axes are all of
+    size 1, else a group made once for each set of axes (`made`), the
+    default group where they span the world."""
+    axes = tuple(a for a in axes if grid.shape[a] > 1 or a == 0)
+    copies = int(np.prod([grid.shape[a] for a in axes if a != 0]))
+    if axes == (0,):
+        return data_pg, 1
+    if axes not in made:
+        made[axes] = _new_groups(grid, axes, None, rank)
+    return made[axes], copies
+
+
 def init_data_parallel(trainer_cfg: Any, backend: Optional[str] = None, model: int = 1,
-                       col: int = 1) -> DataGroup:
+                       col: int = 1, sp: int = 1) -> DataGroup:
     """This process's `DataGroup`: the default group started from torchrun's
     environment (or the one already started in this process), its device,
-    and the groups of a (data, model, col) mesh with `model` x `col`
-    dividing the world. `backend`: None picks NCCL for a cuda device and
-    gloo for the CPU."""
+    and the groups of a (data, model, col, sp) mesh with `model` x `col` x
+    `sp` dividing the world. `backend`: None picks NCCL for a cuda device
+    and gloo for the CPU."""
     global _GROUP
     rank, size, local_rank, addr, port = _env()
     check_num_devices(int(trainer_cfg.num_devices), True, size)
-    if size % (model * col):
+    cut = model * col * sp
+    if size % cut:
         raise ValueError(
             f"the world size {size} does not divide by the model axis {model} x the col axis "
-            f"{col} (embedding.num_shards / encoder.tp_shards, embedding.col_shards): launch "
-            f"a multiple of {model * col} processes"
+            f"{col} x the sp axis {sp} (embedding.num_shards / encoder.tp_shards, "
+            f"embedding.col_shards, encoder.sp_shards): launch a multiple of {cut} processes"
         )
     device = _device(trainer_cfg.device, local_rank)
     backend = backend or ("nccl" if device.type == "cuda" else "gloo")
@@ -386,38 +420,51 @@ def init_data_parallel(trainer_cfg: Any, backend: Optional[str] = None, model: i
             raise RuntimeError(
                 f"trainer.device={trainer_cfg.device} but no CUDA device is available")
         torch.cuda.set_device(device)
+    grid = mesh_ranks(size // cut, model, col, sp, innermost)
     if _GROUP is not None:
         same = (_GROUP.world_rank, _GROUP.world_size, _GROUP.device, _GROUP.backend,
-                _GROUP.model_size, _GROUP.col_size) == (rank, size, device, backend, model, col)
-        if not same or (model * col > 1 and not np.array_equal(
-                _GROUP.grid, mesh_ranks(size // (model * col), model, col, innermost))):
+                _GROUP.model_size, _GROUP.col_size, _GROUP.sp_size) == (
+                    rank, size, device, backend, model, col, sp)
+        if not same or (cut > 1 and not np.array_equal(_GROUP.grid, grid)):
             raise ValueError(
                 f"the process group is already started as rank {_GROUP.world_rank} of "
                 f"{_GROUP.world_size} on {_GROUP.device} over {_GROUP.backend} with a model "
-                f"axis of {_GROUP.model_size} and a col axis of {_GROUP.col_size}")
+                f"axis of {_GROUP.model_size}, a col axis of {_GROUP.col_size} and an sp axis "
+                f"of {_GROUP.sp_size}")
         return _GROUP
     kwargs = {"device_id": device} if backend == "nccl" else {}
     dist.init_process_group(backend, init_method=f"tcp://{addr}:{port}", rank=rank,
                             world_size=size, **kwargs)
-    grid = mesh_ranks(size // (model * col), model, col, innermost)
     world_host = dist.new_group(backend="gloo") if backend != "gloo" else dist.group.WORLD
     data_pg = _new_groups(grid, (0,), None, rank)
     host = world_host if data_pg is dist.group.WORLD else (
         data_pg if backend == "gloo" else _new_groups(grid, (0,), "gloo", rank))
-    d, m, c = (int(x[0]) for x in np.nonzero(grid == rank))
+    coords = dict(zip(AXES, (int(x[0]) for x in np.nonzero(grid == rank))))
     shards = {}
-    for axis, (name, n, coord) in enumerate((("model", model, m), ("col", col, c)), start=1):
+    for axis, (name, n) in enumerate((("model", model), ("col", col), ("sp", sp)), start=1):
         if n > 1:
-            shards[name] = ProcessGroupShards(_new_groups(grid, (axis,), None, rank), coord, n)
-    # the leaves: replicated, the 2-D table's blocks, and TP's blocks and the
-    # other kinds' (sharded over "model" alone: copied over "col")
-    replicas = {frozenset(): (dist.group.WORLD, model * col),
-                frozenset({"model", "col"}): (data_pg, 1), frozenset({"model"}): (data_pg, 1)}
-    if model > 1 and col > 1:
-        replicas[frozenset({"model"})] = (_new_groups(grid, (0, 2), None, rank), col)
-    _GROUP = DataGroup(d, size // (model * col), device, backend, host, rank, size,
-                       data_pg, world_host, shards.get("model"), shards.get("col"), replicas,
-                       grid)
+            shards[name] = ProcessGroupShards(_new_groups(grid, (axis,), None, rank),
+                                              coords[name], n)
+    # the leaves by the axes they are sharded over: replicated (summed over
+    # the world), the 2-D table's blocks, and TP's blocks and the other
+    # kinds' (sharded over "model" alone: copied over "col"); every kind is
+    # copied over "sp"
+    replicas, made = {frozenset(): (dist.group.WORLD, cut)}, {}
+    if model > 1:
+        for axes, over in ((frozenset({"model", "col"}), (0, 3)),
+                           (frozenset({"model"}), (0, 2, 3))):
+            replicas[axes] = _axis_group(grid, over, data_pg, rank, made)
+    # the ranks that share a data index (`replica_mean_`): one shard group
+    # where one axis is above 1
+    copied = tuple(a for a in (1, 2, 3) if grid.shape[a] > 1)
+    replica_pg = None
+    if len(copied) == 1:
+        replica_pg = (shards[AXES[copied[0]]].group, cut)
+    elif copied:
+        replica_pg = (_new_groups(grid, copied, None, rank), cut)
+    _GROUP = DataGroup(coords["data"], size // cut, device, backend, host, rank, size,
+                       data_pg, world_host, shards.get("model"), shards.get("col"),
+                       shards.get("sp"), replicas, grid, replica_pg)
     return _GROUP
 
 

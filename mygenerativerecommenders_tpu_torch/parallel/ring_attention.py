@@ -1,5 +1,5 @@
-"""Ring (sequence-parallel) HSTU attention, its P shards run in turn on one
-device.
+"""Ring (sequence-parallel) HSTU attention: its P shards run in turn on one
+device, or one a rank over the "sp" group of a mesh of processes.
 
 Port of mygenerativerecommenders_tpu/parallel/ring_attention.py. HSTU
 attention is a plain sum over keys (no row max, no denominator), so a shard
@@ -18,7 +18,8 @@ The bodies `ring_hstu_attention_local` and `ring_hstu_attention_zigzag_local`
 compute for one shard exactly what the JAX bodies (:104-146, :178-274) do on
 one device: the same chunk calls with the same offsets, the same next-item
 timestamp bookkeeping, and the contributions added in the same order. They
-reach the other shards only through a ring object with two methods:
+reach the other shards only through a ring object with two methods, which
+every shard calls alike (over a group each call is a collective):
 
 - `resident(p, t)`: (src, k, v, timestamps) of the chunk shard p holds at
   step t, the JAX body's ppermute rotation;
@@ -26,15 +27,20 @@ reach the other shards only through a ring object with two methods:
   JAX body's collectives on the first timestamps.
 
 `OneDeviceRing` holds all P shards on one device, so the rotation is a
-change of which slice a shard reads, not a copy. A ring over a process group
-supplies the same two methods with collectives.
+change of which slice a shard reads, not a copy (`ring_hstu_attention`).
+`ProcessGroupRing` is the ring over an sp group of ranks, one shard a rank
+(`ring_hstu_attention_group`, the counterpart of the JAX block's
+`shard_map` boundary, models/hstu.py:256-277): its K/V chunk and timestamps
+travel one rank forward each step (`ProcessGroupShards.rotate`), and the
+first timestamps are all-gathered over the group.
 
 Where a chunk has no live pair (its first column at or past the last row of
 the shard, `col_off - row_off >= Nl`) the body skips it on the host, as the
 zigzag `lax.cond` does (:254-264); the JAX contiguous body adds the chunk
-kernel's zeros there, which leaves the sum the same. Each chunk goes through
-`ops/kernels/hstu_chunk.py`: the CUDA kernels on the card, the plain version
-on the CPU.
+kernel's zeros there, which leaves the sum the same. Over a group a skipped
+chunk skips its compute only: the rotation of that step runs on every rank.
+Each chunk goes through `ops/kernels/hstu_chunk.py`: the CUDA kernels on the
+card, the plain version on the CPU.
 """
 
 from __future__ import annotations
@@ -46,6 +52,7 @@ import numpy as np
 import torch
 
 from mygenerativerecommenders_tpu_torch.ops.kernels.hstu_chunk import hstu_chunk_attention
+from mygenerativerecommenders_tpu_torch.parallel.embedding_sharding import ProcessGroupShards
 
 
 def chunk_contribution(
@@ -98,11 +105,10 @@ def ring_hstu_attention_local(
     ts = timestamps.to(torch.int32)
     # ext[n+1] per local query row: shift left, the last row takes the first
     # timestamp of the next shard, except the globally last row, which
-    # repeats itself (:121-128)
-    if p == num_shards - 1:
-        tail = ts[:, -1:]
-    else:
-        tail = ring.all_gather(lambda t: t[:, :1].to(torch.int32))[p + 1]
+    # repeats itself (:121-128). Every shard gathers, the last too, as every
+    # JAX shard takes part in the ppermute
+    firsts = ring.all_gather(lambda t: t[:, :1].to(torch.int32))
+    tail = ts[:, -1:] if p == num_shards - 1 else firsts[p + 1]
     tsq_next = torch.cat([ts[:, 1:], tail], dim=1)
 
     row_off = p * nl
@@ -233,3 +239,139 @@ def ring_hstu_attention(
     if zigzag:
         out = out.index_select(1, inverse)
     return out
+
+
+class ProcessGroupRing:
+    """The ring over an sp group of ranks (`ProcessGroupShards` of the mesh's
+    "sp" axis, parallel/process_group.py), rank p holding shard p. Its K/V
+    chunk and timestamps travel as one float32 block [B, Nl, H*Dqk + H*Dv +
+    1] (the int32 timestamps' bits in the last column): each ring step every
+    rank sends its resident block one rank forward and takes the one from
+    the rank behind (`ProcessGroupShards.rotate`, JAX's ppermute, :133-143),
+    whatever chunk its body skips, and none after the last step (JAX's last
+    ppermute moves blocks nothing reads). With `leaves` each resident block
+    is a leaf that requires grad (`_GroupRingAttention` sends its gradient
+    back around the ring)."""
+
+    def __init__(self, k: torch.Tensor, v: torch.Tensor, timestamps: torch.Tensor,
+                 group: ProcessGroupShards, leaves: bool = False):
+        self.group, self.num_shards = group, group.size
+        self._leaves = leaves
+        self._ts = timestamps.to(torch.int32)
+        b, nl, h, dqk = k.shape
+        self._widths = (h, dqk, v.shape[3])
+        # concatenated as int32 words: an exact copy of every bit
+        words = torch.cat([k.reshape(b, nl, -1).view(torch.int32),
+                           v.reshape(b, nl, -1).view(torch.int32), self._ts[..., None]], dim=-1)
+        self.blocks = [self._leaf(words.view(torch.float32))]
+
+    def _leaf(self, block: torch.Tensor) -> torch.Tensor:
+        return block.requires_grad_() if self._leaves else block
+
+    def kv(self, block: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(k [B, Nl, H, Dqk], v [B, Nl, H, Dv]): views of a block (or of its
+        gradient)."""
+        h, dqk, dv = self._widths
+        return (block[..., : h * dqk].unflatten(-1, (h, dqk)),
+                block[..., h * dqk : h * (dqk + dv)].unflatten(-1, (h, dv)))
+
+    def resident(self, p: int, t: int):
+        if p != self.group.rank:
+            raise ValueError(f"rank {self.group.rank} of the sp group asked for shard {p}'s chunk")
+        while len(self.blocks) <= t:
+            with torch.no_grad():
+                self.blocks.append(self._leaf(self.group.rotate(self.blocks[-1].detach(), 1)))
+        block = self.blocks[t]
+        k, v = self.kv(block)
+        return (p - t) % self.num_shards, k, v, block.detach()[..., -1].view(torch.int32)
+
+    def all_gather(self, fn: Callable[[torch.Tensor], torch.Tensor]) -> torch.Tensor:
+        mine = fn(self._ts)
+        return self.group.all_gather(mine[None], dim=0).unflatten(0, (self.num_shards, -1))
+
+    def send_back(self, grads) -> torch.Tensor:
+        """The gradient of the rank's own block from the gradients of its
+        resident blocks, step by step: block t was block t-1 received from
+        the rank behind, so its gradient goes back there (the inverse
+        rotation, ppermute's transpose) and adds to block t-1's."""
+        acc = grads[-1]
+        for t in range(len(grads) - 1, 0, -1):
+            acc = grads[t - 1] + self.group.rotate(acc, -1)
+        return acc
+
+
+def _keep(t: torch.Tensor) -> torch.Tensor:
+    return t.detach()
+
+
+def _same(t: torch.Tensor) -> torch.Tensor:
+    return t
+
+
+class _GroupRingAttention(torch.autograd.Function):
+    """One block's ring over an sp group: the forward runs the rank's body
+    over a `ProcessGroupRing` (its rotations), building the body's graph on
+    leaves; the backward takes that graph's gradients, then sends the
+    resident blocks' gradients back around the ring. The body's chunk calls
+    differ from rank to rank (each skips its dead chunks), so autograd would
+    order the rotations' backwards differently on each; here every
+    collective of the backward is in one node, issued in one order on every
+    rank. The body's graph keeps its saved tensors as they are (`_keep`):
+    under remat a checkpoint's hooks would recompute them from this node's
+    backward, a graph task of its own, running the block's forward and its
+    collectives a second time."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, pos_w, ts_w, timestamps, group, body, max_len, num_buckets):
+        with torch.enable_grad(), torch.autograd.graph.saved_tensors_hooks(_keep, _same):
+            q_, pos_, ts_w_ = (x.detach().requires_grad_() for x in (q, pos_w, ts_w))
+            ring = ProcessGroupRing(k.detach(), v.detach(), timestamps, group, leaves=True)
+            out = body(q_, timestamps, ring, group.rank, pos_, ts_w_, max_len=max_len,
+                       num_buckets=num_buckets)
+        ctx.graph = (out, (q_, pos_, ts_w_, *ring.blocks))
+        ctx.ring = ring
+        return out.detach()
+
+    @staticmethod
+    def backward(ctx, g):
+        out, leaves = ctx.graph
+        del ctx.graph
+        grads = torch.autograd.grad(out, leaves, g, allow_unused=True)
+        dq, d_pos, d_ts, *blocks = (torch.zeros_like(x) if d is None else d
+                                    for x, d in zip(leaves, grads))
+        dk, dv = ctx.ring.kv(ctx.ring.send_back(blocks))
+        return dq, dk, dv, d_pos, d_ts, None, None, None, None, None
+
+
+def ring_hstu_attention_group(
+    q, k, v, timestamps, pos_w, ts_w, *, group: ProcessGroupShards, zigzag: bool,
+    max_len: int, num_buckets: int,
+) -> torch.Tensor:
+    """Ring attention over the sp group `group`, one shard a rank: the
+    counterpart of the JAX block's `shard_map` over "sp" (hstu.py:256-277).
+    q, k [B, N, H, Dqk], v [B, N, H, Dv] and timestamps [B, N] come in
+    replicated over the group, in contiguous order (N divides by P, 2P for
+    zigzag); in zigzag order where that is on, the rank takes its rows of
+    q, k and v through `own` (backward: every rank's rows' cotangents
+    gathered), the bias tables go in through `enter` (backward: the ranks'
+    partial gradients summed), and the rank's output [B, Nl, H, Dv] leaves
+    through `all_gather` (backward: the rank's rows of the cotangent), all
+    for a loss that every rank of the group computes whole. -> [B, N, H, Dv]
+    replicated, in contiguous order."""
+    p, num_shards = group.rank, group.size
+    if zigzag:
+        perm, inverse = _zigzag_index(num_shards, q.shape[1], q.device)
+        q, k, v, timestamps = (x.index_select(1, perm) for x in (q, k, v, timestamps))
+    nl = q.shape[1] // num_shards
+    q, k, v = (group.own(x, dim=1) for x in (q, k, v))
+    timestamps = timestamps.narrow(1, p * nl, nl)
+    pos_w, ts_w = group.enter(pos_w), group.enter(ts_w)
+    body = ring_hstu_attention_zigzag_local if zigzag else ring_hstu_attention_local
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v, pos_w, ts_w)):
+        out = _GroupRingAttention.apply(q, k, v, pos_w, ts_w, timestamps, group, body, max_len,
+                                        num_buckets)
+    else:
+        out = body(q, timestamps, ProcessGroupRing(k, v, timestamps, group), p, pos_w, ts_w,
+                   max_len=max_len, num_buckets=num_buckets)
+    out = group.all_gather(out[None], dim=1)
+    return out.index_select(1, inverse) if zigzag else out

@@ -20,6 +20,9 @@ reach the other blocks through the shard groups' collectives
   sharded_a2a (`P("model", None)`), column block r for sharded_column
   (`P(None, "model")`), block (r, c) for sharded_2d (`P("model", "col")`).
 
+The ring's sp group cuts no weight: every HSTU block runs its ring over it
+(`HSTUBlock.place_sp`) and every parameter stays whole.
+
 A placed parameter carries its `placement`, ((dim, axis), ...), which
 `shard_axes` reads: the step sums its gradient over the ranks that hold the
 same block (parallel/process_group.py: `GradBuffer`), Muon and Scion
@@ -105,9 +108,14 @@ def _place(module: nn.Module, attr: str, placement: Placement, groups: Mapping[s
 def place_model(model: nn.Module, mesh: Any) -> nn.Module:
     """The model with its sharded leaves cut to this rank's blocks (JAX's
     `place_tp_params` and the table's `device_put`), its sharded kinds and
-    HSTU blocks set to run over the mesh's groups; the model itself where
-    the mesh has no model axis. `model.placements` names each placed key."""
+    HSTU blocks set to run over the mesh's groups (the ring over its sp
+    group, which cuts no weight); the model itself where the mesh has no
+    model or sp axis. `model.placements` names each placed key."""
     model.placements = {}
+    enc = model.cfg.encoder
+    if mesh is not None and mesh.sp is not None:
+        for block in model.sequence_encoder["_hstu"]._attention_layers:
+            block.place_sp(mesh.sp)
     if mesh is None or mesh.model is None:
         return model
     groups = _groups(mesh)
@@ -117,7 +125,6 @@ def place_model(model: nn.Module, mesh: Any) -> nn.Module:
         _place(emb._item_emb, "weight", TABLE_PLACEMENT[kind], groups)
         emb.place(mesh.model, mesh.col)
         model.placements["embeddings._item_emb.weight"] = TABLE_PLACEMENT[kind]
-    enc = model.cfg.encoder
     if enc.kind == "hstu" and enc.tp_shards > 1:
         hstu = model.sequence_encoder["_hstu"]
         for i, block in enumerate(hstu._attention_layers):

@@ -26,9 +26,9 @@ eager step, one launch a kernel, as the reference. Batches reach the device
 `data.pack_eval` (auto: histories of 512 and longer) packs the eval splits
 too, one query per segment; both eval paths are exact. With
 `model.encoder.sp_shards` > 1 the model's attention is the ring of
-parallel/ring_attention.py, whose shards run in turn on this one device: the
-JAX trainer's (data, sp) mesh has no counterpart, and packed batches raise
-with it, as there. `model.embedding.lazy_update` trains the item table with
+parallel/ring_attention.py, whose shards run in turn on this one device
+(under `trainer.distributed`, one a rank of the mesh's sp axis, below);
+packed batches raise with it, as in JAX. `model.embedding.lazy_update` trains the item table with
 the lazy row update of train/lazy_embedding.py beside the fused AdamW of the
 other parameters; its moments and count go into the checkpoints.
 `optimizer2.enabled` splits the parameters between two optimizers
@@ -68,17 +68,18 @@ plateau, checkpoint and early-stop steps. Rank 0 alone writes the metrics
 and the checkpoints; the others wait for a checkpoint at a barrier before
 they read it. Each rank's own draws (the negatives, dropout) come from
 `process_group.rank_seed`; the shared negatives from `trainer.seed` on every
-rank, as JAX draws them once. The JAX mesh's "model" and "col" axes run too
-(`mesh_axes`: model = the sharded kind's num_shards or encoder.tp_shards,
-col = sharded_2d's col_shards; the world is data x model x col ranks in
-JAX's device order): every rank builds the whole model, then keeps its
-blocks of the sharded table and of TP's matrices
-(parallel/tensor_parallel.py:place_model); the ranks of a model group load
-the same rows and draw alike (keyed by the data index), so their replicated
-work is one computation, and the checkpoints are written and read in the
-one-process layout (the blocks gathered before a save, each rank's cut
-from a loaded state). The ring over processes (`encoder.sp_shards > 1`)
-raises `not_ported`.
+rank, as JAX draws them once. The JAX mesh's "model", "col" and "sp" axes
+run too (`mesh_axes`: model = the sharded kind's num_shards or
+encoder.tp_shards, col = sharded_2d's col_shards, sp = encoder.sp_shards;
+the world is data x model x col x sp ranks in JAX's device order): every
+rank builds the whole model, then keeps its blocks of the sharded table and
+of TP's matrices and places the ring on its sp group
+(parallel/tensor_parallel.py:place_model); the ranks of a model or sp group
+load the same rows and draw alike (keyed by the data index), so their
+replicated work is one computation, the eval rows are gathered over the
+data group alone, and the checkpoints are written and read in the
+one-process layout (the blocks gathered before a save, each rank's cut from
+a loaded state; nothing is cut over sp).
 """
 
 from __future__ import annotations
@@ -91,7 +92,6 @@ from typing import Any, Dict, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from mygenerativerecommenders_tpu_torch import not_ported
 from mygenerativerecommenders_tpu_torch.checkpoint import CheckpointManager, load_weights
 from mygenerativerecommenders_tpu_torch.configs import Config, resolve, to_dict
 from mygenerativerecommenders_tpu_torch.data.dataset import (
@@ -162,12 +162,13 @@ def resolve_device(name: str) -> torch.device:
     return device
 
 
-def mesh_axes(cfg: Config) -> Tuple[int, int]:
-    """(model, col): the sizes of the JAX trainer's "model" and "col" mesh
-    axes (driver.py:124-147): model = max(the sharded kind's num_shards,
-    encoder.tp_shards), which must match where both are above 1; col = the
-    2-D kind's col_shards. Raise `not_ported` for the axis that
-    `trainer.distributed` does not run yet, "sp"."""
+def mesh_axes(cfg: Config) -> Tuple[int, int, int]:
+    """(model, col, sp): the sizes of the JAX trainer's "model", "col" and
+    "sp" mesh axes (driver.py:124-153): model = max(the sharded kind's
+    num_shards, encoder.tp_shards), which must match where both are above 1;
+    col = the 2-D kind's col_shards; sp = the HSTU encoder's sp_shards. TP
+    beside the ring needs heads that divide by tp_shards, as in JAX (on one
+    device TP is the plain block and needs nothing)."""
     m = cfg.model
     emb = m.embedding.num_shards if m.embedding.kind in task_retrieval.SHARDED_KINDS else 1
     tp = m.encoder.tp_shards if m.encoder.kind == "hstu" else 1
@@ -176,11 +177,16 @@ def mesh_axes(cfg: Config) -> Tuple[int, int]:
             "embedding.num_shards and encoder.tp_shards both use the "
             f"'model' mesh axis and must match ({emb} vs {tp})"
         )
-    if m.encoder.kind == "hstu" and m.encoder.sp_shards > 1:
-        raise not_ported("trainer.distributed with encoder.sp_shards > 1",
-                         "Distributed, part (d): the ring over a process group")
     col = m.embedding.col_shards if m.embedding.kind == "sharded_2d" and emb > 1 else 1
-    return max(emb, tp), col
+    sp = m.encoder.sp_shards if m.encoder.kind == "hstu" else 1
+    if tp > 1 and sp > 1 and m.encoder.num_heads % tp:
+        # JAX's ring shards its heads over "model" (models/hstu.py:251-256)
+        raise ValueError(
+            f"model.encoder.num_heads={m.encoder.num_heads} must divide by "
+            f"model.encoder.tp_shards={tp} with model.encoder.sp_shards={sp}: the reference's "
+            "ring shards the heads over the model axis"
+        )
+    return max(emb, tp), col, sp
 
 
 class Trainer:

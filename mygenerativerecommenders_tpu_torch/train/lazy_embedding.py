@@ -41,7 +41,7 @@ import torch
 
 from mygenerativerecommenders_tpu_torch.configs import Config, OptimizerConfig
 from mygenerativerecommenders_tpu_torch.models.model import GenerativeRecommender
-from mygenerativerecommenders_tpu_torch.parallel.process_group import gather_rows_of, model_mean_
+from mygenerativerecommenders_tpu_torch.parallel.process_group import gather_rows_of, replica_mean_
 from mygenerativerecommenders_tpu_torch.train import task_retrieval
 from mygenerativerecommenders_tpu_torch.train.optimizers import (
     build_optimizer,
@@ -194,10 +194,10 @@ class LazyEmbeddingAdamW:
             ids, grads = self._touched[0], self._touched[1].grad
             # within a data-parallel step: every data index's touched rows,
             # the global batch's K = data * (B*N + R) that JAX's update
-            # dedups; under TP the table is replicated over the model group,
-            # whose rows' gradients are averaged first, as the step averages
-            # every replicated leaf's
-            ids, grads = gather_rows_of(ids), gather_rows_of(model_mean_(grads))
+            # dedups; under TP or the ring the table is replicated over the
+            # model and sp groups, whose rows' gradients are averaged first,
+            # as the step averages every replicated leaf's
+            ids, grads = gather_rows_of(ids), gather_rows_of(replica_mean_(grads))
             lazy_adamw_update(
                 self.table.data, self._mv, self.count, ids, grads,
                 rate_groups(self.rest)[0][0]["lr"], self.betas, self.eps, self.weight_decay,

@@ -309,8 +309,10 @@ def one_rank_env(monkeypatch):
 
 
 # the knobs that once raised under trainer.distributed and now build over two
-# ranks (the module's launch): a model group of 2
-BUILDS = ("model.embedding.kind=sharded_a2a", "model.encoder.tp_shards=2")
+# ranks (the module's launch): a model group of 2, or an sp group of 2
+BUILDS = ("model.embedding.kind=sharded_a2a", "model.encoder.tp_shards=2",
+          "model.encoder.sp_shards=2")
+BUILT = {"model.encoder.sp_shards=2": {"data": 1, "model": 1, "col": 1, "sp": 2}}
 
 
 def _build_args(out, override):
@@ -328,20 +330,21 @@ def _build_args(out, override):
                                            "-the sharded table over a process group"),
     pytest.param(BUILDS[1], None, None,
                  id="model.encoder.tp_shards=2-NotImplementedError-part \\(c\\): TP"),
-    pytest.param("model.encoder.sp_shards=2", NotImplementedError,
-                 r"part \(d\): the ring over a process group",
+    pytest.param(BUILDS[2], None, None,
                  id="model.encoder.sp_shards=2-NotImplementedError-part \\(d\\): the ring "
                     "over a process group"),
 ])
 def test_what_the_data_axis_does_not_run_raises_naming_the_knob_and_part(
         tmp_path, one_rank_env, override, error, words, request):
-    """The ring over processes (sp_shards > 1) raises `not_ported`; a sharded
-    kind and TP, which raised before the model axis was ported, build over
-    two ranks with a model group of 2 and a data group of 1."""
+    """A sharded kind and TP, which raised before the model axis was ported,
+    build over two ranks with a model group of 2 and a data group of 1; the
+    ring (sp_shards > 1), which raised before the ring over processes was
+    ported, with an sp group of 2."""
     if error is None:
         results = request.getfixturevalue("ranks")[0]
+        want = BUILT.get(override, {"data": 1, "model": 2, "col": 1, "sp": 1})
         for rank in (0, 1):
-            assert results[rank]["builds"][override] == {"data": 1, "model": 2, "col": 1}
+            assert results[rank]["builds"][override] == want
         return
     with pytest.raises(error, match=words):
         Trainer(cli_train.parse_args(_build_args(tmp_path, override)))

@@ -1135,3 +1135,85 @@ def test_graphed_nccl_step_at_world_size_one_follows_the_one_process_step_on_car
             np.testing.assert_allclose(dp_stepped[name].numpy(), one_stepped[name].numpy(),
                                        rtol=1e-6, atol=0, err_msg=name)
     np.testing.assert_allclose(dp_losses.numpy(), losses.numpy(), rtol=1e-5)
+
+
+# ---------------------------------------------------------------- the ring over a process group
+# the card's machine has one card and NCCL takes one rank a device, so the
+# ring over an sp group runs there over gloo, eagerly (chip_smoke.py phase
+# 24); this holds what a graphed step over NCCL would capture of it at world
+# size 1: the entry's gathers and sums, and the ring node whose backward runs
+# its body's own graph (a group of one rank rotates nothing)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("zigzag", [False, True])
+def test_the_group_ring_captured_over_nccl_follows_the_eager_one_on_card(monkeypatch, zigzag):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA)")
+    import socket
+
+    import torch.distributed as dist
+
+    from mygenerativerecommenders_tpu_torch.cli import train as cli_train
+    from mygenerativerecommenders_tpu_torch.parallel import process_group
+    from mygenerativerecommenders_tpu_torch.parallel.embedding_sharding import ProcessGroupShards
+    from mygenerativerecommenders_tpu_torch.parallel.ring_attention import (
+        ring_hstu_attention_group,
+    )
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    for name, value in dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="localhost",
+                            MASTER_PORT=str(port)).items():
+        monkeypatch.setenv(name, value)
+    rng = np.random.default_rng(24)
+    b, n, h, d, max_len = 4, 260, 2, 64, 260
+
+    def normal(*shape, scale=1.0):
+        return torch.from_numpy((scale * rng.normal(size=shape)).astype(np.float32)).cuda()
+
+    leaves = [normal(b, n, h, d), normal(b, n, h, d), normal(b, n, h, d),
+              normal(2 * max_len - 1, scale=0.1), normal(129, scale=0.1)]
+    leaves = [x.requires_grad_() for x in leaves]
+    ts = torch.from_numpy(np.sort(rng.integers(0, 10**7, size=(b, n)), axis=1).astype(
+        np.int32)).cuda()
+    g = normal(b, n, h, d)
+    try:
+        mesh = process_group.init_data_parallel(cli_train.parse_args(
+            ["trainer.distributed=true"]).trainer)
+        assert mesh.backend == "nccl"
+        group = ProcessGroupShards(dist.group.WORLD, 0, 1)
+
+        def step():
+            out = ring_hstu_attention_group(*leaves[:3], ts, *leaves[3:], group=group,
+                                            zigzag=zigzag, max_len=max_len, num_buckets=128)
+            (out * g).sum().backward()
+            return out
+
+        want = step().detach().clone()
+        want_grads = [x.grad.clone() for x in leaves]
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(2):
+                for x in leaves:
+                    x.grad = None
+                step()
+        torch.cuda.current_stream().wait_stream(side)
+        for x in leaves:
+            x.grad = None
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = step()
+        for x in leaves:
+            x.grad.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out, want, rtol=0, atol=0)
+        for name, x, w in zip(("dq", "dk", "dv", "d_pos_w", "d_ts_w"), leaves, want_grads):
+            rtol = 5e-4 if name.startswith("d_") else 0
+            torch.testing.assert_close(x.grad, w, rtol=rtol, atol=1e-6 if rtol else 0,
+                                       msg=name)
+    finally:
+        process_group.shutdown()

@@ -126,7 +126,7 @@ def main(job_path: str, out_dir: str) -> None:
             os.environ["MASTER_PORT"] = str(port)
             mesh = Trainer(parse_args(args)).dp
             results["builds"][name] = {"data": mesh.size, "model": mesh.model_size,
-                                       "col": mesh.col_size}
+                                       "col": mesh.col_size, "sp": mesh.sp_size}
     finally:
         shutdown()
     torch.save(results, os.path.join(out_dir, f"rank{rank}.pt"))

@@ -21,7 +21,7 @@
   trains them (`fit`), then the rank keeps the val metrics, each epoch's
   loss, `predict`, `test`, the weights in the one-process layout, whether
   the replicated leaves are bit-equal across the mesh (`check_replicas`),
-  the mesh's sizes, and where the eval is packed the unpacked eval's val
+  the mesh's sizes (data, model, col; and sp), and where the eval is packed the unpacked eval's val
   metrics.
 
 The rank writes `<out_dir>/rank<r>.pt`. No JAX is imported here.
@@ -71,7 +71,7 @@ def run_fit(args: list) -> dict:
     except RuntimeError:
         replicas_equal = False
     out = {"val": val, "losses": losses, "replicas_equal": replicas_equal,
-           "sizes": (mesh.size, mesh.model_size, mesh.col_size),
+           "sizes": (mesh.size, mesh.model_size, mesh.col_size), "sp": mesh.sp_size,
            "state": {k: v.clone() for k, v in full_state_dict(trainer.model).items()},
            "predict": trainer.predict()}
     if trainer._eval_packed:
