@@ -213,8 +213,8 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    device time, and for (a) and (b') the fused AdamW kernels' time against
    the table's 17.9 GB of traffic a step.
 14. Phase 5 for (a) and (b) at X=10M: one step on the card and on the CPU
-   from the same weights, batch and negatives, dropout off: (a) on 16 rows
-   of the batch (cut from 64 for phase 24), on the loss
+   from the same weights, batch and negatives, dropout off: (a) on 8 rows
+   of the batch (cut from 64 to 16 for phase 24, to 8 for its (d)), on the loss
    (rtol 1e-5) and every gradient (rtol 5e-4 / atol 1e-6), (b) on mv, the
    count and every parameter but the table after the step, at the same
    tolerances, and the table on each device against the AdamW step of its
@@ -370,7 +370,8 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    9-10 at width 256 against their plain versions (phase 2's checks) on the
    live 130 x 130 chunk and the 259 x 259 fully live one, timed beside their
    bounds. (b) ml-20m-hstu-long's ring at two 256-wide heads, zigzag and
-   contiguous: one step on the card against the CPU on 2 rows, one graphed
+   contiguous: one step on the card against the CPU on 1 row (2 before
+   phase 24 (d)), one graphed
    step against one eager one, the step eager and graphed side by side.
    (c) On phase 15's ml-1m files: `cli.train` of sharded_a2a (8 shards) for
    3 graphed epochs (CUT_EPOCHS: cut from 30 for phase 24) with its eval on
@@ -385,7 +386,7 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    sharded recall (at least 0.95, beside phase 13's), the step's peak memory
    and device ms beside phase 13's overlay. (e) synthetic-large-vocab-100m's
    2-D table at 10M items (cut from 100M): two graphed steps, and one step on
-   the card against the CPU (16 rows); amzn-books-sharded on phase
+   the card against the CPU (8 rows; 16 before phase 24 (d)); amzn-books-sharded on phase
    15's amzn-books files for one graphed epoch, beside phase 15's run.
 
 22. Data parallel over processes (`trainer.distributed`,
@@ -451,21 +452,31 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    the one-process ring (`OneDeviceRing`, its two shards in turn on the
    card) on the first train batch of 64 users, dropout off, the offsets
    handed in, timed with its peak memory. Two processes of this script
-   share cuda:0 over gloo, eagerly, as one sp group: (a) each layout's
-   step on the same batch, weights and offsets against the one-process
-   step (loss at rtol 1e-5, every gradient and parameter at rtol 2e-4 /
-   atol 2e-5, the bias tables' gradients at 5e-4), each rank's launches
-   those of its body (zigzag 5 chunk forwards and backwards a block on
-   each rank; contiguous 1 on rank 0 and 2 on rank 1; one count and one
-   lse pair a step); (b) one epoch of `fit` of the zigzag ring on 96 users
+   share cuda:0 over gloo, eagerly, as one sp group, each rank holding
+   its rows of the sequence from the block stack's entry to its exit: (a)
+   each layout's step on the same batch, weights and offsets against the
+   one-process step (loss at rtol 1e-5, every gradient and parameter at
+   rtol 2e-4 / atol 2e-5, the bias tables' gradients at 5e-4), each rank's
+   launches those of its body (zigzag 5 chunk forwards and backwards a
+   block on each rank; contiguous 1 on rank 0 and 2 on rank 1; one count
+   and one lse pair a step), 3 collectives a block and 2 a step over the
+   sp group, and each rank's peak memory over what it held below the
+   one-process ring's; (b) one epoch of `fit` of the zigzag ring on 96 users
    (cut from the preset's 2,048) with its val eval and the test pass: both
    ranks' metrics and losses equal to the bit, the replicated leaves
    bit-equal, and the checkpoint loaded in this process (the one-process
    ring) giving the same val metrics within 1e-6; (c) each rank's step
    time (one timed step, the first of its trainer) and peak memory beside
    the one-process ring's (gloo, two processes on one card, not a
-   multi-card time). Phases 22 (b), 23 (b) and 24 run in one launch of the
-   two rank processes (`--ranks`): one start-up for the three.
+   multi-card time); (d) four more processes of this script (`--ranks4`,
+   started with the two, their trainers built while the two run) share the
+   card over gloo as model 2 x sp 2 with `tp_shards=2`, each model rank on
+   one of the two heads, after the two: one zigzag step
+   on (a)'s batch and offsets against the one-process zigzag ring step (TP
+   changes no value), each rank's chunk calls on one head and its launches
+   those of its sp rank's body, 9 collectives a block and 2 a step. Phases
+   22 (b), 23 (b) and 24 (a)-(c) run in one launch of the two rank
+   processes (`--ranks`): one start-up for the three.
 
 It ends with one JSON line of the kernels' numbers and, last, the line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -2573,9 +2584,10 @@ def step_large_vocab_by_hand(kc: Counts, card: str, data) -> None:
         torch.cuda.empty_cache()
 
 
-# rows of phase 14 (a)'s card-against-CPU batch, cut from the batch's 64 for
-# phase 24's time (the CPU's gather loss at 10M items)
-LARGE_CPU_ROWS = 16
+# rows of phase 14 (a)'s card-against-CPU batch, cut from the batch's 64 to 16
+# for phase 24's time and to 8 for phase 24 (d)'s (the CPU's gather loss at
+# 10M items)
+LARGE_CPU_ROWS = 8
 
 
 def large_vocab_card_against_cpu(data) -> None:
@@ -3624,8 +3636,9 @@ ITEM_YEAR_RUN = ("ml-1m-hstu item_year", "ml-1m-hstu", ["model.embedding.kind=it
 MOL_RUN = ("ml-1m-hstu mol", "ml-1m-hstu", ["model.similarity.kind=mol"], 2, 0)
 # the MoL run's depth cut (the script's time limit): 6 of the recipe's 30
 # epochs (~40 ms a step; its 30-epoch numbers are in PERF.md section 5; ranked
-# by MoL, test ndcg@10 0.03895 at 15 epochs and 0.03712 at 10 on an H100 at
-# 700 W, PERF.md section 4; cut from 10 to 6 for phase 24)
+# by MoL, test ndcg@10 0.03895 at 15 epochs, 0.03712 at 10, 0.03620 at 6 and
+# 0.03133 at 4, close to MIN_FAMILY_NDCG10, on an H100 at 700 W, PERF.md
+# section 4; cut from 10 to 6 for phase 24)
 MOL_EPOCHS = 6
 # the loss divides MoL's logits by two temperatures (0.05 x 0.05): its gradients
 # reach ~10-30, and an entry sums ~B*T terms of that size, so float32 sums in
@@ -4278,7 +4291,9 @@ def run_last_gaps_path(kc: Counts, card: str, ml1m: dict, kern, count_kern, lse_
 # linear_dim follow item_embedding_dim: dqk = dv = 256, H = 2)
 WIDE_RING_ARGS = RING_ARGS + ["model.item_embedding_dim=256",
                               f"data.synthetic_num_users={RING_USERS}"]
-WIDE_RING_ROWS = 2  # rows of the card-against-CPU batch: the CPU side's depth cut
+# rows of the card-against-CPU batch: the CPU side's depth cut (2 before phase
+# 24 (d))
+WIDE_RING_ROWS = 1
 # (c) the four kinds at ml-1m width (D=50, which 2 column shards divide)
 LOCAL_RUN = ("ml-1m-hstu local", "ml-1m-hstu", [], 2, 1)
 A2A_RUN = ("ml-1m-hstu sharded_a2a", "ml-1m-hstu",
@@ -4299,7 +4314,9 @@ SHIPPED_ARGS = ["experiment=synthetic-large-vocab"]
 # the shipped cli.train's depth cut: users (the preset's 4,096; 2,048 before
 # phase 24)
 SHIPPED_USERS = 1024
-TWO_D_CPU_ROWS = 16  # rows of the 2-D card-against-CPU batch: the CPU side's depth cut
+# rows of the 2-D card-against-CPU batch: the CPU side's depth cut (16 before
+# phase 24 (d))
+TWO_D_CPU_ROWS = 8
 TWO_D_ARGS = ["experiment=synthetic-large-vocab-100m", "data.expected_max_item_id=10000000",
               "data.expected_num_unique_items=10000000"]
 
@@ -5561,7 +5578,9 @@ def ring_rank_part(job: dict) -> dict:
 
 def ring_group_on_the_card(card: str, wants: dict, job: dict, one: dict, ranks: list) -> dict:
     """Phase 24's checks of its ranks: (a) each rank's step within the
-    tolerances of the one-process ring step, its launches those of its body;
+    tolerances of the one-process ring step, its launches those of its body,
+    its collectives counted, its peak over what it held below the
+    one-process ring's;
     (b) both ranks' fit metrics and losses equal, the checkpoint loaded in
     this process (the ring's shards in turn on the card) giving equal val
     metrics; (c) the steps' times and peak memory logged beside the
@@ -5592,15 +5611,23 @@ def ring_group_on_the_card(card: str, wants: dict, job: dict, one: dict, ranks: 
                         hstu_chunk.KERNEL_BWD: calls}
             check(got["counts"] == expected, f"phase 24 (a) {layout}: rank {rank} launched "
                                              f"{got['counts']}, its body {expected}")
-            # a block's: forward, the first timestamps' gather, one rotation,
-            # the output's gather; backward, the rotation back, q's, k's and
-            # v's cotangents gathered, the two tables' gradients summed
-            check(got["collectives"] == 9 * blocks,
+            # each rank holds its rows from the stack's entry to its exit: the
+            # exit's gather and, backward, the gather of the entry's cotangent
+            # rows, once a step; a block's first timestamps' gather and one
+            # rotation, and backward the rotation back (the blocks' partial
+            # gradients are summed by the step's flat all-reduces, which the
+            # data group counts)
+            expected = 3 * blocks + 2
+            check(got["collectives"] == expected,
                   f"phase 24 (a) {layout}: rank {rank} made {got['collectives']} collectives over "
-                  f"the sp group, expected {9 * blocks}")
+                  f"the sp group, expected {expected}")
+            over, one_over = got["peak"] - got["held"], one[layout]["peak"] - one[layout]["held"]
+            check(over < one_over, f"phase 24 (a) {layout}: rank {rank}'s peak over what it held "
+                                   f"{gb(over)}, the one-process ring's {gb(one_over)}")
             totals.update(got["counts"])
             times.append(f"rank {rank} {got['ms']:.2f} ms, peak {gb(got['peak'])} "
-                         f"({gb(got['peak'] - got['held'])} over what was held)")
+                         f"({gb(over)} over what was held, {100 * over / one_over:.1f}% of the "
+                         f"one-process ring's)")
         log(f"phase 24 (a) {layout} ring over an sp group of 2 on {card} (two processes sharing "
             f"one card over gloo, not a multi-card time): ml-20m-hstu-long at full width, a padded "
             f"batch of {len(job['batch']['ids'])} rows ({job['rows']} with a target); the ranks' "
@@ -5652,12 +5679,148 @@ def ring_group_on_the_card(card: str, wants: dict, job: dict, one: dict, ranks: 
     return dict(totals)
 
 
-def ranks_main(job_path: str) -> int:
-    """One of the two rank processes of phases 22 (b), 23 (b) and 24, started
-    by the script with torchrun's environment before phase 22: once the job
-    file appears, each phase's part in turn (`dp_rank_part`,
-    `mp_rank_part`, `ring_rank_part`), each on process groups of its own,
-    timed; the results into `<job>.rank<r>.pt`."""
+# (d): TP beside the ring, model 2 x sp 2 over four processes, one head a rank
+RING24_TP_ARGS = ["model.encoder.tp_shards=2"]
+
+
+def ring_tp_rank_part(job: dict, go: Path) -> dict:
+    """Phase 24 (d) in a rank of `ranks_main`, one of four sharing cuda:0
+    over gloo, eagerly: its trainer built as soon as the job is written
+    (while the two ranks of (a)-(c) run), then, once `go` exists (after
+    them), one zigzag step at model 2 x sp 2 with tp_shards=2 (one of the
+    two heads a rank) on phase 24's batch and offsets, dropout off, timed
+    (the first step of its trainer), with its launches, the heads of its
+    chunk calls, its collectives over the sp and model groups and its peak
+    memory; its gradients and weights gathered into the one-process layout
+    after the count."""
+    import os
+
+    from mygenerativerecommenders_tpu_torch.cli import train as cli_train
+    from mygenerativerecommenders_tpu_torch.parallel import (
+        embedding_sharding,
+        process_group,
+        ring_attention,
+    )
+    from mygenerativerecommenders_tpu_torch.parallel.tensor_parallel import (
+        full_state_dict,
+        full_tensor,
+        mesh_groups,
+    )
+    from mygenerativerecommenders_tpu_torch.train.driver import Trainer
+
+    heads, chunk = [], ring_attention.hstu_chunk_attention
+
+    def recorded(q, *args, **kwargs):  # the heads each chunk call sees
+        heads.append(q.shape[2])
+        return chunk(q, *args, **kwargs)
+
+    ring_attention.hstu_chunk_attention = recorded
+    os.environ["MASTER_PORT"] = str(job["ports"][0])
+    kc = port_counts()
+    t0 = time.perf_counter()
+    trainer = Trainer(cli_train.parse_args(
+        ring24_args(True, RING24_STEP_USERS) + DP_DROPOUT_OFF + RING24_TP_ARGS + [
+            "trainer.device=cuda:0", "trainer.distributed=true",
+            f"trainer.output_dir={OUT_DIR / 'ring24' / 'tp'}"]), backend="gloo")
+    mesh = trainer.dp
+    check(mesh.sp_size == 2 and mesh.model_size == 2 and mesh.size == 1,
+          "phase 24 (d): not model 2 x sp 2")
+    trainer.model.train()
+    batch, offsets = trainer._put(job["batch"]), job["offsets"].to(trainer.device)
+    # the groups' connections made before the timed step
+    mesh.sp.rotate(torch.zeros(1, device=trainer.device), 1)
+    mesh.model.rotate(torch.zeros(1, device=trainer.device), 1)
+    torch.cuda.synchronize()
+    built = time.perf_counter() - t0
+    while not go.exists():
+        time.sleep(0.05)
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    kc.reset()
+    heads.clear()
+    calls = embedding_sharding.collectives
+    t0 = time.perf_counter()
+    loss = trainer.train_step(batch, trainer.lr1, neg_offsets=offsets)
+    torch.cuda.synchronize()
+    out = {"ms": 1e3 * (time.perf_counter() - t0), "held": held,
+           "peak": torch.cuda.max_memory_allocated(), "counts": kc.read(),
+           "collectives": embedding_sharding.collectives - calls, "heads": sorted(set(heads)),
+           "coords": mesh.coords(), "built_s": built}
+    placements, groups = trainer.model.placements, mesh_groups()
+    out["step"] = {
+        "loss": float(loss),
+        "grads": {n: (full_tensor(p.grad, placements[n], groups) if n in placements else p.grad)
+                  .detach().cpu().clone() for n, p in trainer.model.named_parameters()},
+        "params": {n: v.detach().cpu().clone() for n, v in full_state_dict(trainer.model).items()}}
+    del trainer, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    process_group.shutdown()
+    return out
+
+
+def ring_tp_on_the_card(card: str, want: dict, one: dict, ranks: list) -> dict:
+    """Phase 24 (d)'s checks: each of the four ranks' steps within the
+    tolerances of the one-process zigzag ring step (TP changes no weight and
+    no value), its chunk calls on one head, its launches those of its sp
+    rank's body, its collectives counted. -> the ranks' launches, by kernel."""
+    from mygenerativerecommenders_tpu_torch.cli import train as cli_train
+    from mygenerativerecommenders_tpu_torch.ops.kernels import (
+        count_offsets,
+        dense_neg_lse,
+        hstu_attention,
+        hstu_chunk,
+    )
+
+    cfg = cli_train.parse_args(RING24_ARGS)
+    blocks, lr = cfg.model.encoder.num_blocks, cfg.optimizer1.lr
+    totals, worst, times = collections.Counter(), {}, []
+    for rank, got in enumerate(ranks):
+        for (part, _), err in compare_step("phase 24 (d)", rank, got["step"], want, BIAS_RTOL,
+                                           lr=lr).items():
+            worst[part] = max(worst.get(part, 0.0), err)
+        check(got["heads"] == [cfg.model.encoder.num_heads // 2],
+              f"phase 24 (d): rank {rank}'s chunk calls saw {got['heads']} heads")
+        calls = blocks * group_chunk_calls(2, True, got["coords"]["sp"])
+        expected = {hstu_attention.KERNEL: 0, hstu_attention.KERNEL_BWD: 0,
+                    count_offsets.KERNEL: 1, dense_neg_lse.KERNEL: 1,
+                    dense_neg_lse.KERNEL_BWD: 1, hstu_chunk.KERNEL: calls,
+                    hstu_chunk.KERNEL_BWD: calls}
+        check(got["counts"] == expected,
+              f"phase 24 (d): rank {rank} launched {got['counts']}, its body {expected}")
+        # (a)'s 3 a block and 2 a step over the sp group; over the model group
+        # a block's projection gather, the attention LayerNorm's two row
+        # statistics summed and the output projection's partial sums summed,
+        # and backward the first two summed back and the LayerNorm input's
+        # cotangent summed (`enter`): 6 a block
+        expected = 9 * blocks + 2
+        check(got["collectives"] == expected,
+              f"phase 24 (d): rank {rank} made {got['collectives']} collectives, expected "
+              f"{expected}")
+        totals.update(got["counts"])
+        over = got["peak"] - got["held"]
+        times.append(f"rank {rank} {got['ms']:.2f} ms, {gb(over)} over what was held "
+                     f"({100 * over / (one['zigzag']['peak'] - one['zigzag']['held']):.1f}% of "
+                     f"the one-process ring's; trainer built in {got['built_s']:.1f} s)")
+    one_over = one["zigzag"]["peak"] - one["zigzag"]["held"]
+    log(f"phase 24 (d) zigzag ring at model 2 x sp 2, tp_shards=2 on {card} (four processes "
+        f"sharing one card over gloo, not a multi-card time): the ranks' step against the "
+        f"one-process ring step: loss {ranks[0]['step']['loss']:.6f} vs {want['loss']:.6f}, "
+        f"largest gradient gap {worst['grads']:.3e}, parameters {worst['params']:.3e}; chunk "
+        f"calls on {ranks[0]['heads']} head(s), {ranks[0]['counts'][hstu_chunk.KERNEL]} forward "
+        f"and as many backward a rank; {ranks[0]['collectives']} collectives a rank a step; one "
+        f"timed step (the first of its trainer): {'; '.join(times)}; the one-process ring "
+        f"{one['zigzag']['ms']:.2f} ms, {gb(one_over)} over what was held")
+    return dict(totals)
+
+
+def ranks_main(job_path: str, parts: tuple = ("dp", "mp", "ring")) -> int:
+    """One of the rank processes of phases 22 (b), 23 (b) and 24 (a)-(c), or
+    of the four of phase 24 (d) (`parts` ("ring_tp",)), started by the
+    script with torchrun's environment before phase 22: once the job file
+    appears, each phase's part in turn (`dp_rank_part`, `mp_rank_part`,
+    `ring_rank_part`, `ring_tp_rank_part`), each on process groups of its
+    own, timed; the results into `<job>.rank<r>.pt`."""
     import os
 
     rank = int(os.environ["RANK"])
@@ -5670,7 +5833,11 @@ def ranks_main(job_path: str) -> int:
     out = {}
     for name, part in (("dp", lambda: dp_rank_part(job["dp"], rank)),
                        ("mp", lambda: mp_rank_part(job["mp"])),
-                       ("ring", lambda: ring_rank_part(job["ring"]))):
+                       ("ring", lambda: ring_rank_part(job["ring"])),
+                       ("ring_tp", lambda: ring_tp_rank_part(job["ring_tp"],
+                                                              Path(f"{job_path}.go")))):
+        if name not in parts:
+            continue
         t0 = time.perf_counter()
         out[name] = part()
         out[name + "_s"] = time.perf_counter() - t0
@@ -5687,6 +5854,8 @@ def main() -> int:
     lap("start")
     if sys.argv[1:2] == ["--ranks"]:  # a rank of phases 22 (b), 23 (b) and 24
         return ranks_main(sys.argv[2])
+    if sys.argv[1:2] == ["--ranks4"]:  # a rank of phase 24 (d)
+        return ranks_main(sys.argv[2], ("ring_tp",))
     import mygenerativerecommenders_tpu_torch as port
     from mygenerativerecommenders_tpu_torch.ops.kernels import _build
     from mygenerativerecommenders_tpu_torch.ops.kernels import count_offsets as count_kern
@@ -5922,7 +6091,12 @@ def main() -> int:
     shutil.rmtree(job_dir, ignore_errors=True)
     job_dir.mkdir(parents=True)
     job_path = job_dir / "job.pt"
-    procs = start_ranks("--ranks", job_path)
+    job4_dir = OUT_DIR / "ranks4"
+    shutil.rmtree(job4_dir, ignore_errors=True)
+    job4_dir.mkdir(parents=True)
+    job4_path = job4_dir / "job.pt"
+    procs = start_ranks("--ranks", job_path) + start_ranks("--ranks4", job4_path, world=4)
+    procs, procs4 = procs[:2], procs[2:]
     try:
         dp = run_data_parallel_path(kc, kind)
         gc.collect()
@@ -5937,14 +6111,23 @@ def main() -> int:
         torch.cuda.empty_cache()
         torch.save({"dp": dp["jobs"], "mp": mp_job, "ring": ring_job}, f"{job_path}.part")
         Path(f"{job_path}.part").replace(job_path)  # whole when the ranks see it
+        # (d)'s four ranks build their trainers while the two run
+        torch.save({"ring_tp": {"batch": ring_job["batch"], "offsets": ring_job["offsets"],
+                                "ports": free_ports(1)}}, f"{job4_path}.part")
+        Path(f"{job4_path}.part").replace(job4_path)
         t0 = time.perf_counter()
         ranks = finish_ranks("phases 22 (b), 23 (b) and 24", procs, job_path)
+        launch_s = time.perf_counter() - t0
+        # (d)'s steps after the two ranks, so their times are theirs alone
+        t4 = time.perf_counter()
+        Path(f"{job4_path}.go").touch()
+        ranks4 = finish_ranks("phase 24 (d)", procs4, job4_path)
+        PHASE_S["24 (d) ranks"] = time.perf_counter() - t4
     finally:
-        for p in procs:
+        for p in procs + procs4:
             if p.poll() is None:
                 p.kill()
     dp_both = (dp["synthetic-hstu"], dp["long"])
-    launch_s = time.perf_counter() - t0
     parts = {name: max(r[name + "_s"] for r in ranks) for name in ("dp", "mp", "ring")}
     log(f"phases 22 (b), 23 (b) and 24's two rank processes, started before phase 22 (a), "
         f"took {launch_s:.1f} s after their job was written: their parts {parts['dp']:.1f}, "
@@ -5957,16 +6140,20 @@ def main() -> int:
     t2 = time.perf_counter()
     group_counts = ring_group_on_the_card(kind, ring_wants, ring_job, ring_one,
                                           [r["ring"] for r in ranks])
+    tp_counts = ring_tp_on_the_card(kind, ring_wants["zigzag"], ring_one,
+                                    [r["ring_tp"] for r in ranks4])
+    group_counts = dict(collections.Counter(group_counts) + collections.Counter(tp_counts))
     t3 = time.perf_counter()
     PHASE_S["22"] = PHASE_S["22 (a)"] + PHASE_S["22 (b) one process"] + parts["dp"] + t1 - t0
     PHASE_S["23"] = PHASE_S["23 (a)"] + parts["mp"] + t2 - t1
-    PHASE_S["24"] = PHASE_S["24 one process"] + parts["ring"] + t3 - t2
+    PHASE_S["24"] = PHASE_S["24 one process"] + parts["ring"] + PHASE_S["24 (d) ranks"] + t3 - t2
     log(f"phase 22 took {PHASE_S['22']:.1f} s: (a) {PHASE_S['22 (a)']:.1f}, (b) "
         f"{PHASE_S['22'] - PHASE_S['22 (a)']:.1f}; phase 23 {PHASE_S['23']:.1f} s: (a) "
         f"{PHASE_S['23 (a)']:.1f}, (b) {PHASE_S['23'] - PHASE_S['23 (a)']:.1f}; phase 24 "
         f"{PHASE_S['24']:.1f} s: the one-process steps {PHASE_S['24 one process']:.1f}, the "
-        f"ranks' part {parts['ring']:.1f}, the checks and the checkpoint in one process "
-        f"{t3 - t2:.1f} (each without the ranks' shared start-up)")
+        f"ranks' part {parts['ring']:.1f}, (d)'s four ranks {PHASE_S['24 (d) ranks']:.1f}, the "
+        f"checks and the checkpoint in one process {t3 - t2:.1f} (each without the ranks' shared "
+        f"start-up)")
     lap("22-24")
     # phase 23: (a)'s one-device steps and (b)'s ranks at shape V; (b)'s
     # packed_sharded ranks at ml-1m width (rows 1-4 and 6)

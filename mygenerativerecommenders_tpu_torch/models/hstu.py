@@ -19,11 +19,19 @@ With `sp_shards` > 1 the attention is the ring of
 parallel/ring_attention.py (`_ring_attention`, the counterpart of the JAX
 block's :218-284): the sequence is padded to a multiple of the shard count
 (twice that in the zigzag layout) and its P shards run in turn on the one
-device, or, once the block is placed on an sp group of ranks (`place_sp`,
-from parallel/tensor_parallel.py:place_model), one a rank, the K/V chunks
-rotating between the processes; every shard's chunks go through the chunk
-kernels of ops/kernels/hstu_chunk.py. The rest of the block runs replicated
-over the sp group. The ring has no `lengths`: rows past a user's length are
+device; every shard's chunks go through the chunk kernels of
+ops/kernels/hstu_chunk.py. Once the stack is placed on an sp group of ranks
+(`HSTU.place_sp`, from parallel/tensor_parallel.py:place_model) each rank
+holds its rows of the sequence from the stack's entry to its exit
+(parallel/ring_attention.py:StackRows: N padded once, put in the ring's
+order once, split once, gathered back at the exit), and every block runs
+its LayerNorms, projections, residual and its shard of the ring on them,
+the K/V chunks rotating between the processes (`_forward_rows`). JAX's
+compiled step does the same in the contiguous layout, where GSPMD carries
+the ring's `shard_map` sequence sharding back through the block (block 0's
+uvqk dot of the 8-device synthetic-smoke step runs 4 local rows x 22 of 43);
+in the zigzag layout its permutation stops that, and JAX runs the per-token
+work on every row. The ring has no `lengths`: rows past a user's length are
 live there, and the block's output is the same only because u is silu(0) = 0
 on those zero rows.
 
@@ -43,12 +51,16 @@ projection holds its K column blocks side by side. Over a process group
 (parallel/tensor_parallel.py:place_model; `HSTUBlock.place_tp`) a rank
 holds column block r of `_uvqk` and of `_o.weight` (JAX's contiguous
 `P(None, "model")` and `P("model", None)` blocks), gathers the projection,
-runs the attention replicated, and sums its share of the output projection
-over the model group before the bias and the residual. With the ring too,
-each rank of a model group runs the ring over its own sp group with every
-head, which gives the values of JAX's ring with its heads sharded over
-"model" (train/driver.py:mesh_axes raises JAX's error where the heads do
-not divide).
+runs the attention replicated (JAX's dense path is one fused kernel call,
+which GSPMD does not split by heads), and sums its share of the output
+projection over the model group before the bias and the residual. With the
+ring too, model rank r runs the ring over its sp group on heads [r * H/tp,
+(r + 1) * H/tp) alone, as JAX's `shard_map` shards the heads over "model"
+(its compiled ring rotates one of two heads), sums the attention-output
+LayerNorm's two row statistics over the model group (JAX's one all-reduce
+of two statistics), and feeds its heads' features to its `_o` block
+(train/driver.py:mesh_axes raises JAX's error where the heads do not
+divide).
 
 Parameter names follow the reference checkpoint
 (mygenerativerecommenders_tpu/cli/convert_ckpt.py:9-15): `_uvqk`, `_o`,
@@ -100,12 +112,15 @@ from mygenerativerecommenders_tpu_torch.ops.kernels.hstu_attention import (
     hstu_attention_fused,
 )
 from mygenerativerecommenders_tpu_torch.parallel.ring_attention import (
+    StackRows,
     ring_hstu_attention,
     ring_hstu_attention_group,
 )
 
 TIMESTAMPS_KEY = "timestamps"
 SEGMENT_IDS_KEY = "seg_ids"
+RING_NEEDS_TIME = ("sp_shards > 1 requires relative_bias_type='time_position' (ring attention "
+                   "generates the time bias per chunk)")
 
 
 def _lookup(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -192,13 +207,21 @@ class HSTUBlock(nn.Module):
         """Run tensor-parallel over `group` (a `ProcessGroupShards` of the
         model axis), whose rank holds column block r of `_uvqk` and of
         `_o.weight` (parallel/tensor_parallel.py places them): the block
-        computes its columns of LN(x) @ _uvqk and all-gathers the projection,
-        runs the attention replicated over the group, multiplies its columns
-        of the output projection's input by its `_o` block, sums over the
-        group, then adds the bias and the residual. Not split by heads:
-        JAX's contiguous blocks of the fused [u|v|q|k] columns are not
-        head-aligned, and the LayerNorm of the attention output spans all
-        h*dv features."""
+        computes its columns of LN(x) @ _uvqk and all-gathers the projection
+        (JAX's contiguous blocks of the fused [u|v|q|k] columns are not
+        head-aligned), multiplies its columns of the output projection's
+        input by its `_o` block, sums over the group, then adds the bias and
+        the residual. Without the ring the attention runs replicated over
+        the group: JAX's dense path is one fused kernel call, which GSPMD
+        does not split by heads. Beside the ring (`place_sp`) rank r keeps
+        heads [r * H/tp, (r + 1) * H/tp), as JAX's `shard_map` shards the
+        heads over "model" (its compiled ring body moves one of two heads):
+        the ring runs on those heads alone, the attention-output
+        LayerNorm's row statistics are summed over the group, and its
+        output, the rank's heads' h*dv/tp features, is the input of its
+        `_o` block as it stands (with concat_ua the [u, a, u*a] column
+        blocks are not head-aligned, so `a` is gathered over the group
+        first)."""
         widths = {"_uvqk": self._uvqk.shape[1], "_o": self._o.weight.shape[1]}
         for name, width in widths.items():
             if width % group.size:
@@ -207,8 +230,9 @@ class HSTUBlock(nn.Module):
         self.tp = group
 
     def place_sp(self, group) -> None:
-        """Run the ring over `group` (a `ProcessGroupShards` of the sp axis),
-        one shard a rank (parallel/ring_attention.py:ring_hstu_attention_group)."""
+        """Run on the rank's rows of the stack over `group` (a
+        `ProcessGroupShards` of the sp axis), the ring over the group, one
+        shard a rank (parallel/ring_attention.py:ring_hstu_attention_group)."""
         if group.size != self.sp_shards:
             raise ValueError(f"encoder.sp_shards={self.sp_shards} on an sp group of "
                              f"{group.size} ranks")
@@ -221,19 +245,18 @@ class HSTUBlock(nn.Module):
         lengths: Optional[torch.Tensor] = None,  # [B] valid row counts
         seg_pos: Optional[torch.Tensor] = None,  # [B, N] within-segment positions (packed)
         kv: Optional[List[Tuple[torch.Tensor, torch.Tensor]]] = None,
+        rows: Optional[StackRows] = None,
     ) -> torch.Tensor:
         """-> the block's output [B, N, D]; with a `kv` list, its k [B, N, H*Dqk]
-        and v [B, N, H*Dv] are appended to it (the decode cache's rows)."""
+        and v [B, N, H*Dv] are appended to it (the decode cache's rows).
+        Placed on an sp group, x, the timestamps and the output are the
+        rank's rows of the stack's layout `rows` (`HSTU.forward`)."""
+        if self.sp is not None:
+            return self._forward_rows(x, timestamps, rows)
         h, dv, dqk = self.num_heads, self.linear_dim, self.attention_dim
         b, n, d = x.shape
         low = x.dtype  # bfloat16 in block 0 at compute_dtype=bfloat16
-        if low == torch.float32:
-            normed = F.layer_norm(x, (d,), eps=self.eps)
-        else:
-            # x's three uses, the LayerNorm's statistics and normalisation and
-            # the residual, each promoted to float32 as in JAX
-            stats, norm, x = precision.uses(x, 3)
-            normed = precision.layer_norm(stats, norm, self.eps, low).float()
+        normed, x = self._input_norm(x)
         if self.tp is None:
             proj = normed @ self._uvqk
         else:  # column-parallel: the rank's columns, gathered
@@ -261,10 +284,7 @@ class HSTUBlock(nn.Module):
             attn_out = self._softmax_attention(q, k, v, timestamps, pos_w, ts_w).to(low)
         elif self.sp_shards > 1:
             if ts_w is None:
-                raise ValueError(
-                    "sp_shards > 1 requires relative_bias_type='time_position' (ring "
-                    "attention generates the time bias per chunk)"
-                )
+                raise ValueError(RING_NEEDS_TIME)
             if seg_pos is not None:
                 raise ValueError(
                     "packed rows are not supported with ring attention (sp_shards > 1) "
@@ -301,6 +321,76 @@ class HSTUBlock(nn.Module):
         part = F.linear(self.tp.own(o_input, dim=2), self._o.weight)
         return self.tp.psum(part[None]) + self._o.bias + x
 
+    def _input_norm(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(LN(x) in float32, x as the residual takes it). At bfloat16, x's
+        three uses, the LayerNorm's statistics and normalisation and the
+        residual, are each promoted to float32 as in JAX."""
+        if x.dtype == torch.float32:
+            return F.layer_norm(x, x.shape[-1:], eps=self.eps), x
+        stats, norm, residual = precision.uses(x, 3)
+        return precision.layer_norm(stats, norm, self.eps, x.dtype).float(), residual
+
+    def _forward_rows(self, x: torch.Tensor, timestamps: Optional[torch.Tensor],
+                      rows: StackRows) -> torch.Tensor:
+        """The block on the rank's rows x [B, Nl, D] of an sp group, the
+        ring over the group; with TP beside it, on the rank's heads."""
+        h, dv, dqk = self.num_heads, self.linear_dim, self.attention_dim
+        b, nl, _ = x.shape
+        tables = self._rel_attn_bias
+        if tables is None or tables._ts_w is None or timestamps is None:
+            raise ValueError(RING_NEEDS_TIME)
+        normed, x = self._input_norm(x)
+        tp = self.tp
+        if tp is None:
+            proj, heads, first = normed @ self._uvqk, h, 0
+        else:  # every column of the rank's rows; each rank goes on with its heads
+            proj = tp.all_gather_partial((tp.enter(normed) @ self._uvqk)[None], dim=2)
+            heads = h // tp.size
+            first = tp.rank * heads
+        if self.linear_activation == "silu":
+            proj = F.silu(proj)
+        u, v, q, k = torch.split(proj, [dv * h, dv * h, dqk * h, dqk * h], dim=-1)
+
+        def mine(t, width):  # the rank's heads [B, Nl, heads, width]
+            return t.unflatten(-1, (h, width))[:, :, first : first + heads]
+
+        attn = ring_hstu_attention_group(
+            mine(q, dqk), mine(k, dqk), mine(v, dv), timestamps,
+            tables._pos_w, tables._ts_w, group=self.sp,
+            zigzag=self.sp_zigzag, max_len=self.max_attn_len,
+            num_buckets=self.num_time_buckets,
+        ).reshape(b, nl, heads * dv)
+        if tp is None:
+            a = F.layer_norm(attn, (h * dv,), eps=self.eps)
+        else:
+            # the LayerNorm over all h*dv features: each row's sum and sum of
+            # squares over the rank's heads, summed over the group in one
+            # all-reduce (JAX's compiled step reduces the same two statistics)
+            sums = tp.psum_partial(torch.stack([attn.sum(-1), attn.square().sum(-1)])[None])
+            mean, meansq = sums / (h * dv)
+            var = (meansq - mean.square()).clamp_min(0.0)
+            a = (attn - mean[..., None]) * torch.rsqrt(var + self.eps)[..., None]
+        if self.concat_ua:
+            if tp is not None:
+                a = tp.all_gather_partial(a[None], dim=2)
+            o_input = torch.cat([u, a, u * a], dim=-1)
+        else:
+            o_input = (u if tp is None else mine(u, dv).flatten(2)) * a
+        width = o_input.shape[-1]
+        if tp is not None and self.concat_ua:  # the rank's column block of [u, a, u*a]
+            width //= tp.size
+            o_input = o_input.narrow(2, tp.rank * width, width)
+        if self.training and self._dropout.p > 0:
+            # the one-process block's mask, drawn over all N rows and every
+            # feature as it draws it; the rank keeps its rows and columns
+            keep = self._dropout(torch.ones(b, rows.n, self._o.in_features, device=x.device))
+            start = 0 if tp is None else tp.rank * width
+            o_input = o_input * rows.local(keep).narrow(2, start, width)
+        if tp is None:
+            return self._o(o_input) + x
+        part = F.linear(o_input, self._o.weight)
+        return tp.psum(part[None]) + self._o.bias + x
+
     def _softmax_attention(self, q, k, v, timestamps, pos_w, ts_w) -> torch.Tensor:
         """The softmax branch on q, k [B, N, H*dqk] and v [B, N, H*dv]
         (JAX :182-200): softmax((q k^T + bias) / sqrt(dqk)) over all keys,
@@ -319,8 +409,9 @@ class HSTUBlock(nn.Module):
         return torch.einsum("bnm,bmd->bnd", probs, v.to(probs.dtype)).to(v.dtype)
 
     def _ring_attention(self, qh, kh, vh, timestamps, pos_w, ts_w) -> torch.Tensor:
-        """Sequence-parallel attention on one device, or over the sp group
-        once one is placed (exact: HSTU attention is a plain sum over keys).
+        """Sequence-parallel attention with the P shards in turn on one
+        device (exact: HSTU attention is a plain sum over keys); over an sp
+        group the stack pads and splits the rows (`_forward_rows`).
         N is padded up to a multiple of sp_shards (of
         2 * sp_shards in the zigzag layout); padded keys contribute nothing
         (their v rows are zero) and padded query rows are sliced off. The
@@ -336,14 +427,9 @@ class HSTUBlock(nn.Module):
             )
         # the 1/n normaliser and the table centre use the UNPADDED n
         # (= max_attn_len in every real configuration)
-        common = dict(zigzag=self.sp_zigzag, max_len=self.max_attn_len,
-                      num_buckets=self.num_time_buckets)
-        if self.sp is not None:
-            out = ring_hstu_attention_group(qh, kh, vh, timestamps, pos_w, ts_w, group=self.sp,
-                                            **common)
-        else:
-            out = ring_hstu_attention(qh, kh, vh, timestamps, pos_w, ts_w,
-                                      num_shards=self.sp_shards, **common)
+        out = ring_hstu_attention(qh, kh, vh, timestamps, pos_w, ts_w, num_shards=self.sp_shards,
+                                  zigzag=self.sp_zigzag, max_len=self.max_attn_len,
+                                  num_buckets=self.num_time_buckets)
         return out[:, :n]
 
 
@@ -377,6 +463,8 @@ class HSTU(nn.Module):
         # every projection are one matmul); over a process group the blocks
         # are placed by parallel/tensor_parallel.py:place_model
         self.remat = remat
+        self.sp_zigzag = sp_zigzag
+        self.sp = None  # the sp group over processes (`place_sp`)
         n_total = max_sequence_len + max_output_len
         self._attention_layers = nn.ModuleList(
             HSTUBlock(
@@ -398,6 +486,15 @@ class HSTU(nn.Module):
             )
             for _ in range(num_blocks)
         )
+
+    def place_sp(self, group) -> None:
+        """Run the stack over `group` (a `ProcessGroupShards` of the sp
+        axis): each rank holds its rows of the sequence from the stack's
+        entry to its exit (`StackRows`), every block runs on them and its
+        ring over the group (`HSTUBlock.place_sp`)."""
+        for block in self._attention_layers:
+            block.place_sp(group)
+        self.sp = group
 
     def forward(
         self,
@@ -424,15 +521,29 @@ class HSTU(nn.Module):
         n = x.shape[1]
         pos1 = torch.arange(1, n + 1, dtype=torch.int32, device=x.device)
         kernel_lengths = (valid_mask[:, :, 0].to(torch.int32) * pos1).amax(dim=1)
+        rows = None
+        if self.sp is not None:
+            if kv is not None:
+                raise ValueError("the decode cache (kv) is built on one device, not over an "
+                                 "sp group")
+            if seg_pos is not None:
+                raise ValueError(
+                    "packed rows are not supported with ring attention (sp_shards > 1) "
+                    "— packing already removes the padding the ring would shard"
+                )
+            # the rank's rows from here to the exit
+            rows = StackRows(self.sp, n, self.sp_zigzag, x.device)
+            x, mask, timestamps = rows.enter(x), rows.local(mask), rows.local(timestamps, True)
         remat = self.remat and kv is None and torch.is_grad_enabled()
         for block in self._attention_layers:
             x = x * mask  # padded rows stay exactly zero
             if remat:
                 # preserve_rng_state: the recompute draws the forward's mask
                 x = torch.utils.checkpoint.checkpoint(
-                    block, x, timestamps, kernel_lengths, seg_pos,
+                    block, x, timestamps, kernel_lengths, seg_pos, rows=rows,
                     use_reentrant=False, preserve_rng_state=True,
                 )
             else:
-                x = block(x, timestamps, kernel_lengths, seg_pos, kv)
-        return x * mask
+                x = block(x, timestamps, kernel_lengths, seg_pos, kv, rows=rows)
+        x = x * mask
+        return x if rows is None else rows.exit(x)

@@ -28,7 +28,10 @@ collectives. A group holds `local` shards' operands on a leading axis,
   the cotangent itself; a rank's own slice of a replicated value gives
   back the all_gather of the slices' cotangents; and `enter` (a replicated
   value fed to rank-varying work, as TP's column-parallel matmul is) sums
-  the ranks' partial cotangents. `torch.distributed.nn`'s functions assume
+  the ranks' partial cotangents. Where each rank goes on with a part of its
+  own of a gathered or summed value (TP's heads beside the ring), the
+  `_partial` methods' backward sums the ranks' cotangents first.
+  `torch.distributed.nn`'s functions assume
   a loss summed over the ranks instead and would count a replicated
   loss's gradient R times.
 
@@ -172,6 +175,23 @@ class _Own(torch.autograd.Function):
             None, None
 
 
+class _StackPartial(torch.autograd.Function):
+    """`_Stack` whose result each rank uses in a part of its own; backward:
+    the sum of the ranks' cotangents, the rank's slice of it."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group, rank, size):
+        ctx.dim, ctx.group, ctx.rank = dim, group, rank
+        return torch.cat(_gather_list(x, group, size), dim=dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        _count()
+        out = grad.contiguous().clone()
+        dist.all_reduce(out, group=ctx.group)
+        return out.narrow(ctx.dim, ctx.rank, 1).contiguous(), None, None, None, None
+
+
 class _Psum(torch.autograd.Function):
     """The sum over the ranks, a replicated value; backward: the cotangent."""
 
@@ -185,6 +205,26 @@ class _Psum(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         return grad, None
+
+
+class _PsumPartial(torch.autograd.Function):
+    """The sum over the ranks, which each rank uses in its own way;
+    backward: the sum of the ranks' cotangents."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        _count()
+        ctx.group = group
+        out = x.contiguous().clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        _count()
+        out = grad.contiguous().clone()
+        dist.all_reduce(out, group=ctx.group)
+        return out, None
 
 
 class _Enter(torch.autograd.Function):
@@ -231,8 +271,10 @@ class ProcessGroupShards:
     `[1, ...]`. The methods are `OneDeviceShards`' on that operand, each a
     collective over the group, with the backward of a replicated loss;
     `enter` and `psum` serve TP's blocks (models/hstu.py), which run on one
-    device without a group; `own`, `enter`, `all_gather` and `rotate` serve
-    the ring over an sp group (parallel/ring_attention.py)."""
+    device without a group, and beside the ring `all_gather_partial` and
+    `psum_partial`, whose results each rank uses for its own heads; `own`
+    and `all_gather` are the stack's boundary over an sp group and
+    `rotate` the ring's step (parallel/ring_attention.py)."""
 
     local = 1
 
@@ -277,6 +319,20 @@ class ProcessGroupShards:
         """The sum over the ranks of x [1, ...]: replicated (TP's row-parallel
         output projection)."""
         return _Psum.apply(x[0], self.group)
+
+    def all_gather_partial(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """`all_gather` of x [1, ...] where each rank goes on with a part of
+        its own (TP's projection beside the ring, whose rank keeps its
+        heads): the backward sums the ranks' cotangents before it takes the
+        rank's block."""
+        stacked = _StackPartial.apply(x, 0, self.group, self.rank, self.size)
+        return stacked.movedim(0, dim).flatten(dim, dim + 1)
+
+    def psum_partial(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum over the ranks of x [1, ...] where each rank goes on in
+        its own way (the attention-output LayerNorm's row statistics over a
+        rank's heads): the backward sums the ranks' cotangents."""
+        return _PsumPartial.apply(x[0], self.group)
 
     def gather_psum(self, tables: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
         """`OneDeviceShards.gather_psum` on the rank's rows tables [1, rps,

@@ -43,9 +43,13 @@ sp group spans ranks that are `data` apart.
   count (model x col x sp), the mean over those ranks of the data group's
   sum, which keeps the replicas bit-equal (the attention backward's
   bias-table gradients come from float atomics, so two ranks' "same"
-  gradient differs in its last bits). No leaf is sharded over sp. Without
-  a model or sp axis this is one flat all-reduce over the world. On cuda
-  under NCCL the step's collectives are captured in its CUDA graph.
+  gradient differs in its last bits). No leaf is sharded over sp, but the
+  HSTU blocks' leaves are partial over it (each sp rank runs the blocks on
+  its own rows, parallel/tensor_parallel.py:partial_axes): their kind is
+  summed over the same ranks and not divided by the ranks of an axis it is
+  partial over. Without a model or sp axis this is one flat all-reduce
+  over the world. On cuda under NCCL the step's collectives are captured
+  in its CUDA graph.
 
 No module of the port opens a group unless `trainer.distributed` asks for
 it; without one none of these functions does anything but return its input.
@@ -107,9 +111,9 @@ class DataGroup:
     model: Optional[ProcessGroupShards] = None
     col: Optional[ProcessGroupShards] = None
     sp: Optional[ProcessGroupShards] = None
-    # the group a leaf sharded over these axes is summed over, and the
-    # number of its ranks that hold one data index's copy
-    replica_groups: Dict[FrozenSet[str], Tuple[Any, int]] = dataclasses.field(
+    # the group a leaf sharded over these axes is summed over, and the axes
+    # beside "data" that it spans
+    replica_groups: Dict[FrozenSet[str], Tuple[Any, Tuple[str, ...]]] = dataclasses.field(
         default_factory=dict)
     grid: Optional[np.ndarray] = None  # [data, model, col, sp] world ranks (`mesh_ranks`)
     # the group of the ranks that share this data index and their count,
@@ -193,13 +197,18 @@ class DataGroup:
         r = self.world_rank if world_rank is None else world_rank
         return {axis: int(x[0]) for axis, x in zip(AXES, np.nonzero(self.grid == r))}
 
-    def sum_grads_(self, flat: torch.Tensor, axes: FrozenSet[str]) -> None:
-        """A flat buffer of leaves sharded over `axes` (empty: replicated),
-        summed over the ranks that hold their shard and divided by the
-        copies of one data index among them: the mean over those copies of
-        the data group's sum. One all-reduce, also over a group of one rank (an
-        identity, which a graph of the step captures all the same)."""
-        group, replicas = self.replica_groups[frozenset(axes)]
+    def sum_grads_(self, flat: torch.Tensor, axes: FrozenSet[str],
+                   partial: FrozenSet[str] = frozenset()) -> None:
+        """A flat buffer of leaves sharded over `axes` (empty: replicated)
+        and partial over `partial`, summed over the ranks that hold their
+        shard and divided by the copies of one data index among them (the
+        ranks of the axes they are partial over hold parts, not copies):
+        the mean over those copies of the data group's sum. One all-reduce,
+        also over a group of one rank (an identity, which a graph of the
+        step captures all the same)."""
+        group, spans = self.replica_groups[frozenset(axes)]
+        sizes = {"model": self.model_size, "col": self.col_size, "sp": self.sp_size}
+        replicas = int(np.prod([sizes[a] for a in spans if a not in partial]))
         self.all_reduce_(flat, group)
         if replicas > 1:
             flat.div_(replicas)
@@ -270,34 +279,39 @@ def _bit_checksum(t: torch.Tensor) -> torch.Tensor:
 
 class GradBuffer:
     """Flat buffers that hold every parameter's gradient as a view, one a
-    kind of leaf (the axes it is sharded over, `shard_axes`), and one slot
-    more for the step's loss in the replicated leaves' buffer: one
-    all-reduce a buffer sums them (`DataGroup.sum_grads_`). `prepare()`
-    zeroes them and points each `.grad` at its view (autograd then adds
-    into it in place); nothing is allocated a step, so a CUDA graph replays
-    against the same memory."""
+    kind of leaf (the axes it is sharded over, `shard_axes`, and those it
+    is partial over, `partial_axes`), and one slot more for the step's loss
+    in the replicated leaves' buffer: one all-reduce a buffer sums them
+    (`DataGroup.sum_grads_`). `prepare()` zeroes them and points each
+    `.grad` at its view (autograd then adds into it in place); nothing is
+    allocated a step, so a CUDA graph replays against the same memory."""
 
     def __init__(self, params: Sequence[torch.Tensor]):
-        from mygenerativerecommenders_tpu_torch.parallel.tensor_parallel import shard_axes
+        from mygenerativerecommenders_tpu_torch.parallel.tensor_parallel import (
+            partial_axes,
+            shard_axes,
+        )
 
         self.params = [p for p in params if p.requires_grad]
-        kinds: Dict[FrozenSet[str], List[torch.Tensor]] = {frozenset(): []}
+        Kind = Tuple[FrozenSet[str], FrozenSet[str]]
+        replicated = (frozenset(), frozenset())
+        kinds: Dict[Kind, List[torch.Tensor]] = {replicated: []}
         for p in self.params:
-            kinds.setdefault(frozenset(shard_axes(p)), []).append(p)
+            kinds.setdefault((frozenset(shard_axes(p)), frozenset(partial_axes(p))), []).append(p)
         first = self.params[0]
-        self.flats: List[Tuple[FrozenSet[str], torch.Tensor]] = []
+        self.flats: List[Tuple[Kind, torch.Tensor]] = []
         self.views: Dict[torch.Tensor, torch.Tensor] = {}
-        for axes, params in kinds.items():
-            extra = 1 if not axes else 0  # the loss slot
+        for kind, params in kinds.items():
+            extra = 1 if kind == replicated else 0  # the loss slot
             flat = torch.zeros(sum(p.numel() for p in params) + extra, dtype=first.dtype,
                                device=first.device)
             start = 0
             for p in params:
                 self.views[p] = flat[start : start + p.numel()].view_as(p)
                 start += p.numel()
-            if not axes:
+            if kind == replicated:
                 self.loss = flat[start]
-            self.flats.append((axes, flat))
+            self.flats.append((kind, flat))
 
     def prepare(self) -> None:
         for _, flat in self.flats:
@@ -311,9 +325,9 @@ class GradBuffer:
             if p.grad is not self.views[p]:
                 raise RuntimeError("a gradient left its view of the flat buffer")
         self.loss.copy_(loss.detach())
-        for axes, flat in self.flats:
+        for (axes, partial), flat in self.flats:
             if flat.numel():
-                group.sum_grads_(flat, axes)
+                group.sum_grads_(flat, axes, partial)
         return self.loss.clone()
 
 
@@ -381,18 +395,18 @@ def _new_groups(grid: np.ndarray, axes: Tuple[int, ...], backend: Optional[str],
 
 
 def _axis_group(grid: np.ndarray, axes: Tuple[int, ...], data_pg: Any, rank: int,
-                made: Dict[Tuple[int, ...], Any]) -> Tuple[Any, int]:
-    """(the group over the ranks along `axes` of the grid, 0 among them; its
-    ranks that share a data index): `data_pg` where the other axes are all of
-    size 1, else a group made once for each set of axes (`made`), the
-    default group where they span the world."""
+                made: Dict[Tuple[int, ...], Any]) -> Tuple[Any, Tuple[str, ...]]:
+    """(the group over the ranks along `axes` of the grid, 0 among them; the
+    names of the axes beside "data" it spans): `data_pg` where the other
+    axes are all of size 1, else a group made once for each set of axes
+    (`made`), the default group where they span the world."""
     axes = tuple(a for a in axes if grid.shape[a] > 1 or a == 0)
-    copies = int(np.prod([grid.shape[a] for a in axes if a != 0]))
+    spans = tuple(AXES[a] for a in axes if a != 0)
     if axes == (0,):
-        return data_pg, 1
+        return data_pg, spans
     if axes not in made:
         made[axes] = _new_groups(grid, axes, None, rank)
-    return made[axes], copies
+    return made[axes], spans
 
 
 def init_data_parallel(trainer_cfg: Any, backend: Optional[str] = None, model: int = 1,
@@ -447,9 +461,11 @@ def init_data_parallel(trainer_cfg: Any, backend: Optional[str] = None, model: i
                                               coords[name], n)
     # the leaves by the axes they are sharded over: replicated (summed over
     # the world), the 2-D table's blocks, and TP's blocks and the other
-    # kinds' (sharded over "model" alone: copied over "col"); every kind is
-    # copied over "sp"
-    replicas, made = {frozenset(): (dist.group.WORLD, cut)}, {}
+    # kinds' (sharded over "model" alone: copied over "col"); every kind
+    # spans "sp", whose ranks hold copies of a leaf, or parts of the HSTU
+    # blocks' (`sum_grads_`)
+    replicas, made = {frozenset(): (dist.group.WORLD, tuple(
+        AXES[a] for a in (1, 2, 3) if grid.shape[a] > 1))}, {}
     if model > 1:
         for axes, over in ((frozenset({"model", "col"}), (0, 3)),
                            (frozenset({"model"}), (0, 2, 3))):

@@ -30,9 +30,14 @@ every shard calls alike (over a group each call is a collective):
 change of which slice a shard reads, not a copy (`ring_hstu_attention`).
 `ProcessGroupRing` is the ring over an sp group of ranks, one shard a rank
 (`ring_hstu_attention_group`, the counterpart of the JAX block's
-`shard_map` boundary, models/hstu.py:256-277): its K/V chunk and timestamps
-travel one rank forward each step (`ProcessGroupShards.rotate`), and the
-first timestamps are all-gathered over the group.
+`shard_map`, models/hstu.py:256-277): its K/V chunk and timestamps travel
+one rank forward each step (`ProcessGroupShards.rotate`), and the first
+timestamps are all-gathered over the group. It takes and returns the
+rank's own rows: the stack pads, orders and splits the rows once at its
+entry and gathers them at its exit (`StackRows`), and every block between
+runs on the rank's rows, as JAX's compiled program does in the contiguous
+layout (GSPMD carries the `shard_map`'s sequence sharding back through the
+block; in the zigzag layout the permutation stops it there).
 
 Where a chunk has no live pair (its first column at or past the last row of
 the shard, `col_off - row_off >= Nl`) the body skips it on the host, as the
@@ -349,29 +354,66 @@ def ring_hstu_attention_group(
 ) -> torch.Tensor:
     """Ring attention over the sp group `group`, one shard a rank: the
     counterpart of the JAX block's `shard_map` over "sp" (hstu.py:256-277).
-    q, k [B, N, H, Dqk], v [B, N, H, Dv] and timestamps [B, N] come in
-    replicated over the group, in contiguous order (N divides by P, 2P for
-    zigzag); in zigzag order where that is on, the rank takes its rows of
-    q, k and v through `own` (backward: every rank's rows' cotangents
-    gathered), the bias tables go in through `enter` (backward: the ranks'
-    partial gradients summed), and the rank's output [B, Nl, H, Dv] leaves
-    through `all_gather` (backward: the rank's rows of the cotangent), all
-    for a loss that every rank of the group computes whole. -> [B, N, H, Dv]
-    replicated, in contiguous order."""
-    p, num_shards = group.rank, group.size
-    if zigzag:
-        perm, inverse = _zigzag_index(num_shards, q.shape[1], q.device)
-        q, k, v, timestamps = (x.index_select(1, perm) for x in (q, k, v, timestamps))
-    nl = q.shape[1] // num_shards
-    q, k, v = (group.own(x, dim=1) for x in (q, k, v))
-    timestamps = timestamps.narrow(1, p * nl, nl)
-    pos_w, ts_w = group.enter(pos_w), group.enter(ts_w)
+    q, k [B, Nl, H, Dqk], v [B, Nl, H, Dv] and timestamps [B, Nl] are the
+    rank's own rows in the ring's layout (`StackRows`), as the stack holds
+    them from its entry to its exit. -> the rank's rows of the output [B,
+    Nl, H, Dv]. The gradients of pos_w and ts_w are the rank's part, from
+    its rows alone: the step sums them over the group (a leaf partial over
+    "sp", parallel/process_group.py:GradBuffer)."""
+    p = group.rank
     body = ring_hstu_attention_zigzag_local if zigzag else ring_hstu_attention_local
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v, pos_w, ts_w)):
-        out = _GroupRingAttention.apply(q, k, v, pos_w, ts_w, timestamps, group, body, max_len,
-                                        num_buckets)
-    else:
-        out = body(q, timestamps, ProcessGroupRing(k, v, timestamps, group), p, pos_w, ts_w,
-                   max_len=max_len, num_buckets=num_buckets)
-    out = group.all_gather(out[None], dim=1)
-    return out.index_select(1, inverse) if zigzag else out
+        return _GroupRingAttention.apply(q, k, v, pos_w, ts_w, timestamps, group, body, max_len,
+                                         num_buckets)
+    return body(q, timestamps, ProcessGroupRing(k, v, timestamps, group), p, pos_w, ts_w,
+                max_len=max_len, num_buckets=num_buckets)
+
+
+class StackRows:
+    """The rows of the block stack over an sp group of P ranks: each rank
+    runs the LayerNorms, the projections and the residual of every block
+    on its own rows, as JAX's compiled program does in the contiguous
+    layout (block 0's uvqk dot of the 8-device synthetic-smoke step is
+    [local batch x N_pad / sp, uvqk width]; in the zigzag layout JAX runs it
+    on every row). N pads once to a multiple of P (of
+    2P in the zigzag layout), the rows go into the ring's order once, and
+    rank p keeps rows [p * Nl, (p + 1) * Nl) of that layout: `enter` (x;
+    backward, every rank's rows' cotangents gathered) and `local` (the mask,
+    the timestamps, a dropout mask: no gradient). `exit` gathers the ranks'
+    rows in rank order and puts them back in contiguous order, the N rows
+    of a replicated x (backward, the rank's rows of the cotangent). Padded
+    rows of x and the mask are zero; the timestamps pad by repeating the
+    last column, so the last real row's next-item timestamp is the dense
+    path's."""
+
+    def __init__(self, group: ProcessGroupShards, n: int, zigzag: bool, device: torch.device):
+        self.group, self.n = group, n
+        chunks = 2 * group.size if zigzag else group.size
+        self.n_pad = -(-n // chunks) * chunks
+        self.nl = self.n_pad // group.size
+        self._order = _zigzag_index(group.size, self.n_pad, device) if zigzag else None
+
+    def _layout(self, x: torch.Tensor, edge: bool = False) -> torch.Tensor:
+        pad = self.n_pad - self.n
+        if pad:
+            tail = x[:, -1:] if edge else torch.zeros_like(x[:, :1])
+            x = torch.cat([x, tail.expand(-1, pad, *x.shape[2:])], dim=1)
+        return x if self._order is None else x.index_select(1, self._order[0])
+
+    def enter(self, x: torch.Tensor) -> torch.Tensor:
+        """The rank's rows [B, Nl, ...] of x [B, N, ...]."""
+        return self.group.own(self._layout(x), dim=1)
+
+    def local(self, x: Optional[torch.Tensor], edge: bool = False) -> Optional[torch.Tensor]:
+        """The rank's rows of x [B, N, ...], which takes no gradient; with
+        `edge` the padded rows repeat the last one."""
+        if x is None:
+            return None
+        return self._layout(x, edge).narrow(1, self.group.rank * self.nl, self.nl)
+
+    def exit(self, x: torch.Tensor) -> torch.Tensor:
+        """Every rank's rows [B, Nl, ...] -> [B, N, ...] in contiguous order."""
+        out = self.group.all_gather(x[None], dim=1)
+        if self._order is not None:
+            out = out.index_select(1, self._order[1])
+        return out[:, : self.n]

@@ -20,8 +20,14 @@ reach the other blocks through the shard groups' collectives
   sharded_a2a (`P("model", None)`), column block r for sharded_column
   (`P(None, "model")`), block (r, c) for sharded_2d (`P("model", "col")`).
 
-The ring's sp group cuts no weight: every HSTU block runs its ring over it
-(`HSTUBlock.place_sp`) and every parameter stays whole.
+The ring's sp group cuts no weight: the HSTU stack runs on each rank's
+rows of the sequence (`HSTU.place_sp`), so every block's leaves (`_uvqk`,
+`_o.weight`, `_o.bias` and the bias tables) get on each rank the part of
+their gradient that its rows give, which the step sums over the sp group
+(`partial_axes`: "sp"). With TP beside the ring a model rank runs the ring
+on its own heads, so the bias tables' gradient is partial over "model" too.
+The leaves before the stack's entry (the item table, the positional
+embedding) and after its exit hold their whole gradient on every rank.
 
 A placed parameter carries its `placement`, ((dim, axis), ...), which
 `shard_axes` reads: the step sums its gradient over the ranks that hold the
@@ -66,6 +72,12 @@ def shard_axes(t: torch.Tensor) -> Tuple[str, ...]:
     return tuple(axis for _, axis in getattr(t, "placement", ()))
 
 
+def partial_axes(t: torch.Tensor) -> Tuple[str, ...]:
+    """The mesh axes over which each rank's gradient of the parameter is a
+    part of the whole, to be summed (`place_model`); () for most."""
+    return getattr(t, "partial", ())
+
+
 def _groups(mesh: Any) -> Dict[str, Any]:
     return {"model": mesh.model, "col": mesh.col}
 
@@ -108,32 +120,42 @@ def _place(module: nn.Module, attr: str, placement: Placement, groups: Mapping[s
 def place_model(model: nn.Module, mesh: Any) -> nn.Module:
     """The model with its sharded leaves cut to this rank's blocks (JAX's
     `place_tp_params` and the table's `device_put`), its sharded kinds and
-    HSTU blocks set to run over the mesh's groups (the ring over its sp
-    group, which cuts no weight); the model itself where the mesh has no
-    model or sp axis. `model.placements` names each placed key."""
+    HSTU stack set to run over the mesh's groups (on the rank's rows of its
+    sp group, which cuts no weight but leaves the blocks' gradients partial
+    over "sp"); the model itself where the mesh has no model or sp axis.
+    `model.placements` names each placed key."""
     model.placements = {}
-    enc = model.cfg.encoder
-    if mesh is not None and mesh.sp is not None:
-        for block in model.sequence_encoder["_hstu"]._attention_layers:
-            block.place_sp(mesh.sp)
-    if mesh is None or mesh.model is None:
+    if mesh is None:
         return model
-    groups = _groups(mesh)
-    kind = model.cfg.embedding.kind
-    if kind in TABLE_PLACEMENT and model.cfg.embedding.num_shards > 1:
-        emb = model.embeddings
-        _place(emb._item_emb, "weight", TABLE_PLACEMENT[kind], groups)
-        emb.place(mesh.model, mesh.col)
-        model.placements["embeddings._item_emb.weight"] = TABLE_PLACEMENT[kind]
-    if enc.kind == "hstu" and enc.tp_shards > 1:
+    enc = model.cfg.encoder
+    tp = mesh.model is not None and enc.kind == "hstu" and enc.tp_shards > 1
+    if mesh.model is not None:
+        groups = _groups(mesh)
+        kind = model.cfg.embedding.kind
+        if kind in TABLE_PLACEMENT and model.cfg.embedding.num_shards > 1:
+            emb = model.embeddings
+            _place(emb._item_emb, "weight", TABLE_PLACEMENT[kind], groups)
+            emb.place(mesh.model, mesh.col)
+            model.placements["embeddings._item_emb.weight"] = TABLE_PLACEMENT[kind]
+        if tp:
+            hstu = model.sequence_encoder["_hstu"]
+            for i, block in enumerate(hstu._attention_layers):
+                block.place_tp(mesh.model)
+                _place(block, "_uvqk", TP_PLACEMENT, groups)
+                _place(block._o, "weight", TP_PLACEMENT, groups)
+                for key in TP_KEYS:
+                    model.placements[f"sequence_encoder._hstu._attention_layers.{i}.{key}"] = \
+                        TP_PLACEMENT
+    if mesh.sp is not None:
         hstu = model.sequence_encoder["_hstu"]
-        for i, block in enumerate(hstu._attention_layers):
-            block.place_tp(mesh.model)
-            _place(block, "_uvqk", TP_PLACEMENT, groups)
-            _place(block._o, "weight", TP_PLACEMENT, groups)
-            for key in TP_KEYS:
-                model.placements[f"sequence_encoder._hstu._attention_layers.{i}.{key}"] = \
-                    TP_PLACEMENT
+        hstu.place_sp(mesh.sp)
+        for block in hstu._attention_layers:
+            for p in (block._uvqk, block._o.weight, block._o.bias):
+                p.partial = ("sp",)
+            tables = block._rel_attn_bias
+            for p in (tables._pos_w, tables._ts_w) if tables is not None else ():
+                if p is not None:  # a rank's ring sees its heads alone under TP
+                    p.partial = ("model", "sp") if tp else ("sp",)
     return model
 
 

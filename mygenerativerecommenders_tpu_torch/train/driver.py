@@ -73,13 +73,16 @@ run too (`mesh_axes`: model = the sharded kind's num_shards or
 encoder.tp_shards, col = sharded_2d's col_shards, sp = encoder.sp_shards;
 the world is data x model x col x sp ranks in JAX's device order): every
 rank builds the whole model, then keeps its blocks of the sharded table and
-of TP's matrices and places the ring on its sp group
-(parallel/tensor_parallel.py:place_model); the ranks of a model or sp group
-load the same rows and draw alike (keyed by the data index), so their
-replicated work is one computation, the eval rows are gathered over the
-data group alone, and the checkpoints are written and read in the
-one-process layout (the blocks gathered before a save, each rank's cut from
-a loaded state; nothing is cut over sp).
+of TP's matrices and places the HSTU stack on its sp group
+(parallel/tensor_parallel.py:place_model: each sp rank runs the blocks on
+its rows of the sequence, train and eval alike, and the step sums the
+blocks' gradients over the group in its flat all-reduces, inside the CUDA
+graph under NCCL); the ranks of a model or sp group load the same rows and
+draw alike (keyed by the data index), so their replicated work is one
+computation, the eval rows are gathered over the data group alone, and the
+checkpoints are written and read in the one-process layout (the blocks
+gathered before a save, each rank's cut from a loaded state; nothing is
+cut over sp).
 """
 
 from __future__ import annotations

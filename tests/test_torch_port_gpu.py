@@ -1141,8 +1141,8 @@ def test_graphed_nccl_step_at_world_size_one_follows_the_one_process_step_on_car
 # the card's machine has one card and NCCL takes one rank a device, so the
 # ring over an sp group runs there over gloo, eagerly (chip_smoke.py phase
 # 24); this holds what a graphed step over NCCL would capture of it at world
-# size 1: the entry's gathers and sums, and the ring node whose backward runs
-# its body's own graph (a group of one rank rotates nothing)
+# size 1: the ring node on the rank's rows, whose backward runs its body's
+# own graph (a group of one rank rotates nothing)
 
 
 @pytest.mark.gpu

@@ -12,10 +12,12 @@ world size (torchrun's environment, gloo):
   recipe with `encoder.remat`, with the JAX draw handed in and dropout off:
   the loss, every gradient and the parameters after the step equal JAX's
   step over the same batch at rtol 2e-4 / atol 2e-5 (the bias tables'
-  gradients at 5e-4). `ProcessGroupRing` against `OneDeviceRing` on one
-  [B, N, H, d] input, both layouts: the output and the gradients in q, k,
-  v, pos_w and ts_w, and its nine collectives (the rotation and its
-  inverse among them). Then two epochs of `fit` of the `ring` recipe,
+  gradients at 5e-4). `ProcessGroupRing` on a rank's rows of one [B, N,
+  H, d] input against `OneDeviceRing` on all of it, both layouts: the
+  rank's rows of the output and of the gradients in q, k and v, the two
+  ranks' parts of the gradients in pos_w and ts_w summed, and its three
+  collectives (the rotation and its inverse among them). Then two epochs
+  of `fit` of the `ring` recipe,
   `predict` and `test`: both ranks' metrics, losses and predictions equal
   to the bit, the replicated leaves bit-equal across the ranks, and the
   checkpoint loaded into a one-process run of the port (the ring's shards
@@ -23,7 +25,14 @@ world size (torchrun's environment, gloo):
 - four ranks: one step of the `ring` recipe over data 2 x sp 2 (the data
   index innermost, the two indices' batches with different tails), and one
   over model 2 x sp 2 with `tp_shards=2` and two heads (JAX's ring with its
-  heads sharded over "model").
+  heads sharded over "model"), without and with `concat_ua`.
+
+For every step the worker records the rows each HSTU block ran on, the
+heads each chunk call saw and the step's collectives: each sp rank's blocks
+run on the stack's rows / sp, each model rank's chunk calls on H / tp heads,
+as JAX's compiled step (its text read here) runs its ring; JAX's block 0
+uvqk dot runs the rows / sp in the contiguous layout and all of them in the
+zigzag one.
 
 In one process: a world the axes do not divide, and `tp_shards=2` with one
 head under the ring, raise `ValueError`s naming the knobs when a
@@ -33,6 +42,7 @@ block, tests/test_torch_port_ring.py).
 
 import functools
 import os
+import re
 import subprocess
 import sys
 
@@ -75,10 +85,10 @@ REMAT = RING + (("model.encoder.remat", True),)
 
 
 @functools.lru_cache(maxsize=None)
-def _init(heads: int) -> dict:
+def _init(heads: int, concat_ua: bool = False) -> dict:
     """The JAX weights of the smoke model with `heads` heads (numpy), made
     once: the ring's layout, remat and TP change no weight."""
-    jcfg, pcfg = fam._configs("synthetic-smoke", (), heads)
+    jcfg, pcfg = fam._configs("synthetic-smoke", (("model.encoder.concat_ua", concat_ua),), heads)
     pcfg.data.synthetic_num_users = USERS
     ds = RecoData(pcfg.data, seed=42)
     fam.jax_resolve(jcfg, ds.max_item_id)
@@ -108,7 +118,7 @@ def _jax_case(overrides, data=1, model=1, heads=1, batch_size=16):
     fam.jax_resolve(jcfg, ds.max_item_id)
     pt_resolve(pcfg, ds.max_item_id)
     jmodel = jax_build_model(jcfg)
-    params = _init(heads)
+    params = _init(heads, dict(overrides).get("model.encoder.concat_ua", False))
     mesh = make_mesh(0, model_axis=model, sp_axis=2, data_innermost=True)
     with jax.sharding.set_mesh(mesh):
         key = jax.random.fold_in(jax.random.PRNGKey(5), 0)  # the step's key at step 0
@@ -126,15 +136,39 @@ def _jax_case(overrides, data=1, model=1, heads=1, batch_size=16):
                 placed = place_tp_params(placed, mesh)
             jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
             jloss = jax_task.make_loss_fn(jmodel, jcfg, ds.all_item_ids)
-            loss, grads = jax.jit(jax.value_and_grad(jloss))(placed, jbatch, key)
+            step = jax.jit(jax.value_and_grad(jloss)).lower(placed, jbatch, key).compile()
+            loss, grads = step(placed, jbatch, key)
             # the optimizer step of JAX's train_step_from_loss (:355-360)
             tx = jax_opt.build_optimizer(jcfg.optimizer1, None, placed, lr, lr)
             updates, _ = jax.jit(tx.update)(grads, tx.init(placed), placed)
             after = jax.tree.map(lambda p, u: p + u, placed, updates)
+            enc = pcfg.model.encoder
+            width = 2 * enc.num_heads * (enc.linear_dim + enc.attention_dim) // model
             return {"loss": float(loss), "grads": grads_to_state_dict(fam.np_tree(grads)),
-                    "params": params_to_state_dict(fam.np_tree(after))}
+                    "params": params_to_state_dict(fam.np_tree(after)),
+                    "layout": {**_compiled_layout(step.as_text(), width),
+                               "heads": enc.num_heads // model, "h": enc.num_heads,
+                               "zigzag": enc.sp_zigzag, "remat": enc.remat,
+                               "concat_ua": enc.concat_ua}}
 
     return case, want
+
+
+def _compiled_layout(text: str, uvqk_width: int) -> dict:
+    """From the text of JAX's compiled step: the shape of block 0's uvqk dot
+    in the forward, [rows, uvqk_width] ("uvqk"), and the shapes [local
+    batch, rows, heads, d] of the K/V blocks its ring rotates ("ring")."""
+    uvqk, ring = set(), set()
+    for line in text.splitlines():
+        dot = re.match(r"\s*%\S+ = f32\[(\d+),(\d+)\]\S* dot\(", line)
+        if dot and re.search(r'op_name="[^"]*/block_0/dot_general"', line) \
+                and "transpose(" not in line and int(dot.group(2)) == uvqk_width:
+            uvqk.add(int(dot.group(1)))
+        kv = re.match(r"\s*%\S+ = f32\[(\d+),(\d+),(\d+),(\d+)\]\S* collective-permute\(",
+                      line)
+        if kv:
+            ring.add(tuple(int(x) for x in kv.groups()))
+    return {"uvqk": uvqk, "ring": ring}
 
 
 TWO_RANK_STEPS = {
@@ -146,6 +180,11 @@ FOUR_RANK_STEPS = {
     # the data index innermost: two data indices of 8 rows, each an sp group
     "ring_data2": dict(overrides=RING, data=2, batch_size=8),
     "ring_tp": dict(overrides=RING + (("model.encoder.tp_shards", 2),), model=2, heads=2),
+    # the [u, a, u*a] column blocks are not head-aligned: `a` gathered over
+    # the model group
+    "ring_tp_concat_ua": dict(overrides=RING + (("model.encoder.tp_shards", 2),
+                                                ("model.encoder.concat_ua", True)),
+                              model=2, heads=2),
 }
 
 
@@ -217,18 +256,23 @@ def test_a_two_rank_ring_step_gives_jaxs_step(two_ranks, name):
 
 @pytest.mark.parametrize("layout", ["contiguous", "zigzag"])
 def test_the_ring_over_the_group_gives_the_one_device_ring(two_ranks, layout):
+    """Each rank's rows of the output and of q's, k's and v's gradients are
+    the one-device ring's; the tables' gradients are the ranks' parts, whose
+    sum is the one-device ring's."""
     results, _, _ = two_ranks
-    names = ("out", "dq", "dk", "dv", "d_pos_w", "d_ts_w")
+    got = [results[rank]["bodies"][layout, "group"] for rank in (0, 1)]
+    want = [results[rank]["bodies"][layout, "one device"] for rank in (0, 1)]
     for rank in (0, 1):
-        got, want = (results[rank]["bodies"][layout, where] for where in ("group", "one device"))
-        for name, g, w in zip(names, got, want):
-            rtol = BIAS_RTOL if name.startswith("d_") else RTOL
-            np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=rtol, atol=ATOL,
-                                       err_msg=f"rank {rank} {layout} {name}")
-        # over 2 ranks: forward, the first timestamps' gather, one rotation and
-        # the output's gather; backward, one rotation back, the gathers of q's,
-        # k's and v's cotangents and the sums of the two tables' gradients
-        assert results[rank]["bodies"][layout, "collectives"] == 3 + 6
+        for i, name in enumerate(("out", "dq", "dk", "dv")):
+            np.testing.assert_allclose(got[rank][i].numpy(), want[rank][i].numpy(), rtol=RTOL,
+                                       atol=ATOL, err_msg=f"rank {rank} {layout} {name}")
+        # over 2 ranks: forward, the first timestamps' gather and one
+        # rotation; backward, one rotation back (the rows come in and go out
+        # as the rank's, and the tables' parts are summed by the step)
+        assert results[rank]["bodies"][layout, "collectives"] == 2 + 1
+    for i, name in ((4, "d_pos_w"), (5, "d_ts_w")):
+        np.testing.assert_allclose((got[0][i] + got[1][i]).numpy(), want[0][i].numpy(),
+                                   rtol=BIAS_RTOL, atol=ATOL, err_msg=f"{layout} {name}")
 
 
 def test_both_ranks_of_an_sp_group_fit_alike(two_ranks):
@@ -269,6 +313,52 @@ def test_a_four_rank_ring_step_gives_jaxs_step(four_ranks, name):
         assert tails[0] != tails[1], tails
     for rank in range(4):
         _check_step(results[rank]["steps"][name], wants[name], f"rank {rank}")
+
+
+def _check_layout(got: dict, want: dict, who: str) -> None:
+    """Every block of the rank ran on the stack's rows / sp (N padded to the
+    ring's chunks) and every chunk call saw H / tp heads; in JAX's compiled
+    step the ring rotates blocks of the same rows and heads, and block 0's
+    uvqk dot runs the same rows / sp in the contiguous layout, where GSPMD
+    carries the `shard_map`'s sequence sharding back through the block
+    (the pad included). In the zigzag layout the permutation before the
+    `shard_map` stops it, and JAX's uvqk dot runs all N rows on every
+    device, which the port does not follow: its stack splits the rows in
+    both layouts."""
+    sp, heads = 2, want["heads"]
+    n = set(got["stack"])
+    assert len(n) == 1 and got["blocks"], (who, got)
+    n = n.pop()
+    chunks = 2 * sp if want["zigzag"] else sp
+    rows = -(-n // chunks) * chunks // sp
+    assert set(got["blocks"]) == {rows}, (who, set(got["blocks"]), rows)
+    assert got["heads"] and set(got["heads"]) == {heads}, (who, set(got["heads"]))
+    (batch, ring_rows, ring_heads, _), = want["ring"]
+    assert (ring_rows, ring_heads) == (rows, heads), (who, want["ring"])
+    assert want["uvqk"] == {batch * (n if want["zigzag"] else rows)}, (who, want["uvqk"], n)
+    # over the sp group: the stack's exit gather and the backward's gather of
+    # the entry's cotangent rows; a block's first timestamps' gather and one
+    # rotation, its backward one rotation back (with remat the recompute's
+    # two again); over the model group a block's projection gather, the
+    # LayerNorm's statistics and the output's sum, each summed back in the
+    # backward but the last (with concat_ua the gather of `a` and its sum)
+    blocks = len(got["blocks"]) // (2 if want["remat"] else 1)
+    per_block = 3 + 2 * want["remat"] + (6 + 2 * want["concat_ua"]) * (want["heads"] < want["h"])
+    assert got["collectives"] == 2 + per_block * blocks, (who, got["collectives"], blocks)
+
+
+@pytest.mark.parametrize("name", list(TWO_RANK_STEPS))
+def test_each_rank_of_a_two_rank_ring_runs_the_blocks_on_its_rows(two_ranks, name):
+    results, wants, _ = two_ranks
+    for rank in (0, 1):
+        _check_layout(results[rank]["layout"][name], wants[name]["layout"], f"rank {rank}")
+
+
+@pytest.mark.parametrize("name", list(FOUR_RANK_STEPS))
+def test_each_rank_of_a_four_rank_ring_runs_the_blocks_on_its_rows_and_heads(four_ranks, name):
+    results, wants, _ = four_ranks
+    for rank in range(4):
+        _check_layout(results[rank]["layout"][name], wants[name]["layout"], f"rank {rank}")
 
 
 def test_a_world_the_axes_do_not_divide_raises_naming_the_knobs(tmp_path, monkeypatch):
